@@ -1,0 +1,231 @@
+"""K2: one pyramid level of translational LK (csrc/lk.cu) and its plain
+version.
+
+Port of ``pyfeaturetrack_tpu/ops/pallas_lk_vec.py`` (vec_track_level /
+vec_track_level_with_fallback), whose semantics are
+``ops/track.track_feature_level``. ``lk_level_reference`` is that
+function in PyTorch: the same fixed-trip masked iteration, the same
+status order, with every window sum taken in the kernel's reduction order
+(``tree_sum``), so the plain version and the kernel compute the same bits.
+
+A CUDA tensor launches the kernel (one launch per call); a CPU tensor
+takes the plain version.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..features import (KLT_LARGE_RESIDUE, KLT_MAX_ITERATIONS, KLT_OOB,
+                        KLT_SMALL_DET, KLT_TRACKED)
+from ..utils import cuda
+from .interp import gather_windows
+
+_ONE_PLUS_EPS = 1.001     # ops/track._ONE_PLUS_EPS (reference bound check)
+MAX_WINDOW_PIXELS = 128   # csrc/lk.cu: at most 4 window pixels per lane
+
+# Kernel launches made by this wrapper.
+launches = 0
+
+
+class TrackCarry(NamedTuple):
+    """Sequential-mode frame-1 window carry; the signature of
+    ``pyfeaturetrack_tpu.ops.pallas_lk_vec.TrackCarry``.
+
+    The port threads it through the sequence step but does not reuse the
+    windows yet: a passed carry comes back with ``ok`` all False, and
+    results are the same with or without one.
+    ``bundle``: [N, 3, wh, ww] img / gx / gy windows; ``x``/``y``: where
+    they were taken; ``ok``: lanes whose bundle is usable.
+    """
+    bundle: torch.Tensor
+    x: torch.Tensor
+    y: torch.Tensor
+    ok: torch.Tensor
+
+
+def empty_track_carry(n: int, cfg, device="cpu") -> TrackCarry:
+    """Structure-stable 'no carry' value (``ok`` all False)."""
+    return TrackCarry(
+        bundle=torch.zeros((n, 3, cfg.window_height, cfg.window_width),
+                           dtype=torch.float32, device=device),
+        x=torch.full((n,), -1e30, dtype=torch.float32, device=device),
+        y=torch.full((n,), -1e30, dtype=torch.float32, device=device),
+        ok=torch.zeros((n,), dtype=torch.bool, device=device))
+
+
+def _f32(v: float) -> float:
+    """A config threshold as the float32 value the kernel compares with."""
+    return float(np.float32(v))
+
+
+def tree_sum(v: torch.Tensor) -> torch.Tensor:
+    """Sum of [N, P] over P in the kernel's warp order: window pixel
+    p = lane + 32 k; each lane adds its pixels in ascending k (padding
+    pixels count 0), then the 32 lane totals combine by an xor butterfly
+    (offsets 16, 8, 4, 2, 1)."""
+    n, p = v.shape
+    k = -(-p // 32)
+    v = F.pad(v, (0, 32 * k - p)).reshape(n, k, 32)
+    acc = v[:, 0]
+    for j in range(1, k):
+        acc = acc + v[:, j]
+    w = 16
+    while w >= 1:
+        acc = acc[:, :w] + acc[:, w:2 * w]
+        w //= 2
+    return acc[:, 0]
+
+
+def _bounds_ok(x, y, hw: int, hh: int, ncols: int, nrows: int):
+    """Window-fits-in-image test (ops/track._bounds_ok)."""
+    eps = _f32(_ONE_PLUS_EPS)
+    return ((x - hw >= 0.0) & (ncols - (x + hw) >= eps) &
+            (y - hh >= 0.0) & (nrows - (y + hh) >= eps))
+
+
+def lk_level_reference(x1, y1, x2, y2, img1, gx1, gy1, img2, gx2, gy2,
+                       cfg, active):
+    """Plain version of K2 = ``track_feature_level`` (track.py:155-234).
+
+    Returns (x2, y2, status, iteration) [N]; lanes with ``active`` False
+    pass through with status KLT_TRACKED and iteration 0."""
+    hw, hh = cfg.window_width // 2, cfg.window_height // 2
+    nrows, ncols = img1.shape
+    # a tensor divisor: PyTorch's CUDA division by a Python scalar
+    # multiplies by its reciprocal, which rounds differently from the
+    # kernel's (and the CPU's) true division
+    n_px = torch.full((), float((2 * hw + 1) * (2 * hh + 1)),
+                      dtype=torch.float32, device=x1.device)
+    th = _f32(cfg.min_displacement)
+    min_det = _f32(cfg.min_determinant)
+    step = _f32(cfg.step_factor)
+    li = cfg.lighting_insensitive
+    nf = x1.shape[0]
+
+    def flat(t):
+        return t.reshape(nf, -1)
+
+    w1, g1x, g1y = (flat(t) for t in
+                    gather_windows((img1, gx1, gy1), x1, y1, hw, hh))
+    if li:
+        s11 = tree_sum(w1 * w1)
+        m1 = tree_sum(w1) / n_px
+
+    def diff_and_gain(w2):
+        if not li:
+            return w1 - w2, None
+        alpha = torch.sqrt((s11 / n_px) / (tree_sum(w2 * w2) / n_px))
+        beta = m1 - alpha * (tree_sum(w2) / n_px)
+        return w1 - w2 * alpha[:, None] - beta[:, None], alpha[:, None]
+
+    ok1 = _bounds_ok(x1, y1, hw, hh, ncols, nrows)
+    x, y = x2, y2
+    status = torch.full_like(x2, KLT_TRACKED, dtype=torch.int32)
+    iteration = torch.zeros_like(x2, dtype=torch.int32)
+    act = active
+    for _ in range(cfg.max_iterations):
+        ok = ok1 & _bounds_ok(x, y, hw, hh, ncols, nrows)
+        status = torch.where(act & ~ok, KLT_OOB, status)
+        live = act & ok
+
+        w2, g2x, g2y = (flat(t) for t in
+                        gather_windows((img2, gx2, gy2), x, y, hw, hh))
+        dif, alpha = diff_and_gain(w2)
+        if alpha is None:
+            gx, gy = g1x + g2x, g1y + g2y
+        else:
+            gx, gy = g1x + alpha * g2x, g1y + alpha * g2y
+        gxx = tree_sum(gx * gx)
+        gxy = tree_sum(gx * gy)
+        gyy = tree_sum(gy * gy)
+        ex = step * tree_sum(dif * gx)
+        ey = step * tree_sum(dif * gy)
+
+        det = gxx * gyy - gxy * gxy
+        small = det < min_det
+        status = torch.where(live & small, KLT_SMALL_DET, status)
+        live = live & ~small
+        safe_det = torch.where(small, 1.0, det)
+        dx = (gyy * ex - gxy * ey) / safe_det
+        dy = (gxx * ey - gxy * ex) / safe_det
+
+        x = torch.where(live, x + dx, x)
+        y = torch.where(live, y + dy, y)
+        iteration = torch.where(live, iteration + 1, iteration)
+        moving = (dx.abs() >= th) | (dy.abs() >= th)
+        act = live & moving & (iteration < cfg.max_iterations)
+
+    # post-loop: OOB overrides any status, then residue, then max-iterations
+    final_ok = _bounds_ok(x, y, hw, hh, ncols, nrows)
+    status = torch.where(active & ~final_ok, KLT_OOB, status)
+    (w2,) = (flat(t) for t in gather_windows((img2,), x, y, hw, hh))
+    dif, _ = diff_and_gain(w2)
+    residue = tree_sum(dif.abs()) / n_px
+    tracked = active & (status == KLT_TRACKED)
+    status = torch.where(tracked & (residue > _f32(cfg.max_residue)),
+                         KLT_LARGE_RESIDUE, status)
+    tracked = active & (status == KLT_TRACKED)
+    status = torch.where(tracked & (iteration >= cfg.max_iterations),
+                         KLT_MAX_ITERATIONS, status)
+    return x, y, status, iteration
+
+
+def _launch(x1, y1, x2, y2, active, img1, gx1, gy1, img2, gx2, gy2, cfg,
+            xo, yo, st, it):
+    global launches
+    fn = cuda.function("pft_lk_level",
+                       [cuda.c_ptr] * 11 + [cuda.c_int] * 6
+                       + [cuda.c_float] * 4 + [cuda.c_int]
+                       + [cuda.c_ptr] * 5)
+    nrows, ncols = img1.shape
+    rc = fn(*(t.data_ptr() for t in (x1, y1, x2, y2, active, img1, gx1, gy1,
+                                     img2, gx2, gy2)),
+            nrows, ncols, x1.shape[0], cfg.window_width, cfg.window_height,
+            cfg.max_iterations, _f32(cfg.min_displacement),
+            _f32(cfg.min_determinant), _f32(cfg.max_residue),
+            _f32(cfg.step_factor), int(bool(cfg.lighting_insensitive)),
+            xo.data_ptr(), yo.data_ptr(), st.data_ptr(), it.data_ptr(),
+            cuda.stream_ptr(img1.device))
+    cuda.check(rc, "pft_lk_level")
+    launches += 1
+
+
+def lk_level(x1, y1, x2, y2, img1, gx1, gy1, img2, gx2, gy2, cfg, active):
+    """One LK pyramid level for a feature batch: (x2, y2, status, iteration).
+
+    ``x1``/``y1``: frame-1 positions, ``x2``/``y2``: frame-2 starting
+    guesses (float32 [N]); six float32 [H, W] level images; ``active``:
+    bool [N]. Same contract as ``track_feature_level``."""
+    feats = (x1, y1, x2, y2, active)
+    imgs = (img1, gx1, gy1, img2, gx2, gy2)
+    if not cuda.use_kernel(*feats, *imgs):
+        return lk_level_reference(x1, y1, x2, y2, img1, gx1, gy1, img2, gx2,
+                                  gy2, cfg, active)
+    ww, wh = cfg.window_width, cfg.window_height
+    cuda.require(ww % 2 == 1 and wh % 2 == 1 and ww * wh <= MAX_WINDOW_PIXELS,
+                 f"lk_level kernel takes odd windows of at most "
+                 f"{MAX_WINDOW_PIXELS} pixels, got {ww}x{wh}")
+    n = x1.shape[0]
+    cuda.require(all(t.dtype == torch.float32 and t.shape == (n,)
+                     and t.is_contiguous() for t in feats[:4])
+                 and active.dtype == torch.bool and active.shape == (n,)
+                 and active.is_contiguous(),
+                 "lk_level takes contiguous float32 [N] positions and a bool "
+                 "[N] mask")
+    shape = img1.shape
+    cuda.require(len(shape) == 2 and all(
+        t.dtype == torch.float32 and t.shape == shape and t.is_contiguous()
+        for t in imgs), "lk_level takes six contiguous float32 [H, W] images")
+    xo = torch.empty_like(x2)
+    yo = torch.empty_like(y2)
+    st = torch.empty((n,), dtype=torch.int32, device=x2.device)
+    it = torch.empty((n,), dtype=torch.int32, device=x2.device)
+    if n:
+        _launch(x1, y1, x2, y2, active, img1, gx1, gy1, img2, gx2, gy2, cfg,
+                xo, yo, st, it)
+    return xo, yo, st, it

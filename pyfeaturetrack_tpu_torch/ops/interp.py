@@ -1,0 +1,59 @@
+"""Batched bilinear window sampling (plain PyTorch).
+
+Reference parity: trackFeatures.py -> _interpolate; port of
+``pyfeaturetrack_tpu/ops/interp.py``. Every tap of a window shares one
+fractional offset, so one integer (h+1) x (w+1) patch gather plus a blend
+of its four shifted views gives the whole window.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def patch_indices(img_shape, x: torch.Tensor, y: torch.Tensor, hw: int,
+                  hh: int):
+    """(rows [N,h+1,1], cols [N,1,w+1], ax [N], ay [N]) for the integer
+    (h+1)x(w+1) patch whose top-left is floor(x)-hw / floor(y)-hh.
+
+    The patch is clamped into the image (interp.py:73-74 of the JAX
+    package); clamping only moves lanes that the bounds checks reject, so
+    it never changes an active lane's window. The int conversion is
+    bounded for runaway lanes (same clamp as csrc/lk.cu), and a level
+    smaller than the patch keeps every index in the image (its lanes are
+    all out of bounds)."""
+    hsz, wsz = img_shape[-2], img_shape[-1]
+    xt = torch.floor(x).clamp(-1.0e8, 1.0e8).to(torch.int32)
+    yt = torch.floor(y).clamp(-1.0e8, 1.0e8).to(torch.int32)
+    ax = x - xt.to(x.dtype)
+    ay = y - yt.to(y.dtype)
+    x0 = (xt - hw).clamp(0, wsz - 2 - 2 * hw).clamp(min=0)
+    y0 = (yt - hh).clamp(0, hsz - 2 - 2 * hh).clamp(min=0)
+    rows = y0[:, None, None] + torch.arange(2 * hh + 2, dtype=torch.int32,
+                                            device=x.device)[None, :, None]
+    cols = x0[:, None, None] + torch.arange(2 * hw + 2, dtype=torch.int32,
+                                            device=x.device)[None, None, :]
+    return (rows.clamp(max=hsz - 1).long(), cols.clamp(max=wsz - 1).long(),
+            ax, ay)
+
+
+def window_from_patch(patch: torch.Tensor, ax: torch.Tensor,
+                      ay: torch.Tensor) -> torch.Tensor:
+    """Blend the four shifted (h x w) views of an (h+1 x w+1) patch with
+    the shared per-feature bilinear weights (blend order of interp.py:
+    104-109 of the JAX package)."""
+    a = ax[:, None, None]
+    b = ay[:, None, None]
+    p00 = patch[:, :-1, :-1]
+    p01 = patch[:, :-1, 1:]
+    p10 = patch[:, 1:, :-1]
+    p11 = patch[:, 1:, 1:]
+    return ((1.0 - a) * (1.0 - b) * p00 + a * (1.0 - b) * p01 +
+            (1.0 - a) * b * p10 + a * b * p11)
+
+
+def gather_windows(imgs, x: torch.Tensor, y: torch.Tensor, hw: int, hh: int):
+    """Bilinear windows [N, 2hh+1, 2hw+1] of each image in ``imgs`` at the
+    same per-feature positions (one index computation, shared blend)."""
+    rows, cols, ax, ay = patch_indices(imgs[0].shape, x, y, hw, hh)
+    return tuple(window_from_patch(im[rows, cols], ax, ay) for im in imgs)

@@ -1,0 +1,44 @@
+"""State that crosses over from the JAX package.
+
+The slice has no weights: a config plus pyramid and feature state is all a
+port step needs, so these three helpers let a test start a port step from
+exactly the state the JAX package produced. They take plain numpy arrays
+(or anything ``np.asarray`` accepts) and never import JAX.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..config import TrackerConfig
+from ..ops.track import TrackPyramids
+
+
+def config_from_jax(cfg) -> TrackerConfig:
+    """Copy a ``pyfeaturetrack_tpu.config.TrackerConfig``'s fields."""
+    names = {f.name for f in dataclasses.fields(TrackerConfig)}
+    return TrackerConfig(**{f.name: getattr(cfg, f.name)
+                            for f in dataclasses.fields(cfg)
+                            if f.name in names})
+
+
+def _t(a, dtype, device) -> torch.Tensor:
+    return torch.as_tensor(np.array(a, dtype=dtype), device=device)
+
+
+def pyramids_from_numpy(img_levels, gx_levels, gy_levels,
+                        device="cpu") -> TrackPyramids:
+    """Per-level image / gradx / grady arrays -> a port TrackPyramids."""
+    return TrackPyramids(
+        img=tuple(_t(a, np.float32, device) for a in img_levels),
+        gradx=tuple(_t(a, np.float32, device) for a in gx_levels),
+        grady=tuple(_t(a, np.float32, device) for a in gy_levels))
+
+
+def features_from_numpy(x, y, val, device="cpu"):
+    """(x, y, val) arrays -> float32, float32, int32 [N] tensors."""
+    return (_t(x, np.float32, device), _t(y, np.float32, device),
+            _t(val, np.int32, device))

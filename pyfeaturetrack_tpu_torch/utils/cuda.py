@@ -1,0 +1,152 @@
+"""Build, load and dispatch the port's hand-written CUDA kernels.
+
+All ``csrc/*.cu`` files are compiled by ``nvcc`` for ``sm_90a`` into one
+shared library with a plain C interface, ``build/torch_kernels/
+libpft_torch_kernels.so`` under the repository root, at the first kernel
+call; the library is rebuilt whenever a source is newer than it. It is
+loaded with ``ctypes``: every pointer and the stream pass as
+``c_void_p``. Nothing here runs at import time, so the package imports on
+machines with no CUDA toolkit.
+
+Dispatch rule (``use_kernel``): a CUDA tensor launches the kernel (or the
+call raises), a CPU tensor takes the kernel's plain PyTorch version. The
+only way to run a plain version on CUDA tensors is the explicit
+``reference_path()`` context, which the kernel-vs-plain comparisons use.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import ctypes
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+import torch
+
+_CSRC = Path(__file__).resolve().parent.parent / "csrc"
+_BUILD = Path(__file__).resolve().parent.parent.parent / "build" / "torch_kernels"
+_LIB_NAME = "libpft_torch_kernels.so"
+# -fmad=false: products and sums round separately, as in the plain
+# PyTorch versions (no fused multiply-add contraction).
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_lock = threading.Lock()
+_lib = None
+_functions: dict[str, object] = {}
+_force_reference = False
+build_info: dict = {}
+
+c_ptr = ctypes.c_void_p
+c_int = ctypes.c_int
+c_float = ctypes.c_float
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
+        or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels "
+                           "are built from csrc/ at their first call")
+    return found
+
+
+def build() -> Path:
+    """Compile csrc/*.cu into the kernel library if it is missing or older
+    than a source. Records the command, seconds and ptxas report in
+    ``build_info``."""
+    out = _BUILD / _LIB_NAME
+    srcs = sorted(_CSRC.glob("*.cu")) + sorted(_CSRC.glob("*.cuh"))
+    newest = max(s.stat().st_mtime for s in srcs)
+    if out.exists() and out.stat().st_mtime >= newest:
+        if not build_info:
+            build_info.update(path=str(out), seconds=0.0, rebuilt=False)
+        return out
+    _BUILD.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *[str(s) for s in srcs if s.suffix == ".cu"]]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+    os.replace(tmp, out)
+    build_info.update(path=str(out), seconds=seconds, rebuilt=True,
+                      command=" ".join(cmd), log=res.stderr)
+    return out
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            _lib = ctypes.CDLL(str(build()))
+            _lib.pft_error_string.argtypes = [c_int]
+            _lib.pft_error_string.restype = ctypes.c_char_p
+        return _lib
+
+
+def function(name: str, argtypes: list):
+    """A C entry point of the library with its argtypes set."""
+    fn = _functions.get(name)
+    if fn is None:
+        fn = getattr(library(), name)
+        fn.argtypes = argtypes
+        fn.restype = c_int
+        _functions[name] = fn
+    return fn
+
+
+def check(rc: int, name: str) -> None:
+    """Raise if a C entry point reported a refused launch or bad argument."""
+    if rc != 0:
+        msg = library().pft_error_string(rc).decode()
+        raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
+
+
+def stream_ptr(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def use_kernel(*tensors: torch.Tensor) -> bool:
+    """True when the kernel must launch: every tensor is on one CUDA device
+    and no ``reference_path()`` is active. CPU tensors take the plain
+    version; a mix of devices raises."""
+    devs = {t.device for t in tensors}
+    if len(devs) != 1:
+        raise ValueError(f"tensors on several devices: {sorted(map(str, devs))}")
+    dev = devs.pop()
+    if dev.type == "cuda":
+        return not _force_reference
+    if dev.type == "cpu":
+        return False
+    raise ValueError(f"unsupported device {dev}")
+
+
+@contextlib.contextmanager
+def reference_path():
+    """Run the plain PyTorch versions even on CUDA tensors (for comparing
+    kernels with their plain versions on the card)."""
+    global _force_reference
+    prev = _force_reference
+    _force_reference = True
+    try:
+        yield
+    finally:
+        _force_reference = prev
+
+
+def require(cond: bool, what: str) -> None:
+    """Wrapper argument check: raise on anything a kernel does not take."""
+    if not cond:
+        raise ValueError(what)

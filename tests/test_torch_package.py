@@ -1,0 +1,171 @@
+"""The PyTorch port's package surface: no JAX at import, kernel modules
+import with no CUDA toolkit, configs and state cross over from the JAX
+package, and every part outside the slice raises."""
+
+import dataclasses
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+torch.set_num_threads(2)
+
+import pyfeaturetrack_tpu as jpft  # noqa: E402
+from pyfeaturetrack_tpu.config import create_config as jax_create_config  # noqa: E402
+from pyfeaturetrack_tpu.ops.kernels import get_kernel_widths as jax_widths  # noqa: E402
+
+import pyfeaturetrack_tpu_torch as tpft  # noqa: E402
+from pyfeaturetrack_tpu_torch.ops.kernels import get_kernel_widths  # noqa: E402
+from pyfeaturetrack_tpu_torch.utils import cuda  # noqa: E402
+from pyfeaturetrack_tpu_torch.utils.convert import (  # noqa: E402
+    config_from_jax, features_from_numpy)
+
+REPO = Path(__file__).resolve().parent.parent
+PKG = REPO / "pyfeaturetrack_tpu_torch"
+
+_KERNEL_MODULES = ("pyfeaturetrack_tpu_torch.ops.cuda_pyramid",
+                   "pyfeaturetrack_tpu_torch.ops.cuda_lk",
+                   "pyfeaturetrack_tpu_torch.ops.cuda_eig",
+                   "pyfeaturetrack_tpu_torch.ops.cuda_select")
+
+
+def test_import_leaves_jax_out():
+    code = ("import sys, importlib\n"
+            "import pyfeaturetrack_tpu_torch\n"
+            f"for m in {_KERNEL_MODULES!r} + ("
+            "'pyfeaturetrack_tpu_torch.utils.convert', "
+            "'pyfeaturetrack_tpu_torch.utils.io'):\n"
+            "    importlib.import_module(m)\n"
+            "assert 'jax' not in sys.modules, 'jax imported'\n"
+            "assert 'pyfeaturetrack_tpu' not in sys.modules\n"
+            "from pyfeaturetrack_tpu_torch.utils import cuda\n"
+            "assert cuda._lib is None, 'kernel library loaded at import'\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def test_no_jax_import_in_sources():
+    import re
+    bad = re.compile(r"^\s*(import|from)\s+(jax|pyfeaturetrack_tpu)\b"
+                     r"(?!_torch)", re.M)
+    for path in list(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]:
+        assert not bad.search(path.read_text()), path
+
+
+def test_kernel_sources_present():
+    names = sorted(p.name for p in (PKG / "csrc").glob("*.cu"))
+    for want in ("pyramid.cu", "lk.cu", "eig.cu", "extract.cu"):
+        assert want in names
+    for src in ("pyramid.cu", "lk.cu", "eig.cu", "extract.cu"):
+        head = (PKG / "csrc" / src).read_text()[:400]
+        assert "Replaces pyfeaturetrack_tpu/ops/pallas_" in head, src
+
+
+@pytest.mark.parametrize("module", _KERNEL_MODULES)
+def test_kernel_modules_import_without_cuda(module):
+    import importlib
+    mod = importlib.import_module(module)
+    assert mod.launches >= 0
+    assert cuda.use_kernel(torch.zeros(2)) is False
+
+
+def test_reference_path_context():
+    assert cuda._force_reference is False
+    with cuda.reference_path():
+        assert cuda._force_reference is True
+        assert cuda.use_kernel(torch.zeros(1)) is False
+    assert cuda._force_reference is False
+
+
+@pytest.mark.parametrize("search_range,overrides", [
+    (15, {}), (2, {}), (25, {}), (60, {}), (120, {}),
+    (15, {"window_width": 5, "window_height": 9, "mindist": 8}),
+    (15, {"nPyramidLevels": 3, "subsampling": 2}),
+    (15, {"lighting_insensitive": True, "min_displacement": 0.0,
+          "nSkippedPixels": 2, "smoothBeforeSelecting": False}),
+])
+def test_config_matches_jax(search_range, overrides):
+    jcfg = jax_create_config(search_range=search_range, **overrides)
+    tcfg = tpft.create_config(search_range=search_range, **overrides)
+    assert dataclasses.asdict(config_from_jax(jcfg)) == dataclasses.asdict(jcfg)
+    assert config_from_jax(jcfg) == tcfg
+    assert hash(config_from_jax(jcfg)) == hash(tcfg)
+    assert tcfg.smooth_sigma == jcfg.smooth_sigma
+
+
+def test_default_config_derivations():
+    cfg = tpft.create_config()
+    assert (cfg.borderx, cfg.bordery) == (24, 24)
+    assert (cfg.nPyramidLevels, cfg.subsampling) == (2, 4)
+    assert (cfg.window_width, cfg.window_height, cfg.mindist) == (7, 7, 10)
+    assert cfg.replace(window_width=6).validated_window().window_width == 7
+
+
+@pytest.mark.parametrize("sigma,widths", [(0.7, (5, 5)), (1.0, (7, 7)),
+                                          (3.6, (21, 25)), (1.5, None),
+                                          (7.2, None)])
+def test_kernel_widths_match_jax(sigma, widths):
+    assert get_kernel_widths(sigma) == jax_widths(sigma)
+    if widths is not None:
+        assert get_kernel_widths(sigma) == widths
+
+
+def test_status_codes_match_jax():
+    for name in ("KLT_TRACKED", "KLT_NOT_FOUND", "KLT_SMALL_DET",
+                 "KLT_MAX_ITERATIONS", "KLT_OOB", "KLT_LARGE_RESIDUE"):
+        assert getattr(tpft, name) == getattr(jpft, name)
+
+
+def test_feature_numpy_round_trip():
+    from pyfeaturetrack_tpu_torch.features import (feature_state_from_numpy,
+                                                   feature_state_to_numpy)
+    arr = np.array([[1.5, 2.25, 7.0], [-1.0, -1.0, -4.0], [30.0, 40.0, 0.0]])
+    fl = feature_state_from_numpy(arr)
+    assert fl.x.dtype == torch.float32 and fl.val.dtype == torch.int32
+    np.testing.assert_array_equal(feature_state_to_numpy(fl), arr)
+    x, y, v = features_from_numpy(arr[:, 0], arr[:, 1], arr[:, 2])
+    assert v.dtype == torch.int32 and v.tolist() == [7, -4, 0]
+
+
+def test_pgm_round_trip(tmp_path):
+    from pyfeaturetrack_tpu.utils.io import pgm_read as jax_pgm_read
+    from pyfeaturetrack_tpu_torch.utils.io import pgm_read, pgm_write
+    src = REPO / "examples" / "data" / "img0.pgm"
+    img = pgm_read(src)
+    np.testing.assert_array_equal(img, jax_pgm_read(src))
+    pgm_write(tmp_path / "x.pgm", img)
+    np.testing.assert_array_equal(pgm_read(tmp_path / "x.pgm"), img)
+
+
+def test_cuda_request_without_cuda_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    frames = [np.zeros((64, 80), np.float32)] * 2
+    with pytest.raises(RuntimeError):
+        tpft.track_sequence_device(frames, n_features=4, device="cuda")
+
+
+def test_out_of_slice_parts_raise():
+    from pyfeaturetrack_tpu_torch.models.device_sequence import (
+        sequence_chain_device)
+    from pyfeaturetrack_tpu_torch.ops.track import fb_reject
+    frames = [np.zeros((64, 80), np.float32)] * 2
+    for cfg in (tpft.create_config(affineConsistencyCheck=0),
+                tpft.create_config(image_dtype="bfloat16")):
+        with pytest.raises(NotImplementedError):
+            tpft.track_sequence_device(frames, cfg=cfg, n_features=4,
+                                       device="cpu")
+    with pytest.raises(NotImplementedError):
+        sequence_chain_device()
+    with pytest.raises(NotImplementedError):
+        fb_reject()
+    cfg = tpft.create_config()
+    pyr = tpft.build_track_pyramids(torch.zeros(64, 80), cfg)
+    z = torch.zeros(3)
+    with pytest.raises(NotImplementedError):
+        tpft.track_features_pyramids(pyr, pyr, z, z, z.int(), cfg, x_init=z,
+                                     y_init=z)
