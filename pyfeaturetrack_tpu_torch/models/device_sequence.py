@@ -30,8 +30,8 @@ import torch
 
 from ..config import TrackerConfig, create_config
 from ..features import KLT_NOT_FOUND
+from ..ops.cuda_eig import min_eig_map
 from ..ops.cuda_pyramid import level_taps, pyramid_level
-from ..ops.select import quantized_min_eig_map
 from ..ops.select_device import (DEFAULT_TOP_K,
                                  select_features_from_eig_device)
 from ..ops.track import (TrackPyramids, build_track_pyramids,
@@ -77,8 +77,7 @@ def _selection_eig_from_pyr(img: torch.Tensor, pyr: TrackPyramids, cfg
                                      with_pyr=False)
     else:
         gx, gy = pyr.gradx[0], pyr.grady[0]
-    return quantized_min_eig_map(gx, gy, int(cfg.window_width),
-                                 int(cfg.window_height))
+    return min_eig_map(gx, gy, int(cfg.window_width), int(cfg.window_height))
 
 
 def select_step_device(img, cfg, n_features: int,

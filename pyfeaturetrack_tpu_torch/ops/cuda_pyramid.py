@@ -13,6 +13,7 @@ composes ops/convolve.py's shift-and-add passes in the kernel's order.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -28,19 +29,38 @@ launches = 0
 
 
 class LevelTaps(NamedTuple):
-    """The 1-D taps of a pyramid build (float32, unflipped)."""
+    """The 1-D taps of a pyramid build (float32, unflipped) and their
+    flipped copies, which the kernel takes (read-only: they are cached)."""
     smooth: np.ndarray      # level-0 pre-smooth gauss (smooth_sigma)
     grad_g: np.ndarray      # gradient gauss (grad_sigma)
     grad_d: np.ndarray      # gradient deriv (grad_sigma)
     pyr: np.ndarray         # pyramid smoothing gauss (sub * sigma_fact)
     subsampling: int
+    rev: tuple              # (smooth, grad_g, grad_d, pyr), each k[::-1]
+
+
+def _frozen(k: np.ndarray) -> np.ndarray:
+    k = np.ascontiguousarray(k, np.float32)
+    k.setflags(write=False)
+    return k
+
+
+@functools.lru_cache(maxsize=32)
+def _taps(smooth_sigma: float, grad_sigma: float, pyr_sigma: float,
+          subsampling: int) -> LevelTaps:
+    smooth, _ = compute_kernels(smooth_sigma)
+    grad_g, grad_d = compute_kernels(grad_sigma)
+    pyr, _ = compute_kernels(pyr_sigma)
+    fwd = tuple(_frozen(k) for k in (smooth, grad_g, grad_d, pyr))
+    return LevelTaps(*fwd, subsampling, tuple(_frozen(k[::-1]) for k in fwd))
 
 
 def level_taps(cfg) -> LevelTaps:
-    smooth, _ = compute_kernels(float(cfg.smooth_sigma))
-    grad_g, grad_d = compute_kernels(float(cfg.grad_sigma))
-    pyr, _ = compute_kernels(float(cfg.pyramid_sigma_fact * cfg.subsampling))
-    return LevelTaps(smooth, grad_g, grad_d, pyr, int(cfg.subsampling))
+    """The taps of ``cfg``'s pyramid build, made once per distinct set of
+    sigmas (a frame step builds no taps)."""
+    return _taps(float(cfg.smooth_sigma), float(cfg.grad_sigma),
+                 float(cfg.pyramid_sigma_fact * cfg.subsampling),
+                 int(cfg.subsampling))
 
 
 def pyramid_level_reference(img: torch.Tensor, taps: LevelTaps,
@@ -57,10 +77,6 @@ def pyramid_level_reference(img: torch.Tensor, taps: LevelTaps,
         nxt = decimate(convolve_separate(base, taps.pyr, taps.pyr),
                        taps.subsampling)
     return base, gx, gy, nxt
-
-
-def _rev(k: np.ndarray) -> np.ndarray:
-    return np.ascontiguousarray(np.asarray(k, np.float32)[::-1])
 
 
 def _launch_smooth(img, out, krev):
@@ -110,7 +126,7 @@ def pyramid_level(img: torch.Tensor, taps: LevelTaps, smooth: bool,
     base = img
     if smooth:
         base = torch.empty_like(img)
-        _launch_smooth(img, base, _rev(taps.smooth))
+        _launch_smooth(img, base, taps.rev[0])
     gx = torch.empty_like(img)
     gy = torch.empty_like(img)
     sub = taps.subsampling
@@ -118,6 +134,6 @@ def pyramid_level(img: torch.Tensor, taps: LevelTaps, smooth: bool,
     if with_pyr:
         dec = torch.empty((h // sub, w // sub), dtype=torch.float32,
                           device=img.device)
-    _launch_level(base, gx, gy, dec, _rev(taps.grad_g), _rev(taps.grad_d),
-                  _rev(taps.pyr) if with_pyr else None, sub, h // sub, w // sub)
+    _launch_level(base, gx, gy, dec, taps.rev[1], taps.rev[2],
+                  taps.rev[3] if with_pyr else None, sub, h // sub, w // sub)
     return base, gx, gy, dec

@@ -1,8 +1,9 @@
 """Shi-Tomasi (min-eigenvalue) map for feature selection (plain PyTorch).
 
 Reference parity: selectGoodFeatures.py -> _KLTSelectGoodFeatures hot
-loop; port of ``compute_min_eig_map`` / ``quantized_min_eig_map`` /
-``_EIG_LIMIT`` of ``pyfeaturetrack_tpu/ops/select.py``. The host greedy
+loop; port of ``compute_min_eig_map`` / ``_EIG_LIMIT`` of
+``pyfeaturetrack_tpu/ops/select.py``; its ``quantized_min_eig_map`` is K3,
+``ops/cuda_eig.min_eig_map``. The host greedy
 selection (``select_good_features`` through ``native/``) is not in the
 port yet; the device-resident selection is ops/select_device.py.
 
@@ -51,11 +52,3 @@ def compute_min_eig_map(gradx: torch.Tensor, grady: torch.Tensor,
     disc = torch.sqrt((gxx - gyy) * (gxx - gyy) + 4.0 * gxy * gxy)
     return ((gxx + gyy) - disc) * 0.5
 
-
-def quantized_min_eig_map(gradx: torch.Tensor, grady: torch.Tensor,
-                          window_width: int, window_height: int
-                          ) -> torch.Tensor:
-    """Min-eig map as the reference's int32 candidate values: clamp at
-    ``_EIG_LIMIT``, then truncate toward zero. K3 on CUDA tensors."""
-    from .cuda_eig import min_eig_map
-    return min_eig_map(gradx, grady, window_width, window_height)
