@@ -8,25 +8,43 @@ Phases, in order; the first failure exits non-zero:
 1. device  — require CUDA; print the card's name and power limit
    (nvidia-smi) and the torch / CUDA versions;
 2. build   — compile pyfeaturetrack_tpu_torch/csrc/*.cu with nvcc for
-   sm_90a into build/torch_kernels/ and load it;
+   sm_90a (one nvcc per source, all started together) into
+   build/torch_kernels/ and load it;
 3. kernels — each hand-written kernel against its plain PyTorch version on
-   the card, at the main path's shapes (480x640 frame, 1000 features,
-   default config), timed with CUDA events. K2 and K4 must match their
+   the card, at the main paths' shapes (480x640 frame, 1000 features),
+   timed with CUDA events. Default config: K2 and K4 must match their
    plain versions bit for bit, K1 within 1e-3 abs and K3 within one int
    step at under 1e-3 of pixels; K2 runs both levels of a real tracked
-   pair and of a status mix whose lanes end in every K2 status;
+   pair and of a status mix whose lanes end in every K2 status.
+   Config 3 (affine check, 3 levels, subsampling 2): K1 on all three
+   levels and K2 on all three levels of a similarity pair and of the
+   status mix, at the same bars; K6 bit-equal in x, y, A, status and
+   iteration count, modes 0, 1 and 2, on a real pair and on an affine
+   status mix that must reach TRACKED, SMALL_DET, LARGE_RESIDUE, warp OOB
+   and drift OOB and pass its unchecked lanes through;
 4. main    — track_sequence_device on 100 synthetic 480x640 frames of a
    texture scrolling at a known drift, 1000 features, replace-lost on:
    every kernel must have launched, the tracks must recover the drift,
    the last frame must be fully live, and a 10-frame run through the
    plain versions must give the identical feature table (x, y, val);
-5. profile (only with --profile) — the step time by CUDA events, by host
-   wall clock and through track_sequence_device, three repeats each, then
-   a torch.profiler trace of 30 steps: device kernels, busy time and idle
-   share per step, and the largest device items.
+5. affine  — track_sequence_device with config 3 on 100 synthetic 480x640
+   frames under a known slow similarity motion, 1000 features,
+   replace-lost on: K1-K4 and K6 must have launched, the tracks must
+   recover the motion, refills must fire, the affine stage must hold
+   templates and reject lanes, and a 10-frame run through the plain
+   versions must give the identical table and AffineState warps and
+   valid flags; then the config-3 step time (CUDA events);
+6. profile (only with --profile) — for the config-3 step and the default
+   step: the step time by CUDA events, by host wall clock and through
+   track_sequence_device, three repeats each, then a torch.profiler trace
+   of 30 steps (build/profile/step_trace_<config>.json): device kernels,
+   busy time and idle share per step, and the largest device items.
 
-Prints the per-kernel JSON line, then the nvidia-smi line, then, as the
-last line, {"ok": true, "device": {...}}. Imports nothing of JAX.
+Prints the per-kernel JSON line (times, launches, error, and the bound:
+the larger of the bytes each kernel must move over 3.35 TB/s and its
+float32 operations over 67 TFLOP/s, computed from this run's inputs),
+then the nvidia-smi line, then, as the last line, {"ok": true, "device":
+{...}}. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -45,6 +63,15 @@ N_PLAIN_FRAMES = 10
 DRIFT = (2, 1)            # (dx, dy) px per frame: the texture moves right/down
 SEED = 0
 DRIFT_TOL = 0.05          # px: median displacement vs the known drift
+# config 3's motion per frame: about the frame centre, scale x1.001 and a
+# 0.05 degree rotation, then a (2, 1) px shift
+SIM_SHIFT, SIM_ROT_DEG, SIM_SCALE = (2.0, 1.0), 0.05, 1.001
+SIM_PAD = 320             # texture margin around frame 0 (px)
+OVERLAY = ((300, 400), (240, 400))   # rows, cols of the static overlay
+# peak rates of one H100 SXM (NVIDIA data sheet): HBM bytes/s and float32
+# operations/s outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
 
 
 def fail(msg: str) -> None:
@@ -65,6 +92,17 @@ def smi_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
+def smooth_texture(rng, h, w):
+    """A seeded smooth random texture on 0..255 (binomial smoothing)."""
+    import numpy as np
+    tex = rng.uniform(0.0, 255.0, (h, w))
+    k = np.array([1.0, 4.0, 6.0, 4.0, 1.0]) / 16.0
+    for axis in (0, 1):
+        for _ in range(2):
+            tex = sum(w * np.roll(tex, s - 2, axis=axis) for s, w in enumerate(k))
+    return (tex - tex.min()) / (tex.max() - tex.min()) * 255.0
+
+
 def make_frames(n_frames: int):
     """uint8 frames of a seeded smooth texture that moves by DRIFT each
     frame (frame i is a crop of one large texture)."""
@@ -72,13 +110,7 @@ def make_frames(n_frames: int):
     dx, dy = DRIFT
     rng = np.random.default_rng(SEED)
     bh, bw = H + dy * n_frames, W + dx * n_frames
-    tex = rng.uniform(0.0, 255.0, (bh, bw))
-    k = np.array([1.0, 4.0, 6.0, 4.0, 1.0]) / 16.0
-    for axis in (0, 1):
-        for _ in range(2):
-            tex = sum(w * np.roll(tex, s - 2, axis=axis) for s, w in enumerate(k))
-    tex = (tex - tex.min()) / (tex.max() - tex.min()) * 255.0
-    tex = np.floor(tex).astype(np.uint8)
+    tex = np.floor(smooth_texture(rng, bh, bw)).astype(np.uint8)
     y0, x0 = dy * n_frames, dx * n_frames
     return [np.ascontiguousarray(tex[y0 - dy * i:y0 - dy * i + H,
                                      x0 - dx * i:x0 - dx * i + W])
@@ -92,12 +124,7 @@ def make_status_mix():
     LARGE_RESIDUE or MAX_ITERATIONS, and lanes near the edges go OOB."""
     import numpy as np
     rng = np.random.default_rng(SEED + 2)
-    tex = rng.uniform(0.0, 255.0, (H + 16, W + 16))
-    k = np.array([1.0, 4.0, 6.0, 4.0, 1.0]) / 16.0
-    for axis in (0, 1):
-        for _ in range(2):
-            tex = sum(w * np.roll(tex, s - 2, axis=axis) for s, w in enumerate(k))
-    tex = (tex - tex.min()) / (tex.max() - tex.min()) * 255.0
+    tex = smooth_texture(rng, H + 16, W + 16)
     a = tex[8:8 + H, 8:8 + W].copy()
     b = tex[5:5 + H, 3:3 + W].copy()
     a[100:200, 100:260] = 128.0
@@ -135,6 +162,221 @@ def k2_levels(pa, pb, x, y, live, cfg, cuda_lk, reference_path):
                                      (got[2] == KLT_OOB)))
 
 
+def config3():
+    """BASELINE config 3: affine-consistency check (6-parameter warp,
+    15x15 window) on a 3-level pyramid at subsampling 2 (border 32)."""
+    import pyfeaturetrack_tpu_torch as pft
+    return pft.create_config(affineConsistencyCheck=2, nPyramidLevels=3,
+                             subsampling=2).replace(
+                                 sequentialMode=True).validated_window()
+
+
+def similarity():
+    """(S, c, t): frame i+1 shows a point of frame i at c + S (p - c) + t."""
+    import numpy as np
+    th = np.deg2rad(SIM_ROT_DEG)
+    S = SIM_SCALE * np.array([[np.cos(th), -np.sin(th)],
+                              [np.sin(th), np.cos(th)]])
+    return S, np.array([(W - 1) / 2.0, (H - 1) / 2.0]), np.array(SIM_SHIFT)
+
+
+def make_similarity_frames(n_frames: int):
+    """uint8 frames of one seeded smooth texture under the slow similarity
+    motion of ``similarity()`` (bilinear rendering with numpy), with a
+    static textured overlay (OVERLAY, a logo burned into the video) that
+    the scene slides under: it hides part of a template before it reaches
+    the 7x7 tracking window, which is what the affine stage rejects."""
+    import numpy as np
+    rng = np.random.default_rng(SEED + 3)
+    tex = smooth_texture(rng, H + 2 * SIM_PAD, W + 2 * SIM_PAD)
+    (r0, r1), (c0, c1) = OVERLAY
+    overlay = np.floor(smooth_texture(rng, r1 - r0, c1 - c0))
+    S, c, t = similarity()
+    Sinv = np.linalg.inv(S)
+    # frame-i pixel p shows frame-0 point M p + b; frame i+1 composes the
+    # inverse step H(p) = Sinv (p - c - t) + c
+    Mh, bh = Sinv, c - Sinv @ (c + t)
+    M, b = np.eye(2), np.zeros(2)
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float64)
+    grid = np.stack([xx.ravel(), yy.ravel()])
+    frames = []
+    for _ in range(n_frames):
+        q = M @ grid + b[:, None] + SIM_PAD
+        qx = np.clip(q[0], 0, tex.shape[1] - 1.001)
+        qy = np.clip(q[1], 0, tex.shape[0] - 1.001)
+        x0, y0 = np.floor(qx).astype(np.int64), np.floor(qy).astype(np.int64)
+        ax, ay = qx - x0, qy - y0
+        v = ((1 - ax) * (1 - ay) * tex[y0, x0] + ax * (1 - ay) * tex[y0, x0 + 1]
+             + (1 - ax) * ay * tex[y0 + 1, x0] + ax * ay * tex[y0 + 1, x0 + 1])
+        frame = np.floor(v).reshape(H, W)
+        frame[r0:r1, c0:c1] = overlay
+        frames.append(frame.astype(np.uint8))
+        M, b = M @ Mh, M @ bh + b
+    return frames
+
+
+def predicted(x, y):
+    """Where the similarity motion takes frame-i points (x, y) in i+1."""
+    import numpy as np
+    S, c, t = similarity()
+    p = S @ (np.stack([x, y]) - c[:, None]) + c[:, None] + t[:, None]
+    return p[0], p[1]
+
+
+def make_affine_mix(cfg, dev):
+    """K6's inputs at config-3 shapes whose lanes are built to end in each
+    affine status: (args, groups). The content moves by (+3, +2) px; a
+    flat block gives SMALL_DET, fresh noise in frame 2 LARGE_RESIDUE,
+    windows across the left edge warp OOB, starts 2.5 px off the optimum
+    drift OOB, and unchecked lanes pass through."""
+    import numpy as np
+    import torch
+    import pyfeaturetrack_tpu_torch as pft
+    from pyfeaturetrack_tpu_torch.ops.interp import gather_window
+    rng = np.random.default_rng(SEED + 4)
+    tex = smooth_texture(rng, H + 16, W + 16)
+    a = tex[8:8 + H, 8:8 + W].copy()
+    b = tex[6:6 + H, 5:5 + W].copy()          # content at (x + 3, y + 2)
+    a[100:200, 100:260] = 128.0
+    b[102:202, 103:263] = 128.0
+    b[300:400, 400:560] = rng.uniform(0.0, 255.0, (100, 160))
+    pa = pft.build_track_pyramids(torch.as_tensor(np.floor(a), dtype=torch.float32,
+                                                  device=dev), cfg)
+    pb = pft.build_track_pyramids(torch.as_tensor(np.floor(b), dtype=torch.float32,
+                                                  device=dev), cfg)
+
+    def uniform(n, x_lo, x_hi, y_lo, y_hi):
+        return rng.uniform(x_lo, x_hi, n), rng.uniform(y_lo, y_hi, n)
+
+    def textured(n):
+        xs, ys = [], []
+        while len(xs) < n:
+            x, y = uniform(1, 40, W - 40, 40, H - 40)
+            if (95 <= x[0] <= 265 and 95 <= y[0] <= 205) or (
+                    390 <= x[0] <= 570 and 290 <= y[0] <= 410):
+                continue
+            xs.append(x[0])
+            ys.append(y[0])
+        return np.array(xs), np.array(ys)
+
+    sizes = {"tracked": 400, "flat": 120, "noise": 120, "edge": 120,
+             "drift": 120, "unchecked": 120}
+    xs, ys, start_dx, start_dy, groups = [], [], [], [], []
+    for name, n in sizes.items():
+        if name == "flat":
+            x, y = uniform(n, 115, 245, 115, 185)
+        elif name == "noise":
+            x, y = uniform(n, 407, 547, 308, 388)     # frame-2 windows in noise
+        elif name == "edge":
+            x, y = uniform(n, 0.5, 5.0, 40, H - 40)
+        else:
+            x, y = textured(n)
+        off = {"drift": (2.5, -2.0), "edge": (0.0, 0.0)}.get(name, (0.3, -0.2))
+        xs.append(x)
+        ys.append(y)
+        start_dx.append(np.full(n, 3.0 + off[0]))
+        start_dy.append(np.full(n, 2.0 + off[1]))
+        groups += [name] * n
+    f32 = lambda v: torch.as_tensor(np.concatenate(v), dtype=torch.float32,  # noqa: E731
+                                    device=dev)
+    x, y = f32(xs), f32(ys)
+    hw, hh = cfg.affine_window_width // 2, cfg.affine_window_height // 2
+    tmpl = gather_window(pa.img[0], x, y, hw, hh).contiguous()
+    n = x.shape[0]
+    A0 = torch.eye(2, device=dev).repeat(n, 1, 1).contiguous()
+    groups = np.array(groups)
+    check = torch.as_tensor(groups != "unchecked", device=dev)
+    args = (tmpl, pb.img[0], pb.gradx[0], pb.grady[0], x + f32(start_dx),
+            y + f32(start_dy), A0, check)
+    return args, groups
+
+
+def bound_ms(nbytes: float, ops: float):
+    """(least time in ms, what bounds it) for moving ``nbytes`` and doing
+    ``ops`` float32 operations on one H100."""
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    to = ops / FP32_OPS_PER_S * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def k1_work(cfg, h, w):
+    """Bytes and operations of one frame's pyramid build: the frame read
+    once, each level's image and gradient pair written once; per output
+    sample one multiply and one add per tap of each 1-D pass (the level-0
+    pre-smooth, the four gradient passes, and the pyramid smoothing at the
+    decimated samples only)."""
+    from pyfeaturetrack_tpu_torch.ops.cuda_pyramid import level_taps
+    taps = level_taps(cfg)
+    ks, kg, kd, kp = (len(t) for t in (taps.smooth, taps.grad_g, taps.grad_d,
+                                       taps.pyr))
+    s = cfg.subsampling
+    nbytes, ops, hl, wl = 4 * h * w, 0, h, w
+    for level in range(cfg.nPyramidLevels):
+        if level == 0:
+            ops += 2 * 2 * ks * hl * wl
+        ops += (4 * kd + 4 * kg) * hl * wl
+        nbytes += 3 * 4 * hl * wl
+        if level < cfg.nPyramidLevels - 1:
+            h2, w2 = hl // s, wl // s
+            ops += 2 * kp * hl * w2 + 2 * kp * h2 * w2
+            hl, wl = h2, w2
+    return nbytes, ops
+
+
+def k2_work(cfg, active, iterations):
+    """Bytes and operations of one K2 level as this run's lanes needed
+    them: each active lane's (ww+1)(wh+1) patch of the six level images
+    read once, positions in and out; per window pixel 31 operations for
+    the frame-1 windows and the final residue, 34 per iteration (three
+    blends, residual, gradient sums, five products and sums), plus 12 per
+    iteration for the 2x2 solve."""
+    npx = cfg.window_width * cfg.window_height
+    patch = (cfg.window_width + 1) * (cfg.window_height + 1)
+    n = active.shape[0]
+    na = int(active.sum().item())
+    its = int(iterations[active].sum().item())
+    nbytes = na * 6 * patch * 4 + n * (4 * 4 + 1 + 4 * 4)
+    return nbytes, na * npx * 31 + its * (npx * 34 + 12)
+
+
+def k3_work(cfg, h, w):
+    """Two gradients read and the int32 map written once; per pixel three
+    products, the two 1-D window sums of each, and the eigenvalue."""
+    per_px = 3 + 3 * (cfg.window_width - 1 + cfg.window_height - 1) + 8
+    return 3 * 4 * h * w, per_px * h * w
+
+
+def k4_work(cand, n_acc, dg, max_out):
+    """The candidate map read once and the acceptances written; one compare
+    per candidate and one store per cell of each accepted box."""
+    return (4 * cand.numel() + 12 * max_out + 4,
+            cand.numel() + int(n_acc.item()) * (2 * dg + 1) ** 2)
+
+
+def k6_work(cfg, check, nit):
+    """Bytes and operations of one K6 call as this run's lanes needed them:
+    each checked lane's template and the (ww+1)(wh+1) footprint of the
+    three images read once, lanes in and out; per sample and Gauss-Newton
+    iteration 8 operations for the warp, 2 for the bounds, 6 for the
+    weights, 21 for three blends, 1 for the residual, the Jacobian, and a
+    multiply and an add per normal-equation entry; per iteration the
+    unpivoted solve; after the loop 26 per sample (warp, bounds, weights,
+    one blend, residue)."""
+    mode = int(cfg.affineConsistencyCheck)
+    p = (2, 4, 6)[mode]
+    ns = p * (p + 1) // 2 + p
+    jac = (0, 6, 4)[mode]
+    npx = cfg.affine_window_width * cfg.affine_window_height
+    foot = (cfg.affine_window_width + 1) * (cfg.affine_window_height + 1)
+    nc = int(check.sum().item())
+    its = int(nit.sum().item())
+    n = check.shape[0]
+    nbytes = nc * (npx + 3 * foot) * 4 + n * (8 + 16 + 1 + 8 + 16 + 8)
+    per_sample = 8 + 2 + 6 + 21 + 1 + jac + 2 * ns
+    ops = its * (npx * per_sample + 2 * p * p * (p + 1)) + nc * npx * 26
+    return nbytes, ops
+
+
 def time_ms(fn, reps: int = 20) -> float:
     """Mean device time of fn() over reps launches, CUDA events."""
     import torch
@@ -154,14 +396,14 @@ def step_times(pft, cfg, staged, replace_lost=True, warmup=10):
     """CUDA-event time of each sequence_step_device over the staged frames
     (ms), after ``warmup`` steps."""
     import torch
-    pyr, x, y, v, _, _ = pft.select_step_device(staged[0], cfg, N_FEATURES)
+    pyr, x, y, v, aff, _ = pft.select_step_device(staged[0], cfg, N_FEATURES)
     events = []
     for img in staged[1:]:
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
-        pyr, x, y, v, _, _, _ = pft.sequence_step_device(pyr, img, x, y, v, cfg,
-                                                         replace_lost)
+        pyr, x, y, v, aff, _, _ = pft.sequence_step_device(
+            pyr, img, x, y, v, cfg, replace_lost, aff=aff)
         e1.record()
         events.append((e0, e1))
     torch.cuda.synchronize()
@@ -171,28 +413,29 @@ def step_times(pft, cfg, staged, replace_lost=True, warmup=10):
 def host_wall_ms(pft, cfg, staged, replace_lost, warmup=10):
     """Host wall time per sequence_step_device, one sync at the end (ms)."""
     import torch
-    pyr, x, y, v, _, _ = pft.select_step_device(staged[0], cfg, N_FEATURES)
+    pyr, x, y, v, aff, _ = pft.select_step_device(staged[0], cfg, N_FEATURES)
     for img in staged[1:warmup + 1]:
-        pyr, x, y, v, _, _, _ = pft.sequence_step_device(pyr, img, x, y, v, cfg,
-                                                         replace_lost)
+        pyr, x, y, v, aff, _, _ = pft.sequence_step_device(
+            pyr, img, x, y, v, cfg, replace_lost, aff=aff)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for img in staged[warmup + 1:]:
-        pyr, x, y, v, _, _, _ = pft.sequence_step_device(pyr, img, x, y, v, cfg,
-                                                         replace_lost)
+        pyr, x, y, v, aff, _, _ = pft.sequence_step_device(
+            pyr, img, x, y, v, cfg, replace_lost, aff=aff)
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3 / (len(staged) - warmup - 1)
 
 
-def profile_phase(pft, cfg, frames, staged, root, n_prof=30, repeats=3):
+def profile_phase(pft, cfg, frames, staged, root, tag, n_prof=30, repeats=3):
     """Where the step's time goes (``--profile``): the step time three ways,
     each repeated, then a torch.profiler trace of n_prof refill steps whose
     kernels give the device's busy time and idle share per step. The trace
-    is written to build/profile/step_trace.json."""
+    is written to build/profile/step_trace_<tag>.json."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
-    phase(f"profile: step time, {repeats} repeats; then {n_prof} traced steps")
+    phase(f"profile, {tag}: step time, {repeats} repeats; then {n_prof} "
+          "traced steps")
     for rep in range(repeats):
         ev = {rl: np.median(step_times(pft, cfg, staged, rl))
               for rl in (True, False)}
@@ -205,17 +448,18 @@ def profile_phase(pft, cfg, frames, staged, root, n_prof=30, repeats=3):
               f"refill, {ev[False]:.4f} ms without; host wall per step "
               f"{wall[True]:.4f} ms with refill, {wall[False]:.4f} ms without;"
               f" track_sequence_device {entry:.4f} ms per numpy frame")
-    pyr, x, y, v, _, _ = pft.select_step_device(staged[0], cfg, N_FEATURES)
+    pyr, x, y, v, aff, _ = pft.select_step_device(staged[0], cfg, N_FEATURES)
     for img in staged[1:11]:
-        pyr, x, y, v, _, _, _ = pft.sequence_step_device(pyr, img, x, y, v, cfg)
+        pyr, x, y, v, aff, _, _ = pft.sequence_step_device(pyr, img, x, y, v,
+                                                           cfg, aff=aff)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for img in staged[11:11 + n_prof]:
-            pyr, x, y, v, _, _, _ = pft.sequence_step_device(pyr, img, x, y, v,
-                                                             cfg)
+            pyr, x, y, v, aff, _, _ = pft.sequence_step_device(
+                pyr, img, x, y, v, cfg, aff=aff)
         torch.cuda.synchronize()
-    out = root / "build" / "profile" / "step_trace.json"
+    out = root / "build" / "profile" / f"step_trace_{tag}.json"
     out.parent.mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(out))
     trace = json.loads(out.read_text())
@@ -283,8 +527,10 @@ def main(argv=None) -> int:
     from pyfeaturetrack_tpu_torch.features import (
         KLT_LARGE_RESIDUE, KLT_MAX_ITERATIONS, KLT_OOB, KLT_SMALL_DET,
         KLT_TRACKED)
-    from pyfeaturetrack_tpu_torch.ops import (cuda_eig, cuda_lk, cuda_pyramid,
-                                              cuda_select)
+    from pyfeaturetrack_tpu_torch.ops import (cuda_affine, cuda_eig, cuda_lk,
+                                              cuda_pyramid, cuda_select)
+    from pyfeaturetrack_tpu_torch.ops.affine import affine_consistency_check
+    from pyfeaturetrack_tpu_torch.ops.interp import gather_window
     from pyfeaturetrack_tpu_torch.ops.select_device import (
         _candidate_grid, candidate_map)
     from pyfeaturetrack_tpu_torch.utils import cuda
@@ -340,7 +586,8 @@ def main(argv=None) -> int:
         k1_plain = time_ms(lambda: build_frame(img0))
     print(f"K1 full pyramid build: kernel {k1_ms:.4f} ms, plain "
           f"{k1_plain:.4f} ms")
-    report["K1"] = dict(max_abs_err=k1_err, ms=k1_ms, plain_ms=k1_plain)
+    report["K1"] = dict(max_abs_err=k1_err, ms=k1_ms, plain_ms=k1_plain,
+                        work=k1_work(cfg, H, W))
 
     # K3 on the level-0 gradients
     pyr0 = build_frame(img0)
@@ -363,7 +610,8 @@ def main(argv=None) -> int:
     with cuda.reference_path():
         k3_plain = time_ms(lambda: cuda_eig.min_eig_map(gx0, gy0, ww, wh))
     print(f"K3: kernel {k3_ms:.4f} ms, plain {k3_plain:.4f} ms")
-    report["K3"] = dict(max_abs_err=float(k3_err), ms=k3_ms, plain_ms=k3_plain)
+    report["K3"] = dict(max_abs_err=float(k3_err), ms=k3_ms, plain_ms=k3_plain,
+                        work=k3_work(cfg, H, W))
 
     # K4: initial selection (budget 1000) and a refill (budget of tens)
     n = N_FEATURES
@@ -404,9 +652,10 @@ def main(argv=None) -> int:
             pms = time_ms(lambda: cuda_select.greedy_extract(
                 cand, min_eig=1, dg=dg, budget=budget, max_out=n), reps=2)
         print(f"K4 {name}: kernel {kms:.4f} ms, plain {pms:.4f} ms")
-        k4_cases[name] = (kms, pms)
+        k4_cases[name] = (kms, pms, k4_work(cand, got[3], dg, n))
     report["K4"] = dict(max_abs_err=float(k4_err), ms=k4_cases["refill"][0],
-                        plain_ms=k4_cases["refill"][1])
+                        plain_ms=k4_cases["refill"][1],
+                        work=k4_cases["refill"][2])
 
     # K2: both levels of the real tracked pair (frame 0 -> frame 1, every
     # lane TRACKED), then a status mix at the same shapes whose lanes end
@@ -457,7 +706,7 @@ def main(argv=None) -> int:
                           f"{want[3][i].item()})")
                 fail(f"K2 ({name}, level {r}) differs from its plain version")
             if name == "tracked pair" and r == 0:
-                k2_in = args
+                k2_in, k2_out = args, got
     k2_codes = {KLT_TRACKED, KLT_SMALL_DET, KLT_MAX_ITERATIONS, KLT_OOB,
                 KLT_LARGE_RESIDUE}
     if not k2_codes <= k2_seen:
@@ -466,7 +715,131 @@ def main(argv=None) -> int:
     with cuda.reference_path():
         k2_plain = time_ms(lambda: cuda_lk.lk_level(*k2_in))
     print(f"K2 level 0: kernel {k2_ms:.4f} ms, plain {k2_plain:.4f} ms")
-    report["K2"] = dict(max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain)
+    report["K2"] = dict(max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain,
+                        work=k2_work(cfg, k2_in[-1], k2_out[3]))
+    torch.cuda.synchronize()
+
+    # ---- phase 3, config 3: K1 and K2 at 3 levels / subsampling 2, K6 ----
+    cfg3 = config3()
+    phase(f"kernels vs plain versions, config 3 (affine mode 2, "
+          f"{cfg3.nPyramidLevels} levels, subsampling {cfg3.subsampling}, "
+          f"border {cfg3.borderx}, {cfg3.affine_window_width}x"
+          f"{cfg3.affine_window_height} affine window)")
+    sim = make_similarity_frames(N_FRAMES)
+    s0 = torch.as_tensor(sim[0], device=dev).to(torch.float32)
+    s1 = torch.as_tensor(sim[1], device=dev).to(torch.float32)
+    taps3 = cuda_pyramid.level_taps(cfg3)
+    lvl_in = s0
+    for level in range(cfg3.nPyramidLevels):
+        smooth, with_pyr = level == 0, level < cfg3.nPyramidLevels - 1
+        got = cuda_pyramid.pyramid_level(lvl_in, taps3, smooth, with_pyr)
+        with cuda.reference_path():
+            want = cuda_pyramid.pyramid_level(lvl_in, taps3, smooth, with_pyr)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("base", "gradx", "grady", "next"), got, want):
+            if a is None:
+                continue
+            err = (a - b).abs().max().item()
+            k1_err = max(k1_err, err)
+            print(f"K1 config 3, level {level} {name} {tuple(a.shape)}: max "
+                  f"abs {err:.3g}, bit-equal {torch.equal(a, b)}")
+        lvl_in = got[3]
+    if k1_err > 1e-3:
+        fail(f"K1 (config 3) max abs error {k1_err} > 1e-3 (0..255 scale)")
+    report["K1"]["max_abs_err"] = k1_err
+
+    sel3 = pft.select_step_device(s0, cfg3, n)
+    pyr_s0 = sel3[0]
+    x3, y3, v3 = sel3[1], sel3[2], sel3[3]
+    pyr_s1 = pft.build_track_pyramids(s1, cfg3)
+    k2_cases3 = [("similarity pair", cfg3, s0, s1, x3, y3, v3 >= 0),
+                 ("status mix", cfg3, mix0, mix1, mix_x, mix_y, all_live)]
+    for name, kcfg, fa, fb, x, y, live in k2_cases3:
+        pa, pb = (pft.build_track_pyramids(f, kcfg) for f in (fa, fb))
+        for r, args, got, want in k2_levels(pa, pb, x, y, live, kcfg, cuda_lk,
+                                             cuda.reference_path):
+            active = args[-1]
+            codes = got[2][active].cpu().numpy()
+            err = max((a - b).abs().max().item() for a, b in zip(got[:2],
+                                                                   want[:2]))
+            k2_err = max(k2_err, err)
+            same = all(torch.equal(a, b) for a, b in zip(got, want))
+            print(f"K2 config 3, {name}, level {r}: {int(active.sum().item())} "
+                  f"active, statuses (0,-1..-5) "
+                  f"{np.bincount(-codes, minlength=6).tolist()}, bit-equal "
+                  f"{same}")
+            if not same:
+                fail(f"K2 (config 3, {name}, level {r}) differs from its plain "
+                     "version")
+    report["K2"]["max_abs_err"] = k2_err
+
+    # K6: a real pair (frame 0 -> 1 of the similarity motion, templates at
+    # the selected features, starts at the known motion, every lane
+    # checked) and the affine status mix, in modes 0, 1 and 2
+    hw3, hh3 = cfg3.affine_window_width // 2, cfg3.affine_window_height // 2
+    tmpl3 = gather_window(pyr_s0.img[0], x3, y3, hw3, hh3).contiguous()
+    px_, py_ = predicted(x3.cpu().numpy().astype(np.float64),
+                         y3.cpu().numpy().astype(np.float64))
+    real_args = (tmpl3, pyr_s1.img[0], pyr_s1.gradx[0], pyr_s1.grady[0],
+                 torch.as_tensor(px_, dtype=torch.float32, device=dev),
+                 torch.as_tensor(py_, dtype=torch.float32, device=dev),
+                 torch.eye(2, device=dev).repeat(n, 1, 1).contiguous(),
+                 torch.ones(n, dtype=torch.bool, device=dev))
+    mix_args, groups = make_affine_mix(cfg3, dev)
+    k6_err = 0.0
+    built_for = {"tracked": KLT_TRACKED, "flat": KLT_SMALL_DET,
+                 "noise": KLT_LARGE_RESIDUE, "edge": KLT_OOB, "drift": KLT_OOB}
+    for mode in (0, 1, 2):
+        mcfg = cfg3.replace(affineConsistencyCheck=mode)
+        for name, args in (("real pair", real_args), ("status mix", mix_args)):
+            got = cuda_affine.affine_track_batch(*args, mcfg)
+            with cuda.reference_path():
+                want = cuda_affine.affine_track_batch(*args, mcfg)
+            torch.cuda.synchronize()
+            err = max((a - b).abs().max().item()
+                      for a, b in zip(got[:3], want[:3]))
+            k6_err = max(k6_err, err)
+            same = all(torch.equal(a, b) for a, b in zip(got, want))
+            codes = got[3].cpu().numpy()
+            nit = got[4].cpu().numpy()
+            print(f"K6 mode {mode}, {name}: statuses (0,-1..-5) "
+                  f"{np.bincount(-codes, minlength=6).tolist()}, iterations "
+                  f"{np.bincount(nit).tolist()}, bit-equal {same}")
+            if not same:
+                bad = torch.nonzero((got[0] != want[0]) | (got[1] != want[1])
+                                    | (got[3] != want[3])
+                                    | (got[4] != want[4])).flatten()[:20]
+                for i in bad.tolist():
+                    print(f"  lane {i}: kernel ({got[0][i].item()}, "
+                          f"{got[1][i].item()}, {got[3][i].item()}, it "
+                          f"{got[4][i].item()}) plain ({want[0][i].item()}, "
+                          f"{want[1][i].item()}, {want[3][i].item()}, it "
+                          f"{want[4][i].item()})")
+                fail(f"K6 (mode {mode}, {name}) differs from its plain version")
+            if name == "status mix":
+                per = {g: np.bincount(-codes[groups == g], minlength=6).tolist()
+                       for g in built_for.keys() | {"unchecked"}}
+                print(f"  status mix by group (0,-1..-5): {per}")
+                for g, code in built_for.items():
+                    if not (codes[groups == g] == code).any():
+                        fail(f"K6 mode {mode}: the {g} lanes never ended in "
+                             f"status {code}")
+                un = torch.as_tensor(groups == "unchecked", device=dev)
+                if not (torch.equal(got[0][un], args[4][un])
+                        and torch.equal(got[2][un], args[6][un])
+                        and bool((got[3][un] == KLT_TRACKED).all())
+                        and bool((got[4][un] == 0).all())):
+                    fail(f"K6 mode {mode}: unchecked lanes did not pass "
+                         "through")
+    k6_out = cuda_affine.affine_track_batch(*real_args, cfg3)
+    k6_ms = time_ms(lambda: cuda_affine.affine_track_batch(*real_args, cfg3))
+    with cuda.reference_path():
+        k6_plain = time_ms(lambda: cuda_affine.affine_track_batch(
+            *real_args, cfg3), reps=3)
+    print(f"K6 mode 2, real pair, {n} lanes: kernel {k6_ms:.4f} ms, plain "
+          f"{k6_plain:.4f} ms")
+    report["K6"] = dict(max_abs_err=k6_err, ms=k6_ms, plain_ms=k6_plain,
+                        work=k6_work(cfg3, real_args[7], k6_out[4]))
     torch.cuda.synchronize()
 
     # ---- phase 4: the main path ----
@@ -531,8 +904,111 @@ def main(argv=None) -> int:
     print(f"main path per-frame step (track + refill), median of "
           f"{len(ms)}: {np.median(ms):.4f} ms (min {min(ms):.4f}, max "
           f"{max(ms):.4f})")
+    del staged
+
+    # ---- phase 5: the config-3 path (affine-consistency check) ----
+    phase(f"affine path: track_sequence_device, config 3, {N_FRAMES} frames "
+          f"under a similarity motion, {N_FEATURES} features, replace-lost")
+    mods3 = dict(mods, K6=cuda_affine)
+    for m in mods3.values():
+        m.launches = 0
+    t0 = time.perf_counter()
+    xs, ys, vs = pft.track_sequence_device(sim, cfg=cfg3, n_features=N_FEATURES,
+                                           replace_lost=True, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts3 = {k: m.launches for k, m in mods3.items()}
+    print(f"launches in the config-3 run: {counts3} ({wall:.2f} s wall, first "
+          "calls included)")
+    for k, c in counts3.items():
+        if c <= 0:
+            fail(f"{k} was never launched on the config-3 path")
+    if not (np.isfinite(xs).all() and np.isfinite(ys).all()):
+        fail("non-finite positions (config 3)")
+    if xs.shape != (N_FRAMES, N_FEATURES):
+        fail(f"config-3 feature table shape {xs.shape}")
+    pair = (vs[1:] == KLT_TRACKED) & (vs[:-1] >= 0)
+    px_, py_ = predicted(xs[:-1][pair].astype(np.float64),
+                         ys[:-1][pair].astype(np.float64))
+    ex, ey = xs[1:][pair] - px_, ys[1:][pair] - py_
+    refills = int((vs[1:] > 0).sum())
+    print(f"tracked pairs {int(pair.sum())}; error against the known motion: "
+          f"median ({np.median(ex):.4f}, {np.median(ey):.4f}) px, median abs "
+          f"({np.median(np.abs(ex)):.4f}, {np.median(np.abs(ey)):.4f}) px, "
+          f"99th percentile abs ({np.percentile(np.abs(ex), 99):.4f}, "
+          f"{np.percentile(np.abs(ey), 99):.4f}) px; refilled slots {refills}; "
+          f"live in last frame {int((vs[-1] >= 0).sum())}")
+    if max(abs(np.median(ex)), abs(np.median(ey)), np.median(np.abs(ex)),
+           np.median(np.abs(ey))) > DRIFT_TOL:
+        fail("the config-3 tracks do not follow the known motion")
+    if refills == 0:
+        fail("no refill fired (config 3)")
+
+    # the affine stage on its own, step by step over the whole sequence
+    # (kernels, outside the counted run): templates held and lanes the
+    # stage rejects after K2 tracked them
+    staged3 = [torch.as_tensor(fr, device=dev).to(torch.float32) for fr in sim]
+
+    def affine_steps(n_frames):
+        pyr, x, y, v, aff, _ = pft.select_step_device(staged3[0], cfg3,
+                                                      N_FEATURES)
+        hist, held, rejected = [(x, y, v)], [], []
+        for img in staged3[1:n_frames]:
+            pyr_new = pft.build_track_pyramids(img, cfg3)
+            tx, ty, tv = pft.track_features_pyramids(pyr, pyr_new, x, y, v, cfg3)
+            after = affine_consistency_check(
+                pyr, pyr_new, pft.FeatureState(x, y, v, aff),
+                pft.FeatureState(tx, ty, tv, aff), cfg3)
+            rejected.append(((tv == KLT_TRACKED)
+                             & (after.val != KLT_TRACKED)).sum())
+            pyr, x, y, v, aff, _, _ = pft.sequence_step_device(
+                pyr, img, x, y, v, cfg3, True, aff=aff)
+            hist.append((x, y, v))
+            held.append(aff.valid.sum())
+        table = tuple(torch.stack([h[j] for h in hist]).cpu().numpy()
+                      for j in range(3))
+        return table, aff, torch.stack(held).cpu().numpy(), \
+            torch.stack(rejected).cpu().numpy()
+
+    table, aff_k, held, rejected = affine_steps(N_FRAMES)
+    print(f"templates held per frame: min {held.min()}, median "
+          f"{int(np.median(held))}, last {held[-1]}; lanes the affine stage "
+          f"rejected: {int(rejected.sum())} over {N_FRAMES - 1} steps "
+          f"(max {rejected.max()} in one step)")
+    if not all(np.array_equal(a, b) for a, b in zip(table, (xs, ys, vs))):
+        fail("the step-by-step config-3 run differs from track_sequence_device")
+    if held[-1] < N_FEATURES // 2:
+        fail("the affine stage holds templates for under half the features")
+    if rejected.sum() == 0:
+        fail("the affine stage rejected no lane")
+
+    (kx, ky, kv), aff_k, _, _ = affine_steps(N_PLAIN_FRAMES)
+    with cuda.reference_path():
+        (px, py, pv), aff_p, _, _ = affine_steps(N_PLAIN_FRAMES)
+    diff = np.argwhere((pv != kv) | (px != kx) | (py != ky))
+    aff_same = {f: torch.equal(getattr(aff_k, f), getattr(aff_p, f))
+                for f in aff_k._fields}
+    print(f"plain-version run, config 3, {N_PLAIN_FRAMES} frames: {len(diff)} "
+          f"(frame, lane) entries differ from the kernel run; AffineState "
+          f"fields equal: {aff_same}")
+    for f, i in diff[:20]:
+        print(f"  frame {f} lane {i}: kernel ({kx[f, i]}, {ky[f, i]}, "
+              f"{kv[f, i]}) plain ({px[f, i]}, {py[f, i]}, {pv[f, i]})")
+    if len(diff) or not (aff_same["A"] and aff_same["valid"]):
+        fail("the plain versions' config-3 table or warps differ from the "
+             "kernels'")
+    report["K6"]["launches"] = counts3["K6"]
+
+    ms3 = step_times(pft, cfg3, staged3)
+    print(f"config-3 per-frame step (track + affine check + refill), median "
+          f"of {len(ms3)}: {np.median(ms3):.4f} ms (min {min(ms3):.4f}, max "
+          f"{max(ms3):.4f}); card {smi}")
     if profile:
-        profile_phase(pft, cfg, frames, staged, root)
+        profile_phase(pft, cfg3, sim, staged3, root, "config3")
+        staged = [torch.as_tensor(fr, device=dev).to(torch.float32)
+                  for fr in frames]
+        profile_phase(pft, cfg, frames, staged, root, "default")
+    del staged3
 
     names = {"K1": ("pyramid", "pyfeaturetrack_tpu_torch/csrc/pyramid.cu",
                     "pyfeaturetrack_tpu/ops/pallas_pyramid.py:132"),
@@ -541,16 +1017,21 @@ def main(argv=None) -> int:
              "K3": ("min_eig_map", "pyfeaturetrack_tpu_torch/csrc/eig.cu",
                     "pyfeaturetrack_tpu/ops/pallas_eig.py:100"),
              "K4": ("greedy_extract", "pyfeaturetrack_tpu_torch/csrc/extract.cu",
-                    "pyfeaturetrack_tpu/ops/pallas_select.py:251")}
+                    "pyfeaturetrack_tpu/ops/pallas_select.py:251"),
+             "K6": ("affine_track", "pyfeaturetrack_tpu_torch/csrc/affine.cu",
+                    "pyfeaturetrack_tpu/ops/pallas_affine_vec.py:407 and "
+                    "pyfeaturetrack_tpu/ops/pallas_affine_fused.py:330")}
     kernels = []
-    for k in ("K1", "K2", "K3", "K4"):
+    for k in ("K1", "K2", "K3", "K4", "K6"):
         name, source, replaces = names[k]
         r = report[k]
+        b_ms, b_by = bound_ms(*r["work"])
         kernels.append({"name": f"{k} {name}", "route": "cuda",
                         "source": source, "replaces": replaces,
                         "launches": r["launches"],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                        "plain_ms": r["plain_ms"]})
+                        "plain_ms": r["plain_ms"], "bound_ms": b_ms,
+                        "bound_by": b_by, "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

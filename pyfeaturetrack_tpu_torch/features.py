@@ -11,7 +11,7 @@ after tracking, exactly like the reference. Status codes are bit-identical
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -27,15 +27,55 @@ KLT_LARGE_RESIDUE = -5
 KLT_FB_INCONSISTENT = -6
 
 
+class AffineState(NamedTuple):
+    """Per-feature first-frame template + warp for the consistency check.
+
+    Reference parity: klt.py -> KLT_Feature aff_* fields. Templates are
+    affine_window-sized bilinear samples centred on the feature; ``x``/``y``
+    record the capture anchor (metadata: the matching math does not read
+    them)."""
+    img: torch.Tensor     # [N, T, T] template intensities
+    gradx: torch.Tensor   # [N, T, T]
+    grady: torch.Tensor   # [N, T, T]
+    x: torch.Tensor       # [N] capture anchor (frame-1 position)
+    y: torch.Tensor       # [N]
+    A: torch.Tensor       # [N, 2, 2] warp, rows [[Axx, Axy], [Ayx, Ayy]]
+    valid: torch.Tensor   # [N] bool: template captured
+    # [N] int32 Gauss-Newton iteration hint of the JAX package's TPU
+    # kernel (tile ordering); the math never reads it. None is normalized
+    # to zeros at the affine stage.
+    nit: Optional[torch.Tensor] = None
+
+
 class FeatureState(NamedTuple):
     """Structure-of-arrays feature list (= reference KLT_FeatureList)."""
     x: torch.Tensor    # [N] float32
     y: torch.Tensor    # [N] float32
     val: torch.Tensor  # [N] int32: eigenvalue after select, status after track
+    aff: Optional[AffineState] = None
 
     @property
     def nFeatures(self) -> int:
         return self.x.shape[-1]
+
+
+def identity_warps(n: int, device) -> torch.Tensor:
+    """[n, 2, 2] float32 identity warps."""
+    return torch.eye(2, dtype=torch.float32, device=device).expand(
+        n, 2, 2).contiguous()
+
+
+def reset_affine(aff: AffineState, drop_mask: torch.Tensor) -> AffineState:
+    """Invalidate templates for features in ``drop_mask`` (= the reference
+    freeing aff_img and resetting the warp to identity on track loss)."""
+    eye = identity_warps(aff.A.shape[0], aff.A.device)
+    nit = aff.nit
+    if nit is not None:
+        nit = torch.where(drop_mask, 0, nit)
+    return aff._replace(
+        valid=aff.valid & ~drop_mask,
+        A=torch.where(drop_mask[:, None, None], eye, aff.A),
+        nit=nit)
 
 
 def feature_state_from_numpy(arr: np.ndarray,

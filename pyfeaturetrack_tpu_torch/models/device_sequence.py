@@ -6,18 +6,25 @@ select -> (track -> replace-lost)* recurrence; port of
 
 1. K1 builds the new frame's pyramid and gradients;
 2. K2 runs pyramidal LK for every live feature, one launch per level;
-3. refill: K3 takes the min-eig map from the level-0 gradients and K4
-   extracts replacements for the lost slots.
+3. when ``cfg.affineConsistencyCheck >= 0``, the affine-consistency stage
+   (``ops/affine.affine_consistency_check``): templates are captured on a
+   feature's first successful track and every later track is re-verified
+   against its template under a warp by K6, carrying the AffineState
+   (templates + warps) between steps;
+4. refill: K3 takes the min-eig map from the level-0 gradients and K4
+   extracts replacements for the lost slots; refilled slots lose their
+   templates (``reset_affine``).
 
 The refill gate. The JAX step refills under ``lax.cond(any(val < 0))``. In
 eager PyTorch that test is a host sync every frame, so the port always
 launches K3 and K4 and K4 reads its budget (the number of lost slots) on
 the device: with budget 0 it exits at once and ``fill_slots`` changes
-nothing, so the results are identical to the gated step. The feature
-table comes back to the host once, at the end of ``track_sequence_device``.
+nothing, and ``reset_affine`` drops the templates of an empty mask, so
+the results are identical to the gated step. The affine stage's template
+capture is applied by mask for the same reason. The feature table comes
+back to the host once, at the end of ``track_sequence_device``.
 
-Out of this port so far (raise NotImplementedError): the affine
-consistency stage (``affineConsistencyCheck >= 0``), ``image_dtype`` other
+Out of this port so far (raise NotImplementedError): ``image_dtype`` other
 than float32, and ``sequence_chain_device``.
 """
 
@@ -29,7 +36,8 @@ import numpy as np
 import torch
 
 from ..config import TrackerConfig, create_config
-from ..features import KLT_NOT_FOUND
+from ..features import KLT_NOT_FOUND, FeatureState, reset_affine
+from ..ops.affine import affine_consistency_check, make_affine_state
 from ..ops.cuda_eig import min_eig_map
 from ..ops.cuda_pyramid import level_taps, pyramid_level
 from ..ops.select_device import (DEFAULT_TOP_K,
@@ -39,10 +47,6 @@ from ..ops.track import (TrackPyramids, build_track_pyramids,
 
 
 def _check_cfg(cfg) -> None:
-    if cfg.affineConsistencyCheck >= 0:
-        raise NotImplementedError(
-            "affineConsistencyCheck >= 0: the affine stage is not in the "
-            "port yet")
     if cfg.image_dtype != "float32":
         raise NotImplementedError(
             f"image_dtype={cfg.image_dtype!r}: the port stores float32 "
@@ -86,8 +90,9 @@ def select_step_device(img, cfg, n_features: int,
 
     ``img``: [H, W] tensor (used on its own device unless ``device`` is
     given) or array (sent to ``device``, default "cuda").
-    Returns (pyr, x, y, val, aff, exhausted); ``aff`` is None (no affine
-    stage) and ``exhausted`` is a False device scalar."""
+    Returns (pyr, x, y, val, aff, exhausted); ``aff`` is a fresh
+    AffineState when ``cfg.affineConsistencyCheck >= 0``, else None, and
+    ``exhausted`` is a False device scalar."""
     _check_cfg(cfg)
     img = _frame(img, device)
     pyr = build_track_pyramids(img, cfg)
@@ -99,33 +104,44 @@ def select_step_device(img, cfg, n_features: int,
                     device=dev)
     x, y, val, _, exhausted = select_features_from_eig_device(
         eig, x0, y0, v0, cfg, replacing=False, top_k=top_k)
-    return pyr, x, y, val, None, exhausted
+    aff = (make_affine_state(n_features, cfg, dev)
+           if cfg.affineConsistencyCheck >= 0 else None)
+    return pyr, x, y, val, aff, exhausted
 
 
 def sequence_step_device(pyr_prev: TrackPyramids, img_new, x: torch.Tensor,
                          y: torch.Tensor, val: torch.Tensor, cfg,
                          replace_lost: bool = True,
                          top_k: int = DEFAULT_TOP_K, aff=None, carry=None):
-    """One frame step: track into ``img_new``, then refill lost slots, all
-    on the feature arrays' device with no host sync.
+    """One frame step: track into ``img_new``, run the affine-consistency
+    stage when configured, then refill lost slots, all on the feature
+    arrays' device with no host sync.
 
-    Returns (pyr_new, x, y, val, aff, exhausted, carry); thread ``carry``
-    back with ``pyr_new`` (the port returns it with ``ok`` cleared: no
-    window reuse yet, identical results)."""
+    Returns (pyr_new, x, y, val, aff, exhausted, carry); thread ``aff``
+    (the AffineState) and ``carry`` back with ``pyr_new`` (the port
+    returns ``carry`` with ``ok`` cleared: no window reuse yet, identical
+    results)."""
     _check_cfg(cfg)
-    if aff is not None:
-        raise NotImplementedError("the affine stage is not in the port yet")
     img_new = _frame(img_new, x.device)
     pyr_new = build_track_pyramids(img_new, cfg)
     nx, ny, nval, carry = track_features_pyramids_carry(
         pyr_prev, pyr_new, x, y, val, cfg, carry=carry)
+    if cfg.affineConsistencyCheck >= 0:
+        after = affine_consistency_check(
+            pyr_prev, pyr_new, FeatureState(x, y, val, aff),
+            FeatureState(nx, ny, nval, aff), cfg)
+        nx, ny, nval, aff = after.x, after.y, after.val, after.aff
     exhausted = torch.zeros((), dtype=torch.bool, device=x.device)
     if replace_lost:
         # always launched; budget 0 (nothing lost) leaves every slot as is
         eig = _selection_eig_from_pyr(img_new, pyr_new, cfg)
+        lost = nval < 0
         nx, ny, nval, _, exhausted = select_features_from_eig_device(
             eig, nx, ny, nval, cfg, replacing=True, top_k=top_k)
-    return pyr_new, nx, ny, nval, None, exhausted, carry
+        if aff is not None:
+            # refilled slots are fresh features: their templates recapture
+            aff = reset_affine(aff, lost)
+    return pyr_new, nx, ny, nval, aff, exhausted, carry
 
 
 def sequence_chain_device(*args, **kwargs):
@@ -146,13 +162,13 @@ def track_sequence_device(frames: Iterable, cfg: Optional[TrackerConfig]
     cfg = (cfg if cfg is not None else create_config()).replace(
         sequentialMode=True).validated_window()
     frames = list(frames)
-    pyr, x, y, val, _, _ = select_step_device(frames[0], cfg, n_features,
-                                              top_k, device=device)
+    pyr, x, y, val, aff, _ = select_step_device(frames[0], cfg, n_features,
+                                                top_k, device=device)
     hist = [(x, y, val)]
     carry = None
     for frame in frames[1:]:
-        pyr, x, y, val, _, _, carry = sequence_step_device(
-            pyr, frame, x, y, val, cfg, replace_lost, top_k, None, carry)
+        pyr, x, y, val, aff, _, carry = sequence_step_device(
+            pyr, frame, x, y, val, cfg, replace_lost, top_k, aff, carry)
         hist.append((x, y, val))
     return tuple(torch.stack([h[j] for h in hist]).cpu().numpy()
                  for j in range(3))

@@ -11,6 +11,52 @@ from __future__ import annotations
 import torch
 
 
+def _int_floor(v: torch.Tensor) -> torch.Tensor:
+    """floor(v) as int32, bounded so runaway lanes convert defined (same
+    clamp as csrc/lk.cu and csrc/affine.cu)."""
+    return torch.floor(v).clamp(-1.0e8, 1.0e8).to(torch.int32)
+
+
+def bilinear(img: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor
+             ) -> torch.Tensor:
+    """Sample ``img[y, x]`` bilinearly at float coords of any (equal)
+    shape (interp.py:14-35 of the JAX package). The top-left tap is
+    clamped to [0, w-2] x [0, h-2] for memory safety; callers mask
+    validity separately, so the clamp never changes an active lane."""
+    h, w = img.shape[-2], img.shape[-1]
+    xt = _int_floor(xs)
+    yt = _int_floor(ys)
+    ax = xs - xt.to(xs.dtype)
+    ay = ys - yt.to(ys.dtype)
+    x0 = xt.clamp(0, w - 2).long()
+    y0 = yt.clamp(0, h - 2).long()
+    flat = img.reshape(-1)
+    i00 = y0 * w + x0
+    p00 = flat[i00]
+    p01 = flat[i00 + 1]
+    p10 = flat[i00 + w]
+    p11 = flat[i00 + w + 1]
+    return ((1.0 - ax) * (1.0 - ay) * p00 + ax * (1.0 - ay) * p01 +
+            (1.0 - ax) * ay * p10 + ax * ay * p11)
+
+
+def window_coords(x: torch.Tensor, y: torch.Tensor, hw: int, hh: int):
+    """Per-feature window sample coordinates (xs, ys) [N, 2hh+1, 2hw+1]:
+    xs[n, j, i] = x[n] + (i - hw), ys[n, j, i] = y[n] + (j - hh)."""
+    offs_x = torch.arange(-hw, hw + 1, dtype=x.dtype, device=x.device)
+    offs_y = torch.arange(-hh, hh + 1, dtype=y.dtype, device=y.device)
+    xs = x[:, None, None] + offs_x[None, None, :]
+    ys = y[:, None, None] + offs_y[None, :, None]
+    return torch.broadcast_tensors(xs, ys)
+
+
+def gather_window(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+                  hw: int, hh: int) -> torch.Tensor:
+    """Bilinear window stack [N, 2hh+1, 2hw+1] centred at (x, y)."""
+    xs, ys = window_coords(x, y, hw, hh)
+    return bilinear(img, xs, ys)
+
+
 def patch_indices(img_shape, x: torch.Tensor, y: torch.Tensor, hw: int,
                   hh: int):
     """(rows [N,h+1,1], cols [N,1,w+1], ax [N], ay [N]) for the integer
@@ -23,8 +69,8 @@ def patch_indices(img_shape, x: torch.Tensor, y: torch.Tensor, hw: int,
     smaller than the patch keeps every index in the image (its lanes are
     all out of bounds)."""
     hsz, wsz = img_shape[-2], img_shape[-1]
-    xt = torch.floor(x).clamp(-1.0e8, 1.0e8).to(torch.int32)
-    yt = torch.floor(y).clamp(-1.0e8, 1.0e8).to(torch.int32)
+    xt = _int_floor(x)
+    yt = _int_floor(y)
     ax = x - xt.to(x.dtype)
     ay = y - yt.to(y.dtype)
     x0 = (xt - hw).clamp(0, wsz - 2 - 2 * hw).clamp(min=0)

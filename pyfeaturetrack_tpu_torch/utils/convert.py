@@ -1,8 +1,8 @@
 """State that crosses over from the JAX package.
 
-The slice has no weights: a config plus pyramid and feature state is all a
-port step needs, so these three helpers let a test start a port step from
-exactly the state the JAX package produced. They take plain numpy arrays
+The slice has no weights: a config plus pyramid, feature and affine
+template state is all a port step needs, so these helpers let a test start
+a port step from exactly the state the JAX package produced. They take plain numpy arrays
 (or anything ``np.asarray`` accepts) and never import JAX.
 """
 
@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from ..config import TrackerConfig
+from ..features import AffineState
 from ..ops.track import TrackPyramids
 
 
@@ -42,3 +43,15 @@ def features_from_numpy(x, y, val, device="cpu"):
     """(x, y, val) arrays -> float32, float32, int32 [N] tensors."""
     return (_t(x, np.float32, device), _t(y, np.float32, device),
             _t(val, np.int32, device))
+
+
+def affine_state_from_numpy(img, gradx, grady, x, y, A, valid, nit=None,
+                            device="cpu") -> AffineState:
+    """The fields of an AffineState (e.g. ``[np.asarray(a) for a in
+    jax_aff]``) -> a port AffineState; ``nit`` None stays None."""
+    return AffineState(
+        img=_t(img, np.float32, device), gradx=_t(gradx, np.float32, device),
+        grady=_t(grady, np.float32, device), x=_t(x, np.float32, device),
+        y=_t(y, np.float32, device), A=_t(A, np.float32, device),
+        valid=_t(valid, np.bool_, device),
+        nit=None if nit is None else _t(nit, np.int32, device))

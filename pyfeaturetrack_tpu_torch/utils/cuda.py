@@ -1,7 +1,8 @@
 """Build, load and dispatch the port's hand-written CUDA kernels.
 
-All ``csrc/*.cu`` files are compiled by ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, ``build/torch_kernels/
+All ``csrc/*.cu`` files are compiled by ``nvcc`` for ``sm_90a`` (one
+``nvcc -c`` per source, all started together) and linked into one shared
+library with a plain C interface, ``build/torch_kernels/
 libpft_torch_kernels.so`` under the repository root, at the first kernel
 call; the library is rebuilt whenever a source is newer than it. It is
 loaded with ``ctypes``: every pointer and the stream pass as
@@ -33,7 +34,7 @@ _LIB_NAME = "libpft_torch_kernels.so"
 # -fmad=false: products and sums round separately, as in the plain
 # PyTorch versions (no fused multiply-add contraction).
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _lib = None
@@ -71,17 +72,37 @@ def build() -> Path:
             build_info.update(path=str(out), seconds=0.0, rebuilt=False)
         return out
     _BUILD.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in srcs if s.suffix == ".cu"]]
+    tag = f"{os.getpid()}.tmp"
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
+    jobs = []
+    for src in (s for s in srcs if s.suffix == ".cu"):
+        obj = _BUILD / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+        jobs.append((obj, cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    logs = []
+    for obj, cmd, proc in jobs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            for _, _, other in jobs:
+                other.kill()
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                               f"{' '.join(cmd)}\n{err}")
+        logs.append(err)
+    tmp = out.with_suffix(f".{tag}")
+    link = [nvcc, "-shared", "-o", str(tmp), *(str(o) for o, _, _ in jobs)]
+    res = subprocess.run(link, capture_output=True, text=True)
+    for obj, _, _ in jobs:
+        obj.unlink()
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+        raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                           f"{res.stderr}")
     os.replace(tmp, out)
-    build_info.update(path=str(out), seconds=seconds, rebuilt=True,
-                      command=" ".join(cmd), log=res.stderr)
+    build_info.update(path=str(out), seconds=time.perf_counter() - t0,
+                      rebuilt=True,
+                      command=" ".join(jobs[0][1][:-4] + ["-c", "<src>"]),
+                      log="".join(logs))
     return out
 
 

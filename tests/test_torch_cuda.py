@@ -4,17 +4,18 @@ device; on a GPU machine run them (no JAX needed) with
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
-Bars: K1, K3 and K4 bit-equal; K2 statuses and iterations equal and
-positions bit-equal (the kernels round and sum in their plain versions'
-order). Inputs are small seeded numpy images."""
+Bars: K1, K3 and K4 bit-equal; K2 and K6 statuses and iterations equal
+and positions (K6: and warps) bit-equal (the kernels round and sum in
+their plain versions' order). Inputs are small seeded numpy images."""
 
 import numpy as np
 import pytest
 import torch
 
 import pyfeaturetrack_tpu_torch as tpft
-from pyfeaturetrack_tpu_torch.ops import (cuda_eig, cuda_lk, cuda_pyramid,
-                                          cuda_select)
+from pyfeaturetrack_tpu_torch.ops import (cuda_affine, cuda_eig, cuda_lk,
+                                          cuda_pyramid, cuda_select)
+from pyfeaturetrack_tpu_torch.ops.interp import gather_window
 from pyfeaturetrack_tpu_torch.utils import cuda
 
 pytestmark = pytest.mark.gpu
@@ -140,5 +141,60 @@ def test_sequence_on_card_equals_plain_on_cpu(dev):
                                    device="cpu")
     for m, before in counts.items():
         assert m.launches > before
+    for a, b in zip(g, c):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2])
+@pytest.mark.parametrize("win", [(15, 15), (11, 17), (3, 3)])
+def test_affine_track_bit_equal(dev, mode, win):
+    """K6 against its plain version: lanes near and across the edges
+    (warp OOB), a flat block (SMALL_DET), fresh noise (LARGE_RESIDUE),
+    starts off the optimum (drift), scaled warps and unchecked lanes."""
+    ww, wh = win
+    cfg = tpft.create_config(affineConsistencyCheck=mode,
+                             affine_window_width=ww, affine_window_height=wh)
+    h, w = 120, 160
+    base = _texture(h + 8, w + 8, seed=21)
+    a = base[:h, :w].copy()
+    b = np.ascontiguousarray(base[1:h + 1, 2:w + 2])
+    a[70:110, 10:60] = b[70:110, 10:60] = 90.0
+    b[10:50, 100:150] = np.random.default_rng(2).uniform(0, 255, (40, 50))
+    p1 = tpft.build_track_pyramids(torch.tensor(a, device=dev), cfg)
+    p2 = tpft.build_track_pyramids(torch.tensor(b, device=dev), cfg)
+    rng = np.random.default_rng(mode)
+    n = 300
+    x = torch.tensor(rng.uniform(-2, w + 2, n), dtype=torch.float32,
+                     device=dev)
+    y = torch.tensor(rng.uniform(-2, h + 2, n), dtype=torch.float32,
+                     device=dev)
+    tmpl = gather_window(p1.img[0], x, y, ww // 2, wh // 2).contiguous()
+    off = torch.tensor(rng.uniform(-2.5, 0.5, (2, n)), dtype=torch.float32,
+                       device=dev)
+    A0 = torch.eye(2, device=dev).repeat(n, 1, 1) * torch.tensor(
+        rng.choice([1.0, 1.0, 1.05, 2.5], n), dtype=torch.float32,
+        device=dev)[:, None, None]
+    check = torch.tensor(rng.uniform(size=n) > 0.1, device=dev)
+    args = (tmpl, p2.img[0], p2.gradx[0], p2.grady[0], x - 2.0 + off[0],
+            y - 1.0 + off[1], A0.contiguous(), check, cfg)
+    got = cuda_affine.affine_track_batch(*args)
+    want = _plain(cuda_affine.affine_track_batch, *args)
+    for a_, b_ in zip(got, want):
+        assert torch.equal(a_, b_)
+    codes = set(got[3][check].tolist())
+    assert {0, -4}.issubset(codes), codes
+
+
+@pytest.mark.parametrize("mode", [0, 2])
+def test_affine_sequence_on_card_equals_plain_on_cpu(dev, mode):
+    base = _texture(120, 160, seed=17)
+    frames = [np.roll(base, 3 * i, axis=1) for i in range(6)]
+    cfg = tpft.create_config(mindist=8, affineConsistencyCheck=mode)
+    before = cuda_affine.launches
+    g = tpft.track_sequence_device(frames, cfg=cfg, n_features=30,
+                                   device="cuda")
+    c = tpft.track_sequence_device(frames, cfg=cfg, n_features=30,
+                                   device="cpu")
+    assert cuda_affine.launches > before
     for a, b in zip(g, c):
         np.testing.assert_array_equal(a, b)

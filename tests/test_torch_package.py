@@ -29,7 +29,8 @@ PKG = REPO / "pyfeaturetrack_tpu_torch"
 _KERNEL_MODULES = ("pyfeaturetrack_tpu_torch.ops.cuda_pyramid",
                    "pyfeaturetrack_tpu_torch.ops.cuda_lk",
                    "pyfeaturetrack_tpu_torch.ops.cuda_eig",
-                   "pyfeaturetrack_tpu_torch.ops.cuda_select")
+                   "pyfeaturetrack_tpu_torch.ops.cuda_select",
+                   "pyfeaturetrack_tpu_torch.ops.cuda_affine")
 
 
 def test_import_leaves_jax_out():
@@ -58,9 +59,9 @@ def test_no_jax_import_in_sources():
 
 def test_kernel_sources_present():
     names = sorted(p.name for p in (PKG / "csrc").glob("*.cu"))
-    for want in ("pyramid.cu", "lk.cu", "eig.cu", "extract.cu"):
+    for want in ("pyramid.cu", "lk.cu", "eig.cu", "extract.cu", "affine.cu"):
         assert want in names
-    for src in ("pyramid.cu", "lk.cu", "eig.cu", "extract.cu"):
+    for src in ("pyramid.cu", "lk.cu", "eig.cu", "extract.cu", "affine.cu"):
         head = (PKG / "csrc" / src).read_text()[:400]
         assert "Replaces pyfeaturetrack_tpu/ops/pallas_" in head, src
 
@@ -154,11 +155,10 @@ def test_out_of_slice_parts_raise():
         sequence_chain_device)
     from pyfeaturetrack_tpu_torch.ops.track import fb_reject
     frames = [np.zeros((64, 80), np.float32)] * 2
-    for cfg in (tpft.create_config(affineConsistencyCheck=0),
-                tpft.create_config(image_dtype="bfloat16")):
-        with pytest.raises(NotImplementedError):
-            tpft.track_sequence_device(frames, cfg=cfg, n_features=4,
-                                       device="cpu")
+    with pytest.raises(NotImplementedError):
+        tpft.track_sequence_device(
+            frames, cfg=tpft.create_config(image_dtype="bfloat16"),
+            n_features=4, device="cpu")
     with pytest.raises(NotImplementedError):
         sequence_chain_device()
     with pytest.raises(NotImplementedError):
