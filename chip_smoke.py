@@ -27,6 +27,13 @@ Phases, in order; the first failure exits non-zero:
    every kernel must have launched, the tracks must recover the drift,
    the last frame must be fully live, and a 10-frame run through the
    plain versions must give the identical feature table (x, y, val);
+   K5 bit-equal in flags, index list and count on the sorted candidate
+   list of a real 480x640 frame (255,744 candidates, budget 1000), of a
+   refill (40 free slots after the pre-mask), of a synthetic mix (mindist
+   0, 1, 10, 25, 60; budgets 0, 7, unlimited; candidates at every edge;
+   10 % invalid) and of a 1080x1920 frame (the coverage grid in global
+   memory); K5 and the torch.sort before it timed beside K4's initial
+   extraction on the same map, and the two routes' selections equal;
 5. affine  — track_sequence_device with config 3 on 100 synthetic 480x640
    frames under a known slow similarity motion, 1000 features,
    replace-lost on: K1-K4 and K6 must have launched, the tracks must
@@ -34,11 +41,23 @@ Phases, in order; the first failure exits non-zero:
    templates and reject lanes, and a 10-frame run through the plain
    versions must give the identical table and AffineState warps and
    valid flags; then the config-3 step time (CUDA events);
-6. profile (only with --profile) — for the config-3 step and the default
-   step: the step time by CUDA events, by host wall clock and through
-   track_sequence_device, three repeats each, then a torch.profiler trace
-   of 30 steps (build/profile/step_trace_<config>.json): device kernels,
-   busy time and idle share per step, and the largest device items.
+6. config 1 — example 1 through the facade (KLTSelectGoodFeatures,
+   KLTTrackFeatures) on examples/data/img0.pgm -> img1.pgm, 100 features:
+   K1, K2, K3 and K5 must have launched, and the selected and tracked
+   lists must equal the same calls through the plain versions;
+7. config 2 — track_sequence (the host-API loop: sort + K5 refills) on the
+   main phase's 100 frames, 1000 features, replace-lost on: K5 must have
+   launched on the first frame and on the refills, the table must equal
+   track_sequence_device's, and a 10-frame config-3 run must equal the
+   device route's table and AffineState; then the SequenceTracker.step
+   time (CUDA events);
+8. profile (only with --profile) — for config 2's host loop, its step
+   time beside the device route's, three repeats, and for the config-3
+   and the default device step, the step time by CUDA events, by host
+   wall clock and through track_sequence_device, three repeats each;
+   then for each a torch.profiler trace of 30 steps
+   (build/profile/step_trace_<config>.json): device kernels, busy time
+   and idle share per step, and the largest device items.
 
 Prints the per-kernel JSON line (times, launches, error, and the bound:
 the larger of the bytes each kernel must move over 3.35 TB/s and its
@@ -353,6 +372,23 @@ def k4_work(cand, n_acc, dg, max_out):
             cand.numel() + int(n_acc.item()) * (2 * dg + 1) ** 2)
 
 
+def k5_scanned(k, n_acc, order, budget):
+    """Candidates K5's scan read: up to the last acceptance when the
+    budget ran out, else all k."""
+    n = int(n_acc.item())
+    return int(order[n - 1].item()) + 1 if 0 < n == budget else k
+
+
+def k5_work(k, n_acc, order, budget, mindist, max_out):
+    """The candidates this run's scan read (x, y, valid) and the outputs
+    written once (flags, index list, count); one coverage test per
+    candidate read and one store per cell of each accepted box."""
+    scanned = k5_scanned(k, n_acc, order, budget)
+    box = (2 * max(mindist - 1, -1) + 1) ** 2
+    return (scanned * 9 + k + 4 * max_out + 4,
+            scanned + int(n_acc.item()) * box)
+
+
 def k6_work(cfg, check, nit):
     """Bytes and operations of one K6 call as this run's lanes needed them:
     each checked lane's template and the (ww+1)(wh+1) footprint of the
@@ -459,7 +495,14 @@ def profile_phase(pft, cfg, frames, staged, root, tag, n_prof=30, repeats=3):
             pyr, x, y, v, aff, _, _ = pft.sequence_step_device(
                 pyr, img, x, y, v, cfg, aff=aff)
         torch.cuda.synchronize()
-    out = root / "build" / "profile" / f"step_trace_{tag}.json"
+    trace_summary(prof, root / "build" / "profile" / f"step_trace_{tag}.json",
+                  n_prof)
+
+
+def trace_summary(prof, out, n_steps):
+    """Write the trace to ``out`` and print, per step, the device kernels,
+    the device's busy time (union of kernel intervals), the span, the idle
+    share and the largest device items."""
     out.parent.mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(out))
     trace = json.loads(out.read_text())
@@ -477,9 +520,9 @@ def profile_phase(pft, cfg, frames, staged, root, tag, n_prof=30, repeats=3):
             cur_b = max(cur_b, b)
     busy += cur_b - cur_a
     span = max(b for _, b, _ in kern) - kern[0][0]
-    print(f"traced {n_prof} steps: {len(kern) / n_prof:.1f} device kernels "
-          f"per step, device busy {busy / n_prof:.1f} us per step (union of "
-          f"kernel intervals), span {span / n_prof:.1f} us per step, idle "
+    print(f"traced {n_steps} steps: {len(kern) / n_steps:.1f} device kernels "
+          f"per step, device busy {busy / n_steps:.1f} us per step (union of "
+          f"kernel intervals), span {span / n_steps:.1f} us per step, idle "
           f"share {1.0 - busy / span:.3f}; trace {out}")
     per_name: dict = {}
     for a, b, name in kern:
@@ -487,8 +530,55 @@ def profile_phase(pft, cfg, frames, staged, root, tag, n_prof=30, repeats=3):
         t, c = per_name.get(short, (0.0, 0))
         per_name[short] = (t + b - a, c + 1)
     for short, (t, c) in sorted(per_name.items(), key=lambda kv: -kv[1][0])[:12]:
-        print(f"  {t / n_prof:8.1f} us/step  {c / n_prof:5.1f} launches/step  "
+        print(f"  {t / n_steps:8.1f} us/step  {c / n_steps:5.1f} launches/step  "
               f"{short}")
+
+
+def host_loop_times(pft, cfg, staged, warmup=10):
+    """CUDA-event time of each SequenceTracker.step over the staged frames
+    (ms), after ``warmup`` steps, and the tracker."""
+    import torch
+    st = pft.SequenceTracker(cfg, n_features=N_FEATURES, device="cuda")
+    st.start(staged[0])
+    events = []
+    for img in staged[1:]:
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        st.step(img)
+        e1.record()
+        events.append((e0, e1))
+    torch.cuda.synchronize()
+    return [a.elapsed_time(b) for a, b in events[warmup:]]
+
+
+def profile_host_loop(pft, cfg, staged, root, n_prof=30, repeats=3):
+    """Config 2's host loop under ``--profile``: its step time beside the
+    device route's, in turns, repeated; then a torch.profiler trace of
+    n_prof steps (build/profile/step_trace_config2_host.json)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    phase(f"profile, config 2 host loop: step time beside the device "
+          f"route's, {repeats} repeats; then {n_prof} traced steps")
+    for rep in range(repeats):
+        host = np.median(host_loop_times(pft, cfg, staged))
+        dev_step = np.median(step_times(pft, cfg, staged))
+        host2 = np.median(host_loop_times(pft, cfg, staged))
+        print(f"repeat {rep}: SequenceTracker.step median {host:.4f} ms, "
+              f"device-route step median {dev_step:.4f} ms, "
+              f"SequenceTracker.step again {host2:.4f} ms")
+    st = pft.SequenceTracker(cfg, n_features=N_FEATURES, device="cuda")
+    for img in staged[:11]:
+        st.step(img)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for img in staged[11:11 + n_prof]:
+            st.step(img)
+        torch.cuda.synchronize()
+    trace_summary(prof, root / "build" / "profile" /
+                  "step_trace_config2_host.json", n_prof)
 
 
 def main(argv=None) -> int:
@@ -528,12 +618,15 @@ def main(argv=None) -> int:
         KLT_LARGE_RESIDUE, KLT_MAX_ITERATIONS, KLT_OOB, KLT_SMALL_DET,
         KLT_TRACKED)
     from pyfeaturetrack_tpu_torch.ops import (cuda_affine, cuda_eig, cuda_lk,
-                                              cuda_pyramid, cuda_select)
+                                              cuda_pyramid, cuda_select,
+                                              cuda_suppress)
     from pyfeaturetrack_tpu_torch.ops.affine import affine_consistency_check
     from pyfeaturetrack_tpu_torch.ops.interp import gather_window
+    from pyfeaturetrack_tpu_torch.ops.select import select_features_from_eig
     from pyfeaturetrack_tpu_torch.ops.select_device import (
-        _candidate_grid, candidate_map)
+        _candidate_grid, candidate_map, select_features_from_eig_device)
     from pyfeaturetrack_tpu_torch.utils import cuda
+    from pyfeaturetrack_tpu_torch.utils.io import pgm_read
     if "jax" in sys.modules:
         fail("the port imported jax")
 
@@ -656,6 +749,96 @@ def main(argv=None) -> int:
     report["K4"] = dict(max_abs_err=float(k4_err), ms=k4_cases["refill"][0],
                         plain_ms=k4_cases["refill"][1],
                         work=k4_cases["refill"][2])
+
+    # K5 on sorted candidate lists: (a) the real frame's initial selection,
+    # (b) a refill, (c) a synthetic mix, (d) a 1080x1920 frame
+    def sorted_list(cand, shape):
+        """The host API's ordered candidate list of a lattice map (as
+        ops/select.select_features_from_eig builds it)."""
+        bx, by, st, _, ncols = _candidate_grid(cfg, shape)
+        neg, order = torch.sort(-cand.reshape(-1), stable=True)
+        return ((bx + (order % ncols) * st).to(torch.int32),
+                (by + (order // ncols) * st).to(torch.int32),
+                -neg >= max(int(cfg.min_eigenvalue), 1))
+
+    def k5_case(name, cx, cy, valid, shape, mindist, budget, max_out):
+        b = torch.full((1,), budget, dtype=torch.int32, device=dev)
+        kw = dict(shape=shape, mindist=mindist, budget=b, max_out=max_out)
+        grid = "shared" if cuda_suppress.grid_bytes(shape) <= \
+            cuda_suppress.SMEM_GRID_BYTES else "global"
+        got = cuda_suppress.greedy_suppress(cx, cy, valid, **kw)
+        with cuda.reference_path():
+            want = cuda_suppress.greedy_suppress(cx, cy, valid, **kw)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b_) for a, b_ in zip(got, want))
+        print(f"K5 {name}: {cx.shape[0]} candidates, mindist {mindist}, "
+              f"budget {budget}, grid {grid}: accepted {int(got[2].item())} "
+              f"(plain {int(want[2].item())}), exact {same}")
+        if not same:
+            fail(f"K5 ({name}) differs from its plain version")
+        return got, kw
+
+    cx, cy, cvalid = sorted_list(cand_init, (H, W))
+    if cx.shape[0] != 255744:
+        fail(f"the 480x640 candidate list has {cx.shape[0]} entries")
+    k5_init, k5_kw = k5_case("initial (a)", cx, cy, cvalid, (H, W),
+                             cfg.mindist, n, n)
+    rx, ry, rvalid = sorted_list(cand_ref, (H, W))
+    k5_case("refill (b)", rx, ry, rvalid, (H, W), cfg.mindist,
+            int(free_ref.sum().item()), n)
+    rng5 = np.random.default_rng(SEED + 5)
+    for mindist in (0, 1, 10, 25, 60):
+        k = 20000
+        dd = max(mindist - 1, 1)
+        mx = np.where(rng5.uniform(size=k) < 0.3,
+                      rng5.choice([0, dd, W - 1 - dd, W - 1], k),
+                      rng5.integers(0, W, k))
+        my = np.where(rng5.uniform(size=k) < 0.3,
+                      rng5.choice([0, dd, H - 1 - dd, H - 1], k),
+                      rng5.integers(0, H, k))
+        margs = (torch.as_tensor(mx, dtype=torch.int32, device=dev),
+                 torch.as_tensor(my, dtype=torch.int32, device=dev),
+                 torch.as_tensor(rng5.uniform(size=k) > 0.1, device=dev))
+        for budget in (0, 7, k):
+            k5_case("mix (c)", *margs, (H, W), mindist, budget, k)
+    hd = torch.as_tensor(np.floor(smooth_texture(rng5, 1080, 1920)),
+                         dtype=torch.float32, device=dev)
+    hd_pyr = pft.build_track_pyramids(hd, cfg)
+    eig_hd = cuda_eig.min_eig_map(hd_pyr.gradx[0], hd_pyr.grady[0],
+                                  cfg.window_width, cfg.window_height)
+    cand_hd, _ = candidate_map(eig_hd, x0, x0, v0, cfg, replacing=False)
+    hx, hy, hvalid = sorted_list(cand_hd, (1080, 1920))
+    k5_case("1080x1920 (d)", hx, hy, hvalid, (1080, 1920), cfg.mindist, n, n)
+    del hd, hd_pyr, eig_hd, cand_hd, hx, hy, hvalid
+
+    # times on the real frame's initial selection: the sort, K5, and K4's
+    # extraction of the same 1000 features from the same map
+    flat_init = cand_init.reshape(-1)
+    sort_ms = time_ms(lambda: torch.sort(-flat_init, stable=True))
+    k5_ms = time_ms(lambda: cuda_suppress.greedy_suppress(
+        cx, cy, cvalid, **k5_kw))
+    with cuda.reference_path():
+        k5_plain = time_ms(lambda: cuda_suppress.greedy_suppress(
+            cx, cy, cvalid, **k5_kw), reps=2)
+    budget_init = free_init.sum().to(torch.int32).reshape(1)
+    k4_init_ms = time_ms(lambda: cuda_select.greedy_extract(
+        cand_init, min_eig=1, dg=dg, budget=budget_init, max_out=n))
+    k5_route = select_features_from_eig(eig_k, x0, x0, v0, cfg,
+                                        replacing=False)
+    k4_route = select_features_from_eig_device(eig_k, x0, x0, v0, cfg,
+                                               replacing=False)[:3]
+    torch.cuda.synchronize()
+    routes_same = all(torch.equal(a, b) for a, b in zip(k5_route, k4_route))
+    print(f"initial selection, 480x640, 1000 features: torch.sort "
+          f"{sort_ms:.4f} ms + K5 {k5_ms:.4f} ms (plain {k5_plain:.4f} ms; "
+          f"the scan read {k5_scanned(cx.shape[0], k5_init[2], k5_init[1], n)}"
+          f" of {cx.shape[0]} candidates) vs K4 {k4_init_ms:.4f} ms; the two "
+          f"routes select the same features: {routes_same}; card {smi}")
+    if not routes_same:
+        fail("sort + K5 and K4 select different features")
+    report["K5"] = dict(max_abs_err=0.0, ms=k5_ms, plain_ms=k5_plain,
+                        work=k5_work(cx.shape[0], k5_init[2], k5_init[1], n,
+                                     cfg.mindist, n))
 
     # K2: both levels of the real tracked pair (frame 0 -> frame 1, every
     # lane TRACKED), then a status mix at the same shapes whose lanes end
@@ -893,6 +1076,7 @@ def main(argv=None) -> int:
               f"{kv[f, i]}) plain ({px[f, i]}, {py[f, i]}, {pv[f, i]})")
     if len(diff):
         fail("the plain versions' feature table differs from the kernels'")
+    xs_main, ys_main, vs_main = xs, ys, vs
     report["K1"]["launches"] = counts["K1"]
     report["K2"]["launches"] = counts["K2"]
     report["K3"]["launches"] = counts["K3"]
@@ -1003,6 +1187,102 @@ def main(argv=None) -> int:
     print(f"config-3 per-frame step (track + affine check + refill), median "
           f"of {len(ms3)}: {np.median(ms3):.4f} ms (min {min(ms3):.4f}, max "
           f"{max(ms3):.4f}); card {smi}")
+
+    # ---- phase 6: BASELINE config 1, example 1 through the facade ----
+    phase("config 1: example 1 through the KLT* facade, "
+          "examples/data/img0.pgm -> img1.pgm, 100 features")
+    data = root / "examples" / "data"
+    ex0, ex1 = (pgm_read(data / f"img{i}.pgm") for i in (0, 1))
+    mods1 = {"K1": cuda_pyramid, "K2": cuda_lk, "K3": cuda_eig,
+             "K5": cuda_suppress}
+    tc = pft.KLTCreateTrackingContext()
+
+    def example1():
+        fl = pft.KLTSelectGoodFeatures(tc, ex0, 100)
+        fl2, _ = pft.KLTTrackFeatures(tc, ex0, ex1, fl)
+        return fl, fl2
+
+    for m in mods1.values():
+        m.launches = 0
+    sel1, trk1 = example1()
+    counts1 = {k: m.launches for k, m in mods1.items()}
+    print(f"launches in the config-1 run: {counts1}")
+    for k, c in counts1.items():
+        if c <= 0:
+            fail(f"{k} was never launched on the config-1 path")
+    with cuda.reference_path():
+        psel1, ptrk1 = example1()
+    same1 = all(torch.equal(a, b) for a, b in zip(sel1[:3] + trk1[:3],
+                                                  psel1[:3] + ptrk1[:3]))
+    if sel1.x.device.type != "cuda" or sel1.x.shape != (100,):
+        fail("the facade did not return 100 features on the card")
+    print("first features: " + ", ".join(
+        f"({x:.3f},{y:.3f})={v}" for x, y, v in zip(
+            trk1.x[:4].tolist(), trk1.y[:4].tolist(), trk1.val[:4].tolist())))
+    print(f"selected and tracked lists equal to the plain versions': {same1}")
+    if not same1:
+        fail("the config-1 lists differ from the plain versions'")
+    print(f"Remaining: {pft.KLTCountRemainingFeatures(trk1)} / 100")
+
+    # ---- phase 7: BASELINE config 2, the host-API loop ----
+    phase(f"config 2: track_sequence (host-API loop, sort + K5 refills), "
+          f"{N_FRAMES} frames, {N_FEATURES} features, replace-lost")
+    mods2 = dict(mods1)
+    for m in mods2.values():
+        m.launches = 0
+    t0 = time.perf_counter()
+    ft2, metrics2 = pft.track_sequence(frames, cfg=cfg, n_features=N_FEATURES,
+                                       replace_lost=True, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts2 = {k: m.launches for k, m in mods2.items()}
+    hx2, hy2, hv2 = (t.cpu().numpy() for t in ft2)
+    refill_frames = int((hv2[1:] > 0).any(axis=1).sum())
+    print(f"launches in the config-2 run: {counts2} ({wall:.2f} s wall); "
+          f"frames with refilled slots {refill_frames}")
+    for k, c in counts2.items():
+        if c <= 0:
+            fail(f"{k} was never launched on the config-2 path")
+    if not 1 + refill_frames <= counts2["K5"] <= N_FRAMES:
+        fail("K5 did not run on the first frame and on every refill")
+    if hx2.shape != (N_FRAMES, N_FEATURES) or not np.isfinite(hx2).all():
+        fail(f"config-2 feature table shape {hx2.shape} or non-finite")
+    diff = np.argwhere((hv2 != vs_main) | (hx2 != xs_main) | (hy2 != ys_main))
+    print(f"table vs track_sequence_device: {len(diff)} (frame, lane) "
+          f"entries differ; live in last frame {metrics2[-1]['n_live']}")
+    for f, i in diff[:20]:
+        print(f"  frame {f} lane {i}: host loop ({hx2[f, i]}, {hy2[f, i]}, "
+              f"{hv2[f, i]}) device route ({xs_main[f, i]}, {ys_main[f, i]}, "
+              f"{vs_main[f, i]})")
+    if len(diff):
+        fail("track_sequence differs from track_sequence_device")
+
+    last = {}
+    ft3, _ = pft.track_sequence(sim[:N_PLAIN_FRAMES], cfg=cfg3,
+                                n_features=N_FEATURES, replace_lost=True,
+                                device="cuda",
+                                on_frame=lambda i, fl: last.update(fl=fl))
+    (dx3, dy3, dv3), aff_d, _, _ = affine_steps(N_PLAIN_FRAMES)
+    same3 = all(np.array_equal(t.cpu().numpy(), d)
+                for t, d in zip(ft3, (dx3, dy3, dv3)))
+    aff_same3 = {f: torch.equal(getattr(last["fl"].aff, f), getattr(aff_d, f))
+                 for f in ("A", "valid")}
+    print(f"config 3, {N_PLAIN_FRAMES} frames: track_sequence table equal to "
+          f"the device route's: {same3}; AffineState equal: {aff_same3}")
+    if not (same3 and all(aff_same3.values())):
+        fail("the config-3 host loop differs from the device route")
+
+    staged = [torch.as_tensor(fr, device=dev).to(torch.float32)
+              for fr in frames]
+    ms2 = host_loop_times(pft, cfg, staged)
+    print(f"config-2 SequenceTracker.step (track + any(lost) + sort + K5 "
+          f"refill + metrics), median of {len(ms2)}: {np.median(ms2):.4f} ms "
+          f"(min {min(ms2):.4f}, max {max(ms2):.4f}); device-route step "
+          f"median {np.median(ms):.4f} ms; card {smi}")
+    if profile:
+        profile_host_loop(pft, cfg, staged, root)
+    del staged
+    report["K5"]["launches"] = counts2["K5"]
     if profile:
         profile_phase(pft, cfg3, sim, staged3, root, "config3")
         staged = [torch.as_tensor(fr, device=dev).to(torch.float32)
@@ -1018,11 +1298,14 @@ def main(argv=None) -> int:
                     "pyfeaturetrack_tpu/ops/pallas_eig.py:100"),
              "K4": ("greedy_extract", "pyfeaturetrack_tpu_torch/csrc/extract.cu",
                     "pyfeaturetrack_tpu/ops/pallas_select.py:251"),
+             "K5": ("greedy_suppress",
+                    "pyfeaturetrack_tpu_torch/csrc/suppress.cu",
+                    "pyfeaturetrack_tpu/ops/pallas_select.py:136"),
              "K6": ("affine_track", "pyfeaturetrack_tpu_torch/csrc/affine.cu",
                     "pyfeaturetrack_tpu/ops/pallas_affine_vec.py:407 and "
                     "pyfeaturetrack_tpu/ops/pallas_affine_fused.py:330")}
     kernels = []
-    for k in ("K1", "K2", "K3", "K4", "K6"):
+    for k in ("K1", "K2", "K3", "K4", "K5", "K6"):
         name, source, replaces = names[k]
         r = report[k]
         b_ms, b_by = bound_ms(*r["work"])

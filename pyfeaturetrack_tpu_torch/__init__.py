@@ -2,25 +2,31 @@
 
 KLT feature tracking (Gaussian pyramids, Shi-Tomasi selection with
 min-distance suppression, pyramidal Lucas-Kanade with the KLT status
-codes, lost-feature replacement, the affine-consistency check) in
-PyTorch, with a hand-written Hopper kernel for every TPU kernel on the
-path it covers: K1 pyramid level (csrc/pyramid.cu), K2 LK level
-(csrc/lk.cu), K3 min-eig map (csrc/eig.cu), K4 greedy extraction
-(csrc/extract.cu), K6 affine Gauss-Newton (csrc/affine.cu).
+codes, lost-feature replacement, the affine-consistency check, feature
+list/table files) in PyTorch, with the reference's ``KLT*`` API, and a
+hand-written Hopper kernel for every TPU kernel on the paths it covers:
+K1 pyramid level (csrc/pyramid.cu), K2 LK level (csrc/lk.cu), K3 min-eig
+map (csrc/eig.cu), K4 greedy extraction (csrc/extract.cu), K5 greedy
+min-distance scan (csrc/suppress.cu), K6 affine Gauss-Newton
+(csrc/affine.cu).
 
 The kernel is chosen by the tensor's device: CUDA tensors launch the
 kernels (built with nvcc at first use), CPU tensors take each kernel's
-plain PyTorch version. Imports torch and numpy only.
+plain PyTorch version. Entry points that take a numpy image run on
+"cuda" unless the caller passes ``device="cpu"``. Imports torch and
+numpy only.
 """
 
 from .config import (  # noqa: F401
     TrackerConfig,
     change_pyramid,
     create_config,
+    print_config,
     update_border,
 )
-from .errors import KLTError, KLTWarning  # noqa: F401
+from .errors import KLTError, KLTSetVerbosity, KLTWarning  # noqa: F401
 from .features import (  # noqa: F401
+    KLT_FB_INCONSISTENT,
     KLT_LARGE_RESIDUE,
     KLT_MAX_ITERATIONS,
     KLT_NOT_FOUND,
@@ -29,11 +35,29 @@ from .features import (  # noqa: F401
     KLT_TRACKED,
     AffineState,
     FeatureState,
+    FeatureTable,
+    count_remaining_features,
     reset_affine,
 )
-from .models.device_sequence import (  # noqa: F401
+from .models import (  # noqa: F401
+    KeyframeTracker,
+    KLTChangeTCPyramid,
+    KLTCountRemainingFeatures,
+    KLTCreateFeatureList,
+    KLTCreateFeatureTable,
+    KLTCreateTrackingContext,
+    KLTExtractFeatureList,
+    KLTPrintTrackingContext,
+    KLTReplaceLostFeatures,
+    KLTSelectGoodFeatures,
+    KLTStoreFeatureList,
+    KLTTrackFeatures,
+    KLTUpdateTCBorder,
+    SequenceTracker,
+    Tracker,
     select_step_device,
     sequence_step_device,
+    track_sequence,
     track_sequence_device,
 )
 from .ops.affine import (  # noqa: F401
@@ -45,6 +69,7 @@ from .ops.track import (  # noqa: F401
     build_track_pyramids,
     track_features_pyramids,
     track_features_pyramids_carry,
+    track_features_pyramids_fb,
 )
 
 __version__ = "0.1.0"

@@ -2,7 +2,9 @@
 
 Reference parity: klt.py -> KLT_Feature / KLT_FeatureList (here one
 structure-of-arrays NamedTuple, FeatureState) and storeFeatures.py ->
-KLT_FeatureTable. Port of ``pyfeaturetrack_tpu/features.py``.
+KLTCreateFeatureTable / KLTStoreFeatureList / KLTExtractFeatureList (here
+FeatureTable). Port of ``pyfeaturetrack_tpu/features.py``. As there, the
+table is updated functionally: ``store_feature_list`` returns a new table.
 
 ``val`` holds the min-eigenvalue after selection (>= 0) and the status code
 after tracking, exactly like the reference. Status codes are bit-identical
@@ -23,8 +25,18 @@ KLT_MAX_ITERATIONS = -3
 KLT_OOB = -4
 KLT_LARGE_RESIDUE = -5
 # Beyond-reference extension (the reference stops at -5): forward-
-# backward consistency rejection (not in the port yet).
+# backward consistency rejection (ops/track.track_features_pyramids_fb).
 KLT_FB_INCONSISTENT = -6
+
+STATUS_NAMES = {
+    KLT_TRACKED: "tracked",
+    KLT_NOT_FOUND: "not_found",
+    KLT_SMALL_DET: "small_det",
+    KLT_MAX_ITERATIONS: "max_iterations",
+    KLT_OOB: "oob",
+    KLT_LARGE_RESIDUE: "large_residue",
+    KLT_FB_INCONSISTENT: "fb_inconsistent",
+}
 
 
 class AffineState(NamedTuple):
@@ -65,6 +77,45 @@ def identity_warps(n: int, device) -> torch.Tensor:
         n, 2, 2).contiguous()
 
 
+def empty_affine_state(n_features: int, height: int, width: int,
+                       device) -> AffineState:
+    """An AffineState with no template captured: [n, height, width]
+    zero templates, identity warps."""
+    def zeros(*shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    return AffineState(
+        img=zeros(n_features, height, width),
+        gradx=zeros(n_features, height, width),
+        grady=zeros(n_features, height, width), x=zeros(n_features),
+        y=zeros(n_features), A=identity_warps(n_features, device),
+        valid=zeros(n_features, dtype=torch.bool),
+        nit=zeros(n_features, dtype=torch.int32))
+
+
+def create_feature_list(n_features: int, with_affine: bool = False,
+                        tmpl_size: int = 15, device="cuda") -> FeatureState:
+    """All slots empty (val = KLT_NOT_FOUND), on ``device``.
+
+    Reference parity: klt.py -> KLTCreateFeatureList."""
+    aff = (empty_affine_state(n_features, tmpl_size, tmpl_size, device)
+           if with_affine else None)
+    return FeatureState(
+        x=torch.full((n_features,), -1.0, dtype=torch.float32, device=device),
+        y=torch.full((n_features,), -1.0, dtype=torch.float32, device=device),
+        val=torch.full((n_features,), KLT_NOT_FOUND, dtype=torch.int32,
+                       device=device),
+        aff=aff)
+
+
+def count_remaining_features(fl: FeatureState) -> torch.Tensor:
+    """Number of live features (val >= 0), as a 0-dim tensor on the
+    list's device.
+
+    Reference parity: klt.py -> KLTCountRemainingFeatures."""
+    return (fl.val >= 0).sum()
+
+
 def reset_affine(aff: AffineState, drop_mask: torch.Tensor) -> AffineState:
     """Invalidate templates for features in ``drop_mask`` (= the reference
     freeing aff_img and resetting the warp to identity on track loss)."""
@@ -78,10 +129,65 @@ def reset_affine(aff: AffineState, drop_mask: torch.Tensor) -> AffineState:
         nit=nit)
 
 
+class FeatureTable(NamedTuple):
+    """(nFrames x nFeatures) history of (x, y, val).
+
+    Reference parity: storeFeatures.py -> KLT_FeatureTable."""
+    x: torch.Tensor    # [F, N] float32
+    y: torch.Tensor    # [F, N] float32
+    val: torch.Tensor  # [F, N] int32
+
+    @property
+    def nFrames(self) -> int:
+        return self.x.shape[0]
+
+    @property
+    def nFeatures(self) -> int:
+        return self.x.shape[1]
+
+
+def create_feature_table(n_frames: int, n_features: int,
+                         device="cuda") -> FeatureTable:
+    """Reference parity: storeFeatures.py -> KLTCreateFeatureTable."""
+    def full(v, dtype):
+        return torch.full((n_frames, n_features), v, dtype=dtype,
+                          device=device)
+
+    return FeatureTable(x=full(-1.0, torch.float32), y=full(-1.0, torch.float32),
+                        val=full(KLT_NOT_FOUND, torch.int32))
+
+
+def store_feature_list(fl: FeatureState, ft: FeatureTable,
+                       frame: int) -> FeatureTable:
+    """Write the list into row ``frame`` of a copy of ``ft`` (functional
+    update, as in the JAX package).
+
+    Reference parity: storeFeatures.py -> KLTStoreFeatureList."""
+    out = []
+    for table, row in zip(ft, (fl.x, fl.y, fl.val)):
+        table = table.clone()
+        table[frame] = row
+        out.append(table)
+    return FeatureTable(*out)
+
+
+def extract_feature_list(ft: FeatureTable, frame: int,
+                         template: Optional[FeatureState] = None
+                         ) -> FeatureState:
+    """Read row ``frame`` back into a feature list (with ``template``'s
+    AffineState, if given).
+
+    Reference parity: storeFeatures.py -> KLTExtractFeatureList."""
+    aff = template.aff if template is not None else None
+    return FeatureState(x=ft.x[frame], y=ft.y[frame], val=ft.val[frame],
+                        aff=aff)
+
+
 def feature_state_from_numpy(arr: np.ndarray,
-                             device: str | torch.device = "cpu"
+                             device: str | torch.device = "cpu",
+                             aff: Optional[AffineState] = None
                              ) -> FeatureState:
-    """(N,3) float array of (x, y, val) -> FeatureState."""
+    """(N,3) float array of (x, y, val) -> FeatureState (with ``aff``)."""
     a = np.asarray(arr)
     return FeatureState(
         x=torch.as_tensor(np.ascontiguousarray(a[:, 0], np.float32),
@@ -90,6 +196,7 @@ def feature_state_from_numpy(arr: np.ndarray,
                           device=device),
         val=torch.as_tensor(a[:, 2].astype(np.int64).astype(np.int32),
                             device=device),
+        aff=aff,
     )
 
 

@@ -32,17 +32,15 @@ from __future__ import annotations
 
 from typing import Iterable, Optional
 
-import numpy as np
 import torch
 
 from ..config import TrackerConfig, create_config
 from ..features import KLT_NOT_FOUND, FeatureState, reset_affine
 from ..ops.affine import affine_consistency_check, make_affine_state
-from ..ops.cuda_eig import min_eig_map
-from ..ops.cuda_pyramid import level_taps, pyramid_level
+from ..ops.select import selection_eig_map
 from ..ops.select_device import (DEFAULT_TOP_K,
                                  select_features_from_eig_device)
-from ..ops.track import (TrackPyramids, build_track_pyramids,
+from ..ops.track import (TrackPyramids, as_frame, build_track_pyramids,
                          track_features_pyramids_carry)
 
 
@@ -51,37 +49,6 @@ def _check_cfg(cfg) -> None:
         raise NotImplementedError(
             f"image_dtype={cfg.image_dtype!r}: the port stores float32 "
             "pyramids only")
-
-
-def _frame(img, device) -> torch.Tensor:
-    """A frame as a float32 [H, W] tensor on ``device`` (the tensor's own
-    device when ``device`` is None)."""
-    if isinstance(img, torch.Tensor):
-        dev = torch.device(device) if device is not None else img.device
-        return img.to(device=dev, dtype=torch.float32).contiguous()
-    dev = torch.device(device if device is not None else "cuda")
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device 'cuda' requested but torch sees no CUDA "
-                           "device")
-    arr = np.asarray(img)
-    if arr.dtype != np.uint8:          # uint8 crosses as bytes, cast there
-        arr = arr.astype(np.float32)
-    return torch.from_numpy(np.ascontiguousarray(arr)).to(dev).to(
-        torch.float32)
-
-
-def _selection_eig_from_pyr(img: torch.Tensor, pyr: TrackPyramids, cfg
-                            ) -> torch.Tensor:
-    """Min-eig map for selection. With smoothBeforeSelecting (the
-    default) selection smooths exactly like the pyramid base, so the map
-    comes from the tracking pyramid's level-0 gradients (K3 reads K1's
-    output); otherwise K1 takes the gradients of the raw frame."""
-    if not cfg.smoothBeforeSelecting:
-        _, gx, gy, _ = pyramid_level(img, level_taps(cfg), smooth=False,
-                                     with_pyr=False)
-    else:
-        gx, gy = pyr.gradx[0], pyr.grady[0]
-    return min_eig_map(gx, gy, int(cfg.window_width), int(cfg.window_height))
 
 
 def select_step_device(img, cfg, n_features: int,
@@ -94,9 +61,9 @@ def select_step_device(img, cfg, n_features: int,
     AffineState when ``cfg.affineConsistencyCheck >= 0``, else None, and
     ``exhausted`` is a False device scalar."""
     _check_cfg(cfg)
-    img = _frame(img, device)
+    img = as_frame(img, device)
     pyr = build_track_pyramids(img, cfg)
-    eig = _selection_eig_from_pyr(img, pyr, cfg)
+    eig = selection_eig_map(img, cfg, pyr)
     dev = img.device
     x0 = torch.full((n_features,), -1.0, dtype=torch.float32, device=dev)
     y0 = torch.full((n_features,), -1.0, dtype=torch.float32, device=dev)
@@ -122,7 +89,7 @@ def sequence_step_device(pyr_prev: TrackPyramids, img_new, x: torch.Tensor,
     returns ``carry`` with ``ok`` cleared: no window reuse yet, identical
     results)."""
     _check_cfg(cfg)
-    img_new = _frame(img_new, x.device)
+    img_new = as_frame(img_new, x.device)
     pyr_new = build_track_pyramids(img_new, cfg)
     nx, ny, nval, carry = track_features_pyramids_carry(
         pyr_prev, pyr_new, x, y, val, cfg, carry=carry)
@@ -134,7 +101,7 @@ def sequence_step_device(pyr_prev: TrackPyramids, img_new, x: torch.Tensor,
     exhausted = torch.zeros((), dtype=torch.bool, device=x.device)
     if replace_lost:
         # always launched; budget 0 (nothing lost) leaves every slot as is
-        eig = _selection_eig_from_pyr(img_new, pyr_new, cfg)
+        eig = selection_eig_map(img_new, cfg, pyr_new)
         lost = nval < 0
         nx, ny, nval, _, exhausted = select_features_from_eig_device(
             eig, nx, ny, nval, cfg, replacing=True, top_k=top_k)

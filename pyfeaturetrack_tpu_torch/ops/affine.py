@@ -25,7 +25,7 @@ import torch
 
 from ..features import (KLT_LARGE_RESIDUE, KLT_OOB, KLT_SMALL_DET,
                         KLT_TRACKED, AffineState, FeatureState,
-                        identity_warps)
+                        empty_affine_state, identity_warps)
 from . import cuda_affine
 from .cuda_lk import _f32, tree_sum
 from .interp import bilinear, gather_window
@@ -39,17 +39,8 @@ _CAPTURE_NIT = 5
 
 def make_affine_state(n_features: int, cfg, device="cpu") -> AffineState:
     """Empty affine template store sized for ``cfg``'s affine window."""
-    th, tw = cfg.affine_window_height, cfg.affine_window_width
-
-    def zeros(*shape, dtype=torch.float32):
-        return torch.zeros(shape, dtype=dtype, device=device)
-
-    return AffineState(
-        img=zeros(n_features, th, tw), gradx=zeros(n_features, th, tw),
-        grady=zeros(n_features, th, tw), x=zeros(n_features),
-        y=zeros(n_features), A=identity_warps(n_features, device),
-        valid=zeros(n_features, dtype=torch.bool),
-        nit=zeros(n_features, dtype=torch.int32))
+    return empty_affine_state(n_features, cfg.affine_window_height,
+                              cfg.affine_window_width, device)
 
 
 def _warp_coords(x, y, A, hw: int, hh: int):

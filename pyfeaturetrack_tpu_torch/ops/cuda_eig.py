@@ -5,6 +5,11 @@ gradient products, window sums (rows then columns, ascending taps), the
 min-eig formula, zeroed border, clamp at ``_EIG_LIMIT`` and truncation to
 int32, in one launch. A CUDA tensor launches the kernel; a CPU tensor
 takes ``min_eig_reference``.
+
+The plain version's window sums are explicit shifted adds, rows then
+columns, in ascending tap order: the order of the kernel and of the JAX
+package's Pallas eig kernel. Every selection in the port ranks by these
+values (a +-1 change in quantization reorders candidates).
 """
 
 from __future__ import annotations
@@ -12,7 +17,42 @@ from __future__ import annotations
 import torch
 
 from ..utils import cuda
-from .select import _EIG_LIMIT, compute_min_eig_map
+
+# Largest float32 strictly below 2^31: the float->int32 cast then
+# saturates like the reference's int clamp instead of overflowing.
+_EIG_LIMIT = 2147483520.0
+
+
+def _window_sum(img: torch.Tensor, window_height: int,
+                window_width: int) -> torch.Tensor:
+    """Box-filter sum over fully interior windows, zero elsewhere (the
+    oracle writes results only for fully-interior windows)."""
+    h, w = img.shape
+    hh, hw = window_height // 2, window_width // 2
+    out = torch.zeros_like(img)
+    mh, mw = h - window_height + 1, w - window_width + 1
+    if mh <= 0 or mw <= 0:
+        return out
+    v = img[0:mh, :]
+    for k in range(1, window_height):
+        v = v + img[k:k + mh, :]
+    s = v[:, 0:mw]
+    for k in range(1, window_width):
+        s = s + v[:, k:k + mw]
+    out[hh:hh + mh, hw:hw + mw] = s
+    return out
+
+
+def compute_min_eig_map(gradx: torch.Tensor, grady: torch.Tensor,
+                        window_width: int, window_height: int) -> torch.Tensor:
+    """Per-pixel min eigenvalue of the windowed structure tensor (float32,
+    zero border)."""
+    gxx = _window_sum(gradx * gradx, window_height, window_width)
+    gxy = _window_sum(gradx * grady, window_height, window_width)
+    gyy = _window_sum(grady * grady, window_height, window_width)
+    disc = torch.sqrt((gxx - gyy) * (gxx - gyy) + 4.0 * gxy * gxy)
+    return ((gxx + gyy) - disc) * 0.5
+
 
 # Kernel launches made by this wrapper.
 launches = 0

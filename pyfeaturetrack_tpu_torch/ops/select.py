@@ -1,54 +1,184 @@
-"""Shi-Tomasi (min-eigenvalue) map for feature selection (plain PyTorch).
+"""Shi-Tomasi (min-eigenvalue) feature selection, the host API's route.
 
-Reference parity: selectGoodFeatures.py -> _KLTSelectGoodFeatures hot
-loop; port of ``compute_min_eig_map`` / ``_EIG_LIMIT`` of
-``pyfeaturetrack_tpu/ops/select.py``; its ``quantized_min_eig_map`` is K3,
-``ops/cuda_eig.min_eig_map``. The host greedy
-selection (``select_good_features`` through ``native/``) is not in the
-port yet; the device-resident selection is ops/select_device.py.
+Reference parity: selectGoodFeatures.py -> KLTSelectGoodFeatures /
+KLTReplaceLostFeatures / _KLTSelectGoodFeatures / _sortPointList /
+_enforceMinimumDistance; port of ``pyfeaturetrack_tpu/ops/select.py``.
 
-The window sums are explicit shifted adds, rows then columns, in
-ascending tap order: the order of the K3 kernel (csrc/eig.cu) and of the
-JAX package's Pallas eig kernel. Every selection in the port ranks by
-these values (a +-1 change in quantization reorders candidates).
+The JAX package builds the min-eig map on the device, sorts the candidate
+lattice on the host and runs the greedy min-distance scan in C++
+(``native/min_distance.cpp``). The port keeps every step on the feature
+arrays' device:
+
+1. ``selection_eig_map``: K1 level 0 (ops/cuda_pyramid) and K3
+   (ops/cuda_eig), shared with the device-resident route;
+2. the candidate lattice (``select_device.candidate_map``: borders, step,
+   candidates below the bar zeroed and, when replacing, the kept
+   features' mindist boxes zeroed, which equals the host stamping them
+   first);
+3. the priority order: ``torch.sort(-vals, stable=True)``, the order of
+   ``np.argsort(-vals, kind="stable")`` (descending, ties in scan order);
+4. K5 (ops/cuda_suppress.greedy_suppress) over the whole ordered list,
+   budget = free slots, read on the device;
+5. ``select_device.fill_slots``: the r-th acceptance goes to the r-th free
+   slot, as the host greedy's slot walk does.
+
+The min-eig map's plain version (``compute_min_eig_map``) sits beside
+K3 in ops/cuda_eig.py.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-# Largest float32 strictly below 2^31: the float->int32 cast then
-# saturates like the reference's int clamp instead of overflowing.
-_EIG_LIMIT = 2147483520.0
+from ..errors import KLTGetVerbosity, KLTWarning, verbose_print
+from ..features import (KLT_NOT_FOUND, FeatureState, create_feature_list,
+                        feature_state_from_numpy,
+                        feature_state_to_numpy, reset_affine)
+from .cuda_eig import min_eig_map
+from .cuda_pyramid import level_taps, pyramid_level
+from .cuda_suppress import greedy_suppress
+from .select_device import _candidate_grid, candidate_map, fill_slots
+from .track import as_frame
 
 
-def _window_sum(img: torch.Tensor, window_height: int,
-                window_width: int) -> torch.Tensor:
-    """Box-filter sum over fully interior windows, zero elsewhere (the
-    oracle writes results only for fully-interior windows)."""
-    h, w = img.shape
-    hh, hw = window_height // 2, window_width // 2
-    out = torch.zeros_like(img)
-    mh, mw = h - window_height + 1, w - window_width + 1
-    if mh <= 0 or mw <= 0:
-        return out
-    v = img[0:mh, :]
-    for k in range(1, window_height):
-        v = v + img[k:k + mh, :]
-    s = v[:, 0:mw]
-    for k in range(1, window_width):
-        s = s + v[:, k:k + mw]
-    out[hh:hh + mh, hw:hw + mw] = s
+def selection_eig_map(img: torch.Tensor, cfg, pyr=None) -> torch.Tensor:
+    """int32 min-eig map for selection. With smoothBeforeSelecting (the
+    default) selection smooths exactly like the pyramid base, so the
+    device route passes the frame's TrackPyramids ``pyr``, whose level-0
+    gradients K3 reads; otherwise K1 takes level 0 of ``img``
+    (pre-smoothed when smoothBeforeSelecting) and K3 reads its
+    gradients."""
+    if pyr is not None and cfg.smoothBeforeSelecting:
+        gx, gy = pyr.gradx[0], pyr.grady[0]
+    else:
+        _, gx, gy, _ = pyramid_level(img, level_taps(cfg),
+                                     smooth=bool(cfg.smoothBeforeSelecting),
+                                     with_pyr=False)
+    return min_eig_map(gx, gy, int(cfg.window_width), int(cfg.window_height))
+
+
+def _write_internal_images(img: torch.Tensor, cfg) -> None:
+    """Debug-dump the smoothed image and gradients to PGM files.
+
+    Reference parity: tc.writeInternalImages (klt_util.py ->
+    _KLTWriteFloatImageToPGM): writes kltimg_sgfrlf.pgm and
+    kltimg_sgfrlf_gx/_gy.pgm in the working directory."""
+    from ..utils.io import float_image_to_pgm
+    base, gx, gy, _ = pyramid_level(img, level_taps(cfg),
+                                    smooth=bool(cfg.smoothBeforeSelecting),
+                                    with_pyr=False)
+    float_image_to_pgm("kltimg_sgfrlf.pgm", base.cpu().numpy(), scale=False)
+    float_image_to_pgm("kltimg_sgfrlf_gx.pgm", gx.cpu().numpy())
+    float_image_to_pgm("kltimg_sgfrlf_gy.pgm", gy.cpu().numpy())
+
+
+def select_features_from_eig(eig: torch.Tensor, x: torch.Tensor,
+                             y: torch.Tensor, val: torch.Tensor, cfg, *,
+                             replacing: bool):
+    """(Re)selection into the (x, y, val) feature arrays from an int32
+    min-eig map through sort + K5 + slot fill. ``replacing=False``:
+    overwrite every slot; ``replacing=True``: keep val >= 0 slots and
+    refill the rest. Returns (x, y, val)."""
+    borderx, bordery, step, ny, nx = _candidate_grid(cfg, eig.shape)
+    cand, free = candidate_map(eig, x, y, val, cfg, replacing=replacing)
+    if cand is None:
+        # no room for features: every free slot comes back empty
+        return (torch.where(free, -1.0, x), torch.where(free, -1.0, y),
+                torch.where(free, KLT_NOT_FOUND, val))
+    neg, order = torch.sort(-cand.reshape(-1), stable=True)
+    vals = -neg
+    cand_x = (borderx + (order % nx) * step).to(torch.int32)
+    cand_y = (bordery + (order // nx) * step).to(torch.int32)
+    valid = vals >= max(int(cfg.min_eigenvalue), 1)
+    _, idx, n_acc = greedy_suppress(
+        cand_x, cand_y, valid, shape=tuple(eig.shape),
+        mindist=int(cfg.mindist), max_out=int(val.shape[0]),
+        budget=free.sum().to(torch.int32).reshape(1))
+    idx = idx.to(torch.int64)
+    nx_, ny_, nval, _ = fill_slots(n_acc, cand_x[idx], cand_y[idx], vals[idx],
+                                   free, x, y, val)
+    return nx_, ny_, nval
+
+
+def _select(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+            val: torch.Tensor, cfg, *, replacing: bool):
+    """The selection of _KLTSelectGoodFeatures on tensors: warnings and
+    progress prints, the eig map, then ``select_features_from_eig``."""
+    nrows, ncols = img.shape
+    n_features = int(val.shape[0])
+    mode = "Replacing" if replacing else "Selecting"
+    verbose_print(f"(KLT) {mode} the {n_features} best features "
+                  f"from a {ncols} by {nrows} image...  ")
+    if cfg.writeInternalImages:
+        _write_internal_images(img, cfg)
+    *_, ny, nx = _candidate_grid(cfg, (nrows, ncols))
+    if ny == 0 or nx == 0:
+        KLTWarning("(select_good_features) no room for features "
+                   "(border too large for image)")
+    if not replacing and ny * nx < n_features:
+        KLTWarning("(select_good_features) fewer candidate pixels (%d) than "
+                   "requested features (%d)", ny * nx, n_features)
+    eig = selection_eig_map(img, cfg)
+    out = select_features_from_eig(eig, x, y, val, cfg, replacing=replacing)
+    if KLTGetVerbosity() > 0:
+        verbose_print(f"\t{int((out[2] >= 0).sum())} features found.")
     return out
 
 
-def compute_min_eig_map(gradx: torch.Tensor, grady: torch.Tensor,
-                        window_width: int, window_height: int) -> torch.Tensor:
-    """Per-pixel min eigenvalue of the windowed structure tensor (float32,
-    zero border)."""
-    gxx = _window_sum(gradx * gradx, window_height, window_width)
-    gxy = _window_sum(gradx * grady, window_height, window_width)
-    gyy = _window_sum(grady * grady, window_height, window_width)
-    disc = torch.sqrt((gxx - gyy) * (gxx - gyy) + 4.0 * gxy * gxy)
-    return ((gxx + gyy) - disc) * 0.5
+def select_good_features(img, n_features: int, cfg,
+                         device=None) -> FeatureState:
+    """High-level selection returning a FeatureState.
 
+    Reference parity: selectGoodFeatures.py -> KLTSelectGoodFeatures.
+    ``img``: [H, W] array (sent to ``device``, default "cuda") or tensor
+    (used on its own device unless ``device`` is given)."""
+    img = as_frame(img, device)
+    empty = create_feature_list(n_features, device=img.device)
+    return FeatureState(*_select(img, empty.x, empty.y, empty.val, cfg,
+                                 replacing=False))
+
+
+def replace_lost_features(img, fl: FeatureState, cfg) -> FeatureState:
+    """Reference parity: selectGoodFeatures.py -> KLTReplaceLostFeatures.
+
+    Runs on ``fl``'s device. As in the JAX package, a list with no lost
+    feature comes back unchanged (one host read of ``any(val < 0)``);
+    refilled slots lose their affine templates."""
+    lost = fl.val < 0
+    out = fl
+    if bool(lost.any()):
+        img = as_frame(img, fl.x.device)
+        nx, ny, nval = _select(img, fl.x, fl.y, fl.val, cfg, replacing=True)
+        out = fl._replace(x=nx, y=ny, val=nval)
+    if fl.aff is not None:
+        # refilled (previously lost) slots are fresh features: their
+        # first-frame templates are recaptured
+        out = out._replace(aff=reset_affine(fl.aff, lost))
+    return out
+
+
+def select_good_features_arrays(img, n_features: int, cfg,
+                                existing: np.ndarray | None = None,
+                                device=None) -> np.ndarray:
+    """Array-level selection: returns (N, 3) float64 of (x, y, val).
+
+    Reference parity: selectGoodFeatures.py -> _KLTSelectGoodFeatures
+    (mode SELECTING_ALL when ``existing`` is None, else REPLACING_SOME)."""
+    img = as_frame(img, device)
+    if existing is None:
+        return feature_state_to_numpy(
+            select_good_features(img, n_features, cfg))
+    fl = feature_state_from_numpy(existing, device=img.device)
+    return feature_state_to_numpy(FeatureState(
+        *_select(img, fl.x, fl.y, fl.val, cfg, replacing=True)))
+
+
+def replace_lost_features_arrays(img, feats: np.ndarray, cfg,
+                                 device=None) -> np.ndarray:
+    """Reference parity: selectGoodFeatures.py -> KLTReplaceLostFeatures."""
+    feats = np.asarray(feats, dtype=np.float64)
+    if (feats[:, 2] < 0).any():
+        return select_good_features_arrays(img, feats.shape[0], cfg,
+                                           existing=feats, device=device)
+    return feats.copy()

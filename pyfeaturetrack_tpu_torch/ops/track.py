@@ -8,18 +8,24 @@ K1 (ops/cuda_pyramid.pyramid_level). The coarse-to-fine level loop, the
 coarse-level "broken" rule and the final classification are plain
 PyTorch around them.
 
+``track_features`` is the images-in entry of the host API and
+``fb_reject`` / ``track_features_pyramids_fb`` the forward-backward gate
+(the backward pass is K2 from frame 2 to frame 1).
+
 Out of this port so far (raise NotImplementedError): guided tracking
-(``x_init``/``y_init``), the forward-backward gate (``fb_reject``), and
-``image_dtype`` other than float32.
+(``x_init``/``y_init``) and ``image_dtype`` other than float32.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
-from ..features import KLT_OOB, KLT_SMALL_DET, KLT_TRACKED
+from ..errors import KLTGetVerbosity, verbose_print
+from ..features import (KLT_FB_INCONSISTENT, KLT_OOB, KLT_SMALL_DET,
+                        KLT_TRACKED, FeatureState)
 from .cuda_lk import TrackCarry, lk_level
 from .cuda_pyramid import level_taps, pyramid_level
 
@@ -33,6 +39,26 @@ class TrackPyramids(NamedTuple):
     img: tuple[torch.Tensor, ...]
     gradx: tuple[torch.Tensor, ...]
     grady: tuple[torch.Tensor, ...]
+
+
+def as_frame(img, device=None) -> torch.Tensor:
+    """A frame as a contiguous float32 [H, W] tensor: a tensor goes to
+    ``device`` (default: its own), an array to ``device`` (default
+    "cuda"; with no CUDA device that raises)."""
+    if isinstance(img, torch.Tensor):
+        dev = torch.device(device) if device is not None else img.device
+        return img.to(device=dev, dtype=torch.float32).contiguous()
+    dev = torch.device(device if device is not None else "cuda")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device 'cuda' requested but torch sees no CUDA "
+                           "device")
+    arr = np.asarray(img)
+    if arr.dtype != np.uint8:          # uint8 crosses as bytes, cast there
+        arr = arr.astype(np.float32)
+    arr = np.ascontiguousarray(arr)
+    if not arr.flags.writeable:        # e.g. a frame read from a buffer
+        arr = arr.copy()
+    return torch.from_numpy(arr).to(dev).to(torch.float32)
 
 
 def _require_float32_images(cfg) -> None:
@@ -143,6 +169,66 @@ def track_features_pyramids(pyr1: TrackPyramids, pyr2: TrackPyramids,
     return nx, ny, nval
 
 
-def fb_reject(*args, **kwargs):
-    """Forward-backward gate of the JAX package: not in the port yet."""
-    raise NotImplementedError("fb_reject is not in the port yet")
+def fb_reject(pyr1: TrackPyramids, pyr2: TrackPyramids, x0: torch.Tensor,
+              y0: torch.Tensor, nx: torch.Tensor, ny: torch.Tensor,
+              nval: torch.Tensor, cfg, fb_max_displacement: float = 0.5):
+    """Backward half of the forward-backward gate: given a completed
+    forward track (x0, y0) -> (nx, ny, nval), re-track 2 -> 1 and reject
+    lanes whose round trip misses (x0, y0) by more than
+    ``fb_max_displacement`` px (or whose backward track fails). Rejected
+    lanes get KLT_FB_INCONSISTENT and (-1, -1).
+
+    Returns (x, y, val, fb_err); fb_err is the round-trip distance per
+    lane (inf where the forward or backward track failed)."""
+    # backward pass: lanes lost forward carry nval < 0 -> inactive
+    bx, by, bval = track_features_pyramids(pyr2, pyr1, nx, ny, nval, cfg)
+    fwd_ok = nval == KLT_TRACKED
+    bwd_ok = bval == KLT_TRACKED
+    err = torch.where(fwd_ok & bwd_ok, torch.hypot(bx - x0, by - y0),
+                      torch.inf)
+    bad = fwd_ok & (err > fb_max_displacement)
+    return (torch.where(bad, -1.0, nx), torch.where(bad, -1.0, ny),
+            torch.where(bad, KLT_FB_INCONSISTENT, nval), err)
+
+
+def track_features_pyramids_fb(pyr1: TrackPyramids, pyr2: TrackPyramids,
+                               x: torch.Tensor, y: torch.Tensor,
+                               val: torch.Tensor, cfg,
+                               fb_max_displacement: float = 0.5):
+    """Forward-backward consistency tracking (beyond the reference): track
+    1 -> 2, re-track the results 2 -> 1 and reject lanes whose round trip
+    misses the start by more than ``fb_max_displacement`` px.
+
+    Returns (x, y, val, fb_err) as ``fb_reject``."""
+    nx, ny, nval = track_features_pyramids(pyr1, pyr2, x, y, val, cfg)
+    return fb_reject(pyr1, pyr2, x, y, nx, ny, nval, cfg,
+                     fb_max_displacement=fb_max_displacement)
+
+
+def track_features(img1, img2, fl: FeatureState, cfg,
+                   pyr1: TrackPyramids | None = None,
+                   carry: TrackCarry | None = None,
+                   return_carry: bool = False):
+    """High-level tracking entry: images in, updated FeatureState out, on
+    ``fl``'s device.
+
+    Reference parity: trackFeatures.py -> KLTTrackFeatures. Returns
+    (new_fl, pyr2) where ``pyr2`` is the frame-2 pyramid cache to pass back
+    in sequential mode; with ``return_carry``, (new_fl, pyr2, carry)."""
+    cfg = cfg.validated_window()
+    dev = fl.x.device
+    if pyr1 is None:
+        pyr1 = build_track_pyramids(as_frame(img1, dev), cfg)
+    pyr2 = build_track_pyramids(as_frame(img2, dev), cfg)
+    nrows, ncols = pyr2.img[0].shape
+    verbose_print(f"(KLT) Tracking {fl.nFeatures} features in a "
+                  f"{ncols} by {nrows} image...  ")
+    nx, ny, nval, carry_out = track_features_pyramids_carry(
+        pyr1, pyr2, fl.x, fl.y, fl.val, cfg, carry=carry)
+    out = fl._replace(x=nx, y=ny, val=nval)
+    if KLTGetVerbosity() > 0:
+        verbose_print(f"\t{int((nval >= 0).sum())} features "
+                      "successfully tracked.")
+    if return_carry:
+        return out, pyr2, carry_out
+    return out, pyr2

@@ -2,8 +2,9 @@
 
 The slice has no weights: a config plus pyramid, feature and affine
 template state is all a port step needs, so these helpers let a test start
-a port step from exactly the state the JAX package produced. They take plain numpy arrays
-(or anything ``np.asarray`` accepts) and never import JAX.
+a port step or a host-API call from exactly the state the JAX package
+produced. They take plain numpy arrays (or anything ``np.asarray``
+accepts) and never import JAX.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ import numpy as np
 import torch
 
 from ..config import TrackerConfig
-from ..features import AffineState
+from ..features import AffineState, FeatureState, FeatureTable
 from ..ops.track import TrackPyramids
 
 
@@ -55,3 +56,20 @@ def affine_state_from_numpy(img, gradx, grady, x, y, A, valid, nit=None,
         y=_t(y, np.float32, device), A=_t(A, np.float32, device),
         valid=_t(valid, np.bool_, device),
         nit=None if nit is None else _t(nit, np.int32, device))
+
+
+def feature_state_from_arrays(x, y, val, aff=None,
+                              device="cpu") -> FeatureState:
+    """A JAX FeatureState's fields as arrays (e.g. ``np.asarray(fl.x)``,
+    ``[np.asarray(a) for a in fl.aff]`` or None for ``aff``) -> a port
+    FeatureState with its AffineState."""
+    x, y, val = features_from_numpy(x, y, val, device)
+    if aff is not None:
+        aff = affine_state_from_numpy(*aff, device=device)
+    return FeatureState(x, y, val, aff)
+
+
+def feature_table_from_numpy(x, y, val, device="cpu") -> FeatureTable:
+    """[F, N] (x, y, val) arrays -> a port FeatureTable."""
+    return FeatureTable(x=_t(x, np.float32, device), y=_t(y, np.float32, device),
+                        val=_t(val, np.int32, device))

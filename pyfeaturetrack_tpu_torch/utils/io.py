@@ -1,15 +1,33 @@
-"""PGM image I/O (reference parity: pnmio.py -> pgmReadFile / pgmWriteFile).
+"""PNM image I/O and feature list/table files.
 
-Port of the PGM half of ``pyfeaturetrack_tpu/utils/io.py`` (its pure-Python
-parser; the native codec and the feature list/table formats are not in
-the port yet). NumPy only.
+Reference parity: pnmio.py (PGM/PPM read+write), writeFeatures.py
+(KLTWriteFeatureList / KLTReadFeatureList / KLTWriteFeatureTable /
+KLTReadFeatureTable) and storeFeatures.py table layout. Port of
+``pyfeaturetrack_tpu/utils/io.py`` with its pure-Python PNM parser (the
+native codec, ``read_image`` and ``write_image`` are not in the port);
+NumPy only. Files are byte-identical to the JAX package's: binary lists
+are ``KLTFL`` + int32 count + (float32 x, float32 y, int32 val) records,
+binary tables ``KLTFT`` + int32 (frames, features) + feature-major
+records, and the text forms are the same formatted lines.
+
+Readers return tensors on ``device`` (default "cuda").
 """
 
 from __future__ import annotations
 
+import re
+import struct
+from pathlib import Path
+
 import numpy as np
+import torch
 
 from ..errors import KLTError
+from ..features import (FeatureState, FeatureTable, feature_state_from_numpy,
+                        feature_state_to_numpy)
+
+BINHEADER_FL = b"KLTFL"
+BINHEADER_FT = b"KLTFT"
 
 
 def _read_pnm_token(f) -> bytes:
@@ -91,3 +109,229 @@ def pgm_write(path, img: np.ndarray) -> None:
     with open(path, "wb") as f:
         f.write(b"P5\n%d %d\n255\n" % (ncols, nrows))
         f.write(img.tobytes())
+
+
+def ppm_write(path, rgb: np.ndarray) -> None:
+    """Write a binary (P6) PPM from an [H, W, 3] array.
+
+    Reference parity: pnmio.py -> ppmWriteFileRGB.
+    """
+    rgb = np.asarray(rgb)
+    if rgb.dtype != np.uint8:
+        rgb = np.clip(rgb, 0, 255).astype(np.uint8)
+    nrows, ncols, _ = rgb.shape
+    with open(path, "wb") as f:
+        f.write(b"P6\n%d %d\n255\n" % (ncols, nrows))
+        f.write(rgb.tobytes())
+
+
+def ppm_read(path) -> np.ndarray:
+    """Read a binary (P6) PPM -> uint8 [H, W, 3]."""
+    with open(path, "rb") as f:
+        magic = _read_pnm_token(f)
+        if magic != b"P6":
+            raise KLTError(f"(ppm_read) {path}: not a binary PPM")
+        ncols = _pnm_int(f, path, "width")
+        nrows = _pnm_int(f, path, "height")
+        maxval = _pnm_int(f, path, "maxval")
+        if maxval > 255:
+            raise KLTError(f"(ppm_read) {path}: maxval {maxval} > 255 unsupported")
+        data = f.read(nrows * ncols * 3)
+        if len(data) != nrows * ncols * 3:
+            raise KLTError(f"(ppm_read) {path}: truncated pixel data")
+    return np.frombuffer(data, dtype=np.uint8).reshape(nrows, ncols, 3).copy()
+
+
+def float_image_to_pgm(path, img: np.ndarray, scale: bool = True) -> None:
+    """Debug-dump a float image to PGM (abs then optionally rescaled to 255).
+
+    Reference parity: klt_util.py -> _KLTWriteFloatImageToPGM /
+    _KLTWriteAbsFloatImageToPGM.
+    """
+    a = np.abs(np.asarray(img, dtype=np.float64))
+    mx = a.max()
+    if scale and mx > 0:
+        a = a * (255.0 / mx)
+    pgm_write(path, np.floor(a))
+
+
+# ---------------------------------------------------------------------------
+# Feature list files (reference parity: writeFeatures.py)
+# ---------------------------------------------------------------------------
+
+def write_feature_list(fl: FeatureState, path, fmt: str | None = None) -> None:
+    """Write a feature list; binary if ``fmt`` is None, else formatted text
+    with ``fmt`` as the per-coordinate %-format (e.g. "%5.1f").
+
+    Reference parity: writeFeatures.py -> KLTWriteFeatureList.
+    """
+    arr = feature_state_to_numpy(fl)
+    path = Path(path)
+    if fmt is None:
+        with open(path, "wb") as f:
+            f.write(BINHEADER_FL)
+            f.write(struct.pack("<i", arr.shape[0]))
+            for x, y, v in arr:
+                f.write(struct.pack("<ffi", float(x), float(y), int(v)))
+        return
+    with open(path, "w") as f:
+        f.write("\n")
+        f.write("Feature List\n")
+        f.write("------------\n\n")
+        f.write(f"nFeatures = {arr.shape[0]}\n\n")
+        f.write("feature | (x,y) = val\n")
+        f.write("--------|------------\n")
+        for i, (x, y, v) in enumerate(arr):
+            sx, sy = fmt % x, fmt % y
+            f.write(f"{i:7d} | ({sx},{sy}) = {int(v)}\n")
+
+
+def read_feature_list(path, device="cuda") -> FeatureState:
+    """Read a feature list file (binary or text) onto ``device``.
+
+    Reference parity: writeFeatures.py -> KLTReadFeatureList.
+    """
+    path = Path(path)
+    with open(path, "rb") as f:
+        head = f.read(5)
+        if head == BINHEADER_FL:
+            raw = f.read(4)
+            if len(raw) != 4:
+                raise KLTError(f"(read_feature_list) {path}: truncated "
+                               "nFeatures field")
+            (n,) = struct.unpack("<i", raw)
+            if n < 0:
+                raise KLTError(f"(read_feature_list) {path}: negative "
+                               f"nFeatures {n}")
+            body = f.read(12 * n)
+            if len(body) != 12 * n:
+                raise KLTError(f"(read_feature_list) {path}: truncated "
+                               f"records ({len(body)} of {12 * n} bytes)")
+            arr = np.zeros((n, 3), dtype=np.float64)
+            for i in range(n):
+                arr[i] = struct.unpack_from("<ffi", body, 12 * i)
+            return feature_state_from_numpy(arr, device)
+    text = path.read_text()
+    m = re.search(r"nFeatures\s*=\s*(\d+)", text)
+    if not m:
+        raise KLTError(f"(read_feature_list) {path}: no nFeatures header")
+    n = int(m.group(1))
+    rows = re.findall(
+        r"^\s*(\d+)\s*\|\s*\(\s*([-\d.eE+]+)\s*,\s*([-\d.eE+]+)\s*\)\s*=\s*(-?\d+)",
+        text, re.M)
+    if len(rows) != n:
+        raise KLTError(
+            f"(read_feature_list) {path}: expected {n} rows, found {len(rows)}")
+    arr = np.zeros((n, 3), dtype=np.float64)
+    for idx, x, y, v in rows:
+        i = int(idx)
+        if i >= n:
+            raise KLTError(f"(read_feature_list) {path}: row index {i} "
+                           f"out of range for nFeatures {n}")
+        arr[i] = (float(x), float(y), int(v))
+    return feature_state_from_numpy(arr, device)
+
+
+# ---------------------------------------------------------------------------
+# Feature table files (reference parity: writeFeatures.py / storeFeatures.py)
+# ---------------------------------------------------------------------------
+
+def write_feature_table(ft: FeatureTable, path, fmt: str | None = None) -> None:
+    """Write a feature table; binary if ``fmt`` is None (feature-major
+    record order, as in the KLT lineage), else formatted text.
+
+    Reference parity: writeFeatures.py -> KLTWriteFeatureTable.
+    """
+    x = ft.x.cpu().numpy().astype(np.float64)
+    y = ft.y.cpu().numpy().astype(np.float64)
+    v = ft.val.cpu().numpy().astype(np.int64)
+    n_frames, n_features = x.shape
+    path = Path(path)
+    if fmt is None:
+        rec = np.empty((n_features, n_frames),
+                       dtype=[("x", "<f4"), ("y", "<f4"), ("v", "<i4")])
+        rec["x"] = x.T
+        rec["y"] = y.T
+        rec["v"] = v.T
+        with open(path, "wb") as f:
+            f.write(BINHEADER_FT)
+            f.write(struct.pack("<ii", n_frames, n_features))
+            f.write(rec.tobytes())  # feature-major records, one shot
+        return
+    with open(path, "w") as f:
+        f.write("\n")
+        f.write("Feature Table\n")
+        f.write("-------------\n\n")
+        f.write(f"nFrames = {n_frames}, nFeatures = {n_features}\n\n")
+        f.write("feature |          frame\n")
+        f.write("        |" + "".join(f"{i:^22d}" for i in range(n_frames)) + "\n")
+        f.write("--------|" + "-" * (22 * n_frames) + "\n")
+        for j in range(n_features):
+            cells = []
+            for i in range(n_frames):
+                sx, sy = fmt % x[i, j], fmt % y[i, j]
+                cells.append(f"({sx},{sy})={int(v[i, j]):<4d}")
+            f.write(f"{j:7d} |" + " ".join(cells) + "\n")
+
+
+def _table(x, y, v, device) -> FeatureTable:
+    return FeatureTable(
+        x=torch.as_tensor(np.ascontiguousarray(x, np.float32), device=device),
+        y=torch.as_tensor(np.ascontiguousarray(y, np.float32), device=device),
+        val=torch.as_tensor(np.ascontiguousarray(v, np.int32), device=device))
+
+
+def read_feature_table(path, device="cuda") -> FeatureTable:
+    """Read a feature table file (binary or text) onto ``device``.
+
+    Reference parity: writeFeatures.py -> KLTReadFeatureTable.
+    """
+    path = Path(path)
+    with open(path, "rb") as f:
+        head = f.read(5)
+        if head == BINHEADER_FT:
+            hdr = f.read(8)
+            if len(hdr) != 8:
+                raise KLTError(f"(read_feature_table) {path}: truncated "
+                               "dims header")
+            n_frames, n_features = struct.unpack("<ii", hdr)
+            if n_frames < 0 or n_features < 0:
+                raise KLTError(f"(read_feature_table) {path}: negative "
+                               f"dims ({n_frames}, {n_features})")
+            raw = f.read(n_frames * n_features * 12)
+            if len(raw) != n_frames * n_features * 12:
+                raise KLTError(f"(read_feature_table) {path}: truncated "
+                               f"records ({len(raw)} of "
+                               f"{n_frames * n_features * 12} bytes)")
+            rec = np.frombuffer(
+                raw, dtype=[("x", "<f4"), ("y", "<f4"), ("v", "<i4")]
+            ).reshape(n_features, n_frames)
+            return _table(rec["x"].T, rec["y"].T, rec["v"].T, device)
+    text = path.read_text()
+    m = re.search(r"nFrames\s*=\s*(\d+),\s*nFeatures\s*=\s*(\d+)", text)
+    if not m:
+        raise KLTError(f"(read_feature_table) {path}: no dims header")
+    n_frames, n_features = int(m.group(1)), int(m.group(2))
+    x = np.zeros((n_frames, n_features), np.float64)
+    y = np.zeros((n_frames, n_features), np.float64)
+    v = np.zeros((n_frames, n_features), np.int64)
+    cell_re = re.compile(
+        r"\(\s*([-\d.eE+]+)\s*,\s*([-\d.eE+]+)\s*\)\s*=\s*(-?\d+)")
+    row_re = re.compile(r"^\s*(\d+)\s*\|(.*)$", re.M)
+    nrows = 0
+    for mrow in row_re.finditer(text):
+        j = int(mrow.group(1))
+        cells = cell_re.findall(mrow.group(2))
+        if len(cells) != n_frames:
+            continue
+        if j >= n_features:
+            raise KLTError(f"(read_feature_table) {path}: row index {j} "
+                           f"out of range for nFeatures {n_features}")
+        for i, (xx, yy, vv) in enumerate(cells):
+            x[i, j], y[i, j], v[i, j] = float(xx), float(yy), int(vv)
+        nrows += 1
+    if nrows != n_features:
+        raise KLTError(
+            f"(read_feature_table) {path}: expected {n_features} rows, "
+            f"found {nrows}")
+    return _table(x, y, v, device)

@@ -4,9 +4,9 @@ device; on a GPU machine run them (no JAX needed) with
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
-Bars: K1, K3 and K4 bit-equal; K2 and K6 statuses and iterations equal
-and positions (K6: and warps) bit-equal (the kernels round and sum in
-their plain versions' order). Inputs are small seeded numpy images."""
+Bars: K1, K3, K4 and K5 bit-equal; K2 and K6 statuses and iterations
+equal and positions (K6: and warps) bit-equal (the kernels round and sum
+in their plain versions' order). Inputs are small seeded numpy images."""
 
 import numpy as np
 import pytest
@@ -14,7 +14,8 @@ import torch
 
 import pyfeaturetrack_tpu_torch as tpft
 from pyfeaturetrack_tpu_torch.ops import (cuda_affine, cuda_eig, cuda_lk,
-                                          cuda_pyramid, cuda_select)
+                                          cuda_pyramid, cuda_select,
+                                          cuda_suppress)
 from pyfeaturetrack_tpu_torch.ops.interp import gather_window
 from pyfeaturetrack_tpu_torch.utils import cuda
 
@@ -198,3 +199,95 @@ def test_affine_sequence_on_card_equals_plain_on_cpu(dev, mode):
     assert cuda_affine.launches > before
     for a, b in zip(g, c):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("grid", ["shared", "global"])
+@pytest.mark.parametrize("mindist,budget", [
+    (0, None), (1, 7), (10, None), (10, 0), (25, 7), (60, None)])
+def test_suppress_exact(dev, grid, mindist, budget, monkeypatch):
+    """K5 against its plain version: flags, index list and count, with
+    candidates within the radius of every edge and about 10 % invalid
+    lanes, the coverage grid in shared and (with the shared-memory limit
+    set to 0) in global memory."""
+    if grid == "global":
+        monkeypatch.setattr(cuda_suppress, "SMEM_GRID_BYTES", 0)
+    h, w, k = 150, 200, 3000
+    rng = np.random.default_rng(mindist)
+    d = max(mindist - 1, 1)
+    cx = np.where(rng.uniform(size=k) < 0.3,
+                  rng.choice([0, d, w - 1 - d, w - 1], k), rng.integers(0, w, k))
+    cy = np.where(rng.uniform(size=k) < 0.3,
+                  rng.choice([0, d, h - 1 - d, h - 1], k), rng.integers(0, h, k))
+    args = (torch.tensor(cx, dtype=torch.int32, device=dev),
+            torch.tensor(cy, dtype=torch.int32, device=dev),
+            torch.tensor(rng.uniform(size=k) > 0.1, device=dev))
+    kw = dict(shape=(h, w), mindist=mindist, max_out=k,
+              budget=torch.tensor([k if budget is None else budget],
+                                  dtype=torch.int32, device=dev))
+    before = cuda_suppress.launches
+    got = cuda_suppress.greedy_suppress(*args, **kw)
+    assert cuda_suppress.launches == before + 1
+    want = _plain(cuda_suppress.greedy_suppress, *args, **kw)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert int(got[2]) == (0 if budget == 0 else int(got[0].sum()))
+
+
+def test_suppress_large_frame_uses_global_grid(dev):
+    """1080x1920: the grid (259 KB) exceeds shared memory and lives in
+    global memory."""
+    h, w, k = 1080, 1920, 20000
+    rng = np.random.default_rng(3)
+    args = (torch.tensor(rng.integers(0, w, k), dtype=torch.int32, device=dev),
+            torch.tensor(rng.integers(0, h, k), dtype=torch.int32, device=dev),
+            torch.ones(k, dtype=torch.bool, device=dev))
+    kw = dict(shape=(h, w), mindist=10, max_out=500,
+              budget=torch.tensor([500], dtype=torch.int32, device=dev))
+    assert cuda_suppress.grid_bytes((h, w)) > cuda_suppress.SMEM_GRID_BYTES
+    got = cuda_suppress.greedy_suppress(*args, **kw)
+    want = _plain(cuda_suppress.greedy_suppress, *args, **kw)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_facade_two_frames_on_card_equals_plain_on_cpu(dev):
+    """Example 1's flow (select, track) through the facade on the card
+    equals the same calls on the CPU; K1, K2, K3 and K5 launch."""
+    base = _texture(140, 180, seed=23)
+    img0, img1 = base[:120, :160], base[1:121, 2:162]
+    cfg = tpft.create_config()
+    mods = (cuda_pyramid, cuda_lk, cuda_eig, cuda_suppress)
+    counts = {m: m.launches for m in mods}
+    g = tpft.KLTSelectGoodFeatures(cfg, img0, 60)
+    g2, _ = tpft.KLTTrackFeatures(cfg, img0, img1, g)
+    c = tpft.KLTSelectGoodFeatures(cfg, img0, 60, device="cpu")
+    c2, _ = tpft.KLTTrackFeatures(cfg, img0, img1, c)
+    for m, before in counts.items():
+        assert m.launches > before, m.__name__
+    for a, b in zip(g[:3] + g2[:3], c[:3] + c2[:3]):
+        assert a.device.type == "cuda"
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("mode", [-1, 2])
+def test_host_loop_on_card_equals_device_route(dev, mode):
+    base = _texture(120, 160, seed=13)
+    frames = [np.roll(base, 4 * i, axis=1) for i in range(8)]
+    cfg = tpft.create_config(mindist=8, affineConsistencyCheck=mode)
+    ft, _ = tpft.track_sequence(frames, cfg=cfg, n_features=40)
+    d = tpft.track_sequence_device(frames, cfg=cfg, n_features=40)
+    c, _ = tpft.track_sequence(frames, cfg=cfg, n_features=40, device="cpu")
+    for a, b, e in zip(ft, d, c):
+        np.testing.assert_array_equal(a.cpu().numpy(), b)
+        assert torch.equal(a.cpu(), e)
+
+
+def test_stable_sort_ties_match_numpy(dev):
+    """The host API's priority order on the card: torch.sort(-vals,
+    stable=True) over a quantized map full of ties equals
+    np.argsort(-vals, kind="stable") (descending, ties in scan order)."""
+    rng = np.random.default_rng(4)
+    vals = rng.integers(0, 50, 255744).astype(np.int32)
+    _, order = torch.sort(-torch.tensor(vals, device=dev), stable=True)
+    np.testing.assert_array_equal(order.cpu().numpy(),
+                                  np.argsort(-vals, kind="stable"))

@@ -30,6 +30,7 @@ _KERNEL_MODULES = ("pyfeaturetrack_tpu_torch.ops.cuda_pyramid",
                    "pyfeaturetrack_tpu_torch.ops.cuda_lk",
                    "pyfeaturetrack_tpu_torch.ops.cuda_eig",
                    "pyfeaturetrack_tpu_torch.ops.cuda_select",
+                   "pyfeaturetrack_tpu_torch.ops.cuda_suppress",
                    "pyfeaturetrack_tpu_torch.ops.cuda_affine")
 
 
@@ -38,7 +39,10 @@ def test_import_leaves_jax_out():
             "import pyfeaturetrack_tpu_torch\n"
             f"for m in {_KERNEL_MODULES!r} + ("
             "'pyfeaturetrack_tpu_torch.utils.convert', "
-            "'pyfeaturetrack_tpu_torch.utils.io'):\n"
+            "'pyfeaturetrack_tpu_torch.utils.io', "
+            "'pyfeaturetrack_tpu_torch.utils.viz', "
+            "'pyfeaturetrack_tpu_torch.models.tracker', "
+            "'pyfeaturetrack_tpu_torch.models.sequence'):\n"
             "    importlib.import_module(m)\n"
             "assert 'jax' not in sys.modules, 'jax imported'\n"
             "assert 'pyfeaturetrack_tpu' not in sys.modules\n"
@@ -59,9 +63,11 @@ def test_no_jax_import_in_sources():
 
 def test_kernel_sources_present():
     names = sorted(p.name for p in (PKG / "csrc").glob("*.cu"))
-    for want in ("pyramid.cu", "lk.cu", "eig.cu", "extract.cu", "affine.cu"):
+    srcs = ("pyramid.cu", "lk.cu", "eig.cu", "extract.cu", "suppress.cu",
+            "affine.cu")
+    for want in srcs:
         assert want in names
-    for src in ("pyramid.cu", "lk.cu", "eig.cu", "extract.cu", "affine.cu"):
+    for src in srcs:
         head = (PKG / "csrc" / src).read_text()[:400]
         assert "Replaces pyfeaturetrack_tpu/ops/pallas_" in head, src
 
@@ -117,8 +123,28 @@ def test_kernel_widths_match_jax(sigma, widths):
 
 def test_status_codes_match_jax():
     for name in ("KLT_TRACKED", "KLT_NOT_FOUND", "KLT_SMALL_DET",
-                 "KLT_MAX_ITERATIONS", "KLT_OOB", "KLT_LARGE_RESIDUE"):
+                 "KLT_MAX_ITERATIONS", "KLT_OOB", "KLT_LARGE_RESIDUE",
+                 "KLT_FB_INCONSISTENT"):
         assert getattr(tpft, name) == getattr(jpft, name)
+    from pyfeaturetrack_tpu.features import STATUS_NAMES as jax_names
+    from pyfeaturetrack_tpu_torch.features import STATUS_NAMES
+    assert STATUS_NAMES == jax_names
+
+
+def test_public_names_match_jax():
+    """Every name of the JAX package's public surface that the port
+    covers is exported under the same name."""
+    left_out = {"track_sequence_chunked", "DenseFlow", "compute_dense_flow",
+                "dense_flow_fb", "dense_flow_pyramids", "flow_consistency",
+                "flow_to_rgb", "warp_image", "DenseDisparity", "dense_depth",
+                "dense_disparity", "dense_disparity_lr",
+                "dense_disparity_pyramids", "disparity_lr_consistency",
+                "BatchedStreamingTracker", "StreamingTracker",
+                "prefetch_to_device", "serve_stream", "FrameLoader",
+                "load_frames"}
+    public = {n for n in dir(jpft) if not n.startswith("_")
+              and not isinstance(getattr(jpft, n), type(sys))}
+    assert public - left_out - set(dir(tpft)) == set()
 
 
 def test_feature_numpy_round_trip():
@@ -153,7 +179,6 @@ def test_cuda_request_without_cuda_raises():
 def test_out_of_slice_parts_raise():
     from pyfeaturetrack_tpu_torch.models.device_sequence import (
         sequence_chain_device)
-    from pyfeaturetrack_tpu_torch.ops.track import fb_reject
     frames = [np.zeros((64, 80), np.float32)] * 2
     with pytest.raises(NotImplementedError):
         tpft.track_sequence_device(
@@ -162,7 +187,8 @@ def test_out_of_slice_parts_raise():
     with pytest.raises(NotImplementedError):
         sequence_chain_device()
     with pytest.raises(NotImplementedError):
-        fb_reject()
+        tpft.track_sequence(frames, n_features=4, subpixel_refine=True,
+                            device="cpu")
     cfg = tpft.create_config()
     pyr = tpft.build_track_pyramids(torch.zeros(64, 80), cfg)
     z = torch.zeros(3)
