@@ -15,7 +15,8 @@ Phases, in order; the first failure exits non-zero:
    timed with CUDA events. Default config: K2 and K4 must match their
    plain versions bit for bit, K1 within 1e-3 abs and K3 within one int
    step at under 1e-3 of pixels; K2 runs both levels of a real tracked
-   pair and of a status mix whose lanes end in every K2 status.
+   pair and of a status mix whose lanes end in every K2 status (also with
+   a 13x13 window).
    Config 3 (affine check, 3 levels, subsampling 2): K1 on all three
    levels and K2 on all three levels of a similarity pair and of the
    status mix, at the same bars; K6 bit-equal in x, y, A, status and
@@ -51,17 +52,38 @@ Phases, in order; the first failure exits non-zero:
    track_sequence_device's, and a 10-frame config-3 run must equal the
    device route's table and AffineState; then the SequenceTracker.step
    time (CUDA events);
-8. profile (only with --profile) — for config 2's host loop, its step
+8. dense   — (a) compute_dense_flow on the main phase's first 480x640
+   pair (default config): K1 and K8 launch 6 and 2 times, the maps equal
+   the plain route's bit for bit, the median flow of the tracked interior
+   is the drift within 0.05 px; dense_flow_fb (K8 4 launches); the call
+   timed by CUDA events; K8's 2-D mode at level 0 bit-equal and timed.
+   (b) example 9's pair (examples/data): tracked share and median flow
+   beside the sparse facade's median displacement, maps equal to the plain
+   route's. (c) dense_depth on a rectified 480x640 two-plane pair
+   (background disparity 4, box 32, max_disparity 64): K1 12 and K8 4
+   launches, maps equal to the plain route's, each plane's median
+   disparity within 0.1 px, the occluded band mostly invalid, the call
+   timed; K8's 1-D mode at level 0 bit-equal and timed. K9 bit-equal on
+   the main pair's 1000 features (windows at the selected features,
+   frame-2 positions at K2's tracked ones) and on a mix with lanes beyond
+   every edge, timed. (d) track_sequence(subpixel_refine=True) on 10
+   frames: the table equals the plain route's, the first frame is refined
+   off the integers;
+9. profile (only with --profile) — for config 2's host loop, its step
    time beside the device route's, three repeats, and for the config-3
    and the default device step, the step time by CUDA events, by host
    wall clock and through track_sequence_device, three repeats each;
    then for each a torch.profiler trace of 30 steps
    (build/profile/step_trace_<config>.json): device kernels, busy time
-   and idle share per step, and the largest device items.
+   and idle share per step, and the largest device items; the same for 10
+   compute_dense_flow calls (build/profile/dense_flow_trace.json).
 
 Prints the per-kernel JSON line (times, launches, error, and the bound:
 the larger of the bytes each kernel must move over 3.35 TB/s and its
-float32 operations over 67 TFLOP/s, computed from this run's inputs),
+float32 operations over 67 TFLOP/s, computed from this run's inputs;
+K8's entry also carries its 1-D mode's times and bound, K2's the windows
+its status mix ran at; K9's launches are those of its own phase's driven
+call, since no path of the package runs it),
 then the nvidia-smi line, then, as the last line, {"ok": true, "device":
 {...}}. Imports nothing of JAX.
 """
@@ -87,6 +109,10 @@ DRIFT_TOL = 0.05          # px: median displacement vs the known drift
 SIM_SHIFT, SIM_ROT_DEG, SIM_SCALE = (2.0, 1.0), 0.05, 1.001
 SIM_PAD = 320             # texture margin around frame 0 (px)
 OVERLAY = ((300, 400), (240, 400))   # rows, cols of the static overlay
+# the dense-depth pair: background and box disparities (px) and the box
+# span (right-image columns b0..b1, rows y0..y1)
+STEREO_BG, STEREO_BOX = 4, 32
+STEREO_BOX_SPAN = (240, 400, 120, 360)
 # peak rates of one H100 SXM (NVIDIA data sheet): HBM bytes/s and float32
 # operations/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -413,6 +439,86 @@ def k6_work(cfg, check, nit):
     return nbytes, ops
 
 
+def k8_work(cfg, status, iterations, one_d):
+    """Bytes and operations of one K8 level as this run's pixels needed
+    them. Bytes: the level images it reads once (six; four in the 1-D mode,
+    which reads no gy) and the maps in and out (2-D: u, v in; u, v,
+    status, iteration out; 1-D: d in; d, status, iteration out).
+    Operations per window pixel: the frame-1 windows sit on integer
+    coordinates and need no blend; per iteration 2-D 34 (three frame-2
+    blends, the residual, two gradient sums, five products and sums) and
+    12 per iteration for the 2x2 solve, 1-D 20 (two blends, the residual,
+    the gradient sum, two products and sums) and 4 for the scalar step;
+    10 for the final residue (one blend, difference, magnitude, sum) at
+    each pixel that reached it, those in bounds and not SMALL_DET."""
+    from pyfeaturetrack_tpu_torch.features import (
+        KLT_LARGE_RESIDUE, KLT_MAX_ITERATIONS, KLT_TRACKED)
+    npx = cfg.window_width * cfg.window_height
+    n = iterations.numel()
+    its = int(iterations.sum().item())
+    reached = int(((status == KLT_TRACKED) | (status == KLT_LARGE_RESIDUE)
+                   | (status == KLT_MAX_ITERATIONS)).sum().item())
+    h, w = iterations.shape
+    if one_d:
+        return (4 * 4 * h * w + n * 16,
+                reached * npx * 10 + its * (npx * 20 + 4))
+    return 6 * 4 * h * w + n * 24, reached * npx * 10 + its * (npx * 34 + 12)
+
+
+def k9_work(n, ww, wh):
+    """Bytes and operations of one K9 call on n features: the three frame-1
+    windows and the three (ww+1)(wh+1) frame-2 patches read once, positions
+    in, five sums out; per window pixel three blends (21), the residual and
+    two gradient sums (3), five products and five sums (10); per feature
+    the clamp (4) and the two step scalings (2)."""
+    npx, patch = ww * wh, (ww + 1) * (wh + 1)
+    return n * (3 * npx * 4 + 3 * patch * 4 + 8 + 20), n * (npx * 34 + 6)
+
+
+def make_stereo_pair():
+    """A rectified 480x640 pair built the way examples/example11_depth.py
+    builds its own, at this size: two textures (a seeded uniform noise with
+    one binomial pass per axis), a background plane at disparity
+    STEREO_BG and a raised box at STEREO_BOX, composited with real
+    visibility, so the background band just left of the box is occluded in
+    the right view. Returns (left, right, box) with box = (b0, b1, y0, y1)
+    in right-image coordinates."""
+    import numpy as np
+    pad = 2 * STEREO_BOX
+
+    def tex(seed):
+        img = np.random.default_rng(seed).uniform(0.0, 255.0, (H, W + pad))
+        k = np.array([1.0, 4.0, 6.0, 4.0, 1.0]) / 16.0
+        for axis in (0, 1):
+            img = sum(c * np.roll(img, s - 2, axis=axis) for s, c in enumerate(k))
+        return img
+
+    bg, fg = tex(SEED + 11), tex(SEED + 12)
+    xs = np.arange(W)[None, :]
+    ys = np.arange(H)[:, None]
+    b0, b1, y0, y1 = STEREO_BOX_SPAN
+    d_bg, d_box = STEREO_BG, STEREO_BOX
+    in_box_r = (xs >= b0) & (xs < b1) & (ys >= y0) & (ys < y1)
+    right = np.where(in_box_r, fg[:, d_box:W + d_box], bg[:, d_bg:W + d_bg])
+    in_box_l = (xs >= b0 + d_box) & (xs < b1 + d_box) & (ys >= y0) & (ys < y1)
+    left = np.where(in_box_l, fg[:, :W], bg[:, :W])
+    return (left.astype(np.float32), right.astype(np.float32),
+            (b0, b1, y0, y1))
+
+
+def maps_equal(got, want, what):
+    """Fail unless every map of ``got`` equals ``want``'s bit for bit."""
+    import numpy as np
+    for i, (a, b) in enumerate(zip(got, want)):
+        a = a.cpu().numpy() if hasattr(a, "cpu") else np.asarray(a)
+        b = b.cpu().numpy() if hasattr(b, "cpu") else np.asarray(b)
+        if a.shape != b.shape or not np.array_equal(a, b):
+            bad = np.argwhere(a != b) if a.shape == b.shape else []
+            print(f"  {what}: output {i} differs at {len(bad)} pixels, first "
+                  f"{[tuple(int(v) for v in q) for q in bad[:10]]}")
+            fail(f"{what} differs from the plain route")
+
+
 def time_ms(fn, reps: int = 20) -> float:
     """Mean device time of fn() over reps launches, CUDA events."""
     import torch
@@ -534,6 +640,26 @@ def trace_summary(prof, out, n_steps):
               f"{short}")
 
 
+def profile_dense(pft, frames, root, n_prof=10):
+    """Dense flow under ``--profile``: a torch.profiler trace of n_prof
+    compute_dense_flow calls on the main phase's first pair
+    (build/profile/dense_flow_trace.json); a "step" is one call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    phase(f"profile, dense flow: {n_prof} traced compute_dense_flow calls "
+          f"({H}x{W} numpy pair)")
+    for _ in range(3):
+        pft.compute_dense_flow(frames[0], frames[1])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_prof):
+            pft.compute_dense_flow(frames[0], frames[1])
+        torch.cuda.synchronize()
+    trace_summary(prof, root / "build" / "profile" / "dense_flow_trace.json",
+                  n_prof)
+
+
 def host_loop_times(pft, cfg, staged, warmup=10):
     """CUDA-event time of each SequenceTracker.step over the staged frames
     (ms), after ``warmup`` steps, and the tracker."""
@@ -581,6 +707,280 @@ def profile_host_loop(pft, cfg, staged, root, n_prof=30, repeats=3):
                   "step_trace_config2_host.json", n_prof)
 
 
+def event_ms(fn, reps: int = 10, warmup: int = 2):
+    """Median CUDA-event time of fn() over reps calls, each timed on its
+    own, after ``warmup`` calls (ms); the host wall median beside it."""
+    import numpy as np
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    ev, wall = [], []
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        e0.record()
+        fn()
+        e1.record()
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+        ev.append(e0.elapsed_time(e1))
+    return float(np.median(ev)), float(np.median(wall))
+
+
+def dense_phase(pft, frames, ex, sparse, mods, report, dev, smi):
+    """Dense flow (configurations a and b), dense depth (c) and sub-pixel
+    refinement in the host loop (d), each through the entry points a user
+    calls, with K8 and K9 against their plain versions; see the module
+    docstring. ``mods`` maps kernel ids to their wrapper modules."""
+    import numpy as np
+    import torch
+    from pyfeaturetrack_tpu_torch.features import KLT_TRACKED
+    from pyfeaturetrack_tpu_torch.ops import cuda_lk_dense, cuda_window_terms
+    from pyfeaturetrack_tpu_torch.ops.disparity import _hypothesis_init
+    from pyfeaturetrack_tpu_torch.ops.flow import dense_flow_fb, upsample_flow
+    from pyfeaturetrack_tpu_torch.ops.interp import gather_window
+    from pyfeaturetrack_tpu_torch.utils import cuda
+
+    def drive(fn, expect):
+        """fn() with every count set to 0 just before and read just after;
+        each kernel of ``expect`` must have launched that many times (None:
+        at least once)."""
+        for m in mods.values():
+            m.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        counts = {k: m.launches for k, m in mods.items()}
+        for k, want in expect.items():
+            if counts[k] <= 0 or (want is not None and counts[k] != want):
+                fail(f"{k} launched {counts[k]} times (expected "
+                     f"{'some' if want is None else want})")
+        return out, counts
+
+    cfg = pft.create_config()
+    k1_per_frame = 1 + cfg.nPyramidLevels      # level 0 launches twice
+
+    # ---- (a) dense flow on the main phase's first pair ----
+    phase(f"dense (a): compute_dense_flow, {H}x{W} pair of the main phase "
+          f"(drift {DRIFT}), default config, then dense_flow_fb")
+    a0, a1 = frames[0], frames[1]
+    fl, counts = drive(lambda: pft.compute_dense_flow(a0, a1),
+                       {"K1": 2 * k1_per_frame, "K8": cfg.nPyramidLevels})
+    print(f"launches in the dense-flow run: {counts}")
+    k8_launches = counts["K8"]
+    with cuda.reference_path():
+        pl = pft.compute_dense_flow(a0, a1)
+    maps_equal(fl, pl, "dense flow (u, v, status)")
+    st = fl.status.cpu().numpy()
+    u, v = fl.u.cpu().numpy(), fl.v.cpu().numpy()
+    inner = np.zeros_like(st, bool)
+    inner[24:-24, 24:-24] = True
+    ok = (st == KLT_TRACKED) & inner
+    mu, mv = float(np.median(u[ok])), float(np.median(v[ok]))
+    print(f"tracked share {float((st == KLT_TRACKED).mean()):.4f} (interior "
+          f"{float(ok.sum() / inner.sum()):.4f}); median flow over tracked "
+          f"interior pixels ({mu:.4f}, {mv:.4f}) px vs drift {DRIFT}; maps "
+          f"equal to the plain route's")
+    if abs(mu - DRIFT[0]) > DRIFT_TOL or abs(mv - DRIFT[1]) > DRIFT_TOL:
+        fail("the dense flow does not recover the drift")
+    p1, p2 = (pft.build_track_pyramids(
+        torch.as_tensor(f, device=dev).to(torch.float32), cfg) for f in (a0, a1))
+    (fwd, err, valid), counts = drive(lambda: dense_flow_fb(p1, p2, cfg),
+                                      {"K8": 2 * cfg.nPyramidLevels})
+    if not torch.equal(fwd.u, fl.u):
+        fail("dense_flow_fb's forward flow differs from compute_dense_flow's")
+    print(f"dense_flow_fb: launches {counts}; valid share "
+          f"{valid.float().mean().item():.4f}; median round-trip error "
+          f"{err[valid].median().item():.5f} px")
+    flow_ms, flow_wall = event_ms(lambda: pft.compute_dense_flow(a0, a1))
+    print(f"compute_dense_flow ({H}x{W} numpy pair: two K1 pyramids, "
+          f"{cfg.nPyramidLevels} K8 levels), median of 10: CUDA events "
+          f"{flow_ms:.4f} ms, host wall {flow_wall:.4f} ms; card {smi}")
+
+    # K8 at level 0 of (a): the level-1 result upsampled, as the path does
+    u1, v1, _, _ = cuda_lk_dense.dense_level(
+        *(p[1] for p in (p1.img, p1.gradx, p1.grady, p2.img, p2.gradx,
+                         p2.grady)),
+        torch.zeros_like(p1.img[1]), torch.zeros_like(p1.img[1]), cfg)
+    s = float(cfg.subsampling)
+    lvl0 = (p1.img[0], p1.gradx[0], p1.grady[0], p2.img[0], p2.gradx[0],
+            p2.grady[0])
+    k8_args = (*lvl0, upsample_flow(u1, (H, W), s), upsample_flow(v1, (H, W), s),
+               cfg)
+    got = cuda_lk_dense.dense_level(*k8_args)
+    with cuda.reference_path():
+        want = cuda_lk_dense.dense_level(*k8_args)
+    maps_equal(got, want, "K8 2-D level 0")
+    k8_ms = time_ms(lambda: cuda_lk_dense.dense_level(*k8_args))
+    with cuda.reference_path():
+        k8_plain = time_ms(lambda: cuda_lk_dense.dense_level(*k8_args), reps=2)
+    k8_w = k8_work(cfg, got[2], got[3], False)
+    its = got[3].float()
+    print(f"K8 2-D level 0 ({H * W} pixels, iterations mean "
+          f"{its.mean().item():.3f}, max {int(its.max().item())}): kernel "
+          f"{k8_ms:.4f} ms, plain {k8_plain:.4f} ms, bound "
+          f"{bound_ms(*k8_w)[0]:.5f} ms ({bound_ms(*k8_w)[1]}); bit-equal")
+
+    # ---- (b) example 9's pair ----
+    phase("dense (b): compute_dense_flow on examples/data/img0.pgm -> "
+          "img1.pgm (example 9)")
+    fl9 = pft.compute_dense_flow(*ex)
+    with cuda.reference_path():
+        pl9 = pft.compute_dense_flow(*ex)
+    maps_equal(fl9, pl9, "example 9 dense flow")
+    st9 = fl9.status.cpu().numpy()
+    t9 = st9 == KLT_TRACKED
+    sel, trk = sparse
+    sok = (trk.val == KLT_TRACKED).cpu().numpy()
+    sdx = (trk.x - sel.x).cpu().numpy()[sok]
+    sdy = (trk.y - sel.y).cpu().numpy()[sok]
+    print(f"dense flow: {t9.mean():.1%} of pixels tracked; median flow "
+          f"(tracked) ({np.median(fl9.u.cpu().numpy()[t9]):+.2f}, "
+          f"{np.median(fl9.v.cpu().numpy()[t9]):+.2f}); sparse median "
+          f"displacement ({int(sok.sum())} features) ({np.median(sdx):+.2f}, "
+          f"{np.median(sdy):+.2f}); maps equal to the plain route's")
+
+    # ---- (c) dense depth ----
+    b0, b1, y0, y1 = STEREO_BOX_SPAN
+    phase(f"dense (c): dense_depth, rectified {H}x{W} pair, background at "
+          f"disparity {STEREO_BG}, box at {STEREO_BOX}, max_disparity 64")
+    left, right, _ = make_stereo_pair()
+    K = np.array([[500.0, 0.0, W / 2], [0.0, 500.0, H / 2], [0.0, 0.0, 1.0]])
+    baseline = 0.1
+    (depth, d, vmask), counts = drive(
+        lambda: pft.dense_depth(left, right, K, baseline, max_disparity=64.0),
+        {"K1": 4 * k1_per_frame, "K8": 2 * cfg.nPyramidLevels})
+    print(f"launches in the dense-depth run: {counts}")
+    with cuda.reference_path():
+        plain_depth = pft.dense_depth(left, right, K, baseline,
+                                      max_disparity=64.0)
+    maps_equal((depth, d, vmask), plain_depth, "dense depth (depth, d, valid)")
+    bg = np.zeros_like(vmask)
+    bg[24:-24, 24:b0 - 8] = True
+    box = np.zeros_like(vmask)
+    box[y0 + 16:y1 - 16, b0 + STEREO_BOX + 16:b1 + STEREO_BOX - 16] = True
+    occ = np.zeros_like(vmask)
+    occ[y0 + 16:y1 - 16, b0 + STEREO_BG + 4:b0 + STEREO_BOX - 4] = True
+    med_bg = float(np.median(d[bg & vmask]))
+    med_box = float(np.median(d[box & vmask]))
+    occ_invalid = 1.0 - float(vmask[occ].mean())
+    fx = K[0, 0]
+    print(f"valid share {vmask.mean():.4f} (background interior "
+          f"{vmask[bg].mean():.4f}, box interior {vmask[box].mean():.4f}); "
+          f"median disparity: background {med_bg:.4f} (true {STEREO_BG}), "
+          f"box {med_box:.4f} (true {STEREO_BOX}); median depth background "
+          f"{np.median(depth[bg & vmask]):.4f} (true "
+          f"{fx * baseline / STEREO_BG:.4f}), box "
+          f"{np.median(depth[box & vmask]):.4f} (true "
+          f"{fx * baseline / STEREO_BOX:.4f}); occluded band invalid "
+          f"{occ_invalid:.4f}; maps equal to the plain route's")
+    if abs(med_bg - STEREO_BG) > 0.1 or abs(med_box - STEREO_BOX) > 0.1:
+        fail("dense depth does not recover the planes' disparities")
+    if occ_invalid <= 0.5:
+        fail("the occluded band is not mostly invalid")
+    depth_ms, depth_wall = event_ms(lambda: pft.dense_depth(
+        left, right, K, baseline, max_disparity=64.0), reps=5, warmup=1)
+    print(f"dense_depth (four K1 pyramids, SSD sweep, {2 * cfg.nPyramidLevels}"
+          f" K8 1-D levels, LR gate, maps to the host), median of 5: CUDA "
+          f"events {depth_ms:.4f} ms, host wall {depth_wall:.4f} ms; card {smi}")
+
+    # K8 1-D at level 0 of (c): the seed sweep and level 1, as the path does
+    lf = torch.as_tensor(left, device=dev)
+    rf = torch.as_tensor(right, device=dev)
+    pl_, pr_ = (pft.build_track_pyramids(t, cfg) for t in (lf, rf))
+    hw = cfg.window_width // 2
+    n_lv = cfg.nPyramidLevels
+    hyp = tuple(range(0, int(64.0 / s ** (n_lv - 1)) + 1, hw + 1))
+    dseed = _hypothesis_init(pl_.img[1], pr_.img[1], hyp, hw,
+                             cfg.window_height // 2)
+    d1, _, _ = cuda_lk_dense.dense_level_1d(
+        *(p[1] for p in (pl_.img, pl_.gradx, pl_.grady, pr_.img, pr_.gradx,
+                         pr_.grady)), dseed, cfg)
+    k8d_args = (pl_.img[0], pl_.gradx[0], pl_.grady[0], pr_.img[0],
+                pr_.gradx[0], pr_.grady[0], upsample_flow(d1, (H, W), s), cfg)
+    got = cuda_lk_dense.dense_level_1d(*k8d_args)
+    with cuda.reference_path():
+        want = cuda_lk_dense.dense_level_1d(*k8d_args)
+    maps_equal(got, want, "K8 1-D level 0")
+    k8d_ms = time_ms(lambda: cuda_lk_dense.dense_level_1d(*k8d_args))
+    with cuda.reference_path():
+        k8d_plain = time_ms(lambda: cuda_lk_dense.dense_level_1d(*k8d_args),
+                            reps=2)
+    k8d_w = k8_work(cfg, got[1], got[2], True)
+    its = got[2].float()
+    print(f"K8 1-D level 0 ({H * W} pixels, iterations mean "
+          f"{its.mean().item():.3f}, max {int(its.max().item())}): kernel "
+          f"{k8d_ms:.4f} ms, plain {k8d_plain:.4f} ms, bound "
+          f"{bound_ms(*k8d_w)[0]:.5f} ms ({bound_ms(*k8d_w)[1]}); bit-equal")
+    report["K8"] = dict(max_abs_err=0.0, ms=k8_ms, plain_ms=k8_plain,
+                        work=k8_w, launches=k8_launches,
+                        ms_1d=k8d_ms, plain_ms_1d=k8d_plain, work_1d=k8d_w)
+
+    # ---- K9 at the main phase's 1000 features and on a status mix ----
+    phase("K9 window terms: 1000 selected features of the main pair, "
+          "level 0; a mix with lanes beyond every edge")
+    feats, mix = report.pop("K9_inputs")
+    k9_cases = {}
+    for name, (pa, pb, xa, ya, xb, yb) in (("main pair", feats),
+                                           ("edge mix", mix)):
+        ww, wh = cfg.window_width, cfg.window_height
+        w1, g1x, g1y = (gather_window(im, xa, ya, ww // 2, wh // 2).contiguous()
+                        for im in (pa.img[0], pa.gradx[0], pa.grady[0]))
+        args = (pb.img[0], pb.gradx[0], pb.grady[0], w1, g1x, g1y, xb, yb)
+        kw = dict(hw=ww // 2, hh=wh // 2, step_factor=cfg.step_factor)
+        if name == "main pair":
+            got, counts = drive(lambda: cuda_window_terms.window_terms(
+                *args, **kw), {"K9": 1})
+            k9_launches = counts["K9"]
+        else:
+            got = cuda_window_terms.window_terms(*args, **kw)
+        with cuda.reference_path():
+            want = cuda_window_terms.window_terms(*args, **kw)
+        torch.cuda.synchronize()
+        same = torch.equal(got, want)
+        clamped = int(((xb < ww // 2) | (xb > W - ww // 2 - 1.001) |
+                       (yb < wh // 2) | (yb > H - wh // 2 - 1.001)).sum().item())
+        print(f"K9 {name}: {xb.shape[0]} lanes ({clamped} clamped), "
+              f"bit-equal {same}")
+        if not same:
+            fail(f"K9 ({name}) differs from its plain version")
+        k9_cases[name] = (args, kw)
+    args, kw = k9_cases["main pair"]
+    k9_ms = time_ms(lambda: cuda_window_terms.window_terms(*args, **kw))
+    with cuda.reference_path():
+        k9_plain = time_ms(lambda: cuda_window_terms.window_terms(*args, **kw))
+    k9_w = k9_work(args[-1].shape[0], cfg.window_width, cfg.window_height)
+    print(f"K9, 1000 features: kernel {k9_ms:.4f} ms, plain {k9_plain:.4f} "
+          f"ms, bound {bound_ms(*k9_w)[0]:.6f} ms ({bound_ms(*k9_w)[1]})")
+    report["K9"] = dict(max_abs_err=0.0, ms=k9_ms, plain_ms=k9_plain,
+                        work=k9_w, launches=k9_launches)
+
+    # ---- (d) config 2 with sub-pixel refinement ----
+    phase(f"dense (d): track_sequence(subpixel_refine=True), "
+          f"{N_PLAIN_FRAMES} frames of the main phase, {N_FEATURES} features")
+    kcfg = cfg.replace(sequentialMode=True)
+    (ft, _), counts = drive(lambda: pft.track_sequence(
+        frames[:N_PLAIN_FRAMES], cfg=kcfg, n_features=N_FEATURES,
+        subpixel_refine=True, device="cuda"),
+        {"K1": None, "K2": None, "K3": None, "K5": None})
+    print(f"launches in the refine run: {counts}")
+    with cuda.reference_path():
+        pft_, _ = pft.track_sequence(frames[:N_PLAIN_FRAMES], cfg=kcfg,
+                                     n_features=N_FEATURES,
+                                     subpixel_refine=True, device="cuda")
+    maps_equal(tuple(ft), tuple(pft_), "the refine table (x, y, val)")
+    x0 = ft.x[0]
+    frac = (x0 != torch.round(x0)).float().mean().item()
+    off = (ft.x[0] - torch.round(ft.x[0])).abs()
+    print(f"first frame: {frac:.1%} of the refined x off the integers (median "
+          f"|x - round(x)| {off.median().item():.4f} px); live in the last "
+          f"frame {int((ft.val[-1] >= 0).sum().item())}; table equal to the "
+          f"plain route's")
+    if frac < 0.5:
+        fail("sub-pixel refinement left the first frame's features on integers")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -618,8 +1018,9 @@ def main(argv=None) -> int:
         KLT_LARGE_RESIDUE, KLT_MAX_ITERATIONS, KLT_OOB, KLT_SMALL_DET,
         KLT_TRACKED)
     from pyfeaturetrack_tpu_torch.ops import (cuda_affine, cuda_eig, cuda_lk,
-                                              cuda_pyramid, cuda_select,
-                                              cuda_suppress)
+                                              cuda_lk_dense, cuda_pyramid,
+                                              cuda_select, cuda_suppress,
+                                              cuda_window_terms)
     from pyfeaturetrack_tpu_torch.ops.affine import affine_consistency_check
     from pyfeaturetrack_tpu_torch.ops.interp import gather_window
     from pyfeaturetrack_tpu_torch.ops.select import select_features_from_eig
@@ -856,11 +1257,16 @@ def main(argv=None) -> int:
     for name, over in (("status mix", {}),
                        ("status mix, lighting-insensitive",
                         {"lighting_insensitive": True}),
-                       ("status mix, max_iterations 3", {"max_iterations": 3})):
+                       ("status mix, max_iterations 3", {"max_iterations": 3}),
+                       ("status mix, 13x13 window",
+                        {"window_width": 13, "window_height": 13})):
         gain = 0.8 if over.get("lighting_insensitive") else 1.0
         bias = 20.0 if over.get("lighting_insensitive") else 0.0
-        k2_cases.append((name, cfg.replace(**over), mix0, mix1 * gain + bias,
-                         mix_x, mix_y, all_live))
+        # a window size goes through create_config: it sets the borders
+        kcfg = (pft.create_config(**over).replace(sequentialMode=True)
+                if "window_width" in over else cfg.replace(**over))
+        k2_cases.append((name, kcfg, mix0, mix1 * gain + bias, mix_x, mix_y,
+                         all_live))
     for name, kcfg, fa, fb, x, y, live in k2_cases:
         pa, pb = pft.build_track_pyramids(fa, kcfg), pft.build_track_pyramids(
             fb, kcfg)
@@ -890,6 +1296,11 @@ def main(argv=None) -> int:
                 fail(f"K2 ({name}, level {r}) differs from its plain version")
             if name == "tracked pair" and r == 0:
                 k2_in, k2_out = args, got
+                # K9's inputs: frame-1 windows at the features, frame-2
+                # positions at the tracked positions
+                k9_feats = (pa, pb, args[0], args[1], got[0], got[1])
+            if name == "status mix" and r == 0:
+                k9_mix = (pa, pb, mix_x, mix_y, mix_x, mix_y)
     k2_codes = {KLT_TRACKED, KLT_SMALL_DET, KLT_MAX_ITERATIONS, KLT_OOB,
                 KLT_LARGE_RESIDUE}
     if not k2_codes <= k2_seen:
@@ -899,7 +1310,9 @@ def main(argv=None) -> int:
         k2_plain = time_ms(lambda: cuda_lk.lk_level(*k2_in))
     print(f"K2 level 0: kernel {k2_ms:.4f} ms, plain {k2_plain:.4f} ms")
     report["K2"] = dict(max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain,
-                        work=k2_work(cfg, k2_in[-1], k2_out[3]))
+                        work=k2_work(cfg, k2_in[-1], k2_out[3]),
+                        windows_checked=["7x7", "13x13"])
+    report["K9_inputs"] = (k9_feats, k9_mix)
     torch.cuda.synchronize()
 
     # ---- phase 3, config 3: K1 and K2 at 3 levels / subsampling 2, K6 ----
@@ -1279,16 +1692,21 @@ def main(argv=None) -> int:
           f"refill + metrics), median of {len(ms2)}: {np.median(ms2):.4f} ms "
           f"(min {min(ms2):.4f}, max {max(ms2):.4f}); device-route step "
           f"median {np.median(ms):.4f} ms; card {smi}")
+    report["K5"]["launches"] = counts2["K5"]
+
+    # ---- phase 8: dense flow, dense depth, refine; K8 and K9 ----
+    dense_mods = {"K1": cuda_pyramid, "K2": cuda_lk, "K3": cuda_eig,
+                  "K4": cuda_select, "K5": cuda_suppress, "K6": cuda_affine,
+                  "K8": cuda_lk_dense, "K9": cuda_window_terms}
+    dense_phase(pft, frames, (ex0, ex1), (sel1, trk1), dense_mods, report,
+                dev, smi)
+
     if profile:
         profile_host_loop(pft, cfg, staged, root)
-    del staged
-    report["K5"]["launches"] = counts2["K5"]
-    if profile:
         profile_phase(pft, cfg3, sim, staged3, root, "config3")
-        staged = [torch.as_tensor(fr, device=dev).to(torch.float32)
-                  for fr in frames]
         profile_phase(pft, cfg, frames, staged, root, "default")
-    del staged3
+        profile_dense(pft, frames, root)
+    del staged, staged3
 
     names = {"K1": ("pyramid", "pyfeaturetrack_tpu_torch/csrc/pyramid.cu",
                     "pyfeaturetrack_tpu/ops/pallas_pyramid.py:132"),
@@ -1303,18 +1721,30 @@ def main(argv=None) -> int:
                     "pyfeaturetrack_tpu/ops/pallas_select.py:136"),
              "K6": ("affine_track", "pyfeaturetrack_tpu_torch/csrc/affine.cu",
                     "pyfeaturetrack_tpu/ops/pallas_affine_vec.py:407 and "
-                    "pyfeaturetrack_tpu/ops/pallas_affine_fused.py:330")}
+                    "pyfeaturetrack_tpu/ops/pallas_affine_fused.py:330"),
+             "K8": ("lk_dense_level", "pyfeaturetrack_tpu_torch/csrc/lk_dense.cu",
+                    "pyfeaturetrack_tpu/ops/pallas_lk_fused.py:258"),
+             "K9": ("window_terms",
+                    "pyfeaturetrack_tpu_torch/csrc/window_terms.cu",
+                    "pyfeaturetrack_tpu/ops/pallas_lk.py:140")}
     kernels = []
-    for k in ("K1", "K2", "K3", "K4", "K5", "K6"):
+    for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K8", "K9"):
         name, source, replaces = names[k]
         r = report[k]
         b_ms, b_by = bound_ms(*r["work"])
-        kernels.append({"name": f"{k} {name}", "route": "cuda",
-                        "source": source, "replaces": replaces,
-                        "launches": r["launches"],
-                        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                        "plain_ms": r["plain_ms"], "bound_ms": b_ms,
-                        "bound_by": b_by, "library_ms": None})
+        entry = {"name": f"{k} {name}", "route": "cuda",
+                 "source": source, "replaces": replaces,
+                 "launches": r["launches"],
+                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                 "plain_ms": r["plain_ms"], "bound_ms": b_ms,
+                 "bound_by": b_by, "library_ms": None}
+        if k == "K2":
+            entry["windows_checked"] = r["windows_checked"]
+        if k == "K8":
+            b1_ms, b1_by = bound_ms(*r["work_1d"])
+            entry.update(ms_1d=r["ms_1d"], plain_ms_1d=r["plain_ms_1d"],
+                         bound_ms_1d=b1_ms, bound_by_1d=b1_by)
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

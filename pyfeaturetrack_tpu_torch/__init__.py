@@ -2,13 +2,15 @@
 
 KLT feature tracking (Gaussian pyramids, Shi-Tomasi selection with
 min-distance suppression, pyramidal Lucas-Kanade with the KLT status
-codes, lost-feature replacement, the affine-consistency check, feature
-list/table files) in PyTorch, with the reference's ``KLT*`` API, and a
-hand-written Hopper kernel for every TPU kernel on the paths it covers:
+codes, lost-feature replacement, the affine-consistency check, sub-pixel
+corner refinement, feature list/table files, dense optical flow and dense
+stereo disparity / depth) in PyTorch, with the reference's ``KLT*`` API,
+and a hand-written Hopper kernel for every TPU kernel of the JAX package:
 K1 pyramid level (csrc/pyramid.cu), K2 LK level (csrc/lk.cu), K3 min-eig
 map (csrc/eig.cu), K4 greedy extraction (csrc/extract.cu), K5 greedy
 min-distance scan (csrc/suppress.cu), K6 affine Gauss-Newton
-(csrc/affine.cu).
+(csrc/affine.cu), K8 dense LK level, 2-D and 1-D (csrc/lk_dense.cu), K9
+LK window terms (csrc/window_terms.cu).
 
 The kernel is chosen by the tensor's device: CUDA tensors launch the
 kernels (built with nvcc at first use), CPU tensors take each kernel's
@@ -59,6 +61,23 @@ from .models import (  # noqa: F401
     sequence_step_device,
     track_sequence,
     track_sequence_device,
+)
+from .ops.disparity import (  # noqa: F401
+    DenseDisparity,
+    dense_depth,
+    dense_disparity,
+    dense_disparity_lr,
+    dense_disparity_pyramids,
+    disparity_lr_consistency,
+)
+from .ops.flow import (  # noqa: F401
+    DenseFlow,
+    compute_dense_flow,
+    dense_flow_fb,
+    dense_flow_pyramids,
+    flow_consistency,
+    flow_to_rgb,
+    warp_image,
 )
 from .ops.affine import (  # noqa: F401
     affine_consistency_check,

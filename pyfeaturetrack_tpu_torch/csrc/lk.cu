@@ -27,97 +27,11 @@
 // both give the same bits; every lane ends with the same sums, so all
 // branches are warp-uniform. Lane 0 writes the feature's result.
 
-#include "common.cuh"
+#include "lk_common.cuh"
 
 namespace {
 
 constexpr int NT = 128;                 // 4 features per block
-constexpr int KLT_TRACKED = 0;
-constexpr int KLT_SMALL_DET = -2;
-constexpr int KLT_MAX_ITERATIONS = -3;
-constexpr int KLT_OOB = -4;
-constexpr int KLT_LARGE_RESIDUE = -5;
-constexpr float ONE_PLUS_EPS = 1.001f;  // ops/track._ONE_PLUS_EPS
-
-struct LKParams {
-    int H, W, n, hw, hh, max_iterations;
-    float min_displacement, min_determinant, max_residue, step_factor;
-};
-
-__device__ __forceinline__ float warp_sum(float acc)
-{
-    for (int off = 16; off >= 1; off >>= 1)
-        acc = acc + __shfl_xor_sync(0xffffffffu, acc, off);
-    return acc;
-}
-
-template <int NPL>
-__device__ __forceinline__ float window_sum(const float (&v)[NPL])
-{
-    float acc = v[0];
-    for (int k = 1; k < NPL; ++k) acc = acc + v[k];
-    return warp_sum(acc);
-}
-
-__device__ __forceinline__ bool bounds_ok(float x, float y, const LKParams& P)
-{
-    return (x - (float)P.hw >= 0.0f) &&
-           ((float)P.W - (x + (float)P.hw) >= ONE_PLUS_EPS) &&
-           (y - (float)P.hh >= 0.0f) &&
-           ((float)P.H - (y + (float)P.hh) >= ONE_PLUS_EPS);
-}
-
-// Per-lane window pixels: (row, col) offsets inside the window; rows < 0
-// mark the padding beyond ww*wh.
-template <int NPL>
-struct LanePixels {
-    int j[NPL], i[NPL];
-};
-
-// Bilinear windows of up to three images at (x, y), sharing one patch
-// origin and one fractional blend (ops/track._gather3).
-template <int NPL, int NIMG>
-__device__ __forceinline__ void gather(const float* const (&imgs)[NIMG],
-                                       float x, float y, const LanePixels<NPL>& px,
-                                       const LKParams& P, float (&out)[NIMG][NPL])
-{
-    // the clamp only keeps the int conversion defined for runaway lanes,
-    // which are OOB and never read these windows
-    const int xt = (int)fminf(fmaxf(floorf(x), -1.0e8f), 1.0e8f);
-    const int yt = (int)fminf(fmaxf(floorf(y), -1.0e8f), 1.0e8f);
-    const float a = x - (float)xt, b = y - (float)yt;
-    int x0 = xt - P.hw, y0 = yt - P.hh;
-    const int xmax = P.W - 2 - 2 * P.hw, ymax = P.H - 2 - 2 * P.hh;
-    x0 = x0 < 0 ? 0 : (x0 > xmax ? xmax : x0);
-    y0 = y0 < 0 ? 0 : (y0 > ymax ? ymax : y0);
-    // Images smaller than the patch: keep every read inside the image (such
-    // levels put every lane OOB, so these values are never used).
-    x0 = x0 < 0 ? 0 : x0;
-    y0 = y0 < 0 ? 0 : y0;
-    const float w00 = (1.0f - a) * (1.0f - b), w01 = a * (1.0f - b);
-    const float w10 = (1.0f - a) * b, w11 = a * b;
-#pragma unroll
-    for (int k = 0; k < NPL; ++k) {
-        if (px.j[k] < 0) {
-#pragma unroll
-            for (int m = 0; m < NIMG; ++m) out[m][k] = 0.0f;
-            continue;
-        }
-        int r0 = y0 + px.j[k], c0 = x0 + px.i[k];
-        int r1 = r0 + 1, c1 = c0 + 1;
-        r0 = r0 < P.H ? r0 : P.H - 1;
-        r1 = r1 < P.H ? r1 : P.H - 1;
-        c0 = c0 < P.W ? c0 : P.W - 1;
-        c1 = c1 < P.W ? c1 : P.W - 1;
-#pragma unroll
-        for (int m = 0; m < NIMG; ++m) {
-            const float* im = imgs[m];
-            const float p00 = im[r0 * P.W + c0], p01 = im[r0 * P.W + c1];
-            const float p10 = im[r1 * P.W + c0], p11 = im[r1 * P.W + c1];
-            out[m][k] = w00 * p00 + w01 * p01 + w10 * p10 + w11 * p11;
-        }
-    }
-}
 
 // Residual window: w1 - w2, or with lighting compensation w1 - alpha w2 -
 // beta (track.py:120-128). Returns the gain alpha (1 without it).
@@ -167,15 +81,8 @@ lk_level_kernel(const float* __restrict__ x1, const float* __restrict__ y1,
         return;
     }
     const float xa = x1[f], ya = y1[f];
-    const int ww = 2 * P.hw + 1, npix = ww * (2 * P.hh + 1);
-    const float n = (float)npix;
-    LanePixels<NPL> px;
-#pragma unroll
-    for (int k = 0; k < NPL; ++k) {
-        const int p = lane + 32 * k;
-        px.j[k] = p < npix ? p / ww : -1;
-        px.i[k] = p < npix ? p % ww : 0;
-    }
+    const float n = (float)((2 * P.hw + 1) * (2 * P.hh + 1));
+    const LanePixels<NPL> px = lane_pixels<NPL>(lane, P);
 
     const float* const f1[3] = {img1, gx1, gy1};
     const float* const f2[3] = {img2, gx2, gy2};
@@ -273,7 +180,7 @@ int launch(const float* x1, const float* y1, const float* x2, const float* y2,
 
 }  // namespace
 
-// Window sizes up to 4 pixels per lane (ww * wh <= 128, e.g. 11 x 11).
+// Window sizes up to 8 pixels per lane (ww * wh <= 256, e.g. 15 x 15).
 extern "C" int pft_lk_level(const float* x1, const float* y1, const float* x2,
                             const float* y2, const bool* active,
                             const float* img1, const float* gx1, const float* gy1,
@@ -304,6 +211,10 @@ extern "C" int pft_lk_level(const float* x1, const float* y1, const float* x2,
         PFT_LK_CASE(2)
         PFT_LK_CASE(3)
         PFT_LK_CASE(4)
+        PFT_LK_CASE(5)
+        PFT_LK_CASE(6)
+        PFT_LK_CASE(7)
+        PFT_LK_CASE(8)
         default:
             return PFT_INVALID_ARGUMENT;
     }

@@ -18,8 +18,10 @@ per-frame metrics, and the survivor count of ``KeyframeTracker``. The
 device-resident route without host reads is ``track_sequence_device``;
 both give the same feature table.
 
-``subpixel_refine=True`` raises NotImplementedError: ``ops/refine.py`` is
-not in the port yet.
+``subpixel_refine=True`` moves newly selected features (the first frame's
+and the refilled slots) to their sub-pixel corners (``ops/refine.py``:
+K1 level 0 for the gradients, then the plain-PyTorch iteration), as the
+JAX package does; re-tracked features are never moved.
 """
 
 from __future__ import annotations
@@ -28,11 +30,13 @@ import time
 from typing import Callable, Iterable, Optional
 
 import numpy as np
+import torch
 
 from ..config import TrackerConfig, create_config
 from ..features import (STATUS_NAMES, FeatureState, FeatureTable,
                         create_feature_table, feature_state_to_numpy,
                         store_feature_list)
+from ..ops.refine import refine_features_subpixel
 from ..ops.select import replace_lost_features, select_good_features
 from ..ops.track import as_frame, build_track_pyramids, fb_reject
 from .tracker import KLTTrackFeatures
@@ -78,10 +82,6 @@ class SequenceTracker:
                  n_features: int = 150, replace_lost: bool = True,
                  fb_max_displacement: Optional[float] = None,
                  subpixel_refine: bool = False, device=None):
-        if subpixel_refine:
-            raise NotImplementedError(
-                "subpixel_refine needs ops/refine.py, which is not in the "
-                "port yet")
         self.cfg = (cfg if cfg is not None
                     else create_config()).replace(sequentialMode=True)
         self.n_features = n_features
@@ -89,6 +89,8 @@ class SequenceTracker:
         # beyond the reference: forward-backward gate (ops/track.fb_reject)
         # after each tracked frame when set
         self.fb_max_displacement = fb_max_displacement
+        # beyond the reference: sub-pixel refinement (ops/refine.py) of
+        # newly selected features (initial selection and refills)
         self.subpixel_refine = subpixel_refine
         self.device = device
         self.fl: Optional[FeatureState] = None
@@ -105,6 +107,8 @@ class SequenceTracker:
         frame = as_frame(frame, self.device)
         self._new_keyframe(frame)
         self.fl = select_good_features(frame, self.n_features, self.cfg)
+        if self.subpixel_refine:
+            self.fl = refine_features_subpixel(frame, self.fl, self.cfg)
         self.n_frames_seen += 1
         self.metrics.append(frame_metrics(self.fl))
         return self.fl
@@ -125,7 +129,14 @@ class SequenceTracker:
                 fb_max_displacement=float(self.fb_max_displacement))
             self.fl = self.fl._replace(x=nx, y=ny, val=nval)
         if self.replace_lost:
+            dead_before = self.fl.val < 0
             self.fl = replace_lost_features(frame, self.fl, self.cfg)
+            if self.subpixel_refine:
+                refined = refine_features_subpixel(frame, self.fl, self.cfg)
+                newly = dead_before & (self.fl.val >= 0)
+                self.fl = self.fl._replace(
+                    x=torch.where(newly, refined.x, self.fl.x),
+                    y=torch.where(newly, refined.y, self.fl.y))
         elapsed = time.perf_counter() - t0
         self._prev = frame
         self.n_frames_seen += 1

@@ -73,6 +73,30 @@ def compute_smoothed_image(img: torch.Tensor, sigma: float) -> torch.Tensor:
     return convolve_separate(img, gauss, gauss)
 
 
+def to_float_image(img, device=None) -> torch.Tensor:
+    """uint8 / any image -> contiguous float32 [H, W] tensor (values
+    preserved, 0..255 scale). A tensor goes to ``device`` (default: its
+    own), an array to ``device`` (default "cuda"; with no CUDA device that
+    raises); a uint8 array crosses as bytes and is cast there.
+
+    Reference parity: klt_util.py -> _KLTToFloatImage.
+    """
+    if isinstance(img, torch.Tensor):
+        dev = torch.device(device) if device is not None else img.device
+        return img.to(device=dev, dtype=torch.float32).contiguous()
+    dev = torch.device(device if device is not None else "cuda")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device 'cuda' requested but torch sees no CUDA "
+                           "device")
+    arr = np.asarray(img)
+    if arr.dtype != np.uint8:
+        arr = arr.astype(np.float32)
+    arr = np.ascontiguousarray(arr)
+    if not arr.flags.writeable:        # e.g. a frame read from a buffer
+        arr = arr.copy()
+    return torch.from_numpy(arr).to(dev).to(torch.float32)
+
+
 def compute_gradients(img: torch.Tensor, sigma: float
                       ) -> tuple[torch.Tensor, torch.Tensor]:
     """Derivative-of-Gaussian gradient pair (gradx, grady).

@@ -7,6 +7,8 @@ vec_track_level_with_fallback), whose semantics are
 function in PyTorch: the same fixed-trip masked iteration, the same
 status order, with every window sum taken in the kernel's reduction order
 (``tree_sum``), so the plain version and the kernel compute the same bits.
+K8's plain version (``cuda_lk_dense``) is the same function with its own
+sum order and 1-D mode.
 
 A CUDA tensor launches the kernel (one launch per call); a CPU tensor
 takes the plain version.
@@ -26,7 +28,7 @@ from ..utils import cuda
 from .interp import gather_windows
 
 _ONE_PLUS_EPS = 1.001     # ops/track._ONE_PLUS_EPS (reference bound check)
-MAX_WINDOW_PIXELS = 128   # csrc/lk.cu: at most 4 window pixels per lane
+MAX_WINDOW_PIXELS = 256   # csrc/lk.cu: at most 8 window pixels per lane
 
 # Kernel launches made by this wrapper.
 launches = 0
@@ -64,21 +66,21 @@ def _f32(v: float) -> float:
 
 
 def tree_sum(v: torch.Tensor) -> torch.Tensor:
-    """Sum of [N, P] over P in the kernel's warp order: window pixel
+    """Sum of [..., P] over P in the kernel's warp order: window pixel
     p = lane + 32 k; each lane adds its pixels in ascending k (padding
     pixels count 0), then the 32 lane totals combine by an xor butterfly
     (offsets 16, 8, 4, 2, 1)."""
-    n, p = v.shape
+    p = v.shape[-1]
     k = -(-p // 32)
-    v = F.pad(v, (0, 32 * k - p)).reshape(n, k, 32)
-    acc = v[:, 0]
+    v = F.pad(v, (0, 32 * k - p)).reshape(*v.shape[:-1], k, 32)
+    acc = v[..., 0, :]
     for j in range(1, k):
-        acc = acc + v[:, j]
+        acc = acc + v[..., j, :]
     w = 16
     while w >= 1:
-        acc = acc[:, :w] + acc[:, w:2 * w]
+        acc = acc[..., :w] + acc[..., w:2 * w]
         w //= 2
-    return acc[:, 0]
+    return acc[..., 0]
 
 
 def _bounds_ok(x, y, hw: int, hh: int, ncols: int, nrows: int):
@@ -89,9 +91,15 @@ def _bounds_ok(x, y, hw: int, hh: int, ncols: int, nrows: int):
 
 
 def lk_level_reference(x1, y1, x2, y2, img1, gx1, gy1, img2, gx2, gy2,
-                       cfg, active):
-    """Plain version of K2 = ``track_feature_level`` (track.py:155-234).
+                       cfg, active, sum_fn=tree_sum, one_d=False):
+    """Plain version of K2 = ``track_feature_level`` (track.py:155-234),
+    and of K8 (``cuda_lk_dense``) with ``sum_fn`` its sequential sum.
 
+    ``sum_fn`` sums [..., P] over the window in the kernel's order.
+    ``one_d``: K8's disparity mode (disparity.py:134-178), the scalar step
+    ``du = step_factor sum(diff gx) / gxx`` with gx = g1x + g2x, SMALL_DET
+    when ``gxx < min_determinant``, convergence on |du| alone, y fixed so
+    bounds are checked at (x2, y1); gy1 and gy2 are not read.
     Returns (x2, y2, status, iteration) [N]; lanes with ``active`` False
     pass through with status KLT_TRACKED and iteration 0."""
     hw, hh = cfg.window_width // 2, cfg.window_height // 2
@@ -104,23 +112,32 @@ def lk_level_reference(x1, y1, x2, y2, img1, gx1, gy1, img2, gx2, gy2,
     th = _f32(cfg.min_displacement)
     min_det = _f32(cfg.min_determinant)
     step = _f32(cfg.step_factor)
-    li = cfg.lighting_insensitive
+    # the 1-D mode follows the JAX XLA route, which ignores
+    # lighting_insensitive (disparity.py:144 and :168); the fused TPU
+    # kernel's one_d mode would honour it
+    li = cfg.lighting_insensitive and not one_d
     nf = x1.shape[0]
 
     def flat(t):
         return t.reshape(nf, -1)
 
-    w1, g1x, g1y = (flat(t) for t in
-                    gather_windows((img1, gx1, gy1), x1, y1, hw, hh))
+    def sums(*terms):
+        return sum_fn(torch.stack(terms))
+
+    # K8's frame-1 windows sit on integer coordinates; the blend is kept
+    # (weights 1, 0, 0, 0 give p00 exactly), as in its kernel
+    frame1 = (img1, gx1) if one_d else (img1, gx1, gy1)
+    w1, g1x, *g1y = (flat(t) for t in gather_windows(frame1, x1, y1, hw, hh))
     if li:
-        s11 = tree_sum(w1 * w1)
-        m1 = tree_sum(w1) / n_px
+        s11, sw1 = sums(w1 * w1, w1)
+        m1 = sw1 / n_px
 
     def diff_and_gain(w2):
         if not li:
             return w1 - w2, None
-        alpha = torch.sqrt((s11 / n_px) / (tree_sum(w2 * w2) / n_px))
-        beta = m1 - alpha * (tree_sum(w2) / n_px)
+        s22, sw2 = sums(w2 * w2, w2)
+        alpha = torch.sqrt((s11 / n_px) / (s22 / n_px))
+        beta = m1 - alpha * (sw2 / n_px)
         return w1 - w2 * alpha[:, None] - beta[:, None], alpha[:, None]
 
     ok1 = _bounds_ok(x1, y1, hw, hh, ncols, nrows)
@@ -132,32 +149,41 @@ def lk_level_reference(x1, y1, x2, y2, img1, gx1, gy1, img2, gx2, gy2,
         ok = ok1 & _bounds_ok(x, y, hw, hh, ncols, nrows)
         status = torch.where(act & ~ok, KLT_OOB, status)
         live = act & ok
-
-        w2, g2x, g2y = (flat(t) for t in
-                        gather_windows((img2, gx2, gy2), x, y, hw, hh))
-        dif, alpha = diff_and_gain(w2)
-        if alpha is None:
-            gx, gy = g1x + g2x, g1y + g2y
+        if one_d:
+            w2, g2x = (flat(t) for t in
+                       gather_windows((img2, gx2), x, y, hw, hh))
+            gx = g1x + g2x
+            gxx, ex = sums(gx * gx, (w1 - w2) * gx)
+            ex = step * ex
+            # SMALL_DET is the 1-D analogue gxx < min_determinant
+            small = gxx < min_det
+            status = torch.where(live & small, KLT_SMALL_DET, status)
+            live = live & ~small
+            dx = ex / torch.where(small, 1.0, gxx)
+            moving = dx.abs() >= th
         else:
-            gx, gy = g1x + alpha * g2x, g1y + alpha * g2y
-        gxx = tree_sum(gx * gx)
-        gxy = tree_sum(gx * gy)
-        gyy = tree_sum(gy * gy)
-        ex = step * tree_sum(dif * gx)
-        ey = step * tree_sum(dif * gy)
-
-        det = gxx * gyy - gxy * gxy
-        small = det < min_det
-        status = torch.where(live & small, KLT_SMALL_DET, status)
-        live = live & ~small
-        safe_det = torch.where(small, 1.0, det)
-        dx = (gyy * ex - gxy * ey) / safe_det
-        dy = (gxx * ey - gxy * ex) / safe_det
-
+            w2, g2x, g2y = (flat(t) for t in
+                            gather_windows((img2, gx2, gy2), x, y, hw, hh))
+            dif, alpha = diff_and_gain(w2)
+            if alpha is None:
+                gx, gy = g1x + g2x, g1y[0] + g2y
+            else:
+                gx, gy = g1x + alpha * g2x, g1y[0] + alpha * g2y
+            gxx, gxy, gyy, ex, ey = sums(gx * gx, gx * gy, gy * gy, dif * gx,
+                                         dif * gy)
+            ex = step * ex
+            ey = step * ey
+            det = gxx * gyy - gxy * gxy
+            small = det < min_det
+            status = torch.where(live & small, KLT_SMALL_DET, status)
+            live = live & ~small
+            safe_det = torch.where(small, 1.0, det)
+            dx = (gyy * ex - gxy * ey) / safe_det
+            dy = (gxx * ey - gxy * ex) / safe_det
+            y = torch.where(live, y + dy, y)
+            moving = (dx.abs() >= th) | (dy.abs() >= th)
         x = torch.where(live, x + dx, x)
-        y = torch.where(live, y + dy, y)
         iteration = torch.where(live, iteration + 1, iteration)
-        moving = (dx.abs() >= th) | (dy.abs() >= th)
         act = live & moving & (iteration < cfg.max_iterations)
 
     # post-loop: OOB overrides any status, then residue, then max-iterations
@@ -165,7 +191,7 @@ def lk_level_reference(x1, y1, x2, y2, img1, gx1, gy1, img2, gx2, gy2,
     status = torch.where(active & ~final_ok, KLT_OOB, status)
     (w2,) = (flat(t) for t in gather_windows((img2,), x, y, hw, hh))
     dif, _ = diff_and_gain(w2)
-    residue = tree_sum(dif.abs()) / n_px
+    residue = sum_fn(dif.abs()) / n_px
     tracked = active & (status == KLT_TRACKED)
     status = torch.where(tracked & (residue > _f32(cfg.max_residue)),
                          KLT_LARGE_RESIDUE, status)

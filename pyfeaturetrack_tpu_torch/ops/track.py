@@ -20,12 +20,12 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
 from ..errors import KLTGetVerbosity, verbose_print
 from ..features import (KLT_FB_INCONSISTENT, KLT_OOB, KLT_SMALL_DET,
                         KLT_TRACKED, FeatureState)
+from .convolve import to_float_image
 from .cuda_lk import TrackCarry, lk_level
 from .cuda_pyramid import level_taps, pyramid_level
 
@@ -41,24 +41,9 @@ class TrackPyramids(NamedTuple):
     grady: tuple[torch.Tensor, ...]
 
 
-def as_frame(img, device=None) -> torch.Tensor:
-    """A frame as a contiguous float32 [H, W] tensor: a tensor goes to
-    ``device`` (default: its own), an array to ``device`` (default
-    "cuda"; with no CUDA device that raises)."""
-    if isinstance(img, torch.Tensor):
-        dev = torch.device(device) if device is not None else img.device
-        return img.to(device=dev, dtype=torch.float32).contiguous()
-    dev = torch.device(device if device is not None else "cuda")
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device 'cuda' requested but torch sees no CUDA "
-                           "device")
-    arr = np.asarray(img)
-    if arr.dtype != np.uint8:          # uint8 crosses as bytes, cast there
-        arr = arr.astype(np.float32)
-    arr = np.ascontiguousarray(arr)
-    if not arr.flags.writeable:        # e.g. a frame read from a buffer
-        arr = arr.copy()
-    return torch.from_numpy(arr).to(dev).to(torch.float32)
+# A frame as a contiguous float32 [H, W] tensor on its device (numpy
+# arrays default to "cuda"): the KLT float conversion.
+as_frame = to_float_image
 
 
 def _require_float32_images(cfg) -> None:

@@ -4,9 +4,10 @@ device; on a GPU machine run them (no JAX needed) with
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
-Bars: K1, K3, K4 and K5 bit-equal; K2 and K6 statuses and iterations
-equal and positions (K6: and warps) bit-equal (the kernels round and sum
-in their plain versions' order). Inputs are small seeded numpy images."""
+Bars: K1, K3, K4, K5 and K9 bit-equal; K2, K6 and K8 statuses and
+iterations equal and positions (K6: and warps; K8: the flow and disparity
+maps) bit-equal (the kernels round and sum in their plain versions'
+order). Inputs are small seeded numpy images."""
 
 import numpy as np
 import pytest
@@ -14,8 +15,9 @@ import torch
 
 import pyfeaturetrack_tpu_torch as tpft
 from pyfeaturetrack_tpu_torch.ops import (cuda_affine, cuda_eig, cuda_lk,
-                                          cuda_pyramid, cuda_select,
-                                          cuda_suppress)
+                                          cuda_lk_dense, cuda_pyramid,
+                                          cuda_select, cuda_suppress,
+                                          cuda_window_terms)
 from pyfeaturetrack_tpu_torch.ops.interp import gather_window
 from pyfeaturetrack_tpu_torch.utils import cuda
 
@@ -96,6 +98,8 @@ def test_extract_exact(dev, dg, budget, min_eig, seed):
     {}, {"lighting_insensitive": True}, {"min_displacement": 0.0},
     {"step_factor": 0.0}, {"window_width": 3, "window_height": 5},
     {"window_width": 11, "window_height": 11},
+    {"window_width": 13, "window_height": 13},
+    {"window_width": 15, "window_height": 15},
 ])
 def test_lk_level_bit_equal(dev, overrides):
     cfg = tpft.create_config(**overrides)
@@ -122,7 +126,7 @@ def test_lk_level_bit_equal(dev, overrides):
 
 
 def test_lk_level_rejects_windows_beyond_the_warp_layout(dev):
-    cfg = tpft.create_config(window_width=13, window_height=13)
+    cfg = tpft.create_config(window_width=17, window_height=17)
     img = torch.zeros((64, 64), device=dev)
     x = torch.full((4,), 30.0, device=dev)
     act = torch.ones(4, dtype=torch.bool, device=dev)
@@ -144,6 +148,127 @@ def test_sequence_on_card_equals_plain_on_cpu(dev):
         assert m.launches > before
     for a, b in zip(g, c):
         np.testing.assert_array_equal(a, b)
+
+
+def _level_pair(dev, cfg, h=97, w=130, seed=9, gain=1.0, bias=0.0):
+    """Level-0 images of a pair whose content moves by (+2, +1) px, with a
+    flat block (SMALL_DET) and fresh noise in frame 2 (LARGE_RESIDUE)."""
+    base = _texture(h + 8, w + 8, seed=seed)
+    a = base[:h, :w].copy()
+    b = np.ascontiguousarray(base[1:h + 1, 2:w + 2]) * gain + bias
+    a[40:70, 10:50] = b[40:70, 10:50] = 90.0
+    b[10:40, 80:120] = np.random.default_rng(seed).uniform(0, 255, (30, 40))
+    p1 = tpft.build_track_pyramids(torch.tensor(a, device=dev), cfg)
+    p2 = tpft.build_track_pyramids(torch.tensor(b.astype(np.float32),
+                                                device=dev), cfg)
+    return (p1.img[0], p1.gradx[0], p1.grady[0], p2.img[0], p2.gradx[0],
+            p2.grady[0])
+
+
+@pytest.mark.parametrize("overrides", [
+    {}, {"lighting_insensitive": True}, {"max_iterations": 3},
+    {"window_width": 3, "window_height": 5},
+    {"window_width": 17, "window_height": 17},
+])
+@pytest.mark.parametrize("one_d", [False, True])
+def test_dense_level_bit_equal(dev, overrides, one_d):
+    """K8 in both modes against its plain version: every pixel of a small
+    level (rim lanes OOB, a flat block, fresh noise), starts off the true
+    motion by up to half a pixel; one launch per call."""
+    cfg = tpft.create_config(**overrides)
+    li = cfg.lighting_insensitive
+    lvl = _level_pair(dev, cfg, gain=0.8 if li else 1.0,
+                      bias=20.0 if li else 0.0)
+    rng = np.random.default_rng(5)
+    h, w = lvl[0].shape
+    u = torch.tensor(rng.uniform(-2.5, -1.5, (h, w)), dtype=torch.float32,
+                     device=dev)
+    v = torch.tensor(rng.uniform(-1.5, -0.5, (h, w)), dtype=torch.float32,
+                     device=dev)
+    before = cuda_lk_dense.launches
+    if one_d:
+        got = cuda_lk_dense.dense_level_1d(*lvl, u.neg(), cfg)
+        want = _plain(cuda_lk_dense.dense_level_1d, *lvl, u.neg(), cfg)
+    else:
+        got = cuda_lk_dense.dense_level(*lvl, u, v, cfg)
+        want = _plain(cuda_lk_dense.dense_level, *lvl, u, v, cfg)
+    assert cuda_lk_dense.launches == before + 1
+    for a, b in zip(got, want):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert torch.equal(a, b)
+    assert {0, -4}.issubset(set(got[-2].flatten().tolist()))
+
+
+@pytest.mark.parametrize("win", [(7, 7), (3, 5), (15, 15)])
+def test_window_terms_bit_equal(dev, win):
+    """K9 against its plain version, with lanes beyond every edge (the
+    clamp moves them in)."""
+    ww, wh = win
+    lvl = _level_pair(dev, tpft.create_config())
+    img2, gx2, gy2 = lvl[3:]
+    h, w = img2.shape
+    rng = np.random.default_rng(7)
+    n = 200
+    x = rng.uniform(-4, w + 4, n)
+    y = rng.uniform(-4, h + 4, n)
+    x[:4], y[:4] = [-3.0, w + 2.0, 20.0, 40.0], [30.0, 30.0, -3.0, h + 2.0]
+    x, y = (torch.tensor(t, dtype=torch.float32, device=dev) for t in (x, y))
+    w1, g1x, g1y = (gather_window(im, x + 1.3, y - 0.8, ww // 2,
+                                  wh // 2).contiguous() for im in lvl[:3])
+    args = (img2, gx2, gy2, w1, g1x, g1y, x, y)
+    kw = dict(hw=ww // 2, hh=wh // 2, step_factor=1.0)
+    before = cuda_window_terms.launches
+    got = cuda_window_terms.window_terms(*args, **kw)
+    assert cuda_window_terms.launches == before + 1
+    assert torch.equal(got, _plain(cuda_window_terms.window_terms, *args,
+                                   **kw))
+
+
+def test_dense_paths_on_card_equal_plain_versions(dev):
+    """compute_dense_flow, dense_flow_fb's gate and dense_depth through the
+    kernels equal the same calls through the plain versions on the card;
+    K8 launches twice per flow and four times per depth map. (On the card,
+    not against the CPU: the SSD sweep's cumsum and hypot round by device.)"""
+    from pyfeaturetrack_tpu_torch.ops.flow import dense_flow_fb
+    base = _texture(110, 150, seed=31)
+    a, b = base[:96, :128], base[1:97, 2:130]
+    before = cuda_lk_dense.launches
+    g = tpft.compute_dense_flow(a, b)
+    assert cuda_lk_dense.launches == before + 2
+    for x, y in zip(g, _plain(tpft.compute_dense_flow, a, b)):
+        assert x.device.type == "cuda"
+        assert torch.equal(x, y)
+    cfg = tpft.create_config()
+    pyrs = [tpft.build_track_pyramids(torch.tensor(f, device=dev), cfg)
+            for f in (a, b)]
+    fwd, err, valid = dense_flow_fb(*pyrs, cfg)
+    pfwd, perr, pvalid = _plain(dense_flow_fb, *pyrs, cfg)
+    for x, y in zip((*fwd, err, valid), (*pfwd, perr, pvalid)):
+        assert torch.equal(x, y)
+    left, right = base[:96, :128], base[:96, 8:136]     # disparity 8 px
+    K = np.array([[100.0, 0, 64], [0, 100.0, 48], [0, 0, 1]])
+    before = cuda_lk_dense.launches
+    dg = tpft.dense_depth(left, right, K, 0.5, max_disparity=16.0)
+    assert cuda_lk_dense.launches == before + 4
+    for x, y in zip(dg, _plain(tpft.dense_depth, left, right, K, 0.5,
+                                max_disparity=16.0)):
+        np.testing.assert_array_equal(x, y)
+    assert dg[2].mean() > 0.3 and abs(np.median(dg[1][dg[2]]) - 8.0) < 0.1
+
+
+def test_refine_sequence_kernels_equal_plain_versions(dev):
+    base = _texture(120, 160, seed=13)
+    frames = [np.roll(base, 4 * i, axis=1) for i in range(6)]
+    cfg = tpft.create_config(mindist=8)
+    g, _ = tpft.track_sequence(frames, cfg=cfg, n_features=40,
+                               subpixel_refine=True)
+    p, _ = _plain(tpft.track_sequence, frames, cfg=cfg, n_features=40,
+                  subpixel_refine=True)
+    for a, b in zip(g, p):
+        assert a.device.type == "cuda"
+        assert torch.equal(a, b)
+    assert (g.x[0] != torch.round(g.x[0])).any()
 
 
 @pytest.mark.parametrize("mode", [0, 1, 2])

@@ -31,7 +31,9 @@ _KERNEL_MODULES = ("pyfeaturetrack_tpu_torch.ops.cuda_pyramid",
                    "pyfeaturetrack_tpu_torch.ops.cuda_eig",
                    "pyfeaturetrack_tpu_torch.ops.cuda_select",
                    "pyfeaturetrack_tpu_torch.ops.cuda_suppress",
-                   "pyfeaturetrack_tpu_torch.ops.cuda_affine")
+                   "pyfeaturetrack_tpu_torch.ops.cuda_affine",
+                   "pyfeaturetrack_tpu_torch.ops.cuda_lk_dense",
+                   "pyfeaturetrack_tpu_torch.ops.cuda_window_terms")
 
 
 def test_import_leaves_jax_out():
@@ -42,7 +44,10 @@ def test_import_leaves_jax_out():
             "'pyfeaturetrack_tpu_torch.utils.io', "
             "'pyfeaturetrack_tpu_torch.utils.viz', "
             "'pyfeaturetrack_tpu_torch.models.tracker', "
-            "'pyfeaturetrack_tpu_torch.models.sequence'):\n"
+            "'pyfeaturetrack_tpu_torch.models.sequence', "
+            "'pyfeaturetrack_tpu_torch.ops.flow', "
+            "'pyfeaturetrack_tpu_torch.ops.disparity', "
+            "'pyfeaturetrack_tpu_torch.ops.refine'):\n"
             "    importlib.import_module(m)\n"
             "assert 'jax' not in sys.modules, 'jax imported'\n"
             "assert 'pyfeaturetrack_tpu' not in sys.modules\n"
@@ -64,7 +69,7 @@ def test_no_jax_import_in_sources():
 def test_kernel_sources_present():
     names = sorted(p.name for p in (PKG / "csrc").glob("*.cu"))
     srcs = ("pyramid.cu", "lk.cu", "eig.cu", "extract.cu", "suppress.cu",
-            "affine.cu")
+            "affine.cu", "lk_dense.cu", "window_terms.cu")
     for want in srcs:
         assert want in names
     for src in srcs:
@@ -134,11 +139,7 @@ def test_status_codes_match_jax():
 def test_public_names_match_jax():
     """Every name of the JAX package's public surface that the port
     covers is exported under the same name."""
-    left_out = {"track_sequence_chunked", "DenseFlow", "compute_dense_flow",
-                "dense_flow_fb", "dense_flow_pyramids", "flow_consistency",
-                "flow_to_rgb", "warp_image", "DenseDisparity", "dense_depth",
-                "dense_disparity", "dense_disparity_lr",
-                "dense_disparity_pyramids", "disparity_lr_consistency",
+    left_out = {"track_sequence_chunked",
                 "BatchedStreamingTracker", "StreamingTracker",
                 "prefetch_to_device", "serve_stream", "FrameLoader",
                 "load_frames"}
@@ -186,9 +187,6 @@ def test_out_of_slice_parts_raise():
             n_features=4, device="cpu")
     with pytest.raises(NotImplementedError):
         sequence_chain_device()
-    with pytest.raises(NotImplementedError):
-        tpft.track_sequence(frames, n_features=4, subpixel_refine=True,
-                            device="cpu")
     cfg = tpft.create_config()
     pyr = tpft.build_track_pyramids(torch.zeros(64, 80), cfg)
     z = torch.zeros(3)

@@ -144,6 +144,32 @@ def test_levels_match_track_feature_level(name):
         xout, yout = np.asarray(jx), np.asarray(jy)
 
 
+@pytest.mark.parametrize("win", [13, 15])
+def test_large_windows_match_jax(win):
+    """Windows past K2's former 128-pixel warp layout (13x13 = 169 and
+    15x15 = 225 pixels, 6 and 8 per lane on the card) through the sparse
+    tracker: statuses exact, positions within 1e-4 px of JAX's."""
+    jcfg = create_config(window_width=win, window_height=win
+                         ).validated_window()
+    img1 = make_textured_image(128, 160, seed=11)
+    img2 = shift_image_bilinear(img1, 1.6, -1.1)
+    feats = oracle.select_good_features(img1, 40, jcfg)
+    jp1 = jax_build(jnp.asarray(img1, jnp.float32), jcfg)
+    jp2 = jax_build(jnp.asarray(img2, jnp.float32), jcfg)
+    tp1, tp2 = (pyramids_from_numpy(*(tuple(np.asarray(a) for a in lv)
+                                      for lv in p)) for p in (jp1, jp2))
+    jx, jy, jv = jax.jit(jax_track, static_argnames=("cfg",))(
+        jp1, jp2, jnp.asarray(feats[:, 0], jnp.float32),
+        jnp.asarray(feats[:, 1], jnp.float32),
+        jnp.asarray(feats[:, 2].astype(np.int32)), jcfg)
+    tx, ty, tv = track_features_pyramids(tp1, tp2, *features_from_numpy(
+        feats[:, 0], feats[:, 1], feats[:, 2]), config_from_jax(jcfg))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    np.testing.assert_allclose(tx.numpy(), np.asarray(jx), atol=POS_TOL)
+    np.testing.assert_allclose(ty.numpy(), np.asarray(jy), atol=POS_TOL)
+    assert (tv.numpy() == 0).sum() >= 20
+
+
 def test_single_level_matches_pallas_vec_kernel():
     """Level solve against the TPU K2 kernel (interpret mode)."""
     jcfg = create_config()
