@@ -12,20 +12,30 @@ Phases, in order; the first failure exits non-zero:
    build/torch_kernels/ and load it;
 3. kernels — each hand-written kernel against its plain PyTorch version on
    the card, at the main paths' shapes (480x640 frame, 1000 features),
-   timed with CUDA events. Default config: K2 and K4 must match their
-   plain versions bit for bit, K1 within 1e-3 abs and K3 within one int
-   step at under 1e-3 of pixels; K2 runs both levels of a real tracked
-   pair and of a status mix whose lanes end in every K2 status (also with
-   a 13x13 window).
+   timed with CUDA events and, from torch.profiler's kernel durations, by
+   device time. Default config: K2 and K4 must match their plain versions
+   bit for bit, K1 within 1e-3 abs and K3 within one int step at under
+   1e-3 of pixels. K4's two stages (the candidate lattice and its maxima;
+   the greedy chain and the slot fill) on the initial selection (1000 of
+   255,744 candidates) and a refill (40 free slots), both also at mindist
+   0, and on initial selections at 1080x1920, 768x1280, 1440x2560,
+   2160x3840, 2880x5120 and 4320x7680 (segments of 128, 64, 256, 512,
+   1024 and 2048 columns), with a 2160x3840 refill. K2's pyramidal entry
+   (one launch per track call) and its per-level entry on a real tracked pair
+   and on a status mix whose lanes end in every K2 status (also
+   lighting-insensitive, at 3 iterations and with a 13x13 window); the
+   track call timed beside K2's earlier design (the level loop around one
+   launch per level).
    Config 3 (affine check, 3 levels, subsampling 2): K1 on all three
-   levels and K2 on all three levels of a similarity pair and of the
-   status mix, at the same bars; K6 bit-equal in x, y, A, status and
+   levels and K2 (per level and per track call) on a similarity pair and
+   on the status mix, at the same bars; K6 bit-equal in x, y, A, status and
    iteration count, modes 0, 1 and 2, on a real pair and on an affine
    status mix that must reach TRACKED, SMALL_DET, LARGE_RESIDUE, warp OOB
    and drift OOB and pass its unchecked lanes through;
 4. main    — track_sequence_device on 100 synthetic 480x640 frames of a
    texture scrolling at a known drift, 1000 features, replace-lost on:
-   every kernel must have launched, the tracks must recover the drift,
+   every kernel must have launched (K2 once per track call, 99 times; K4
+   two stages per selection, 200 times), the tracks must recover the drift,
    the last frame must be fully live, and a 10-frame run through the
    plain versions must give the identical feature table (x, y, val);
    K5 bit-equal in flags, index list and count on the sorted candidate
@@ -34,21 +44,25 @@ Phases, in order; the first failure exits non-zero:
    0, 1, 10, 25, 60; budgets 0, 7, unlimited; candidates at every edge;
    10 % invalid) and of a 1080x1920 frame (the coverage grid in global
    memory); K5 and the torch.sort before it timed beside K4's initial
-   extraction on the same map, and the two routes' selections equal;
+   selection on the same map, K5 on the refill, and the two routes'
+   selections equal;
 5. affine  — track_sequence_device with config 3 on 100 synthetic 480x640
    frames under a known slow similarity motion, 1000 features,
-   replace-lost on: K1-K4 and K6 must have launched, the tracks must
+   replace-lost on: K1-K4 and K6 must have launched (K2 99 and K4 200
+   times), the tracks must
    recover the motion, refills must fire, the affine stage must hold
    templates and reject lanes, and a 10-frame run through the plain
    versions must give the identical table and AffineState warps and
    valid flags; then the config-3 step time (CUDA events);
 6. config 1 — example 1 through the facade (KLTSelectGoodFeatures,
    KLTTrackFeatures) on examples/data/img0.pgm -> img1.pgm, 100 features:
-   K1, K2, K3 and K5 must have launched, and the selected and tracked
+   K1, K2 (once), K3, K4 (stage A, once) and K5 must have launched, and
+   the selected and tracked
    lists must equal the same calls through the plain versions;
 7. config 2 — track_sequence (the host-API loop: sort + K5 refills) on the
-   main phase's 100 frames, 1000 features, replace-lost on: K5 must have
-   launched on the first frame and on the refills, the table must equal
+   main phase's 100 frames, 1000 features, replace-lost on: K5 (and K4's
+   stage A before it) must have launched on the first frame and on the
+   refills, K2 once per step, the table must equal
    track_sequence_device's, and a 10-frame config-3 run must equal the
    device route's table and AffineState; then the SequenceTracker.step
    time (CUDA events);
@@ -78,7 +92,8 @@ Phases, in order; the first failure exits non-zero:
    and idle share per step, and the largest device items; the same for 10
    compute_dense_flow calls (build/profile/dense_flow_trace.json).
 
-Prints the per-kernel JSON line (times, launches, error, and the bound:
+Prints the per-kernel JSON line (times by events and on the device,
+launches, error, and the bound:
 the larger of the bytes each kernel must move over 3.35 TB/s and its
 float32 operations over 67 TFLOP/s, computed from this run's inputs;
 K8's entry also carries its 1-D mode's times and bound, K2's the windows
@@ -205,6 +220,50 @@ def k2_levels(pa, pb, x, y, live, cfg, cuda_lk, reference_path):
         yout = torch.where(active, got[1], yout)
         broken = broken | (active & ((got[2] == KLT_SMALL_DET) |
                                      (got[2] == KLT_OOB)))
+
+
+def expect_launches(counts, expect, path):
+    """Fail unless each kernel of ``expect`` launched exactly that often."""
+    for k, want in expect.items():
+        if counts[k] != want:
+            fail(f"{k} launched {counts[k]} times on the {path} (expected "
+                 f"{want})")
+
+
+def k2_call_check(pa, pb, x, y, live, cfg, cuda_lk, reference_path, name):
+    """K2's pyramidal entry (one launch per track call) against its plain
+    level loop on one case, bit for bit: x, y, val, with the lanes that
+    are not ``live`` dead (val -1). Returns the kernel's (x, y, val)."""
+    import numpy as np
+    import torch
+    val = torch.where(live, 0, -1).to(torch.int32)
+    before = cuda_lk.launches
+    got = cuda_lk.track_pyramid(pa, pb, x, y, val, cfg)
+    if cuda_lk.launches != before + 1:
+        fail("track_pyramid did not launch once")
+    with reference_path():
+        want = cuda_lk.track_pyramid(pa, pb, x, y, val, cfg)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    codes = got[2][live].cpu().numpy()
+    print(f"K2 {name}, whole track call ({cfg.nPyramidLevels} levels, "
+          f"subsampling {cfg.subsampling}): final statuses (0,-1..-5) "
+          f"{np.bincount(-codes, minlength=6).tolist()}, bit-equal {same}")
+    if not same:
+        fail(f"K2 track call ({name}) differs from its plain version")
+    return got
+
+
+def earlier_k2(cuda_lk, *args):
+    """K2's earlier design, timed beside the new one: the plain level loop
+    (cuda_lk.track_pyramid_reference) around one per-level kernel launch
+    (cuda_lk.lk_level) per level."""
+    plain_level = cuda_lk.lk_level_reference
+    cuda_lk.lk_level_reference = cuda_lk.lk_level
+    try:
+        return cuda_lk.track_pyramid_reference(*args)
+    finally:
+        cuda_lk.lk_level_reference = plain_level
 
 
 def config3():
@@ -391,11 +450,13 @@ def k3_work(cfg, h, w):
     return 3 * 4 * h * w, per_px * h * w
 
 
-def k4_work(cand, n_acc, dg, max_out):
-    """The candidate map read once and the acceptances written; one compare
-    per candidate and one store per cell of each accepted box."""
-    return (4 * cand.numel() + 12 * max_out + 4,
-            cand.numel() + int(n_acc.item()) * (2 * dg + 1) ** 2)
+def k4_work(ny, nx, n, n_acc, dg):
+    """One selection (stage A + stage B): the eig map's ny x nx lattice
+    cells and the n feature slots read once, the n slots (x, y, val,
+    filled) written once; one compare per candidate and one store per cell
+    of each accepted box."""
+    return (4 * ny * nx + 12 * n + 13 * n,
+            ny * nx + int(n_acc) * (2 * dg + 1) ** 2)
 
 
 def k5_scanned(k, n_acc, order, budget):
@@ -475,6 +536,70 @@ def k9_work(n, ww, wh):
     return n * (3 * npx * 4 + 3 * patch * 4 + 8 + 20), n * (npx * 34 + 6)
 
 
+def k4_check(cuda_select, cuda, eig, x, y, v, geom, cfg, replacing, name,
+             prof_dir, timed=True):
+    """K4's two stages against their plain versions on one selection:
+    stage A's lattice and maxima, then stage B's slots (x, y, val, filled),
+    bit for bit. ``timed``: then the selection's time by CUDA events, the
+    plain version's, and each stage's device time from the profiler;
+    "events": the kernels' time by events only. Returns the times and the
+    work of the selection (None untimed)."""
+    import torch
+    from pyfeaturetrack_tpu_torch.ops.select_device import premask_radius
+    min_eig = max(int(cfg.min_eigenvalue), 1)
+    kw = dict(min_eig=min_eig, radius=premask_radius(cfg, replacing),
+              dg=max(0, (int(cfg.mindist) - 1) // geom[2]),
+              replacing=replacing)
+    cands = cuda_select.candidate_lattice(eig, x, y, v, geom,
+                                          min_eig=min_eig,
+                                          radius=kw["radius"])
+    fill_kw = dict(min_eig=min_eig, dg=kw["dg"], replacing=replacing)
+    with cuda.reference_path():
+        plain = cuda_select.candidate_lattice(eig, x, y, v, geom,
+                                              min_eig=min_eig,
+                                              radius=kw["radius"])
+        want = cuda_select.greedy_fill(cands, x, y, v, geom, **fill_kw)
+    torch.cuda.synchronize()
+    same_a = all(torch.equal(a, b) if torch.is_tensor(a) else a == b
+                 for a, b in zip(cands, plain))
+    got = cuda_select.greedy_fill(cands, x, y, v, geom, **fill_kw)
+    torch.cuda.synchronize()
+    same_b = all(torch.equal(a, b) for a, b in zip(got, want))
+    budget = int((v < 0).sum().item()) if replacing else v.shape[0]
+    n_acc = int(got[3].sum().item())
+    print(f"K4 {name}: lattice {geom[3]}x{geom[4]} (segments of {cands.seg} "
+          f"columns), budget {budget}, accepted {n_acc}; stage A bit-equal "
+          f"{same_a}, stage B bit-equal {same_b}")
+    if not (same_a and same_b):
+        bad = torch.nonzero((got[0] != want[0]) | (got[2] != want[2])).flatten()
+        for i in bad[:10].tolist():
+            print(f"  slot {i}: kernel ({got[0][i].item()}, {got[1][i].item()}, "
+                  f"{got[2][i].item()}) plain ({want[0][i].item()}, "
+                  f"{want[1][i].item()}, {want[2][i].item()})")
+        fail(f"K4 ({name}) differs from its plain version")
+    if not timed:
+        return None
+
+    def select():
+        return cuda_select.select_from_eig(eig, x, y, v, geom, **kw)
+
+    reps = 20 if replacing else 5
+    out = dict(ms=time_ms(select, reps=reps),
+               work=k4_work(geom[3], geom[4], v.shape[0], n_acc, kw["dg"]))
+    if timed == "events":
+        print(f"K4 {name}: stage A + stage B {out['ms']:.4f} ms by events")
+        return out
+    with cuda.reference_path():
+        out["plain_ms"] = time_ms(select, reps=2)
+    dev_a, _ = device_ms(select, ["::lattice_kernel"], prof_dir, reps=reps)
+    dev_b, _ = device_ms(select, ["::chain_kernel"], prof_dir, reps=reps)
+    out.update(device_ms=dev_a + dev_b, device_a_ms=dev_a, device_b_ms=dev_b)
+    print(f"K4 {name}: stage A + stage B {out['ms']:.4f} ms by events, "
+          f"device {dev_a:.4f} + {dev_b:.4f} ms; plain {out['plain_ms']:.4f} "
+          "ms")
+    return out
+
+
 def make_stereo_pair():
     """A rectified 480x640 pair built the way examples/example11_depth.py
     builds its own, at this size: two textures (a seeded uniform noise with
@@ -517,6 +642,32 @@ def maps_equal(got, want, what):
             print(f"  {what}: output {i} differs at {len(bad)} pixels, first "
                   f"{[tuple(int(v) for v in q) for q in bad[:10]]}")
             fail(f"{what} differs from the plain route")
+
+
+def device_ms(fn, kernels, out_dir, reps: int = 20):
+    """Device time per fn() call (ms) of the kernels whose names hold one of
+    ``kernels``, summed over their launches, from torch.profiler's kernel
+    durations over reps calls after one warm-up; and their launches per
+    call. The trace goes to out_dir/kernel_times.json."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    path = out_dir / "kernel_times.json"
+    prof.export_chrome_trace(str(path))
+    trace = json.loads(path.read_text())
+    durs = [e["dur"] for e in trace.get("traceEvents", trace)
+            if e.get("cat") == "kernel"
+            and any(k in e.get("name", "") for k in kernels)]
+    if not durs:
+        fail(f"the profiler recorded no launch of {kernels}")
+    return sum(durs) / reps / 1e3, len(durs) / reps
 
 
 def time_ms(fn, reps: int = 20) -> float:
@@ -729,7 +880,7 @@ def event_ms(fn, reps: int = 10, warmup: int = 2):
     return float(np.median(ev)), float(np.median(wall))
 
 
-def dense_phase(pft, frames, ex, sparse, mods, report, dev, smi):
+def dense_phase(pft, frames, ex, sparse, mods, report, dev, smi, prof_dir):
     """Dense flow (configurations a and b), dense depth (c) and sub-pixel
     refinement in the host loop (d), each through the entry points a user
     calls, with K8 and K9 against their plain versions; see the module
@@ -813,14 +964,17 @@ def dense_phase(pft, frames, ex, sparse, mods, report, dev, smi):
         want = cuda_lk_dense.dense_level(*k8_args)
     maps_equal(got, want, "K8 2-D level 0")
     k8_ms = time_ms(lambda: cuda_lk_dense.dense_level(*k8_args))
+    k8_dev, _ = device_ms(lambda: cuda_lk_dense.dense_level(*k8_args),
+                          ["::lk_dense_kernel"], prof_dir, reps=10)
     with cuda.reference_path():
         k8_plain = time_ms(lambda: cuda_lk_dense.dense_level(*k8_args), reps=2)
     k8_w = k8_work(cfg, got[2], got[3], False)
     its = got[3].float()
     print(f"K8 2-D level 0 ({H * W} pixels, iterations mean "
           f"{its.mean().item():.3f}, max {int(its.max().item())}): kernel "
-          f"{k8_ms:.4f} ms, plain {k8_plain:.4f} ms, bound "
-          f"{bound_ms(*k8_w)[0]:.5f} ms ({bound_ms(*k8_w)[1]}); bit-equal")
+          f"{k8_ms:.4f} ms by events, {k8_dev:.4f} ms device, plain "
+          f"{k8_plain:.4f} ms, bound {bound_ms(*k8_w)[0]:.5f} ms "
+          f"({bound_ms(*k8_w)[1]}); bit-equal")
 
     # ---- (b) example 9's pair ----
     phase("dense (b): compute_dense_flow on examples/data/img0.pgm -> "
@@ -914,6 +1068,7 @@ def dense_phase(pft, frames, ex, sparse, mods, report, dev, smi):
           f"{k8d_ms:.4f} ms, plain {k8d_plain:.4f} ms, bound "
           f"{bound_ms(*k8d_w)[0]:.5f} ms ({bound_ms(*k8d_w)[1]}); bit-equal")
     report["K8"] = dict(max_abs_err=0.0, ms=k8_ms, plain_ms=k8_plain,
+                        device_ms=k8_dev,
                         work=k8_w, launches=k8_launches,
                         ms_1d=k8d_ms, plain_ms_1d=k8d_plain, work_1d=k8d_w)
 
@@ -948,12 +1103,16 @@ def dense_phase(pft, frames, ex, sparse, mods, report, dev, smi):
         k9_cases[name] = (args, kw)
     args, kw = k9_cases["main pair"]
     k9_ms = time_ms(lambda: cuda_window_terms.window_terms(*args, **kw))
+    k9_dev, _ = device_ms(lambda: cuda_window_terms.window_terms(*args, **kw),
+                          ["::window_terms_kernel"], prof_dir)
     with cuda.reference_path():
         k9_plain = time_ms(lambda: cuda_window_terms.window_terms(*args, **kw))
     k9_w = k9_work(args[-1].shape[0], cfg.window_width, cfg.window_height)
-    print(f"K9, 1000 features: kernel {k9_ms:.4f} ms, plain {k9_plain:.4f} "
-          f"ms, bound {bound_ms(*k9_w)[0]:.6f} ms ({bound_ms(*k9_w)[1]})")
+    print(f"K9, 1000 features: kernel {k9_ms:.4f} ms by events, "
+          f"{k9_dev:.4f} ms device, plain {k9_plain:.4f} ms, bound "
+          f"{bound_ms(*k9_w)[0]:.6f} ms ({bound_ms(*k9_w)[1]})")
     report["K9"] = dict(max_abs_err=0.0, ms=k9_ms, plain_ms=k9_plain,
+                        device_ms=k9_dev,
                         work=k9_w, launches=k9_launches)
 
     # ---- (d) config 2 with sub-pixel refinement ----
@@ -1025,7 +1184,7 @@ def main(argv=None) -> int:
     from pyfeaturetrack_tpu_torch.ops.interp import gather_window
     from pyfeaturetrack_tpu_torch.ops.select import select_features_from_eig
     from pyfeaturetrack_tpu_torch.ops.select_device import (
-        _candidate_grid, candidate_map, select_features_from_eig_device)
+        _candidate_grid, premask_radius, select_features_from_eig_device)
     from pyfeaturetrack_tpu_torch.utils import cuda
     from pyfeaturetrack_tpu_torch.utils.io import pgm_read
     if "jax" in sys.modules:
@@ -1045,6 +1204,7 @@ def main(argv=None) -> int:
     cfg = pft.create_config().replace(sequentialMode=True).validated_window()
     frames = make_frames(N_FRAMES)
     report = {}
+    prof_dir = root / "build" / "profile"
 
     # ---- phase 3: every kernel against its plain version on the card ----
     phase("kernels vs plain versions (480x640, 1000 features)")
@@ -1078,10 +1238,13 @@ def main(argv=None) -> int:
     k1_ms = time_ms(lambda: build_frame(img0))
     with cuda.reference_path():
         k1_plain = time_ms(lambda: build_frame(img0))
-    print(f"K1 full pyramid build: kernel {k1_ms:.4f} ms, plain "
+    k1_dev, k1_n = device_ms(lambda: build_frame(img0),
+                             ["::level_kernel", "::smooth_kernel"], prof_dir)
+    print(f"K1 full pyramid build: kernel {k1_ms:.4f} ms by events, "
+          f"{k1_dev:.4f} ms device ({k1_n:.0f} launches), plain "
           f"{k1_plain:.4f} ms")
     report["K1"] = dict(max_abs_err=k1_err, ms=k1_ms, plain_ms=k1_plain,
-                        work=k1_work(cfg, H, W))
+                        device_ms=k1_dev, work=k1_work(cfg, H, W))
 
     # K3 on the level-0 gradients
     pyr0 = build_frame(img0)
@@ -1103,53 +1266,88 @@ def main(argv=None) -> int:
     k3_ms = time_ms(lambda: cuda_eig.min_eig_map(gx0, gy0, ww, wh))
     with cuda.reference_path():
         k3_plain = time_ms(lambda: cuda_eig.min_eig_map(gx0, gy0, ww, wh))
-    print(f"K3: kernel {k3_ms:.4f} ms, plain {k3_plain:.4f} ms")
+    k3_dev, _ = device_ms(lambda: cuda_eig.min_eig_map(gx0, gy0, ww, wh),
+                          ["::eig_kernel"], prof_dir)
+    print(f"K3: kernel {k3_ms:.4f} ms by events, {k3_dev:.4f} ms device, "
+          f"plain {k3_plain:.4f} ms")
     report["K3"] = dict(max_abs_err=float(k3_err), ms=k3_ms, plain_ms=k3_plain,
-                        work=k3_work(cfg, H, W))
+                        device_ms=k3_dev, work=k3_work(cfg, H, W))
 
-    # K4: initial selection (budget 1000) and a refill (budget of tens)
+    # K4, both stages: the initial selection (1000 of 255,744 candidates),
+    # a refill (40 free slots), both at mindist 0 too, and a 1080x1920
+    # initial selection
     n = N_FEATURES
     x0 = torch.full((n,), -1.0, device=dev)
     v0 = torch.full((n,), -1, dtype=torch.int32, device=dev)
-    _, _, step_, _, _ = _candidate_grid(cfg, eig_k.shape)
-    dg = max(0, (int(cfg.mindist) - 1) // step_)
-    k4_cases, k4_err = {}, 0
-    cand_init, free_init = candidate_map(eig_k, x0, x0, v0, cfg,
-                                         replacing=False)
+    geom = _candidate_grid(cfg, eig_k.shape)
     sel = pft.select_step_device(img0, cfg, n)
     x_sel, y_sel, v_sel = sel[1], sel[2], sel[3]
     lost = torch.zeros(n, dtype=torch.bool, device=dev)
     lost[torch.arange(0, n, 25, device=dev)] = True   # 40 lost slots
     v_lost = torch.where(lost, -4, v_sel)
-    cand_ref, free_ref = candidate_map(eig_k, x_sel, y_sel, v_lost, cfg,
-                                       replacing=True)
-    for name, cand, free in (("initial", cand_init, free_init),
-                             ("refill", cand_ref, free_ref)):
-        budget = free.sum().to(torch.int32).reshape(1)
-        got = cuda_select.greedy_extract(cand, min_eig=1, dg=dg, budget=budget,
-                                         max_out=n)
-        with cuda.reference_path():
-            want = cuda_select.greedy_extract(cand, min_eig=1, dg=dg,
-                                              budget=budget, max_out=n)
-        torch.cuda.synchronize()
-        same = all(torch.equal(a, b) for a, b in zip(got, want))
-        k4_err = max([k4_err] + [int((a - b).abs().max().item())
-                                 for a, b in zip(got, want)])
-        print(f"K4 {name}: budget {int(budget.item())}, accepted "
-              f"{int(got[3].item())} (plain {int(want[3].item())}), "
-              f"exact {same}")
-        if not same:
-            fail(f"K4 {name} selection differs from its plain version")
-        kms = time_ms(lambda: cuda_select.greedy_extract(
-            cand, min_eig=1, dg=dg, budget=budget, max_out=n), reps=5)
-        with cuda.reference_path():
-            pms = time_ms(lambda: cuda_select.greedy_extract(
-                cand, min_eig=1, dg=dg, budget=budget, max_out=n), reps=2)
-        print(f"K4 {name}: kernel {kms:.4f} ms, plain {pms:.4f} ms")
-        k4_cases[name] = (kms, pms, k4_work(cand, got[3], dg, n))
-    report["K4"] = dict(max_abs_err=float(k4_err), ms=k4_cases["refill"][0],
-                        plain_ms=k4_cases["refill"][1],
-                        work=k4_cases["refill"][2])
+    k4_cases = {}
+    for name, kcfg, (x, y, v), replacing in (
+            ("initial", cfg, (x0, x0, v0), False),
+            ("refill", cfg, (x_sel, y_sel, v_lost), True),
+            ("initial, mindist 0", cfg.replace(mindist=0), (x0, x0, v0),
+             False),
+            ("refill, mindist 0", cfg.replace(mindist=0),
+             (x_sel, y_sel, v_lost), True)):
+        k4_cases[name] = k4_check(cuda_select, cuda, eig_k, x, y, v, geom,
+                                  kcfg, replacing, name, prof_dir,
+                                  timed="mindist 0" not in name)
+    rng5 = np.random.default_rng(SEED + 5)
+    hd = torch.as_tensor(np.floor(smooth_texture(rng5, 1080, 1920)),
+                         dtype=torch.float32, device=dev)
+    hd_pyr = pft.build_track_pyramids(hd, cfg)
+    eig_hd = cuda_eig.min_eig_map(hd_pyr.gradx[0], hd_pyr.grady[0],
+                                  cfg.window_width, cfg.window_height)
+    geom_hd = _candidate_grid(cfg, eig_hd.shape)
+    k4_hd = k4_check(cuda_select, cuda, eig_hd, x0, x0, v0, geom_hd, cfg,
+                     False, "initial, 1080x1920", prof_dir, timed="events")
+    # the wider segment widths: 768x1280 (64 columns), 1440x2560 (256),
+    # 2160x3840 (512: initial selection, then a refill of 40 slots with the
+    # pre-mask, the box bitmap in device memory), 2880x5120 (1024) and
+    # 4320x7680 (2048, the width read at run time)
+    rng6 = np.random.default_rng(SEED + 6)
+    k4_uhd = None
+    for fh, fw in ((768, 1280), (1440, 2560), (2160, 3840), (2880, 5120),
+                   (4320, 7680)):
+        frame = torch.as_tensor(np.floor(smooth_texture(rng6, fh, fw)),
+                                dtype=torch.float32, device=dev)
+        fpyr = pft.build_track_pyramids(frame, cfg)
+        eig_f = cuda_eig.min_eig_map(fpyr.gradx[0], fpyr.grady[0],
+                                     cfg.window_width, cfg.window_height)
+        geom_f = _candidate_grid(cfg, eig_f.shape)
+        big = fh == 2160
+        out = k4_check(cuda_select, cuda, eig_f, x0, x0, v0, geom_f, cfg,
+                       False, f"initial, {fh}x{fw}", prof_dir, timed=big)
+        if big:
+            k4_uhd = out
+            sel_f = cuda_select.select_from_eig(
+                eig_f, x0, x0, v0, geom_f, min_eig=int(cfg.min_eigenvalue),
+                radius=-1, dg=(cfg.mindist - 1) // geom_f[2],
+                replacing=False)
+            k4_check(cuda_select, cuda, eig_f, sel_f[0], sel_f[1],
+                     torch.where(lost, -4, sel_f[2]), geom_f, cfg, True,
+                     f"refill, {fh}x{fw}", prof_dir, timed=False)
+        del frame, fpyr, eig_f
+    ref_case = k4_cases["refill"]
+    report["K4"] = dict(max_abs_err=0.0, ms=ref_case["ms"],
+                        plain_ms=ref_case["plain_ms"],
+                        device_ms=ref_case["device_ms"],
+                        work=ref_case["work"],
+                        initial_ms=k4_cases["initial"]["ms"],
+                        initial_device_ms=k4_cases["initial"]["device_ms"],
+                        initial_1080p_ms=k4_hd["ms"],
+                        initial_2160p_ms=k4_uhd["ms"])
+    cand_init = cuda_select.candidate_lattice(
+        eig_k, x0, x0, v0, geom, min_eig=int(cfg.min_eigenvalue),
+        radius=-1).cells[:, :geom[4]]
+    cand_ref = cuda_select.candidate_lattice(
+        eig_k, x_sel, y_sel, v_lost, geom, min_eig=int(cfg.min_eigenvalue),
+        radius=premask_radius(cfg, True)).cells[:, :geom[4]]
+    free_ref = v_lost < 0
 
     # K5 on sorted candidate lists: (a) the real frame's initial selection,
     # (b) a refill, (c) a synthetic mix, (d) a 1080x1920 frame
@@ -1185,9 +1383,8 @@ def main(argv=None) -> int:
     k5_init, k5_kw = k5_case("initial (a)", cx, cy, cvalid, (H, W),
                              cfg.mindist, n, n)
     rx, ry, rvalid = sorted_list(cand_ref, (H, W))
-    k5_case("refill (b)", rx, ry, rvalid, (H, W), cfg.mindist,
-            int(free_ref.sum().item()), n)
-    rng5 = np.random.default_rng(SEED + 5)
+    _, k5_ref_kw = k5_case("refill (b)", rx, ry, rvalid, (H, W), cfg.mindist,
+                           int(free_ref.sum().item()), n)
     for mindist in (0, 1, 10, 25, 60):
         k = 20000
         dd = max(mindist - 1, 1)
@@ -1202,28 +1399,33 @@ def main(argv=None) -> int:
                  torch.as_tensor(rng5.uniform(size=k) > 0.1, device=dev))
         for budget in (0, 7, k):
             k5_case("mix (c)", *margs, (H, W), mindist, budget, k)
-    hd = torch.as_tensor(np.floor(smooth_texture(rng5, 1080, 1920)),
-                         dtype=torch.float32, device=dev)
-    hd_pyr = pft.build_track_pyramids(hd, cfg)
-    eig_hd = cuda_eig.min_eig_map(hd_pyr.gradx[0], hd_pyr.grady[0],
-                                  cfg.window_width, cfg.window_height)
-    cand_hd, _ = candidate_map(eig_hd, x0, x0, v0, cfg, replacing=False)
+    cand_hd = cuda_select.candidate_lattice(
+        eig_hd, x0, x0, v0, geom_hd, min_eig=int(cfg.min_eigenvalue),
+        radius=-1).cells[:, :geom_hd[4]]
     hx, hy, hvalid = sorted_list(cand_hd, (1080, 1920))
     k5_case("1080x1920 (d)", hx, hy, hvalid, (1080, 1920), cfg.mindist, n, n)
     del hd, hd_pyr, eig_hd, cand_hd, hx, hy, hvalid
 
     # times on the real frame's initial selection: the sort, K5, and K4's
-    # extraction of the same 1000 features from the same map
+    # selection of the same 1000 features from the same map; K5 on the
+    # refill (b)
     flat_init = cand_init.reshape(-1)
     sort_ms = time_ms(lambda: torch.sort(-flat_init, stable=True))
     k5_ms = time_ms(lambda: cuda_suppress.greedy_suppress(
         cx, cy, cvalid, **k5_kw))
+    k5_dev, _ = device_ms(lambda: cuda_suppress.greedy_suppress(
+        cx, cy, cvalid, **k5_kw), ["::suppress_kernel"], prof_dir)
     with cuda.reference_path():
         k5_plain = time_ms(lambda: cuda_suppress.greedy_suppress(
             cx, cy, cvalid, **k5_kw), reps=2)
-    budget_init = free_init.sum().to(torch.int32).reshape(1)
-    k4_init_ms = time_ms(lambda: cuda_select.greedy_extract(
-        cand_init, min_eig=1, dg=dg, budget=budget_init, max_out=n))
+    k5_ref_ms = time_ms(lambda: cuda_suppress.greedy_suppress(
+        rx, ry, rvalid, **k5_ref_kw))
+    k5_ref_dev, _ = device_ms(lambda: cuda_suppress.greedy_suppress(
+        rx, ry, rvalid, **k5_ref_kw), ["::suppress_kernel"], prof_dir)
+    print(f"K5 refill (b), {rx.shape[0]} candidates, budget "
+          f"{int(free_ref.sum().item())}: {k5_ref_ms:.4f} ms by events, "
+          f"{k5_ref_dev:.4f} ms device")
+    k4_init_ms = k4_cases["initial"]["ms"]
     k5_route = select_features_from_eig(eig_k, x0, x0, v0, cfg,
                                         replacing=False)
     k4_route = select_features_from_eig_device(eig_k, x0, x0, v0, cfg,
@@ -1233,11 +1435,15 @@ def main(argv=None) -> int:
     print(f"initial selection, 480x640, 1000 features: torch.sort "
           f"{sort_ms:.4f} ms + K5 {k5_ms:.4f} ms (plain {k5_plain:.4f} ms; "
           f"the scan read {k5_scanned(cx.shape[0], k5_init[2], k5_init[1], n)}"
-          f" of {cx.shape[0]} candidates) vs K4 {k4_init_ms:.4f} ms; the two "
+          f" of {cx.shape[0]} candidates; device {k5_dev:.4f} ms) vs K4 "
+          f"{k4_init_ms:.4f} ms (device "
+          f"{k4_cases['initial']['device_ms']:.4f} ms); the two "
           f"routes select the same features: {routes_same}; card {smi}")
     if not routes_same:
         fail("sort + K5 and K4 select different features")
     report["K5"] = dict(max_abs_err=0.0, ms=k5_ms, plain_ms=k5_plain,
+                        device_ms=k5_dev, refill_ms=k5_ref_ms,
+                        refill_device_ms=k5_ref_dev,
                         work=k5_work(cx.shape[0], k5_init[2], k5_init[1], n,
                                      cfg.mindist, n))
 
@@ -1267,9 +1473,14 @@ def main(argv=None) -> int:
                 if "window_width" in over else cfg.replace(**over))
         k2_cases.append((name, kcfg, mix0, mix1 * gain + bias, mix_x, mix_y,
                          all_live))
+    k2_call_work = [0, 0]
     for name, kcfg, fa, fb, x, y, live in k2_cases:
         pa, pb = pft.build_track_pyramids(fa, kcfg), pft.build_track_pyramids(
             fb, kcfg)
+        k2_call_check(pa, pb, x, y, live, kcfg, cuda_lk, cuda.reference_path,
+                      name)
+        if name == "tracked pair":
+            k2_pair = (pa, pb, x, y, v_sel, kcfg)
         for r, args, got, want in k2_levels(pa, pb, x, y, live, kcfg, cuda_lk,
                                              cuda.reference_path):
             active = args[-1]
@@ -1294,8 +1505,11 @@ def main(argv=None) -> int:
                           f"{want[1][i].item()}, {want[2][i].item()}, it "
                           f"{want[3][i].item()})")
                 fail(f"K2 ({name}, level {r}) differs from its plain version")
+            if name == "tracked pair":
+                lw = k2_work(kcfg, args[-1], got[3])
+                k2_call_work = [k2_call_work[0] + lw[0], k2_call_work[1] + lw[1]]
             if name == "tracked pair" and r == 0:
-                k2_in, k2_out = args, got
+                k2_in = args
                 # K9's inputs: frame-1 windows at the features, frame-2
                 # positions at the tracked positions
                 k9_feats = (pa, pb, args[0], args[1], got[0], got[1])
@@ -1305,12 +1519,25 @@ def main(argv=None) -> int:
                 KLT_LARGE_RESIDUE}
     if not k2_codes <= k2_seen:
         fail(f"the K2 cases never produced statuses {sorted(k2_codes - k2_seen)}")
-    k2_ms = time_ms(lambda: cuda_lk.lk_level(*k2_in))
+    k2_ms = time_ms(lambda: cuda_lk.track_pyramid(*k2_pair))
+    k2_dev, _ = device_ms(lambda: cuda_lk.track_pyramid(*k2_pair),
+                          ["::lk_pyramid_kernel"], prof_dir)
     with cuda.reference_path():
-        k2_plain = time_ms(lambda: cuda_lk.lk_level(*k2_in))
-    print(f"K2 level 0: kernel {k2_ms:.4f} ms, plain {k2_plain:.4f} ms")
+        k2_plain = time_ms(lambda: cuda_lk.track_pyramid(*k2_pair), reps=5)
+    k2_old_ms = time_ms(lambda: earlier_k2(cuda_lk, *k2_pair))
+    k2_old_dev, k2_old_n = device_ms(lambda: earlier_k2(cuda_lk, *k2_pair),
+                                     ["::lk_level_kernel"], prof_dir)
+    k2_lvl_ms = time_ms(lambda: cuda_lk.lk_level(*k2_in))
+    print(f"K2 per track call (tracked pair, {cfg.nPyramidLevels} levels): "
+          f"one launch {k2_ms:.4f} ms by events, {k2_dev:.4f} ms device; "
+          f"plain {k2_plain:.4f} ms; earlier design (level loop around "
+          f"{k2_old_n:.0f} per-level launches) {k2_old_ms:.4f} ms by events, "
+          f"{k2_old_dev:.4f} ms device; one per-level launch (level 0) "
+          f"{k2_lvl_ms:.4f} ms by events; card {smi}")
     report["K2"] = dict(max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain,
-                        work=k2_work(cfg, k2_in[-1], k2_out[3]),
+                        device_ms=k2_dev, earlier_ms=k2_old_ms,
+                        earlier_device_ms=k2_old_dev,
+                        work=tuple(k2_call_work),
                         windows_checked=["7x7", "13x13"])
     report["K9_inputs"] = (k9_feats, k9_mix)
     torch.cuda.synchronize()
@@ -1352,6 +1579,8 @@ def main(argv=None) -> int:
                  ("status mix", cfg3, mix0, mix1, mix_x, mix_y, all_live)]
     for name, kcfg, fa, fb, x, y, live in k2_cases3:
         pa, pb = (pft.build_track_pyramids(f, kcfg) for f in (fa, fb))
+        k2_call_check(pa, pb, x, y, live, kcfg, cuda_lk, cuda.reference_path,
+                      f"config 3, {name}")
         for r, args, got, want in k2_levels(pa, pb, x, y, live, kcfg, cuda_lk,
                                              cuda.reference_path):
             active = args[-1]
@@ -1432,9 +1661,12 @@ def main(argv=None) -> int:
     with cuda.reference_path():
         k6_plain = time_ms(lambda: cuda_affine.affine_track_batch(
             *real_args, cfg3), reps=3)
-    print(f"K6 mode 2, real pair, {n} lanes: kernel {k6_ms:.4f} ms, plain "
-          f"{k6_plain:.4f} ms")
+    k6_dev, _ = device_ms(lambda: cuda_affine.affine_track_batch(
+        *real_args, cfg3), ["::affine_kernel"], prof_dir)
+    print(f"K6 mode 2, real pair, {n} lanes: kernel {k6_ms:.4f} ms by "
+          f"events, {k6_dev:.4f} ms device, plain {k6_plain:.4f} ms")
     report["K6"] = dict(max_abs_err=k6_err, ms=k6_ms, plain_ms=k6_plain,
+                        device_ms=k6_dev,
                         work=k6_work(cfg3, real_args[7], k6_out[4]))
     torch.cuda.synchronize()
 
@@ -1457,6 +1689,9 @@ def main(argv=None) -> int:
     for k, c in counts.items():
         if c <= 0:
             fail(f"{k} was never launched on the main path")
+    # one K2 launch per track call, two K4 stages per selection
+    expect_launches(counts, {"K2": N_FRAMES - 1, "K4": 2 * N_FRAMES},
+                    "main path")
     if not (np.isfinite(xs).all() and np.isfinite(ys).all()):
         fail("non-finite positions")
     if xs.shape != (N_FRAMES, N_FEATURES):
@@ -1520,6 +1755,8 @@ def main(argv=None) -> int:
     for k, c in counts3.items():
         if c <= 0:
             fail(f"{k} was never launched on the config-3 path")
+    expect_launches(counts3, {"K2": N_FRAMES - 1, "K4": 2 * N_FRAMES},
+                    "config-3 path")
     if not (np.isfinite(xs).all() and np.isfinite(ys).all()):
         fail("non-finite positions (config 3)")
     if xs.shape != (N_FRAMES, N_FEATURES):
@@ -1607,7 +1844,7 @@ def main(argv=None) -> int:
     data = root / "examples" / "data"
     ex0, ex1 = (pgm_read(data / f"img{i}.pgm") for i in (0, 1))
     mods1 = {"K1": cuda_pyramid, "K2": cuda_lk, "K3": cuda_eig,
-             "K5": cuda_suppress}
+             "K4": cuda_select, "K5": cuda_suppress}
     tc = pft.KLTCreateTrackingContext()
 
     def example1():
@@ -1623,6 +1860,8 @@ def main(argv=None) -> int:
     for k, c in counts1.items():
         if c <= 0:
             fail(f"{k} was never launched on the config-1 path")
+    # one track call; the host API's selection runs K4's stage A, then K5
+    expect_launches(counts1, {"K2": 1, "K4": 1, "K5": 1}, "config-1 path")
     with cuda.reference_path():
         psel1, ptrk1 = example1()
     same1 = all(torch.equal(a, b) for a, b in zip(sel1[:3] + trk1[:3],
@@ -1658,6 +1897,8 @@ def main(argv=None) -> int:
             fail(f"{k} was never launched on the config-2 path")
     if not 1 + refill_frames <= counts2["K5"] <= N_FRAMES:
         fail("K5 did not run on the first frame and on every refill")
+    expect_launches(counts2, {"K2": N_FRAMES - 1, "K4": counts2["K5"]},
+                    "config-2 path")
     if hx2.shape != (N_FRAMES, N_FEATURES) or not np.isfinite(hx2).all():
         fail(f"config-2 feature table shape {hx2.shape} or non-finite")
     diff = np.argwhere((hv2 != vs_main) | (hx2 != xs_main) | (hy2 != ys_main))
@@ -1699,7 +1940,7 @@ def main(argv=None) -> int:
                   "K4": cuda_select, "K5": cuda_suppress, "K6": cuda_affine,
                   "K8": cuda_lk_dense, "K9": cuda_window_terms}
     dense_phase(pft, frames, (ex0, ex1), (sel1, trk1), dense_mods, report,
-                dev, smi)
+                dev, smi, prof_dir)
 
     if profile:
         profile_host_loop(pft, cfg, staged, root)
@@ -1710,11 +1951,11 @@ def main(argv=None) -> int:
 
     names = {"K1": ("pyramid", "pyfeaturetrack_tpu_torch/csrc/pyramid.cu",
                     "pyfeaturetrack_tpu/ops/pallas_pyramid.py:132"),
-             "K2": ("lk_level", "pyfeaturetrack_tpu_torch/csrc/lk.cu",
+             "K2": ("lk_pyramid", "pyfeaturetrack_tpu_torch/csrc/lk.cu",
                     "pyfeaturetrack_tpu/ops/pallas_lk_vec.py:663"),
              "K3": ("min_eig_map", "pyfeaturetrack_tpu_torch/csrc/eig.cu",
                     "pyfeaturetrack_tpu/ops/pallas_eig.py:100"),
-             "K4": ("greedy_extract", "pyfeaturetrack_tpu_torch/csrc/extract.cu",
+             "K4": ("select_from_eig", "pyfeaturetrack_tpu_torch/csrc/extract.cu",
                     "pyfeaturetrack_tpu/ops/pallas_select.py:251"),
              "K5": ("greedy_suppress",
                     "pyfeaturetrack_tpu_torch/csrc/suppress.cu",
@@ -1737,9 +1978,19 @@ def main(argv=None) -> int:
                  "launches": r["launches"],
                  "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                  "plain_ms": r["plain_ms"], "bound_ms": b_ms,
-                 "bound_by": b_by, "library_ms": None}
+                 "bound_by": b_by, "library_ms": None,
+                 "device_ms": r["device_ms"]}
         if k == "K2":
-            entry["windows_checked"] = r["windows_checked"]
+            entry.update(windows_checked=r["windows_checked"],
+                         earlier_ms=r["earlier_ms"],
+                         earlier_device_ms=r["earlier_device_ms"])
+        if k == "K4":
+            entry.update({f: r[f] for f in ("initial_ms", "initial_device_ms",
+                                            "initial_1080p_ms",
+                                            "initial_2160p_ms")})
+        if k == "K5":
+            entry.update(refill_ms=r["refill_ms"],
+                         refill_device_ms=r["refill_device_ms"])
         if k == "K8":
             b1_ms, b1_by = bound_ms(*r["work_1d"])
             entry.update(ms_1d=r["ms_1d"], plain_ms_1d=r["plain_ms_1d"],

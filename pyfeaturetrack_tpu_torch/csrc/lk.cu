@@ -1,60 +1,57 @@
-// K2: one pyramid level of translational Lucas-Kanade for a feature batch.
+// K2: pyramidal translational Lucas-Kanade for a feature batch.
 //
 // Replaces pyfeaturetrack_tpu/ops/pallas_lk_vec.py: vec_track_level
 // (_vec_level_kernel) and its stale-lane fallback
-// vec_track_level_with_fallback. The arithmetic is that of
-// ops/track.track_feature_level (track.py:155-234), lane for lane:
+// vec_track_level_with_fallback, together with the coarse-to-fine level
+// loop that the JAX package runs around them in XLA
+// (pyfeaturetrack_tpu/ops/track.py:337-402), because a Mosaic kernel runs
+// one level per call. The per-level arithmetic is lk_level_body
+// (lk_common.cuh), that of ops/track.track_feature_level lane for lane:
 //   * bilinear windows from the (wh+1) x (ww+1) integer patch whose top-left
 //     is clamp(floor(x) - hw, 0, W - 2 - 2 hw) (interp.py:73-74), blended as
 //     (1-a)(1-b) p00 + a(1-b) p01 + (1-a) b p10 + a b p11 in that order;
-//   * per iteration: bounds check of both positions (OOB, position frozen),
-//     2x2 normal equations, SMALL_DET, the step, convergence on
-//     min_displacement, at most max_iterations updates;
-//   * after the loop: bounds check (OOB overrides any status), then
-//     LARGE_RESIDUE, then MAX_ITERATIONS (a lane converging on its last
-//     update still reports MAX_ITERATIONS, track.py:231-233);
+//   * the fixed-trip iteration, SMALL_DET, OOB, LARGE_RESIDUE and
+//     MAX_ITERATIONS in the reference's order;
 //   * the lighting-insensitive variant (gain alpha, bias beta) as a
 //     compile-time switch.
 //
+// Two entries:
+//   * pft_lk_pyramid, the tracker's: one launch per track call. A warp
+//     walks its feature's levels coarse to fine as ops/track.py:97-139 of
+//     the plain version does: x / s^L as an IEEE division by the float32
+//     s^L, * s per level, the level status carried, the walk stopped at the
+//     first SMALL_DET or OOB (the reference's "broken" lanes keep that
+//     level's position), then the final classification (out-of-view test
+//     against borderx / bordery, OOB first, lost lanes to (-1, -1), lanes
+//     with val < 0 passed through unchanged). Level pointers and shapes pass
+//     by value, up to PFT_LK_MAX_LEVELS levels.
+//   * pft_lk_level: one level for given positions (ops/cuda_lk.lk_level).
+//
 // What bounds it on this card: latency of dependent gathers, not bytes or
-// FLOPs (1000 features x <= 10 iterations x 49 pixels x 3 images). Design:
-// one warp per feature, the ww*wh window pixels spread over the 32 lanes
-// (pixel p = lane + 32 k). The frame-1 windows of img, gx, gy are read once
-// per level and stay in registers; each warp leaves the iteration loop on
-// its own as soon as its feature converges or fails. The five window sums
-// are warp reductions in one fixed order (per-lane ascending k, then an
-// xor butterfly 16, 8, 4, 2, 1), which the plain version reproduces, so
-// both give the same bits; every lane ends with the same sums, so all
-// branches are warp-uniform. Lane 0 writes the feature's result.
+// FLOPs (1000 features x <= 10 iterations x 49 pixels x 3 images per
+// level), and, around a one-level kernel, the host: the level loop's
+// scaling, freezing and selects were some 55 eager PyTorch ops per call.
+// Design: one warp per feature, the ww*wh window pixels spread over the 32
+// lanes (pixel p = lane + 32 k); the frame-1 windows of img, gx, gy are
+// read once per level and stay in registers; each warp leaves a level's
+// iteration loop, and the level walk, on its own. The window sums are warp
+// reductions in one fixed order (per-lane ascending k, then an xor
+// butterfly 16, 8, 4, 2, 1), which the plain version reproduces, so both
+// give the same bits. Lane 0 writes the feature's result.
 
 #include "lk_common.cuh"
+
+#define PFT_LK_MAX_LEVELS 8
 
 namespace {
 
 constexpr int NT = 128;                 // 4 features per block
 
-// Residual window: w1 - w2, or with lighting compensation w1 - alpha w2 -
-// beta (track.py:120-128). Returns the gain alpha (1 without it).
-template <int NPL, bool LIGHTING>
-__device__ __forceinline__ float residual(const float (&w1)[NPL], const float (&w2)[NPL],
-                                          float s11, float m1, float n,
-                                          float (&dif)[NPL])
-{
-    if (!LIGHTING) {
-#pragma unroll
-        for (int k = 0; k < NPL; ++k) dif[k] = w1[k] - w2[k];
-        return 1.0f;
-    }
-    float t[NPL];
-#pragma unroll
-    for (int k = 0; k < NPL; ++k) t[k] = w2[k] * w2[k];
-    const float s22 = window_sum<NPL>(t);
-    const float alpha = sqrtf((s11 / n) / (s22 / n));
-    const float beta = m1 - alpha * (window_sum<NPL>(w2) / n);
-#pragma unroll
-    for (int k = 0; k < NPL; ++k) dif[k] = w1[k] - w2[k] * alpha - beta;
-    return alpha;
-}
+// The pyramid pair, level r at index r: six float32 [H, W] images each.
+struct LKLevels {
+    const float* im[PFT_LK_MAX_LEVELS][6];   // img1, gx1, gy1, img2, gx2, gy2
+    int H[PFT_LK_MAX_LEVELS], W[PFT_LK_MAX_LEVELS];
+};
 
 template <int NPL, bool LIGHTING>
 __global__ void __launch_bounds__(NT)
@@ -71,92 +68,11 @@ lk_level_kernel(const float* __restrict__ x1, const float* __restrict__ y1,
     const int lane = threadIdx.x & 31;
     if (f >= P.n) return;                       // whole warp
     float x = x2_in[f], y = y2_in[f];
-    if (!active[f]) {                           // pass-through lane
-        if (lane == 0) {
-            x2_out[f] = x;
-            y2_out[f] = y;
-            status_out[f] = KLT_TRACKED;
-            iter_out[f] = 0;
-        }
-        return;
-    }
-    const float xa = x1[f], ya = y1[f];
-    const float n = (float)((2 * P.hw + 1) * (2 * P.hh + 1));
-    const LanePixels<NPL> px = lane_pixels<NPL>(lane, P);
-
-    const float* const f1[3] = {img1, gx1, gy1};
-    const float* const f2[3] = {img2, gx2, gy2};
-    const float* const f2img[1] = {img2};
-    float w1[3][NPL];                            // frame-1 windows, kept per level
-    gather<NPL, 3>(f1, xa, ya, px, P, w1);
-
-    float s11 = 0.0f, m1 = 0.0f;
-    if (LIGHTING) {
-        float t[NPL];
-#pragma unroll
-        for (int k = 0; k < NPL; ++k) t[k] = w1[0][k] * w1[0][k];
-        s11 = window_sum<NPL>(t);
-        m1 = window_sum<NPL>(w1[0]) / n;
-    }
-
-    const bool ok1 = bounds_ok(xa, ya, P);
     int status = KLT_TRACKED, it = 0;
-    for (int step = 0; step < P.max_iterations; ++step) {
-        if (!(ok1 && bounds_ok(x, y, P))) {
-            status = KLT_OOB;
-            break;
-        }
-        float w2[3][NPL];
-        gather<NPL, 3>(f2, x, y, px, P, w2);
-        float dif[NPL], gxs[NPL], gys[NPL];
-        const float alpha = residual<NPL, LIGHTING>(w1[0], w2[0], s11, m1, n, dif);
-#pragma unroll
-        for (int k = 0; k < NPL; ++k) {
-            gxs[k] = LIGHTING ? w1[1][k] + alpha * w2[1][k] : w1[1][k] + w2[1][k];
-            gys[k] = LIGHTING ? w1[2][k] + alpha * w2[2][k] : w1[2][k] + w2[2][k];
-        }
-        float t[NPL];
-#pragma unroll
-        for (int k = 0; k < NPL; ++k) t[k] = px.j[k] < 0 ? 0.0f : gxs[k] * gxs[k];
-        const float gxx = window_sum<NPL>(t);
-#pragma unroll
-        for (int k = 0; k < NPL; ++k) t[k] = px.j[k] < 0 ? 0.0f : gxs[k] * gys[k];
-        const float gxy = window_sum<NPL>(t);
-#pragma unroll
-        for (int k = 0; k < NPL; ++k) t[k] = px.j[k] < 0 ? 0.0f : gys[k] * gys[k];
-        const float gyy = window_sum<NPL>(t);
-#pragma unroll
-        for (int k = 0; k < NPL; ++k) t[k] = px.j[k] < 0 ? 0.0f : dif[k] * gxs[k];
-        const float ex = P.step_factor * window_sum<NPL>(t);
-#pragma unroll
-        for (int k = 0; k < NPL; ++k) t[k] = px.j[k] < 0 ? 0.0f : dif[k] * gys[k];
-        const float ey = P.step_factor * window_sum<NPL>(t);
-
-        const float det = gxx * gyy - gxy * gxy;
-        if (det < P.min_determinant) {
-            status = KLT_SMALL_DET;
-            break;
-        }
-        const float dx = (gyy * ex - gxy * ey) / det;
-        const float dy = (gxx * ey - gxy * ex) / det;
-        x = x + dx;
-        y = y + dy;
-        ++it;
-        if (!(fabsf(dx) >= P.min_displacement || fabsf(dy) >= P.min_displacement))
-            break;
-    }
-
-    if (!bounds_ok(x, y, P)) status = KLT_OOB;
-    if (status == KLT_TRACKED) {
-        float w2[1][NPL];
-        gather<NPL, 1>(f2img, x, y, px, P, w2);
-        float dif[NPL];
-        residual<NPL, LIGHTING>(w1[0], w2[0], s11, m1, n, dif);
-#pragma unroll
-        for (int k = 0; k < NPL; ++k) dif[k] = px.j[k] < 0 ? 0.0f : fabsf(dif[k]);
-        const float residue = window_sum<NPL>(dif) / n;
-        if (residue > P.max_residue) status = KLT_LARGE_RESIDUE;
-        else if (it >= P.max_iterations) status = KLT_MAX_ITERATIONS;
+    if (active[f]) {
+        const float* const f1[3] = {img1, gx1, gy1};
+        const float* const f2[3] = {img2, gx2, gy2};
+        status = lk_level_body<NPL, LIGHTING>(f1, f2, x1[f], y1[f], x, y, it, lane, P);
     }
     if (lane == 0) {
         x2_out[f] = x;
@@ -167,18 +83,72 @@ lk_level_kernel(const float* __restrict__ x1, const float* __restrict__ y1,
 }
 
 template <int NPL, bool LIGHTING>
-int launch(const float* x1, const float* y1, const float* x2, const float* y2,
-           const bool* active, const float* img1, const float* gx1, const float* gy1,
-           const float* img2, const float* gx2, const float* gy2, const LKParams& P,
-           float* x2o, float* y2o, int* st, int* iters, cudaStream_t stream)
+__global__ void __launch_bounds__(NT)
+lk_pyramid_kernel(const float* __restrict__ x_in, const float* __restrict__ y_in,
+                  const int* __restrict__ val_in, LKLevels L, int n_levels,
+                  LKParams P, float scale, float s, int borderx, int bordery,
+                  float* __restrict__ x_out, float* __restrict__ y_out,
+                  int* __restrict__ val_out)
 {
-    const int blocks = pft_ceil_div(P.n, NT / 32);
-    lk_level_kernel<NPL, LIGHTING><<<blocks, NT, 0, stream>>>(
-        x1, y1, x2, y2, active, img1, gx1, gy1, img2, gx2, gy2, P, x2o, y2o, st, iters);
-    return (int)cudaGetLastError();
+    const int f = (blockIdx.x * NT + threadIdx.x) >> 5;
+    const int lane = threadIdx.x & 31;
+    if (f >= P.n) return;                       // whole warp
+    const float x0 = x_in[f], y0 = y_in[f];
+    const int v0 = val_in[f];
+    if (v0 < 0) {                               // dead lane: passed through
+        if (lane == 0) {
+            x_out[f] = x0;
+            y_out[f] = y0;
+            val_out[f] = v0;
+        }
+        return;
+    }
+    float xloc = x0 / scale, yloc = y0 / scale;
+    float xout = xloc, yout = yloc;
+    int status = KLT_TRACKED;
+    for (int r = n_levels - 1; r >= 0; --r) {
+        xloc = xloc * s;
+        yloc = yloc * s;
+        xout = xout * s;
+        yout = yout * s;
+        LKParams Q = P;
+        Q.H = L.H[r];
+        Q.W = L.W[r];
+        const float* const f1[3] = {L.im[r][0], L.im[r][1], L.im[r][2]};
+        const float* const f2[3] = {L.im[r][3], L.im[r][4], L.im[r][5]};
+        int it;
+        status = lk_level_body<NPL, LIGHTING>(f1, f2, xloc, yloc, xout, yout, it, lane, Q);
+        // broken: the reference leaves its level loop on these two codes
+        if (status == KLT_SMALL_DET || status == KLT_OOB) break;
+    }
+    // final classification (KLTTrackFeatures post-loop), in level-0 pixels
+    const bool out_of_view = xout < (float)borderx ||
+                             xout > (float)(L.W[0] - 1 - borderx) ||
+                             yout < (float)bordery ||
+                             yout > (float)(L.H[0] - 1 - bordery);
+    const bool lost = status != KLT_TRACKED || out_of_view;
+    if (lane == 0) {
+        x_out[f] = lost ? -1.0f : xout;
+        y_out[f] = lost ? -1.0f : yout;
+        val_out[f] = (status == KLT_OOB || out_of_view) ? KLT_OOB : status;
+    }
 }
 
 }  // namespace
+
+#define PFT_LK_SWITCH(npl, LAUNCH)   \
+    switch (npl) {                   \
+        LAUNCH(1)                    \
+        LAUNCH(2)                    \
+        LAUNCH(3)                    \
+        LAUNCH(4)                    \
+        LAUNCH(5)                    \
+        LAUNCH(6)                    \
+        LAUNCH(7)                    \
+        LAUNCH(8)                    \
+        default:                     \
+            return PFT_INVALID_ARGUMENT; \
+    }
 
 // Window sizes up to 8 pixels per lane (ww * wh <= 256, e.g. 15 x 15).
 extern "C" int pft_lk_level(const float* x1, const float* y1, const float* x2,
@@ -196,27 +166,65 @@ extern "C" int pft_lk_level(const float* x1, const float* y1, const float* x2,
     if (H <= 0 || W <= 0 || window_width % 2 != 1 || window_height % 2 != 1)
         return PFT_INVALID_ARGUMENT;
     const int npl = pft_ceil_div(window_width * window_height, 32);
-    LKParams P{H, W, n, window_width / 2, window_height / 2, max_iterations,
-               min_displacement, min_determinant, max_residue, step_factor};
+    const LKParams P{H, W, n, window_width / 2, window_height / 2, max_iterations,
+                     min_displacement, min_determinant, max_residue, step_factor};
+    const int blocks = pft_ceil_div(n, NT / 32);
     cudaStream_t s = (cudaStream_t)stream;
-#define PFT_LK_CASE(K)                                                                  \
-    case K:                                                                             \
-        return lighting_insensitive                                                     \
-            ? launch<K, true>(x1, y1, x2, y2, active, img1, gx1, gy1, img2, gx2, gy2,   \
-                              P, x2_out, y2_out, status, iteration, s)                  \
-            : launch<K, false>(x1, y1, x2, y2, active, img1, gx1, gy1, img2, gx2, gy2,  \
-                               P, x2_out, y2_out, status, iteration, s);
-    switch (npl) {
-        PFT_LK_CASE(1)
-        PFT_LK_CASE(2)
-        PFT_LK_CASE(3)
-        PFT_LK_CASE(4)
-        PFT_LK_CASE(5)
-        PFT_LK_CASE(6)
-        PFT_LK_CASE(7)
-        PFT_LK_CASE(8)
-        default:
-            return PFT_INVALID_ARGUMENT;
+#define PFT_LK_LEVEL(K)                                                                  \
+    case K:                                                                              \
+        if (lighting_insensitive)                                                        \
+            lk_level_kernel<K, true><<<blocks, NT, 0, s>>>(                              \
+                x1, y1, x2, y2, active, img1, gx1, gy1, img2, gx2, gy2, P, x2_out,       \
+                y2_out, status, iteration);                                              \
+        else                                                                             \
+            lk_level_kernel<K, false><<<blocks, NT, 0, s>>>(                             \
+                x1, y1, x2, y2, active, img1, gx1, gy1, img2, gx2, gy2, P, x2_out,       \
+                y2_out, status, iteration);                                              \
+        return (int)cudaGetLastError();
+    PFT_LK_SWITCH(npl, PFT_LK_LEVEL)
+#undef PFT_LK_LEVEL
+}
+
+// levels: n_levels * 6 device pointers (level r: img1, gx1, gy1, img2, gx2,
+// gy2), shapes: n_levels * 2 ints (H, W), both host arrays read here.
+// scale: float32 subsampling^n_levels; x, y, val in, x, y, val out [n].
+extern "C" int pft_lk_pyramid(const float* x, const float* y, const int* val, int n,
+                              const float* const* levels, const int* shapes,
+                              int n_levels, int window_width, int window_height,
+                              int max_iterations, float min_displacement,
+                              float min_determinant, float max_residue,
+                              float step_factor, int lighting_insensitive,
+                              float scale, float subsampling, int borderx, int bordery,
+                              float* x_out, float* y_out, int* val_out, void* stream)
+{
+    if (n <= 0) return 0;
+    if (n_levels < 1 || n_levels > PFT_LK_MAX_LEVELS || window_width % 2 != 1 ||
+        window_height % 2 != 1)
+        return PFT_INVALID_ARGUMENT;
+    LKLevels L{};
+    for (int r = 0; r < n_levels; ++r) {
+        for (int m = 0; m < 6; ++m) L.im[r][m] = levels[6 * r + m];
+        L.H[r] = shapes[2 * r];
+        L.W[r] = shapes[2 * r + 1];
+        if (L.H[r] <= 0 || L.W[r] <= 0) return PFT_INVALID_ARGUMENT;
     }
-#undef PFT_LK_CASE
+    const int npl = pft_ceil_div(window_width * window_height, 32);
+    const LKParams P{L.H[0], L.W[0], n, window_width / 2, window_height / 2,
+                     max_iterations, min_displacement, min_determinant, max_residue,
+                     step_factor};
+    const int blocks = pft_ceil_div(n, NT / 32);
+    cudaStream_t s = (cudaStream_t)stream;
+#define PFT_LK_PYRAMID(K)                                                                \
+    case K:                                                                              \
+        if (lighting_insensitive)                                                        \
+            lk_pyramid_kernel<K, true><<<blocks, NT, 0, s>>>(                            \
+                x, y, val, L, n_levels, P, scale, subsampling, borderx, bordery, x_out,  \
+                y_out, val_out);                                                         \
+        else                                                                             \
+            lk_pyramid_kernel<K, false><<<blocks, NT, 0, s>>>(                           \
+                x, y, val, L, n_levels, P, scale, subsampling, borderx, bordery, x_out,  \
+                y_out, val_out);                                                         \
+        return (int)cudaGetLastError();
+    PFT_LK_SWITCH(npl, PFT_LK_PYRAMID)
+#undef PFT_LK_PYRAMID
 }

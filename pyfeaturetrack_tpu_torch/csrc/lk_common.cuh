@@ -1,9 +1,9 @@
 // Lucas-Kanade pieces shared by K2 (lk.cu), K8 (lk_dense.cu) and K9
 // (window_terms.cu): the status codes, the window-fits test, the bilinear
-// patch of ops/track._gather3 and the warp reduction of
-// ops/cuda_lk.tree_sum. Every function rounds each product and sum on its
-// own (the library is built with -fmad=false), in the order of the plain
-// PyTorch versions.
+// patch of ops/track._gather3, the warp reduction of ops/cuda_lk.tree_sum,
+// and K2's per-level solve (lk_level_body), which both of K2's entries
+// run. Every function rounds each product and sum on its own (the library
+// is built with -fmad=false), in the order of the plain PyTorch versions.
 #pragma once
 
 #include "common.cuh"
@@ -129,6 +129,124 @@ __device__ __forceinline__ void gather(const float* const (&imgs)[NIMG],
         for (int m = 0; m < NIMG; ++m)
             out[m][k] = px.j[k] < 0 ? 0.0f : blend_tap(imgs[m], q, px.j[k], px.i[k], P);
     }
+}
+
+// Residual window: w1 - w2, or with lighting compensation w1 - alpha w2 -
+// beta (track.py:120-128). Returns the gain alpha (1 without it).
+template <int NPL, bool LIGHTING>
+__device__ __forceinline__ float residual(const float (&w1)[NPL], const float (&w2)[NPL],
+                                          float s11, float m1, float n,
+                                          float (&dif)[NPL])
+{
+    if (!LIGHTING) {
+#pragma unroll
+        for (int k = 0; k < NPL; ++k) dif[k] = w1[k] - w2[k];
+        return 1.0f;
+    }
+    float t[NPL];
+#pragma unroll
+    for (int k = 0; k < NPL; ++k) t[k] = w2[k] * w2[k];
+    const float s22 = window_sum<NPL>(t);
+    const float alpha = sqrtf((s11 / n) / (s22 / n));
+    const float beta = m1 - alpha * (window_sum<NPL>(w2) / n);
+#pragma unroll
+    for (int k = 0; k < NPL; ++k) dif[k] = w1[k] - w2[k] * alpha - beta;
+    return alpha;
+}
+
+// One pyramid level of translational LK for the feature of this warp: the
+// arithmetic of ops/track.track_feature_level (track.py:155-234), which
+// ops/cuda_lk.lk_level_reference repeats. The frame-1 windows of img, gx, gy
+// at (xa, ya) are read once and stay in registers; (x, y) is the frame-2
+// start and comes back updated, `it` the number of updates. Per iteration:
+// bounds check of both positions (OOB, position frozen), 2x2 normal
+// equations, SMALL_DET, the step, convergence on min_displacement. After
+// the loop: bounds check (OOB overrides any status), then LARGE_RESIDUE,
+// then MAX_ITERATIONS (a lane converging on its last update still reports
+// MAX_ITERATIONS, track.py:231-233). Every lane ends with the same sums, so
+// all branches are warp-uniform. Returns the level status.
+template <int NPL, bool LIGHTING>
+__device__ __forceinline__ int lk_level_body(const float* const (&f1)[3],
+                                             const float* const (&f2)[3],
+                                             float xa, float ya, float& x, float& y,
+                                             int& it, int lane, const LKParams& P)
+{
+    const float n = (float)((2 * P.hw + 1) * (2 * P.hh + 1));
+    const LanePixels<NPL> px = lane_pixels<NPL>(lane, P);
+    const float* const f2img[1] = {f2[0]};
+    float w1[3][NPL];
+    gather<NPL, 3>(f1, xa, ya, px, P, w1);
+
+    float s11 = 0.0f, m1 = 0.0f;
+    if (LIGHTING) {
+        float t[NPL];
+#pragma unroll
+        for (int k = 0; k < NPL; ++k) t[k] = w1[0][k] * w1[0][k];
+        s11 = window_sum<NPL>(t);
+        m1 = window_sum<NPL>(w1[0]) / n;
+    }
+
+    const bool ok1 = bounds_ok(xa, ya, P);
+    int status = KLT_TRACKED;
+    it = 0;
+    for (int step = 0; step < P.max_iterations; ++step) {
+        if (!(ok1 && bounds_ok(x, y, P))) {
+            status = KLT_OOB;
+            break;
+        }
+        float w2[3][NPL];
+        gather<NPL, 3>(f2, x, y, px, P, w2);
+        float dif[NPL], gxs[NPL], gys[NPL];
+        const float alpha = residual<NPL, LIGHTING>(w1[0], w2[0], s11, m1, n, dif);
+#pragma unroll
+        for (int k = 0; k < NPL; ++k) {
+            gxs[k] = LIGHTING ? w1[1][k] + alpha * w2[1][k] : w1[1][k] + w2[1][k];
+            gys[k] = LIGHTING ? w1[2][k] + alpha * w2[2][k] : w1[2][k] + w2[2][k];
+        }
+        float t[NPL];
+#pragma unroll
+        for (int k = 0; k < NPL; ++k) t[k] = px.j[k] < 0 ? 0.0f : gxs[k] * gxs[k];
+        const float gxx = window_sum<NPL>(t);
+#pragma unroll
+        for (int k = 0; k < NPL; ++k) t[k] = px.j[k] < 0 ? 0.0f : gxs[k] * gys[k];
+        const float gxy = window_sum<NPL>(t);
+#pragma unroll
+        for (int k = 0; k < NPL; ++k) t[k] = px.j[k] < 0 ? 0.0f : gys[k] * gys[k];
+        const float gyy = window_sum<NPL>(t);
+#pragma unroll
+        for (int k = 0; k < NPL; ++k) t[k] = px.j[k] < 0 ? 0.0f : dif[k] * gxs[k];
+        const float ex = P.step_factor * window_sum<NPL>(t);
+#pragma unroll
+        for (int k = 0; k < NPL; ++k) t[k] = px.j[k] < 0 ? 0.0f : dif[k] * gys[k];
+        const float ey = P.step_factor * window_sum<NPL>(t);
+
+        const float det = gxx * gyy - gxy * gxy;
+        if (det < P.min_determinant) {
+            status = KLT_SMALL_DET;
+            break;
+        }
+        const float dx = (gyy * ex - gxy * ey) / det;
+        const float dy = (gxx * ey - gxy * ex) / det;
+        x = x + dx;
+        y = y + dy;
+        ++it;
+        if (!(fabsf(dx) >= P.min_displacement || fabsf(dy) >= P.min_displacement))
+            break;
+    }
+
+    if (!bounds_ok(x, y, P)) status = KLT_OOB;
+    if (status == KLT_TRACKED) {
+        float w2[1][NPL];
+        gather<NPL, 1>(f2img, x, y, px, P, w2);
+        float dif[NPL];
+        residual<NPL, LIGHTING>(w1[0], w2[0], s11, m1, n, dif);
+#pragma unroll
+        for (int k = 0; k < NPL; ++k) dif[k] = px.j[k] < 0 ? 0.0f : fabsf(dif[k]);
+        const float residue = window_sum<NPL>(dif) / n;
+        if (residue > P.max_residue) status = KLT_LARGE_RESIDUE;
+        else if (it >= P.max_iterations) status = KLT_MAX_ITERATIONS;
+    }
+    return status;
 }
 
 }  // namespace

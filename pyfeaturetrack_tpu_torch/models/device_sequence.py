@@ -5,24 +5,28 @@ select -> (track -> replace-lost)* recurrence; port of
 ``pyfeaturetrack_tpu/models/device_sequence.py``. Per frame:
 
 1. K1 builds the new frame's pyramid and gradients;
-2. K2 runs pyramidal LK for every live feature, one launch per level;
+2. K2 runs pyramidal LK for every live feature, one launch per track
+   call (every level, the coarse-level break rule and the final
+   classification);
 3. when ``cfg.affineConsistencyCheck >= 0``, the affine-consistency stage
    (``ops/affine.affine_consistency_check``): templates are captured on a
    feature's first successful track and every later track is re-verified
    against its template under a warp by K6, carrying the AffineState
    (templates + warps) between steps;
 4. refill: K3 takes the min-eig map from the level-0 gradients and K4
-   extracts replacements for the lost slots; refilled slots lose their
-   templates (``reset_affine``).
+   selects replacements for the lost slots in two launches (the candidate
+   lattice with the kept features' pre-mask; the greedy chain and the slot
+   fill); refilled slots lose their templates (``reset_affine``).
 
 The refill gate. The JAX step refills under ``lax.cond(any(val < 0))``. In
 eager PyTorch that test is a host sync every frame, so the port always
-launches K3 and K4 and K4 reads its budget (the number of lost slots) on
-the device: with budget 0 it exits at once and ``fill_slots`` changes
-nothing, and ``reset_affine`` drops the templates of an empty mask, so
-the results are identical to the gated step. The affine stage's template
-capture is applied by mask for the same reason. The feature table comes
-back to the host once, at the end of ``track_sequence_device``.
+launches K3 and K4 and K4 counts its budget (the number of lost slots) on
+the device: with budget 0 its chain stops at once and every slot comes
+back as it was, and ``reset_affine`` drops the templates of an empty mask,
+so the results are identical to the gated step. The affine stage's
+template capture is applied by mask for the same reason. The feature
+table comes back to the host once, at the end of
+``track_sequence_device``.
 
 Out of this port so far (raise NotImplementedError): ``image_dtype`` other
 than float32, and ``sequence_chain_device``.

@@ -1,14 +1,20 @@
-"""K2: one pyramid level of translational LK (csrc/lk.cu) and its plain
-version.
+"""K2: pyramidal translational LK (csrc/lk.cu) and its plain versions.
 
 Port of ``pyfeaturetrack_tpu/ops/pallas_lk_vec.py`` (vec_track_level /
 vec_track_level_with_fallback), whose semantics are
-``ops/track.track_feature_level``. ``lk_level_reference`` is that
-function in PyTorch: the same fixed-trip masked iteration, the same
-status order, with every window sum taken in the kernel's reduction order
-(``tree_sum``), so the plain version and the kernel compute the same bits.
-K8's plain version (``cuda_lk_dense``) is the same function with its own
-sum order and 1-D mode.
+``ops/track.track_feature_level``, with the coarse-to-fine level loop the
+JAX package runs around it in XLA (``ops/track.py:337-402``).
+
+* ``track_pyramid``: a whole track call, every level coarse to fine, the
+  coarse-level "broken" rule and the final classification, in one launch.
+  Its plain version, ``track_pyramid_reference``, is the level loop around
+  ``lk_level_reference``.
+* ``lk_level``: one level for given positions. ``lk_level_reference`` is
+  ``track_feature_level`` in PyTorch: the same fixed-trip masked
+  iteration, the same status order, with every window sum taken in the
+  kernel's reduction order (``tree_sum``), so the plain version and the
+  kernel compute the same bits. K8's plain version (``cuda_lk_dense``) is
+  the same function with its own sum order and 1-D mode.
 
 A CUDA tensor launches the kernel (one launch per call); a CPU tensor
 takes the plain version.
@@ -17,6 +23,8 @@ takes the plain version.
 from __future__ import annotations
 
 from typing import NamedTuple
+
+import ctypes
 
 import numpy as np
 import torch
@@ -29,6 +37,7 @@ from .interp import gather_windows
 
 _ONE_PLUS_EPS = 1.001     # ops/track._ONE_PLUS_EPS (reference bound check)
 MAX_WINDOW_PIXELS = 256   # csrc/lk.cu: at most 8 window pixels per lane
+MAX_LEVELS = 8            # csrc/lk.cu: PFT_LK_MAX_LEVELS
 
 # Kernel launches made by this wrapper.
 launches = 0
@@ -255,3 +264,119 @@ def lk_level(x1, y1, x2, y2, img1, gx1, gy1, img2, gx2, gy2, cfg, active):
         _launch(x1, y1, x2, y2, active, img1, gx1, gy1, img2, gx2, gy2, cfg,
                 xo, yo, st, it)
     return xo, yo, st, it
+
+
+def track_pyramid_reference(pyr1, pyr2, x, y, val, cfg):
+    """Plain version of ``track_pyramid``: the coarse-to-fine level loop of
+    ``ops/track.py`` around ``lk_level_reference``, with its coarse-level
+    "broken" rule and the final classification."""
+    nrows, ncols = pyr1.img[0].shape
+    s = float(cfg.subsampling)
+    n_levels = cfg.nPyramidLevels
+
+    live = val >= 0
+    # a tensor divisor keeps CUDA from dividing by a reciprocal product
+    scale = torch.full((), s ** n_levels, dtype=torch.float32,
+                       device=x.device)
+    xloc = x / scale
+    yloc = y / scale
+    xout, yout = xloc, yloc
+
+    status = torch.full_like(val, KLT_TRACKED)
+    # 'broken' freezes lanes that hit SMALL_DET / OOB at a coarser level
+    # (the reference breaks out of the level loop for those two codes only).
+    broken = torch.zeros_like(live)
+    for r in range(n_levels - 1, -1, -1):
+        xloc, yloc = xloc * s, yloc * s
+        # lanes broken at a coarser level keep their break-level coords
+        xout = torch.where(broken, xout, xout * s)
+        yout = torch.where(broken, yout, yout * s)
+        active = live & ~broken
+        nx, ny, lvl_status, _ = lk_level_reference(
+            xloc, yloc, xout, yout,
+            pyr1.img[r], pyr1.gradx[r], pyr1.grady[r],
+            pyr2.img[r], pyr2.gradx[r], pyr2.grady[r], cfg, active)
+        xout = torch.where(active, nx, xout)
+        yout = torch.where(active, ny, yout)
+        status = torch.where(active, lvl_status, status)
+        broken = broken | (active & ((lvl_status == KLT_SMALL_DET) |
+                                     (lvl_status == KLT_OOB)))
+
+    # Final classification (reference: KLTTrackFeatures post-loop).
+    out_of_view = ((xout < cfg.borderx) | (xout > ncols - 1 - cfg.borderx) |
+                   (yout < cfg.bordery) | (yout > nrows - 1 - cfg.bordery))
+    lost = (status != KLT_TRACKED) | out_of_view
+    final_status = torch.where(
+        status == KLT_OOB, KLT_OOB,
+        torch.where(out_of_view, KLT_OOB, status))
+
+    new_x = torch.where(live, torch.where(lost, -1.0, xout), x)
+    new_y = torch.where(live, torch.where(lost, -1.0, yout), y)
+    new_val = torch.where(live, final_status, val)
+    return new_x, new_y, new_val
+
+
+def _launch_pyramid(pyr1, pyr2, x, y, val, cfg, xo, yo, vo):
+    global launches
+    fn = cuda.function("pft_lk_pyramid",
+                       [cuda.c_ptr] * 3 + [cuda.c_int] + [cuda.c_ptr] * 2
+                       + [cuda.c_int] * 4 + [cuda.c_float] * 4 + [cuda.c_int]
+                       + [cuda.c_float] * 2 + [cuda.c_int] * 2
+                       + [cuda.c_ptr] * 4)
+    n_levels = cfg.nPyramidLevels
+    ptrs = (ctypes.c_void_p * (6 * n_levels))(*(
+        p[r].data_ptr() for r in range(n_levels)
+        for p in (pyr1.img, pyr1.gradx, pyr1.grady, pyr2.img, pyr2.gradx,
+                  pyr2.grady)))
+    shapes = (ctypes.c_int * (2 * n_levels))(*(
+        d for r in range(n_levels) for d in pyr1.img[r].shape))
+    s = float(cfg.subsampling)
+    rc = fn(x.data_ptr(), y.data_ptr(), val.data_ptr(), x.shape[0],
+            ctypes.addressof(ptrs), ctypes.addressof(shapes), n_levels,
+            cfg.window_width, cfg.window_height, cfg.max_iterations,
+            _f32(cfg.min_displacement), _f32(cfg.min_determinant),
+            _f32(cfg.max_residue), _f32(cfg.step_factor),
+            int(bool(cfg.lighting_insensitive)), _f32(s ** n_levels), _f32(s),
+            int(cfg.borderx), int(cfg.bordery), xo.data_ptr(), yo.data_ptr(),
+            vo.data_ptr(), cuda.stream_ptr(x.device))
+    cuda.check(rc, "pft_lk_pyramid")
+    launches += 1
+
+
+def track_pyramid(pyr1, pyr2, x: torch.Tensor, y: torch.Tensor,
+                  val: torch.Tensor, cfg):
+    """Pyramidal LK for a feature batch from prebuilt pyramids (objects
+    with ``img``/``gradx``/``grady`` level tuples, finest first): every
+    level coarse to fine, then the final classification. Returns (x, y,
+    val); lost features get (-1, -1, status), lanes with ``val < 0`` pass
+    through. One launch on CUDA."""
+    n_levels = cfg.nPyramidLevels
+    imgs = [p[r] for r in range(n_levels)
+            for p in (pyr1.img, pyr1.gradx, pyr1.grady, pyr2.img, pyr2.gradx,
+                      pyr2.grady)]
+    if not cuda.use_kernel(x, y, val, *imgs):
+        return track_pyramid_reference(pyr1, pyr2, x, y, val, cfg)
+    ww, wh = cfg.window_width, cfg.window_height
+    cuda.require(ww % 2 == 1 and wh % 2 == 1 and ww * wh <= MAX_WINDOW_PIXELS,
+                 f"track_pyramid kernel takes odd windows of at most "
+                 f"{MAX_WINDOW_PIXELS} pixels, got {ww}x{wh}")
+    cuda.require(1 <= n_levels <= MAX_LEVELS,
+                 f"track_pyramid kernel takes 1 to {MAX_LEVELS} levels, got "
+                 f"{n_levels}")
+    n = x.shape[0]
+    cuda.require(x.dtype == y.dtype == torch.float32 and val.dtype == torch.int32
+                 and x.shape == y.shape == val.shape == (n,)
+                 and all(t.is_contiguous() for t in (x, y, val)),
+                 "track_pyramid takes contiguous float32 x, y and int32 val "
+                 "[N]")
+    for r in range(n_levels):
+        level = imgs[6 * r:6 * r + 6]
+        cuda.require(all(t.dtype == torch.float32 and t.dim() == 2
+                         and t.shape == level[0].shape and t.is_contiguous()
+                         for t in level),
+                     f"track_pyramid: level {r} needs six contiguous float32 "
+                     "[H, W] images of one shape")
+    xo, yo, vo = torch.empty_like(x), torch.empty_like(y), torch.empty_like(val)
+    if n:
+        _launch_pyramid(pyr1, pyr2, x, y, val, cfg, xo, yo, vo)
+    return xo, yo, vo

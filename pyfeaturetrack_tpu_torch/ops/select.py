@@ -11,15 +11,15 @@ arrays' device:
 
 1. ``selection_eig_map``: K1 level 0 (ops/cuda_pyramid) and K3
    (ops/cuda_eig), shared with the device-resident route;
-2. the candidate lattice (``select_device.candidate_map``: borders, step,
-   candidates below the bar zeroed and, when replacing, the kept
-   features' mindist boxes zeroed, which equals the host stamping them
-   first);
+2. the candidate lattice, K4's stage A (``cuda_select.candidate_lattice``:
+   borders, step, candidates below the bar zeroed and, when replacing, the
+   kept features' mindist boxes zeroed, which equals the host stamping
+   them first);
 3. the priority order: ``torch.sort(-vals, stable=True)``, the order of
    ``np.argsort(-vals, kind="stable")`` (descending, ties in scan order);
 4. K5 (ops/cuda_suppress.greedy_suppress) over the whole ordered list,
    budget = free slots, read on the device;
-5. ``select_device.fill_slots``: the r-th acceptance goes to the r-th free
+5. ``cuda_select.fill_slots``: the r-th acceptance goes to the r-th free
    slot, as the host greedy's slot walk does.
 
 The min-eig map's plain version (``compute_min_eig_map``) sits beside
@@ -37,8 +37,9 @@ from ..features import (KLT_NOT_FOUND, FeatureState, create_feature_list,
                         feature_state_to_numpy, reset_affine)
 from .cuda_eig import min_eig_map
 from .cuda_pyramid import level_taps, pyramid_level
+from .cuda_select import candidate_lattice, fill_slots
 from .cuda_suppress import greedy_suppress
-from .select_device import _candidate_grid, candidate_map, fill_slots
+from .select_device import _candidate_grid, premask_radius
 from .track import as_frame
 
 
@@ -80,12 +81,17 @@ def select_features_from_eig(eig: torch.Tensor, x: torch.Tensor,
     min-eig map through sort + K5 + slot fill. ``replacing=False``:
     overwrite every slot; ``replacing=True``: keep val >= 0 slots and
     refill the rest. Returns (x, y, val)."""
-    borderx, bordery, step, ny, nx = _candidate_grid(cfg, eig.shape)
-    cand, free = candidate_map(eig, x, y, val, cfg, replacing=replacing)
-    if cand is None:
+    geom = _candidate_grid(cfg, eig.shape)
+    borderx, bordery, step, ny, nx = geom
+    free = (val < 0) if replacing else torch.ones_like(val, dtype=torch.bool)
+    if ny == 0 or nx == 0:
         # no room for features: every free slot comes back empty
         return (torch.where(free, -1.0, x), torch.where(free, -1.0, y),
                 torch.where(free, KLT_NOT_FOUND, val))
+    cand = candidate_lattice(eig, x, y, val, geom,
+                             min_eig=max(int(cfg.min_eigenvalue), 1),
+                             radius=premask_radius(cfg, replacing)
+                             ).cells[:, :nx]
     neg, order = torch.sort(-cand.reshape(-1), stable=True)
     vals = -neg
     cand_x = (borderx + (order % nx) * step).to(torch.int32)

@@ -3,18 +3,22 @@
 Reference parity: selectGoodFeatures.py -> _KLTSelectGoodFeatures +
 _enforceMinimumDistance; port of ``pyfeaturetrack_tpu/ops/select_device.py``.
 
-One route for both uses: K4 (ops/cuda_select.greedy_extract) scans the
-FULL candidate pool in the host greedy's order, so its result is the host
-greedy's exactly and never "exhausted":
+One route for both uses, K4 (``ops/cuda_select.select_from_eig``): stage A
+builds the candidate lattice from the eig map (kept features pre-mask
+their mindist boxes on a refill), stage B scans the FULL candidate pool in
+the host greedy's order and writes the acceptances into the free slots,
+so the result is the host greedy's exactly and never "exhausted":
 
 * initial selection: every slot free, no pre-mask, budget = n_features;
 * refill: free slots are ``val < 0``, kept features pre-mask their
-  mindist box, budget = number of free slots (read on the device).
+  mindist box, budget = number of free slots (counted on the device).
 
 The JAX package's initial selection runs a top-K + maximal-independent-set
 fixpoint instead; greedy is prefix-stable, so the two agree whenever that
 pass is not exhausted. ``top_k`` stays in the signatures so callers match
-and is not used.
+and is not used. ``candidate_map`` is the pre-mask as the JAX package
+builds it (stamp, dilate, sample the lattice), the reference the tests
+hold stage A against.
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from ..features import KLT_NOT_FOUND
-from .cuda_select import greedy_extract
+from .cuda_select import fill_slots, select_from_eig  # noqa: F401
 
 # Signature compatibility with the JAX package (unused: the extraction
 # scans every candidate).
@@ -52,27 +56,6 @@ def _candidate_grid(cfg, shape):
     return borderx, bordery, step, ny, nx
 
 
-def fill_slots(n_acc: torch.Tensor, cand_x: torch.Tensor,
-               cand_y: torch.Tensor, cand_val: torch.Tensor,
-               free: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
-               val: torch.Tensor):
-    """Assign the r-th accepted candidate to the r-th free slot, in order
-    (select_device.py:115-138 of the JAX package; here the accepted
-    candidates are the first ``n_acc`` of the extraction's output).
-    Returns (x, y, val, filled)."""
-    k = cand_x.shape[0]
-    slot_rank = torch.cumsum(free.to(torch.int64), 0) - 1
-    ci = slot_rank.clamp(0, k - 1)
-    filled = free & (slot_rank < n_acc)
-    new_x = torch.where(free, torch.where(filled, cand_x[ci].to(x.dtype),
-                                          -1.0), x)
-    new_y = torch.where(free, torch.where(filled, cand_y[ci].to(y.dtype),
-                                          -1.0), y)
-    new_val = torch.where(free, torch.where(filled, cand_val[ci],
-                                            KLT_NOT_FOUND), val)
-    return new_x, new_y, new_val, filled
-
-
 def select_features_from_eig_device(eig: torch.Tensor, x: torch.Tensor,
                                     y: torch.Tensor, val: torch.Tensor, cfg,
                                     *, replacing: bool,
@@ -85,32 +68,38 @@ def select_features_from_eig_device(eig: torch.Tensor, x: torch.Tensor,
     Returns (x, y, val, filled, exhausted); ``exhausted`` is always False
     (the extraction scans every candidate)."""
     del top_k
-    borderx, bordery, step, ny, nx = _candidate_grid(cfg, eig.shape)
+    geom = _candidate_grid(cfg, eig.shape)
     not_exhausted = torch.zeros((), dtype=torch.bool, device=eig.device)
-    cand, free = candidate_map(eig, x, y, val, cfg, replacing=replacing)
-    if cand is None:
+    if geom[3] == 0 or geom[4] == 0:
         # no room for features: every free slot comes back empty
+        free = (val < 0) if replacing else torch.ones_like(val,
+                                                           dtype=torch.bool)
         return (torch.where(free, -1.0, x), torch.where(free, -1.0, y),
                 torch.where(free, KLT_NOT_FOUND, val),
                 torch.zeros_like(free), not_exhausted)
-
-    n_out = int(val.shape[0])
-    rr, cc, vv, n_acc = greedy_extract(
-        cand, min_eig=max(int(cfg.min_eigenvalue), 1),
-        dg=max(0, (int(cfg.mindist) - 1) // step),
-        budget=free.sum().to(torch.int32).reshape(1), max_out=n_out)
-    cand_x = (borderx + cc * step).to(torch.int32)
-    cand_y = (bordery + rr * step).to(torch.int32)
-    nxx, nyy, nval, filled = fill_slots(n_acc, cand_x, cand_y, vv, free, x,
-                                        y, val)
+    nxx, nyy, nval, filled = select_from_eig(
+        eig, x, y, val, geom, min_eig=max(int(cfg.min_eigenvalue), 1),
+        radius=premask_radius(cfg, replacing),
+        dg=max(0, (int(cfg.mindist) - 1) // geom[2]), replacing=replacing)
     return nxx, nyy, nval, filled, not_exhausted
+
+
+def premask_radius(cfg, replacing: bool) -> int:
+    """Chebyshev radius of the kept features' pre-mask: mindist - 1 on a
+    refill with mindist >= 1, else -1 (none). mindist == 0 suppresses
+    nothing in the host greedy (the decremented radius makes its box
+    empty), so no pre-mask there."""
+    return int(cfg.mindist) - 1 if replacing and int(cfg.mindist) >= 1 else -1
 
 
 def candidate_map(eig: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
                   val: torch.Tensor, cfg, *, replacing: bool):
-    """K4's input: the int32 candidate-lattice map (None when the lattice
-    is empty) and the free-slot mask. Refills zero the candidates inside
-    the kept features' mindist boxes; candidates below the bar are 0."""
+    """The int32 candidate-lattice map as the JAX package builds it (None
+    when the lattice is empty) and the free-slot mask: refills stamp the
+    kept features into an occupancy map, dilate it by the mindist radius
+    and zero the lattice cells inside; candidates below the bar are 0.
+    Stage A of K4 (``cuda_select.candidate_lattice``) computes the same
+    lattice without the full-frame dilation."""
     nrows, ncols = eig.shape
     borderx, bordery, step, ny, nx = _candidate_grid(cfg, eig.shape)
     min_eig = max(int(cfg.min_eigenvalue), 1)

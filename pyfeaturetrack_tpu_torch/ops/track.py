@@ -2,11 +2,10 @@
 
 Reference parity: trackFeatures.py -> KLTTrackFeatures / _trackFeature;
 port of the pyramid build and level loop of
-``pyfeaturetrack_tpu/ops/track.py``. The per-level solve is K2
-(ops/cuda_lk.lk_level, one launch per level on CUDA); the pyramid build is
-K1 (ops/cuda_pyramid.pyramid_level). The coarse-to-fine level loop, the
-coarse-level "broken" rule and the final classification are plain
-PyTorch around them.
+``pyfeaturetrack_tpu/ops/track.py``. A track call is K2
+(ops/cuda_lk.track_pyramid: the coarse-to-fine level loop, the
+coarse-level "broken" rule and the final classification, one launch on
+CUDA); the pyramid build is K1 (ops/cuda_pyramid.pyramid_level).
 
 ``track_features`` is the images-in entry of the host API and
 ``fb_reject`` / ``track_features_pyramids_fb`` the forward-backward gate
@@ -23,10 +22,9 @@ from typing import NamedTuple
 import torch
 
 from ..errors import KLTGetVerbosity, verbose_print
-from ..features import (KLT_FB_INCONSISTENT, KLT_OOB, KLT_SMALL_DET,
-                        KLT_TRACKED, FeatureState)
+from ..features import KLT_FB_INCONSISTENT, KLT_TRACKED, FeatureState
 from .convolve import to_float_image
-from .cuda_lk import TrackCarry, lk_level
+from .cuda_lk import TrackCarry, track_pyramid
 from .cuda_pyramid import level_taps, pyramid_level
 
 
@@ -90,49 +88,7 @@ def track_features_pyramids_carry(pyr1: TrackPyramids, pyr2: TrackPyramids,
         raise NotImplementedError("guided tracking (x_init/y_init) is not "
                                   "in the port yet")
     _require_float32_images(cfg)
-    nrows, ncols = pyr1.img[0].shape
-    s = float(cfg.subsampling)
-    n_levels = cfg.nPyramidLevels
-
-    live = val >= 0
-    # a tensor divisor keeps CUDA from dividing by a reciprocal product
-    scale = torch.full((), s ** n_levels, dtype=torch.float32,
-                       device=x.device)
-    xloc = x / scale
-    yloc = y / scale
-    xout, yout = xloc, yloc
-
-    status = torch.full_like(val, KLT_TRACKED)
-    # 'broken' freezes lanes that hit SMALL_DET / OOB at a coarser level
-    # (the reference breaks out of the level loop for those two codes only).
-    broken = torch.zeros_like(live)
-    for r in range(n_levels - 1, -1, -1):
-        xloc, yloc = xloc * s, yloc * s
-        # lanes broken at a coarser level keep their break-level coords
-        xout = torch.where(broken, xout, xout * s)
-        yout = torch.where(broken, yout, yout * s)
-        active = live & ~broken
-        nx, ny, lvl_status, _ = lk_level(
-            xloc, yloc, xout, yout,
-            pyr1.img[r], pyr1.gradx[r], pyr1.grady[r],
-            pyr2.img[r], pyr2.gradx[r], pyr2.grady[r], cfg, active)
-        xout = torch.where(active, nx, xout)
-        yout = torch.where(active, ny, yout)
-        status = torch.where(active, lvl_status, status)
-        broken = broken | (active & ((lvl_status == KLT_SMALL_DET) |
-                                     (lvl_status == KLT_OOB)))
-
-    # Final classification (reference: KLTTrackFeatures post-loop).
-    out_of_view = ((xout < cfg.borderx) | (xout > ncols - 1 - cfg.borderx) |
-                   (yout < cfg.bordery) | (yout > nrows - 1 - cfg.bordery))
-    lost = (status != KLT_TRACKED) | out_of_view
-    final_status = torch.where(
-        status == KLT_OOB, KLT_OOB,
-        torch.where(out_of_view, KLT_OOB, status))
-
-    new_x = torch.where(live, torch.where(lost, -1.0, xout), x)
-    new_y = torch.where(live, torch.where(lost, -1.0, yout), y)
-    new_val = torch.where(live, final_status, val)
+    new_x, new_y, new_val = track_pyramid(pyr1, pyr2, x, y, val, cfg)
     carry_out = None
     if carry is not None:
         carry_out = carry._replace(ok=torch.zeros_like(carry.ok))

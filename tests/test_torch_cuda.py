@@ -4,10 +4,11 @@ device; on a GPU machine run them (no JAX needed) with
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
-Bars: K1, K3, K4, K5 and K9 bit-equal; K2, K6 and K8 statuses and
-iterations equal and positions (K6: and warps; K8: the flow and disparity
-maps) bit-equal (the kernels round and sum in their plain versions'
-order). Inputs are small seeded numpy images."""
+Bars: K1, K3, K4 (both stages), K5 and K9 bit-equal; K2 (per level and
+per pyramidal track call), K6 and K8 statuses and iterations equal and
+positions (K6: and warps; K8: the flow and disparity maps) bit-equal (the
+kernels round and sum in their plain versions' order). Inputs are small
+seeded numpy images."""
 
 import numpy as np
 import pytest
@@ -19,6 +20,8 @@ from pyfeaturetrack_tpu_torch.ops import (cuda_affine, cuda_eig, cuda_lk,
                                           cuda_select, cuda_suppress,
                                           cuda_window_terms)
 from pyfeaturetrack_tpu_torch.ops.interp import gather_window
+from pyfeaturetrack_tpu_torch.ops.select_device import (_candidate_grid,
+                                                        premask_radius)
 from pyfeaturetrack_tpu_torch.utils import cuda
 
 pytestmark = pytest.mark.gpu
@@ -94,6 +97,151 @@ def test_extract_exact(dev, dg, budget, min_eig, seed):
         assert torch.equal(a, w)
 
 
+def _selection_inputs(dev, cfg, h, w, n, seed):
+    """An int32 eig map of a seeded texture and n feature slots: about
+    three quarters kept (val >= 0), among them slots on and next to every
+    edge of the frame, the rest lost."""
+    pyr = tpft.build_track_pyramids(
+        torch.tensor(_texture(h, w, seed=seed), device=dev), cfg)
+    eig = cuda_eig.min_eig_map(pyr.gradx[0], pyr.grady[0], cfg.window_width,
+                               cfg.window_height)
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(0, w - 1, n)
+    y = rng.uniform(0, h - 1, n)
+    x[:6] = [0.0, w - 1.0, 0.4, w - 1.3, 3.0, -0.6]
+    y[:6] = [2.0, h - 1.0, 0.0, h - 2.5, h - 4.0, 40.0]
+    val = np.where(rng.uniform(size=n) < 0.25, -1, 500)
+    val[:6] = 500
+    x, y, v = (torch.tensor(a, dtype=t, device=dev) for a, t in
+               ((x, torch.float32), (y, torch.float32), (val, torch.int32)))
+    return eig, x, y, v
+
+
+@pytest.mark.parametrize("mindist", [0, 1, 2, 10])
+@pytest.mark.parametrize("skip", [0, 1])
+@pytest.mark.parametrize("replacing", [False, True])
+def test_candidate_lattice_bit_equal(dev, mindist, skip, replacing):
+    """K4 stage A against its plain version: the lattice and its segment
+    and row maxima, with kept features on and near the frame's edges and
+    borders larger than the window."""
+    cfg = tpft.create_config(mindist=mindist, nSkippedPixels=skip).replace(
+        borderx=30, bordery=17)
+    eig, x, y, v = _selection_inputs(dev, cfg, 120, 160, 200, seed=mindist)
+    geom = _candidate_grid(cfg, eig.shape)
+    kw = dict(min_eig=int(cfg.min_eigenvalue),
+              radius=premask_radius(cfg, replacing))
+    before = cuda_select.launches
+    got = cuda_select.candidate_lattice(eig, x, y, v, geom, **kw)
+    assert cuda_select.launches == before + 1
+    want = _plain(cuda_select.candidate_lattice, eig, x, y, v, geom, **kw)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b) if torch.is_tensor(a) else a == b
+
+
+@pytest.mark.parametrize("mindist", [0, 1, 10, 25])
+@pytest.mark.parametrize("replacing", [False, True])
+def test_select_from_eig_bit_equal(dev, mindist, replacing):
+    """K4 stage B (with stage A before it) against greedy_extract_reference
+    + fill_slots: x, y, val and filled; two launches per selection."""
+    cfg = tpft.create_config(mindist=mindist)
+    eig, x, y, v = _selection_inputs(dev, cfg, 120, 160, 150, seed=7)
+    geom = _candidate_grid(cfg, eig.shape)
+    kw = dict(min_eig=int(cfg.min_eigenvalue),
+              radius=premask_radius(cfg, replacing),
+              dg=max(0, (mindist - 1) // geom[2]), replacing=replacing)
+    before = cuda_select.launches
+    got = cuda_select.select_from_eig(eig, x, y, v, geom, **kw)
+    assert cuda_select.launches == before + 2
+    want = _plain(cuda_select.select_from_eig, eig, x, y, v, geom, **kw)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert replacing or bool(got[3].any())
+
+
+def test_select_from_eig_1080p(dev):
+    """A 1080x1920 initial selection (a 1032 x 1872 lattice: stage B's
+    segment maxima at 128 columns) equals the plain version's."""
+    cfg = tpft.create_config()
+    eig, x, y, v = _selection_inputs(dev, cfg, 1080, 1920, 400, seed=11)
+    geom = _candidate_grid(cfg, eig.shape)
+    assert cuda_select.segment_width(geom[3], geom[4]) == 128
+    kw = dict(min_eig=int(cfg.min_eigenvalue), radius=-1,
+              dg=(cfg.mindist - 1) // geom[2], replacing=False)
+    got = cuda_select.select_from_eig(eig, x, y, v, geom, **kw)
+    want = _plain(cuda_select.select_from_eig, eig, x, y, v, geom, **kw)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert bool(got[3].all())
+
+
+@pytest.mark.parametrize("shape,seg", [((768, 1280), 64), ((1440, 2560), 256),
+                                       ((2160, 3840), 512), ((2880, 5120), 1024),
+                                       ((4320, 7680), 2048)])
+@pytest.mark.parametrize("replacing", [False, True])
+def test_select_from_eig_large_frames(dev, shape, seg, replacing):
+    """Both stages at the 64- to 2048-column segment widths (2048: the
+    width read at run time), initial selection and refill with the
+    pre-mask (from 1080x1920 up the box bitmap lies in device memory):
+    lattice, maxima and slots equal the plain versions'."""
+    cfg = tpft.create_config()
+    eig, x, y, v = _selection_inputs(dev, cfg, *shape, 400, seed=shape[0])
+    geom = _candidate_grid(cfg, eig.shape)
+    min_eig = int(cfg.min_eigenvalue)
+    radius = premask_radius(cfg, replacing)
+    got = cuda_select.candidate_lattice(eig, x, y, v, geom, min_eig=min_eig,
+                                        radius=radius)
+    assert got.seg == seg
+    want = _plain(cuda_select.candidate_lattice, eig, x, y, v, geom,
+                  min_eig=min_eig, radius=radius)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b) if torch.is_tensor(a) else a == b
+    kw = dict(min_eig=min_eig, dg=(cfg.mindist - 1) // geom[2],
+              replacing=replacing)
+    filled = cuda_select.greedy_fill(got, x, y, v, geom, **kw)
+    for a, b in zip(filled, _plain(cuda_select.greedy_fill, got, x, y, v,
+                                   geom, **kw)):
+        assert torch.equal(a, b)
+    assert bool(filled[3].any())
+
+
+@pytest.mark.parametrize("levels,sub", [(1, 4), (2, 4), (3, 2), (4, 2)])
+@pytest.mark.parametrize("overrides", [
+    {}, {"lighting_insensitive": True},
+    {"window_width": 13, "window_height": 13}, {"max_iterations": 3}])
+def test_track_pyramid_bit_equal(dev, levels, sub, overrides):
+    """K2's pyramidal entry against the plain level loop: lanes tracked,
+    broken at a coarse level (flat block, edges), out of view, and dead
+    (val < 0, passed through); one launch per call."""
+    cfg = tpft.create_config(nPyramidLevels=levels, subsampling=sub,
+                             **overrides)
+    h, w = 192, 256
+    li = cfg.lighting_insensitive
+    base = _texture(h + 8, w + 8, seed=19)
+    a = base[:h, :w].copy()
+    b = np.ascontiguousarray(base[1:h + 1, 2:w + 2]) * (0.8 if li else 1.0) \
+        + (20.0 if li else 0.0)
+    a[60:110, 20:90] = b[60:110, 20:90] = 90.0
+    p1, p2 = (tpft.build_track_pyramids(torch.tensor(
+        f.astype(np.float32), device=dev), cfg) for f in (a, b))
+    rng = np.random.default_rng(levels * 10 + sub)
+    n = 400
+    x = rng.uniform(-3, w + 3, n)
+    y = rng.uniform(-3, h + 3, n)
+    val = np.where(rng.uniform(size=n) < 0.15, -1, 0)
+    x, y = (torch.tensor(t, dtype=torch.float32, device=dev) for t in (x, y))
+    val = torch.tensor(val, dtype=torch.int32, device=dev)
+    before = cuda_lk.launches
+    got = cuda_lk.track_pyramid(p1, p2, x, y, val, cfg)
+    assert cuda_lk.launches == before + 1
+    want = _plain(cuda_lk.track_pyramid, p1, p2, x, y, val, cfg)
+    for a_, b_ in zip(got, want):
+        assert torch.equal(a_, b_)
+    dead = val < 0
+    assert torch.equal(got[0][dead], x[dead]) and bool((got[2][dead] < 0).all())
+    codes = set(got[2][~dead].tolist())
+    assert -4 in codes and codes & {0, -3, -5}
+
+
 @pytest.mark.parametrize("overrides", [
     {}, {"lighting_insensitive": True}, {"min_displacement": 0.0},
     {"step_factor": 0.0}, {"window_width": 3, "window_height": 5},
@@ -132,6 +280,20 @@ def test_lk_level_rejects_windows_beyond_the_warp_layout(dev):
     act = torch.ones(4, dtype=torch.bool, device=dev)
     with pytest.raises(ValueError):
         cuda_lk.lk_level(x, x, x, x, img, img, img, img, img, img, cfg, act)
+
+
+def test_track_pyramid_rejects_levels_beyond_the_cap(dev):
+    """The kernel takes the level pointers by value for at most
+    cuda_lk.MAX_LEVELS levels; the wrapper raises above that."""
+    from types import SimpleNamespace
+    levels = cuda_lk.MAX_LEVELS + 1
+    cfg = tpft.create_config(nPyramidLevels=levels, subsampling=2)
+    imgs = tuple(torch.zeros((8, 8), device=dev) for _ in range(levels))
+    pyr = SimpleNamespace(img=imgs, gradx=imgs, grady=imgs)
+    x = torch.full((4,), 3.0, device=dev)
+    val = torch.zeros(4, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        cuda_lk.track_pyramid(pyr, pyr, x, x, val, cfg)
 
 
 def test_sequence_on_card_equals_plain_on_cpu(dev):
