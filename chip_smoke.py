@@ -13,9 +13,12 @@ Phases, in order; the first failure exits non-zero:
 3. kernels — each hand-written kernel against its plain PyTorch version on
    the card, at the main paths' shapes (480x640 frame, 1000 features),
    timed with CUDA events and, from torch.profiler's kernel durations, by
-   device time. Default config: K2 and K4 must match their plain versions
-   bit for bit, K1 within 1e-3 abs and K3 within one int step at under
-   1e-3 of pixels. K4's two stages (the candidate lattice and its maxima;
+   device time. Default config: K1, K2 and K4 must match their plain
+   versions bit for bit and K3 within one int step at under 1e-3 of
+   pixels. K1 each level on its own and whole pyramids (at most two
+   launches each) at 1-4 levels, subsampling 2 and 4, the default and the
+   13x13 window's sigmas, on the 480x640 frame, a 481x643 frame and a
+   480x70 frame whose coarse levels are narrower than a tile. K4's two stages (the candidate lattice and its maxima;
    the greedy chain and the slot fill) on the initial selection (1000 of
    255,744 candidates) and a refill (40 free slots), both also at mindist
    0, and on initial selections at 1080x1920, 768x1280, 1440x2560,
@@ -23,19 +26,27 @@ Phases, in order; the first failure exits non-zero:
    1024 and 2048 columns), with a 2160x3840 refill. K2's pyramidal entry
    (one launch per track call) and its per-level entry on a real tracked pair
    and on a status mix whose lanes end in every K2 status (also
-   lighting-insensitive, at 3 iterations and with a 13x13 window); the
-   track call timed beside K2's earlier design (the level loop around one
-   launch per level).
+   lighting-insensitive, at 3 iterations and with 13x13, 17x17, 25x25,
+   31x31 and 51x51 windows) and on pyramids of 9 (480x640) and 12
+   (2048x4096) levels at subsampling 2; the track call timed beside K2's
+   earlier design (the level loop around one launch per level). K4 also
+   on a 64 x 41,100 and a 27,900 x 64 frame (lattices beyond its earlier
+   shared-memory caps), initial selection and refill.
    Config 3 (affine check, 3 levels, subsampling 2): K1 on all three
    levels and K2 (per level and per track call) on a similarity pair and
    on the status mix, at the same bars; K6 bit-equal in x, y, A, status and
    iteration count, modes 0, 1 and 2, on a real pair and on an affine
    status mix that must reach TRACKED, SMALL_DET, LARGE_RESIDUE, warp OOB
-   and drift OOB and pass its unchecked lanes through;
+   and drift OOB and pass its unchecked lanes through, and on the mix at
+   17x17, 25x25, 31x31 and 51x51 windows; K6's stage kernel (the whole
+   affine stage in one launch) bit-equal in x, y, val and all eight
+   AffineState fields on a stage mix (checked lanes, captures, lost and
+   dead lanes), modes 0, 1 and 2;
 4. main    — track_sequence_device on 100 synthetic 480x640 frames of a
    texture scrolling at a known drift, 1000 features, replace-lost on:
-   every kernel must have launched (K2 once per track call, 99 times; K4
-   two stages per selection, 200 times), the tracks must recover the drift,
+   every kernel must have launched (K1 twice per frame's pyramid, 200
+   times; K2 once per track call, 99 times; K4 two stages per selection,
+   200 times), the tracks must recover the drift,
    the last frame must be fully live, and a 10-frame run through the
    plain versions must give the identical feature table (x, y, val);
    K5 bit-equal in flags, index list and count on the sorted candidate
@@ -48,17 +59,21 @@ Phases, in order; the first failure exits non-zero:
    selections equal;
 5. affine  — track_sequence_device with config 3 on 100 synthetic 480x640
    frames under a known slow similarity motion, 1000 features,
-   replace-lost on: K1-K4 and K6 must have launched (K2 99 and K4 200
-   times), the tracks must
+   replace-lost on: K1-K4 and K6 must have launched (K1 200, K2 99, K4
+   200 and K6 99 times: one launch per affine stage), the tracks must
    recover the motion, refills must fire, the affine stage must hold
-   templates and reject lanes, and a 10-frame run through the plain
-   versions must give the identical table and AffineState warps and
-   valid flags; then the config-3 step time (CUDA events);
+   templates and reject lanes, every step's affine stage must equal its
+   plain version on the same inputs (x, y, val and all eight AffineState
+   fields), and a 10-frame run through the plain versions must give the
+   identical table and AffineState warps and valid flags; then the stage
+   timed (one launch against the eager stage) and the config-3 step time
+   (CUDA events);
 6. config 1 — example 1 through the facade (KLTSelectGoodFeatures,
    KLTTrackFeatures) on examples/data/img0.pgm -> img1.pgm, 100 features:
-   K1, K2 (once), K3, K4 (stage A, once) and K5 must have launched, and
-   the selected and tracked
-   lists must equal the same calls through the plain versions;
+   K1 (five launches: two builds and the selection's level 0), K2
+   (once), K3, K4 (stage A, once) and K5 must have launched, and
+   the selected and tracked lists must equal the same calls through the
+   plain versions;
 7. config 2 — track_sequence (the host-API loop: sort + K5 refills) on the
    main phase's 100 frames, 1000 features, replace-lost on: K5 (and K4's
    stage A before it) must have launched on the first frame and on the
@@ -67,20 +82,20 @@ Phases, in order; the first failure exits non-zero:
    device route's table and AffineState; then the SequenceTracker.step
    time (CUDA events);
 8. dense   — (a) compute_dense_flow on the main phase's first 480x640
-   pair (default config): K1 and K8 launch 6 and 2 times, the maps equal
+   pair (default config): K1 and K8 launch 4 and 2 times, the maps equal
    the plain route's bit for bit, the median flow of the tracked interior
    is the drift within 0.05 px; dense_flow_fb (K8 4 launches); the call
    timed by CUDA events; K8's 2-D mode at level 0 bit-equal and timed.
    (b) example 9's pair (examples/data): tracked share and median flow
    beside the sparse facade's median displacement, maps equal to the plain
    route's. (c) dense_depth on a rectified 480x640 two-plane pair
-   (background disparity 4, box 32, max_disparity 64): K1 12 and K8 4
+   (background disparity 4, box 32, max_disparity 64): K1 8 and K8 4
    launches, maps equal to the plain route's, each plane's median
    disparity within 0.1 px, the occluded band mostly invalid, the call
    timed; K8's 1-D mode at level 0 bit-equal and timed. K9 bit-equal on
    the main pair's 1000 features (windows at the selected features,
-   frame-2 positions at K2's tracked ones) and on a mix with lanes beyond
-   every edge, timed. (d) track_sequence(subpixel_refine=True) on 10
+   frame-2 positions at K2's tracked ones; also at 17x17 to 51x51
+   windows) and on a mix with lanes beyond every edge, timed. (d) track_sequence(subpixel_refine=True) on 10
    frames: the table equals the plain route's, the first frame is refined
    off the integers;
 9. profile (only with --profile) — for config 2's host loop, its step
@@ -329,7 +344,8 @@ def predicted(x, y):
 
 def make_affine_mix(cfg, dev):
     """K6's inputs at config-3 shapes whose lanes are built to end in each
-    affine status: (args, groups). The content moves by (+3, +2) px; a
+    affine status: (args, groups, (pa, pb)), pa and pb the pair's
+    pyramids. The content moves by (+3, +2) px; a
     flat block gives SMALL_DET, fresh noise in frame 2 LARGE_RESIDUE,
     windows across the left edge warp OOB, starts 2.5 px off the optimum
     drift OOB, and unchecked lanes pass through."""
@@ -392,7 +408,76 @@ def make_affine_mix(cfg, dev):
     check = torch.as_tensor(groups != "unchecked", device=dev)
     args = (tmpl, pb.img[0], pb.gradx[0], pb.grady[0], x + f32(start_dx),
             y + f32(start_dy), A0, check)
-    return args, groups
+    return args, groups, (pa, pb)
+
+
+def make_stage_mix(cfg, mix_args, groups, pyrs, dev):
+    """The affine stage's inputs built on the affine status mix: (args,
+    groups) with args = (pyr1, pyr2, fl_before, fl_after). The mix's lanes
+    arrive tracked with a template (checked); its "unchecked" lanes split
+    into first tracks without a template (captured), lanes lost by
+    translational tracking and dead lanes."""
+    import numpy as np
+    import torch
+    import pyfeaturetrack_tpu_torch as pft
+    from pyfeaturetrack_tpu_torch.ops.interp import gather_window
+    tmpl, _, _, _, xs, ys, A0, _ = mix_args
+    pa, pb = pyrs
+    n = tmpl.shape[0]
+    groups = np.array(groups, dtype=object)
+    un = np.flatnonzero(groups == "unchecked")
+    groups[un[0::3]] = "capture"
+    groups[un[1::3]] = "lost"
+    groups[un[2::3]] = "dead"
+    g = {k: torch.as_tensor(groups == k, device=dev)
+         for k in ("capture", "lost", "dead")}
+    x = xs - 3.3          # the mix's anchors (starts are about +3.3, +1.8)
+    y = ys - 1.8
+    hw, hh = cfg.affine_window_width // 2, cfg.affine_window_height // 2
+    zero = torch.zeros(n, dtype=torch.int32, device=dev)
+    val_before = torch.where(g["dead"], -1, zero)
+    val_after = torch.where(g["dead"], -1, torch.where(g["lost"], -4, zero))
+    aff = pft.AffineState(
+        img=tmpl, gradx=gather_window(pa.gradx[0], x, y, hw, hh).contiguous(),
+        grady=gather_window(pa.grady[0], x, y, hw, hh).contiguous(),
+        x=x.contiguous(), y=y.contiguous(), A=A0,
+        valid=~(g["capture"] | g["dead"]),
+        nit=(torch.arange(n, device=dev) % 7).to(torch.int32))
+    before = pft.FeatureState(x.contiguous(), y.contiguous(), val_before, aff)
+    after = pft.FeatureState(xs, ys, val_after, aff)
+    return (pa, pb, before, after), groups
+
+
+def stage_check(stage, cuda_affine, cuda, args, name, groups=None):
+    """The affine stage (one K6 launch) against its plain version on the
+    card: x, y, val and all eight AffineState fields bit for bit. Returns
+    the kernel's result."""
+    import numpy as np
+    import torch
+    before = cuda_affine.launches
+    got = stage(*args)
+    if cuda_affine.launches != before + 1:
+        fail(f"the affine stage ({name}) did not launch once")
+    with cuda.reference_path():
+        want = stage(*args)
+    torch.cuda.synchronize()
+    same = {f: torch.equal(a, b) for f, a, b in
+            zip(("x", "y", "val"), got[:3], want[:3])}
+    same.update({f"aff.{f}": torch.equal(getattr(got.aff, f),
+                                         getattr(want.aff, f))
+                 for f in got.aff._fields})
+    if groups is not None:
+        codes = got.val.cpu().numpy()
+        per = {k: np.bincount(-np.minimum(codes[groups == k], 0),
+                              minlength=6).tolist()
+               for k in dict.fromkeys(groups.tolist())}
+        print(f"K6 stage {name}: statuses (0,-1..-5) by group {per}; "
+              f"templates held {int(got.aff.valid.sum().item())}; fields "
+              f"bit-equal {all(same.values())}")
+    if not all(same.values()):
+        fail(f"the affine stage ({name}) differs from its plain version: "
+             f"{same}")
+    return got
 
 
 def bound_ms(nbytes: float, ops: float):
@@ -401,6 +486,30 @@ def bound_ms(nbytes: float, ops: float):
     tb = nbytes / HBM_BYTES_PER_S * 1e3
     to = ops / FP32_OPS_PER_S * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def k1_build_check(pft, cuda_pyramid, cuda, img, cfg, name):
+    """K1's whole-pyramid entry against the plain level composition, bit
+    for bit in every level's image and gradient pair, at most two launches
+    (one for a single level)."""
+    import torch
+    before = cuda_pyramid.launches
+    got = pft.build_track_pyramids(img, cfg)
+    n_launch = cuda_pyramid.launches - before
+    with cuda.reference_path():
+        want = pft.build_track_pyramids(img, cfg)
+    torch.cuda.synchronize()
+    same = all(a.shape == b.shape and torch.equal(a, b)
+               for ga, wa in zip(got, want) for a, b in zip(ga, wa))
+    shapes = [tuple(t.shape) for t in got.img]
+    print(f"K1 build {name}: {cfg.nPyramidLevels} levels, subsampling "
+          f"{cfg.subsampling}, levels {shapes}: {n_launch} launches, "
+          f"bit-equal {same}")
+    if not same:
+        fail(f"K1 build ({name}) differs from its plain version")
+    if n_launch != min(cfg.nPyramidLevels, 2):
+        fail(f"K1 build ({name}) took {n_launch} launches")
+    return got
 
 
 def k1_work(cfg, h, w):
@@ -498,6 +607,40 @@ def k6_work(cfg, check, nit):
     per_sample = 8 + 2 + 6 + 21 + 1 + jac + 2 * ns
     ops = its * (npx * per_sample + 2 * p * p * (p + 1)) + nc * npx * 26
     return nbytes, ops
+
+
+def k6_stage_work(cfg, args, out):
+    """Bytes and operations of one affine stage as this step's lanes needed
+    them: the feature lists and the AffineState read once and the new ones
+    written once (templates included: the stage writes a new state), the
+    three-image footprint of each captured lane in frame 1 and of each
+    checked lane in frame 2 read once; K6's Gauss-Newton operations
+    (k6_work) for the checked lanes, 3 blends (27 operations with the
+    weights) per captured sample."""
+    import torch
+    from pyfeaturetrack_tpu_torch.features import KLT_TRACKED
+    pyr1, pyr2, before, after = args[:4]
+    aff = after.aff
+    n = after.x.shape[0]
+    npx = cfg.affine_window_width * cfg.affine_window_height
+    foot = (cfg.affine_window_width + 1) * (cfg.affine_window_height + 1)
+    tracked = after.val == KLT_TRACKED
+    lost = (before.val >= 0) & ~tracked
+    valid = aff.valid & ~lost
+    check = tracked & valid
+    n_cap = int((tracked & ~valid).sum().item())
+    per_lane = 2 * (3 * npx * 4 + 2 * 4 + 16 + 1 + 4) + 3 * 12 + 3 * 4
+    nbytes = n * per_lane + (n_cap + int(check.sum().item())) * 3 * foot * 4
+    # the Gauss-Newton updates the kernel made: recount them with the batch
+    # entry on the same inputs (the stage does not return them)
+    from pyfeaturetrack_tpu_torch.ops import cuda_affine
+    nit = cuda_affine.affine_track_batch(
+        aff.img, pyr2.img[0], pyr2.gradx[0], pyr2.grady[0], after.x, after.y,
+        torch.where(lost[:, None, None], torch.eye(2, device=aff.A.device),
+                    aff.A).contiguous(), check, cfg)[4]
+    gn_bytes, gn_ops = k6_work(cfg, check, nit)
+    del gn_bytes
+    return nbytes, gn_ops + n_cap * npx * 27
 
 
 def k8_work(cfg, status, iterations, one_d):
@@ -910,7 +1053,7 @@ def dense_phase(pft, frames, ex, sparse, mods, report, dev, smi, prof_dir):
         return out, counts
 
     cfg = pft.create_config()
-    k1_per_frame = 1 + cfg.nPyramidLevels      # level 0 launches twice
+    k1_per_frame = min(cfg.nPyramidLevels, 2)  # a build: at most two launches
 
     # ---- (a) dense flow on the main phase's first pair ----
     phase(f"dense (a): compute_dense_flow, {H}x{W} pair of the main phase "
@@ -1058,6 +1201,8 @@ def dense_phase(pft, frames, ex, sparse, mods, report, dev, smi, prof_dir):
         want = cuda_lk_dense.dense_level_1d(*k8d_args)
     maps_equal(got, want, "K8 1-D level 0")
     k8d_ms = time_ms(lambda: cuda_lk_dense.dense_level_1d(*k8d_args))
+    k8d_dev, _ = device_ms(lambda: cuda_lk_dense.dense_level_1d(*k8d_args),
+                           ["::lk_dense_kernel"], prof_dir, reps=10)
     with cuda.reference_path():
         k8d_plain = time_ms(lambda: cuda_lk_dense.dense_level_1d(*k8d_args),
                             reps=2)
@@ -1065,12 +1210,14 @@ def dense_phase(pft, frames, ex, sparse, mods, report, dev, smi, prof_dir):
     its = got[2].float()
     print(f"K8 1-D level 0 ({H * W} pixels, iterations mean "
           f"{its.mean().item():.3f}, max {int(its.max().item())}): kernel "
-          f"{k8d_ms:.4f} ms, plain {k8d_plain:.4f} ms, bound "
+          f"{k8d_ms:.4f} ms by events, {k8d_dev:.4f} ms device, plain "
+          f"{k8d_plain:.4f} ms, bound "
           f"{bound_ms(*k8d_w)[0]:.5f} ms ({bound_ms(*k8d_w)[1]}); bit-equal")
     report["K8"] = dict(max_abs_err=0.0, ms=k8_ms, plain_ms=k8_plain,
                         device_ms=k8_dev,
                         work=k8_w, launches=k8_launches,
-                        ms_1d=k8d_ms, plain_ms_1d=k8d_plain, work_1d=k8d_w)
+                        ms_1d=k8d_ms, device_ms_1d=k8d_dev,
+                        plain_ms_1d=k8d_plain, work_1d=k8d_w)
 
     # ---- K9 at the main phase's 1000 features and on a status mix ----
     phase("K9 window terms: 1000 selected features of the main pair, "
@@ -1101,6 +1248,21 @@ def dense_phase(pft, frames, ex, sparse, mods, report, dev, smi, prof_dir):
         if not same:
             fail(f"K9 ({name}) differs from its plain version")
         k9_cases[name] = (args, kw)
+    # windows above 256 pixels (walked pixel by pixel) on the main pair
+    pa, pb, xa, ya, xb, yb = feats
+    for k in (17, 25, 31, 51):
+        w1, g1x, g1y = (gather_window(im, xa, ya, k // 2, k // 2).contiguous()
+                        for im in (pa.img[0], pa.gradx[0], pa.grady[0]))
+        wargs = (pb.img[0], pb.gradx[0], pb.grady[0], w1, g1x, g1y, xb, yb)
+        wkw = dict(hw=k // 2, hh=k // 2, step_factor=cfg.step_factor)
+        got = cuda_window_terms.window_terms(*wargs, **wkw)
+        with cuda.reference_path():
+            want = cuda_window_terms.window_terms(*wargs, **wkw)
+        torch.cuda.synchronize()
+        same = torch.equal(got, want)
+        print(f"K9 main pair, {k}x{k} window: bit-equal {same}")
+        if not same:
+            fail(f"K9 ({k}x{k} window) differs from its plain version")
     args, kw = k9_cases["main pair"]
     k9_ms = time_ms(lambda: cuda_window_terms.window_terms(*args, **kw))
     k9_dev, _ = device_ms(lambda: cuda_window_terms.window_terms(*args, **kw),
@@ -1212,8 +1374,8 @@ def main(argv=None) -> int:
     img1 = torch.as_tensor(frames[1], device=dev).to(torch.float32)
     taps = cuda_pyramid.level_taps(cfg)
 
-    # K1, both levels, on the same inputs
-    k1_err = 0.0
+    # K1, each level on its own (pyramid_level, one launch), then whole
+    # pyramids (pyramid_build, at most two launches), all bit for bit
     lvl_in = img0
     for level in range(cfg.nPyramidLevels):
         smooth, with_pyr = level == 0, level < cfg.nPyramidLevels - 1
@@ -1224,13 +1386,26 @@ def main(argv=None) -> int:
         for name, a, b in zip(("base", "gradx", "grady", "next"), got, want):
             if a is None:
                 continue
-            err = (a - b).abs().max().item()
-            k1_err = max(k1_err, err)
-            print(f"K1 level {level} {name} {tuple(a.shape)}: max abs "
-                  f"{err:.3g}, bit-equal {torch.equal(a, b)}")
+            same = torch.equal(a, b)
+            print(f"K1 level {level} {name} {tuple(a.shape)}: bit-equal {same}")
+            if not same:
+                fail(f"K1 level {level} {name} differs from its plain version")
         lvl_in = got[3]
-    if k1_err > 1e-3:
-        fail(f"K1 max abs error {k1_err} > 1e-3 (0..255 scale)")
+    rng7 = np.random.default_rng(SEED + 7)
+    k1_frames = {"480x640": img0,
+                 "481x643": torch.as_tensor(np.floor(smooth_texture(
+                     rng7, 481, 643)), dtype=torch.float32, device=dev),
+                 "480x70 (narrow levels)": img0[:, :70].contiguous()}
+    for fname, frame in k1_frames.items():
+        for levels, sub in ((1, 4), (2, 4), (3, 4), (4, 4), (1, 2), (2, 2),
+                            (3, 2), (4, 2)):
+            for sname, over in (("default sigmas", {}),
+                                ("13x13 window sigmas",
+                                 {"window_width": 13, "window_height": 13})):
+                kcfg = pft.create_config(nPyramidLevels=levels,
+                                         subsampling=sub, **over)
+                k1_build_check(pft, cuda_pyramid, cuda, frame, kcfg,
+                               f"{fname}, {sname}")
 
     def build_frame(img):
         return pft.build_track_pyramids(img, cfg)
@@ -1238,12 +1413,15 @@ def main(argv=None) -> int:
     k1_ms = time_ms(lambda: build_frame(img0))
     with cuda.reference_path():
         k1_plain = time_ms(lambda: build_frame(img0))
-    k1_dev, k1_n = device_ms(lambda: build_frame(img0),
-                             ["::level_kernel", "::smooth_kernel"], prof_dir)
-    print(f"K1 full pyramid build: kernel {k1_ms:.4f} ms by events, "
-          f"{k1_dev:.4f} ms device ({k1_n:.0f} launches), plain "
-          f"{k1_plain:.4f} ms")
-    report["K1"] = dict(max_abs_err=k1_err, ms=k1_ms, plain_ms=k1_plain,
+    k1_names = ["::level0_kernel", "::coarse_kernel"]
+    k1_dev, k1_n = device_ms(lambda: build_frame(img0), k1_names, prof_dir)
+    k1_split = [device_ms(lambda: build_frame(img0), [k], prof_dir)[0]
+                for k in k1_names]
+    print(f"K1 full pyramid build ({cfg.nPyramidLevels} levels): kernel "
+          f"{k1_ms:.4f} ms by events, {k1_dev:.4f} ms device ({k1_n:.0f} "
+          f"launches: level 0 {k1_split[0]:.4f}, coarser levels "
+          f"{k1_split[1]:.4f}), plain {k1_plain:.4f} ms")
+    report["K1"] = dict(max_abs_err=0.0, ms=k1_ms, plain_ms=k1_plain,
                         device_ms=k1_dev, work=k1_work(cfg, H, W))
 
     # K3 on the level-0 gradients
@@ -1332,6 +1510,25 @@ def main(argv=None) -> int:
                      torch.where(lost, -4, sel_f[2]), geom_f, cfg, True,
                      f"refill, {fh}x{fw}", prof_dir, timed=False)
         del frame, fpyr, eig_f
+    # beyond the earlier caps: a lattice wider than 40,960 columns (stage
+    # A's pre-mask in device memory) and one taller than 27,803 rows (stage
+    # B's row maxima in device memory), initial selection and refill
+    for fh, fw in ((64, 41100), (27900, 64)):
+        frame = torch.as_tensor(np.floor(smooth_texture(rng6, fh, fw)),
+                                dtype=torch.float32, device=dev)
+        fpyr = pft.build_track_pyramids(frame, cfg)
+        eig_f = cuda_eig.min_eig_map(fpyr.gradx[0], fpyr.grady[0],
+                                     cfg.window_width, cfg.window_height)
+        geom_f = _candidate_grid(cfg, eig_f.shape)
+        k4_check(cuda_select, cuda, eig_f, x0, x0, v0, geom_f, cfg, False,
+                 f"initial, {fh}x{fw}", prof_dir, timed=False)
+        sel_f = cuda_select.select_from_eig(
+            eig_f, x0, x0, v0, geom_f, min_eig=int(cfg.min_eigenvalue),
+            radius=-1, dg=(cfg.mindist - 1) // geom_f[2], replacing=False)
+        k4_check(cuda_select, cuda, eig_f, sel_f[0], sel_f[1],
+                 torch.where(lost, -4, sel_f[2]), geom_f, cfg, True,
+                 f"refill, {fh}x{fw}", prof_dir, timed=False)
+        del frame, fpyr, eig_f, sel_f
     ref_case = k4_cases["refill"]
     report["K4"] = dict(max_abs_err=0.0, ms=ref_case["ms"],
                         plain_ms=ref_case["plain_ms"],
@@ -1465,7 +1662,10 @@ def main(argv=None) -> int:
                         {"lighting_insensitive": True}),
                        ("status mix, max_iterations 3", {"max_iterations": 3}),
                        ("status mix, 13x13 window",
-                        {"window_width": 13, "window_height": 13})):
+                        {"window_width": 13, "window_height": 13}),
+                       *((f"status mix, {k}x{k} window",
+                          {"window_width": k, "window_height": k})
+                         for k in (17, 25, 31, 51))):
         gain = 0.8 if over.get("lighting_insensitive") else 1.0
         bias = 20.0 if over.get("lighting_insensitive") else 0.0
         # a window size goes through create_config: it sets the borders
@@ -1534,11 +1734,35 @@ def main(argv=None) -> int:
           f"{k2_old_n:.0f} per-level launches) {k2_old_ms:.4f} ms by events, "
           f"{k2_old_dev:.4f} ms device; one per-level launch (level 0) "
           f"{k2_lvl_ms:.4f} ms by events; card {smi}")
+    # K2 on deep pyramids: 9 levels of the status mix, 12 levels of a
+    # 2048x4096 frame (subsampling 2; K1 builds them, bit-equal too)
+    rng8 = np.random.default_rng(SEED + 8)
+    for levels, (fh, fw) in ((9, (H, W)), (12, (2048, 4096))):
+        kcfg = pft.create_config(nPyramidLevels=levels, subsampling=2).replace(
+            sequentialMode=True)
+        if fh == H:
+            fa, fb = mix0, mix1
+        else:
+            big = np.floor(smooth_texture(rng8, fh + 4, fw + 4))
+            fa, fb = (torch.as_tensor(np.ascontiguousarray(f), dtype=torch.float32,
+                                      device=dev)
+                      for f in (big[:fh, :fw], big[1:fh + 1, 2:fw + 2]))
+        pa, pb = (k1_build_check(pft, cuda_pyramid, cuda, f, kcfg,
+                                 f"{fh}x{fw}") for f in (fa, fb))
+        dx = torch.as_tensor(rng8.uniform(0, fw, n), dtype=torch.float32,
+                             device=dev)
+        dy = torch.as_tensor(rng8.uniform(0, fh, n), dtype=torch.float32,
+                             device=dev)
+        k2_call_check(pa, pb, dx, dy, all_live, kcfg, cuda_lk,
+                      cuda.reference_path, f"{fh}x{fw}")
+        del pa, pb, fa, fb
     report["K2"] = dict(max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain,
                         device_ms=k2_dev, earlier_ms=k2_old_ms,
                         earlier_device_ms=k2_old_dev,
                         work=tuple(k2_call_work),
-                        windows_checked=["7x7", "13x13"])
+                        windows_checked=["7x7", "13x13", "17x17", "25x25",
+                                         "31x31", "51x51"],
+                        levels_checked=[2, 3, 9, 12])
     report["K9_inputs"] = (k9_feats, k9_mix)
     torch.cuda.synchronize()
 
@@ -1562,14 +1786,20 @@ def main(argv=None) -> int:
         for name, a, b in zip(("base", "gradx", "grady", "next"), got, want):
             if a is None:
                 continue
-            err = (a - b).abs().max().item()
-            k1_err = max(k1_err, err)
-            print(f"K1 config 3, level {level} {name} {tuple(a.shape)}: max "
-                  f"abs {err:.3g}, bit-equal {torch.equal(a, b)}")
+            same = torch.equal(a, b)
+            print(f"K1 config 3, level {level} {name} {tuple(a.shape)}: "
+                  f"bit-equal {same}")
+            if not same:
+                fail(f"K1 config 3, level {level} {name} differs from its "
+                     "plain version")
         lvl_in = got[3]
-    if k1_err > 1e-3:
-        fail(f"K1 (config 3) max abs error {k1_err} > 1e-3 (0..255 scale)")
-    report["K1"]["max_abs_err"] = k1_err
+    k1_build_check(pft, cuda_pyramid, cuda, s0, cfg3, "config 3")
+    k1_ms3 = time_ms(lambda: pft.build_track_pyramids(s0, cfg3))
+    k1_dev3, k1_n3 = device_ms(lambda: pft.build_track_pyramids(s0, cfg3),
+                               k1_names, prof_dir)
+    print(f"K1 config-3 build ({cfg3.nPyramidLevels} levels): {k1_ms3:.4f} "
+          f"ms by events, {k1_dev3:.4f} ms device ({k1_n3:.0f} launches)")
+    report["K1"].update(config3_ms=k1_ms3, config3_device_ms=k1_dev3)
 
     sel3 = pft.select_step_device(s0, cfg3, n)
     pyr_s0 = sel3[0]
@@ -1610,7 +1840,7 @@ def main(argv=None) -> int:
                  torch.as_tensor(py_, dtype=torch.float32, device=dev),
                  torch.eye(2, device=dev).repeat(n, 1, 1).contiguous(),
                  torch.ones(n, dtype=torch.bool, device=dev))
-    mix_args, groups = make_affine_mix(cfg3, dev)
+    mix_args, groups, mix_pyrs = make_affine_mix(cfg3, dev)
     k6_err = 0.0
     built_for = {"tracked": KLT_TRACKED, "flat": KLT_SMALL_DET,
                  "noise": KLT_LARGE_RESIDUE, "edge": KLT_OOB, "drift": KLT_OOB}
@@ -1656,6 +1886,25 @@ def main(argv=None) -> int:
                         and bool((got[4][un] == 0).all())):
                     fail(f"K6 mode {mode}: unchecked lanes did not pass "
                          "through")
+    # windows above 256 samples (walked sample by sample), modes 0, 1, 2
+    for k in (17, 25, 31, 51):
+        wargs, _, _ = make_affine_mix(cfg3.replace(affine_window_width=k,
+                                                   affine_window_height=k), dev)
+        for mode in (0, 1, 2):
+            mcfg = cfg3.replace(affineConsistencyCheck=mode,
+                                affine_window_width=k, affine_window_height=k)
+            got = cuda_affine.affine_track_batch(*wargs, mcfg)
+            with cuda.reference_path():
+                want = cuda_affine.affine_track_batch(*wargs, mcfg)
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(got, want))
+            codes = got[3].cpu().numpy()
+            print(f"K6 mode {mode}, status mix, {k}x{k} window: statuses "
+                  f"(0,-1..-5) {np.bincount(-codes, minlength=6).tolist()}, "
+                  f"bit-equal {same}")
+            if not same:
+                fail(f"K6 (mode {mode}, {k}x{k} window) differs from its plain "
+                     "version")
     k6_out = cuda_affine.affine_track_batch(*real_args, cfg3)
     k6_ms = time_ms(lambda: cuda_affine.affine_track_batch(*real_args, cfg3))
     with cuda.reference_path():
@@ -1663,11 +1912,25 @@ def main(argv=None) -> int:
             *real_args, cfg3), reps=3)
     k6_dev, _ = device_ms(lambda: cuda_affine.affine_track_batch(
         *real_args, cfg3), ["::affine_kernel"], prof_dir)
-    print(f"K6 mode 2, real pair, {n} lanes: kernel {k6_ms:.4f} ms by "
-          f"events, {k6_dev:.4f} ms device, plain {k6_plain:.4f} ms")
-    report["K6"] = dict(max_abs_err=k6_err, ms=k6_ms, plain_ms=k6_plain,
-                        device_ms=k6_dev,
-                        work=k6_work(cfg3, real_args[7], k6_out[4]))
+    print(f"K6 batch (affine_track_batch) mode 2, real pair, {n} lanes: "
+          f"kernel {k6_ms:.4f} ms by events, {k6_dev:.4f} ms device, plain "
+          f"{k6_plain:.4f} ms")
+    report["K6"] = dict(max_abs_err=k6_err, batch_ms=k6_ms,
+                        batch_plain_ms=k6_plain, batch_device_ms=k6_dev,
+                        batch_work=k6_work(cfg3, real_args[7], k6_out[4]),
+                        windows_checked=["15x15", "17x17", "25x25", "31x31",
+                                         "51x51"])
+
+    # the whole affine stage (one K6 launch) on the affine status mix:
+    # checked lanes of every status, template captures, lanes lost by
+    # translational tracking, dead lanes; modes 0, 1, 2
+    stage_args, stage_groups = make_stage_mix(cfg3, mix_args, groups,
+                                              mix_pyrs, dev)
+    for mode in (0, 1, 2):
+        mcfg = cfg3.replace(affineConsistencyCheck=mode)
+        stage_check(affine_consistency_check, cuda_affine, cuda,
+                    stage_args + (mcfg,), f"mode {mode}, stage mix",
+                    stage_groups)
     torch.cuda.synchronize()
 
     # ---- phase 4: the main path ----
@@ -1689,9 +1952,10 @@ def main(argv=None) -> int:
     for k, c in counts.items():
         if c <= 0:
             fail(f"{k} was never launched on the main path")
-    # one K2 launch per track call, two K4 stages per selection
-    expect_launches(counts, {"K2": N_FRAMES - 1, "K4": 2 * N_FRAMES},
-                    "main path")
+    # two K1 launches per frame's build, one K2 launch per track call, two
+    # K4 stages per selection
+    expect_launches(counts, {"K1": 2 * N_FRAMES, "K2": N_FRAMES - 1,
+                             "K4": 2 * N_FRAMES}, "main path")
     if not (np.isfinite(xs).all() and np.isfinite(ys).all()):
         fail("non-finite positions")
     if xs.shape != (N_FRAMES, N_FEATURES):
@@ -1755,7 +2019,9 @@ def main(argv=None) -> int:
     for k, c in counts3.items():
         if c <= 0:
             fail(f"{k} was never launched on the config-3 path")
-    expect_launches(counts3, {"K2": N_FRAMES - 1, "K4": 2 * N_FRAMES},
+    # one K6 launch per step: the whole affine stage
+    expect_launches(counts3, {"K1": 2 * N_FRAMES, "K2": N_FRAMES - 1,
+                              "K4": 2 * N_FRAMES, "K6": N_FRAMES - 1},
                     "config-3 path")
     if not (np.isfinite(xs).all() and np.isfinite(ys).all()):
         fail("non-finite positions (config 3)")
@@ -1783,16 +2049,27 @@ def main(argv=None) -> int:
     # stage rejects after K2 tracked them
     staged3 = [torch.as_tensor(fr, device=dev).to(torch.float32) for fr in sim]
 
-    def affine_steps(n_frames):
+    stage_inputs = {}
+
+    def affine_steps(n_frames, check_stage=False):
+        """The config-3 steps one by one; with ``check_stage`` each step's
+        affine stage (one K6 launch) is also held to its plain version on
+        the same inputs (x, y, val, all eight AffineState fields)."""
         pyr, x, y, v, aff, _ = pft.select_step_device(staged3[0], cfg3,
                                                       N_FEATURES)
         hist, held, rejected = [(x, y, v)], [], []
-        for img in staged3[1:n_frames]:
+        for i, img in enumerate(staged3[1:n_frames], start=1):
             pyr_new = pft.build_track_pyramids(img, cfg3)
             tx, ty, tv = pft.track_features_pyramids(pyr, pyr_new, x, y, v, cfg3)
-            after = affine_consistency_check(
-                pyr, pyr_new, pft.FeatureState(x, y, v, aff),
-                pft.FeatureState(tx, ty, tv, aff), cfg3)
+            args = (pyr, pyr_new, pft.FeatureState(x, y, v, aff),
+                    pft.FeatureState(tx, ty, tv, aff), cfg3)
+            if check_stage:
+                after = stage_check(affine_consistency_check, cuda_affine, cuda,
+                                    args, f"config-3 step {i}")
+                if i == N_FRAMES // 2:
+                    stage_inputs["args"] = args
+            else:
+                after = affine_consistency_check(*args)
             rejected.append(((tv == KLT_TRACKED)
                              & (after.val != KLT_TRACKED)).sum())
             pyr, x, y, v, aff, _, _ = pft.sequence_step_device(
@@ -1804,7 +2081,26 @@ def main(argv=None) -> int:
         return table, aff, torch.stack(held).cpu().numpy(), \
             torch.stack(rejected).cpu().numpy()
 
-    table, aff_k, held, rejected = affine_steps(N_FRAMES)
+    table, aff_k, held, rejected = affine_steps(N_FRAMES, check_stage=True)
+    print(f"K6 stage: every one of the {N_FRAMES - 1} config-3 steps bit-equal "
+          "to its plain version (x, y, val and all eight AffineState fields)")
+    sargs = stage_inputs["args"]
+    st_ms = time_ms(lambda: affine_consistency_check(*sargs))
+    st_dev, st_n = device_ms(lambda: affine_consistency_check(*sargs),
+                             ["::stage_kernel"], prof_dir)
+    with cuda.reference_path():
+        st_plain = time_ms(lambda: affine_consistency_check(*sargs), reps=3)
+        st_plain_dev, st_plain_n = device_ms(
+            lambda: affine_consistency_check(*sargs), [""], prof_dir, reps=3)
+    st_out = affine_consistency_check(*sargs)
+    print(f"K6 affine stage, config-3 step {N_FRAMES // 2} ({N_FEATURES} "
+          f"lanes): one launch {st_ms:.4f} ms by events, {st_dev:.4f} ms "
+          f"device ({st_n:.0f} launches); the eager stage (plain) "
+          f"{st_plain:.4f} ms by events, {st_plain_dev:.4f} ms device over "
+          f"{st_plain_n:.0f} kernels; card {smi}")
+    report["K6"].update(ms=st_ms, device_ms=st_dev, plain_ms=st_plain,
+                        plain_device_ms=st_plain_dev,
+                        work=k6_stage_work(cfg3, sargs, st_out))
     print(f"templates held per frame: min {held.min()}, median "
           f"{int(np.median(held))}, last {held[-1]}; lanes the affine stage "
           f"rejected: {int(rejected.sum())} over {N_FRAMES - 1} steps "
@@ -1860,8 +2156,10 @@ def main(argv=None) -> int:
     for k, c in counts1.items():
         if c <= 0:
             fail(f"{k} was never launched on the config-1 path")
-    # one track call; the host API's selection runs K4's stage A, then K5
-    expect_launches(counts1, {"K2": 1, "K4": 1, "K5": 1}, "config-1 path")
+    # one track call (two K1 builds of two launches each); the host API's
+    # selection runs K1 at level 0 (one launch), K4's stage A, then K5
+    expect_launches(counts1, {"K1": 5, "K2": 1, "K4": 1, "K5": 1},
+                    "config-1 path")
     with cuda.reference_path():
         psel1, ptrk1 = example1()
     same1 = all(torch.equal(a, b) for a, b in zip(sel1[:3] + trk1[:3],
@@ -1897,7 +2195,9 @@ def main(argv=None) -> int:
             fail(f"{k} was never launched on the config-2 path")
     if not 1 + refill_frames <= counts2["K5"] <= N_FRAMES:
         fail("K5 did not run on the first frame and on every refill")
-    expect_launches(counts2, {"K2": N_FRAMES - 1, "K4": counts2["K5"]},
+    # two K1 launches per frame's build, one level-0 launch per selection
+    expect_launches(counts2, {"K1": 2 * N_FRAMES + counts2["K5"],
+                              "K2": N_FRAMES - 1, "K4": counts2["K5"]},
                     "config-2 path")
     if hx2.shape != (N_FRAMES, N_FEATURES) or not np.isfinite(hx2).all():
         fail(f"config-2 feature table shape {hx2.shape} or non-finite")
@@ -1960,7 +2260,7 @@ def main(argv=None) -> int:
              "K5": ("greedy_suppress",
                     "pyfeaturetrack_tpu_torch/csrc/suppress.cu",
                     "pyfeaturetrack_tpu/ops/pallas_select.py:136"),
-             "K6": ("affine_track", "pyfeaturetrack_tpu_torch/csrc/affine.cu",
+             "K6": ("affine_stage", "pyfeaturetrack_tpu_torch/csrc/affine.cu",
                     "pyfeaturetrack_tpu/ops/pallas_affine_vec.py:407 and "
                     "pyfeaturetrack_tpu/ops/pallas_affine_fused.py:330"),
              "K8": ("lk_dense_level", "pyfeaturetrack_tpu_torch/csrc/lk_dense.cu",
@@ -1980,10 +2280,22 @@ def main(argv=None) -> int:
                  "plain_ms": r["plain_ms"], "bound_ms": b_ms,
                  "bound_by": b_by, "library_ms": None,
                  "device_ms": r["device_ms"]}
+        if k == "K1":
+            entry.update(config3_ms=r["config3_ms"],
+                         config3_device_ms=r["config3_device_ms"])
         if k == "K2":
             entry.update(windows_checked=r["windows_checked"],
+                         levels_checked=r["levels_checked"],
                          earlier_ms=r["earlier_ms"],
                          earlier_device_ms=r["earlier_device_ms"])
+        if k == "K6":
+            bb_ms, bb_by = bound_ms(*r["batch_work"])
+            entry.update(windows_checked=r["windows_checked"],
+                         plain_device_ms=r["plain_device_ms"],
+                         batch_ms=r["batch_ms"],
+                         batch_device_ms=r["batch_device_ms"],
+                         batch_plain_ms=r["batch_plain_ms"],
+                         batch_bound_ms=bb_ms, batch_bound_by=bb_by)
         if k == "K4":
             entry.update({f: r[f] for f in ("initial_ms", "initial_device_ms",
                                             "initial_1080p_ms",
@@ -1993,7 +2305,8 @@ def main(argv=None) -> int:
                          refill_device_ms=r["refill_device_ms"])
         if k == "K8":
             b1_ms, b1_by = bound_ms(*r["work_1d"])
-            entry.update(ms_1d=r["ms_1d"], plain_ms_1d=r["plain_ms_1d"],
+            entry.update(ms_1d=r["ms_1d"], device_ms_1d=r["device_ms_1d"],
+                         plain_ms_1d=r["plain_ms_1d"],
                          bound_ms_1d=b1_ms, bound_by_1d=b1_by)
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))

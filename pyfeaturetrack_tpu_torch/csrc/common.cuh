@@ -39,3 +39,40 @@ __host__ __device__ static inline int pft_ceil_div(int a, int b)
 {
     return (a + b - 1) / b;
 }
+
+// Phase clocks, for measurement builds only (-DPFT_PHASE_CLOCKS, made by
+// phase_clocks.py; the library the package loads compiles them out). A
+// kernel marks the end of phase k with PFT_PHASE(t, k, on): the cycles
+// since the previous mark (clock64) and a count go to per-file sums, which
+// PFT_PHASE_READER's entry copies to the host and clears.
+#ifdef PFT_PHASE_CLOCKS
+namespace {
+__device__ unsigned long long pft_phase_cycles[32];
+__device__ unsigned long long pft_phase_counts[32];
+}  // namespace
+#define PFT_PHASE_START(t) long long t = clock64()
+#define PFT_PHASE(t, k, on)                                                         \
+    do {                                                                            \
+        if (on) {                                                                   \
+            const long long pft_now_ = clock64();                                   \
+            atomicAdd(&pft_phase_cycles[k], (unsigned long long)(pft_now_ - (t)));  \
+            atomicAdd(&pft_phase_counts[k], 1ull);                                  \
+            (t) = pft_now_;                                                         \
+        }                                                                           \
+    } while (0)
+#define PFT_PHASE_READER(name)                                                      \
+    extern "C" int name(unsigned long long* cycles, unsigned long long* counts)     \
+    {                                                                               \
+        static const unsigned long long zero[32] = {};                              \
+        cudaDeviceSynchronize();                                                    \
+        cudaMemcpyFromSymbol(cycles, pft_phase_cycles, sizeof(zero));               \
+        cudaMemcpyFromSymbol(counts, pft_phase_counts, sizeof(zero));               \
+        cudaMemcpyToSymbol(pft_phase_cycles, zero, sizeof(zero));                   \
+        cudaMemcpyToSymbol(pft_phase_counts, zero, sizeof(zero));                   \
+        return (int)cudaGetLastError();                                             \
+    }
+#else
+#define PFT_PHASE_START(t)
+#define PFT_PHASE(t, k, on)
+#define PFT_PHASE_READER(name)
+#endif

@@ -90,15 +90,20 @@ __device__ __forceinline__ void warp_argmax(int& v, int& idx)
     v = vmax;
 }
 
+// MSMEM: the CTA's pre-mask rows in shared memory, else in `gmask` (device
+// memory, A_WARPS rows of `stride` bytes per CTA) for lattices too wide.
+template <bool MSMEM>
 __global__ void __launch_bounds__(A_NT)
 lattice_kernel(const int* __restrict__ eig, int nrows, int ncols,
                const float* __restrict__ fx, const float* __restrict__ fy,
                const int* __restrict__ fval, int n, int radius, int borderx,
                int bordery, int step, int min_eig, int seg, Lattice G,
-               int* __restrict__ lat, int* __restrict__ seg_v, int* __restrict__ seg_c,
-               int* __restrict__ row_v, int* __restrict__ row_c)
+               unsigned char* gmask, int* __restrict__ lat, int* __restrict__ seg_v,
+               int* __restrict__ seg_c, int* __restrict__ row_v, int* __restrict__ row_c)
 {
-    extern __shared__ unsigned char blocked[];     // [A_WARPS][stride]
+    extern __shared__ unsigned char smask[];       // [A_WARPS][stride]
+    unsigned char* blocked =
+        MSMEM ? smask : gmask + (size_t)blockIdx.x * A_WARPS * G.stride;
     __shared__ int2 list[A_CHUNK];
     __shared__ int n_list;
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -107,6 +112,7 @@ lattice_kernel(const int* __restrict__ eig, int nrows, int ncols,
 
     if (radius >= 0) {
         for (int i = tid; i < A_WARPS * G.stride; i += A_NT) blocked[i] = 0;
+        if constexpr (!MSMEM) __threadfence_block();
         const int py_lo = bordery + r0 * step;
         const int py_hi = bordery + (r0 + rows - 1) * step;
         for (int base = 0; base < n; base += A_CHUNK) {
@@ -143,6 +149,7 @@ lattice_kernel(const int* __restrict__ eig, int nrows, int ncols,
                     for (int col = cl + lane; col <= ch; col += 32)
                         blocked[(row - r0) * G.stride + col] = 1;
             }
+            if constexpr (!MSMEM) __threadfence_block();
             __syncthreads();
         }
     }
@@ -198,9 +205,11 @@ __device__ __forceinline__ unsigned span_bits(int lo, int hi, int w)
 }
 
 // Stage B (see the top of the file). SEG: the segment width, 0 to read it
-// from G (widths above 1024). BSMEM: the box bitmap in shared memory,
-// else `gbits` in device memory.
-template <int SEG, bool BSMEM>
+// from G (widths above 1024, and lattices with rows in device memory).
+// BSMEM: the box bitmap in shared memory, else `gbits` in device memory.
+// RSMEM: the row maxima in shared memory, else after the bitmap in `gbits`
+// (one segment per row, more rows than shared memory holds: 27,803).
+template <int SEG, bool BSMEM, bool RSMEM = true>
 __global__ void __launch_bounds__(B_NT)
 chain_kernel(const int* __restrict__ lat, Lattice G, const int* __restrict__ seg_v_in,
              const int* __restrict__ seg_c_in, const int* __restrict__ row_v_in,
@@ -218,9 +227,9 @@ chain_kernel(const int* __restrict__ lat, Lattice G, const int* __restrict__ seg
     const bool split = G.nseg > 1;      // else a row's segment is the row
     const int nsegs = split ? G.ny * G.nseg : 0, ngroups = pft_ceil_div(G.ny, 32);
     const int words = G.stride / 32;            // bitmap words per row
-    int* rv = smem;                     // row maxima [ny]
+    int* rv = RSMEM ? smem : reinterpret_cast<int*>(gbits) + G.ny * words;   // row maxima [ny]
     int* rc = rv + G.ny;                // and their first columns
-    int* gv = rc + G.ny;                // group maxima [ngroups]
+    int* gv = RSMEM ? rc + G.ny : smem; // group maxima [ngroups]
     int* gi = gv + ngroups;             // and their flat cell index
     int* acc = gi + ngroups;            // acceptances [3][ACC_CHUNK]
     int* sv = split ? acc + 3 * ACC_CHUNK : rv;   // segment maxima [ny * nseg]
@@ -256,6 +265,7 @@ chain_kernel(const int* __restrict__ lat, Lattice G, const int* __restrict__ seg
             rc[i] = row_c_in[i];
         }
         for (int i = tid; i < G.ny * words; i += B_NT) bits[i] = 0u;
+        if constexpr (!RSMEM) __threadfence_block();
         __syncthreads();
         for (int g = warp; g < ngroups; g += B_NT / 32) {
             const int row = 32 * g + lane;
@@ -336,8 +346,9 @@ chain_kernel(const int* __restrict__ lat, Lattice G, const int* __restrict__ seg
                             if constexpr (BSMEM) mine = brow[w0 + lane];
                             else mine = __ldcg(brow + w0 + lane);
                         }
+                        const int kn = SEG > 0 && SEG < 1024 ? SEG / 32 : min(32, w_end - w0);
 #pragma unroll
-                        for (int k = 0; k < (SEG > 0 && SEG < 1024 ? SEG / 32 : 32); ++k) {
+                        for (int k = 0; k < kn; ++k) {
                             const int cc = 32 * (w0 + k) + lane;
                             const int v = __ldg(lrow + cc);
                             const unsigned word = __shfl_sync(FULL, mine, k);
@@ -372,6 +383,7 @@ chain_kernel(const int* __restrict__ lat, Lattice G, const int* __restrict__ seg
                 }
             }
         }
+        if constexpr (!RSMEM) __threadfence_block();
         __syncthreads();                                                // B2
         for (int g = ra / 32 + warp; g <= rb / 32; g += B_NT / 32) {
             const int gr = gi[g] / G.nx, gc = gi[g] - gr * G.nx;
@@ -463,25 +475,37 @@ chain_kernel(const int* __restrict__ lat, Lattice G, const int* __restrict__ seg
 // Stage A. eig: [nrows, ncols] int32; fx, fy, fval: the feature slots [n]
 // (read only when radius >= 0: kept slots are val >= 0). lat: [ny, stride]
 // int32 with stride a multiple of seg; seg_v, seg_c: [ny, stride / seg];
-// row_v, row_c: [ny].
+// row_v, row_c: [ny]. mask: null, or ceil(ny / A_WARPS) * A_WARPS * stride
+// bytes of device memory for the pre-mask where A_WARPS * stride bytes
+// exceed PFT_LATTICE_SMEM (ops/cuda_select.LATTICE_SMEM_BYTES; lattices
+// wider than 40,960 columns).
+#define PFT_LATTICE_SMEM (160 * 1024)
 extern "C" int pft_candidate_lattice(const int* eig, int nrows, int ncols,
                                      const float* fx, const float* fy, const int* fval,
                                      int n, int radius, int borderx, int bordery,
                                      int step, int ny, int nx, int min_eig, int seg,
-                                     int stride, int* lat, int* seg_v, int* seg_c,
-                                     int* row_v, int* row_c, void* stream)
+                                     int stride, unsigned char* mask, int* lat, int* seg_v,
+                                     int* seg_c, int* row_v, int* row_c, void* stream)
 {
     if (ny <= 0 || nx <= 0 || step <= 0 || seg <= 0 || seg % 32 != 0 ||
         stride % seg != 0 || stride < nx || n < 0 || borderx < 0 || bordery < 0 ||
         borderx + (nx - 1) * step >= ncols || bordery + (ny - 1) * step >= nrows)
         return PFT_INVALID_ARGUMENT;
-    const size_t smem = (size_t)A_WARPS * stride;
-    if (smem > 160 * 1024) return PFT_INVALID_ARGUMENT;
-    pft_allow_smem(lattice_kernel, smem);
     const Lattice G{ny, nx, stride, seg, stride / seg};
-    lattice_kernel<<<pft_ceil_div(ny, A_WARPS), A_NT, smem, (cudaStream_t)stream>>>(
-        eig, nrows, ncols, fx, fy, fval, n, radius, borderx, bordery, step, min_eig, seg,
-        G, lat, seg_v, seg_c, row_v, row_c);
+    const dim3 grid(pft_ceil_div(ny, A_WARPS));
+    cudaStream_t s = (cudaStream_t)stream;
+    const size_t smem = (size_t)A_WARPS * stride;
+    if (smem <= PFT_LATTICE_SMEM) {
+        pft_allow_smem(lattice_kernel<true>, smem);
+        lattice_kernel<true><<<grid, A_NT, smem, s>>>(
+            eig, nrows, ncols, fx, fy, fval, n, radius, borderx, bordery, step, min_eig,
+            seg, G, nullptr, lat, seg_v, seg_c, row_v, row_c);
+    } else {
+        if (mask == nullptr) return PFT_INVALID_ARGUMENT;
+        lattice_kernel<false><<<grid, A_NT, 0, s>>>(
+            eig, nrows, ncols, fx, fy, fval, n, radius, borderx, bordery, step, min_eig,
+            seg, G, mask, lat, seg_v, seg_c, row_v, row_c);
+    }
     return (int)cudaGetLastError();
 }
 
@@ -498,9 +522,10 @@ static long long chain_smem(int ny, int nseg)
 
 static long long bitmap_bytes(int ny, int stride) { return 4LL * ny * (stride / 32); }
 
-// Stage B. lat and the maxima from stage A; bits: a [ny, stride / 32]
-// uint32 scratch bitmap in device memory, always given, used when the
-// bitmap does not fit in shared memory. budget: one int32 in device
+// Stage B. lat and the maxima from stage A; bits: a [ny, stride / 32 + 2]
+// uint32 scratch in device memory, always given: the bitmap where it does
+// not fit in shared memory, and after it the row maxima where those do not
+// fit either. budget: one int32 in device
 // memory, or null to count the free slots of val. out_r, out_c, out_v:
 // [max_out] acceptances in order (lanes >= n_acc zero), n_acc: one int32.
 // x, y, val [n]: the slots to fill (null: the chain alone), x_out, y_out,
@@ -521,10 +546,22 @@ extern "C" int pft_greedy_chain(const int* lat, int ny, int nx, int seg, int str
     const Lattice G{ny, nx, stride, seg, stride / seg};
     const long long limit = 227 * 1024;
     long long smem = chain_smem(ny, G.nseg);
-    if (smem > limit) return PFT_INVALID_ARGUMENT;
+    cudaStream_t s = (cudaStream_t)stream;
+    if (smem > limit) {
+        // one segment per row and more rows than fit: the rows (and the
+        // bitmap) in device memory, only the groups and the acceptance
+        // buffer in shared memory
+        if (G.nseg > 1) return PFT_INVALID_ARGUMENT;
+        smem = 4LL * (2LL * pft_ceil_div(ny, 32) + 3LL * ACC_CHUNK);
+        pft_allow_smem(chain_kernel<0, false, false>, (size_t)smem);
+        chain_kernel<0, false, false><<<1, B_NT, (size_t)smem, s>>>(
+            lat, G, seg_v, seg_c, row_v, row_c, bits, budget, min_eig, dg, max_out, out_r,
+            out_c, out_v, n_acc, x, y, val, n, replacing, borderx, bordery, step, x_out,
+            y_out, val_out, filled);
+        return (int)cudaGetLastError();
+    }
     const bool bsmem = smem + bitmap_bytes(ny, stride) <= limit;
     if (bsmem) smem += bitmap_bytes(ny, stride);
-    cudaStream_t s = (cudaStream_t)stream;
 #define PFT_CHAIN_LAUNCH(SEG, BS)                                                        \
     pft_allow_smem(chain_kernel<SEG, BS>, (size_t)smem);                                 \
     chain_kernel<SEG, BS><<<1, B_NT, (size_t)smem, s>>>(                                 \

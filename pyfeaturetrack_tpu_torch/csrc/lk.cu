@@ -24,7 +24,9 @@
 //     level's position), then the final classification (out-of-view test
 //     against borderx / bordery, OOB first, lost lanes to (-1, -1), lanes
 //     with val < 0 passed through unchanged). Level pointers and shapes pass
-//     by value, up to PFT_LK_MAX_LEVELS levels.
+//     by value up to PFT_LK_MAX_LEVELS levels (no frame of int32 size has
+//     more non-empty levels at subsampling 2 or more); a deeper pyramid
+//     (subsampling 1) passes them as a table in device memory.
 //   * pft_lk_level: one level for given positions (ops/cuda_lk.lk_level).
 //
 // What bounds it on this card: latency of dependent gathers, not bytes or
@@ -33,7 +35,9 @@
 // scaling, freezing and selects were some 55 eager PyTorch ops per call.
 // Design: one warp per feature, the ww*wh window pixels spread over the 32
 // lanes (pixel p = lane + 32 k); the frame-1 windows of img, gx, gy are
-// read once per level and stay in registers; each warp leaves a level's
+// read once per level and stay in registers (windows of up to 8 pixels per
+// lane, 15x15; larger windows walk the window pixel by pixel and re-read
+// their taps: lk_level_body_any); each warp leaves a level's
 // iteration loop, and the level walk, on its own. The window sums are warp
 // reductions in one fixed order (per-lane ascending k, then an xor
 // butterfly 16, 8, 4, 2, 1), which the plain version reproduces, so both
@@ -41,7 +45,7 @@
 
 #include "lk_common.cuh"
 
-#define PFT_LK_MAX_LEVELS 8
+#define PFT_LK_MAX_LEVELS 32
 
 namespace {
 
@@ -85,8 +89,9 @@ lk_level_kernel(const float* __restrict__ x1, const float* __restrict__ y1,
 template <int NPL, bool LIGHTING>
 __global__ void __launch_bounds__(NT)
 lk_pyramid_kernel(const float* __restrict__ x_in, const float* __restrict__ y_in,
-                  const int* __restrict__ val_in, LKLevels L, int n_levels,
-                  LKParams P, float scale, float s, int borderx, int bordery,
+                  const int* __restrict__ val_in, LKLevels L,
+                  const float* const* __restrict__ dev_im, const int* __restrict__ dev_hw,
+                  int n_levels, LKParams P, float scale, float s, int borderx, int bordery,
                   float* __restrict__ x_out, float* __restrict__ y_out,
                   int* __restrict__ val_out)
 {
@@ -112,10 +117,18 @@ lk_pyramid_kernel(const float* __restrict__ x_in, const float* __restrict__ y_in
         xout = xout * s;
         yout = yout * s;
         LKParams Q = P;
-        Q.H = L.H[r];
-        Q.W = L.W[r];
-        const float* const f1[3] = {L.im[r][0], L.im[r][1], L.im[r][2]};
-        const float* const f2[3] = {L.im[r][3], L.im[r][4], L.im[r][5]};
+        const float* im[6];
+        if (dev_im == nullptr) {
+            Q.H = L.H[r];
+            Q.W = L.W[r];
+            for (int m = 0; m < 6; ++m) im[m] = L.im[r][m];
+        } else {
+            Q.H = dev_hw[2 * r];
+            Q.W = dev_hw[2 * r + 1];
+            for (int m = 0; m < 6; ++m) im[m] = dev_im[6 * r + m];
+        }
+        const float* const f1[3] = {im[0], im[1], im[2]};
+        const float* const f2[3] = {im[3], im[4], im[5]};
         int it;
         status = lk_level_body<NPL, LIGHTING>(f1, f2, xloc, yloc, xout, yout, it, lane, Q);
         // broken: the reference leaves its level loop on these two codes
@@ -123,9 +136,9 @@ lk_pyramid_kernel(const float* __restrict__ x_in, const float* __restrict__ y_in
     }
     // final classification (KLTTrackFeatures post-loop), in level-0 pixels
     const bool out_of_view = xout < (float)borderx ||
-                             xout > (float)(L.W[0] - 1 - borderx) ||
+                             xout > (float)(P.W - 1 - borderx) ||
                              yout < (float)bordery ||
-                             yout > (float)(L.H[0] - 1 - bordery);
+                             yout > (float)(P.H - 1 - bordery);
     const bool lost = status != KLT_TRACKED || out_of_view;
     if (lane == 0) {
         x_out[f] = lost ? -1.0f : xout;
@@ -136,8 +149,10 @@ lk_pyramid_kernel(const float* __restrict__ x_in, const float* __restrict__ y_in
 
 }  // namespace
 
+// NPL 0: windows above 8 pixels per lane (lk_level_body_any).
 #define PFT_LK_SWITCH(npl, LAUNCH)   \
-    switch (npl) {                   \
+    switch (npl <= 8 ? npl : 0) {    \
+        LAUNCH(0)                    \
         LAUNCH(1)                    \
         LAUNCH(2)                    \
         LAUNCH(3)                    \
@@ -150,7 +165,7 @@ lk_pyramid_kernel(const float* __restrict__ x_in, const float* __restrict__ y_in
             return PFT_INVALID_ARGUMENT; \
     }
 
-// Window sizes up to 8 pixels per lane (ww * wh <= 256, e.g. 15 x 15).
+// Any odd window size.
 extern "C" int pft_lk_level(const float* x1, const float* y1, const float* x2,
                             const float* y2, const bool* active,
                             const float* img1, const float* gx1, const float* gy1,
@@ -186,7 +201,9 @@ extern "C" int pft_lk_level(const float* x1, const float* y1, const float* x2,
 }
 
 // levels: n_levels * 6 device pointers (level r: img1, gx1, gy1, img2, gx2,
-// gy2), shapes: n_levels * 2 ints (H, W), both host arrays read here.
+// gy2), shapes: n_levels * 2 ints (H, W), both host arrays read here; above
+// PFT_LK_MAX_LEVELS levels the same two tables in device memory (dev_levels,
+// dev_shapes), which the kernel reads instead.
 // scale: float32 subsampling^n_levels; x, y, val in, x, y, val out [n].
 extern "C" int pft_lk_pyramid(const float* x, const float* y, const int* val, int n,
                               const float* const* levels, const int* shapes,
@@ -195,21 +212,28 @@ extern "C" int pft_lk_pyramid(const float* x, const float* y, const int* val, in
                               float min_determinant, float max_residue,
                               float step_factor, int lighting_insensitive,
                               float scale, float subsampling, int borderx, int bordery,
+                              const float* const* dev_levels, const int* dev_shapes,
                               float* x_out, float* y_out, int* val_out, void* stream)
 {
     if (n <= 0) return 0;
-    if (n_levels < 1 || n_levels > PFT_LK_MAX_LEVELS || window_width % 2 != 1 ||
-        window_height % 2 != 1)
+    const bool by_value = n_levels <= PFT_LK_MAX_LEVELS;
+    if (n_levels < 1 || window_width % 2 != 1 || window_height % 2 != 1 ||
+        (!by_value && (dev_levels == nullptr || dev_shapes == nullptr)))
         return PFT_INVALID_ARGUMENT;
     LKLevels L{};
     for (int r = 0; r < n_levels; ++r) {
+        if (shapes[2 * r] <= 0 || shapes[2 * r + 1] <= 0) return PFT_INVALID_ARGUMENT;
+        if (!by_value) continue;
         for (int m = 0; m < 6; ++m) L.im[r][m] = levels[6 * r + m];
         L.H[r] = shapes[2 * r];
         L.W[r] = shapes[2 * r + 1];
-        if (L.H[r] <= 0 || L.W[r] <= 0) return PFT_INVALID_ARGUMENT;
+    }
+    if (by_value) {
+        dev_levels = nullptr;
+        dev_shapes = nullptr;
     }
     const int npl = pft_ceil_div(window_width * window_height, 32);
-    const LKParams P{L.H[0], L.W[0], n, window_width / 2, window_height / 2,
+    const LKParams P{shapes[0], shapes[1], n, window_width / 2, window_height / 2,
                      max_iterations, min_displacement, min_determinant, max_residue,
                      step_factor};
     const int blocks = pft_ceil_div(n, NT / 32);
@@ -218,12 +242,12 @@ extern "C" int pft_lk_pyramid(const float* x, const float* y, const int* val, in
     case K:                                                                              \
         if (lighting_insensitive)                                                        \
             lk_pyramid_kernel<K, true><<<blocks, NT, 0, s>>>(                            \
-                x, y, val, L, n_levels, P, scale, subsampling, borderx, bordery, x_out,  \
-                y_out, val_out);                                                         \
+                x, y, val, L, dev_levels, dev_shapes, n_levels, P, scale, subsampling,   \
+                borderx, bordery, x_out, y_out, val_out);                                \
         else                                                                             \
             lk_pyramid_kernel<K, false><<<blocks, NT, 0, s>>>(                           \
-                x, y, val, L, n_levels, P, scale, subsampling, borderx, bordery, x_out,  \
-                y_out, val_out);                                                         \
+                x, y, val, L, dev_levels, dev_shapes, n_levels, P, scale, subsampling,   \
+                borderx, bordery, x_out, y_out, val_out);                                \
         return (int)cudaGetLastError();
     PFT_LK_SWITCH(npl, PFT_LK_PYRAMID)
 #undef PFT_LK_PYRAMID

@@ -154,6 +154,145 @@ __device__ __forceinline__ float residual(const float (&w1)[NPL], const float (&
     return alpha;
 }
 
+// Window pixel p = lane + 32 k of a window of any size: its (row, col), row
+// -1 beyond the window (padding, which every sum counts as 0).
+__device__ __forceinline__ void window_pixel(int p, const LKParams& P, int& j, int& i)
+{
+    const int ww = 2 * P.hw + 1, npix = ww * (2 * P.hh + 1);
+    j = p < npix ? p / ww : -1;
+    i = p < npix ? p - (p / ww) * ww : 0;
+}
+
+// Per-lane running sum in ascending k (the first term taken as it is, as
+// window_sum does), for windows walked pixel by pixel.
+__device__ __forceinline__ float lane_add(float acc, float v, int k)
+{
+    return k == 0 ? v : acc + v;
+}
+
+// lk_level_body for windows of more than 8 pixels per lane (above 256
+// pixels, e.g. 17x17 and up): the same arithmetic and sum order, but the
+// window is walked pixel by pixel (k = 0, 1, ...) with per-lane running
+// sums, and every window tap is re-read (L1/L2) where it is needed instead
+// of being held in registers, so any window size runs. With lighting
+// compensation the frame-2 window is walked twice per iteration: once for
+// its gain sums, once for the normal equations.
+template <bool LIGHTING>
+__device__ int lk_level_body_any(const float* const (&f1)[3], const float* const (&f2)[3],
+                                 float xa, float ya, float& x, float& y, int& it, int lane,
+                                 const LKParams& P)
+{
+    const int npix = (2 * P.hw + 1) * (2 * P.hh + 1), npl = pft_ceil_div(npix, 32);
+    const float n = (float)npix;
+    const Patch q1 = patch_at(xa, ya, P);
+    float s11 = 0.0f, m1 = 0.0f;
+    if (LIGHTING) {
+        float a = 0.0f, b = 0.0f;
+        for (int k = 0; k < npl; ++k) {
+            int j, i;
+            window_pixel(lane + 32 * k, P, j, i);
+            const float w = j < 0 ? 0.0f : blend_tap(f1[0], q1, j, i, P);
+            a = lane_add(a, w * w, k);
+            b = lane_add(b, w, k);
+        }
+        s11 = warp_sum(a);
+        m1 = warp_sum(b) / n;
+    }
+    // gain and bias of the frame-2 window at patch q (residual's order)
+    auto gain = [&](const Patch& q, float& alpha, float& beta) {
+        float a = 0.0f, b = 0.0f;
+        for (int k = 0; k < npl; ++k) {
+            int j, i;
+            window_pixel(lane + 32 * k, P, j, i);
+            const float w = j < 0 ? 0.0f : blend_tap(f2[0], q, j, i, P);
+            a = lane_add(a, w * w, k);
+            b = lane_add(b, w, k);
+        }
+        const float s22 = warp_sum(a);
+        alpha = sqrtf((s11 / n) / (s22 / n));
+        beta = m1 - alpha * (warp_sum(b) / n);
+    };
+
+    const bool ok1 = bounds_ok(xa, ya, P);
+    int status = KLT_TRACKED;
+    it = 0;
+    for (int step = 0; step < P.max_iterations; ++step) {
+        if (!(ok1 && bounds_ok(x, y, P))) {
+            status = KLT_OOB;
+            break;
+        }
+        const Patch q2 = patch_at(x, y, P);
+        float alpha = 1.0f, beta = 0.0f;
+        if (LIGHTING) gain(q2, alpha, beta);
+        float sxx = 0.0f, sxy = 0.0f, syy = 0.0f, sex = 0.0f, sey = 0.0f;
+        for (int k = 0; k < npl; ++k) {
+            int j, i;
+            window_pixel(lane + 32 * k, P, j, i);
+            float txx = 0.0f, txy = 0.0f, tyy = 0.0f, tex = 0.0f, tey = 0.0f;
+            if (j >= 0) {
+                const float w1 = blend_tap(f1[0], q1, j, i, P);
+                const float g1x = blend_tap(f1[1], q1, j, i, P);
+                const float g1y = blend_tap(f1[2], q1, j, i, P);
+                const float w2 = blend_tap(f2[0], q2, j, i, P);
+                const float g2x = blend_tap(f2[1], q2, j, i, P);
+                const float g2y = blend_tap(f2[2], q2, j, i, P);
+                const float dif = LIGHTING ? w1 - w2 * alpha - beta : w1 - w2;
+                const float gx = LIGHTING ? g1x + alpha * g2x : g1x + g2x;
+                const float gy = LIGHTING ? g1y + alpha * g2y : g1y + g2y;
+                txx = gx * gx;
+                txy = gx * gy;
+                tyy = gy * gy;
+                tex = dif * gx;
+                tey = dif * gy;
+            }
+            sxx = lane_add(sxx, txx, k);
+            sxy = lane_add(sxy, txy, k);
+            syy = lane_add(syy, tyy, k);
+            sex = lane_add(sex, tex, k);
+            sey = lane_add(sey, tey, k);
+        }
+        const float gxx = warp_sum(sxx), gxy = warp_sum(sxy), gyy = warp_sum(syy);
+        const float ex = P.step_factor * warp_sum(sex);
+        const float ey = P.step_factor * warp_sum(sey);
+
+        const float det = gxx * gyy - gxy * gxy;
+        if (det < P.min_determinant) {
+            status = KLT_SMALL_DET;
+            break;
+        }
+        const float dx = (gyy * ex - gxy * ey) / det;
+        const float dy = (gxx * ey - gxy * ex) / det;
+        x = x + dx;
+        y = y + dy;
+        ++it;
+        if (!(fabsf(dx) >= P.min_displacement || fabsf(dy) >= P.min_displacement))
+            break;
+    }
+
+    if (!bounds_ok(x, y, P)) status = KLT_OOB;
+    if (status == KLT_TRACKED) {
+        const Patch q2 = patch_at(x, y, P);
+        float alpha = 1.0f, beta = 0.0f;
+        if (LIGHTING) gain(q2, alpha, beta);
+        float acc = 0.0f;
+        for (int k = 0; k < npl; ++k) {
+            int j, i;
+            window_pixel(lane + 32 * k, P, j, i);
+            float v = 0.0f;
+            if (j >= 0) {
+                const float w1 = blend_tap(f1[0], q1, j, i, P);
+                const float w2 = blend_tap(f2[0], q2, j, i, P);
+                v = fabsf(LIGHTING ? w1 - w2 * alpha - beta : w1 - w2);
+            }
+            acc = lane_add(acc, v, k);
+        }
+        const float residue = warp_sum(acc) / n;
+        if (residue > P.max_residue) status = KLT_LARGE_RESIDUE;
+        else if (it >= P.max_iterations) status = KLT_MAX_ITERATIONS;
+    }
+    return status;
+}
+
 // One pyramid level of translational LK for the feature of this warp: the
 // arithmetic of ops/track.track_feature_level (track.py:155-234), which
 // ops/cuda_lk.lk_level_reference repeats. The frame-1 windows of img, gx, gy
@@ -164,13 +303,17 @@ __device__ __forceinline__ float residual(const float (&w1)[NPL], const float (&
 // the loop: bounds check (OOB overrides any status), then LARGE_RESIDUE,
 // then MAX_ITERATIONS (a lane converging on its last update still reports
 // MAX_ITERATIONS, track.py:231-233). Every lane ends with the same sums, so
-// all branches are warp-uniform. Returns the level status.
+// all branches are warp-uniform. Returns the level status. NPL 0: windows
+// above 8 pixels per lane, lk_level_body_any.
 template <int NPL, bool LIGHTING>
 __device__ __forceinline__ int lk_level_body(const float* const (&f1)[3],
                                              const float* const (&f2)[3],
                                              float xa, float ya, float& x, float& y,
                                              int& it, int lane, const LKParams& P)
 {
+    if constexpr (NPL == 0) {
+        return lk_level_body_any<LIGHTING>(f1, f2, xa, ya, x, y, it, lane, P);
+    } else {
     const float n = (float)((2 * P.hw + 1) * (2 * P.hh + 1));
     const LanePixels<NPL> px = lane_pixels<NPL>(lane, P);
     const float* const f2img[1] = {f2[0]};
@@ -247,6 +390,7 @@ __device__ __forceinline__ int lk_level_body(const float* const (&f1)[3],
         else if (it >= P.max_iterations) status = KLT_MAX_ITERATIONS;
     }
     return status;
+    }
 }
 
 }  // namespace

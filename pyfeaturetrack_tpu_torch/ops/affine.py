@@ -15,8 +15,10 @@ PyTorch and the plain version of K6 (``ops/cuda_affine.py``,
 ``csrc/affine.cu``): every window sum is taken in the kernel's reduction
 order (``tree_sum``) and the PxP systems are solved by
 ``linalg.gauss_solve_det``, so kernel and plain version give the same
-bits. ``affine_consistency_check`` is the stage around it; it launches K6
-on CUDA tensors and runs the plain version on CPU tensors.
+bits. ``affine_consistency_check`` is the stage around it: on CUDA
+tensors the whole stage is one K6 launch (``cuda_affine.affine_stage``);
+on CPU tensors (or under ``utils.cuda.reference_path()``) its eager
+composition here, the stage kernel's plain version, runs.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import torch
 from ..features import (KLT_LARGE_RESIDUE, KLT_OOB, KLT_SMALL_DET,
                         KLT_TRACKED, AffineState, FeatureState,
                         empty_affine_state, identity_warps)
+from ..utils import cuda
 from . import cuda_affine
 from .cuda_lk import _f32, tree_sum
 from .interp import bilinear, gather_window
@@ -37,8 +40,9 @@ _ONE_PLUS_EPS = 1.001
 _CAPTURE_NIT = 5
 
 
-def make_affine_state(n_features: int, cfg, device="cpu") -> AffineState:
-    """Empty affine template store sized for ``cfg``'s affine window."""
+def make_affine_state(n_features: int, cfg, device="cuda") -> AffineState:
+    """Empty affine template store sized for ``cfg``'s affine window, on
+    ``device`` (the card unless the caller asks for the CPU)."""
     return empty_affine_state(n_features, cfg.affine_window_height,
                               cfg.affine_window_width, device)
 
@@ -178,7 +182,8 @@ def affine_consistency_check(pyr1, pyr2, fl_before: FeatureState,
     (template anchors), ``fl_after`` the translation-tracked result and
     the AffineState to update. The template capture runs every call and
     is applied by mask (the JAX stage skips it under ``lax.cond`` when no
-    lane needs it; the results are the same, without a host sync)."""
+    lane needs it; the results are the same, without a host sync). On
+    CUDA tensors the stage is one launch of K6's stage kernel."""
     hw, hh = cfg.affine_window_width // 2, cfg.affine_window_height // 2
     n = fl_after.nFeatures
     dev = fl_after.x.device
@@ -188,6 +193,11 @@ def affine_consistency_check(pyr1, pyr2, fl_before: FeatureState,
     if aff.nit is None:
         aff = aff._replace(nit=torch.zeros((n,), dtype=torch.int32,
                                            device=dev))
+    if cuda.use_kernel(fl_before.x, fl_after.x, aff.img, pyr1.img[0],
+                       pyr2.img[0]):
+        x, y, val, aff = cuda_affine.affine_stage(pyr1, pyr2, fl_before,
+                                                  fl_after, aff, cfg)
+        return fl_after._replace(x=x, y=y, val=val, aff=aff)
 
     tracked = fl_after.val == KLT_TRACKED
     # lanes lost by translational tracking lose their template

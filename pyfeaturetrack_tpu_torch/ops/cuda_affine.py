@@ -1,5 +1,5 @@
-"""K6: the affine-consistency Gauss-Newton batch (csrc/affine.cu) and its
-dispatch.
+"""K6: the affine-consistency Gauss-Newton batch and the whole affine
+stage (csrc/affine.cu), and their dispatch.
 
 Port of ``pyfeaturetrack_tpu/ops/pallas_affine_vec.py``
 (``_vec_affine_raw`` / ``vec_affine_with_fallback``) and of its stale-lane
@@ -8,22 +8,49 @@ fallback ``pyfeaturetrack_tpu/ops/pallas_affine_fused.py``
 any warped footprint from global memory. Their semantics are
 ``ops/affine._affine_track_batch``, which is the plain version here.
 
+* ``affine_track_batch``: the Gauss-Newton batch; plain version
+  ``ops/affine._affine_track_batch``.
+* ``affine_stage``: the stage of ``ops/affine.affine_consistency_check``
+  (lost lanes, template capture, the check, the selects on the feature
+  list and on all eight AffineState fields) in one launch; its plain
+  version is that function's eager composition.
+
 A CUDA tensor launches the kernel (one launch per call); a CPU tensor
 takes the plain version.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
+from ..features import AffineState
 from ..utils import cuda
 from . import affine
 from .cuda_lk import _f32
 
-MAX_WINDOW_PIXELS = 256   # csrc/affine.cu: at most 8 window samples per lane
-
-# Kernel launches made by this wrapper.
+# Kernel launches made by this module's wrappers.
 launches = 0
+
+
+def _require_mode_and_window(cfg):
+    ww, wh = cfg.affine_window_width, cfg.affine_window_height
+    mode = int(cfg.affineConsistencyCheck)
+    cuda.require(mode in (0, 1, 2), f"affineConsistencyCheck {mode} is not "
+                 "a mode (0, 1 or 2)")
+    cuda.require(ww % 2 == 1 and wh % 2 == 1,
+                 f"affine kernel takes odd windows, got {ww}x{wh}")
+    return ww, wh
+
+
+def _gn_params(cfg):
+    """The window, mode and Gauss-Newton settings both C entries take."""
+    return (cfg.affine_window_width, cfg.affine_window_height,
+            int(cfg.affineConsistencyCheck), cfg.affine_max_iterations,
+            _f32(cfg.affine_min_displacement), _f32(cfg.min_determinant),
+            _f32(cfg.affine_max_residue),
+            _f32(cfg.affine_max_displacement_differ))
 
 
 def _launch(tmpl, img2, gx2, gy2, x0, y0, A0, check, cfg, xo, yo, Ao, st,
@@ -35,11 +62,7 @@ def _launch(tmpl, img2, gx2, gy2, x0, y0, A0, check, cfg, xo, yo, Ao, st,
     nrows, ncols = img2.shape
     rc = fn(*(t.data_ptr() for t in (tmpl, img2, gx2, gy2, x0, y0, A0,
                                       check)),
-            nrows, ncols, x0.shape[0], cfg.affine_window_width,
-            cfg.affine_window_height, int(cfg.affineConsistencyCheck),
-            cfg.affine_max_iterations, _f32(cfg.affine_min_displacement),
-            _f32(cfg.min_determinant), _f32(cfg.affine_max_residue),
-            _f32(cfg.affine_max_displacement_differ),
+            nrows, ncols, x0.shape[0], *_gn_params(cfg),
             xo.data_ptr(), yo.data_ptr(), Ao.data_ptr(), st.data_ptr(),
             nit.data_ptr(), cuda.stream_ptr(img2.device))
     cuda.check(rc, "pft_affine_track")
@@ -57,13 +80,7 @@ def affine_track_batch(tmpl, img2, gx2, gy2, x0, y0, A0, check, cfg):
     if not cuda.use_kernel(*feats, *imgs):
         return affine._affine_track_batch(tmpl, img2, gx2, gy2, x0, y0, A0,
                                           check, cfg)
-    ww, wh = cfg.affine_window_width, cfg.affine_window_height
-    mode = int(cfg.affineConsistencyCheck)
-    cuda.require(mode in (0, 1, 2), f"affineConsistencyCheck {mode} is not "
-                 "a mode (0, 1 or 2)")
-    cuda.require(ww % 2 == 1 and wh % 2 == 1 and ww * wh <= MAX_WINDOW_PIXELS,
-                 f"affine kernel takes odd windows of at most "
-                 f"{MAX_WINDOW_PIXELS} pixels, got {ww}x{wh}")
+    ww, wh = _require_mode_and_window(cfg)
     n = x0.shape[0]
     cuda.require(tmpl.dtype == torch.float32 and tmpl.shape == (n, wh, ww)
                  and tmpl.is_contiguous(),
@@ -89,3 +106,60 @@ def affine_track_batch(tmpl, img2, gx2, gy2, x0, y0, A0, check, cfg):
         _launch(tmpl, img2, gx2, gy2, x0, y0, A0, check, cfg, xo, yo, Ao, st,
                 nit)
     return xo, yo, Ao, st, nit
+
+
+def _ptrs(tensors):
+    """A host array of device pointers (kept alive by the caller)."""
+    return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
+
+
+def affine_stage(pyr1, pyr2, fl_before, fl_after, aff: AffineState, cfg):
+    """The affine stage on the card in one launch: (x, y, val, AffineState),
+    the values ``ops/affine.affine_consistency_check`` computes. ``aff``
+    is sized for ``cfg`` with ``nit`` set; every tensor lies on one CUDA
+    device."""
+    global launches
+    ww, wh = _require_mode_and_window(cfg)
+    n = fl_after.nFeatures
+    imgs = (pyr1.img[0], pyr1.gradx[0], pyr1.grady[0], pyr2.img[0],
+            pyr2.gradx[0], pyr2.grady[0])
+    shape = imgs[0].shape
+    cuda.require(len(shape) == 2 and shape[0] >= 2 and shape[1] >= 2 and all(
+        t.dtype == torch.float32 and t.shape == shape and t.is_contiguous()
+        for t in imgs), "affine stage takes level 0 of both pyramids as six "
+        "contiguous float32 [H, W] images (H, W >= 2)")
+    feats = (fl_before.x, fl_before.y, fl_after.x, fl_after.y)
+    vals = (fl_before.val, fl_after.val)
+    state = (aff.img, aff.gradx, aff.grady, aff.x, aff.y, aff.A)
+    cuda.require(all(t.dtype == torch.float32 and t.shape == (n,)
+                     and t.is_contiguous() for t in feats + state[3:5])
+                 and all(t.dtype == torch.int32 and t.shape == (n,)
+                         and t.is_contiguous() for t in vals + (aff.nit,))
+                 and aff.valid.dtype == torch.bool
+                 and aff.valid.shape == (n,) and aff.valid.is_contiguous()
+                 and all(t.dtype == torch.float32 and t.shape == (n, wh, ww)
+                         and t.is_contiguous() for t in state[:3])
+                 and aff.A.dtype == torch.float32
+                 and aff.A.shape == (n, 2, 2) and aff.A.is_contiguous(),
+                 "affine stage takes contiguous feature lists (float32 x, y, "
+                 "int32 val [N]) and an AffineState sized for the config")
+    x, y = torch.empty_like(fl_after.x), torch.empty_like(fl_after.y)
+    val = torch.empty_like(fl_after.val)
+    out = AffineState(*(torch.empty_like(t) for t in state),
+                      valid=torch.empty_like(aff.valid),
+                      nit=torch.empty_like(aff.nit))
+    if n:
+        fn = cuda.function("pft_affine_stage",
+                           [cuda.c_ptr] * 6 + [cuda.c_int] * 6
+                           + [cuda.c_int] + [cuda.c_float] * 4
+                           + [cuda.c_ptr] * 5)
+        tables = [_ptrs(t) for t in (imgs, feats, vals, state,
+                                     (x, y) + tuple(out[:6]))]
+        addr = [ctypes.addressof(t) for t in tables]
+        rc = fn(*addr[:4], aff.valid.data_ptr(), aff.nit.data_ptr(),
+                shape[0], shape[1], n, *_gn_params(cfg), addr[4],
+                val.data_ptr(), out.valid.data_ptr(), out.nit.data_ptr(),
+                cuda.stream_ptr(x.device))
+        cuda.check(rc, "pft_affine_stage")
+        launches += 1
+    return x, y, val, out

@@ -36,8 +36,9 @@ from ..utils import cuda
 from .interp import gather_windows
 
 _ONE_PLUS_EPS = 1.001     # ops/track._ONE_PLUS_EPS (reference bound check)
-MAX_WINDOW_PIXELS = 256   # csrc/lk.cu: at most 8 window pixels per lane
-MAX_LEVELS = 8            # csrc/lk.cu: PFT_LK_MAX_LEVELS
+# csrc/lk.cu PFT_LK_MAX_LEVELS: levels whose pointers pass by value; a
+# deeper pyramid passes them as a table in device memory
+LEVELS_BY_VALUE = 32
 
 # Kernel launches made by this wrapper.
 launches = 0
@@ -242,9 +243,8 @@ def lk_level(x1, y1, x2, y2, img1, gx1, gy1, img2, gx2, gy2, cfg, active):
         return lk_level_reference(x1, y1, x2, y2, img1, gx1, gy1, img2, gx2,
                                   gy2, cfg, active)
     ww, wh = cfg.window_width, cfg.window_height
-    cuda.require(ww % 2 == 1 and wh % 2 == 1 and ww * wh <= MAX_WINDOW_PIXELS,
-                 f"lk_level kernel takes odd windows of at most "
-                 f"{MAX_WINDOW_PIXELS} pixels, got {ww}x{wh}")
+    cuda.require(ww % 2 == 1 and wh % 2 == 1,
+                 f"lk_level kernel takes odd windows, got {ww}x{wh}")
     n = x1.shape[0]
     cuda.require(all(t.dtype == torch.float32 and t.shape == (n,)
                      and t.is_contiguous() for t in feats[:4])
@@ -316,20 +316,31 @@ def track_pyramid_reference(pyr1, pyr2, x, y, val, cfg):
     return new_x, new_y, new_val
 
 
+def _device_table(values, dtype, dev):
+    """A small host table in device memory without a host sync: a pinned
+    copy, sent on the current stream."""
+    return torch.tensor(values, dtype=dtype).pin_memory().to(
+        dev, non_blocking=True)
+
+
 def _launch_pyramid(pyr1, pyr2, x, y, val, cfg, xo, yo, vo):
     global launches
     fn = cuda.function("pft_lk_pyramid",
                        [cuda.c_ptr] * 3 + [cuda.c_int] + [cuda.c_ptr] * 2
                        + [cuda.c_int] * 4 + [cuda.c_float] * 4 + [cuda.c_int]
                        + [cuda.c_float] * 2 + [cuda.c_int] * 2
-                       + [cuda.c_ptr] * 4)
+                       + [cuda.c_ptr] * 6)
     n_levels = cfg.nPyramidLevels
-    ptrs = (ctypes.c_void_p * (6 * n_levels))(*(
-        p[r].data_ptr() for r in range(n_levels)
-        for p in (pyr1.img, pyr1.gradx, pyr1.grady, pyr2.img, pyr2.gradx,
-                  pyr2.grady)))
-    shapes = (ctypes.c_int * (2 * n_levels))(*(
-        d for r in range(n_levels) for d in pyr1.img[r].shape))
+    ptr_list = [p[r].data_ptr() for r in range(n_levels)
+                for p in (pyr1.img, pyr1.gradx, pyr1.grady, pyr2.img,
+                          pyr2.gradx, pyr2.grady)]
+    shape_list = [d for r in range(n_levels) for d in pyr1.img[r].shape]
+    ptrs = (ctypes.c_void_p * (6 * n_levels))(*ptr_list)
+    shapes = (ctypes.c_int * (2 * n_levels))(*shape_list)
+    dev_ptrs = dev_shapes = None
+    if n_levels > LEVELS_BY_VALUE:
+        dev_ptrs = _device_table(ptr_list, torch.int64, x.device)
+        dev_shapes = _device_table(shape_list, torch.int32, x.device)
     s = float(cfg.subsampling)
     rc = fn(x.data_ptr(), y.data_ptr(), val.data_ptr(), x.shape[0],
             ctypes.addressof(ptrs), ctypes.addressof(shapes), n_levels,
@@ -337,8 +348,11 @@ def _launch_pyramid(pyr1, pyr2, x, y, val, cfg, xo, yo, vo):
             _f32(cfg.min_displacement), _f32(cfg.min_determinant),
             _f32(cfg.max_residue), _f32(cfg.step_factor),
             int(bool(cfg.lighting_insensitive)), _f32(s ** n_levels), _f32(s),
-            int(cfg.borderx), int(cfg.bordery), xo.data_ptr(), yo.data_ptr(),
-            vo.data_ptr(), cuda.stream_ptr(x.device))
+            int(cfg.borderx), int(cfg.bordery),
+            *(None if t is None else t.data_ptr()
+              for t in (dev_ptrs, dev_shapes)),
+            xo.data_ptr(), yo.data_ptr(), vo.data_ptr(),
+            cuda.stream_ptr(x.device))
     cuda.check(rc, "pft_lk_pyramid")
     launches += 1
 
@@ -357,12 +371,9 @@ def track_pyramid(pyr1, pyr2, x: torch.Tensor, y: torch.Tensor,
     if not cuda.use_kernel(x, y, val, *imgs):
         return track_pyramid_reference(pyr1, pyr2, x, y, val, cfg)
     ww, wh = cfg.window_width, cfg.window_height
-    cuda.require(ww % 2 == 1 and wh % 2 == 1 and ww * wh <= MAX_WINDOW_PIXELS,
-                 f"track_pyramid kernel takes odd windows of at most "
-                 f"{MAX_WINDOW_PIXELS} pixels, got {ww}x{wh}")
-    cuda.require(1 <= n_levels <= MAX_LEVELS,
-                 f"track_pyramid kernel takes 1 to {MAX_LEVELS} levels, got "
-                 f"{n_levels}")
+    cuda.require(ww % 2 == 1 and wh % 2 == 1,
+                 f"track_pyramid kernel takes odd windows, got {ww}x{wh}")
+    cuda.require(n_levels >= 1, f"track_pyramid: {n_levels} levels")
     n = x.shape[0]
     cuda.require(x.dtype == y.dtype == torch.float32 and val.dtype == torch.int32
                  and x.shape == y.shape == val.shape == (n,)

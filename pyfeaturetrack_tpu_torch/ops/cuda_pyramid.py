@@ -1,14 +1,19 @@
-"""K1: fused pyramid-level build (csrc/pyramid.cu) and its plain version.
+"""K1: the pyramid build (csrc/pyramid.cu) and its plain versions.
 
 Port of ``pyfeaturetrack_tpu/ops/pallas_pyramid.py`` (fused_level_build /
-fused_level_build_tiled, driven by build_track_pyramids_pallas). One call
-builds one pyramid level: the optional level-0 pre-smooth, the gradient
-pair of the level's base image, and, for every level but the last, the
-decimated pyramid-smoothed image that is the next level's base.
+fused_level_build_tiled, driven by build_track_pyramids_pallas).
 
-A CUDA tensor launches the kernel (two launches at level 0, one at every
-later level); a CPU tensor takes ``pyramid_level_reference``, which
-composes ops/convolve.py's shift-and-add passes in the kernel's order.
+* ``pyramid_build``: a whole pyramid (the level-0 pre-smooth, every
+  level's gradient pair, every decimated level) in at most two launches.
+  Its plain version, ``pyramid_build_reference``, composes
+  ``pyramid_level_reference`` over the levels.
+* ``pyramid_level``: one level (the optional pre-smooth, the gradient pair
+  and, for every level but the last, the decimated pyramid-smoothed image
+  that is the next level's base) in one launch; plain version
+  ``pyramid_level_reference``, which composes ops/convolve.py's
+  shift-and-add passes in the kernel's order.
+
+A CUDA tensor launches the kernel; a CPU tensor takes the plain version.
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ from .convolve import convolve_separate
 from .kernels import compute_kernels
 from .pyramid import decimate
 
-# Kernel launches made by this wrapper (one per launch; see module doc).
+# Kernel launches made by this module's wrappers (one per launch).
 launches = 0
 
 
@@ -79,61 +84,120 @@ def pyramid_level_reference(img: torch.Tensor, taps: LevelTaps,
     return base, gx, gy, nxt
 
 
-def _launch_smooth(img, out, krev):
-    global launches
-    fn = cuda.function("pft_pyramid_smooth", [cuda.c_ptr, cuda.c_ptr, cuda.c_int,
-                                              cuda.c_int, cuda.c_ptr, cuda.c_int,
-                                              cuda.c_ptr])
-    h, w = img.shape
-    rc = fn(img.data_ptr(), out.data_ptr(), h, w, krev.ctypes.data, krev.shape[0],
-            cuda.stream_ptr(img.device))
-    cuda.check(rc, "pft_pyramid_smooth")
-    launches += 1
+def pyramid_build_reference(img: torch.Tensor, taps: LevelTaps,
+                            n_levels: int):
+    """Plain version of ``pyramid_build``: ``pyramid_level_reference``
+    composed over the levels (pre-smooth at level 0 only)."""
+    imgs, gxs, gys = [], [], []
+    cur = img
+    for level in range(n_levels):
+        base, gx, gy, cur = pyramid_level_reference(
+            cur, taps, smooth=level == 0, with_pyr=level < n_levels - 1)
+        imgs.append(base)
+        gxs.append(gx)
+        gys.append(gy)
+    return tuple(imgs), tuple(gxs), tuple(gys)
 
 
-def _launch_level(base, gx, gy, dec, g, d, p, sub, h2, w2):
-    global launches
-    fn = cuda.function("pft_pyramid_level",
-                       [cuda.c_ptr] * 4 + [cuda.c_int] * 2
-                       + [cuda.c_ptr, cuda.c_int] * 3
-                       + [cuda.c_int] * 3 + [cuda.c_ptr])
-    h, w = base.shape
-    rc = fn(base.data_ptr(), gx.data_ptr(), gy.data_ptr(),
-            dec.data_ptr() if dec is not None else None, h, w,
-            g.ctypes.data, g.shape[0], d.ctypes.data, d.shape[0],
-            p.ctypes.data if p is not None else None,
-            p.shape[0] if p is not None else 0,
-            sub, h2, w2, cuda.stream_ptr(base.device))
-    cuda.check(rc, "pft_pyramid_level")
-    launches += 1
+def _c_taps(taps: LevelTaps, smooth: bool, with_pyr: bool):
+    """(pointer, count) of each flipped tap set the C entries take, with
+    (None, 0) for a pass the launch does not run."""
+    out = []
+    for k, used in zip(taps.rev, (smooth, True, True, with_pyr)):
+        out += [k.ctypes.data, k.shape[0]] if used else [None, 0]
+    return out
+
+
+_TAP_ARGS = [cuda.c_ptr, cuda.c_int] * 4
+
+# Per (device, stream): the two-word grid-barrier state of
+# pft_pyramid_build's coarse launch (zeroed once, left zero by every build).
+_barriers: dict = {}
+
+
+def _barrier(dev: torch.device) -> torch.Tensor:
+    key = (dev.index, cuda.stream_ptr(dev))
+    bar = _barriers.get(key)
+    if bar is None:
+        bar = _barriers[key] = torch.zeros(2, dtype=torch.int32, device=dev)
+    return bar
+
+
+def _require_image(img: torch.Tensor, what: str) -> None:
+    cuda.require(img.dtype == torch.float32 and img.dim() == 2
+                 and img.is_contiguous() and img.numel() > 0,
+                 f"{what} takes a non-empty contiguous float32 [H, W] image")
 
 
 def pyramid_level(img: torch.Tensor, taps: LevelTaps, smooth: bool,
                   with_pyr: bool):
-    """One pyramid level: (base, gradx, grady, next-or-None).
+    """One pyramid level: (base, gradx, grady, next-or-None), one launch on
+    CUDA.
 
     ``img``: float32 [H, W]. ``smooth``: apply the level-0 pre-smooth
     (base = smoothed img, else base = img). ``with_pyr``: also produce the
     next level's decimated base.
     """
+    global launches
     if not cuda.use_kernel(img):
         return pyramid_level_reference(img, taps, smooth, with_pyr)
-    cuda.require(img.dtype == torch.float32 and img.dim() == 2
-                 and img.is_contiguous() and img.numel() > 0,
-                 "pyramid_level takes a non-empty contiguous float32 [H, W] "
-                 "image")
+    _require_image(img, "pyramid_level")
     h, w = img.shape
-    base = img
-    if smooth:
-        base = torch.empty_like(img)
-        _launch_smooth(img, base, taps.rev[0])
+    sub = taps.subsampling
+    base = torch.empty_like(img) if smooth else img
     gx = torch.empty_like(img)
     gy = torch.empty_like(img)
-    sub = taps.subsampling
     dec: Optional[torch.Tensor] = None
     if with_pyr:
         dec = torch.empty((h // sub, w // sub), dtype=torch.float32,
                           device=img.device)
-    _launch_level(base, gx, gy, dec, taps.rev[1], taps.rev[2],
-                  taps.rev[3] if with_pyr else None, sub, h // sub, w // sub)
+    fn = cuda.function("pft_pyramid_level",
+                       [cuda.c_ptr] * 5 + [cuda.c_int] * 3 + _TAP_ARGS
+                       + [cuda.c_int, cuda.c_ptr])
+    rc = fn(img.data_ptr(), base.data_ptr(), gx.data_ptr(), gy.data_ptr(),
+            None if dec is None else dec.data_ptr(), h, w, int(smooth),
+            *_c_taps(taps, smooth, with_pyr), sub,
+            cuda.stream_ptr(img.device))
+    cuda.check(rc, "pft_pyramid_level")
+    launches += 1
     return base, gx, gy, dec
+
+
+def level_shapes(h: int, w: int, sub: int, n_levels: int):
+    """[H_l, W_l] of every level: H_l = H_{l-1} // sub."""
+    shapes = [(h, w)]
+    for _ in range(1, n_levels):
+        h, w = h // sub, w // sub
+        shapes.append((h, w))
+    return shapes
+
+
+def pyramid_build(img: torch.Tensor, taps: LevelTaps, n_levels: int):
+    """A whole pyramid: (imgs, gradxs, gradys), tuples of [H_l, W_l] levels,
+    finest first; level 0's image is the pre-smoothed frame. On CUDA at
+    most two launches, whatever ``n_levels`` (csrc/pyramid.cu
+    pft_pyramid_build): level 0, then every coarser level. The levels are
+    views of one buffer."""
+    global launches
+    if not cuda.use_kernel(img):
+        return pyramid_build_reference(img, taps, n_levels)
+    _require_image(img, "pyramid_build")
+    cuda.require(n_levels >= 1, f"pyramid_build: {n_levels} levels")
+    shapes = level_shapes(*img.shape, taps.subsampling, n_levels)
+    buf = torch.empty((sum(3 * h * w for h, w in shapes),),
+                      dtype=torch.float32, device=img.device)
+    fn = cuda.function("pft_pyramid_build",
+                       [cuda.c_ptr] * 2 + [cuda.c_int] * 4 + _TAP_ARGS
+                       + [cuda.c_ptr] * 2)
+    rc = fn(img.data_ptr(), buf.data_ptr(), *img.shape, n_levels,
+            taps.subsampling, *_c_taps(taps, True, True),
+            _barrier(img.device).data_ptr(), cuda.stream_ptr(img.device))
+    cuda.check(rc, "pft_pyramid_build")
+    launches += 1 if n_levels == 1 else 2
+    levels, off = [], 0
+    for h, w in shapes:
+        n = h * w
+        levels.append(tuple(buf[off + k * n:off + (k + 1) * n].view(h, w)
+                            for k in range(3)))
+        off += 3 * n
+    return tuple(tuple(lv[k] for lv in levels) for k in range(3))

@@ -43,6 +43,11 @@ launches = 0
 # fit. Where the box bitmap goes is the C entry's own choice.
 CHAIN_SMEM_BYTES = 227 * 1024
 ACC_CHUNK = 256
+# Stage A stamps the pre-mask of its four lattice rows in shared memory up
+# to this many bytes (csrc/extract.cu PFT_LATTICE_SMEM: 40,960 columns),
+# in device memory the wrapper passes beyond it.
+LATTICE_SMEM_BYTES = 160 * 1024
+A_WARPS = 4
 
 
 class Candidates(NamedTuple):
@@ -69,7 +74,9 @@ def segment_width(ny: int, nx: int) -> int:
     the smallest power of two of at least 32 columns whose maxima fit
     stage B's shared memory (32 at 480x640, 64 at 768x1280, 128 at
     1080x1920, 256 at 1440x2560, 512 at 2160x3840), else one segment per
-    row. A layout only: the plain versions never refuse a lattice."""
+    row (whose row maxima stage B keeps in device memory when they do not
+    fit either). A layout only: the plain versions never refuse a
+    lattice."""
     seg = 32
     while seg < nx and _chain_smem(ny, -(-nx // seg)) > CHAIN_SMEM_BYTES:
         seg *= 2
@@ -134,11 +141,17 @@ def _launch_lattice(eig, x, y, val, geom, min_eig, radius, out):
     global launches
     fn = cuda.function("pft_candidate_lattice",
                        [cuda.c_ptr, cuda.c_int, cuda.c_int] + [cuda.c_ptr] * 3
-                       + [cuda.c_int] * 10 + [cuda.c_ptr] * 6)
+                       + [cuda.c_int] * 10 + [cuda.c_ptr] * 7)
     borderx, bordery, step, ny, nx = geom
+    stride = out.cells.shape[1]
+    mask = None
+    if A_WARPS * stride > LATTICE_SMEM_BYTES:
+        mask = torch.empty((-(-ny // A_WARPS) * A_WARPS * stride,),
+                           dtype=torch.uint8, device=eig.device)
     rc = fn(eig.data_ptr(), eig.shape[0], eig.shape[1], x.data_ptr(),
             y.data_ptr(), val.data_ptr(), val.shape[0], radius, borderx,
-            bordery, step, ny, nx, min_eig, out.seg, out.cells.shape[1],
+            bordery, step, ny, nx, min_eig, out.seg, stride,
+            None if mask is None else mask.data_ptr(),
             *(t.data_ptr() for t in out[:5]), cuda.stream_ptr(eig.device))
     cuda.check(rc, "pft_candidate_lattice")
     launches += 1
@@ -238,9 +251,10 @@ def _launch_chain(cands, budget, min_eig, dg, max_out, lists, slots, geom,
     x, y, val = slots if slots is not None else (None, None, None)
     cells = cands.cells
     ny, stride = cells.shape
-    # the box bitmap's device-memory scratch, used where it does not fit
-    # in shared memory (the C entry decides)
-    bits = torch.empty((ny, stride // 32), dtype=torch.int32,
+    # device-memory scratch for the box bitmap and, after it, the row
+    # maxima, used where they do not fit in shared memory (the C entry
+    # decides)
+    bits = torch.empty((ny, stride // 32 + 2), dtype=torch.int32,
                        device=cells.device)
     rc = fn(cells.data_ptr(), ny, cands.nx, cands.seg, stride,
             *(t.data_ptr() for t in cands[1:5]), bits.data_ptr(), ptr(budget),

@@ -24,8 +24,6 @@ from ..utils import cuda
 from .cuda_lk import _f32, tree_sum
 from .interp import gather_windows
 
-MAX_WINDOW_PIXELS = 256   # csrc/window_terms.cu: at most 8 pixels per lane
-
 # Kernel launches made by this wrapper.
 launches = 0
 
@@ -68,9 +66,6 @@ def window_terms(img2, gx2, gy2, w1, g1x, g1y, x2, y2, *, hw: int, hh: int,
         return window_terms_reference(img2, gx2, gy2, w1, g1x, g1y, x2, y2,
                                       hw=hw, hh=hh, step_factor=step_factor)
     ww, wh = 2 * hw + 1, 2 * hh + 1
-    cuda.require(ww * wh <= MAX_WINDOW_PIXELS,
-                 f"window_terms kernel takes windows of at most "
-                 f"{MAX_WINDOW_PIXELS} pixels, got {ww}x{wh}")
     n = x2.shape[0]
     cuda.require(all(t.dtype == torch.float32 and t.is_contiguous()
                      for t in imgs + feats)

@@ -5,7 +5,8 @@ port of the pyramid build and level loop of
 ``pyfeaturetrack_tpu/ops/track.py``. A track call is K2
 (ops/cuda_lk.track_pyramid: the coarse-to-fine level loop, the
 coarse-level "broken" rule and the final classification, one launch on
-CUDA); the pyramid build is K1 (ops/cuda_pyramid.pyramid_level).
+CUDA); the pyramid build is K1 (ops/cuda_pyramid.pyramid_build: at most
+two launches on CUDA).
 
 ``track_features`` is the images-in entry of the host API and
 ``fb_reject`` / ``track_features_pyramids_fb`` the forward-backward gate
@@ -25,7 +26,7 @@ from ..errors import KLTGetVerbosity, verbose_print
 from ..features import KLT_FB_INCONSISTENT, KLT_TRACKED, FeatureState
 from .convolve import to_float_image
 from .cuda_lk import TrackCarry, track_pyramid
-from .cuda_pyramid import level_taps, pyramid_level
+from .cuda_pyramid import level_taps, pyramid_build
 
 
 class TrackPyramids(NamedTuple):
@@ -58,18 +59,9 @@ def build_track_pyramids(img: torch.Tensor, cfg) -> TrackPyramids:
     phase. ``img`` is a float32 [H, W] tensor on the device to build on.
     """
     _require_float32_images(cfg)
-    taps = level_taps(cfg)
-    n_levels = cfg.nPyramidLevels
-    imgs, gxs, gys = [], [], []
-    cur = img.to(torch.float32).contiguous()
-    for level in range(n_levels):
-        base, gx, gy, nxt = pyramid_level(cur, taps, smooth=level == 0,
-                                          with_pyr=level < n_levels - 1)
-        imgs.append(base)
-        gxs.append(gx)
-        gys.append(gy)
-        cur = nxt
-    return TrackPyramids(img=tuple(imgs), gradx=tuple(gxs), grady=tuple(gys))
+    imgs, gxs, gys = pyramid_build(img.to(torch.float32).contiguous(),
+                                   level_taps(cfg), cfg.nPyramidLevels)
+    return TrackPyramids(img=imgs, gradx=gxs, grady=gys)
 
 
 def track_features_pyramids_carry(pyr1: TrackPyramids, pyr2: TrackPyramids,

@@ -312,7 +312,19 @@ def test_affine_check_capture_loss_and_replace(mode):
     """Frame A->B captures templates (two lanes arrive lost, one starts
     empty); B->C verifies them; a replace drops the lost lanes' templates,
     and C->D recaptures those lanes while the kept templates persist."""
-    jcfg = create_config(affineConsistencyCheck=mode)
+    _capture_loss_and_replace(mode, 15)
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2])
+def test_affine_check_21x21_window(mode):
+    """The same sequence at a 21x21 affine window (441 samples: above what
+    K6 holds in registers on the card; the plain stage has no limit)."""
+    _capture_loss_and_replace(mode, 21)
+
+
+def _capture_loss_and_replace(mode, win):
+    jcfg = create_config(affineConsistencyCheck=mode, affine_window_width=win,
+                         affine_window_height=win)
     cfg = config_from_jax(jcfg)
     base = make_textured_image(140, 180, seed=21 + mode)
     frames = [base[i:i + 120, 2 * i:2 * i + 160] for i in range(4)]
@@ -384,7 +396,7 @@ def test_affine_state_round_trip():
     back = affine_state_from_numpy(*(a.numpy() for a in taff))
     for name in AFF_FIELDS:
         assert torch.equal(getattr(back, name), getattr(taff, name))
-    fresh = make_affine_state(7, config_from_jax(jcfg))
+    fresh = make_affine_state(7, config_from_jax(jcfg), device="cpu")
     _assert_affine_state(fresh, jax_make_affine_state(7, jcfg), tol=0.0)
     assert affine_state_from_numpy(*(a.numpy() for a in fresh[:7])).nit \
         is None

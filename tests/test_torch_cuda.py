@@ -7,8 +7,10 @@ device; on a GPU machine run them (no JAX needed) with
 Bars: K1, K3, K4 (both stages), K5 and K9 bit-equal; K2 (per level and
 per pyramidal track call), K6 and K8 statuses and iterations equal and
 positions (K6: and warps; K8: the flow and disparity maps) bit-equal (the
-kernels round and sum in their plain versions' order). Inputs are small
-seeded numpy images."""
+kernels round and sum in their plain versions' order); the affine stage
+(K6's stage kernel) bit-equal in the feature list and all eight
+AffineState fields. Inputs are small seeded numpy images, but for the
+wide and tall K4 lattices and the deep K2 pyramids."""
 
 import numpy as np
 import pytest
@@ -65,6 +67,30 @@ def test_pyramid_level_bit_equal(dev, shape, search_range):
         if got[3] is None:
             break
         cur = got[3]
+
+
+@pytest.mark.parametrize("shape", [(481, 643), (120, 160), (60, 700)])
+@pytest.mark.parametrize("levels,sub", [(1, 4), (2, 4), (3, 2), (4, 2),
+                                        (4, 4)])
+@pytest.mark.parametrize("overrides", [
+    {}, {"window_width": 13, "window_height": 13},
+    {"affineConsistencyCheck": 2}])
+def test_pyramid_build_bit_equal(dev, shape, levels, sub, overrides):
+    """K1's whole-pyramid entry against the plain level composition: an odd
+    frame size, a frame whose coarse levels are narrower than a tile, the
+    default, 13x13-window (pre-smooth radius 3) and config-3 sigmas; at
+    most two launches per build."""
+    cfg = tpft.create_config(nPyramidLevels=levels, subsampling=sub,
+                             **overrides)
+    img = torch.tensor(_texture(*shape, seed=shape[1]), device=dev)
+    before = cuda_pyramid.launches
+    got = tpft.build_track_pyramids(img, cfg)
+    assert cuda_pyramid.launches - before == min(levels, 2)
+    want = _plain(tpft.build_track_pyramids, img, cfg)
+    for a, b in zip(got, want):
+        assert len(a) == len(b) == levels
+        for x, y in zip(a, b):
+            assert x.shape == y.shape and torch.equal(x, y)
 
 
 @pytest.mark.parametrize("win", [(7, 7), (5, 9), (3, 3)])
@@ -158,6 +184,33 @@ def test_select_from_eig_bit_equal(dev, mindist, replacing):
     assert replacing or bool(got[3].any())
 
 
+@pytest.mark.parametrize("shape", [(64, 41100), (27900, 64)])
+@pytest.mark.parametrize("replacing", [False, True])
+def test_select_from_eig_wide_and_tall_lattices(dev, shape, replacing):
+    """K4 beyond its earlier caps: a lattice wider than 40,960 columns
+    (stage A's pre-mask in device memory) and one of more than 27,803 rows
+    (stage B's row maxima in device memory), initial selection and refill,
+    both stages equal to the plain versions."""
+    cfg = tpft.create_config()
+    eig, x, y, v = _selection_inputs(dev, cfg, *shape, 400, seed=shape[0])
+    geom = _candidate_grid(cfg, eig.shape)
+    min_eig = int(cfg.min_eigenvalue)
+    radius = premask_radius(cfg, replacing)
+    got = cuda_select.candidate_lattice(eig, x, y, v, geom, min_eig=min_eig,
+                                        radius=radius)
+    want = _plain(cuda_select.candidate_lattice, eig, x, y, v, geom,
+                  min_eig=min_eig, radius=radius)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b) if torch.is_tensor(a) else a == b
+    kw = dict(min_eig=min_eig, dg=(cfg.mindist - 1) // geom[2],
+              replacing=replacing)
+    filled = cuda_select.greedy_fill(got, x, y, v, geom, **kw)
+    for a, b in zip(filled, _plain(cuda_select.greedy_fill, got, x, y, v,
+                                   geom, **kw)):
+        assert torch.equal(a, b)
+    assert bool(filled[3].any())
+
+
 def test_select_from_eig_1080p(dev):
     """A 1080x1920 initial selection (a 1032 x 1872 lattice: stage B's
     segment maxima at 128 columns) equals the plain version's."""
@@ -207,14 +260,17 @@ def test_select_from_eig_large_frames(dev, shape, seg, replacing):
 @pytest.mark.parametrize("levels,sub", [(1, 4), (2, 4), (3, 2), (4, 2)])
 @pytest.mark.parametrize("overrides", [
     {}, {"lighting_insensitive": True},
-    {"window_width": 13, "window_height": 13}, {"max_iterations": 3}])
+    {"window_width": 13, "window_height": 13}, {"max_iterations": 3},
+    {"window_width": 17, "window_height": 17},
+    {"window_width": 21, "window_height": 21, "lighting_insensitive": True}])
 def test_track_pyramid_bit_equal(dev, levels, sub, overrides):
     """K2's pyramidal entry against the plain level loop: lanes tracked,
     broken at a coarse level (flat block, edges), out of view, and dead
     (val < 0, passed through); one launch per call."""
     cfg = tpft.create_config(nPyramidLevels=levels, subsampling=sub,
                              **overrides)
-    h, w = 192, 256
+    # windows above 15x15 need a larger frame for their coarsest level
+    h, w = (192, 256) if cfg.window_width <= 15 else (384, 512)
     li = cfg.lighting_insensitive
     base = _texture(h + 8, w + 8, seed=19)
     a = base[:h, :w].copy()
@@ -248,6 +304,11 @@ def test_track_pyramid_bit_equal(dev, levels, sub, overrides):
     {"window_width": 11, "window_height": 11},
     {"window_width": 13, "window_height": 13},
     {"window_width": 15, "window_height": 15},
+    {"window_width": 17, "window_height": 17},
+    {"window_width": 25, "window_height": 25},
+    {"window_width": 31, "window_height": 31, "lighting_insensitive": True},
+    {"window_width": 51, "window_height": 51},
+    {"window_width": 15, "window_height": 19},
 ])
 def test_lk_level_bit_equal(dev, overrides):
     cfg = tpft.create_config(**overrides)
@@ -273,27 +334,30 @@ def test_lk_level_bit_equal(dev, overrides):
         assert torch.equal(a, b)
 
 
-def test_lk_level_rejects_windows_beyond_the_warp_layout(dev):
-    cfg = tpft.create_config(window_width=17, window_height=17)
-    img = torch.zeros((64, 64), device=dev)
-    x = torch.full((4,), 30.0, device=dev)
-    act = torch.ones(4, dtype=torch.bool, device=dev)
-    with pytest.raises(ValueError):
-        cuda_lk.lk_level(x, x, x, x, img, img, img, img, img, img, cfg, act)
-
-
-def test_track_pyramid_rejects_levels_beyond_the_cap(dev):
-    """The kernel takes the level pointers by value for at most
-    cuda_lk.MAX_LEVELS levels; the wrapper raises above that."""
-    from types import SimpleNamespace
-    levels = cuda_lk.MAX_LEVELS + 1
-    cfg = tpft.create_config(nPyramidLevels=levels, subsampling=2)
-    imgs = tuple(torch.zeros((8, 8), device=dev) for _ in range(levels))
-    pyr = SimpleNamespace(img=imgs, gradx=imgs, grady=imgs)
-    x = torch.full((4,), 3.0, device=dev)
-    val = torch.zeros(4, dtype=torch.int32, device=dev)
-    with pytest.raises(ValueError):
-        cuda_lk.track_pyramid(pyr, pyr, x, x, val, cfg)
+@pytest.mark.parametrize("levels,sub,shape", [(9, 2, (1024, 1536)),
+                                              (12, 2, (4096, 4096)),
+                                              (40, 1, (64, 80))])
+def test_track_pyramid_deep_pyramids(dev, levels, sub, shape):
+    """K2 at 9 and 12 levels (subsampling 2) and at 40 (subsampling 1: the
+    level table in device memory) against its plain level loop."""
+    cfg = tpft.create_config(nPyramidLevels=levels, subsampling=sub)
+    h, w = shape
+    base = _texture(h + 4, w + 4, seed=levels)
+    p1, p2 = (tpft.build_track_pyramids(torch.tensor(
+        np.ascontiguousarray(f), device=dev), cfg)
+        for f in (base[:h, :w], base[1:h + 1, 2:w + 2]))
+    rng = np.random.default_rng(levels)
+    n = 300
+    x, y = (torch.tensor(rng.uniform(0, e, n), dtype=torch.float32,
+                         device=dev) for e in (w, h))
+    val = torch.tensor(np.where(rng.uniform(size=n) < 0.1, -1, 0),
+                       dtype=torch.int32, device=dev)
+    before = cuda_lk.launches
+    got = cuda_lk.track_pyramid(p1, p2, x, y, val, cfg)
+    assert cuda_lk.launches == before + 1
+    want = _plain(cuda_lk.track_pyramid, p1, p2, x, y, val, cfg)
+    for a_, b_ in zip(got, want):
+        assert torch.equal(a_, b_)
 
 
 def test_sequence_on_card_equals_plain_on_cpu(dev):
@@ -362,7 +426,8 @@ def test_dense_level_bit_equal(dev, overrides, one_d):
     assert {0, -4}.issubset(set(got[-2].flatten().tolist()))
 
 
-@pytest.mark.parametrize("win", [(7, 7), (3, 5), (15, 15)])
+@pytest.mark.parametrize("win", [(7, 7), (3, 5), (15, 15), (17, 17),
+                                 (25, 25), (31, 31), (51, 51)])
 def test_window_terms_bit_equal(dev, win):
     """K9 against its plain version, with lanes beyond every edge (the
     clamp moves them in)."""
@@ -471,6 +536,84 @@ def test_affine_track_bit_equal(dev, mode, win):
         assert torch.equal(a_, b_)
     codes = set(got[3][check].tolist())
     assert {0, -4}.issubset(codes), codes
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2])
+@pytest.mark.parametrize("win", [(17, 17), (25, 25), (31, 31), (51, 51)])
+def test_affine_track_large_windows_bit_equal(dev, mode, win):
+    """K6 at windows above 256 samples (the window walked sample by
+    sample) against its plain version, on a frame large enough that most
+    lanes' windows fit."""
+    ww, wh = win
+    cfg = tpft.create_config(affineConsistencyCheck=mode,
+                             affine_window_width=ww, affine_window_height=wh)
+    h, w = 240, 320
+    base = _texture(h + 8, w + 8, seed=25)
+    a, b = base[:h, :w].copy(), np.ascontiguousarray(base[1:h + 1, 2:w + 2])
+    b[20:80, 200:280] = np.random.default_rng(3).uniform(0, 255, (60, 80))
+    p1, p2 = (tpft.build_track_pyramids(torch.tensor(f, device=dev), cfg)
+              for f in (a, b))
+    rng = np.random.default_rng(ww + mode)
+    n = 200
+    x = torch.tensor(rng.uniform(0, w, n), dtype=torch.float32, device=dev)
+    y = torch.tensor(rng.uniform(0, h, n), dtype=torch.float32, device=dev)
+    tmpl = gather_window(p1.img[0], x, y, ww // 2, wh // 2).contiguous()
+    off = torch.tensor(rng.uniform(-0.5, 0.5, (2, n)), dtype=torch.float32,
+                       device=dev)
+    A0 = torch.eye(2, device=dev).repeat(n, 1, 1).contiguous()
+    check = torch.tensor(rng.uniform(size=n) > 0.1, device=dev)
+    args = (tmpl, p2.img[0], p2.gradx[0], p2.grady[0], x - 2.0 + off[0],
+            y - 1.0 + off[1], A0, check, cfg)
+    got = cuda_affine.affine_track_batch(*args)
+    want = _plain(cuda_affine.affine_track_batch, *args)
+    for a_, b_ in zip(got, want):
+        assert torch.equal(a_, b_)
+    assert {0, -4}.issubset(set(got[3][check].tolist()))
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2])
+@pytest.mark.parametrize("win", [15, 21])
+def test_affine_stage_bit_equal(dev, mode, win):
+    """K6's stage kernel (one launch per stage) against the eager stage on
+    the card, over a capture step, two check steps and a replace: the
+    feature list and all eight AffineState fields, bit for bit."""
+    from pyfeaturetrack_tpu_torch.features import FeatureState, reset_affine
+    from pyfeaturetrack_tpu_torch.ops.affine import affine_consistency_check
+    cfg = tpft.create_config(mindist=6, affineConsistencyCheck=mode,
+                             affine_window_width=win,
+                             affine_window_height=win)
+    base = _texture(150, 200, seed=40 + mode)
+    frames = [np.ascontiguousarray(base[i:i + 120, 2 * i:2 * i + 160])
+              for i in range(4)]
+    frames[2][30:60, 40:80] = np.random.default_rng(mode).uniform(
+        0, 255, (30, 40))
+    pyrs = [tpft.build_track_pyramids(torch.tensor(f, device=dev), cfg)
+            for f in frames]
+    fl = tpft.KLTSelectGoodFeatures(cfg, frames[0], 60)
+    x, y, v = fl.x, fl.y, fl.val
+    v = torch.where(torch.arange(60, device=dev) % 9 == 4, -1, v)
+    aff = tpft.make_affine_state(60, cfg)
+    for i in range(3):
+        tx, ty, tv = tpft.track_features_pyramids(pyrs[i], pyrs[i + 1], x, y,
+                                                  v, cfg)
+        args = (pyrs[i], pyrs[i + 1], FeatureState(x, y, v, aff),
+                FeatureState(tx, ty, tv, aff), cfg)
+        before = cuda_affine.launches
+        got = affine_consistency_check(*args)
+        assert cuda_affine.launches == before + 1
+        want = _plain(affine_consistency_check, *args)
+        for a_, b_ in zip(got[:3], want[:3]):
+            assert torch.equal(a_, b_)
+        for name in got.aff._fields:
+            assert torch.equal(getattr(got.aff, name),
+                               getattr(want.aff, name)), name
+        x, y, v, aff = got.x, got.y, got.val, got.aff
+        if i == 1:                      # a replace drops the lost templates
+            lost = v < 0
+            x, y = torch.where(lost, 80.0, x), torch.where(lost, 60.0, y)
+            v = torch.where(lost, 500, v)
+            aff = reset_affine(aff, lost)
+    assert bool(aff.valid.any())
 
 
 @pytest.mark.parametrize("mode", [0, 2])

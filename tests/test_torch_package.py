@@ -177,6 +177,18 @@ def test_cuda_request_without_cuda_raises():
         tpft.track_sequence_device(frames, n_features=4, device="cuda")
 
 
+def test_make_affine_state_defaults_to_the_card():
+    """make_affine_state, like create_feature_list, lands on the card
+    unless the caller asks for the CPU: without a card the call raises."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    cfg = tpft.create_config(affineConsistencyCheck=2)
+    with pytest.raises((RuntimeError, AssertionError)):
+        tpft.make_affine_state(4, cfg)
+    aff = tpft.make_affine_state(4, cfg, device="cpu")
+    assert aff.img.shape == (4, 15, 15) and aff.img.device.type == "cpu"
+
+
 def test_out_of_slice_parts_raise():
     from pyfeaturetrack_tpu_torch.models.device_sequence import (
         sequence_chain_device)

@@ -86,6 +86,45 @@ def test_levels_match_pallas_fused_level_build(shape):
             cur = tdec.numpy()
 
 
+def _assert_builds_match(jp, tp):
+    """Every level within TOL; a level the JAX reference's fused gradient
+    pair leaves at (6, 6) (the listed fault below: levels narrower than its
+    kernel) must be all zero in the port at the level's own shape."""
+    for field in ("img", "gradx", "grady"):
+        for lv, (a, b) in enumerate(zip(getattr(jp, field),
+                                        getattr(tp, field))):
+            a, b = _pair(a, b)
+            if a.shape != b.shape:
+                assert field != "img" and a.shape == (6, 6), (field, lv)
+                assert b.shape == tp.img[lv].shape and not b.any()
+                continue
+            assert np.abs(a - b).max() <= TOL, (field, lv,
+                                                np.abs(a - b).max())
+
+
+@pytest.mark.parametrize("levels,sub", [(1, 4), (2, 4), (3, 4), (4, 4),
+                                        (1, 2), (2, 2), (3, 2), (4, 2),
+                                        (9, 2)])
+def test_multi_level_builds_match_jax_xla(levels, sub):
+    """The plain whole-pyramid build (cuda_pyramid.pyramid_build on CPU
+    tensors: pyramid_level_reference composed over the levels) against
+    JAX's build_track_pyramids, 1-4 levels at subsampling 2 and 4 and nine
+    levels at subsampling 2 (down to 1x1)."""
+    jcfg = create_config(nPyramidLevels=levels, subsampling=sub)
+    shape = (480, 640) if sub == 4 else (300, 400)
+    img = make_textured_image(*shape, seed=10 * levels + sub)
+    jp = jax_build_track_pyramids(jnp.asarray(img, jnp.float32), jcfg)
+    cfg = config_from_jax(jcfg)
+    tp = cuda_pyramid.pyramid_build(torch.tensor(img, dtype=torch.float32),
+                                    cuda_pyramid.level_taps(cfg), levels)
+    assert len(tp[0]) == levels
+    _assert_builds_match(jp, build_track_pyramids(
+        torch.tensor(img, dtype=torch.float32), cfg))
+    for a, b in zip(tp, build_track_pyramids(
+            torch.tensor(img, dtype=torch.float32), cfg)):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
 def test_narrow_levels_are_all_zero():
     """search_range=60 -> 3 levels, subsampling 8: a 64x80 frame gives
     8x10 and 1x1 levels; passes over an extent narrower than their kernel

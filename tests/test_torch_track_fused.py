@@ -7,7 +7,8 @@ with utils/convert.pyramids_from_numpy), over 1-4 levels at subsampling 2
 and 4, with lanes tracked, broken at a coarse level (a flat block gives
 SMALL_DET, windows across the frame's edge OOB), out of view after the
 track (the final border test), and dead (val < 0, passed through); also
-the lighting-insensitive variant and a 13x13 window. Bars: statuses
+the lighting-insensitive variant, 13x13, 17x17 and 25x25 windows and
+nine levels. Bars: statuses
 exact, positions within 1e-4 px (tests/test_track.py:53)."""
 
 import numpy as np
@@ -113,6 +114,23 @@ def test_13x13_window_matches_jax():
     codes = _run(create_config(window_width=13, window_height=13), False,
                  seed=3)
     assert (codes == 0).sum() >= 10
+
+
+@pytest.mark.parametrize("win", [17, 25])
+def test_large_windows_match_jax(win):
+    """Windows above 256 pixels, which K2 walks pixel by pixel on the card
+    (its plain version has no such limit)."""
+    codes = _run(create_config(window_width=win, window_height=win), False,
+                 seed=win, shape=(320, 384))
+    assert (codes == 0).sum() >= 10
+
+
+def test_nine_levels_match_jax():
+    """Nine levels at subsampling 2 (the coarsest 1x1): every lane breaks
+    at a coarse level or leaves the view, as in JAX."""
+    codes = _run(create_config(nPyramidLevels=9, subsampling=2), False,
+                 seed=9, shape=(320, 384))
+    assert (codes == -4).all()
 
 
 def test_coarse_break_freezes_the_break_level_position():
