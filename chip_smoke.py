@@ -49,14 +49,17 @@ Phases, in order; the first failure exits non-zero:
    200 times), the tracks must recover the drift,
    the last frame must be fully live, and a 10-frame run through the
    plain versions must give the identical feature table (x, y, val);
-   K5 bit-equal in flags, index list and count on the sorted candidate
-   list of a real 480x640 frame (255,744 candidates, budget 1000), of a
-   refill (40 free slots after the pre-mask), of a synthetic mix (mindist
-   0, 1, 10, 25, 60; budgets 0, 7, unlimited; candidates at every edge;
-   10 % invalid) and of a 1080x1920 frame (the coverage grid in global
-   memory); K5 and the torch.sort before it timed beside K4's initial
-   selection on the same map, K5 on the refill, and the two routes'
-   selections equal;
+   K5 bit-equal on the host API's sorted candidate lattice of a real
+   480x640 frame (255,744 candidates, budget 1000), of a refill (40 free
+   slots after the pre-mask), of a synthetic mix and of a 1080x1920 frame
+   (the coverage grid in global memory), through both entries: the list
+   entry (flags, index list and count; the mix: pixel lists with
+   candidates at every edge, 10 % invalid, mindist 0, 1, 10, 25, 60,
+   budgets 0, 7, unlimited) and the fused entry (the slots x, y, val, one
+   launch; the mix: a full-frame lattice of tied values with 2000 slots at
+   budgets 0, 7 and all); the sort and both entries timed beside K4's
+   initial selection on the same map, the fused entry on the refill, and
+   the two routes' selections equal;
 5. affine  — track_sequence_device with config 3 on 100 synthetic 480x640
    frames under a known slow similarity motion, 1000 features,
    replace-lost on: K1-K4 and K6 must have launched (K1 200, K2 99, K4
@@ -71,28 +74,33 @@ Phases, in order; the first failure exits non-zero:
 6. config 1 — example 1 through the facade (KLTSelectGoodFeatures,
    KLTTrackFeatures) on examples/data/img0.pgm -> img1.pgm, 100 features:
    K1 (five launches: two builds and the selection's level 0), K2
-   (once), K3, K4 (stage A, once) and K5 must have launched, and
-   the selected and tracked lists must equal the same calls through the
-   plain versions;
+   (once), K3, K4 (stage A, once) and K5 (once: one launch per host-API
+   selection) must have launched, and the selected and tracked lists must
+   equal the same calls through the plain versions;
 7. config 2 — track_sequence (the host-API loop: sort + K5 refills) on the
-   main phase's 100 frames, 1000 features, replace-lost on: K5 (and K4's
-   stage A before it) must have launched on the first frame and on the
-   refills, K2 once per step, the table must equal
+   main phase's 100 frames, 1000 features, replace-lost on: one K5 launch
+   and one K4 stage A per host-API selection (the first frame and every
+   refill), K2 once per step, the table must equal
    track_sequence_device's, and a 10-frame config-3 run must equal the
    device route's table and AffineState; then the SequenceTracker.step
    time (CUDA events);
 8. dense   — (a) compute_dense_flow on the main phase's first 480x640
-   pair (default config): K1 and K8 launch 4 and 2 times, the maps equal
-   the plain route's bit for bit, the median flow of the tracked interior
-   is the drift within 0.05 px; dense_flow_fb (K8 4 launches); the call
-   timed by CUDA events; K8's 2-D mode at level 0 bit-equal and timed.
+   pair (default config): K1 and K8 launch 4 and 2 times and no
+   upsample_flow runs outside K8, the maps equal the plain route's bit for
+   bit, the median flow of the tracked interior is the drift within 0.05
+   px; dense_flow_fb (K8 4 launches); the call timed by CUDA events; K8's
+   2-D mode at level 0, started from the level-1 flow upsampled in the
+   kernel, bit-equal and timed, and equal to the level started from the
+   plain upsample_flow's maps; its mean iterations per pixel beside the
+   mean of each warp's largest count (32 consecutive pixels, 4 x 8).
    (b) example 9's pair (examples/data): tracked share and median flow
    beside the sparse facade's median displacement, maps equal to the plain
    route's. (c) dense_depth on a rectified 480x640 two-plane pair
    (background disparity 4, box 32, max_disparity 64): K1 8 and K8 4
-   launches, maps equal to the plain route's, each plane's median
-   disparity within 0.1 px, the occluded band mostly invalid, the call
-   timed; K8's 1-D mode at level 0 bit-equal and timed. K9 bit-equal on
+   launches, no upsample_flow outside K8, maps equal to the plain route's,
+   each plane's median disparity within 0.1 px, the occluded band mostly
+   invalid, the call timed; K8's 1-D mode at level 0 (upsampled start)
+   bit-equal and timed, as in (a). K9 bit-equal on
    the main pair's 1000 features (windows at the selected features,
    frame-2 positions at K2's tracked ones; also at 17x17 to 51x51
    windows) and on a mix with lanes beyond every edge, timed. (d) track_sequence(subpixel_refine=True) on 10
@@ -105,14 +113,16 @@ Phases, in order; the first failure exits non-zero:
    then for each a torch.profiler trace of 30 steps
    (build/profile/step_trace_<config>.json): device kernels, busy time
    and idle share per step, and the largest device items; the same for 10
-   compute_dense_flow calls (build/profile/dense_flow_trace.json).
+   compute_dense_flow calls (build/profile/dense_flow_trace.json), each
+   of which must show nPyramidLevels K8 launches.
 
 Prints the per-kernel JSON line (times by events and on the device,
 launches, error, and the bound:
 the larger of the bytes each kernel must move over 3.35 TB/s and its
 float32 operations over 67 TFLOP/s, computed from this run's inputs;
-K8's entry also carries its 1-D mode's times and bound, K2's the windows
-its status mix ran at; K9's launches are those of its own phase's driven
+K8's entry also carries its 1-D mode's times and bound, K5's its list
+entry's, K2's the windows its status mix ran at; K9's launches are those
+of its own phase's driven
 call, since no path of the package runs it),
 then the nvidia-smi line, then, as the last line, {"ok": true, "device":
 {...}}. Imports nothing of JAX.
@@ -121,6 +131,7 @@ then the nvidia-smi line, then, as the last line, {"ok": true, "device":
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -235,6 +246,21 @@ def k2_levels(pa, pb, x, y, live, cfg, cuda_lk, reference_path):
         yout = torch.where(active, got[1], yout)
         broken = broken | (active & ((got[2] == KLT_SMALL_DET) |
                                      (got[2] == KLT_OOB)))
+
+
+@contextlib.contextmanager
+def counted(modules, name):
+    """Count the calls of ``name`` in each of ``modules`` while active: the
+    list yielded gets one entry per call."""
+    calls = []
+    saved = [(m, getattr(m, name)) for m in modules]
+    for m, f in saved:
+        setattr(m, name, lambda *a, _f=f, **k: calls.append(1) or _f(*a, **k))
+    try:
+        yield calls
+    finally:
+        for m, f in saved:
+            setattr(m, name, f)
 
 
 def expect_launches(counts, expect, path):
@@ -585,6 +611,16 @@ def k5_work(k, n_acc, order, budget, mindist, max_out):
             scanned + int(n_acc.item()) * box)
 
 
+def k5_fill_work(k, n_acc, order, budget, mindist, n):
+    """One call of K5's fused entry: the candidates its scan read (int32
+    key, int64 order) and the n slots (x, y, val) read and written once;
+    one coverage test per candidate read and one store per cell of each
+    accepted box."""
+    scanned = k5_scanned(k, n_acc, order, budget)
+    box = (2 * max(mindist - 1, -1) + 1) ** 2
+    return scanned * 12 + 24 * n, scanned + int(n_acc.item()) * box
+
+
 def k6_work(cfg, check, nit):
     """Bytes and operations of one K6 call as this run's lanes needed them:
     each checked lane's template and the (ww+1)(wh+1) footprint of the
@@ -643,11 +679,12 @@ def k6_stage_work(cfg, args, out):
     return nbytes, gn_ops + n_cap * npx * 27
 
 
-def k8_work(cfg, status, iterations, one_d):
+def k8_work(cfg, status, iterations, one_d, coarse=None):
     """Bytes and operations of one K8 level as this run's pixels needed
     them. Bytes: the level images it reads once (six; four in the 1-D mode,
-    which reads no gy) and the maps in and out (2-D: u, v in; u, v,
-    status, iteration out; 1-D: d in; d, status, iteration out).
+    which reads no gy), the maps in (2-D: u, v; 1-D: d; level-sized, or of
+    the ``coarse`` shape when the kernel upsamples them, 20 operations per
+    pixel and map) and out (u, v or d, status, iteration).
     Operations per window pixel: the frame-1 windows sit on integer
     coordinates and need no blend; per iteration 2-D 34 (three frame-2
     blends, the residual, two gradient sums, five products and sums) and
@@ -663,10 +700,69 @@ def k8_work(cfg, status, iterations, one_d):
     reached = int(((status == KLT_TRACKED) | (status == KLT_LARGE_RESIDUE)
                    | (status == KLT_MAX_ITERATIONS)).sum().item())
     h, w = iterations.shape
+    nmaps = 1 if one_d else 2
+    hm, wm = (h, w) if coarse is None else coarse
+    maps = 4 * nmaps * hm * wm
+    up = 0 if coarse is None else 20 * nmaps * n
     if one_d:
-        return (4 * 4 * h * w + n * 16,
-                reached * npx * 10 + its * (npx * 20 + 4))
-    return 6 * 4 * h * w + n * 24, reached * npx * 10 + its * (npx * 34 + 12)
+        return (4 * 4 * h * w + maps + n * 12,
+                reached * npx * 10 + its * (npx * 20 + 4) + up)
+    return (6 * 4 * h * w + maps + n * 16,
+            reached * npx * 10 + its * (npx * 34 + 12) + up)
+
+
+def warp_max_mean(iterations, wh: int, ww: int) -> float:
+    """Mean over warps of each warp's largest iteration count, for warps
+    covering wh x ww pixel blocks of the map (edge blocks padded with 0)."""
+    import torch.nn.functional as F
+    it = iterations.float()[None, None]
+    return F.max_pool2d(it, (wh, ww), ceil_mode=True).mean().item()
+
+
+def iteration_line(iterations) -> str:
+    """Mean iterations per pixel and the warp-max means of the parent's
+    layout (32 consecutive row-major pixels per warp) and K8's (4 x 8)."""
+    return (f"iterations per pixel mean {iterations.float().mean().item():.4f}"
+            f", mean of each warp's largest count: 32 consecutive pixels "
+            f"{warp_max_mean(iterations, 1, 32):.4f}, 4 x 8 blocks "
+            f"{warp_max_mean(iterations, 4, 8):.4f}")
+
+
+def dense_flow_levels(pft, frames, cfg, dev):
+    """K8's inputs at level 0 of dense case (a): the pair's pyramids, the
+    level-0 images and the level-1 flow (solved from zero) that the path
+    upsamples into level 0's start."""
+    import torch
+    from pyfeaturetrack_tpu_torch.ops import cuda_lk_dense
+    p1, p2 = (pft.build_track_pyramids(
+        torch.as_tensor(f, device=dev).to(torch.float32), cfg)
+        for f in frames[:2])
+    lvl = [tuple(p[r] for p in (p1.img, p1.gradx, p1.grady, p2.img, p2.gradx,
+                                p2.grady)) for r in (0, 1)]
+    u1, v1, _, _ = cuda_lk_dense.dense_level_up(*lvl[1], None, None,
+                                                float(cfg.subsampling), cfg)
+    return p1, p2, lvl[0], u1, v1
+
+
+def dense_depth_levels(pft, cfg, dev):
+    """K8's 1-D inputs at level 0 of dense case (c): the left-reference
+    pass's level-0 images and its level-1 disparity (refined from the SSD
+    seed map), which the path upsamples into level 0's start."""
+    import torch
+    from pyfeaturetrack_tpu_torch.ops import cuda_lk_dense
+    from pyfeaturetrack_tpu_torch.ops.disparity import _hypothesis_init
+    left, right, _ = make_stereo_pair()
+    pl, pr = (pft.build_track_pyramids(torch.as_tensor(f, device=dev), cfg)
+              for f in (left, right))
+    hw, n_lv = cfg.window_width // 2, cfg.nPyramidLevels
+    hyp = tuple(range(0, int(64.0 / float(cfg.subsampling) ** (n_lv - 1)) + 1,
+                      hw + 1))
+    dseed = _hypothesis_init(pl.img[1], pr.img[1], hyp, hw,
+                             cfg.window_height // 2)
+    lvl = [tuple(p[r] for p in (pl.img, pl.gradx, pl.grady, pr.img, pr.gradx,
+                                pr.grady)) for r in (0, 1)]
+    d1, _, _ = cuda_lk_dense.dense_level_1d(*lvl[1], dseed, cfg)
+    return lvl[0], d1
 
 
 def k9_work(n, ww, wh):
@@ -791,26 +887,30 @@ def device_ms(fn, kernels, out_dir, reps: int = 20):
     """Device time per fn() call (ms) of the kernels whose names hold one of
     ``kernels``, summed over their launches, from torch.profiler's kernel
     durations over reps calls after one warm-up; and their launches per
-    call. The trace goes to out_dir/kernel_times.json."""
+    call. The trace goes to out_dir/kernel_times.json. A trace that holds
+    none of the kernels is taken again, twice at most."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     out_dir.mkdir(parents=True, exist_ok=True)
     path = out_dir / "kernel_times.json"
-    prof.export_chrome_trace(str(path))
-    trace = json.loads(path.read_text())
-    durs = [e["dur"] for e in trace.get("traceEvents", trace)
-            if e.get("cat") == "kernel"
-            and any(k in e.get("name", "") for k in kernels)]
-    if not durs:
-        fail(f"the profiler recorded no launch of {kernels}")
-    return sum(durs) / reps / 1e3, len(durs) / reps
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(str(path))
+        trace = json.loads(path.read_text())
+        durs = [e["dur"] for e in trace.get("traceEvents", trace)
+                if e.get("cat") == "kernel"
+                and any(k in e.get("name", "") for k in kernels)]
+        if durs:
+            return sum(durs) / reps / 1e3, len(durs) / reps
+        print(f"the profiler recorded no launch of {kernels} (attempt "
+              f"{attempt + 1})")
+    fail(f"the profiler recorded no launch of {kernels}")
 
 
 def time_ms(fn, reps: int = 20) -> float:
@@ -932,12 +1032,14 @@ def trace_summary(prof, out, n_steps):
     for short, (t, c) in sorted(per_name.items(), key=lambda kv: -kv[1][0])[:12]:
         print(f"  {t / n_steps:8.1f} us/step  {c / n_steps:5.1f} launches/step  "
               f"{short}")
+    return kern
 
 
 def profile_dense(pft, frames, root, n_prof=10):
     """Dense flow under ``--profile``: a torch.profiler trace of n_prof
     compute_dense_flow calls on the main phase's first pair
-    (build/profile/dense_flow_trace.json); a "step" is one call."""
+    (build/profile/dense_flow_trace.json); a "step" is one call. Each call
+    must show nPyramidLevels K8 launches among its device kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     phase(f"profile, dense flow: {n_prof} traced compute_dense_flow calls "
@@ -950,8 +1052,15 @@ def profile_dense(pft, frames, root, n_prof=10):
         for _ in range(n_prof):
             pft.compute_dense_flow(frames[0], frames[1])
         torch.cuda.synchronize()
-    trace_summary(prof, root / "build" / "profile" / "dense_flow_trace.json",
-                  n_prof)
+    kern = trace_summary(prof, root / "build" / "profile" /
+                         "dense_flow_trace.json", n_prof)
+    levels = pft.create_config().nPyramidLevels
+    k8 = sum("lk_tile_kernel" in name for _, _, name in kern) / n_prof
+    print(f"device kernels per compute_dense_flow call: "
+          f"{len(kern) / n_prof:.1f}, of them K8 {k8:.1f} "
+          f"(nPyramidLevels {levels})")
+    if k8 != levels:
+        fail(f"the traced dense calls ran {k8} K8 launches each")
 
 
 def host_loop_times(pft, cfg, staged, warmup=10):
@@ -1031,11 +1140,13 @@ def dense_phase(pft, frames, ex, sparse, mods, report, dev, smi, prof_dir):
     import numpy as np
     import torch
     from pyfeaturetrack_tpu_torch.features import KLT_TRACKED
-    from pyfeaturetrack_tpu_torch.ops import cuda_lk_dense, cuda_window_terms
-    from pyfeaturetrack_tpu_torch.ops.disparity import _hypothesis_init
-    from pyfeaturetrack_tpu_torch.ops.flow import dense_flow_fb, upsample_flow
-    from pyfeaturetrack_tpu_torch.ops.interp import gather_window
+    from pyfeaturetrack_tpu_torch.ops import (cuda_lk_dense, cuda_window_terms,
+                                              flow, interp)
+    from pyfeaturetrack_tpu_torch.ops.flow import dense_flow_fb
+    from pyfeaturetrack_tpu_torch.ops.interp import (gather_window,
+                                                     upsample_flow)
     from pyfeaturetrack_tpu_torch.utils import cuda
+    up_mods = (interp, flow, cuda_lk_dense)  # every name upsample_flow has
 
     def drive(fn, expect):
         """fn() with every count set to 0 just before and read just after;
@@ -1059,9 +1170,13 @@ def dense_phase(pft, frames, ex, sparse, mods, report, dev, smi, prof_dir):
     phase(f"dense (a): compute_dense_flow, {H}x{W} pair of the main phase "
           f"(drift {DRIFT}), default config, then dense_flow_fb")
     a0, a1 = frames[0], frames[1]
-    fl, counts = drive(lambda: pft.compute_dense_flow(a0, a1),
-                       {"K1": 2 * k1_per_frame, "K8": cfg.nPyramidLevels})
-    print(f"launches in the dense-flow run: {counts}")
+    with counted(up_mods, "upsample_flow") as ups:
+        fl, counts = drive(lambda: pft.compute_dense_flow(a0, a1),
+                           {"K1": 2 * k1_per_frame, "K8": cfg.nPyramidLevels})
+    print(f"launches in the dense-flow run: {counts}; upsample_flow calls "
+          f"{len(ups)}")
+    if ups:
+        fail("compute_dense_flow upsampled a map outside K8")
     k8_launches = counts["K8"]
     with cuda.reference_path():
         pl = pft.compute_dense_flow(a0, a1)
@@ -1078,10 +1193,12 @@ def dense_phase(pft, frames, ex, sparse, mods, report, dev, smi, prof_dir):
           f"equal to the plain route's")
     if abs(mu - DRIFT[0]) > DRIFT_TOL or abs(mv - DRIFT[1]) > DRIFT_TOL:
         fail("the dense flow does not recover the drift")
-    p1, p2 = (pft.build_track_pyramids(
-        torch.as_tensor(f, device=dev).to(torch.float32), cfg) for f in (a0, a1))
-    (fwd, err, valid), counts = drive(lambda: dense_flow_fb(p1, p2, cfg),
-                                      {"K8": 2 * cfg.nPyramidLevels})
+    p1, p2, lvl0, u1, v1 = dense_flow_levels(pft, frames, cfg, dev)
+    with counted(up_mods, "upsample_flow") as ups:
+        (fwd, err, valid), counts = drive(lambda: dense_flow_fb(p1, p2, cfg),
+                                          {"K8": 2 * cfg.nPyramidLevels})
+    if ups:
+        fail("dense_flow_fb upsampled a map outside K8")
     if not torch.equal(fwd.u, fl.u):
         fail("dense_flow_fb's forward flow differs from compute_dense_flow's")
     print(f"dense_flow_fb: launches {counts}; valid share "
@@ -1092,32 +1209,33 @@ def dense_phase(pft, frames, ex, sparse, mods, report, dev, smi, prof_dir):
           f"{cfg.nPyramidLevels} K8 levels), median of 10: CUDA events "
           f"{flow_ms:.4f} ms, host wall {flow_wall:.4f} ms; card {smi}")
 
-    # K8 at level 0 of (a): the level-1 result upsampled, as the path does
-    u1, v1, _, _ = cuda_lk_dense.dense_level(
-        *(p[1] for p in (p1.img, p1.gradx, p1.grady, p2.img, p2.gradx,
-                         p2.grady)),
-        torch.zeros_like(p1.img[1]), torch.zeros_like(p1.img[1]), cfg)
+    # K8 at level 0 of (a) as the path runs it: the start upsampled from
+    # the level-1 flow in the kernel; then from the plain upsample_flow's
+    # maps (the map start), which must give the same maps
     s = float(cfg.subsampling)
-    lvl0 = (p1.img[0], p1.gradx[0], p1.grady[0], p2.img[0], p2.gradx[0],
-            p2.grady[0])
-    k8_args = (*lvl0, upsample_flow(u1, (H, W), s), upsample_flow(v1, (H, W), s),
-               cfg)
-    got = cuda_lk_dense.dense_level(*k8_args)
+    k8_args = (*lvl0, u1, v1, s, cfg)
+    got = cuda_lk_dense.dense_level_up(*k8_args)
     with cuda.reference_path():
-        want = cuda_lk_dense.dense_level(*k8_args)
-    maps_equal(got, want, "K8 2-D level 0")
-    k8_ms = time_ms(lambda: cuda_lk_dense.dense_level(*k8_args))
-    k8_dev, _ = device_ms(lambda: cuda_lk_dense.dense_level(*k8_args),
-                          ["::lk_dense_kernel"], prof_dir, reps=10)
+        want = cuda_lk_dense.dense_level_up(*k8_args)
+    maps_equal(got, want, "K8 2-D level 0, upsampled start")
+    maps_args = (*lvl0, upsample_flow(u1, (H, W), s),
+                 upsample_flow(v1, (H, W), s), cfg)
+    got_m = cuda_lk_dense.dense_level(*maps_args)
     with cuda.reference_path():
-        k8_plain = time_ms(lambda: cuda_lk_dense.dense_level(*k8_args), reps=2)
-    k8_w = k8_work(cfg, got[2], got[3], False)
-    its = got[3].float()
-    print(f"K8 2-D level 0 ({H * W} pixels, iterations mean "
-          f"{its.mean().item():.3f}, max {int(its.max().item())}): kernel "
-          f"{k8_ms:.4f} ms by events, {k8_dev:.4f} ms device, plain "
-          f"{k8_plain:.4f} ms, bound {bound_ms(*k8_w)[0]:.5f} ms "
-          f"({bound_ms(*k8_w)[1]}); bit-equal")
+        want_m = cuda_lk_dense.dense_level(*maps_args)
+    maps_equal(got_m, want_m, "K8 2-D level 0, map start")
+    maps_equal(got_m, got, "K8 2-D level 0, map start vs upsampled start")
+    k8_ms = time_ms(lambda: cuda_lk_dense.dense_level_up(*k8_args))
+    k8_dev, _ = device_ms(lambda: cuda_lk_dense.dense_level_up(*k8_args),
+                          ["::lk_tile_kernel"], prof_dir, reps=10)
+    with cuda.reference_path():
+        k8_plain = time_ms(lambda: cuda_lk_dense.dense_level_up(*k8_args),
+                           reps=2)
+    k8_w = k8_work(cfg, got[2], got[3], False, coarse=tuple(u1.shape))
+    print(f"K8 2-D level 0 ({H * W} pixels, {iteration_line(got[3])}, max "
+          f"{int(got[3].max().item())}): kernel {k8_ms:.4f} ms by events, "
+          f"{k8_dev:.4f} ms device, plain {k8_plain:.4f} ms, bound "
+          f"{bound_ms(*k8_w)[0]:.5f} ms ({bound_ms(*k8_w)[1]}); bit-equal")
 
     # ---- (b) example 9's pair ----
     phase("dense (b): compute_dense_flow on examples/data/img0.pgm -> "
@@ -1145,10 +1263,15 @@ def dense_phase(pft, frames, ex, sparse, mods, report, dev, smi, prof_dir):
     left, right, _ = make_stereo_pair()
     K = np.array([[500.0, 0.0, W / 2], [0.0, 500.0, H / 2], [0.0, 0.0, 1.0]])
     baseline = 0.1
-    (depth, d, vmask), counts = drive(
-        lambda: pft.dense_depth(left, right, K, baseline, max_disparity=64.0),
-        {"K1": 4 * k1_per_frame, "K8": 2 * cfg.nPyramidLevels})
-    print(f"launches in the dense-depth run: {counts}")
+    with counted(up_mods, "upsample_flow") as ups:
+        (depth, d, vmask), counts = drive(
+            lambda: pft.dense_depth(left, right, K, baseline,
+                                    max_disparity=64.0),
+            {"K1": 4 * k1_per_frame, "K8": 2 * cfg.nPyramidLevels})
+    print(f"launches in the dense-depth run: {counts}; upsample_flow calls "
+          f"{len(ups)}")
+    if ups:
+        fail("dense_depth upsampled a map outside K8")
     with cuda.reference_path():
         plain_depth = pft.dense_depth(left, right, K, baseline,
                                       max_disparity=64.0)
@@ -1182,36 +1305,31 @@ def dense_phase(pft, frames, ex, sparse, mods, report, dev, smi, prof_dir):
           f" K8 1-D levels, LR gate, maps to the host), median of 5: CUDA "
           f"events {depth_ms:.4f} ms, host wall {depth_wall:.4f} ms; card {smi}")
 
-    # K8 1-D at level 0 of (c): the seed sweep and level 1, as the path does
-    lf = torch.as_tensor(left, device=dev)
-    rf = torch.as_tensor(right, device=dev)
-    pl_, pr_ = (pft.build_track_pyramids(t, cfg) for t in (lf, rf))
-    hw = cfg.window_width // 2
-    n_lv = cfg.nPyramidLevels
-    hyp = tuple(range(0, int(64.0 / s ** (n_lv - 1)) + 1, hw + 1))
-    dseed = _hypothesis_init(pl_.img[1], pr_.img[1], hyp, hw,
-                             cfg.window_height // 2)
-    d1, _, _ = cuda_lk_dense.dense_level_1d(
-        *(p[1] for p in (pl_.img, pl_.gradx, pl_.grady, pr_.img, pr_.gradx,
-                         pr_.grady)), dseed, cfg)
-    k8d_args = (pl_.img[0], pl_.gradx[0], pl_.grady[0], pr_.img[0],
-                pr_.gradx[0], pr_.grady[0], upsample_flow(d1, (H, W), s), cfg)
-    got = cuda_lk_dense.dense_level_1d(*k8d_args)
+    # K8 1-D at level 0 of (c) as the path runs it: the start upsampled from
+    # the level-1 disparity (refined from the seed sweep) in the kernel; then
+    # from the plain upsample_flow's map
+    lvl0_d, d1 = dense_depth_levels(pft, cfg, dev)
+    k8d_args = (*lvl0_d, d1, s, cfg)
+    got = cuda_lk_dense.dense_level_1d_up(*k8d_args)
     with cuda.reference_path():
-        want = cuda_lk_dense.dense_level_1d(*k8d_args)
-    maps_equal(got, want, "K8 1-D level 0")
-    k8d_ms = time_ms(lambda: cuda_lk_dense.dense_level_1d(*k8d_args))
-    k8d_dev, _ = device_ms(lambda: cuda_lk_dense.dense_level_1d(*k8d_args),
-                           ["::lk_dense_kernel"], prof_dir, reps=10)
+        want = cuda_lk_dense.dense_level_1d_up(*k8d_args)
+    maps_equal(got, want, "K8 1-D level 0, upsampled start")
+    d_args = (*lvl0_d, upsample_flow(d1, (H, W), s), cfg)
+    got_m = cuda_lk_dense.dense_level_1d(*d_args)
     with cuda.reference_path():
-        k8d_plain = time_ms(lambda: cuda_lk_dense.dense_level_1d(*k8d_args),
-                            reps=2)
-    k8d_w = k8_work(cfg, got[1], got[2], True)
-    its = got[2].float()
-    print(f"K8 1-D level 0 ({H * W} pixels, iterations mean "
-          f"{its.mean().item():.3f}, max {int(its.max().item())}): kernel "
-          f"{k8d_ms:.4f} ms by events, {k8d_dev:.4f} ms device, plain "
-          f"{k8d_plain:.4f} ms, bound "
+        want_m = cuda_lk_dense.dense_level_1d(*d_args)
+    maps_equal(got_m, want_m, "K8 1-D level 0, map start")
+    maps_equal(got_m, got, "K8 1-D level 0, map start vs upsampled start")
+    k8d_ms = time_ms(lambda: cuda_lk_dense.dense_level_1d_up(*k8d_args))
+    k8d_dev, _ = device_ms(lambda: cuda_lk_dense.dense_level_1d_up(*k8d_args),
+                           ["::lk_tile_kernel"], prof_dir, reps=10)
+    with cuda.reference_path():
+        k8d_plain = time_ms(
+            lambda: cuda_lk_dense.dense_level_1d_up(*k8d_args), reps=2)
+    k8d_w = k8_work(cfg, got[1], got[2], True, coarse=tuple(d1.shape))
+    print(f"K8 1-D level 0 ({H * W} pixels, {iteration_line(got[2])}, max "
+          f"{int(got[2].max().item())}): kernel {k8d_ms:.4f} ms by events, "
+          f"{k8d_dev:.4f} ms device, plain {k8d_plain:.4f} ms, bound "
           f"{bound_ms(*k8d_w)[0]:.5f} ms ({bound_ms(*k8d_w)[1]}); bit-equal")
     report["K8"] = dict(max_abs_err=0.0, ms=k8_ms, plain_ms=k8_plain,
                         device_ms=k8_dev,
@@ -1344,6 +1462,7 @@ def main(argv=None) -> int:
                                               cuda_window_terms)
     from pyfeaturetrack_tpu_torch.ops.affine import affine_consistency_check
     from pyfeaturetrack_tpu_torch.ops.interp import gather_window
+    from pyfeaturetrack_tpu_torch.ops import select as select_mod
     from pyfeaturetrack_tpu_torch.ops.select import select_features_from_eig
     from pyfeaturetrack_tpu_torch.ops.select_device import (
         _candidate_grid, premask_radius, select_features_from_eig_device)
@@ -1546,16 +1665,21 @@ def main(argv=None) -> int:
         radius=premask_radius(cfg, True)).cells[:, :geom[4]]
     free_ref = v_lost < 0
 
-    # K5 on sorted candidate lists: (a) the real frame's initial selection,
-    # (b) a refill, (c) a synthetic mix, (d) a 1080x1920 frame
+    # K5 on the host API's sorted candidate lists: (a) the real frame's
+    # initial selection, (b) a refill, (c) a synthetic mix, (d) a 1080x1920
+    # frame; each through the list entry (greedy_suppress, flags and index
+    # list) and the fused entry (suppress_and_fill: decode, budget, scan and
+    # slot fill in one launch, the host API's route)
+    min_eig = max(int(cfg.min_eigenvalue), 1)
+
     def sorted_list(cand, shape):
-        """The host API's ordered candidate list of a lattice map (as
-        ops/select.select_features_from_eig builds it)."""
-        bx, by, st, _, ncols = _candidate_grid(cfg, shape)
+        """The host API's sort of a lattice map and the candidate list it
+        decodes to (as ops/select.select_features_from_eig sorts it)."""
         neg, order = torch.sort(-cand.reshape(-1), stable=True)
-        return ((bx + (order % ncols) * st).to(torch.int32),
-                (by + (order // ncols) * st).to(torch.int32),
-                -neg >= max(int(cfg.min_eigenvalue), 1))
+        g = _candidate_grid(cfg, shape)
+        cx, cy, _, valid = cuda_suppress.decode_candidates(neg, order, g,
+                                                           min_eig)
+        return (neg, order, g), (cx, cy, valid)
 
     def k5_case(name, cx, cy, valid, shape, mindist, budget, max_out):
         b = torch.full((1,), budget, dtype=torch.int32, device=dev)
@@ -1567,21 +1691,63 @@ def main(argv=None) -> int:
             want = cuda_suppress.greedy_suppress(cx, cy, valid, **kw)
         torch.cuda.synchronize()
         same = all(torch.equal(a, b_) for a, b_ in zip(got, want))
-        print(f"K5 {name}: {cx.shape[0]} candidates, mindist {mindist}, "
-              f"budget {budget}, grid {grid}: accepted {int(got[2].item())} "
-              f"(plain {int(want[2].item())}), exact {same}")
+        print(f"K5 list entry {name}: {cx.shape[0]} candidates, mindist "
+              f"{mindist}, budget {budget}, grid {grid}: accepted "
+              f"{int(got[2].item())} (plain {int(want[2].item())}), exact "
+              f"{same}")
         if not same:
             fail(f"K5 ({name}) differs from its plain version")
         return got, kw
 
-    cx, cy, cvalid = sorted_list(cand_init, (H, W))
+    def k5_fill_case(name, sort, shape, mindist, x, y, v, replacing,
+                     bar=min_eig):
+        neg, order, g = sort
+        kw = dict(geom=g, min_eig=bar, shape=shape, mindist=mindist, x=x, y=y,
+                  val=v, replacing=replacing)
+        before = cuda_suppress.launches
+        got = cuda_suppress.suppress_and_fill(neg, order, **kw)
+        n_launch = cuda_suppress.launches - before
+        with cuda.reference_path():
+            want = cuda_suppress.suppress_and_fill(neg, order, **kw)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b_) for a, b_ in zip(got, want))
+        free = int((v < 0).sum().item()) if replacing else v.shape[0]
+        grid = "shared" if cuda_suppress.grid_bytes(shape) <= \
+            cuda_suppress.SMEM_GRID_BYTES else "global"
+        filled = int((got[2] >= 0).sum().item()) - (v.shape[0] - free)
+        print(f"K5 fused entry {name}: {neg.shape[0]} sorted candidates, "
+              f"mindist {mindist}, {free} free slots, grid {grid}: filled "
+              f"{filled}, {n_launch} launch, exact {same}")
+        if not same or n_launch != 1:
+            fail(f"K5's fused entry ({name}) differs from its plain version")
+        return (neg, order), kw
+
+    sort_i, (cx, cy, cvalid) = sorted_list(cand_init, (H, W))
     if cx.shape[0] != 255744:
         fail(f"the 480x640 candidate list has {cx.shape[0]} entries")
     k5_init, k5_kw = k5_case("initial (a)", cx, cy, cvalid, (H, W),
                              cfg.mindist, n, n)
-    rx, ry, rvalid = sorted_list(cand_ref, (H, W))
+    k5_fill_init = k5_fill_case("initial (a)", sort_i, (H, W), cfg.mindist,
+                                x0, x0, v0, False)
+    sort_r, (rx, ry, rvalid) = sorted_list(cand_ref, (H, W))
     _, k5_ref_kw = k5_case("refill (b)", rx, ry, rvalid, (H, W), cfg.mindist,
                            int(free_ref.sum().item()), n)
+    k5_fill_ref = k5_fill_case("refill (b)", sort_r, (H, W), cfg.mindist,
+                               x_sel, y_sel, v_lost, True)
+    # (c): pixel lists with candidates at every edge and 10 % invalid (list
+    # entry); a full-frame lattice of tied values, 10 % below the bar, with
+    # 2000 slots at budgets 0, 7 and all (fused entry)
+    mix_vals = torch.as_tensor(rng5.integers(0, 50, (H, W)), dtype=torch.int32,
+                               device=dev)
+    mix_sort = (*torch.sort(-mix_vals.reshape(-1), stable=True),
+                (0, 0, 1, H, W))
+    mix_n = 2000
+    slot_x = torch.as_tensor(rng5.uniform(0, W, mix_n), dtype=torch.float32,
+                             device=dev)
+    slot_y = torch.as_tensor(rng5.uniform(0, H, mix_n), dtype=torch.float32,
+                             device=dev)
+    slot_kept = torch.as_tensor(rng5.integers(0, 5000, mix_n),
+                                dtype=torch.int32, device=dev)
     for mindist in (0, 1, 10, 25, 60):
         k = 20000
         dd = max(mindist - 1, 1)
@@ -1596,32 +1762,49 @@ def main(argv=None) -> int:
                  torch.as_tensor(rng5.uniform(size=k) > 0.1, device=dev))
         for budget in (0, 7, k):
             k5_case("mix (c)", *margs, (H, W), mindist, budget, k)
+        for budget in (0, 7, mix_n):
+            v = slot_kept.clone()
+            v[:budget] = -1
+            k5_fill_case("mix (c)", mix_sort, (H, W), mindist, slot_x, slot_y,
+                         v, budget < mix_n, bar=5)
     cand_hd = cuda_select.candidate_lattice(
         eig_hd, x0, x0, v0, geom_hd, min_eig=int(cfg.min_eigenvalue),
         radius=-1).cells[:, :geom_hd[4]]
-    hx, hy, hvalid = sorted_list(cand_hd, (1080, 1920))
-    k5_case("1080x1920 (d)", hx, hy, hvalid, (1080, 1920), cfg.mindist, n, n)
-    del hd, hd_pyr, eig_hd, cand_hd, hx, hy, hvalid
+    sort_hd, hd_list = sorted_list(cand_hd, (1080, 1920))
+    k5_case("1080x1920 (d)", *hd_list, (1080, 1920), cfg.mindist, n, n)
+    k5_fill_case("1080x1920 (d)", sort_hd, (1080, 1920), cfg.mindist, x0, x0,
+                 v0, False)
+    del hd, hd_pyr, eig_hd, cand_hd, sort_hd, hd_list, mix_vals, mix_sort
 
-    # times on the real frame's initial selection: the sort, K5, and K4's
-    # selection of the same 1000 features from the same map; K5 on the
-    # refill (b)
+    # times on the real frame: the sort, the fused entry and the list entry
+    # on the initial selection (a) and the refill (b), and K4's selection of
+    # the same 1000 features from the same map
     flat_init = cand_init.reshape(-1)
     sort_ms = time_ms(lambda: torch.sort(-flat_init, stable=True))
-    k5_ms = time_ms(lambda: cuda_suppress.greedy_suppress(
-        cx, cy, cvalid, **k5_kw))
-    k5_dev, _ = device_ms(lambda: cuda_suppress.greedy_suppress(
-        cx, cy, cvalid, **k5_kw), ["::suppress_kernel"], prof_dir)
+
+    def fill_call(case):
+        (neg, order), kw = case
+        return lambda: cuda_suppress.suppress_and_fill(neg, order, **kw)
+
+    def list_call(lists, kw):
+        return lambda: cuda_suppress.greedy_suppress(*lists, **kw)
+
+    k5_ms = time_ms(fill_call(k5_fill_init))
+    k5_dev, _ = device_ms(fill_call(k5_fill_init), ["::fill_kernel"], prof_dir)
     with cuda.reference_path():
-        k5_plain = time_ms(lambda: cuda_suppress.greedy_suppress(
-            cx, cy, cvalid, **k5_kw), reps=2)
-    k5_ref_ms = time_ms(lambda: cuda_suppress.greedy_suppress(
-        rx, ry, rvalid, **k5_ref_kw))
-    k5_ref_dev, _ = device_ms(lambda: cuda_suppress.greedy_suppress(
-        rx, ry, rvalid, **k5_ref_kw), ["::suppress_kernel"], prof_dir)
-    print(f"K5 refill (b), {rx.shape[0]} candidates, budget "
+        k5_plain = time_ms(fill_call(k5_fill_init), reps=2)
+    k5_ref_ms = time_ms(fill_call(k5_fill_ref))
+    k5_ref_dev, _ = device_ms(fill_call(k5_fill_ref), ["::fill_kernel"],
+                              prof_dir)
+    k5_list_ms = time_ms(list_call((cx, cy, cvalid), k5_kw))
+    k5_list_dev, _ = device_ms(list_call((cx, cy, cvalid), k5_kw),
+                               ["::suppress_kernel"], prof_dir)
+    k5_list_ref_dev, _ = device_ms(list_call((rx, ry, rvalid), k5_ref_kw),
+                                   ["::suppress_kernel"], prof_dir)
+    print(f"K5 fused entry, refill (b), {rx.shape[0]} candidates, budget "
           f"{int(free_ref.sum().item())}: {k5_ref_ms:.4f} ms by events, "
-          f"{k5_ref_dev:.4f} ms device")
+          f"{k5_ref_dev:.4f} ms device; list entry {k5_list_ref_dev:.4f} ms "
+          "device")
     k4_init_ms = k4_cases["initial"]["ms"]
     k5_route = select_features_from_eig(eig_k, x0, x0, v0, cfg,
                                         replacing=False)
@@ -1629,20 +1812,23 @@ def main(argv=None) -> int:
                                                replacing=False)[:3]
     torch.cuda.synchronize()
     routes_same = all(torch.equal(a, b) for a, b in zip(k5_route, k4_route))
+    scanned = k5_scanned(cx.shape[0], k5_init[2], k5_init[1], n)
     print(f"initial selection, 480x640, 1000 features: torch.sort "
-          f"{sort_ms:.4f} ms + K5 {k5_ms:.4f} ms (plain {k5_plain:.4f} ms; "
-          f"the scan read {k5_scanned(cx.shape[0], k5_init[2], k5_init[1], n)}"
-          f" of {cx.shape[0]} candidates; device {k5_dev:.4f} ms) vs K4 "
-          f"{k4_init_ms:.4f} ms (device "
+          f"{sort_ms:.4f} ms + K5 fused entry {k5_ms:.4f} ms (device "
+          f"{k5_dev:.4f} ms; plain {k5_plain:.4f} ms; the scan read {scanned}"
+          f" of {cx.shape[0]} candidates; list entry {k5_list_ms:.4f} ms, "
+          f"device {k5_list_dev:.4f} ms) vs K4 {k4_init_ms:.4f} ms (device "
           f"{k4_cases['initial']['device_ms']:.4f} ms); the two "
           f"routes select the same features: {routes_same}; card {smi}")
     if not routes_same:
         fail("sort + K5 and K4 select different features")
     report["K5"] = dict(max_abs_err=0.0, ms=k5_ms, plain_ms=k5_plain,
                         device_ms=k5_dev, refill_ms=k5_ref_ms,
-                        refill_device_ms=k5_ref_dev,
-                        work=k5_work(cx.shape[0], k5_init[2], k5_init[1], n,
-                                     cfg.mindist, n))
+                        refill_device_ms=k5_ref_dev, list_ms=k5_list_ms,
+                        list_device_ms=k5_list_dev,
+                        list_refill_device_ms=k5_list_ref_dev,
+                        work=k5_fill_work(cx.shape[0], k5_init[2], k5_init[1],
+                                          n, cfg.mindist, n))
 
     # K2: both levels of the real tracked pair (frame 0 -> frame 1, every
     # lane TRACKED), then a status mix at the same shapes whose lanes end
@@ -2150,16 +2336,21 @@ def main(argv=None) -> int:
 
     for m in mods1.values():
         m.launches = 0
-    sel1, trk1 = example1()
+    with counted([select_mod], "select_features_from_eig") as selections:
+        sel1, trk1 = example1()
     counts1 = {k: m.launches for k, m in mods1.items()}
-    print(f"launches in the config-1 run: {counts1}")
+    print(f"launches in the config-1 run: {counts1}; host-API selections "
+          f"{len(selections)}")
     for k, c in counts1.items():
         if c <= 0:
             fail(f"{k} was never launched on the config-1 path")
     # one track call (two K1 builds of two launches each); the host API's
-    # selection runs K1 at level 0 (one launch), K4's stage A, then K5
-    expect_launches(counts1, {"K1": 5, "K2": 1, "K4": 1, "K5": 1},
-                    "config-1 path")
+    # selection runs K1 at level 0 (one launch), K4's stage A, then K5 (one
+    # launch: decode, budget, scan, slot fill)
+    expect_launches(counts1, {"K1": 5, "K2": 1, "K4": 1,
+                              "K5": len(selections)}, "config-1 path")
+    if len(selections) != 1:
+        fail(f"the config-1 path made {len(selections)} selections")
     with cuda.reference_path():
         psel1, ptrk1 = example1()
     same1 = all(torch.equal(a, b) for a, b in zip(sel1[:3] + trk1[:3],
@@ -2181,24 +2372,28 @@ def main(argv=None) -> int:
     for m in mods2.values():
         m.launches = 0
     t0 = time.perf_counter()
-    ft2, metrics2 = pft.track_sequence(frames, cfg=cfg, n_features=N_FEATURES,
-                                       replace_lost=True, device="cuda")
+    with counted([select_mod], "select_features_from_eig") as selections:
+        ft2, metrics2 = pft.track_sequence(frames, cfg=cfg,
+                                           n_features=N_FEATURES,
+                                           replace_lost=True, device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts2 = {k: m.launches for k, m in mods2.items()}
     hx2, hy2, hv2 = (t.cpu().numpy() for t in ft2)
     refill_frames = int((hv2[1:] > 0).any(axis=1).sum())
+    n_sel = len(selections)
     print(f"launches in the config-2 run: {counts2} ({wall:.2f} s wall); "
-          f"frames with refilled slots {refill_frames}")
+          f"host-API selections {n_sel}; frames with refilled slots "
+          f"{refill_frames}")
     for k, c in counts2.items():
         if c <= 0:
             fail(f"{k} was never launched on the config-2 path")
-    if not 1 + refill_frames <= counts2["K5"] <= N_FRAMES:
-        fail("K5 did not run on the first frame and on every refill")
-    # two K1 launches per frame's build, one level-0 launch per selection
-    expect_launches(counts2, {"K1": 2 * N_FRAMES + counts2["K5"],
-                              "K2": N_FRAMES - 1, "K4": counts2["K5"]},
-                    "config-2 path")
+    if not 1 + refill_frames <= n_sel <= N_FRAMES:
+        fail("no selection on the first frame and on every refill")
+    # two K1 launches per frame's build; per selection one level-0 launch,
+    # K4's stage A and one K5 launch
+    expect_launches(counts2, {"K1": 2 * N_FRAMES + n_sel, "K2": N_FRAMES - 1,
+                              "K4": n_sel, "K5": n_sel}, "config-2 path")
     if hx2.shape != (N_FRAMES, N_FEATURES) or not np.isfinite(hx2).all():
         fail(f"config-2 feature table shape {hx2.shape} or non-finite")
     diff = np.argwhere((hv2 != vs_main) | (hx2 != xs_main) | (hy2 != ys_main))
@@ -2257,7 +2452,7 @@ def main(argv=None) -> int:
                     "pyfeaturetrack_tpu/ops/pallas_eig.py:100"),
              "K4": ("select_from_eig", "pyfeaturetrack_tpu_torch/csrc/extract.cu",
                     "pyfeaturetrack_tpu/ops/pallas_select.py:251"),
-             "K5": ("greedy_suppress",
+             "K5": ("suppress_and_fill",
                     "pyfeaturetrack_tpu_torch/csrc/suppress.cu",
                     "pyfeaturetrack_tpu/ops/pallas_select.py:136"),
              "K6": ("affine_stage", "pyfeaturetrack_tpu_torch/csrc/affine.cu",
@@ -2301,8 +2496,9 @@ def main(argv=None) -> int:
                                             "initial_1080p_ms",
                                             "initial_2160p_ms")})
         if k == "K5":
-            entry.update(refill_ms=r["refill_ms"],
-                         refill_device_ms=r["refill_device_ms"])
+            entry.update({f: r[f] for f in (
+                "refill_ms", "refill_device_ms", "list_ms", "list_device_ms",
+                "list_refill_device_ms")})
         if k == "K8":
             b1_ms, b1_by = bound_ms(*r["work_1d"])
             entry.update(ms_1d=r["ms_1d"], device_ms_1d=r["device_ms_1d"],

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Where the time goes inside K6's affine stage and K1's pyramid build, by
-clock64() counters, on one GPU.
+"""Where the time goes inside K6's affine stage, K1's pyramid build, K5's
+greedy scan and K8's dense LK level, by clock64() counters, on one GPU.
 
     python3 phase_clocks.py [--reps N]
 
@@ -20,6 +20,24 @@ then:
   phase of its tile (csrc/pyramid.cu: the frame tile, the horizontal
   pre-smooth, base, the horizontal passes, the vertical passes; level 0
   and the coarser levels apart; the grid barrier).
+* K5: the host API's 480x640 initial selection (255,744 sorted candidates,
+  budget 1000) and a refill (40 free slots after the pre-mask) of
+  chip_smoke.py, N times each through the fused entry (suppress_and_fill)
+  and the list entry (greedy_suppress). Thread 0 marks each phase
+  (csrc/suppress.cu: zeroing and the budget; per window the test and
+  compaction; per walked batch the serial walk and the stamps; the slot
+  fill).
+* K8: 2-D level 0 of chip_smoke.py's dense case (a) and 1-D level 0 of its
+  case (c), started from the coarser level as the paths run them, N times
+  each. Every thread sums its own cycles per phase; the sums are over
+  threads, divided by 32 (csrc/lk_dense.cu: the start and the staging, the
+  frame-1 lighting sums, per iteration the taps and the solve, the final
+  residue, the outputs; and a count of the frame-2 patches read from
+  device memory). Beside them, from the iteration map: the mean iterations
+  per pixel and the mean over warps of each warp's largest count, for
+  warps of 1x32, 2x16 and 4x8 pixels. Before the clock build, with the
+  package's own library: the same two levels timed by CUDA events at
+  several K8 tile shapes (each result held equal to the default tile's).
 
 Prints, per phase, cycles per launch summed over warps (K6) or blocks
 (K1), marks per launch and the share of the kernel's counted cycles, and
@@ -43,6 +61,14 @@ K6_PHASES = dict(enumerate([
     "samples: taps, blends, products (per iteration)",
     "butterflies (per iteration)", "solve and update (per iteration)",
     "after the loop: bounds, residue, drift", "outputs"]))
+K5_PHASES = {0: "zeroing (grid, outputs) and the budget",
+             1: "window: test, compaction (per 512 candidates)",
+             2: "serial walk (per batch of 32 survivors)",
+             3: "box stamps (per batch)", 4: "slot fill"}
+K8_PHASES = {0: "start and staging", 1: "frame-1 lighting sums",
+             2: "taps (per iteration)", 3: "solve and update (per iteration)",
+             4: "final bounds and residue", 5: "outputs",
+             6: "(count) frame-2 patches read from device memory"}
 K1_PHASES = {0: "level 0: frame tile + halo loaded", 1: "level 0: pre-smooth, "
              "horizontal", 2: "level 0: base (pre-smooth, vertical)",
              3: "level 0: horizontal passes", 4: "level 0: vertical passes "
@@ -106,6 +132,73 @@ def report(title, names: dict, cycles, counts, launches):
               f"{counts[k] / launches:13.1f} {cycles[k] / max(total, 1):7.3f}")
 
 
+def k5_inputs(pft, cs, cfg, img, dev):
+    """The host API's sorted candidate lattices at 480x640 with their
+    slots: the initial selection and a refill (every 25th of 1000 selected
+    features lost)."""
+    import torch
+    from pyfeaturetrack_tpu_torch.ops import cuda_eig, cuda_select
+    from pyfeaturetrack_tpu_torch.ops.select_device import (_candidate_grid,
+                                                            premask_radius)
+    n = cs.N_FEATURES
+    pyr = pft.build_track_pyramids(img, cfg)
+    eig = cuda_eig.min_eig_map(pyr.gradx[0], pyr.grady[0], cfg.window_width,
+                               cfg.window_height)
+    geom = _candidate_grid(cfg, eig.shape)
+    min_eig = max(int(cfg.min_eigenvalue), 1)
+    x0 = torch.full((n,), -1.0, device=dev)
+    v0 = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    sel = pft.select_step_device(img, cfg, n)
+    lost = torch.zeros(n, dtype=torch.bool, device=dev)
+    lost[::25] = True
+    v_lost = torch.where(lost, -4, sel[3])
+    out = {}
+    for name, (x, y, v), replacing in (
+            ("initial", (x0, x0, v0), False),
+            ("refill", (sel[1], sel[2], v_lost), True)):
+        cand = cuda_select.candidate_lattice(
+            eig, x, y, v, geom, min_eig=min_eig,
+            radius=premask_radius(cfg, replacing)).cells[:, :geom[4]]
+        neg, order = torch.sort(-cand.reshape(-1), stable=True)
+        out[name] = (neg, order, dict(
+            geom=geom, min_eig=min_eig, shape=tuple(img.shape),
+            mindist=int(cfg.mindist), x=x, y=y, val=v, replacing=replacing))
+    return out
+
+
+K8_TILES = ((16, 16), (8, 32), (16, 32), (32, 32), (8, 64), (32, 16))
+
+
+def k8_tile_sweep(cs, cfg, levels, reps):
+    """CUDA-event time of K8's level 0 (2-D of dense (a), 1-D of (c)) per
+    tile shape, each result equal to the default tile's."""
+    import torch
+    from pyfeaturetrack_tpu_torch.ops import cuda_lk_dense
+    s = float(cfg.subsampling)
+    lvl0, u1, v1, lvl0_d, d1 = levels
+    calls = {"2-D": lambda: cuda_lk_dense.dense_level_up(*lvl0, u1, v1, s,
+                                                         cfg),
+             "1-D": lambda: cuda_lk_dense.dense_level_1d_up(*lvl0_d, d1, s,
+                                                            cfg)}
+    default = cuda_lk_dense.TILE
+    want = {k: f() for k, f in calls.items()}
+    print(f"\nK8 level 0 by tile shape (rows x columns), CUDA events, mean "
+          f"of {reps} launches")
+    try:
+        for tile in K8_TILES:
+            cuda_lk_dense.TILE = tile
+            row = []
+            for k, f in calls.items():
+                if not all(torch.equal(a, b) for a, b in zip(f(), want[k])
+                           if a is not None):
+                    sys.exit(f"phase_clocks: K8 tile {tile} changed the {k} "
+                             "result")
+                row.append(f"{k} {cs.time_ms(f, reps=reps):.4f} ms")
+            print(f"  {tile[0]:3d} x {tile[1]:3d}: " + ", ".join(row))
+    finally:
+        cuda_lk_dense.TILE = default
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--reps", type=int, default=20)
@@ -118,10 +211,15 @@ def main(argv=None) -> int:
     import pyfeaturetrack_tpu_torch as pft
     from pyfeaturetrack_tpu_torch.ops.affine import affine_consistency_check
     smi = cs.smi_line()
+    dev = torch.device("cuda", 0)
+    cfg = pft.create_config().replace(sequentialMode=True).validated_window()
+    main_frames = cs.make_frames(cs.N_FRAMES)
+    _, _, lvl0, u1, v1 = cs.dense_flow_levels(pft, main_frames, cfg, dev)
+    k8_levels = (lvl0, u1, v1, *cs.dense_depth_levels(pft, cfg, dev))
+    k8_tile_sweep(cs, cfg, k8_levels, reps)
     t0 = time.perf_counter()
     lib = use_library(build_clock_library())
     print(f"card: {smi}; clock build {time.perf_counter() - t0:.1f} s")
-    dev = torch.device("cuda", 0)
 
     cfg3 = cs.config3()
     frames = [torch.as_tensor(f, device=dev).to(torch.float32)
@@ -144,7 +242,6 @@ def main(argv=None) -> int:
            f"{cs.N_FEATURES} lanes, summed over warps", K6_PHASES, cycles,
            counts, reps)
 
-    cfg = pft.create_config()
     for name, c, img in (("default build, 2 levels", cfg, frames[0]),
                          ("config-3 build, 3 levels", cfg3, frames[0])):
         pft.build_track_pyramids(img, c)
@@ -154,6 +251,48 @@ def main(argv=None) -> int:
         cycles, counts = read_clocks(lib, "pft_pyramid_phase_clocks")
         report(f"K1 {name}, 480x640, summed over blocks", K1_PHASES, cycles,
                counts, reps)
+
+    from pyfeaturetrack_tpu_torch.ops import cuda_lk_dense, cuda_suppress
+    img0 = torch.as_tensor(main_frames[0], device=dev).to(torch.float32)
+    for name, (neg, order, kw) in k5_inputs(pft, cs, cfg, img0, dev).items():
+        cx, cy, _, valid = cuda_suppress.decode_candidates(
+            neg, order, kw["geom"], kw["min_eig"])
+        free = (kw["val"] < 0) if kw["replacing"] else kw["val"] < 1 << 30
+        budget = free.sum().to(torch.int32).reshape(1)
+        lkw = dict(shape=kw["shape"], mindist=kw["mindist"],
+                   max_out=cs.N_FEATURES, budget=budget)
+        for entry, call in (
+                ("fused entry", lambda: cuda_suppress.suppress_and_fill(
+                    neg, order, **kw)),
+                ("list entry", lambda: cuda_suppress.greedy_suppress(
+                    cx, cy, valid, **lkw))):
+            call()
+            read_clocks(lib, "pft_suppress_phase_clocks")
+            for _ in range(reps):
+                call()
+            cycles, counts = read_clocks(lib, "pft_suppress_phase_clocks")
+            report(f"K5 {entry}, {name} (480x640, {neg.shape[0]} sorted "
+                   f"candidates, budget {int(budget.item())})", K5_PHASES,
+                   cycles, counts, reps)
+
+    s = float(cfg.subsampling)
+    lvl0, u1, v1, lvl0_d, d1 = k8_levels
+    for name, call in (("2-D level 0 of dense (a)",
+                        lambda: cuda_lk_dense.dense_level_up(*lvl0, u1, v1, s,
+                                                             cfg)),
+                       ("1-D level 0 of dense (c)",
+                        lambda: cuda_lk_dense.dense_level_1d_up(*lvl0_d, d1, s,
+                                                                cfg))):
+        call()
+        read_clocks(lib, "pft_lk_dense_phase_clocks")
+        for _ in range(reps):
+            out = call()
+        cycles, counts = read_clocks(lib, "pft_lk_dense_phase_clocks")
+        cycles = [c // 32 for c in cycles]
+        report(f"K8 {name}, 480x640, summed over threads / 32", K8_PHASES,
+               cycles, counts, reps)
+        print(f"  {name}: {cs.iteration_line(out[-1])}; 2x16 warps "
+              f"{cs.warp_max_mean(out[-1], 2, 16):.4f}")
     print(f"\n{smi}")
     return 0
 

@@ -1,5 +1,5 @@
 """K5: greedy min-distance suppression over priority-ordered candidates
-(csrc/suppress.cu) and its plain version.
+(csrc/suppress.cu) and its plain versions.
 
 Port of ``pyfeaturetrack_tpu/ops/pallas_select.py`` (greedy_suppress_pallas),
 which is the host greedy of ``ops/select.py`` (_enforce_minimum_distance)
@@ -10,10 +10,20 @@ the image (mindist 0 covers nothing). A candidate outside the image is
 never accepted. Unlike the TPU kernel there is no cap on the radius or the
 image size.
 
-A CUDA tensor launches the kernel (one launch per call): ``budget`` stays
-on the device and the accepted lanes come back compacted in acceptance
-order with their count as a device tensor, so the slot fill needs no host
-sync. A CPU tensor takes ``greedy_suppress_reference``.
+Two entries over the same scan:
+
+* ``greedy_suppress``: candidate pixels and flags in; flags, the accepted
+  lanes in acceptance order and their count out, under a budget read on
+  the device (greedy_suppress_pallas' contract);
+* ``suppress_and_fill``: the host API's selection after its sort
+  (ops/select.py): the sort's outputs in, the candidates' pixels and
+  validity decoded, the free slots counted for the budget, and the r-th
+  acceptance written into the r-th free slot (``cuda_select.fill_slots``'
+  rule).
+
+A CUDA tensor launches the kernel (one launch per call, nothing read on
+the host); a CPU tensor takes ``greedy_suppress_reference`` or
+``suppress_and_fill_reference``.
 """
 
 from __future__ import annotations
@@ -21,13 +31,15 @@ from __future__ import annotations
 import torch
 
 from ..utils import cuda
+from .cuda_select import fill_slots
 
 # Kernel launches made by this wrapper.
 launches = 0
 
-# Dynamic shared memory one block can use on the H100 (227 KB): a larger
-# coverage grid lives in global memory.
-SMEM_GRID_BYTES = 232448
+# Dynamic shared memory the kernel leaves for the coverage grid (227 KB on
+# the H100, less its static buffers: csrc/suppress.cu SMEM_GRID_MAX); a
+# larger grid lives in global memory.
+SMEM_GRID_BYTES = 232448 - 8192
 
 
 def grid_bytes(shape) -> int:
@@ -111,10 +123,7 @@ def greedy_suppress(cand_x: torch.Tensor, cand_y: torch.Tensor,
     cuda.require(h > 0 and w > 0 and max_out >= 0 and k < 2 ** 31,
                  "greedy_suppress: a non-empty image, max_out >= 0")
     dev = cand_x.device
-    nbytes = grid_bytes((h, w))
-    scratch = None
-    if nbytes > SMEM_GRID_BYTES:
-        scratch = torch.empty((nbytes // 4,), dtype=torch.int32, device=dev)
+    scratch = _grid_scratch((h, w), dev)
     accepted = torch.empty((k,), dtype=torch.bool, device=dev)
     order = torch.empty((max_out,), dtype=torch.int32, device=dev)
     n_acc = torch.empty((1,), dtype=torch.int32, device=dev)
@@ -122,3 +131,97 @@ def greedy_suppress(cand_x: torch.Tensor, cand_y: torch.Tensor,
             budget.contiguous(), (h, w), int(mindist) - 1, int(max_out),
             scratch, accepted, order, n_acc)
     return accepted, order, n_acc
+
+
+def _grid_scratch(shape, dev):
+    """The global-memory coverage grid when the grid does not fit shared
+    memory, else None."""
+    nbytes = grid_bytes(shape)
+    if nbytes <= SMEM_GRID_BYTES:
+        return None
+    return torch.empty((nbytes // 4,), dtype=torch.int32, device=dev)
+
+
+def decode_candidates(neg: torch.Tensor, order: torch.Tensor, geom,
+                      min_eig: int):
+    """The sorted candidate list of the host API: each lattice index's pixel
+    (int32 x, y) and its value (``-neg``) with its validity (value >=
+    ``min_eig``). ``geom``: (borderx, bordery, step, ny, nx)."""
+    borderx, bordery, step, _, nx = geom
+    vals = -neg
+    cand_x = (borderx + (order % nx) * step).to(torch.int32)
+    cand_y = (bordery + (order // nx) * step).to(torch.int32)
+    return cand_x, cand_y, vals, vals >= min_eig
+
+
+def suppress_and_fill_reference(neg, order, geom, min_eig, shape, mindist,
+                                x, y, val, replacing):
+    """Plain version of the fused entry: the decode, ``greedy_suppress``'s
+    plain version under the free-slot budget, then ``fill_slots``."""
+    cand_x, cand_y, vals, valid = decode_candidates(neg, order, geom, min_eig)
+    free = (val < 0) if replacing else torch.ones_like(val, dtype=torch.bool)
+    _, idx, n_acc = greedy_suppress_reference(
+        cand_x, cand_y, valid, free.sum().to(torch.int32).reshape(1), shape,
+        mindist, int(val.shape[0]))
+    idx = idx.to(torch.int64)
+    return fill_slots(n_acc, cand_x[idx], cand_y[idx], vals[idx], free, x, y,
+                      val)[:3]
+
+
+def _launch_fill(neg, order, geom, min_eig, shape, d, x, y, val, replacing,
+                 grid, acc, out):
+    global launches
+    fn = cuda.function("pft_suppress_fill",
+                       [cuda.c_ptr, cuda.c_ptr] + [cuda.c_int] * 9
+                       + [cuda.c_ptr] * 3 + [cuda.c_int] * 2
+                       + [cuda.c_ptr] * 6)
+    borderx, bordery, step, _, nx = geom
+    h, w = shape
+    rc = fn(neg.data_ptr(), order.data_ptr(), neg.shape[0], borderx, bordery,
+            step, nx, min_eig, h, w, d, x.data_ptr(), y.data_ptr(),
+            val.data_ptr(), val.shape[0], int(bool(replacing)),
+            grid.data_ptr() if grid is not None else None, acc.data_ptr(),
+            *(t.data_ptr() for t in out), cuda.stream_ptr(neg.device))
+    cuda.check(rc, "pft_suppress_fill")
+    launches += 1
+
+
+def suppress_and_fill(neg: torch.Tensor, order: torch.Tensor, *, geom,
+                      min_eig: int, shape, mindist: int, x: torch.Tensor,
+                      y: torch.Tensor, val: torch.Tensor, replacing: bool):
+    """The host API's (re)selection after its sort, in one launch.
+
+    ``neg``, ``order``: ``torch.sort(-lattice.reshape(-1), stable=True)``'s
+    int32 values and int64 indices over the candidate lattice of ``geom``
+    (borderx, bordery, step, ny, nx) in an image of ``shape``; ``min_eig``:
+    the validity bar; ``x``, ``y`` (float32), ``val`` (int32): the feature
+    slots, free where ``val < 0`` when ``replacing``, else all. The greedy
+    scan accepts at most as many candidates as there are free slots; the
+    r-th acceptance fills the r-th free slot, the other free slots become
+    (-1, -1, KLT_NOT_FOUND). Returns the new (x, y, val)."""
+    min_eig = int(min_eig)
+    h, w = (int(s) for s in shape)
+    if not cuda.use_kernel(neg, order, x, y, val):
+        return suppress_and_fill_reference(neg, order, geom, min_eig, (h, w),
+                                           mindist, x, y, val, replacing)
+    k = neg.shape[0]
+    n = val.shape[0]
+    cuda.require(neg.dtype == torch.int32 and order.dtype == torch.int64
+                 and neg.dim() == 1 and order.shape == (k,)
+                 and neg.is_contiguous() and order.is_contiguous(),
+                 "suppress_and_fill takes contiguous int32 keys and int64 "
+                 "order [K]")
+    cuda.require(x.dtype == y.dtype == torch.float32
+                 and val.dtype == torch.int32 and x.shape == y.shape == (n,)
+                 and all(t.is_contiguous() for t in (x, y, val)),
+                 "suppress_and_fill takes contiguous float32 x, y and int32 "
+                 "val [N]")
+    cuda.require(h > 0 and w > 0 and geom[2] > 0 and geom[4] > 0
+                 and k < 2 ** 31, "suppress_and_fill: a non-empty lattice")
+    dev = neg.device
+    out = (torch.empty_like(x), torch.empty_like(y), torch.empty_like(val))
+    if n:
+        _launch_fill(neg, order, geom, min_eig, (h, w), int(mindist) - 1, x, y,
+                     val, replacing, _grid_scratch((h, w), dev),
+                     torch.empty((n,), dtype=torch.int32, device=dev), out)
+    return out

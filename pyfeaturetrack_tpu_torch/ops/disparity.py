@@ -25,8 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from ..features import KLT_TRACKED
-from .cuda_lk_dense import dense_level_1d
-from .flow import upsample_flow
+from .cuda_lk_dense import dense_level_1d, dense_level_1d_up
 from .track import TrackPyramids, as_frame, build_track_pyramids
 
 
@@ -84,7 +83,8 @@ def dense_disparity_pyramids(pyr_l: TrackPyramids, pyr_r: TrackPyramids,
                              ) -> DenseDisparity:
     """Coarse-to-fine dense disparity over prebuilt pyramids. The coarsest
     level seeds from the SSD hypothesis sweep; each finer level refines the
-    upsampled map. The status map is the finest level's."""
+    upsampled map (K8 reads the coarser map and upsamples it itself). The
+    status map is the finest level's."""
     s = float(cfg.subsampling)
     n_levels = cfg.nPyramidLevels
     hw, hh = cfg.window_width // 2, cfg.window_height // 2
@@ -101,12 +101,12 @@ def dense_disparity_pyramids(pyr_l: TrackPyramids, pyr_r: TrackPyramids,
                         device=coarse_l.device)
     status = None
     for r in range(n_levels - 1, -1, -1):
-        shape = tuple(pyr_l.img[r].shape)
-        if shape != tuple(d.shape):
-            d = upsample_flow(d, shape, s)
-        d, status = disparity_level(pyr_l.img[r], pyr_l.gradx[r],
-                                    pyr_l.grady[r], pyr_r.img[r],
-                                    pyr_r.gradx[r], pyr_r.grady[r], d, cfg)
+        lvl = (pyr_l.img[r], pyr_l.gradx[r], pyr_l.grady[r], pyr_r.img[r],
+               pyr_r.gradx[r], pyr_r.grady[r])
+        if tuple(lvl[0].shape) == tuple(d.shape):
+            d, status, _ = dense_level_1d(*lvl, d, cfg)
+        else:
+            d, status, _ = dense_level_1d_up(*lvl, d, s, cfg)
     return DenseDisparity(d=d, status=status)
 
 

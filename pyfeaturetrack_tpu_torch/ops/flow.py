@@ -4,8 +4,10 @@ Port of ``pyfeaturetrack_tpu/ops/flow.py``. Dense flow is the sparse
 tracker's per-level math (``ops/track.track_feature_level``) applied to
 every pixel centre; each level solves on its own pixel grid, started from
 the coarser level's flow upsampled bilinearly (``upsample_flow``), and the
-status map is the finest level's. Each level is one launch of K8
-(ops/cuda_lk_dense.dense_level) on CUDA tensors; the pyramids are K1.
+status map is the finest level's. Each level is one launch of K8 on CUDA
+tensors (ops/cuda_lk_dense.dense_level_up: the kernel reads the coarser
+level's maps and computes the upsampled start itself; the coarsest level
+starts at zero with no map); the pyramids are K1.
 
 ``compute_dense_flow`` takes numpy arrays or tensors: an array runs on
 "cuda" unless ``device="cpu"`` is given (with no CUDA device that
@@ -20,8 +22,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .cuda_lk_dense import dense_level
-from .interp import bilinear
+from .cuda_lk_dense import dense_level, dense_level_up
+from .interp import bilinear, upsample_flow  # noqa: F401
 from .track import TrackPyramids, as_frame, build_track_pyramids
 
 
@@ -30,23 +32,6 @@ class DenseFlow(NamedTuple):
     u: torch.Tensor       # [H, W] float32, x-displacement
     v: torch.Tensor       # [H, W] float32, y-displacement
     status: torch.Tensor  # [H, W] int32, KLT status codes
-
-
-def upsample_flow(u: torch.Tensor, shape: tuple[int, int],
-                  scale: float) -> torch.Tensor:
-    """Upscale a flow component to ``shape`` and rescale its magnitude:
-    half-pixel-centre bilinear sampling, src = (dst + 0.5) / zoom - 0.5,
-    clamped (flow.py:53-69 of the JAX package)."""
-    h_out, w_out = shape
-    h_in, w_in = u.shape
-    ys = (torch.arange(h_out, dtype=u.dtype, device=u.device) + 0.5) \
-        * (h_in / h_out) - 0.5
-    xs = (torch.arange(w_out, dtype=u.dtype, device=u.device) + 0.5) \
-        * (w_in / w_out) - 0.5
-    ys = ys.clamp(0.0, h_in - 1.0)
-    xs = xs.clamp(0.0, w_in - 1.0)
-    grid_y, grid_x = torch.meshgrid(ys, xs, indexing="ij")
-    return bilinear(u, grid_x, grid_y) * scale
 
 
 def warp_image(img: torch.Tensor, u: torch.Tensor,
@@ -71,21 +56,18 @@ def dense_flow_pyramids(pyr1: TrackPyramids, pyr2: TrackPyramids,
                         cfg) -> DenseFlow:
     """Coarse-to-fine dense LK over prebuilt pyramids. Flow starts at zero
     on the coarsest level; each finer level re-solves on its own grid from
-    the upsampled field. The status map is the finest level's."""
+    the upsampled field (a level of the coarser one's shape from that field
+    as it is). The status map is the finest level's. One K8 launch per
+    level on CUDA tensors."""
     s = float(cfg.subsampling)
-    n_levels = cfg.nPyramidLevels
-    coarse = pyr1.img[n_levels - 1]
-    u = torch.zeros(coarse.shape, dtype=torch.float32, device=coarse.device)
-    v = torch.zeros_like(u)
-    status = None
-    for r in range(n_levels - 1, -1, -1):
-        shape = tuple(pyr1.img[r].shape)
-        if shape != tuple(u.shape):
-            u = upsample_flow(u, shape, s)
-            v = upsample_flow(v, shape, s)
-        u, v, status = flow_level(pyr1.img[r], pyr1.gradx[r], pyr1.grady[r],
-                                  pyr2.img[r], pyr2.gradx[r], pyr2.grady[r],
-                                  u, v, cfg)
+    u = v = status = None
+    for r in range(cfg.nPyramidLevels - 1, -1, -1):
+        lvl = (pyr1.img[r], pyr1.gradx[r], pyr1.grady[r], pyr2.img[r],
+               pyr2.gradx[r], pyr2.grady[r])
+        if u is not None and tuple(u.shape) == tuple(lvl[0].shape):
+            u, v, status, _ = dense_level(*lvl, u, v, cfg)
+        else:
+            u, v, status, _ = dense_level_up(*lvl, u, v, s, cfg)
     return DenseFlow(u=u, v=v, status=status)
 
 

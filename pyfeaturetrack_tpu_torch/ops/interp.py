@@ -40,6 +40,23 @@ def bilinear(img: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor
             (1.0 - ax) * ay * p10 + ax * ay * p11)
 
 
+def upsample_flow(u: torch.Tensor, shape: tuple[int, int],
+                  scale: float) -> torch.Tensor:
+    """Upscale a flow component to ``shape`` and rescale its magnitude:
+    half-pixel-centre bilinear sampling, src = (dst + 0.5) / zoom - 0.5,
+    clamped (flow.py:53-69 of the JAX package)."""
+    h_out, w_out = shape
+    h_in, w_in = u.shape
+    ys = (torch.arange(h_out, dtype=u.dtype, device=u.device) + 0.5) \
+        * (h_in / h_out) - 0.5
+    xs = (torch.arange(w_out, dtype=u.dtype, device=u.device) + 0.5) \
+        * (w_in / w_out) - 0.5
+    ys = ys.clamp(0.0, h_in - 1.0)
+    xs = xs.clamp(0.0, w_in - 1.0)
+    grid_y, grid_x = torch.meshgrid(ys, xs, indexing="ij")
+    return bilinear(u, grid_x, grid_y) * scale
+
+
 def window_coords(x: torch.Tensor, y: torch.Tensor, hw: int, hh: int):
     """Per-feature window sample coordinates (xs, ys) [N, 2hh+1, 2hw+1]:
     xs[n, j, i] = x[n] + (i - hw), ys[n, j, i] = y[n] + (j - hh)."""

@@ -17,10 +17,11 @@ arrays' device:
    them first);
 3. the priority order: ``torch.sort(-vals, stable=True)``, the order of
    ``np.argsort(-vals, kind="stable")`` (descending, ties in scan order);
-4. K5 (ops/cuda_suppress.greedy_suppress) over the whole ordered list,
-   budget = free slots, read on the device;
-5. ``cuda_select.fill_slots``: the r-th acceptance goes to the r-th free
-   slot, as the host greedy's slot walk does.
+4. K5's fused entry (ops/cuda_suppress.suppress_and_fill), one launch:
+   the sort's outputs decoded into pixels and validity, the free slots
+   counted for the budget, the greedy scan over the whole ordered list, and
+   the r-th acceptance into the r-th free slot, as the host greedy's slot
+   walk does.
 
 The min-eig map's plain version (``compute_min_eig_map``) sits beside
 K3 in ops/cuda_eig.py.
@@ -37,8 +38,8 @@ from ..features import (KLT_NOT_FOUND, FeatureState, create_feature_list,
                         feature_state_to_numpy, reset_affine)
 from .cuda_eig import min_eig_map
 from .cuda_pyramid import level_taps, pyramid_level
-from .cuda_select import candidate_lattice, fill_slots
-from .cuda_suppress import greedy_suppress
+from .cuda_select import candidate_lattice
+from .cuda_suppress import suppress_and_fill
 from .select_device import _candidate_grid, premask_radius
 from .track import as_frame
 
@@ -78,33 +79,28 @@ def select_features_from_eig(eig: torch.Tensor, x: torch.Tensor,
                              y: torch.Tensor, val: torch.Tensor, cfg, *,
                              replacing: bool):
     """(Re)selection into the (x, y, val) feature arrays from an int32
-    min-eig map through sort + K5 + slot fill. ``replacing=False``:
+    min-eig map through stage A, the sort and K5's fused entry (decode,
+    scan, slot fill). ``replacing=False``:
     overwrite every slot; ``replacing=True``: keep val >= 0 slots and
     refill the rest. Returns (x, y, val)."""
     geom = _candidate_grid(cfg, eig.shape)
-    borderx, bordery, step, ny, nx = geom
-    free = (val < 0) if replacing else torch.ones_like(val, dtype=torch.bool)
+    *_, ny, nx = geom
     if ny == 0 or nx == 0:
         # no room for features: every free slot comes back empty
+        free = (val < 0) if replacing else torch.ones_like(val,
+                                                           dtype=torch.bool)
         return (torch.where(free, -1.0, x), torch.where(free, -1.0, y),
                 torch.where(free, KLT_NOT_FOUND, val))
     cand = candidate_lattice(eig, x, y, val, geom,
                              min_eig=max(int(cfg.min_eigenvalue), 1),
                              radius=premask_radius(cfg, replacing)
                              ).cells[:, :nx]
-    neg, order = torch.sort(-cand.reshape(-1), stable=True)
-    vals = -neg
-    cand_x = (borderx + (order % nx) * step).to(torch.int32)
-    cand_y = (bordery + (order // nx) * step).to(torch.int32)
-    valid = vals >= max(int(cfg.min_eigenvalue), 1)
-    _, idx, n_acc = greedy_suppress(
-        cand_x, cand_y, valid, shape=tuple(eig.shape),
-        mindist=int(cfg.mindist), max_out=int(val.shape[0]),
-        budget=free.sum().to(torch.int32).reshape(1))
-    idx = idx.to(torch.int64)
-    nx_, ny_, nval, _ = fill_slots(n_acc, cand_x[idx], cand_y[idx], vals[idx],
-                                   free, x, y, val)
-    return nx_, ny_, nval
+    # the negation writes the padded lattice's view densely, so no copy
+    neg, order = torch.sort((-cand).reshape(-1), stable=True)
+    return suppress_and_fill(neg, order, geom=geom,
+                             min_eig=max(int(cfg.min_eigenvalue), 1),
+                             shape=tuple(eig.shape), mindist=int(cfg.mindist),
+                             x=x, y=y, val=val, replacing=replacing)
 
 
 def _select(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor,

@@ -4,13 +4,14 @@ device; on a GPU machine run them (no JAX needed) with
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
-Bars: K1, K3, K4 (both stages), K5 and K9 bit-equal; K2 (per level and
-per pyramidal track call), K6 and K8 statuses and iterations equal and
-positions (K6: and warps; K8: the flow and disparity maps) bit-equal (the
-kernels round and sum in their plain versions' order); the affine stage
-(K6's stage kernel) bit-equal in the feature list and all eight
-AffineState fields. Inputs are small seeded numpy images, but for the
-wide and tall K4 lattices and the deep K2 pyramids."""
+Bars: K1, K3, K4 (both stages), K5 (both entries) and K9 bit-equal; K2
+(per level and per pyramidal track call), K6 and K8 (every start mode)
+statuses and iterations equal and positions (K6: and warps; K8: the flow
+and disparity maps) bit-equal (the kernels round and sum in their plain
+versions' order); the affine stage (K6's stage kernel) bit-equal in the
+feature list and all eight AffineState fields. Inputs are small seeded
+numpy images, but for the wide and tall K4 lattices, the deep K2
+pyramids, K5 on 480x640 and 1080x1920 lattices and K8 at 480x640."""
 
 import numpy as np
 import pytest
@@ -426,6 +427,98 @@ def test_dense_level_bit_equal(dev, overrides, one_d):
     assert {0, -4}.issubset(set(got[-2].flatten().tolist()))
 
 
+def _start_case(dev, cfg, h, w, seed=9):
+    """Level-0 images of a textured pair whose content moves by (+2, +1) px
+    (frame 2 at gain 0.8 and bias 20 under lighting) and coarser maps of
+    (h // 4, w // 4): a smooth field near the motion with a block of flows
+    of +-20 px that leave the staged frame-2 region."""
+    li = cfg.lighting_insensitive
+    base = _texture(h + 8, w + 8, seed=seed)
+    a = base[:h, :w].copy()
+    b = np.ascontiguousarray(base[1:h + 1, 2:w + 2])
+    if li:
+        b = b * 0.8 + 20.0
+    p1, p2 = (tpft.build_track_pyramids(
+        torch.tensor(f.astype(np.float32), device=dev), cfg) for f in (a, b))
+    lvl = (p1.img[0], p1.gradx[0], p1.grady[0], p2.img[0], p2.gradx[0],
+           p2.grady[0])
+    rng = np.random.default_rng(seed)
+    hc, wc = max(h // 4, 1), max(w // 4, 1)
+    uc = -0.5 + 0.1 * rng.standard_normal((hc, wc))
+    vc = -0.25 + 0.1 * rng.standard_normal((hc, wc))
+    uc[:hc // 3, :wc // 3] = rng.uniform(-5.0, 5.0, (hc // 3, wc // 3))
+    vc[:hc // 3, :wc // 3] = rng.uniform(-5.0, 5.0, (hc // 3, wc // 3))
+    uc, vc = (torch.tensor(t, dtype=torch.float32, device=dev)
+              for t in (uc, vc))
+    return lvl, uc, vc
+
+
+def _dense_equal(got, want, before):
+    assert cuda_lk_dense.launches == before + 1
+    for a, b in zip(got, want):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("shape,win,overrides", [
+    ((480, 640), (7, 7), {}),
+    ((480, 640), (7, 7), {"lighting_insensitive": True}),
+    ((481, 643), (7, 7), {}),
+    ((480, 70), (7, 7), {}),
+    ((37, 53), (7, 7), {}),
+    ((6, 64), (7, 7), {}),
+    ((64, 6), (7, 7), {}),
+    ((120, 160), (3, 5), {}),
+    ((120, 160), (17, 17), {"lighting_insensitive": True}),
+    ((120, 160), (51, 51), {}),
+])
+@pytest.mark.parametrize("one_d", [False, True])
+def test_dense_level_start_modes_bit_equal(dev, shape, win, overrides, one_d):
+    """K8 in both modes and every start against its plain version: from
+    the coarser maps upsampled x4 (the kernel computes upsample_flow), from
+    those maps upsampled by the plain upsample_flow and passed as level
+    maps, and (2-D) from zero. Flows of +-20 px in a block of the maps send
+    pixels out of the staged frame-2 region. At 6x64 and 64x6 the coarser
+    maps are one row or one column high (interp.bilinear's flat indices
+    wrap) and every pixel is out of bounds, so the outputs are the starts."""
+    h, w = shape
+    cfg = tpft.create_config(window_width=win[0], window_height=win[1],
+                             **overrides)
+    lvl, uc, vc = _start_case(dev, cfg, h, w)
+    from pyfeaturetrack_tpu_torch.ops.interp import upsample_flow
+    if one_d:
+        dc = -uc
+        before = cuda_lk_dense.launches
+        got = cuda_lk_dense.dense_level_1d_up(*lvl, dc, 4.0, cfg)
+        _dense_equal(got, _plain(cuda_lk_dense.dense_level_1d_up, *lvl, dc,
+                                 4.0, cfg), before)
+        d = upsample_flow(dc, (h, w), 4.0)
+        before = cuda_lk_dense.launches
+        _dense_equal(cuda_lk_dense.dense_level_1d(*lvl, d, cfg),
+                     _plain(cuda_lk_dense.dense_level_1d, *lvl, d, cfg),
+                     before)
+        assert torch.equal(got[0], cuda_lk_dense.dense_level_1d(*lvl, d,
+                                                                cfg)[0])
+        return
+    before = cuda_lk_dense.launches
+    got = cuda_lk_dense.dense_level_up(*lvl, uc, vc, 4.0, cfg)
+    _dense_equal(got, _plain(cuda_lk_dense.dense_level_up, *lvl, uc, vc, 4.0,
+                             cfg), before)
+    u, v = (upsample_flow(t, (h, w), 4.0) for t in (uc, vc))
+    before = cuda_lk_dense.launches
+    maps = cuda_lk_dense.dense_level(*lvl, u, v, cfg)
+    _dense_equal(maps, _plain(cuda_lk_dense.dense_level, *lvl, u, v, cfg),
+                 before)
+    assert all(torch.equal(a, b) for a, b in zip(got, maps))
+    before = cuda_lk_dense.launches
+    _dense_equal(cuda_lk_dense.dense_level_up(*lvl, None, None, 4.0, cfg),
+                 _plain(cuda_lk_dense.dense_level_up, *lvl, None, None, 4.0,
+                        cfg), before)
+    if h >= 100:
+        assert {0, -4}.issubset(set(got[2].flatten().tolist()))
+
+
 @pytest.mark.parametrize("win", [(7, 7), (3, 5), (15, 15), (17, 17),
                                  (25, 25), (31, 31), (51, 51)])
 def test_window_terms_bit_equal(dev, win):
@@ -452,17 +545,27 @@ def test_window_terms_bit_equal(dev, win):
                                    **kw))
 
 
-def test_dense_paths_on_card_equal_plain_versions(dev):
+def test_dense_paths_on_card_equal_plain_versions(dev, monkeypatch):
     """compute_dense_flow, dense_flow_fb's gate and dense_depth through the
     kernels equal the same calls through the plain versions on the card;
-    K8 launches twice per flow and four times per depth map. (On the card,
-    not against the CPU: the SSD sweep's cumsum and hypot round by device.)"""
+    K8 launches twice per flow and four times per depth map, and no call
+    upsamples a map outside it. (On the card, not against the CPU: the SSD
+    sweep's cumsum and hypot round by device.)"""
+    from pyfeaturetrack_tpu_torch.ops import flow, interp
     from pyfeaturetrack_tpu_torch.ops.flow import dense_flow_fb
     base = _texture(110, 150, seed=31)
     a, b = base[:96, :128], base[1:97, 2:130]
+    calls = []
+    for mod in (interp, flow, cuda_lk_dense):
+        monkeypatch.setattr(mod, "upsample_flow",
+                            lambda *x, f=mod.upsample_flow: calls.append(x)
+                            or f(*x))
     before = cuda_lk_dense.launches
     g = tpft.compute_dense_flow(a, b)
     assert cuda_lk_dense.launches == before + 2
+    tpft.dense_depth(a, base[:96, 8:136], np.eye(3), 0.5, max_disparity=16.0)
+    assert not calls
+    monkeypatch.undo()
     for x, y in zip(g, _plain(tpft.compute_dense_flow, a, b)):
         assert x.device.type == "cuda"
         assert torch.equal(x, y)
@@ -678,6 +781,84 @@ def test_suppress_large_frame_uses_global_grid(dev):
     want = _plain(cuda_suppress.greedy_suppress, *args, **kw)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+def _sorted_lattice(dev, cfg, h, w, seed, n, replacing):
+    """The host API's sorted candidate list of a textured frame (stage A,
+    then the sort) and feature slots: all free, or (replacing) the frame's
+    n selected features with every 25th lost."""
+    img = torch.tensor(_texture(h, w, seed), device=dev)
+    pyr = tpft.build_track_pyramids(img, cfg)
+    eig = cuda_eig.min_eig_map(pyr.gradx[0], pyr.grady[0], cfg.window_width,
+                               cfg.window_height)
+    geom = _candidate_grid(cfg, (h, w))
+    x = torch.full((n,), -1.0, device=dev)
+    val = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    y = x
+    if replacing:
+        _, x, y, val, _ = tpft.select_step_device(img, cfg, n)[:5]
+        val = val.clone()
+        val[::25] = -4
+    cand = cuda_select.candidate_lattice(
+        eig, x, y, val, geom, min_eig=max(int(cfg.min_eigenvalue), 1),
+        radius=premask_radius(cfg, replacing)).cells[:, :geom[4]]
+    neg, order = torch.sort(-cand.reshape(-1), stable=True)
+    return neg, order, geom, x, y, val
+
+
+@pytest.mark.parametrize("shape", [(480, 640), (1080, 1920)])
+@pytest.mark.parametrize("mindist", [0, 10, 60])
+@pytest.mark.parametrize("replacing", [False, True])
+def test_suppress_and_fill_bit_equal(dev, shape, mindist, replacing):
+    """K5's fused entry (decode, budget, scan, slot fill) against its plain
+    version (the decode, greedy_suppress_reference, fill_slots) on the host
+    API's sorted lattice: initial selection and refill, the coverage grid in
+    shared memory (480x640) and global memory (1080x1920); then K5's list
+    entry on the decoded list under the same budget. One launch each."""
+    h, w = shape
+    cfg = tpft.create_config(mindist=mindist)
+    neg, order, geom, x, y, val = _sorted_lattice(dev, cfg, h, w, 21, 1000,
+                                                  replacing)
+    min_eig = max(int(cfg.min_eigenvalue), 1)
+    kw = dict(geom=geom, min_eig=min_eig, shape=shape, mindist=mindist, x=x,
+              y=y, val=val, replacing=replacing)
+    before = cuda_suppress.launches
+    got = cuda_suppress.suppress_and_fill(neg, order, **kw)
+    assert cuda_suppress.launches == before + 1
+    want = _plain(cuda_suppress.suppress_and_fill, neg, order, **kw)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    free = (val < 0) if replacing else torch.ones_like(val, dtype=torch.bool)
+    assert bool((got[2][free] >= 0).any())
+    cx, cy, _, valid = cuda_suppress.decode_candidates(neg, order, geom,
+                                                       min_eig)
+    lkw = dict(shape=shape, mindist=mindist, max_out=val.shape[0],
+               budget=free.sum().to(torch.int32).reshape(1))
+    got = cuda_suppress.greedy_suppress(cx, cy, valid, **lkw)
+    want = _plain(cuda_suppress.greedy_suppress, cx, cy, valid, **lkw)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("grid", ["shared", "global"])
+def test_suppress_and_fill_budget_zero_and_dry_pool(dev, grid, monkeypatch):
+    """A refill with no free slot (budget 0: the slots come back as they
+    were) and one whose pool runs dry (every candidate below the bar: the
+    free slots come back empty)."""
+    if grid == "global":
+        monkeypatch.setattr(cuda_suppress, "SMEM_GRID_BYTES", 0)
+    cfg = tpft.create_config()
+    neg, order, geom, x, y, val = _sorted_lattice(dev, cfg, 120, 160, 22, 60,
+                                                  True)
+    kept = torch.where(val < 0, 7, val)
+    for v, bar in ((kept, 1), (val, 1 << 30)):
+        kw = dict(geom=geom, min_eig=bar, shape=(120, 160), mindist=10, x=x,
+                  y=y, val=v, replacing=True)
+        got = cuda_suppress.suppress_and_fill(neg, order, **kw)
+        want = _plain(cuda_suppress.suppress_and_fill, neg, order, **kw)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    assert torch.equal(got[2][val < 0], torch.full_like(got[2][val < 0], -1))
 
 
 def test_facade_two_frames_on_card_equals_plain_on_cpu(dev):

@@ -25,7 +25,10 @@ from pyfeaturetrack_tpu.ops.pallas_lk_fused import fused_track_level
 from pyfeaturetrack_tpu.ops.track import build_track_pyramids as jax_build
 
 from pyfeaturetrack_tpu_torch.ops import disparity as tdisp
-from pyfeaturetrack_tpu_torch.ops.cuda_lk_dense import dense_level_1d
+from pyfeaturetrack_tpu_torch.ops.cuda_lk_dense import (_reference,
+                                                        dense_level_1d,
+                                                        dense_level_1d_up)
+from pyfeaturetrack_tpu_torch.ops.interp import upsample_flow
 from pyfeaturetrack_tpu_torch.utils.convert import (config_from_jax,
                                                     pyramids_from_numpy)
 
@@ -200,6 +203,46 @@ def test_dense_disparity_pyramids_matches_jax(name):
     inner = np.zeros_like(ok)
     inner[10:-10, 50 if name == "sweep40" else 10:-10] = True
     assert abs(np.median(got.d.numpy()[ok & inner]) - true_d) < 0.2
+
+
+def test_dense_level_1d_up_plain_is_upsample_then_level():
+    """K8's 1-D upsampled start, plain version: upsample_flow of the coarser
+    disparity map then the 1-D level solve from the map, bit for bit."""
+    jcfg = create_config().validated_window()
+    left, right, _ = _scene("subpixel")
+    _, tp = _pyramids(left, right, jcfg)
+    lvl = _level(*tp)
+    h, w = lvl[0].shape
+    d = torch.tensor(np.random.default_rng(2).uniform(0.0, 1.0,
+                                                      (h // 4, w // 4)),
+                     dtype=torch.float32)
+    got = dense_level_1d_up(*lvl, d, 4.0, config_from_jax(jcfg))
+    want = _reference(lvl, upsample_flow(d, (h, w), 4.0), None,
+                      config_from_jax(jcfg), True)
+    for a, b in zip(got, (want[0], want[2], want[3])):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("name", ["subpixel", "sweep40"])
+def test_dense_disparity_pyramids_equals_upsampling_outside_k8(name):
+    """Coarse to fine through K8's upsampled start equals the loop that
+    upsampled each level's start with upsample_flow, bit for bit."""
+    jcfg = create_config().validated_window()
+    cfg = config_from_jax(jcfg)
+    left, right, max_d = _scene(name)
+    _, (pl, pr) = _pyramids(left, right, jcfg)
+    got = tdisp.dense_disparity_pyramids(pl, pr, cfg, max_disparity=max_d)
+    s = float(cfg.subsampling)
+    n_levels = cfg.nPyramidLevels
+    hw, hh = cfg.window_width // 2, cfg.window_height // 2
+    hyp = tuple(range(0, int(max_d / s ** (n_levels - 1)) + 1, hw + 1))
+    d = tdisp._hypothesis_init(pl.img[-1], pr.img[-1], hyp, hw, hh)
+    for r in range(n_levels - 1, -1, -1):
+        shape = tuple(pl.img[r].shape)
+        if shape != tuple(d.shape):
+            d = upsample_flow(d, shape, s)
+        d, status, _ = dense_level_1d(*_level(pl, pr, r), d, cfg)
+    assert torch.equal(got.d, d) and torch.equal(got.status, status)
 
 
 def test_dense_disparity_lr_matches_jax_on_planes():

@@ -29,7 +29,9 @@ from pyfeaturetrack_tpu.ops.track import build_track_pyramids as jax_build
 from pyfeaturetrack_tpu.ops.track import track_feature_level
 
 from pyfeaturetrack_tpu_torch.ops import flow as tflow
-from pyfeaturetrack_tpu_torch.ops.cuda_lk_dense import dense_level
+from pyfeaturetrack_tpu_torch.ops.cuda_lk_dense import (_reference,
+                                                        dense_level,
+                                                        dense_level_up)
 from pyfeaturetrack_tpu_torch.utils.convert import (config_from_jax,
                                                     pyramids_from_numpy)
 
@@ -222,6 +224,50 @@ def test_dense_flow_pyramids_matches_jax(shape, config):
         ok = (st == 0) & inner
         assert abs(np.median(tf.u.numpy()[ok]) + 2.0) < 0.05
         assert abs(np.median(tf.v.numpy()[ok]) + 1.0) < 0.05
+
+
+@pytest.mark.parametrize("coarse", [(12, 16), (1, 16), (12, 1)])
+def test_dense_level_up_plain_is_upsample_then_level(coarse):
+    """K8's upsampled start, plain version: upsample_flow of the coarser
+    maps then the level solve from maps (_reference), bit for bit, also
+    from a map one row or one column high (flat indices wrap); the zero
+    start is the solve from zero maps."""
+    cfg = config_from_jax(create_config())
+    _, tp = _pyramids(*_pair(48, 64), create_config().validated_window())
+    lvl = _level(*tp)
+    rng = np.random.default_rng(8)
+    uc, vc = (torch.tensor(rng.uniform(-1.0, 1.0, coarse), dtype=torch.float32)
+              for _ in range(2))
+    got = dense_level_up(*lvl, uc, vc, 4.0, cfg)
+    want = _reference(lvl, tflow.upsample_flow(uc, (48, 64), 4.0),
+                      tflow.upsample_flow(vc, (48, 64), 4.0), cfg, False)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    zero = torch.zeros((48, 64))
+    for a, b in zip(dense_level_up(*lvl, None, None, 4.0, cfg),
+                    _reference(lvl, zero, zero, cfg, False)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("config", ["default", "3 levels"])
+def test_dense_flow_pyramids_equals_upsampling_outside_k8(config):
+    """Coarse to fine through K8's start modes equals the loop that
+    upsampled each level's start with upsample_flow and solved from maps,
+    bit for bit."""
+    jcfg = create_config().replace(**CONFIGS[config]).validated_window()
+    cfg = config_from_jax(jcfg)
+    _, (p1, p2) = _pyramids(*_pair(48, 64), jcfg)
+    u = torch.zeros(p1.img[-1].shape)
+    v = torch.zeros_like(u)
+    for r in range(cfg.nPyramidLevels - 1, -1, -1):
+        shape = tuple(p1.img[r].shape)
+        if shape != tuple(u.shape):
+            u = tflow.upsample_flow(u, shape, float(cfg.subsampling))
+            v = tflow.upsample_flow(v, shape, float(cfg.subsampling))
+        u, v, status, _ = dense_level(*_level(p1, p2, r), u, v, cfg)
+    got = tflow.dense_flow_pyramids(p1, p2, cfg)
+    for a, b in zip(got, (u, v, status)):
+        assert torch.equal(a, b)
 
 
 def test_upsample_flow_and_warp_image_match_jax():

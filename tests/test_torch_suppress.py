@@ -1,9 +1,12 @@
-"""K5's plain version (ops/cuda_suppress.py) against the JAX package's
+"""K5's plain versions (ops/cuda_suppress.py) against the JAX package's
 greedy suppression kernel (greedy_suppress_pallas, interpret mode) and the
-numpy host greedy, and the port's host-API selection (ops/select.py: sort
-+ K5 + slot fill) against JAX's _enforce_minimum_distance fed the port's
-own int32 eig map, lattice and order. Bars: acceptance flags, slot fills
-and (x, y, val) arrays equal."""
+numpy host greedy; K5's fused entry (suppress_and_fill: decode, budget,
+scan, slot fill) against the composition it replaces (decode,
+greedy_suppress, fill_slots) and JAX's host greedy with its slot walk
+(_enforce_minimum_distance); and the port's host-API selection
+(ops/select.py: stage A, sort, K5) against JAX's _enforce_minimum_distance
+fed the port's own int32 eig map, lattice and order. Bars: acceptance
+flags, slot fills and (x, y, val) arrays equal."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -18,7 +21,8 @@ from pyfeaturetrack_tpu.ops.select import _enforce_minimum_distance
 from pyfeaturetrack_tpu.ops.select_device import suppress_and_fill
 
 from pyfeaturetrack_tpu_torch.errors import KLTWarningCategory
-from pyfeaturetrack_tpu_torch.features import (feature_state_from_numpy,
+from pyfeaturetrack_tpu_torch.features import (FeatureState,
+                                               feature_state_from_numpy,
                                                feature_state_to_numpy)
 from pyfeaturetrack_tpu_torch.ops import cuda_suppress
 from pyfeaturetrack_tpu_torch.ops.cuda_suppress import greedy_suppress
@@ -187,6 +191,98 @@ def test_cpu_tensors_take_the_plain_version():
     assert cuda_suppress.grid_bytes((480, 640)) == 38400
     assert cuda_suppress.grid_bytes((1080, 1920)) > \
         cuda_suppress.SMEM_GRID_BYTES
+
+
+# ---- K5's fused entry: decode, budget, scan and slot fill ---------------
+
+def _composition(neg, order, geom, min_eig, shape, mindist, x, y, val,
+                 replacing):
+    """The host API's selection after the sort as it was composed before
+    the fused entry: decode, greedy_suppress under the free-slot budget,
+    fill_slots."""
+    borderx, bordery, step, _, nx = geom
+    vals = -neg
+    cand_x = (borderx + (order % nx) * step).to(torch.int32)
+    cand_y = (bordery + (order // nx) * step).to(torch.int32)
+    valid = vals >= min_eig
+    free = (val < 0) if replacing else torch.ones_like(val, dtype=torch.bool)
+    _, idx, n_acc = greedy_suppress(
+        cand_x, cand_y, valid, shape=shape, mindist=mindist,
+        max_out=int(val.shape[0]),
+        budget=free.sum().to(torch.int32).reshape(1))
+    idx = idx.to(torch.int64)
+    return fill_slots(n_acc, cand_x[idx], cand_y[idx], vals[idx], free, x, y,
+                      val)[:3]
+
+
+_GEOMS = {"edges": (0, 0, 1, 60, 80),          # candidates on every edge
+          "strided": (4, 3, 2, 27, 36)}
+_SLOTS = ["initial", "refill", "budget 0", "budget 1", "all lost",
+          "all invalid"]
+
+
+@pytest.mark.parametrize("geometry", list(_GEOMS))
+@pytest.mark.parametrize("slots", _SLOTS)
+@pytest.mark.parametrize("mindist", [0, 1, 10, 25])
+def test_suppress_and_fill_matches_composition_and_jax(mindist, slots,
+                                                       geometry):
+    """Random lattices with ties (values 0..49, bar 10): initial selection,
+    a refill (kept features pre-mask their boxes, as stage A does), no free
+    slot (budget 0), one free slot, every slot lost, and an all-invalid
+    list; boxes clipped at every edge. The fused entry's plain version ==
+    the earlier composition == JAX's _enforce_minimum_distance on the
+    unmasked lattice."""
+    h, w = 60, 80
+    geom = _GEOMS[geometry]
+    bx, by, step, ny, nx = geom
+    rng = np.random.default_rng(mindist * 31 + _SLOTS.index(slots))
+    min_eig = 10
+    vals = rng.integers(0, 50, (ny, nx)).astype(np.int32)
+    if slots == "all invalid":
+        vals = np.minimum(vals, min_eig - 1)
+    n = 30
+    replacing = slots != "initial"
+    feats = np.tile([-1.0, -1.0, -1.0], (n, 1))
+    if replacing:
+        feats[:, 0] = rng.uniform(0, w, n)
+        feats[:, 1] = rng.uniform(0, h, n)
+        feats[:, 2] = rng.integers(0, 5000, n)
+        lost = {"refill": rng.uniform(size=n) < 0.4,
+                "budget 0": np.zeros(n, bool),
+                "budget 1": np.arange(n) == 17}.get(slots, np.ones(n, bool))
+        feats[lost, 2] = rng.integers(-5, 0, int(lost.sum()))
+    gy, gx = np.meshgrid(by + step * np.arange(ny), bx + step * np.arange(nx),
+                         indexing="ij")
+    cand = vals.copy()
+    if replacing and mindist >= 1:
+        # stage A's pre-mask: cells within the kept features' boxes
+        for fx, fy, fv in feats:
+            if fv >= 0:
+                near = ((np.abs(gx - int(fx)) <= mindist - 1)
+                        & (np.abs(gy - int(fy)) <= mindist - 1))
+                cand[near] = 0
+    neg, order = torch.sort(-torch.tensor(cand.ravel()), stable=True)
+    x, y = (torch.tensor(feats[:, i], dtype=torch.float32) for i in (0, 1))
+    val = torch.tensor(feats[:, 2], dtype=torch.int32)
+    args = (neg, order, geom, min_eig, (h, w), mindist, x, y, val, replacing)
+    before = cuda_suppress.launches
+    got = cuda_suppress.suppress_and_fill(
+        neg, order, geom=geom, min_eig=min_eig, shape=(h, w),
+        mindist=mindist, x=x, y=y, val=val, replacing=replacing)
+    assert cuda_suppress.launches == before
+    for a, b in zip(got, _composition(*args)):
+        assert torch.equal(a, b)
+    want = _enforce_minimum_distance(
+        gx.ravel(), gy.ravel(), vals.ravel().astype(np.int64),
+        np.argsort(-vals.ravel().astype(np.int64), kind="stable"),
+        np.column_stack([feats[:, :2].astype(np.float32), feats[:, 2]]),
+        (h, w), mindist, min_eig, not replacing)
+    np.testing.assert_array_equal(feature_state_to_numpy(FeatureState(*got)),
+                                  want)
+    if slots == "budget 0":
+        np.testing.assert_array_equal(got[2].numpy(), val.numpy())
+    if slots == "all invalid":
+        assert (got[2][val < 0] == -1).all()
 
 
 # ---- the host-API selection given the same eig map --------------------
