@@ -13,9 +13,16 @@ Phases, in order; the first failure exits non-zero:
 3. kernels — each hand-written kernel against its plain PyTorch version on
    the card, at the main paths' shapes (480x640 frame, 1000 features),
    timed with CUDA events and, from torch.profiler's kernel durations, by
-   device time. Default config: K1, K2 and K4 must match their plain
-   versions bit for bit and K3 within one int step at under 1e-3 of
-   pixels. K1 each level on its own and whole pyramids (at most two
+   device time. Default config: K1, K2, K3 and K4 must match their plain
+   versions bit for bit. K3 standalone on the level-0 gradients and K3
+   inside K1's level-0 launch (the build with the map: the map equal to
+   the standalone entry on the gradients the same build stored and the
+   levels equal to the build without the map; the eig-only entry with and
+   without the pre-smooth) on the 480x640, 481x643 and 480x70 frames at
+   the default, 51x51, 97x97 (the widest the taps allow: a smaller tile)
+   and 13x13 (3 levels, subsampling 2) windows, timed
+   with the build beside the build without the map. K1 each level on its
+   own and whole pyramids (at most two
    launches each) at 1-4 levels, subsampling 2 and 4, the default and the
    13x13 window's sigmas, on the 480x640 frame, a 481x643 frame and a
    480x70 frame whose coarse levels are narrower than a tile. K4's two stages (the candidate lattice and its maxima;
@@ -45,8 +52,9 @@ Phases, in order; the first failure exits non-zero:
 4. main    — track_sequence_device on 100 synthetic 480x640 frames of a
    texture scrolling at a known drift, 1000 features, replace-lost on:
    every kernel must have launched (K1 twice per frame's pyramid, 200
-   times; K2 once per track call, 99 times; K4 two stages per selection,
-   200 times), the tracks must recover the drift,
+   times, the first of them with K3's map, 100 times; K2 once per track
+   call, 99 times; K4 two stages per selection, 200 times) and K3's
+   standalone entry never, the tracks must recover the drift,
    the last frame must be fully live, and a 10-frame run through the
    plain versions must give the identical feature table (x, y, val);
    K5 bit-equal on the host API's sorted candidate lattice of a real
@@ -62,8 +70,9 @@ Phases, in order; the first failure exits non-zero:
    the two routes' selections equal;
 5. affine  — track_sequence_device with config 3 on 100 synthetic 480x640
    frames under a known slow similarity motion, 1000 features,
-   replace-lost on: K1-K4 and K6 must have launched (K1 200, K2 99, K4
-   200 and K6 99 times: one launch per affine stage), the tracks must
+   replace-lost on: K1-K4 and K6 must have launched (K1 200, K3 in K1's
+   level 0 100, K2 99, K4 200 and K6 99 times: one launch per affine
+   stage) and K3's standalone entry never, the tracks must
    recover the motion, refills must fire, the affine stage must hold
    templates and reject lanes, every step's affine stage must equal its
    plain version on the same inputs (x, y, val and all eight AffineState
@@ -73,14 +82,16 @@ Phases, in order; the first failure exits non-zero:
    (CUDA events);
 6. config 1 — example 1 through the facade (KLTSelectGoodFeatures,
    KLTTrackFeatures) on examples/data/img0.pgm -> img1.pgm, 100 features:
-   K1 (five launches: two builds and the selection's level 0), K2
-   (once), K3, K4 (stage A, once) and K5 (once: one launch per host-API
-   selection) must have launched, and the selected and tracked lists must
+   K1 (five launches: two builds and the selection's eig-only level 0,
+   which carries K3's map), K2 (once), K4 (stage A, once) and K5 (once:
+   one launch per host-API selection) must have launched, K3's standalone
+   entry never, and the selected and tracked lists must
    equal the same calls through the plain versions;
 7. config 2 — track_sequence (the host-API loop: sort + K5 refills) on the
-   main phase's 100 frames, 1000 features, replace-lost on: one K5 launch
-   and one K4 stage A per host-API selection (the first frame and every
-   refill), K2 once per step, the table must equal
+   main phase's 100 frames, 1000 features, replace-lost on: one K5
+   launch, one K4 stage A and one eig-only K1 level 0 (K3's map) per
+   host-API selection (the first frame and every refill), K3's standalone
+   entry never, K2 once per step, the table must equal
    track_sequence_device's, and a 10-frame config-3 run must equal the
    device route's table and AffineState; then the SequenceTracker.step
    time (CUDA events);
@@ -103,7 +114,10 @@ Phases, in order; the first failure exits non-zero:
    bit-equal and timed, as in (a). K9 bit-equal on
    the main pair's 1000 features (windows at the selected features,
    frame-2 positions at K2's tracked ones; also at 17x17 to 51x51
-   windows) and on a mix with lanes beyond every edge, timed. (d) track_sequence(subpixel_refine=True) on 10
+   windows) and on a mix with lanes beyond every edge, timed; beside it
+   the device time of a one-element fill (the card's floor for one small
+   kernel), and K9 on 65,536 features of the same frame, bit-equal and
+   timed. (d) track_sequence(subpixel_refine=True) on 10
    frames: the table equals the plain route's, the first frame is refined
    off the integers;
 9. profile (only with --profile) — for config 2's host loop, its step
@@ -112,12 +126,15 @@ Phases, in order; the first failure exits non-zero:
    wall clock and through track_sequence_device, three repeats each;
    then for each a torch.profiler trace of 30 steps
    (build/profile/step_trace_<config>.json): device kernels, busy time
-   and idle share per step, and the largest device items; the same for 10
+   and idle share per step, and the largest device items, and no launch
+   of K3's standalone kernel; the same for 10
    compute_dense_flow calls (build/profile/dense_flow_trace.json), each
    of which must show nPyramidLevels K8 launches.
 
 Prints the per-kernel JSON line (times by events and on the device,
-launches, error, and the bound:
+launches, error, and the bound (K3 twice: inside K1's level-0 launch,
+timed as the eig-only launch, and its standalone entry, with launches per
+path):
 the larger of the bytes each kernel must move over 3.35 TB/s and its
 float32 operations over 67 TFLOP/s, computed from this run's inputs;
 K8's entry also carries its 1-D mode's times and bound, K5's its list
@@ -133,6 +150,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import math
 import subprocess
 import sys
 import time
@@ -269,6 +287,40 @@ def expect_launches(counts, expect, path):
         if counts[k] != want:
             fail(f"{k} launched {counts[k]} times on the {path} (expected "
                  f"{want})")
+
+
+class K3InK1:
+    """K3's launches inside K1's level-0 launch (ops/cuda_pyramid
+    ``eig_launches``: the build with the map, the eig-only entry) under the
+    ``launches`` name every path's count reads and resets."""
+
+    def __init__(self, cuda_pyramid):
+        self.mod = cuda_pyramid
+
+    @property
+    def launches(self):
+        return self.mod.eig_launches
+
+    @launches.setter
+    def launches(self, value):
+        self.mod.eig_launches = value
+
+
+# K3's standalone entry (ops/cuda_eig): no path launches it any more.
+K3_STANDALONE = "K3 standalone"
+
+
+def path_counts(mods, path):
+    """Each kernel's launches since the counts were set to 0; every kernel
+    but K3's standalone entry must have launched, and that one not at all."""
+    counts = {k: m.launches for k, m in mods.items()}
+    for k, c in counts.items():
+        if k == K3_STANDALONE:
+            if c != 0:
+                fail(f"K3's standalone entry launched {c} times on the {path}")
+        elif c <= 0:
+            fail(f"{k} was never launched on the {path}")
+    return counts
 
 
 def k2_call_check(pa, pb, x, y, live, cfg, cuda_lk, reference_path, name):
@@ -538,12 +590,13 @@ def k1_build_check(pft, cuda_pyramid, cuda, img, cfg, name):
     return got
 
 
-def k1_work(cfg, h, w):
+def k1_work(cfg, h, w, with_eig=False):
     """Bytes and operations of one frame's pyramid build: the frame read
     once, each level's image and gradient pair written once; per output
     sample one multiply and one add per tap of each 1-D pass (the level-0
     pre-smooth, the four gradient passes, and the pyramid smoothing at the
-    decimated samples only)."""
+    decimated samples only). ``with_eig``: and K3's int32 map written, with
+    its arithmetic (k3_work's operations)."""
     from pyfeaturetrack_tpu_torch.ops.cuda_pyramid import level_taps
     taps = level_taps(cfg)
     ks, kg, kd, kp = (len(t) for t in (taps.smooth, taps.grad_g, taps.grad_d,
@@ -559,6 +612,9 @@ def k1_work(cfg, h, w):
             h2, w2 = hl // s, wl // s
             ops += 2 * kp * hl * w2 + 2 * kp * h2 * w2
             hl, wl = h2, w2
+    if with_eig:
+        nbytes += 4 * h * w
+        ops += k3_work(cfg, h, w)[1]
     return nbytes, ops
 
 
@@ -583,6 +639,57 @@ def k3_work(cfg, h, w):
     products, the two 1-D window sums of each, and the eigenvalue."""
     per_px = 3 + 3 * (cfg.window_width - 1 + cfg.window_height - 1) + 8
     return 3 * 4 * h * w, per_px * h * w
+
+
+def k3_in_k1_work(cfg, h, w):
+    """K3 in K1's level-0 launch, eig-only, pre-smoothed: the frame read and
+    the int32 map written once; per pixel the pre-smooth, the gradient pair
+    (one multiply and one add per tap of each 1-D pass) and k3_work's
+    arithmetic."""
+    from pyfeaturetrack_tpu_torch.ops.cuda_pyramid import level_taps
+    taps = level_taps(cfg)
+    ks, kg, kd = (len(t) for t in (taps.smooth, taps.grad_g, taps.grad_d))
+    per_px = 2 * 2 * ks + 4 * kd + 4 * kg
+    return 8 * h * w, per_px * h * w + k3_work(cfg, h, w)[1]
+
+
+def k3_fused_check(pft, cuda_pyramid, cuda_eig, cuda, img, cfg, name):
+    """K3 inside K1's level-0 launch, bit for bit: the build's map against
+    K3's standalone entry on the gradients the same build stored and against
+    the plain versions, the build's levels against the build without the
+    map; the eig-only entry with and without the pre-smooth against the
+    build's map, K3's standalone entry and the plain version."""
+    import torch
+    win = (cfg.window_width, cfg.window_height)
+    taps = cuda_pyramid.level_taps(cfg)
+    pyr, eig = pft.build_track_pyramids(img, cfg, with_eig=True)
+    bare = pft.build_track_pyramids(img, cfg)
+    only = {sm: cuda_pyramid.level0_eig(img, taps, sm, *win)
+            for sm in (True, False)}
+    _, gx_raw, gy_raw, _ = cuda_pyramid.pyramid_level(img, taps, False, False)
+    with cuda.reference_path():
+        _, peig = pft.build_track_pyramids(img, cfg, with_eig=True)
+        ponly = {sm: cuda_pyramid.level0_eig(img, taps, sm, *win)
+                 for sm in (True, False)}
+    checks = {
+        "build map = K3 standalone on its gradients": torch.equal(
+            eig, cuda_eig.min_eig_map(pyr.gradx[0], pyr.grady[0], *win)),
+        "build map = plain": torch.equal(eig, peig),
+        "levels = build without the map": all(
+            torch.equal(a, b) for ga, gb in zip(pyr, bare)
+            for a, b in zip(ga, gb)),
+        "eig-only, pre-smoothed = build map": torch.equal(only[True], eig),
+        "eig-only = plain": all(torch.equal(only[sm], ponly[sm])
+                                for sm in only),
+        "eig-only, raw = K3 standalone": torch.equal(
+            only[False], cuda_eig.min_eig_map(gx_raw, gy_raw, *win)),
+    }
+    torch.cuda.synchronize()
+    print(f"K3 in K1 level 0, {name}, {win[0]}x{win[1]} window, "
+          f"{cfg.nPyramidLevels} levels: " + ", ".join(
+              f"{k} {v}" for k, v in checks.items()))
+    if not all(checks.values()):
+        fail(f"K3 in K1's level-0 launch ({name}) differs: {checks}")
 
 
 def k4_work(ny, nx, n, n_acc, dg):
@@ -765,14 +872,16 @@ def dense_depth_levels(pft, cfg, dev):
     return lvl[0], d1
 
 
-def k9_work(n, ww, wh):
+def k9_work(n, ww, wh, frame_px):
     """Bytes and operations of one K9 call on n features: the three frame-1
-    windows and the three (ww+1)(wh+1) frame-2 patches read once, positions
-    in, five sums out; per window pixel three blends (21), the residual and
-    two gradient sums (3), five products and five sums (10); per feature
-    the clamp (4) and the two step scalings (2)."""
+    windows read once, the three (ww+1)(wh+1) frame-2 patches read once but
+    never more than the three frame-2 images of frame_px pixels (each input
+    read once), positions in, five sums out; per window pixel three blends
+    (21), the residual and two gradient sums (3), five products and five
+    sums (10); per feature the clamp (4) and the two step scalings (2)."""
     npx, patch = ww * wh, (ww + 1) * (wh + 1)
-    return n * (3 * npx * 4 + 3 * patch * 4 + 8 + 20), n * (npx * 34 + 6)
+    frame2 = min(n * 3 * patch * 4, 3 * frame_px * 4)
+    return n * (3 * npx * 4 + 8 + 20) + frame2, n * (npx * 34 + 6)
 
 
 def k4_check(cuda_select, cuda, eig, x, y, v, geom, cfg, replacing, name,
@@ -888,7 +997,13 @@ def device_ms(fn, kernels, out_dir, reps: int = 20):
     ``kernels``, summed over their launches, from torch.profiler's kernel
     durations over reps calls after one warm-up; and their launches per
     call. The trace goes to out_dir/kernel_times.json. A trace that holds
-    none of the kernels is taken again, twice at most."""
+    none of the kernels is read again through the profiler's own event
+    list, then taken again, twice at most. If none of three traces holds
+    a launch (the profiler can lose a kernel's records on this card), both
+    numbers are NaN, which the kernels line writes as null: CUDA events
+    around back-to-back calls count the host's launch time too, so they
+    are printed under their own name and never stand in for device
+    time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -908,9 +1023,19 @@ def device_ms(fn, kernels, out_dir, reps: int = 20):
                 and any(k in e.get("name", "") for k in kernels)]
         if durs:
             return sum(durs) / reps / 1e3, len(durs) / reps
+        evs = [e for e in prof.events()
+               if e.device_type.name == "CUDA"
+               and any(k in e.name for k in kernels)]
+        if evs:
+            return (sum(e.device_time for e in evs) / reps / 1e3,
+                    len(evs) / reps)
         print(f"the profiler recorded no launch of {kernels} (attempt "
               f"{attempt + 1})")
-    fail(f"the profiler recorded no launch of {kernels}")
+    print(f"no device time for {kernels}: the profiler recorded none of "
+          f"their launches in three traces (CUDA events around the same "
+          f"back-to-back calls, launch time included: {time_ms(fn, reps):.4f} "
+          "ms per call)")
+    return float("nan"), float("nan")
 
 
 def time_ms(fn, reps: int = 20) -> float:
@@ -995,8 +1120,9 @@ def profile_phase(pft, cfg, frames, staged, root, tag, n_prof=30, repeats=3):
             pyr, x, y, v, aff, _, _ = pft.sequence_step_device(
                 pyr, img, x, y, v, cfg, aff=aff)
         torch.cuda.synchronize()
-    trace_summary(prof, root / "build" / "profile" / f"step_trace_{tag}.json",
-                  n_prof)
+    no_standalone_k3(trace_summary(
+        prof, root / "build" / "profile" / f"step_trace_{tag}.json", n_prof),
+        tag)
 
 
 def trace_summary(prof, out, n_steps):
@@ -1033,6 +1159,16 @@ def trace_summary(prof, out, n_steps):
         print(f"  {t / n_steps:8.1f} us/step  {c / n_steps:5.1f} launches/step  "
               f"{short}")
     return kern
+
+
+def no_standalone_k3(kern, tag):
+    """Fail if a traced step ran K3's standalone kernel: every step takes
+    its map from K1's level-0 launch."""
+    n = sum("eig_kernel" in name for _, _, name in kern)
+    print(f"standalone K3 launches (::eig_kernel) in the traced {tag} steps: "
+          f"{n}")
+    if n:
+        fail(f"the traced {tag} steps launched K3's standalone kernel")
 
 
 def profile_dense(pft, frames, root, n_prof=10):
@@ -1106,8 +1242,9 @@ def profile_host_loop(pft, cfg, staged, root, n_prof=30, repeats=3):
         for img in staged[11:11 + n_prof]:
             st.step(img)
         torch.cuda.synchronize()
-    trace_summary(prof, root / "build" / "profile" /
-                  "step_trace_config2_host.json", n_prof)
+    no_standalone_k3(trace_summary(
+        prof, root / "build" / "profile" / "step_trace_config2_host.json",
+        n_prof), "config-2 host loop")
 
 
 def event_ms(fn, reps: int = 10, warmup: int = 2):
@@ -1387,13 +1524,65 @@ def dense_phase(pft, frames, ex, sparse, mods, report, dev, smi, prof_dir):
                           ["::window_terms_kernel"], prof_dir)
     with cuda.reference_path():
         k9_plain = time_ms(lambda: cuda_window_terms.window_terms(*args, **kw))
-    k9_w = k9_work(args[-1].shape[0], cfg.window_width, cfg.window_height)
+    k9_w = k9_work(args[-1].shape[0], cfg.window_width, cfg.window_height,
+                   H * W)
     print(f"K9, 1000 features: kernel {k9_ms:.4f} ms by events, "
           f"{k9_dev:.4f} ms device, plain {k9_plain:.4f} ms, bound "
           f"{bound_ms(*k9_w)[0]:.6f} ms ({bound_ms(*k9_w)[1]})")
+    # the card's floor for one small kernel: a one-element fill
+    one = torch.zeros(1, device=dev)
+    floor_dev, _ = device_ms(lambda: one.fill_(1), ["FillFunctor"], prof_dir)
+    # K9 at 65,536 features on the same frame: frame-1 windows at seeded
+    # positions over the whole frame, frame-2 positions at the drift (lanes
+    # past the right and bottom edges are clamped in)
+    rng9 = np.random.default_rng(SEED + 9)
+    n_big = 65536
+    xa, ya = (torch.as_tensor(rng9.uniform(0, hi, n_big), dtype=torch.float32,
+                              device=dev) for hi in (W - 1, H - 1))
+    xb, yb = xa + DRIFT[0], ya + DRIFT[1]
+    ww, wh = cfg.window_width, cfg.window_height
+    w1, g1x, g1y = (gather_window(im, xa, ya, ww // 2, wh // 2).contiguous()
+                    for im in (pa.img[0], pa.gradx[0], pa.grady[0]))
+    bargs = (pb.img[0], pb.gradx[0], pb.grady[0], w1, g1x, g1y, xb, yb)
+    got = cuda_window_terms.window_terms(*bargs, **kw)
+    with cuda.reference_path():
+        want = cuda_window_terms.window_terms(*bargs, **kw)
+    torch.cuda.synchronize()
+    same = torch.equal(got, want)
+    print(f"K9, {n_big} features: bit-equal {same}")
+    if not same:
+        fail(f"K9 ({n_big} features) differs from its plain version")
+    def big():
+        return cuda_window_terms.window_terms(*bargs, **kw)
+
+    # its inputs (about 44 MB) fit the card's 50 MB L2, so back-to-back
+    # calls may find them there: device time warm (three readings of 20
+    # calls) and cold (a 128 MB read before each call evicts them)
+    scrub = torch.zeros(32 << 20, device=dev)
+    big_ms = time_ms(big)
+    big_warm = [device_ms(big, ["::window_terms_kernel"], prof_dir)[0]
+                for _ in range(3)]
+    big_dev = big_warm[0]
+    big_cold, _ = device_ms(lambda: (scrub.sum(), big()),
+                            ["::window_terms_kernel"], prof_dir)
+    del scrub
+    with cuda.reference_path():
+        big_plain = time_ms(big, reps=5)
+    big_b = bound_ms(*k9_work(n_big, ww, wh, H * W))
+    print(f"K9, {n_big} features: kernel {big_ms:.4f} ms by events, "
+          f"device {', '.join(f'{t:.4f}' for t in big_warm)} ms back to "
+          f"back, {big_cold:.4f} ms with L2 evicted before each call, plain "
+          f"{big_plain:.4f} ms, bound {big_b[0]:.6f} ms ({big_b[1]}); "
+          f"one-element fill (the card's floor for one small kernel) "
+          f"{floor_dev:.4f} ms device")
     report["K9"] = dict(max_abs_err=0.0, ms=k9_ms, plain_ms=k9_plain,
                         device_ms=k9_dev,
-                        work=k9_w, launches=k9_launches)
+                        work=k9_w, launches=k9_launches,
+                        floor_device_ms=floor_dev, n65536_ms=big_ms,
+                        n65536_device_ms=big_dev,
+                        n65536_cold_device_ms=big_cold,
+                        n65536_plain_ms=big_plain,
+                        n65536_bound_ms=big_b[0], n65536_bound_by=big_b[1])
 
     # ---- (d) config 2 with sub-pixel refinement ----
     phase(f"dense (d): track_sequence(subpixel_refine=True), "
@@ -1543,32 +1732,63 @@ def main(argv=None) -> int:
     report["K1"] = dict(max_abs_err=0.0, ms=k1_ms, plain_ms=k1_plain,
                         device_ms=k1_dev, work=k1_work(cfg, H, W))
 
-    # K3 on the level-0 gradients
+    # K3: the standalone entry on the level-0 gradients, then K3 inside K1's
+    # level-0 launch (the build with the map, the eig-only entry), all bit
+    # for bit
+    ww, wh = cfg.window_width, cfg.window_height
     pyr0 = build_frame(img0)
     gx0, gy0 = pyr0.gradx[0], pyr0.grady[0]
-    eig_k = cuda_eig.min_eig_map(gx0, gy0, cfg.window_width, cfg.window_height)
+    eig_k = cuda_eig.min_eig_map(gx0, gy0, ww, wh)
     with cuda.reference_path():
-        eig_p = cuda_eig.min_eig_map(gx0, gy0, cfg.window_width,
-                                     cfg.window_height)
+        eig_p = cuda_eig.min_eig_map(gx0, gy0, ww, wh)
     torch.cuda.synchronize()
-    d = (eig_k.to(torch.int64) - eig_p.to(torch.int64)).abs()
-    k3_err = int(d.max().item())
-    frac = (d != 0).float().mean().item()
-    print(f"K3 eig map: max |int step| {k3_err}, fraction of pixels off "
-          f"{frac:.3g}, bit-equal {torch.equal(eig_k, eig_p)}")
-    if k3_err > 1 or frac >= 1e-3:
-        fail(f"K3 differs by {k3_err} int steps at {frac} of pixels "
-             "(bar: <= 1 step at < 1e-3)")
-    ww, wh = cfg.window_width, cfg.window_height
+    same = torch.equal(eig_k, eig_p)
+    print(f"K3 standalone eig map: bit-equal {same}")
+    if not same:
+        fail("K3 (standalone) differs from its plain version")
+    for fname, frame in k1_frames.items():
+        for over in ({}, {"window_width": 51, "window_height": 51},
+                     {"window_width": 97, "window_height": 97},
+                     {"window_width": 13, "window_height": 13,
+                      "nPyramidLevels": 3, "subsampling": 2}):
+            k3_fused_check(pft, cuda_pyramid, cuda_eig, cuda, frame,
+                           pft.create_config(**over), fname)
     k3_ms = time_ms(lambda: cuda_eig.min_eig_map(gx0, gy0, ww, wh))
     with cuda.reference_path():
         k3_plain = time_ms(lambda: cuda_eig.min_eig_map(gx0, gy0, ww, wh))
     k3_dev, _ = device_ms(lambda: cuda_eig.min_eig_map(gx0, gy0, ww, wh),
                           ["::eig_kernel"], prof_dir)
-    print(f"K3: kernel {k3_ms:.4f} ms by events, {k3_dev:.4f} ms device, "
-          f"plain {k3_plain:.4f} ms")
-    report["K3"] = dict(max_abs_err=float(k3_err), ms=k3_ms, plain_ms=k3_plain,
-                        device_ms=k3_dev, work=k3_work(cfg, H, W))
+    print(f"K3 standalone: kernel {k3_ms:.4f} ms by events, {k3_dev:.4f} ms "
+          f"device, plain {k3_plain:.4f} ms")
+    report["K3 standalone"] = dict(max_abs_err=0.0, ms=k3_ms,
+                                   plain_ms=k3_plain, device_ms=k3_dev,
+                                   work=k3_work(cfg, H, W))
+
+    def eig_only():
+        return cuda_pyramid.level0_eig(img0, taps, True, ww, wh)
+
+    def build_with_map():
+        return pft.build_track_pyramids(img0, cfg, with_eig=True)
+
+    k3f_ms = time_ms(eig_only)
+    with cuda.reference_path():
+        k3f_plain = time_ms(eig_only)
+    k3f_dev, _ = device_ms(eig_only, ["::level0_kernel"], prof_dir)
+    k1f_ms = time_ms(build_with_map)
+    k1f_dev, _ = device_ms(build_with_map, k1_names, prof_dir)
+    k1f_l0, _ = device_ms(build_with_map, ["::level0_kernel"], prof_dir)
+    k1f_w = k1_work(cfg, H, W, with_eig=True)
+    print(f"K3 in K1 level 0: eig-only launch {k3f_ms:.4f} ms by events, "
+          f"{k3f_dev:.4f} ms device, plain {k3f_plain:.4f} ms; the build "
+          f"with the map {k1f_ms:.4f} ms by events, {k1f_dev:.4f} ms device "
+          f"(level 0 {k1f_l0:.4f} against {k1_split[0]:.4f} without the "
+          f"map), bound {bound_ms(*k1f_w)[0]:.6f} ms ({bound_ms(*k1f_w)[1]})")
+    report["K3"] = dict(max_abs_err=0.0, ms=k3f_ms, plain_ms=k3f_plain,
+                        device_ms=k3f_dev, work=k3_in_k1_work(cfg, H, W))
+    report["K1"].update(fused_ms=k1f_ms, fused_device_ms=k1f_dev,
+                        fused_level0_device_ms=k1f_l0,
+                        level0_device_ms=k1_split[0],
+                        fused_bound_ms=bound_ms(*k1f_w)[0])
 
     # K4, both stages: the initial selection (1000 of 255,744 candidates),
     # a refill (40 free slots), both at mindist 0 too, and a 1080x1920
@@ -2122,8 +2342,8 @@ def main(argv=None) -> int:
     # ---- phase 4: the main path ----
     phase(f"main path: track_sequence_device, {N_FRAMES} frames, "
           f"{N_FEATURES} features, replace-lost")
-    mods = {"K1": cuda_pyramid, "K2": cuda_lk, "K3": cuda_eig,
-            "K4": cuda_select}
+    mods = {"K1": cuda_pyramid, "K2": cuda_lk, "K3": K3InK1(cuda_pyramid),
+            K3_STANDALONE: cuda_eig, "K4": cuda_select}
     for m in mods.values():
         m.launches = 0
     t0 = time.perf_counter()
@@ -2132,16 +2352,13 @@ def main(argv=None) -> int:
                                            replace_lost=True, device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = {k: m.launches for k, m in mods.items()}
+    counts = path_counts(mods, "main path")
     print(f"launches in the main-path run: {counts} ({wall:.2f} s wall, "
           "first calls included)")
-    for k, c in counts.items():
-        if c <= 0:
-            fail(f"{k} was never launched on the main path")
-    # two K1 launches per frame's build, one K2 launch per track call, two
-    # K4 stages per selection
+    # two K1 launches per frame's build, the first of them with K3's map;
+    # one K2 launch per track call, two K4 stages per selection
     expect_launches(counts, {"K1": 2 * N_FRAMES, "K2": N_FRAMES - 1,
-                             "K4": 2 * N_FRAMES}, "main path")
+                             "K3": N_FRAMES, "K4": 2 * N_FRAMES}, "main path")
     if not (np.isfinite(xs).all() and np.isfinite(ys).all()):
         fail("non-finite positions")
     if xs.shape != (N_FRAMES, N_FEATURES):
@@ -2178,7 +2395,9 @@ def main(argv=None) -> int:
     report["K1"]["launches"] = counts["K1"]
     report["K2"]["launches"] = counts["K2"]
     report["K3"]["launches"] = counts["K3"]
+    report[K3_STANDALONE]["launches"] = counts[K3_STANDALONE]
     report["K4"]["launches"] = counts["K4"]
+    k3_paths = {"default": (counts["K3"], counts[K3_STANDALONE])}
 
     staged = [torch.as_tensor(fr, device=dev).to(torch.float32)
               for fr in frames]
@@ -2199,16 +2418,13 @@ def main(argv=None) -> int:
                                            replace_lost=True, device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts3 = {k: m.launches for k, m in mods3.items()}
+    counts3 = path_counts(mods3, "config-3 path")
     print(f"launches in the config-3 run: {counts3} ({wall:.2f} s wall, first "
           "calls included)")
-    for k, c in counts3.items():
-        if c <= 0:
-            fail(f"{k} was never launched on the config-3 path")
     # one K6 launch per step: the whole affine stage
     expect_launches(counts3, {"K1": 2 * N_FRAMES, "K2": N_FRAMES - 1,
-                              "K4": 2 * N_FRAMES, "K6": N_FRAMES - 1},
-                    "config-3 path")
+                              "K3": N_FRAMES, "K4": 2 * N_FRAMES,
+                              "K6": N_FRAMES - 1}, "config-3 path")
     if not (np.isfinite(xs).all() and np.isfinite(ys).all()):
         fail("non-finite positions (config 3)")
     if xs.shape != (N_FRAMES, N_FEATURES):
@@ -2314,6 +2530,7 @@ def main(argv=None) -> int:
         fail("the plain versions' config-3 table or warps differ from the "
              "kernels'")
     report["K6"]["launches"] = counts3["K6"]
+    k3_paths["config 3"] = (counts3["K3"], counts3[K3_STANDALONE])
 
     ms3 = step_times(pft, cfg3, staged3)
     print(f"config-3 per-frame step (track + affine check + refill), median "
@@ -2325,8 +2542,8 @@ def main(argv=None) -> int:
           "examples/data/img0.pgm -> img1.pgm, 100 features")
     data = root / "examples" / "data"
     ex0, ex1 = (pgm_read(data / f"img{i}.pgm") for i in (0, 1))
-    mods1 = {"K1": cuda_pyramid, "K2": cuda_lk, "K3": cuda_eig,
-             "K4": cuda_select, "K5": cuda_suppress}
+    mods1 = {"K1": cuda_pyramid, "K2": cuda_lk, "K3": K3InK1(cuda_pyramid),
+             K3_STANDALONE: cuda_eig, "K4": cuda_select, "K5": cuda_suppress}
     tc = pft.KLTCreateTrackingContext()
 
     def example1():
@@ -2338,19 +2555,18 @@ def main(argv=None) -> int:
         m.launches = 0
     with counted([select_mod], "select_features_from_eig") as selections:
         sel1, trk1 = example1()
-    counts1 = {k: m.launches for k, m in mods1.items()}
+    counts1 = path_counts(mods1, "config-1 path")
     print(f"launches in the config-1 run: {counts1}; host-API selections "
           f"{len(selections)}")
-    for k, c in counts1.items():
-        if c <= 0:
-            fail(f"{k} was never launched on the config-1 path")
     # one track call (two K1 builds of two launches each); the host API's
-    # selection runs K1 at level 0 (one launch), K4's stage A, then K5 (one
-    # launch: decode, budget, scan, slot fill)
-    expect_launches(counts1, {"K1": 5, "K2": 1, "K4": 1,
-                              "K5": len(selections)}, "config-1 path")
+    # selection runs K1's eig-only level 0 (one launch: K3's map), K4's
+    # stage A, then K5 (one launch: decode, budget, scan, slot fill)
+    expect_launches(counts1, {"K1": 5, "K2": 1, "K3": len(selections),
+                              "K4": 1, "K5": len(selections)},
+                    "config-1 path")
     if len(selections) != 1:
         fail(f"the config-1 path made {len(selections)} selections")
+    k3_paths["config 1"] = (counts1["K3"], counts1[K3_STANDALONE])
     with cuda.reference_path():
         psel1, ptrk1 = example1()
     same1 = all(torch.equal(a, b) for a, b in zip(sel1[:3] + trk1[:3],
@@ -2378,22 +2594,20 @@ def main(argv=None) -> int:
                                            replace_lost=True, device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts2 = {k: m.launches for k, m in mods2.items()}
+    counts2 = path_counts(mods2, "config-2 path")
     hx2, hy2, hv2 = (t.cpu().numpy() for t in ft2)
     refill_frames = int((hv2[1:] > 0).any(axis=1).sum())
     n_sel = len(selections)
     print(f"launches in the config-2 run: {counts2} ({wall:.2f} s wall); "
           f"host-API selections {n_sel}; frames with refilled slots "
           f"{refill_frames}")
-    for k, c in counts2.items():
-        if c <= 0:
-            fail(f"{k} was never launched on the config-2 path")
     if not 1 + refill_frames <= n_sel <= N_FRAMES:
         fail("no selection on the first frame and on every refill")
-    # two K1 launches per frame's build; per selection one level-0 launch,
-    # K4's stage A and one K5 launch
+    # two K1 launches per frame's build; per selection one eig-only level-0
+    # launch (K3's map), K4's stage A and one K5 launch
     expect_launches(counts2, {"K1": 2 * N_FRAMES + n_sel, "K2": N_FRAMES - 1,
-                              "K4": n_sel, "K5": n_sel}, "config-2 path")
+                              "K3": n_sel, "K4": n_sel, "K5": n_sel},
+                    "config-2 path")
     if hx2.shape != (N_FRAMES, N_FEATURES) or not np.isfinite(hx2).all():
         fail(f"config-2 feature table shape {hx2.shape} or non-finite")
     diff = np.argwhere((hv2 != vs_main) | (hx2 != xs_main) | (hy2 != ys_main))
@@ -2429,9 +2643,18 @@ def main(argv=None) -> int:
           f"(min {min(ms2):.4f}, max {max(ms2):.4f}); device-route step "
           f"median {np.median(ms):.4f} ms; card {smi}")
     report["K5"]["launches"] = counts2["K5"]
+    k3_paths["config 2"] = (counts2["K3"], counts2[K3_STANDALONE])
+    print("K3 launches per 100-frame path run (in K1's level-0 launch, "
+          "standalone): " + ", ".join(f"{k} {a}, {b}"
+                                      for k, (a, b) in k3_paths.items()))
+    report["K3"]["launches_per_path"] = {
+        k: a for k, (a, _) in k3_paths.items()}
+    report[K3_STANDALONE]["launches_per_path"] = {
+        k: b for k, (_, b) in k3_paths.items()}
 
     # ---- phase 8: dense flow, dense depth, refine; K8 and K9 ----
-    dense_mods = {"K1": cuda_pyramid, "K2": cuda_lk, "K3": cuda_eig,
+    dense_mods = {"K1": cuda_pyramid, "K2": cuda_lk,
+                  "K3": K3InK1(cuda_pyramid), K3_STANDALONE: cuda_eig,
                   "K4": cuda_select, "K5": cuda_suppress, "K6": cuda_affine,
                   "K8": cuda_lk_dense, "K9": cuda_window_terms}
     dense_phase(pft, frames, (ex0, ex1), (sel1, trk1), dense_mods, report,
@@ -2448,8 +2671,12 @@ def main(argv=None) -> int:
                     "pyfeaturetrack_tpu/ops/pallas_pyramid.py:132"),
              "K2": ("lk_pyramid", "pyfeaturetrack_tpu_torch/csrc/lk.cu",
                     "pyfeaturetrack_tpu/ops/pallas_lk_vec.py:663"),
-             "K3": ("min_eig_map", "pyfeaturetrack_tpu_torch/csrc/eig.cu",
+             "K3": ("min_eig_map in K1 level 0",
+                    "pyfeaturetrack_tpu_torch/csrc/pyramid.cu",
                     "pyfeaturetrack_tpu/ops/pallas_eig.py:100"),
+             K3_STANDALONE: ("min_eig_map",
+                             "pyfeaturetrack_tpu_torch/csrc/eig.cu",
+                             "pyfeaturetrack_tpu/ops/pallas_eig.py:100"),
              "K4": ("select_from_eig", "pyfeaturetrack_tpu_torch/csrc/extract.cu",
                     "pyfeaturetrack_tpu/ops/pallas_select.py:251"),
              "K5": ("suppress_and_fill",
@@ -2464,11 +2691,11 @@ def main(argv=None) -> int:
                     "pyfeaturetrack_tpu_torch/csrc/window_terms.cu",
                     "pyfeaturetrack_tpu/ops/pallas_lk.py:140")}
     kernels = []
-    for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K8", "K9"):
+    for k in ("K1", "K2", "K3", K3_STANDALONE, "K4", "K5", "K6", "K8", "K9"):
         name, source, replaces = names[k]
         r = report[k]
         b_ms, b_by = bound_ms(*r["work"])
-        entry = {"name": f"{k} {name}", "route": "cuda",
+        entry = {"name": f"{k.split()[0]} {name}", "route": "cuda",
                  "source": source, "replaces": replaces,
                  "launches": r["launches"],
                  "max_abs_err": r["max_abs_err"], "ms": r["ms"],
@@ -2476,8 +2703,17 @@ def main(argv=None) -> int:
                  "bound_by": b_by, "library_ms": None,
                  "device_ms": r["device_ms"]}
         if k == "K1":
-            entry.update(config3_ms=r["config3_ms"],
-                         config3_device_ms=r["config3_device_ms"])
+            entry.update({f: r[f] for f in (
+                "config3_ms", "config3_device_ms", "fused_ms",
+                "fused_device_ms", "fused_level0_device_ms",
+                "level0_device_ms", "fused_bound_ms")})
+        if k in ("K3", K3_STANDALONE):
+            entry.update(launches_per_path=r["launches_per_path"])
+        if k == "K9":
+            entry.update({f: r[f] for f in (
+                "floor_device_ms", "n65536_ms", "n65536_device_ms",
+                "n65536_cold_device_ms",
+                "n65536_plain_ms", "n65536_bound_ms", "n65536_bound_by")})
         if k == "K2":
             entry.update(windows_checked=r["windows_checked"],
                          levels_checked=r["levels_checked"],
@@ -2504,6 +2740,12 @@ def main(argv=None) -> int:
             entry.update(ms_1d=r["ms_1d"], device_ms_1d=r["device_ms_1d"],
                          plain_ms_1d=r["plain_ms_1d"],
                          bound_ms_1d=b1_ms, bound_by_1d=b1_by)
+        # device times the profiler lost (device_ms) go out as null, named
+        lost = [f for f, v in entry.items() if isinstance(v, float)
+                and math.isnan(v)]
+        entry.update({f: None for f in lost})
+        if lost:
+            entry["device_ms_lost"] = lost
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Where the time goes inside K6's affine stage, K1's pyramid build, K5's
-greedy scan and K8's dense LK level, by clock64() counters, on one GPU.
+"""Where the time goes inside K6's affine stage, K1's pyramid build (with
+K3's map in its level-0 launch), K5's greedy scan, K8's dense LK level and
+K9's window terms, by clock64() counters, on one GPU.
 
     python3 phase_clocks.py [--reps N]
 
@@ -16,10 +17,13 @@ then:
   template into registers; per Gauss-Newton iteration the bounds vote, the
   samples, the butterflies, the solve; after the loop; the outputs).
 * K1: the default build (2 levels, 480x640) and the config-3 build (3
-  levels) N times each. Thread 0 of each block sums the cycles of each
-  phase of its tile (csrc/pyramid.cu: the frame tile, the horizontal
-  pre-smooth, base, the horizontal passes, the vertical passes; level 0
-  and the coarser levels apart; the grid barrier).
+  levels) N times each, as the device route runs them (with K3's map in
+  the level-0 launch), and the default build without the map. Thread 0
+  of each block sums the cycles of each phase of its tile
+  (csrc/pyramid.cu: the frame tile, the horizontal pre-smooth, base, the
+  horizontal passes, the vertical passes, the eig stage's vertical window
+  sums, its horizontal sums, eigenvalue and store; level 0 and the
+  coarser levels apart; the grid barrier).
 * K5: the host API's 480x640 initial selection (255,744 sorted candidates,
   budget 1000) and a refill (40 free slots after the pre-mask) of
   chip_smoke.py, N times each through the fused entry (suppress_and_fill)
@@ -38,6 +42,11 @@ then:
   warps of 1x32, 2x16 and 4x8 pixels. Before the clock build, with the
   package's own library: the same two levels timed by CUDA events at
   several K8 tile shapes (each result held equal to the default tile's).
+* K9: the main pair's 1000 features of chip_smoke.py (7x7 window) and
+  65,536 features at seeded positions of the same frame, N times each.
+  Lane 0 of each feature marks each phase (csrc/window_terms.cu: the
+  position and frame-1 loads, the frame-2 patch staged, the blends and
+  per-lane sums, the butterflies and the store).
 
 Prints, per phase, cycles per launch summed over warps (K6) or blocks
 (K1), marks per launch and the share of the kernel's counted cycles, and
@@ -72,7 +81,9 @@ K8_PHASES = {0: "start and staging", 1: "frame-1 lighting sums",
 K1_PHASES = {0: "level 0: frame tile + halo loaded", 1: "level 0: pre-smooth, "
              "horizontal", 2: "level 0: base (pre-smooth, vertical)",
              3: "level 0: horizontal passes", 4: "level 0: vertical passes "
-             "and stores", 10: "coarser: base tile loaded (L2)",
+             "and stores", 5: "level 0: K3's vertical window sums",
+             6: "level 0: K3's horizontal sums, eigenvalue, store",
+             10: "coarser: base tile loaded (L2)",
              11: "coarser: horizontal passes", 12: "coarser: vertical passes "
              "and stores", 16: "coarser: grid barrier"}
 
@@ -166,7 +177,40 @@ def k5_inputs(pft, cs, cfg, img, dev):
     return out
 
 
+K9_PHASES = {0: "position and frame-1 loads", 1: "frame-2 patch staged",
+             2: "blends and per-lane sums", 3: "butterflies and store"}
 K8_TILES = ((16, 16), (8, 32), (16, 32), (32, 32), (8, 64), (32, 16))
+
+
+def k9_inputs(pft, cs, cfg, frames, dev):
+    """K9's calls of chip_smoke.py's K9 phase: the 1000 features selected
+    on the main pair's first frame (frame-1 windows there, frame-2
+    positions at K2's tracks), and 65,536 features at seeded positions of
+    the same frame (frame-2 positions at the drift)."""
+    import numpy as np
+    import torch
+    from pyfeaturetrack_tpu_torch.ops import cuda_window_terms
+    from pyfeaturetrack_tpu_torch.ops.interp import gather_window
+    pa, pb = (pft.build_track_pyramids(torch.as_tensor(f, device=dev).to(
+        torch.float32), cfg) for f in frames[:2])
+    _, xa, ya, va, _, _ = pft.select_step_device(pa.img[0], cfg,
+                                                 cs.N_FEATURES)
+    xb, yb, _ = pft.track_features_pyramids(pa, pb, xa, ya, va, cfg)
+    rng = np.random.default_rng(cs.SEED + 9)
+    big = [torch.as_tensor(rng.uniform(0, hi, 65536), dtype=torch.float32,
+                           device=dev) for hi in (cs.W - 1, cs.H - 1)]
+    hw, hh = cfg.window_width // 2, cfg.window_height // 2
+    kw = dict(hw=hw, hh=hh, step_factor=cfg.step_factor)
+    calls = {}
+    for name, (x1, y1, x2, y2) in (
+            ("1000 features", (xa, ya, xb, yb)),
+            ("65,536 features", (big[0], big[1], big[0] + cs.DRIFT[0],
+                                 big[1] + cs.DRIFT[1]))):
+        w1 = [gather_window(im, x1, y1, hw, hh).contiguous()
+              for im in (pa.img[0], pa.gradx[0], pa.grady[0])]
+        args = (pb.img[0], pb.gradx[0], pb.grady[0], *w1, x2, y2)
+        calls[name] = (lambda a=args: cuda_window_terms.window_terms(*a, **kw))
+    return calls
 
 
 def k8_tile_sweep(cs, cfg, levels, reps):
@@ -217,6 +261,7 @@ def main(argv=None) -> int:
     _, _, lvl0, u1, v1 = cs.dense_flow_levels(pft, main_frames, cfg, dev)
     k8_levels = (lvl0, u1, v1, *cs.dense_depth_levels(pft, cfg, dev))
     k8_tile_sweep(cs, cfg, k8_levels, reps)
+    k9_calls = k9_inputs(pft, cs, cfg, main_frames, dev)
     t0 = time.perf_counter()
     lib = use_library(build_clock_library())
     print(f"card: {smi}; clock build {time.perf_counter() - t0:.1f} s")
@@ -242,12 +287,15 @@ def main(argv=None) -> int:
            f"{cs.N_FEATURES} lanes, summed over warps", K6_PHASES, cycles,
            counts, reps)
 
-    for name, c, img in (("default build, 2 levels", cfg, frames[0]),
-                         ("config-3 build, 3 levels", cfg3, frames[0])):
-        pft.build_track_pyramids(img, c)
+    for name, c, img, eig in (
+            ("default build with K3's map, 2 levels", cfg, frames[0], True),
+            ("default build without the map", cfg, frames[0], False),
+            ("config-3 build with K3's map, 3 levels", cfg3, frames[0],
+             True)):
+        pft.build_track_pyramids(img, c, with_eig=eig)
         read_clocks(lib, "pft_pyramid_phase_clocks")
         for _ in range(reps):
-            pft.build_track_pyramids(img, c)
+            pft.build_track_pyramids(img, c, with_eig=eig)
         cycles, counts = read_clocks(lib, "pft_pyramid_phase_clocks")
         report(f"K1 {name}, 480x640, summed over blocks", K1_PHASES, cycles,
                counts, reps)
@@ -293,6 +341,15 @@ def main(argv=None) -> int:
                cycles, counts, reps)
         print(f"  {name}: {cs.iteration_line(out[-1])}; 2x16 warps "
               f"{cs.warp_max_mean(out[-1], 2, 16):.4f}")
+
+    for name, call in k9_calls.items():
+        call()
+        read_clocks(lib, "pft_window_terms_phase_clocks")
+        for _ in range(reps):
+            call()
+        cycles, counts = read_clocks(lib, "pft_window_terms_phase_clocks")
+        report(f"K9 {name}, 7x7 window, 480x640, summed over features",
+               K9_PHASES, cycles, counts, reps)
     print(f"\n{smi}")
     return 0
 

@@ -33,8 +33,21 @@
 //     lives in one buffer the wrapper allocates ([img, gx, gy] per level, in
 //     order), so the kernels find each level from (H, W, sub) alone and the
 //     level count is not capped.
+//     Given an int32 map, launch 1 also computes K3's quantized min-eig map
+//     (eig_common.cuh) of the window beside level 0 (build_tile_eig): the
+//     tile's halo grows by the window's half-size, the gradient pair is
+//     computed over the tile plus that margin into shared memory (only the
+//     tile's own part is stored: a neighbouring tile recomputes the margin,
+//     at the same global positions, so with the same bits), and the window
+//     sums and the eigenvalue run from shared memory. The gradients are
+//     never read back from device memory. A window whose margin does not
+//     fit the full tile takes a smaller one (eig_tile_shape: fewer rows or
+//     columns, so the base and the pre-smooth's region shrink with it).
 //   * pft_pyramid_level: one level (ops/cuda_pyramid.pyramid_level) in one
 //     launch of level0_kernel, with or without the pre-smooth.
+//   * pft_pyramid_eig: the same tile in eig-only mode, with or without the
+//     pre-smooth (ops/cuda_pyramid.level0_eig, the host API's selection):
+//     it writes the int32 map and nothing else.
 //
 // What bounds it on this card: bytes (the frame read once; base, the
 // gradient pair and the decimated image written once; a few tens of
@@ -45,9 +58,11 @@
 // generic instantiation takes any odd width up to PFT_MAX_TAPS. Each pass
 // spreads its cells evenly over the block's threads (grid_for), so a level
 // whose tiles are few still keeps every warp busy. Borders are decided from
-// global coordinates, never tile ones.
+// global coordinates, never tile ones. The eig stage is a compile-time mode
+// (EigMode), so the builds without it compile to the code they had before.
 
 #include "common.cuh"
+#include "eig_common.cuh"
 
 namespace {
 
@@ -134,33 +149,21 @@ __device__ __forceinline__ void grid_for(int rows, int cols, F&& f)
     }
 }
 
-// One TH x TL::TW output tile of one level at (R0, C0): gx, gy and, with_pyr,
-// the decimated samples of the next level that fall inside the tile.
-// SMOOTH: `src` is the raw frame and the tile first builds its base (written
-// to base_out); else `src` is the level's base. `sm`: the block's dynamic
-// shared memory (tile_smem floats). Inlined, so that the taps stay kernel
-// parameters (constant-bank operands) instead of a local-memory copy.
-template <class TL, int RS, int RG, int RP, bool SMOOTH, bool CG>
-__device__ __forceinline__ void build_tile(const float* src, float* base_out, float* gx,
-                                           float* gy, float* dec, int H, int W,
-                                           bool with_pyr, int sub, int TH, int R0,
-                                           int C0, const K1Taps& T, float* sm)
+// The tile's base (TH + 2R) x (TW + 2R) from (R0 - R, C0 - R) into `base`:
+// SMOOTH, the pre-smoothed frame `src` (`work` holds the frame tile and the
+// horizontal pass; STORE: the tile's own part written to base_out); else
+// `src` loaded as it is. Ends on a barrier.
+template <class TL, int RS, bool SMOOTH, bool CG, bool STORE>
+__device__ __forceinline__ void tile_base(const float* src, float* base_out, int H, int W,
+                                          int TH, int TW, int R0, int C0, int R,
+                                          const K1Taps& T, float* base, float* work, int ph)
 {
-    constexpr int TW = TL::TW, NT = TL::NT;
-    const int rs = SMOOTH ? radius<RS>(T.s) : 0;
-    const int rgx = radius<RG>(T.g), rdx = radius<RG>(T.d);
-    const int rv = rgx > rdx ? rgx : rdx;
-    const int rp = with_pyr ? radius<RP>(T.p) : 0;
-    const int R = rv > rp ? rv : rp;
+    constexpr int NT = TL::NT;
     const int brows = TH + 2 * R, bcols = TW + 2 * R;
-    float* base = sm;                           // [brows][bcols] from (R0 - R, C0 - R)
-    float* work = base + brows * bcols;
-    // phase clocks: 0-4 level 0 (launch 1), 8-12 the coarser levels
-    const int ph = CG ? 8 : 0;
     const bool clock0 = threadIdx.x == 0;
     PFT_PHASE_START(clk);
-
     if constexpr (SMOOTH) {
+        const int rs = radius<RS>(T.s);
         const int irows = brows + 2 * rs, icols = bcols + 2 * rs;
         float* in = work;                       // [irows][icols] from (R0 - R - rs, ..)
         float* hs = in + irows * icols;         // [irows][bcols]
@@ -180,7 +183,7 @@ __device__ __forceinline__ void build_tile(const float* src, float* base_out, fl
             if (gr >= rs && gr < H - rs && gc >= 0 && gc < W)
                 v = conv<RS>(hs + r * bcols + c, bcols, T.s);
             base[r * bcols + c] = v;
-            if (r >= R && r < R + TH && gr < H && c >= R && c < R + TW && gc < W)
+            if (STORE && r >= R && r < R + TH && gr < H && c >= R && c < R + TW && gc < W)
                 base_out[(size_t)gr * W + gc] = v;
         });
     } else {
@@ -188,6 +191,84 @@ __device__ __forceinline__ void build_tile(const float* src, float* base_out, fl
     }
     __syncthreads();
     PFT_PHASE(clk, ph + 2, clock0);             // base: smoothed, or loaded
+}
+
+// The decimated columns [q_lo, q_lo + n_q) and rows [j_lo, j_lo + n_j) of
+// the next level that fall inside the TH x TW tile at (R0, C0).
+struct DecimatedSpan {
+    int q_lo = 0, n_q = 0, j_lo = 0, n_j = 0;
+};
+
+__device__ __forceinline__ DecimatedSpan decimated_span(int H, int W, int sub, int TH, int TW,
+                                                        int R0, int C0)
+{
+    const int subhalf = sub / 2, h2 = H / sub, w2 = W / sub;
+    DecimatedSpan d;
+    d.q_lo = C0 > subhalf ? pft_ceil_div(C0 - subhalf, sub) : 0;
+    const int q_hi = min(pft_ceil_div(C0 + TW - subhalf, sub), w2);
+    d.n_q = q_hi > d.q_lo ? q_hi - d.q_lo : 0;
+    d.j_lo = R0 > subhalf ? pft_ceil_div(R0 - subhalf, sub) : 0;
+    const int j_hi = min(pft_ceil_div(R0 + TH - subhalf, sub), h2);
+    d.n_j = j_hi > d.j_lo ? j_hi - d.j_lo : 0;
+    return d;
+}
+
+// The pyramid smoothing's horizontal pass at the decimated columns over the
+// tile's rows +- rp (hp: [TH + 2 rp][TW]), read from a base with halo R.
+template <class TL, int RP>
+__device__ __forceinline__ void pyramid_rows(float* hp, const float* base, const DecimatedSpan& d,
+                                             int W, int sub, int TH, int TW, int C0, int R,
+                                             int rp, const K1Taps& T)
+{
+    const int bcols = TW + 2 * R, subhalf = sub / 2;
+    grid_for<TL::NT>(TH + 2 * rp, d.n_q, [&](int r, int q) {
+        const int gc = subhalf + (d.q_lo + q) * sub;
+        hp[r * TW + q] = (gc >= rp && gc < W - rp)
+                             ? conv<RP>(base + (r + R - rp) * bcols + gc - C0 + R - rp, 1, T.p)
+                             : 0.0f;
+    });
+}
+
+// Its vertical pass at the decimated rows: the next level's samples.
+template <class TL, int RP>
+__device__ __forceinline__ void pyramid_cols(float* dec, const float* hp, const DecimatedSpan& d,
+                                             int H, int W, int sub, int TW, int R0, int rp,
+                                             const K1Taps& T)
+{
+    const int subhalf = sub / 2, w2 = W / sub;
+    grid_for<TL::NT>(d.n_j, d.n_q, [&](int j, int q) {
+        const int gr = subhalf + (d.j_lo + j) * sub;
+        dec[(size_t)(d.j_lo + j) * w2 + d.q_lo + q] =
+            (gr >= rp && gr < H - rp) ? conv<RP>(hp + (gr - R0) * TW + q, TW, T.p) : 0.0f;
+    });
+}
+
+// One TH x TL::TW output tile of one level at (R0, C0): gx, gy and, with_pyr,
+// the decimated samples of the next level that fall inside the tile.
+// SMOOTH: `src` is the raw frame and the tile first builds its base (written
+// to base_out); else `src` is the level's base. `sm`: the block's dynamic
+// shared memory (tile_smem floats). Inlined, so that the taps stay kernel
+// parameters (constant-bank operands) instead of a local-memory copy.
+template <class TL, int RS, int RG, int RP, bool SMOOTH, bool CG>
+__device__ __forceinline__ void build_tile(const float* src, float* base_out, float* gx,
+                                           float* gy, float* dec, int H, int W,
+                                           bool with_pyr, int sub, int TH, int R0,
+                                           int C0, const K1Taps& T, float* sm)
+{
+    constexpr int TW = TL::TW, NT = TL::NT;
+    const int rgx = radius<RG>(T.g), rdx = radius<RG>(T.d);
+    const int rv = rgx > rdx ? rgx : rdx;
+    const int rp = with_pyr ? radius<RP>(T.p) : 0;
+    const int R = rv > rp ? rv : rp;
+    const int brows = TH + 2 * R, bcols = TW + 2 * R;
+    float* base = sm;                           // [brows][bcols] from (R0 - R, C0 - R)
+    float* work = base + brows * bcols;
+    // phase clocks: 0-4 level 0 (launch 1), 8-12 the coarser levels
+    const int ph = CG ? 8 : 0;
+    const bool clock0 = threadIdx.x == 0;
+    tile_base<TL, RS, SMOOTH, CG, true>(src, base_out, H, W, TH, TW, R0, C0, R, T, base, work,
+                                        ph);
+    PFT_PHASE_START(clk);
 
     // horizontal passes: the gradient pair over the tile's rows +- rv, the
     // pyramid smoothing at the decimated columns over its rows +- rp
@@ -201,22 +282,10 @@ __device__ __forceinline__ void build_tile(const float* src, float* base_out, fl
         hd[r * TW + c] = (gc >= rdx && gc < W - rdx) ? conv<RG>(b - rdx, 1, T.d) : 0.0f;
         hg[r * TW + c] = (gc >= rgx && gc < W - rgx) ? conv<RG>(b - rgx, 1, T.g) : 0.0f;
     });
-    const int subhalf = sub / 2, h2 = H / sub, w2 = W / sub;
-    int q_lo = 0, n_q = 0, j_lo = 0, n_j = 0;
+    DecimatedSpan d;
     if (with_pyr) {
-        q_lo = C0 > subhalf ? pft_ceil_div(C0 - subhalf, sub) : 0;
-        const int q_hi = min(pft_ceil_div(C0 + TW - subhalf, sub), w2);
-        n_q = q_hi > q_lo ? q_hi - q_lo : 0;
-        j_lo = R0 > subhalf ? pft_ceil_div(R0 - subhalf, sub) : 0;
-        const int j_hi = min(pft_ceil_div(R0 + TH - subhalf, sub), h2);
-        n_j = j_hi > j_lo ? j_hi - j_lo : 0;
-        grid_for<NT>(TH + 2 * rp, n_q, [&](int r, int q) {
-            const int gc = subhalf + (q_lo + q) * sub;
-            hp[r * TW + q] = (gc >= rp && gc < W - rp)
-                                 ? conv<RP>(base + (r + R - rp) * bcols + gc - C0 + R - rp, 1,
-                                            T.p)
-                                 : 0.0f;
-        });
+        d = decimated_span(H, W, sub, TH, TW, R0, C0);
+        pyramid_rows<TL, RP>(hp, base, d, W, sub, TH, TW, C0, R, rp, T);
     }
     __syncthreads();
     PFT_PHASE(clk, ph + 3, clock0);             // the horizontal passes
@@ -231,12 +300,139 @@ __device__ __forceinline__ void build_tile(const float* src, float* base_out, fl
         gy[o] = (gr >= rdx && gr < H - rdx) ? conv<RG>(hg + (r + rv - rdx) * TW + c, TW, T.d)
                                             : 0.0f;
     });
-    grid_for<NT>(n_j, n_q, [&](int j, int q) {
-        const int gr = subhalf + (j_lo + j) * sub;
-        dec[(size_t)(j_lo + j) * w2 + q_lo + q] =
-            (gr >= rp && gr < H - rp) ? conv<RP>(hp + (gr - R0) * TW + q, TW, T.p) : 0.0f;
-    });
+    pyramid_cols<TL, RP>(dec, hp, d, H, W, sub, TW, R0, rp, T);
     PFT_PHASE(clk, ph + 4, clock0);             // the vertical passes and stores
+}
+
+// The eig stage's window (half-sizes) and the tile's output columns.
+struct EigWin {
+    int hw, hh, tw;
+};
+
+// Shared memory (floats) of a TH x TW eig-carrying level-0 tile, as
+// build_tile_eig lays it out: base [TH + 2R][TW + 2R] (R = max(rv + max(hh,
+// hw), rp)), then one region that holds in turn the pre-smooth's frame tile
+// and horizontal pass; the extended gradient pair [ER][EC] x 2 (ER = TH +
+// 2hh, EC = TW + 2hw) with, after it, the horizontal passes [HR][EC] x 2 (HR
+// = ER + 2rv) and the pyramid's [TH + 2rp][TW]; the pair with the vertical
+// window sums [TH][EC] x 3 after it.
+struct EigTile {
+    int R, ER, EC, HR, base, pair, passes, sums, smoothing;
+
+    __host__ __device__ EigTile(int TH, int TW, bool smooth, int rs, int rv, int rp, int hw,
+                                int hh)
+    {
+        const int m = hh > hw ? hh : hw;
+        R = rv + m > rp ? rv + m : rp;
+        ER = TH + 2 * hh;
+        EC = TW + 2 * hw;
+        HR = ER + 2 * rv;
+        const int brows = TH + 2 * R, bcols = TW + 2 * R;
+        base = brows * bcols;
+        pair = 2 * ER * EC;
+        passes = 2 * HR * EC + (rp > 0 ? (TH + 2 * rp) * TW : 0);
+        sums = 3 * TH * EC;
+        const int irows = brows + 2 * rs;
+        smoothing = smooth ? irows * (bcols + 2 * rs) + irows * bcols : 0;
+    }
+    __host__ __device__ int total() const
+    {
+        const int later = pair + (passes > sums ? passes : sums);
+        return base + (smoothing > later ? smoothing : later);
+    }
+};
+
+// build_tile with K3's map of the (2hw+1) x (2hh+1) window beside it
+// (eig_common.cuh), written to `eig`, for a TH x E.tw tile (E.tw <= TL::TW:
+// narrower where the window's margin does not fit the full tile). STORE:
+// also base_out (SMOOTH), the tile's gx, gy and, with_pyr, the next level,
+// as build_tile writes them; else the map alone. The gradient pair over the
+// tile's columns +- hw and rows +- hh from the base (the horizontal passes,
+// then the vertical ones), the vertical window sums of the three products,
+// then the horizontal sums and the eigenvalue. Every gradient is the same
+// conv at the same global position as build_tile's, with borders decided
+// from global coordinates, so the stored pair and the map's pair have the
+// same bits.
+template <class TL, int RS, int RG, int RP, bool SMOOTH, bool STORE>
+__device__ __forceinline__ void build_tile_eig(const float* src, float* base_out, float* gx,
+                                               float* gy, float* dec, int* eig, int H, int W,
+                                               bool with_pyr, int sub, int TH, int R0, int C0,
+                                               const K1Taps& T, const EigWin& E, float* sm)
+{
+    constexpr int NT = TL::NT;
+    const int rgx = radius<RG>(T.g), rdx = radius<RG>(T.d);
+    const int rv = rgx > rdx ? rgx : rdx;
+    const int rp = with_pyr ? radius<RP>(T.p) : 0;
+    const int hw = E.hw, hh = E.hh, TW = E.tw;
+    const EigTile L(TH, TW, SMOOTH, SMOOTH ? radius<RS>(T.s) : 0, rv, rp, hw, hh);
+    const int R = L.R, bcols = TW + 2 * R, EC = L.EC;
+    float* base = sm;
+    float* gxe = sm + L.base;                   // [ER][EC] from (R0 - hh, C0 - hw)
+    float* gye = gxe + L.ER * EC;
+    float* hd = gye + L.ER * EC;                // deriv_g *h  [HR][EC] from row R0 - hh - rv
+    float* hg = hd + L.HR * EC;                 // gauss_g *h  [HR][EC]
+    float* hp = hg + L.HR * EC;                 // gauss_p *h  [TH + 2 rp][TW]
+    float* vxx = hd;                            // [TH][EC], once hd and hg are read
+    float* vxy = vxx + TH * EC;
+    float* vyy = vxy + TH * EC;
+    const bool clock0 = threadIdx.x == 0;
+    tile_base<TL, RS, SMOOTH, false, STORE>(src, base_out, H, W, TH, TW, R0, C0, R, T, base,
+                                            gxe, 0);
+    PFT_PHASE_START(clk);
+    DecimatedSpan d;
+    const int gc0 = C0 - hw;                    // global column of extended column 0
+    grid_for<NT>(L.HR, EC, [&](int r, int c) {
+        const float* b = base + (r + R - hh - rv) * bcols + R - hw + c;
+        const int gc = gc0 + c;
+        hd[r * EC + c] = (gc >= rdx && gc < W - rdx) ? conv<RG>(b - rdx, 1, T.d) : 0.0f;
+        hg[r * EC + c] = (gc >= rgx && gc < W - rgx) ? conv<RG>(b - rgx, 1, T.g) : 0.0f;
+    });
+    if (with_pyr) {
+        d = decimated_span(H, W, sub, TH, TW, R0, C0);
+        pyramid_rows<TL, RP>(hp, base, d, W, sub, TH, TW, C0, R, rp, T);
+    }
+    __syncthreads();
+    PFT_PHASE(clk, 3, clock0);                  // the horizontal passes
+
+    grid_for<NT>(L.ER, EC, [&](int r, int c) {
+        const int gr = R0 - hh + r, gc = gc0 + c;
+        float vx = 0.0f, vy = 0.0f;
+        if (gr >= 0 && gr < H && gc >= 0 && gc < W) {
+            if (gr >= rgx && gr < H - rgx)
+                vx = conv<RG>(hd + (r + rv - rgx) * EC + c, EC, T.g);
+            if (gr >= rdx && gr < H - rdx)
+                vy = conv<RG>(hg + (r + rv - rdx) * EC + c, EC, T.d);
+            if (STORE && r >= hh && r < hh + TH && c >= hw && c < hw + TW) {
+                const size_t o = (size_t)gr * W + gc;
+                gx[o] = vx;
+                gy[o] = vy;
+            }
+        }
+        gxe[r * EC + c] = vx;
+        gye[r * EC + c] = vy;
+    });
+    if (with_pyr) pyramid_cols<TL, RP>(dec, hp, d, H, W, sub, TW, R0, rp, T);
+    __syncthreads();
+    PFT_PHASE(clk, 4, clock0);                  // the vertical passes and stores
+
+    // the vertical window sums (rows past the frame's last are skipped)
+    grid_for<NT>(TH, EC, [&](int r, int c) {
+        if (R0 + r >= H) return;
+        const int o = r * EC + c;
+        eig_column_sums(gxe + o, gye + o, EC, 2 * hh + 1, vxx[o], vxy[o], vyy[o]);
+    });
+    __syncthreads();
+    PFT_PHASE(clk, 5, clock0);                  // the eig stage: vertical window sums
+
+    grid_for<NT>(TH, TW, [&](int r, int c) {
+        const int gr = R0 + r, gc = C0 + c;
+        if (gr >= H || gc >= W) return;
+        const int o = r * EC + c;               // extended column c: global column gc - hw
+        eig[(size_t)gr * W + gc] = (gr >= hh && gr < H - hh && gc >= hw && gc < W - hw)
+                                       ? eig_quantized(vxx + o, vxy + o, vyy + o, 2 * hw + 1)
+                                       : 0;
+    });
+    PFT_PHASE(clk, 6, clock0);                  // horizontal sums, eigenvalue, store
 }
 
 // Shared memory of one tile (floats), as build_tile lays it out.
@@ -254,16 +450,25 @@ inline int tile_smem(int TH, int rs, int rg, int rd, int rp, bool smooth)
     return base + (smoothing > passes ? smoothing : passes);
 }
 
-template <class TL, int RS, int RG, int RP, bool SMOOTH>
+// What a level-0 launch writes: the level (NONE), the level and K3's map
+// (WITH), or the map alone (ONLY).
+enum class EigMode { NONE, WITH, ONLY };
+
+template <class TL, int RS, int RG, int RP, bool SMOOTH, EigMode M>
 __global__ void __launch_bounds__(TL::NT)
 level0_kernel(const float* __restrict__ img, float* __restrict__ base, float* __restrict__ gx,
-              float* __restrict__ gy, float* __restrict__ dec, int H, int W, int with_pyr,
-              int sub, int th, K1Taps T)
+              float* __restrict__ gy, float* __restrict__ dec, int* __restrict__ eig, int H,
+              int W, int with_pyr, int sub, int th, K1Taps T, EigWin E)
 {
     extern __shared__ float sm[];
-    build_tile<TL, RS, RG, RP, SMOOTH, false>(img, base, gx, gy, dec, H, W, with_pyr != 0,
-                                              sub, th, blockIdx.y * th, blockIdx.x * TL::TW,
-                                              T, sm);
+    if constexpr (M == EigMode::NONE)
+        build_tile<TL, RS, RG, RP, SMOOTH, false>(img, base, gx, gy, dec, H, W, with_pyr != 0,
+                                                  sub, th, blockIdx.y * th,
+                                                  blockIdx.x * TL::TW, T, sm);
+    else
+        build_tile_eig<TL, RS, RG, RP, SMOOTH, M == EigMode::WITH>(
+            img, base, gx, gy, dec, eig, H, W, with_pyr != 0, sub, th, blockIdx.y * th,
+            blockIdx.x * E.tw, T, E, sm);
 }
 
 // Grid-wide barrier of a cooperative launch. bar[0] counts arrivals and is
@@ -352,37 +557,73 @@ int level0_rows(int H, int W)
     return th > TL::TH ? TL::TH : th;
 }
 
-template <class TL, int RS, int RG, int RP, bool SMOOTH>
-int launch_level0(const float* img, float* base, float* gx, float* gy, float* dec, int H,
-                  int W, int with_pyr, int sub, const K1Taps& T, cudaStream_t s)
+constexpr int SMEM_FLOATS = 227 * 1024 / (int)sizeof(float);   // a block's most
+
+// The eig-carrying tile's rows and columns: level0_rows' rows and TL::TW
+// columns where they fit a block's shared memory; else, of the shapes with
+// at most that many rows and columns that fit, the one with the most output
+// pixels (the base and the pre-smooth's region shrink with the tile). With
+// the configs' gradient taps every window whose pre-smooth the taps allow
+// (at most 97 x 97) fits; false when not even one pixel fits.
+template <class TL>
+bool eig_tile_shape(int H, int W, bool smooth, int rs, int rv, int rp, int hw, int hh, int& th,
+                    int& tw)
 {
-    const int th = level0_rows<TL>(H, W);
-    const size_t smem = sizeof(float) * tile_smem<TL>(th, SMOOTH ? T.s.r : 0, T.g.r, T.d.r,
-                                                      with_pyr ? T.p.r : 0, SMOOTH);
-    auto kernel = level0_kernel<TL, RS, RG, RP, SMOOTH>;
+    int best = 0;
+    for (int r = level0_rows<TL>(H, W); r >= 1 && r * TL::TW > best; --r)
+        for (int c = TL::TW; c >= 1 && r * c > best; --c)
+            if (EigTile(r, c, smooth, rs, rv, rp, hw, hh).total() <= SMEM_FLOATS) {
+                best = r * c;
+                th = r;
+                tw = c;
+            }
+    return best > 0;
+}
+
+template <class TL, int RS, int RG, int RP, bool SMOOTH, EigMode M>
+int launch_level0(const float* img, float* base, float* gx, float* gy, float* dec, int* eig,
+                  int H, int W, int with_pyr, int sub, const K1Taps& T, int ww, int wh,
+                  cudaStream_t s)
+{
+    const int rs = SMOOTH ? T.s.r : 0, rp = with_pyr ? T.p.r : 0;
+    int th = 0;
+    size_t smem = 0;
+    EigWin E{ww / 2, wh / 2, TL::TW};
+    if (M == EigMode::NONE) {
+        th = level0_rows<TL>(H, W);
+        smem = sizeof(float) * tile_smem<TL>(th, rs, T.g.r, T.d.r, rp, SMOOTH);
+    } else {
+        const int rv = T.g.r > T.d.r ? T.g.r : T.d.r;
+        if (!eig_tile_shape<TL>(H, W, SMOOTH, rs, rv, rp, E.hw, E.hh, th, E.tw))
+            return PFT_INVALID_ARGUMENT;
+        smem = sizeof(float) * EigTile(th, E.tw, SMOOTH, rs, rv, rp, E.hw, E.hh).total();
+    }
+    auto kernel = level0_kernel<TL, RS, RG, RP, SMOOTH, M>;
     pft_allow_smem(kernel, smem);
-    const dim3 grid(pft_ceil_div(W, TL::TW), pft_ceil_div(H, th));
-    kernel<<<grid, TL::NT, smem, s>>>(img, base, gx, gy, dec, H, W, with_pyr, sub, th, T);
+    const dim3 grid(pft_ceil_div(W, E.tw), pft_ceil_div(H, th));
+    kernel<<<grid, TL::NT, smem, s>>>(img, base, gx, gy, dec, eig, H, W, with_pyr, sub, th, T,
+                                      E);
     return (int)cudaGetLastError();
 }
 
-template <bool SMOOTH>
-int level0(Radii k, const float* img, float* base, float* gx, float* gy, float* dec, int H,
-           int W, int with_pyr, int sub, const K1Taps& T, cudaStream_t s)
+template <bool SMOOTH, EigMode M>
+int level0(Radii k, const float* img, float* base, float* gx, float* gy, float* dec, int* eig,
+           int H, int W, int with_pyr, int sub, const K1Taps& T, int ww, int wh,
+           cudaStream_t s)
 {
     switch (k) {
         case Radii::S2G3P10:
-            return launch_level0<Level0Tile, 2, 3, 10, SMOOTH>(
-                img, base, gx, gy, dec, H, W, with_pyr, sub, T, s);
+            return launch_level0<Level0Tile, 2, 3, 10, SMOOTH, M>(
+                img, base, gx, gy, dec, eig, H, W, with_pyr, sub, T, ww, wh, s);
         case Radii::S2G3P5:
-            return launch_level0<Level0Tile, 2, 3, 5, SMOOTH>(
-                img, base, gx, gy, dec, H, W, with_pyr, sub, T, s);
+            return launch_level0<Level0Tile, 2, 3, 5, SMOOTH, M>(
+                img, base, gx, gy, dec, eig, H, W, with_pyr, sub, T, ww, wh, s);
         case Radii::S3G3P5:
-            return launch_level0<Level0Tile, 3, 3, 5, SMOOTH>(
-                img, base, gx, gy, dec, H, W, with_pyr, sub, T, s);
+            return launch_level0<Level0Tile, 3, 3, 5, SMOOTH, M>(
+                img, base, gx, gy, dec, eig, H, W, with_pyr, sub, T, ww, wh, s);
         default:
-            return launch_level0<AnyTile, -1, -1, -1, SMOOTH>(
-                img, base, gx, gy, dec, H, W, with_pyr, sub, T, s);
+            return launch_level0<AnyTile, -1, -1, -1, SMOOTH, M>(
+                img, base, gx, gy, dec, eig, H, W, with_pyr, sub, T, ww, wh, s);
     }
 }
 
@@ -442,32 +683,68 @@ extern "C" int pft_pyramid_level(const float* in, float* base, float* gx, float*
     const int with_pyr = p_ntaps > 0;
     const Radii k = pick(smooth ? T.s.r : -1, T.g.r, T.d.r, with_pyr ? T.p.r : -1);
     cudaStream_t s = (cudaStream_t)stream;
-    return smooth ? level0<true>(k, in, base, gx, gy, dec, H, W, with_pyr, sub, T, s)
-                  : level0<false>(k, in, base, gx, gy, dec, H, W, with_pyr, sub, T, s);
+    return smooth ? level0<true, EigMode::NONE>(k, in, base, gx, gy, dec, nullptr, H, W,
+                                                with_pyr, sub, T, 0, 0, s)
+                  : level0<false, EigMode::NONE>(k, in, base, gx, gy, dec, nullptr, H, W,
+                                                 with_pyr, sub, T, 0, 0, s);
+}
+
+// K3's int32 map [H, W] of the window_width x window_height window (odd)
+// from one level-0 launch that writes nothing else: smooth, the gradients of
+// the pre-smoothed `in`; else of `in` itself.
+extern "C" int pft_pyramid_eig(const float* in, int* eig, int H, int W, int smooth,
+                               const float* s_rev, int s_ntaps,
+                               const float* g_rev, int g_ntaps,
+                               const float* d_rev, int d_ntaps,
+                               int window_width, int window_height, void* stream)
+{
+    K1Taps T;
+    if (H <= 0 || W <= 0 || eig == nullptr || (smooth && s_ntaps <= 0) ||
+        window_width < 1 || window_height < 1 || window_width % 2 == 0 ||
+        window_height % 2 == 0 ||
+        !load_all(&T, s_rev, smooth ? s_ntaps : 0, g_rev, g_ntaps, d_rev, d_ntaps, nullptr, 0))
+        return PFT_INVALID_ARGUMENT;
+    const Radii k = pick(smooth ? T.s.r : -1, T.g.r, T.d.r, -1);
+    cudaStream_t s = (cudaStream_t)stream;
+    return smooth ? level0<true, EigMode::ONLY>(k, in, nullptr, nullptr, nullptr, nullptr, eig,
+                                                H, W, 0, 1, T, window_width, window_height, s)
+                  : level0<false, EigMode::ONLY>(k, in, nullptr, nullptr, nullptr, nullptr,
+                                                 eig, H, W, 0, 1, T, window_width,
+                                                 window_height, s);
 }
 
 // A whole pyramid of n_levels levels of the [H, W] frame `img` into `buf`:
 // level l at offset sum_{k<l} 3 H_k W_k floats as [img, gx, gy] (level 0's
 // img is the pre-smoothed frame), H_l = H_{l-1} / sub. Two launches (one
-// for a single level). bar: two uint32 of device memory, zero before the
+// for a single level). eig: null, or an int32 [H, W] map that launch 1
+// fills with K3's map of the window_width x window_height window (odd) over
+// level 0's gradients. bar: two uint32 of device memory, zero before the
 // first build on this stream, left that way by every build.
 extern "C" int pft_pyramid_build(const float* img, float* buf, int H, int W, int n_levels,
                                  int sub, const float* s_rev, int s_ntaps,
                                  const float* g_rev, int g_ntaps,
                                  const float* d_rev, int d_ntaps,
-                                 const float* p_rev, int p_ntaps, unsigned* bar,
+                                 const float* p_rev, int p_ntaps, int* eig,
+                                 int window_width, int window_height, unsigned* bar,
                                  void* stream)
 {
     K1Taps T;
     if (H <= 0 || W <= 0 || n_levels < 1 || sub < 1 || bar == nullptr ||
+        (eig != nullptr && (window_width < 1 || window_height < 1 ||
+                            window_width % 2 == 0 || window_height % 2 == 0)) ||
         !load_all(&T, s_rev, s_ntaps, g_rev, g_ntaps, d_rev, d_ntaps, p_rev, p_ntaps))
         return PFT_INVALID_ARGUMENT;
     cudaStream_t s = (cudaStream_t)stream;
     const size_t n0 = (size_t)H * W;
     const int with_pyr = n_levels > 1;
     const Radii k = pick(T.s.r, T.g.r, T.d.r, T.p.r);
-    int rc = level0<true>(k, img, buf, buf + n0, buf + 2 * n0, buf + 3 * n0, H, W, with_pyr,
-                          sub, T, s);
+    int rc = eig != nullptr
+                 ? level0<true, EigMode::WITH>(k, img, buf, buf + n0, buf + 2 * n0,
+                                               buf + 3 * n0, eig, H, W, with_pyr, sub, T,
+                                               window_width, window_height, s)
+                 : level0<true, EigMode::NONE>(k, img, buf, buf + n0, buf + 2 * n0,
+                                               buf + 3 * n0, nullptr, H, W, with_pyr, sub, T,
+                                               0, 0, s);
     if (rc != 0 || !with_pyr) return rc;
     switch (k) {
         case Radii::S2G3P10:

@@ -184,10 +184,11 @@ def extract_feature_list(ft: FeatureTable, frame: int,
 
 
 def feature_state_from_numpy(arr: np.ndarray,
-                             device: str | torch.device = "cpu",
-                             aff: Optional[AffineState] = None
+                             aff: Optional[AffineState] = None, *,
+                             device: str | torch.device = "cuda"
                              ) -> FeatureState:
-    """(N,3) float array of (x, y, val) -> FeatureState (with ``aff``)."""
+    """(N,3) float array of (x, y, val) -> FeatureState on ``device`` (with
+    ``aff``): the JAX package's signature, ``device`` keyword-only."""
     a = np.asarray(arr)
     return FeatureState(
         x=torch.as_tensor(np.ascontiguousarray(a[:, 0], np.float32),

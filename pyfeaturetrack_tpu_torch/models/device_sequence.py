@@ -13,17 +13,20 @@ select -> (track -> replace-lost)* recurrence; port of
    feature's first successful track and every later track is re-verified
    against its template under a warp by K6, carrying the AffineState
    (templates + warps) between steps;
-4. refill: K3 takes the min-eig map from the level-0 gradients and K4
-   selects replacements for the lost slots in two launches (the candidate
-   lattice with the kept features' pre-mask; the greedy chain and the slot
-   fill); refilled slots lose their templates (``reset_affine``).
+4. refill: K3's min-eig map of the level-0 gradients, computed in step
+   1's level-0 launch when ``cfg.smoothBeforeSelecting`` (the default),
+   else by one eig-only level-0 launch of the raw frame
+   (``ops/select.selection_eig_map``); K4 selects replacements for the
+   lost slots in two launches (the candidate lattice with the kept
+   features' pre-mask; the greedy chain and the slot fill); refilled slots
+   lose their templates (``reset_affine``).
 
 The refill gate. The JAX step refills under ``lax.cond(any(val < 0))``. In
 eager PyTorch that test is a host sync every frame, so the port always
-launches K3 and K4 and K4 counts its budget (the number of lost slots) on
-the device: with budget 0 its chain stops at once and every slot comes
-back as it was, and ``reset_affine`` drops the templates of an empty mask,
-so the results are identical to the gated step. The affine stage's
+computes the map and launches K4, and K4 counts its budget (the number of
+lost slots) on the device: with budget 0 its chain stops at once and every
+slot comes back as it was, and ``reset_affine`` drops the templates of an
+empty mask, so the results are identical to the gated step. The affine stage's
 template capture is applied by mask for the same reason. The feature
 table comes back to the host once, at the end of
 ``track_sequence_device``.
@@ -55,6 +58,17 @@ def _check_cfg(cfg) -> None:
             "pyramids only")
 
 
+def _build_with_map(img: torch.Tensor, cfg, with_map: bool):
+    """The frame's pyramids and, ``with_map``, its selection min-eig map
+    (else None): from the build's level-0 launch when
+    smoothBeforeSelecting, else one eig-only launch of the raw frame."""
+    if not with_map:
+        return build_track_pyramids(img, cfg), None
+    if cfg.smoothBeforeSelecting:
+        return build_track_pyramids(img, cfg, with_eig=True)
+    return build_track_pyramids(img, cfg), selection_eig_map(img, cfg)
+
+
 def select_step_device(img, cfg, n_features: int,
                        top_k: int = DEFAULT_TOP_K, device=None):
     """Frame-0 step: build pyramids + select n_features on the device.
@@ -66,8 +80,7 @@ def select_step_device(img, cfg, n_features: int,
     ``exhausted`` is a False device scalar."""
     _check_cfg(cfg)
     img = as_frame(img, device)
-    pyr = build_track_pyramids(img, cfg)
-    eig = selection_eig_map(img, cfg, pyr)
+    pyr, eig = _build_with_map(img, cfg, True)
     dev = img.device
     x0 = torch.full((n_features,), -1.0, dtype=torch.float32, device=dev)
     y0 = torch.full((n_features,), -1.0, dtype=torch.float32, device=dev)
@@ -94,7 +107,7 @@ def sequence_step_device(pyr_prev: TrackPyramids, img_new, x: torch.Tensor,
     results)."""
     _check_cfg(cfg)
     img_new = as_frame(img_new, x.device)
-    pyr_new = build_track_pyramids(img_new, cfg)
+    pyr_new, eig = _build_with_map(img_new, cfg, replace_lost)
     nx, ny, nval, carry = track_features_pyramids_carry(
         pyr_prev, pyr_new, x, y, val, cfg, carry=carry)
     if cfg.affineConsistencyCheck >= 0:
@@ -105,7 +118,6 @@ def sequence_step_device(pyr_prev: TrackPyramids, img_new, x: torch.Tensor,
     exhausted = torch.zeros((), dtype=torch.bool, device=x.device)
     if replace_lost:
         # always launched; budget 0 (nothing lost) leaves every slot as is
-        eig = selection_eig_map(img_new, cfg, pyr_new)
         lost = nval < 0
         nx, ny, nval, _, exhausted = select_features_from_eig_device(
             eig, nx, ny, nval, cfg, replacing=True, top_k=top_k)

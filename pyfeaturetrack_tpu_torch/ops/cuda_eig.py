@@ -4,7 +4,11 @@ Port of ``pyfeaturetrack_tpu/ops/pallas_eig.py`` (min_eig_map_pallas):
 gradient products, window sums (rows then columns, ascending taps), the
 min-eig formula, zeroed border, clamp at ``_EIG_LIMIT`` and truncation to
 int32, in one launch. A CUDA tensor launches the kernel; a CPU tensor
-takes ``min_eig_reference``.
+takes ``min_eig_reference``. The same arithmetic (csrc/eig_common.cuh)
+runs inside K1's level-0 launch (ops/cuda_pyramid ``pyramid_build`` with
+``eig_window``, ``level0_eig``), which is where every selection of the
+package takes its map; ``min_eig_map`` is the counterpart of
+``min_eig_map_pallas`` for gradients already on the device.
 
 The plain version's window sums are explicit shifted adds, rows then
 columns, in ascending tap order: the order of the kernel and of the JAX

@@ -60,7 +60,7 @@ class TrackCarry(NamedTuple):
     ok: torch.Tensor
 
 
-def empty_track_carry(n: int, cfg, device="cpu") -> TrackCarry:
+def empty_track_carry(n: int, cfg, device="cuda") -> TrackCarry:
     """Structure-stable 'no carry' value (``ok`` all False)."""
     return TrackCarry(
         bundle=torch.zeros((n, 3, cfg.window_height, cfg.window_width),

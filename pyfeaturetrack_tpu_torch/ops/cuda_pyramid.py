@@ -7,11 +7,17 @@ fused_level_build_tiled, driven by build_track_pyramids_pallas).
   level's gradient pair, every decimated level) in at most two launches.
   Its plain version, ``pyramid_build_reference``, composes
   ``pyramid_level_reference`` over the levels.
+  Asked for a window, its level-0 launch also returns K3's quantized
+  min-eig map of level 0's gradients (csrc/eig_common.cuh); plain version
+  ``min_eig_reference`` of the plain build's gradients.
 * ``pyramid_level``: one level (the optional pre-smooth, the gradient pair
   and, for every level but the last, the decimated pyramid-smoothed image
   that is the next level's base) in one launch; plain version
   ``pyramid_level_reference``, which composes ops/convolve.py's
   shift-and-add passes in the kernel's order.
+* ``level0_eig``: K3's map of a frame's level-0 gradients (with or without
+  the pre-smooth) in one launch that writes nothing else; plain version
+  ``level0_eig_reference``.
 
 A CUDA tensor launches the kernel; a CPU tensor takes the plain version.
 """
@@ -26,11 +32,14 @@ import torch
 
 from ..utils import cuda
 from .convolve import convolve_separate
+from .cuda_eig import min_eig_reference
 from .kernels import compute_kernels
 from .pyramid import decimate
 
-# Kernel launches made by this module's wrappers (one per launch).
+# Kernel launches made by this module's wrappers (one per launch), and of
+# those the level-0 launches that computed K3's map.
 launches = 0
+eig_launches = 0
 
 
 class LevelTaps(NamedTuple):
@@ -99,6 +108,15 @@ def pyramid_build_reference(img: torch.Tensor, taps: LevelTaps,
     return tuple(imgs), tuple(gxs), tuple(gys)
 
 
+def level0_eig_reference(img: torch.Tensor, taps: LevelTaps, smooth: bool,
+                         window_width: int,
+                         window_height: int) -> torch.Tensor:
+    """Plain version of ``level0_eig``: the level's gradient pair, then
+    ``min_eig_reference``."""
+    _, gx, gy, _ = pyramid_level_reference(img, taps, smooth, False)
+    return min_eig_reference(gx, gy, window_width, window_height)
+
+
 def _c_taps(taps: LevelTaps, smooth: bool, with_pyr: bool):
     """(pointer, count) of each flipped tap set the C entries take, with
     (None, 0) for a pass the launch does not run."""
@@ -163,6 +181,37 @@ def pyramid_level(img: torch.Tensor, taps: LevelTaps, smooth: bool,
     return base, gx, gy, dec
 
 
+def _require_window(window_width: int, window_height: int) -> None:
+    cuda.require(window_width >= 1 and window_height >= 1
+                 and window_width % 2 == 1 and window_height % 2 == 1,
+                 f"K3's map takes an odd window, not {window_width}x"
+                 f"{window_height}")
+
+
+def level0_eig(img: torch.Tensor, taps: LevelTaps, smooth: bool,
+               window_width: int, window_height: int) -> torch.Tensor:
+    """K3's int32 [H, W] map of ``img``'s level-0 gradients (pre-smoothed
+    when ``smooth``), one launch on CUDA that stores no gradient
+    (csrc/pyramid.cu pft_pyramid_eig)."""
+    global launches, eig_launches
+    if not cuda.use_kernel(img):
+        return level0_eig_reference(img, taps, smooth, window_width,
+                                    window_height)
+    _require_image(img, "level0_eig")
+    _require_window(window_width, window_height)
+    eig = torch.empty(img.shape, dtype=torch.int32, device=img.device)
+    fn = cuda.function("pft_pyramid_eig",
+                       [cuda.c_ptr] * 2 + [cuda.c_int] * 3 + _TAP_ARGS[:6]
+                       + [cuda.c_int] * 2 + [cuda.c_ptr])
+    rc = fn(img.data_ptr(), eig.data_ptr(), *img.shape, int(smooth),
+            *_c_taps(taps, smooth, False)[:6], int(window_width),
+            int(window_height), cuda.stream_ptr(img.device))
+    cuda.check(rc, "pft_pyramid_eig")
+    launches += 1
+    eig_launches += 1
+    return eig
+
+
 def level_shapes(h: int, w: int, sub: int, n_levels: int):
     """[H_l, W_l] of every level: H_l = H_{l-1} // sub."""
     shapes = [(h, w)]
@@ -172,25 +221,39 @@ def level_shapes(h: int, w: int, sub: int, n_levels: int):
     return shapes
 
 
-def pyramid_build(img: torch.Tensor, taps: LevelTaps, n_levels: int):
+def pyramid_build(img: torch.Tensor, taps: LevelTaps, n_levels: int,
+                  eig_window: Optional[tuple] = None):
     """A whole pyramid: (imgs, gradxs, gradys), tuples of [H_l, W_l] levels,
     finest first; level 0's image is the pre-smoothed frame. On CUDA at
     most two launches, whatever ``n_levels`` (csrc/pyramid.cu
     pft_pyramid_build): level 0, then every coarser level. The levels are
-    views of one buffer."""
-    global launches
+    views of one buffer.
+
+    ``eig_window``: (window_width, window_height), odd; then the level-0
+    launch also computes K3's int32 map of level 0's gradients, returned
+    last: (imgs, gradxs, gradys, eig)."""
+    global launches, eig_launches
     if not cuda.use_kernel(img):
-        return pyramid_build_reference(img, taps, n_levels)
+        out = pyramid_build_reference(img, taps, n_levels)
+        if eig_window is None:
+            return out
+        return out + (min_eig_reference(out[1][0], out[2][0], *eig_window),)
     _require_image(img, "pyramid_build")
     cuda.require(n_levels >= 1, f"pyramid_build: {n_levels} levels")
+    eig, ww, wh = None, 0, 0
+    if eig_window is not None:
+        ww, wh = (int(v) for v in eig_window)
+        _require_window(ww, wh)
+        eig = torch.empty(img.shape, dtype=torch.int32, device=img.device)
     shapes = level_shapes(*img.shape, taps.subsampling, n_levels)
     buf = torch.empty((sum(3 * h * w for h, w in shapes),),
                       dtype=torch.float32, device=img.device)
     fn = cuda.function("pft_pyramid_build",
                        [cuda.c_ptr] * 2 + [cuda.c_int] * 4 + _TAP_ARGS
-                       + [cuda.c_ptr] * 2)
+                       + [cuda.c_ptr] + [cuda.c_int] * 2 + [cuda.c_ptr] * 2)
     rc = fn(img.data_ptr(), buf.data_ptr(), *img.shape, n_levels,
             taps.subsampling, *_c_taps(taps, True, True),
+            None if eig is None else eig.data_ptr(), ww, wh,
             _barrier(img.device).data_ptr(), cuda.stream_ptr(img.device))
     cuda.check(rc, "pft_pyramid_build")
     launches += 1 if n_levels == 1 else 2
@@ -200,4 +263,8 @@ def pyramid_build(img: torch.Tensor, taps: LevelTaps, n_levels: int):
         levels.append(tuple(buf[off + k * n:off + (k + 1) * n].view(h, w)
                             for k in range(3)))
         off += 3 * n
-    return tuple(tuple(lv[k] for lv in levels) for k in range(3))
+    out = tuple(tuple(lv[k] for lv in levels) for k in range(3))
+    if eig is None:
+        return out
+    eig_launches += 1
+    return out + (eig,)

@@ -9,8 +9,9 @@ lattice on the host and runs the greedy min-distance scan in C++
 (``native/min_distance.cpp``). The port keeps every step on the feature
 arrays' device:
 
-1. ``selection_eig_map``: K1 level 0 (ops/cuda_pyramid) and K3
-   (ops/cuda_eig), shared with the device-resident route;
+1. ``selection_eig_map``: K3's map from one K1 level-0 launch that stores
+   nothing else (ops/cuda_pyramid.level0_eig); the device-resident route
+   takes the same map from its pyramid build's level-0 launch;
 2. the candidate lattice, K4's stage A (``cuda_select.candidate_lattice``:
    borders, step, candidates below the bar zeroed and, when replacing, the
    kept features' mindist boxes zeroed, which equals the host stamping
@@ -37,7 +38,7 @@ from ..features import (KLT_NOT_FOUND, FeatureState, create_feature_list,
                         feature_state_from_numpy,
                         feature_state_to_numpy, reset_affine)
 from .cuda_eig import min_eig_map
-from .cuda_pyramid import level_taps, pyramid_level
+from .cuda_pyramid import level0_eig, level_taps, pyramid_level
 from .cuda_select import candidate_lattice
 from .cuda_suppress import suppress_and_fill
 from .select_device import _candidate_grid, premask_radius
@@ -45,19 +46,19 @@ from .track import as_frame
 
 
 def selection_eig_map(img: torch.Tensor, cfg, pyr=None) -> torch.Tensor:
-    """int32 min-eig map for selection. With smoothBeforeSelecting (the
-    default) selection smooths exactly like the pyramid base, so the
-    device route passes the frame's TrackPyramids ``pyr``, whose level-0
-    gradients K3 reads; otherwise K1 takes level 0 of ``img``
-    (pre-smoothed when smoothBeforeSelecting) and K3 reads its
-    gradients."""
+    """int32 min-eig map for selection: K3 over the level-0 gradients of
+    ``img``, pre-smoothed when smoothBeforeSelecting (the default), in one
+    K1 level-0 launch that stores no gradient. With smoothBeforeSelecting
+    the pyramid base is smoothed exactly so, and a frame's TrackPyramids
+    ``pyr`` holds the same gradients: K3's standalone entry reads those
+    (the device route takes the map from the build instead,
+    ``build_track_pyramids(..., with_eig=True)``)."""
+    ww, wh = int(cfg.window_width), int(cfg.window_height)
     if pyr is not None and cfg.smoothBeforeSelecting:
-        gx, gy = pyr.gradx[0], pyr.grady[0]
-    else:
-        _, gx, gy, _ = pyramid_level(img, level_taps(cfg),
-                                     smooth=bool(cfg.smoothBeforeSelecting),
-                                     with_pyr=False)
-    return min_eig_map(gx, gy, int(cfg.window_width), int(cfg.window_height))
+        return min_eig_map(pyr.gradx[0], pyr.grady[0], ww, wh)
+    return level0_eig(img, level_taps(cfg),
+                      smooth=bool(cfg.smoothBeforeSelecting),
+                      window_width=ww, window_height=wh)
 
 
 def _write_internal_images(img: torch.Tensor, cfg) -> None:

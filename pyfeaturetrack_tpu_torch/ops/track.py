@@ -52,16 +52,23 @@ def _require_float32_images(cfg) -> None:
             "pyramids only")
 
 
-def build_track_pyramids(img: torch.Tensor, cfg) -> TrackPyramids:
+def build_track_pyramids(img: torch.Tensor, cfg, *, with_eig: bool = False):
     """float image -> smooth -> pyramid -> per-level gradients.
 
     Reference parity: trackFeatures.py -> KLTTrackFeatures pyramid-build
     phase. ``img`` is a float32 [H, W] tensor on the device to build on.
+    ``with_eig``: also K3's int32 min-eig map of level 0's gradients for
+    ``cfg``'s window, computed in the level-0 launch (the selection map when
+    ``cfg.smoothBeforeSelecting``); returns (pyramids, map).
     """
     _require_float32_images(cfg)
-    imgs, gxs, gys = pyramid_build(img.to(torch.float32).contiguous(),
-                                   level_taps(cfg), cfg.nPyramidLevels)
-    return TrackPyramids(img=imgs, gradx=gxs, grady=gys)
+    out = pyramid_build(img.to(torch.float32).contiguous(), level_taps(cfg),
+                        cfg.nPyramidLevels,
+                        eig_window=((int(cfg.window_width),
+                                     int(cfg.window_height))
+                                    if with_eig else None))
+    pyr = TrackPyramids(img=out[0], gradx=out[1], grady=out[2])
+    return (pyr, out[3]) if with_eig else pyr
 
 
 def track_features_pyramids_carry(pyr1: TrackPyramids, pyr2: TrackPyramids,

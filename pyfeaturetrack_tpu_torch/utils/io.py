@@ -210,7 +210,7 @@ def read_feature_list(path, device="cuda") -> FeatureState:
             arr = np.zeros((n, 3), dtype=np.float64)
             for i in range(n):
                 arr[i] = struct.unpack_from("<ffi", body, 12 * i)
-            return feature_state_from_numpy(arr, device)
+            return feature_state_from_numpy(arr, device=device)
     text = path.read_text()
     m = re.search(r"nFeatures\s*=\s*(\d+)", text)
     if not m:
@@ -229,7 +229,7 @@ def read_feature_list(path, device="cuda") -> FeatureState:
             raise KLTError(f"(read_feature_list) {path}: row index {i} "
                            f"out of range for nFeatures {n}")
         arr[i] = (float(x), float(y), int(v))
-    return feature_state_from_numpy(arr, device)
+    return feature_state_from_numpy(arr, device=device)
 
 
 # ---------------------------------------------------------------------------

@@ -4,7 +4,9 @@ device; on a GPU machine run them (no JAX needed) with
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
-Bars: K1, K3, K4 (both stages), K5 (both entries) and K9 bit-equal; K2
+Bars: K1, K3 (standalone, inside K1's level-0 launch, and K1's eig-only
+launch), K4 (both stages), K5 (both entries) and K9 (N up
+to 65,536) bit-equal; K2
 (per level and per pyramidal track call), K6 and K8 (every start mode)
 statuses and iterations equal and positions (K6: and warps; K8: the flow
 and disparity maps) bit-equal (the kernels round and sum in their plain
@@ -103,6 +105,124 @@ def test_min_eig_bit_equal(dev, win):
     assert got.dtype == torch.int32
     assert torch.equal(got, _plain(cuda_eig.min_eig_map, pyr.gradx[0],
                                    pyr.grady[0], *win))
+
+
+# Frames for K3 inside K1's level-0 launch: the headline frame, an odd
+# size, one narrower than two tiles, and one smaller than a 51x51 window
+# plus the border (its map is all zero).
+EIG_SHAPES = [(480, 640), (481, 643), (480, 70), (40, 45)]
+EIG_WINDOWS = [(3, 3), (7, 7), (13, 13), (15, 15), (51, 51), (5, 9),
+               (71, 71), (9, 97), (97, 97)]
+
+
+@pytest.mark.parametrize("shape", EIG_SHAPES)
+@pytest.mark.parametrize("win", EIG_WINDOWS)
+@pytest.mark.parametrize("levels,sub", [(1, 4), (2, 4), (3, 2), (4, 2)])
+def test_fused_eig_bit_equal(dev, shape, win, levels, sub):
+    """The build's level-0 launch with K3's map: the map bit-equal to K3's
+    standalone entry on the gradients the build stored and to the plain
+    version; every level bit-equal to the build without the map; the same
+    launches, one of them counted as carrying the map, and no K3 launch.
+    Every window at its own sigmas: 3x3's one-tap pre-smooth, and 71x71,
+    9x97 and 97x97 (the widest the taps allow), whose margins take a
+    smaller tile than the full one."""
+    cfg = tpft.create_config(nPyramidLevels=levels, subsampling=sub,
+                             window_width=win[0], window_height=win[1])
+    taps = cuda_pyramid.level_taps(cfg)
+    img = torch.tensor(_texture(*shape, seed=shape[1] + win[0]), device=dev)
+    k1, k1_eig, k3 = (cuda_pyramid.launches, cuda_pyramid.eig_launches,
+                      cuda_eig.launches)
+    *got, eig = cuda_pyramid.pyramid_build(img, taps, levels, eig_window=win)
+    assert cuda_pyramid.launches - k1 == min(levels, 2)
+    assert cuda_pyramid.eig_launches - k1_eig == 1
+    assert cuda_eig.launches == k3
+    assert eig.dtype == torch.int32 and eig.shape == img.shape
+    plain = cuda_pyramid.pyramid_build(img, taps, levels)
+    for a, b in zip(got, plain):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert torch.equal(eig, cuda_eig.min_eig_map(got[1][0], got[2][0], *win))
+    *pgot, peig = _plain(cuda_pyramid.pyramid_build, img, taps, levels,
+                         eig_window=win)
+    assert torch.equal(eig, peig)
+    assert torch.equal(peig, cuda_eig.min_eig_reference(pgot[1][0],
+                                                        pgot[2][0], *win))
+    if shape[0] < win[1] or shape[1] < win[0]:
+        assert not eig.any()
+
+
+@pytest.mark.parametrize("shape", EIG_SHAPES)
+@pytest.mark.parametrize("win", EIG_WINDOWS)
+@pytest.mark.parametrize("smooth", [True, False])
+def test_eig_only_entry_bit_equal(dev, shape, win, smooth):
+    """The eig-only level-0 launch: bit-equal to the plain version and to
+    K3's standalone entry on the level's gradients; it writes nothing but
+    the map (a guarded output buffer and the frame stay as they were)."""
+    cfg = tpft.create_config(window_width=win[0], window_height=win[1])
+    taps = cuda_pyramid.level_taps(cfg)
+    img = torch.tensor(_texture(*shape, seed=shape[0] + win[1]), device=dev)
+    before = img.clone()
+    k1, k3 = cuda_pyramid.launches, cuda_eig.launches
+    got = cuda_pyramid.level0_eig(img, taps, smooth, *win)
+    assert cuda_pyramid.launches - k1 == 1
+    assert cuda_eig.launches == k3
+    assert torch.equal(got, _plain(cuda_pyramid.level0_eig, img, taps,
+                                   smooth, *win))
+    _, gx, gy, _ = cuda_pyramid.pyramid_level(img, taps, smooth, False)
+    assert torch.equal(got, cuda_eig.min_eig_map(gx, gy, *win))
+    # the C entry into the middle of a guarded buffer
+    h, w = shape
+    guard = torch.full((h * w + 2048,), -7, dtype=torch.int32, device=dev)
+    out = guard[1024:1024 + h * w]
+    fn = cuda.function("pft_pyramid_eig",
+                       [cuda.c_ptr] * 2 + [cuda.c_int] * 3
+                       + [cuda.c_ptr, cuda.c_int] * 3 + [cuda.c_int] * 2
+                       + [cuda.c_ptr])
+    taps_c = []
+    for k, used in zip(taps.rev[:3], (smooth, True, True)):
+        taps_c += [k.ctypes.data, k.shape[0]] if used else [None, 0]
+    cuda.check(fn(img.data_ptr(), out.data_ptr(), h, w, int(smooth), *taps_c,
+                  *win, cuda.stream_ptr(dev)), "pft_pyramid_eig")
+    torch.cuda.synchronize()
+    assert torch.equal(out.view(h, w), got)
+    assert (guard[:1024] == -7).all() and (guard[1024 + h * w:] == -7).all()
+    assert torch.equal(img, before)
+
+
+def test_eig_tile_refuses_what_it_cannot_hold(dev):
+    """Wide gradient taps and a 97x97 window (the pre-smooth's halo, the
+    window's margin and the gradient radius together) do not fit even a
+    one-pixel tile: the build raises, with no other route behind it."""
+    cfg = tpft.create_config(grad_sigma=8.0, window_width=97,
+                             window_height=97)
+    taps = cuda_pyramid.level_taps(cfg)
+    img = torch.tensor(_texture(120, 160, seed=5), device=dev)
+    k3 = cuda_eig.launches
+    with pytest.raises(RuntimeError, match="pft_pyramid_build"):
+        cuda_pyramid.pyramid_build(img, taps, 2, eig_window=(97, 97))
+    with pytest.raises(RuntimeError, match="pft_pyramid_eig"):
+        cuda_pyramid.level0_eig(img, taps, True, 97, 97)
+    assert cuda_eig.launches == k3
+
+
+@pytest.mark.parametrize("smooth", [True, False])
+def test_device_route_takes_the_map_from_k1(dev, smooth):
+    """track_sequence_device launches no standalone K3: one level-0 launch
+    per frame carries the map (the build's with smoothBeforeSelecting, an
+    eig-only one without), and the table equals the plain run's."""
+    cfg = tpft.create_config(smoothBeforeSelecting=smooth)
+    base = _texture(140, 190, seed=41)
+    frames = [np.ascontiguousarray(base[i:i + 120, 2 * i:2 * i + 160])
+              for i in range(4)]
+    k1, k1_eig, k3 = (cuda_pyramid.launches, cuda_pyramid.eig_launches,
+                      cuda_eig.launches)
+    got = tpft.track_sequence_device(frames, cfg=cfg, n_features=60)
+    assert cuda_eig.launches == k3
+    assert cuda_pyramid.eig_launches - k1_eig == len(frames)
+    assert cuda_pyramid.launches - k1 == len(frames) * (
+        2 if smooth else 3)
+    want = _plain(tpft.track_sequence_device, frames, cfg=cfg, n_features=60)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
 
 
 @pytest.mark.parametrize("dg,budget,min_eig,seed", [
@@ -365,14 +485,16 @@ def test_sequence_on_card_equals_plain_on_cpu(dev):
     base = _texture(120, 160, seed=13)
     frames = [np.roll(base, 4 * i, axis=1) for i in range(8)]
     cfg = tpft.create_config(mindist=8)
-    counts = {m: m.launches for m in (cuda_pyramid, cuda_lk, cuda_eig,
-                                       cuda_select)}
+    counts = {m: m.launches for m in (cuda_pyramid, cuda_lk, cuda_select)}
+    k3_in_k1, k3 = cuda_pyramid.eig_launches, cuda_eig.launches
     g = tpft.track_sequence_device(frames, cfg=cfg, n_features=40,
                                    device="cuda")
     c = tpft.track_sequence_device(frames, cfg=cfg, n_features=40,
                                    device="cpu")
     for m, before in counts.items():
         assert m.launches > before
+    # K3's map comes from K1's level-0 launch, never its standalone entry
+    assert cuda_pyramid.eig_launches > k3_in_k1 and cuda_eig.launches == k3
     for a, b in zip(g, c):
         np.testing.assert_array_equal(a, b)
 
@@ -541,6 +663,37 @@ def test_window_terms_bit_equal(dev, win):
     before = cuda_window_terms.launches
     got = cuda_window_terms.window_terms(*args, **kw)
     assert cuda_window_terms.launches == before + 1
+    assert torch.equal(got, _plain(cuda_window_terms.window_terms, *args,
+                                   **kw))
+
+
+K9_WINDOWS = [(3, 3), (7, 7), (3, 5), (15, 15), (17, 17), (51, 51)]
+# windows up to 15x15 at the largest batch
+K9_CASES = ([(n, win) for n in (1, 5, 1000) for win in K9_WINDOWS]
+            + [(65536, win) for win in K9_WINDOWS if win[0] * win[1] <= 225])
+
+
+@pytest.mark.parametrize("n,win", K9_CASES)
+@pytest.mark.parametrize("step_factor", [1.0, 2.0])
+def test_window_terms_batches(dev, n, win, step_factor):
+    """K9 at N = 1 to 65,536, with lanes clamped in from beyond every edge
+    and step factors 1 and 2: bit-equal to its plain version."""
+    ww, wh = win
+    lvl = _level_pair(dev, tpft.create_config())
+    img2, gx2, gy2 = lvl[3:]
+    h, w = img2.shape
+    rng = np.random.default_rng(n + ww)
+    x = rng.uniform(-4, w + 4, n)
+    y = rng.uniform(-4, h + 4, n)
+    k = min(n, 4)
+    x[:k], y[:k] = ([-3.0, w + 2.0, 20.0, 40.0][:k],
+                    [30.0, 30.0, -3.0, h + 2.0][:k])
+    x, y = (torch.tensor(t, dtype=torch.float32, device=dev) for t in (x, y))
+    w1, g1x, g1y = (gather_window(im, x + 1.3, y - 0.8, ww // 2,
+                                  wh // 2).contiguous() for im in lvl[:3])
+    args = (img2, gx2, gy2, w1, g1x, g1y, x, y)
+    kw = dict(hw=ww // 2, hh=wh // 2, step_factor=step_factor)
+    got = cuda_window_terms.window_terms(*args, **kw)
     assert torch.equal(got, _plain(cuda_window_terms.window_terms, *args,
                                    **kw))
 
@@ -863,18 +1016,21 @@ def test_suppress_and_fill_budget_zero_and_dry_pool(dev, grid, monkeypatch):
 
 def test_facade_two_frames_on_card_equals_plain_on_cpu(dev):
     """Example 1's flow (select, track) through the facade on the card
-    equals the same calls on the CPU; K1, K2, K3 and K5 launch."""
+    equals the same calls on the CPU; K1 (with K3's map in the selection's
+    level-0 launch), K2 and K5 launch, K3's standalone entry does not."""
     base = _texture(140, 180, seed=23)
     img0, img1 = base[:120, :160], base[1:121, 2:162]
     cfg = tpft.create_config()
-    mods = (cuda_pyramid, cuda_lk, cuda_eig, cuda_suppress)
+    mods = (cuda_pyramid, cuda_lk, cuda_suppress)
     counts = {m: m.launches for m in mods}
+    k3_in_k1, k3 = cuda_pyramid.eig_launches, cuda_eig.launches
     g = tpft.KLTSelectGoodFeatures(cfg, img0, 60)
     g2, _ = tpft.KLTTrackFeatures(cfg, img0, img1, g)
     c = tpft.KLTSelectGoodFeatures(cfg, img0, 60, device="cpu")
     c2, _ = tpft.KLTTrackFeatures(cfg, img0, img1, c)
     for m, before in counts.items():
         assert m.launches > before, m.__name__
+    assert cuda_pyramid.eig_launches > k3_in_k1 and cuda_eig.launches == k3
     for a, b in zip(g[:3] + g2[:3], c[:3] + c2[:3]):
         assert a.device.type == "cuda"
         assert torch.equal(a.cpu(), b)

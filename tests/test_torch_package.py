@@ -152,11 +152,37 @@ def test_feature_numpy_round_trip():
     from pyfeaturetrack_tpu_torch.features import (feature_state_from_numpy,
                                                    feature_state_to_numpy)
     arr = np.array([[1.5, 2.25, 7.0], [-1.0, -1.0, -4.0], [30.0, 40.0, 0.0]])
-    fl = feature_state_from_numpy(arr)
+    fl = feature_state_from_numpy(arr, device="cpu")
     assert fl.x.dtype == torch.float32 and fl.val.dtype == torch.int32
     np.testing.assert_array_equal(feature_state_to_numpy(fl), arr)
     x, y, v = features_from_numpy(arr[:, 0], arr[:, 1], arr[:, 2])
     assert v.dtype == torch.int32 and v.tolist() == [7, -4, 0]
+
+
+def test_feature_state_from_numpy_takes_aff_second():
+    """The JAX signature ``(arr, aff=None)``: a positional second argument
+    is the AffineState; the device is keyword-only and defaults to the
+    card, as does ``empty_track_carry``'s."""
+    import inspect
+
+    from pyfeaturetrack_tpu.features import \
+        feature_state_from_numpy as jax_from_numpy
+    from pyfeaturetrack_tpu_torch.features import (empty_affine_state,
+                                                   feature_state_from_numpy)
+    from pyfeaturetrack_tpu_torch.ops.cuda_lk import empty_track_carry
+    arr = np.array([[1.5, 2.25, 7.0], [-1.0, -1.0, -4.0]])
+    aff = empty_affine_state(2, 5, 5, "cpu")
+    fl = feature_state_from_numpy(arr, aff, device="cpu")
+    assert fl.aff is aff and fl.x.device.type == "cpu"
+    sig = inspect.signature(feature_state_from_numpy).parameters
+    jsig = inspect.signature(jax_from_numpy).parameters
+    positional = [n for n, p in sig.items()
+                  if p.kind is p.POSITIONAL_OR_KEYWORD]
+    assert positional == list(jsig)
+    assert sig["device"].kind is sig["device"].KEYWORD_ONLY
+    assert sig["device"].default == "cuda"
+    assert inspect.signature(empty_track_carry).parameters[
+        "device"].default == "cuda"
 
 
 def test_pgm_round_trip(tmp_path):

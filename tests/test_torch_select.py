@@ -30,9 +30,13 @@ from pyfeaturetrack_tpu.ops.select_device import (
 from pyfeaturetrack_tpu_torch.ops.convolve import (
     compute_gradients as torch_gradients)
 from pyfeaturetrack_tpu_torch.ops.cuda_eig import min_eig_map
+from pyfeaturetrack_tpu_torch.ops.cuda_pyramid import (
+    level0_eig, level_taps, pyramid_level_reference)
 from pyfeaturetrack_tpu_torch.ops.cuda_select import greedy_extract
 from pyfeaturetrack_tpu_torch.ops.select_device import (
     select_features_from_eig_device)
+from pyfeaturetrack_tpu_torch.ops.track import \
+    build_track_pyramids as torch_build_pyramids
 from pyfeaturetrack_tpu_torch.utils.convert import (config_from_jax,
                                                     features_from_numpy)
 
@@ -87,21 +91,35 @@ def _case_name(shape, win):
     return f"_{shape[0]}_{shape[1]}_{win[0]}_{win[1]}"
 
 
-def _port_gradients(shape, win):
-    img = make_textured_image(*shape, seed=shape[0] + win[0])
-    return torch_gradients(torch.tensor(img, dtype=torch.float32), 1.0)
+def _port_gradients(shape, win, smooth=False):
+    """The case's gradients as the port's plain passes make them; smooth:
+    of the frame pre-smoothed for the window, as K1's level 0 makes them."""
+    img = torch.tensor(make_textured_image(*shape, seed=shape[0] + win[0]),
+                       dtype=torch.float32)
+    if not smooth:
+        return torch_gradients(img, 1.0)
+    _, gx, gy, _ = pyramid_level_reference(img, level_taps(_torch_cfg(win)),
+                                           True, False)
+    return gx, gy
 
 
-def _xla_eig_pinned(shape, win):
-    """JAX's XLA eig map of the case's port-made gradients, from the
-    pinned single-thread subprocess (all cases in one run, cached)."""
+def _torch_cfg(win):
+    return config_from_jax(create_config()).replace(window_width=win[0],
+                                                    window_height=win[1])
+
+
+def _xla_eig_pinned(shape, win, smooth=False):
+    """JAX's XLA eig map of the case's port-made gradients (smooth: of the
+    pre-smoothed frame), from the pinned single-thread subprocess (all
+    cases in one run, cached)."""
     if not _xla_refs:
         arrays = {}
         for sh in SHAPES:
             for wn in WINDOWS:
-                gx, gy = _port_gradients(sh, wn)
-                arrays["gx" + _case_name(sh, wn)] = gx.numpy()
-                arrays["gy" + _case_name(sh, wn)] = gy.numpy()
+                for tag, pre in (("", False), ("S", True)):
+                    gx, gy = _port_gradients(sh, wn, pre)
+                    arrays["gx" + tag + _case_name(sh, wn)] = gx.numpy()
+                    arrays["gy" + tag + _case_name(sh, wn)] = gy.numpy()
         repo = Path(__file__).resolve().parent.parent
         env = dict(os.environ, JAX_PLATFORMS="cpu",
                    PYTHONPATH=os.pathsep.join(
@@ -115,7 +133,7 @@ def _xla_eig_pinned(shape, win):
                             str(dst)], env=env, check=True, timeout=600)
             with np.load(dst) as out:
                 _xla_refs.update({k: out[k] for k in out.files})
-    return _xla_refs[_case_name(shape, win)]
+    return _xla_refs[("S" if smooth else "") + _case_name(shape, win)]
 
 
 # The gradients both sides read come from the port's plain shift-and-add
@@ -150,6 +168,57 @@ def test_eig_matches_pallas_within_one_step(shape, win):
     diff = np.abs(got - ref)
     assert diff.max() <= 1, diff.max()
     assert (diff != 0).sum() <= (1 if win == (7, 7) else 0)
+
+
+def _k1_maps(shape, win, smooth):
+    """K3's map from K1's level-0 launch, both entries (plain versions):
+    the eig-only entry and, with the pre-smooth, the pyramid build's."""
+    cfg = _torch_cfg(win)
+    img = torch.tensor(make_textured_image(*shape, seed=shape[0] + win[0]),
+                       dtype=torch.float32)
+    maps = [level0_eig(img, level_taps(cfg), smooth, *win)]
+    if smooth:
+        maps.append(torch_build_pyramids(img, cfg, with_eig=True)[1])
+    return [m.numpy().astype(np.int64) for m in maps]
+
+
+def _within_one_step(got, ref):
+    diff = np.abs(got - ref)
+    off = np.argwhere(diff != 0)
+    info = (f"max {diff.max()}, {len(off)} of {diff.size} pixels off: "
+            + ", ".join(f"{tuple(map(int, p))} port {got[tuple(p)]} jax "
+                        f"{ref[tuple(p)]}" for p in off[:12]))
+    assert diff.max() <= 1, info
+    assert (diff != 0).mean() < 1e-3, info
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("win", WINDOWS)
+@pytest.mark.parametrize("smooth", [False, True])
+def test_k1_level0_eig_matches_jax_xla_within_one_step(shape, win, smooth):
+    """K3 inside K1's level-0 launch at the standalone map's XLA bar: equal
+    to the standalone map of the same gradients, within one int step of
+    JAX's XLA map of them at under 1e-3 of pixels."""
+    tgx, tgy = _port_gradients(shape, win, smooth)
+    standalone = min_eig_map(tgx, tgy, *win).numpy().astype(np.int64)
+    ref = _xla_eig_pinned(shape, win, smooth)
+    for got in _k1_maps(shape, win, smooth):
+        np.testing.assert_array_equal(got, standalone)
+        _within_one_step(got, ref)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("win", WINDOWS)
+@pytest.mark.parametrize("smooth", [False, True])
+def test_k1_level0_eig_matches_pallas_within_one_step(shape, win, smooth):
+    """The same maps against the Pallas eig kernel (interpret mode) fed the
+    same gradients."""
+    tgx, tgy = _port_gradients(shape, win, smooth)
+    ref = np.asarray(min_eig_map_pallas(jnp.asarray(tgx.numpy()),
+                                        jnp.asarray(tgy.numpy()), *win,
+                                        interpret=True), np.int64)
+    for got in _k1_maps(shape, win, smooth):
+        _within_one_step(got, ref)
 
 
 def test_eig_border_zeroed_and_dtype():

@@ -182,7 +182,7 @@ def test_uint8_frames_and_step_api():
         torch.tensor(frames[0], dtype=torch.float32), cfg, 20)
     assert aff is None and not bool(ex) and x.device.type == "cpu"
     from pyfeaturetrack_tpu_torch.ops.cuda_lk import empty_track_carry
-    carry = empty_track_carry(20, cfg)
+    carry = empty_track_carry(20, cfg, device="cpu")
     for i, f in enumerate(frames[1:], start=1):
         pyr, x, y, val, aff, ex, carry = tpft.sequence_step_device(
             pyr, torch.tensor(f, dtype=torch.float32), x, y, val, cfg,

@@ -340,7 +340,7 @@ def test_host_selection_matches_jax_host_greedy(case):
                 kept[i] = (kept[i, 0], kept[i, 1], code)
         want = (_host_greedy(eig, jcfg, kept, False) if mode == "lose"
                 else kept)
-        fl = feature_state_from_numpy(kept)
+        fl = feature_state_from_numpy(kept, device="cpu")
         got = feature_state_to_numpy(replace_lost_features(img, fl, cfg))
     np.testing.assert_array_equal(got, want)
     if case == "dry pool":

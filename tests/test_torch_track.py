@@ -208,7 +208,7 @@ def test_carry_signature_same_results():
     jcfg, cfg, _, _, tp1, tp2, feats = _setup("shift")
     x, y, v = features_from_numpy(feats[:, 0], feats[:, 1], feats[:, 2])
     a = track_features_pyramids_carry(tp1, tp2, x, y, v, cfg)
-    carry = empty_track_carry(x.shape[0], cfg)._replace(
+    carry = empty_track_carry(x.shape[0], cfg, device="cpu")._replace(
         ok=torch.ones(x.shape[0], dtype=torch.bool))
     b = track_features_pyramids_carry(tp1, tp2, x, y, v, cfg, carry=carry)
     assert a[3] is None
