@@ -120,7 +120,31 @@ Phases, in order; the first failure exits non-zero:
    timed. (d) track_sequence(subpixel_refine=True) on 10
    frames: the table equals the plain route's, the first frame is refined
    off the integers;
-9. profile (only with --profile) — for config 2's host loop, its step
+9. serving — the serving and long-video path on the main phase's 100
+   frames and the config-3 phase's, 1000 features, chain k = 8:
+   (a) track_sequence_device(chain=8) (12 replays of the captured graph,
+   numpy uint8 frames through its pinned buffer, a 3-step eager tail)
+   equal to chain=1's table on both configs, and two
+   sequence_chain_device calls: the first call's outputs (history, final
+   state, AffineState, pyramid) unchanged by the second; (b) a
+   torch.profiler trace of 24 eager steps and of 3 replays of each
+   config (build/profile/serving_<config>_{eager,chain}.json, after a
+   warm-up window): the port's kernels per frame equal, the replay's
+   device kernels per frame the eager step's plus the chain's one
+   exhausted-flag reduction (2 / k), no ::eig_kernel; (c) per-frame
+   times by CUDA events of the eager step and of the chain (frames on
+   the card, and numpy uint8 frames), with the traces' busy time and
+   idle share; (d) serve_stream(chain=8, prefetch=2, stage_uint8=True)
+   equal to track_sequence_device on both configs, with the serving
+   path's launches counted (K1 200, K2 99, K3 in K1 100, K4 200, K6 99
+   on config 3, K3's standalone entry never); (e) the 100 frames written
+   as PGMs and read back through FrameLoader into serve_stream: the table
+   of (d); (f) a BatchedStreamingTracker of 8 streams (each its own seeded
+   crop, 41 ticks, chain=8) equal to 8 separate StreamingTrackers, and its
+   aggregate frames/s by CUDA events, three runs; (g)
+   track_sequence_chunked(batched=True, n_chunks=4, chain=8) equal to
+   batched=False. Prints {"serving": ...};
+10. profile (only with --profile) — for config 2's host loop, its step
    time beside the device route's, three repeats, and for the config-3
    and the default device step, the step time by CUDA events, by host
    wall clock and through track_sequence_device, three repeats each;
@@ -207,12 +231,12 @@ def smooth_texture(rng, h, w):
     return (tex - tex.min()) / (tex.max() - tex.min()) * 255.0
 
 
-def make_frames(n_frames: int):
+def make_frames(n_frames: int, seed: int = SEED):
     """uint8 frames of a seeded smooth texture that moves by DRIFT each
     frame (frame i is a crop of one large texture)."""
     import numpy as np
     dx, dy = DRIFT
-    rng = np.random.default_rng(SEED)
+    rng = np.random.default_rng(seed)
     bh, bw = H + dy * n_frames, W + dx * n_frames
     tex = np.floor(smooth_texture(rng, bh, bw)).astype(np.uint8)
     y0, x0 = dy * n_frames, dx * n_frames
@@ -1137,15 +1161,7 @@ def trace_summary(prof, out, n_steps):
                   if e.get("cat") == "kernel")
     if not kern:
         fail("the profiler recorded no device kernels")
-    busy, cur_a, cur_b = 0.0, kern[0][0], kern[0][1]
-    for a, b, _ in kern[1:]:
-        if a > cur_b:
-            busy += cur_b - cur_a
-            cur_a, cur_b = a, b
-        else:
-            cur_b = max(cur_b, b)
-    busy += cur_b - cur_a
-    span = max(b for _, b, _ in kern) - kern[0][0]
+    busy, span = busy_span(kern)
     print(f"traced {n_steps} steps: {len(kern) / n_steps:.1f} device kernels "
           f"per step, device busy {busy / n_steps:.1f} us per step (union of "
           f"kernel intervals), span {span / n_steps:.1f} us per step, idle "
@@ -1159,6 +1175,20 @@ def trace_summary(prof, out, n_steps):
         print(f"  {t / n_steps:8.1f} us/step  {c / n_steps:5.1f} launches/step  "
               f"{short}")
     return kern
+
+
+def busy_span(kern):
+    """(busy, span) in us of sorted (start, end, name) kernel intervals:
+    the union of the intervals and first start to last end."""
+    busy, cur_a, cur_b = 0.0, kern[0][0], kern[0][1]
+    for a, b, _ in kern[1:]:
+        if a > cur_b:
+            busy += cur_b - cur_a
+            cur_a, cur_b = a, b
+        else:
+            cur_b = max(cur_b, b)
+    busy += cur_b - cur_a
+    return busy, max(b for _, b, _ in kern) - kern[0][0]
 
 
 def no_standalone_k3(kern, tag):
@@ -1607,6 +1637,297 @@ def dense_phase(pft, frames, ex, sparse, mods, report, dev, smi, prof_dir):
           f"plain route's")
     if frac < 0.5:
         fail("sub-pixel refinement left the first frame's features on integers")
+
+
+# the k of the captured chain on the serving path, and the streams of the
+# batched phase
+CHAIN = 8
+N_STREAMS = 8
+STREAM_TICKS = 1 + 5 * CHAIN
+# the port's kernels on the sparse step (K1's two launches, K2, K4's two
+# stages, K6's stage): a replay must launch each as often as the eager step
+STEP_KERNELS = ("level0_kernel", "coarse_kernel", "lk_pyramid_kernel",
+                "lattice_kernel", "chain_kernel", "stage_kernel")
+
+
+def tables_equal(a, b) -> bool:
+    import numpy as np
+    return all(np.array_equal(x, y) for x, y in zip(a, b))
+
+
+def chain_event_ms(pft, cfg, frames, staged0, k=CHAIN, skip=2):
+    """CUDA-event ms per frame of each sequence_chain_device call over
+    ``frames`` (tensors on the card, or host arrays: the pinned path),
+    after ``skip`` calls."""
+    import torch
+    pyr, x, y, v, aff, _ = pft.select_step_device(staged0, cfg, N_FEATURES)
+    events = []
+    for i in range(1, len(frames) - k + 1, k):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        pyr, _, (x, y, v), aff, _, _ = pft.sequence_chain_device(
+            pyr, frames[i:i + k], x, y, v, cfg, aff=aff)
+        e1.record()
+        events.append((e0, e1))
+    torch.cuda.synchronize()
+    return [a.elapsed_time(b) / k for a, b in events[skip:]]
+
+
+def serving_traces(pft, cfg, staged, root, tag, k=CHAIN, n_chains=3):
+    """torch.profiler traces of n_chains * k frames through the eager step
+    and through chain replays (build/profile/serving_<tag>_{eager,chain}
+    .json): device kernels per frame, busy time and idle share, and the
+    port's kernels per frame of each (they must agree)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    n = n_chains * k
+    out = {}
+    for route in ("eager", "chain"):
+        state = list(pft.select_step_device(staged[0], cfg, N_FEATURES)[:5])
+
+        def advance(imgs):
+            pyr, x, y, v, aff = state
+            if route == "eager":
+                for img in imgs:
+                    pyr, x, y, v, aff, _, _ = pft.sequence_step_device(
+                        pyr, img, x, y, v, cfg, aff=aff)
+            else:
+                for i in range(0, len(imgs), k):
+                    pyr, _, (x, y, v), aff, _, _ = pft.sequence_chain_device(
+                        pyr, imgs[i:i + k], x, y, v, cfg, aff=aff)
+            state[:] = [pyr, x, y, v, aff]
+
+        advance(staged[1:1 + k])          # the graph is cached by now
+        torch.cuda.synchronize()
+        # the profiler's first window only warms it up (it can miss the
+        # first launches after it starts): k frames there, n recorded
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            advance(staged[1 + k:1 + 2 * k])
+            torch.cuda.synchronize()
+            prof.step()
+            advance(staged[1 + 2 * k:1 + 2 * k + n])
+            torch.cuda.synchronize()
+            prof.step()
+        print(f"{tag}, {route}:")
+        kern = trace_summary(prof, root / "build" / "profile" /
+                             f"serving_{tag}_{route}.json", n)
+        no_standalone_k3(kern, f"{tag} {route}")
+        busy, span = busy_span(kern)
+        out[route] = dict(
+            kernels=len(kern) / n, busy_us=busy / n,
+            idle=1.0 - busy / span,
+            port={name: sum(name in e[2] for e in kern) / n
+                  for name in STEP_KERNELS})
+    return out
+
+
+def serving_phase(pft, path_mods, k6, frames, sim, tables, cfg, cfg3,
+                  staged, staged3, smi, root):
+    """The serving and long-video path (ROADMAP Queue 1 items 1, 3 and 4):
+    (a) the captured chain against the eager steps, (b) kernels per frame
+    in a replay's trace, (c) times, (d) serve_stream, (e) FrameLoader,
+    (f) batched streams, (g) chunked lockstep. Returns the numbers."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from pyfeaturetrack_tpu_torch.models import device_sequence as ds
+    from pyfeaturetrack_tpu_torch.utils.io import pgm_write
+    report = {}
+    configs = (("default", cfg, frames, staged),
+               ("config 3", cfg3, sim, staged3))
+
+    phase(f"serving (a): track_sequence_device(chain={CHAIN}) against "
+          f"chain=1, {N_FRAMES} frames, both configs; two "
+          "sequence_chain_device calls")
+    for tag, c, fr, _ in configs:
+        t0 = time.perf_counter()
+        got = pft.track_sequence_device(fr, cfg=c, n_features=N_FEATURES,
+                                        chain=CHAIN)
+        wall = time.perf_counter() - t0
+        same = tables_equal(got, tables[tag])
+        print(f"{tag}: chain={CHAIN} table (12 replays and 3 eager tail "
+              f"steps, numpy uint8 frames through the pinned buffer; "
+              f"{wall:.2f} s with the capture) equal to chain=1's: {same}")
+        if not same:
+            fail(f"the captured chain differs from the eager steps ({tag})")
+    pyr, x, y, v, aff, _ = pft.select_step_device(staged3[0], cfg3,
+                                                  N_FEATURES)
+    first = pft.sequence_chain_device(pyr, staged3[1:1 + CHAIN], x, y, v,
+                                      cfg3, aff=aff)
+    held = [*first[1], *first[2], *first[3], first[4], *first[0].img,
+            *first[0].gradx, *first[0].grady]
+    kept = [t.clone() for t in held]
+    second = pft.sequence_chain_device(first[0],
+                                       staged3[1 + CHAIN:1 + 2 * CHAIN],
+                                       *first[2], cfg3, aff=first[3])
+    torch.cuda.synchronize()
+    unchanged = all(torch.equal(a, b) for a, b in zip(held, kept))
+    moved = not torch.equal(second[1][0], first[1][0])
+    print(f"config 3: the first call's {len(held)} outputs unchanged by the "
+          f"second call: {unchanged}; the second call's history differs: "
+          f"{moved}; graphs cached: {len(ds._GRAPHS)}")
+    if not (unchanged and moved):
+        fail("a chain call changed an earlier call's outputs")
+
+    phase(f"serving (b), (c): the eager step and the chain (k={CHAIN}) "
+          "traced and timed")
+    for tag, c, fr, st in configs:
+        # the profiler can lose a kernel's records (PERF.md section 7): a
+        # pair of traces whose counts disagree is taken again, twice at most
+        for attempt in range(3):
+            traces = serving_traces(pft, c, st, root, tag.replace(" ", ""))
+            eager, chained = traces["eager"], traces["chain"]
+            print(f"{tag}: device kernels per frame, eager "
+                  f"{eager['kernels']:.2f}, chain {chained['kernels']:.2f}; "
+                  f"the port's kernels per frame, eager {eager['port']}, "
+                  f"chain {chained['port']}")
+            # beside the step's kernels a replay runs one reduction of the
+            # steps' exhausted flags (a cat and an any) per chain
+            if (eager["port"] == chained["port"] and chained["kernels"]
+                    == eager["kernels"] + 2 / CHAIN):
+                break
+            print(f"the traces' kernel counts disagree (attempt "
+                  f"{attempt + 1})")
+        else:
+            fail(f"a replay runs other kernels than the eager step ({tag})")
+        step = step_times(pft, c, st)
+        dev_chain = chain_event_ms(pft, c, st, st[0])
+        host_chain = chain_event_ms(pft, c, fr, st[0])
+        rep = dict(eager_ms=float(np.median(step)),
+                   eager_ms_range=[min(step), max(step)],
+                   chain_ms=float(np.median(dev_chain)),
+                   chain_ms_range=[min(dev_chain), max(dev_chain)],
+                   chain_host_uint8_ms=float(np.median(host_chain)),
+                   eager_busy_us=eager["busy_us"], eager_idle=eager["idle"],
+                   chain_busy_us=chained["busy_us"],
+                   chain_idle=chained["idle"],
+                   eager_kernels=eager["kernels"],
+                   chain_kernels=chained["kernels"])
+        report[tag] = rep
+        print(f"{tag}: per frame by CUDA events, eager step median "
+              f"{rep['eager_ms']:.4f} ms ({min(step):.4f}-{max(step):.4f}, "
+              f"{len(step)} steps); chain of {CHAIN} median "
+              f"{rep['chain_ms']:.4f} ms ({min(dev_chain):.4f}-"
+              f"{max(dev_chain):.4f}, frames on the card), "
+              f"{rep['chain_host_uint8_ms']:.4f} ms (numpy uint8 frames, "
+              f"pinned staging in the graph); device busy "
+              f"{eager['busy_us']:.1f} us eager, {chained['busy_us']:.1f} us "
+              f"chain; idle share {eager['idle']:.3f} eager, "
+              f"{chained['idle']:.3f} chain; card {smi}")
+
+    phase(f"serving (d): serve_stream(chain={CHAIN}, prefetch=2, "
+          "stage_uint8=True) against track_sequence_device")
+    for tag, c, fr, _ in configs:
+        pmods = dict(path_mods, **({"K6": k6} if tag == "config 3" else {}))
+        pft.serve_stream(fr[:1 + CHAIN], cfg=c, n_features=N_FEATURES,
+                         chain=CHAIN, prefetch=2, stage_uint8=True)
+        for m in pmods.values():
+            m.launches = 0
+        t0 = time.perf_counter()
+        got = pft.serve_stream(fr, cfg=c, n_features=N_FEATURES,
+                               chain=CHAIN, prefetch=2, stage_uint8=True)
+        wall = time.perf_counter() - t0
+        counts = path_counts(pmods, f"serving path ({tag})")
+        expect = {"K1": 2 * N_FRAMES, "K2": N_FRAMES - 1, "K3": N_FRAMES,
+                  "K4": 2 * N_FRAMES}
+        if tag == "config 3":
+            expect["K6"] = N_FRAMES - 1
+        expect_launches(counts, expect, f"serving path ({tag})")
+        same = tables_equal(got, tables[tag])
+        report[tag].update(serve_launches=counts, serve_wall_s=wall)
+        print(f"{tag}: launches in the serve_stream run {counts} ({wall:.3f} "
+              f"s wall, {N_FRAMES / wall:.1f} frames/s from numpy frames); "
+              f"table equal to track_sequence_device's: {same}")
+        if not same:
+            fail(f"serve_stream differs from track_sequence_device ({tag})")
+
+    phase(f"serving (e): the {N_FRAMES} default frames as PGM files through "
+          "FrameLoader into serve_stream")
+    folder = root / "build" / "serving_frames"
+    shutil.rmtree(folder, ignore_errors=True)
+    folder.mkdir(parents=True)
+    try:
+        paths = []
+        for i, fr in enumerate(frames):
+            paths.append(folder / f"frame{i:04d}.pgm")
+            pgm_write(paths[-1], fr)
+        t0 = time.perf_counter()
+        got = pft.serve_stream(pft.FrameLoader(paths), cfg=cfg,
+                               n_features=N_FEATURES, chain=CHAIN,
+                               prefetch=2, stage_uint8=True)
+        wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+    same = tables_equal(got, tables["default"])
+    print(f"FrameLoader -> serve_stream: {wall:.3f} s wall for {N_FRAMES} "
+          f"files; table equal to (d)'s: {same}")
+    if not same:
+        fail("the loader's frames track differently")
+
+    phase(f"serving (f): BatchedStreamingTracker, {N_STREAMS} streams of "
+          f"their own seeded crops, {STREAM_TICKS} ticks, chain={CHAIN}, "
+          "against separate StreamingTrackers")
+    streams = [make_frames(STREAM_TICKS, seed=SEED + 10 + b)
+               for b in range(N_STREAMS)]
+    singles = []
+    for s in streams:
+        tr = pft.StreamingTracker(cfg, n_features=N_FEATURES, chain=CHAIN)
+        for f in s:
+            tr.feed(f)
+        singles.append(tr.table())
+    batches = [np.stack([s[i] for s in streams]) for i in range(STREAM_TICKS)]
+
+    def batched():
+        bt = pft.BatchedStreamingTracker(cfg, n_streams=N_STREAMS,
+                                         n_features=N_FEATURES, chain=CHAIN)
+        bt.feed(batches[0])
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for b in batches[1:]:
+            bt.feed(b)
+        e1.record()
+        bt.block()
+        return bt.table(), e0.elapsed_time(e1)
+
+    batched()                       # capture
+    fps = []
+    for _ in range(3):
+        table, ms = batched()
+        fps.append(N_STREAMS * (STREAM_TICKS - 1) / ms * 1e3)
+    same = all(tables_equal([t[:, b] for t in table], singles[b])
+               for b in range(N_STREAMS))
+    report["batched"] = dict(streams=N_STREAMS, ticks=STREAM_TICKS,
+                             frames_per_s=fps)
+    print(f"batched table ({table[0].shape}) equal to {N_STREAMS} separate "
+          f"trackers: {same}; aggregate frames/s by events (ticks 1-"
+          f"{STREAM_TICKS - 1}, numpy uint8 batches fed and staged): "
+          + ", ".join(f"{f:.1f}" for f in fps) + f"; card {smi}")
+    if not same:
+        fail("the batched streams differ from separate trackers")
+
+    phase(f"serving (g): track_sequence_chunked(batched=True, n_chunks=4, "
+          f"chain={CHAIN}) against batched=False, {N_FRAMES} frames")
+    t0 = time.perf_counter()
+    lock, _, _ = pft.track_sequence_chunked(frames, n_features=N_FEATURES,
+                                            n_chunks=4, batched=True,
+                                            chain=CHAIN)
+    t1 = time.perf_counter()
+    serial, _, _ = pft.track_sequence_chunked(frames, n_features=N_FEATURES,
+                                              n_chunks=4)
+    t2 = time.perf_counter()
+    same = all(np.array_equal(lock[k], serial[k]) for k in ("x", "y", "val"))
+    print(f"lockstep table {lock['x'].shape} ({t1 - t0:.2f} s with the "
+          f"capture) equal to the serial chunks' ({t2 - t1:.2f} s): {same}")
+    if not same:
+        fail("the chunked lockstep differs from the serial chunks")
+    return report
 
 
 def main(argv=None) -> int:
@@ -2418,6 +2739,7 @@ def main(argv=None) -> int:
                                            replace_lost=True, device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    table3 = (xs, ys, vs)
     counts3 = path_counts(mods3, "config-3 path")
     print(f"launches in the config-3 run: {counts3} ({wall:.2f} s wall, first "
           "calls included)")
@@ -2659,6 +2981,13 @@ def main(argv=None) -> int:
                   "K8": cuda_lk_dense, "K9": cuda_window_terms}
     dense_phase(pft, frames, (ex0, ex1), (sel1, trk1), dense_mods, report,
                 dev, smi, prof_dir)
+
+    # ---- phase 9: the serving and long-video path ----
+    serving = serving_phase(
+        pft, mods, cuda_affine, frames, sim,
+        {"default": (xs_main, ys_main, vs_main), "config 3": table3}, cfg,
+        cfg3, staged, staged3, smi, root)
+    print(json.dumps({"serving": serving}))
 
     if profile:
         profile_host_loop(pft, cfg, staged, root)

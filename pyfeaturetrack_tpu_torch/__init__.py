@@ -4,7 +4,8 @@ KLT feature tracking (Gaussian pyramids, Shi-Tomasi selection with
 min-distance suppression, pyramidal Lucas-Kanade with the KLT status
 codes, lost-feature replacement, the affine-consistency check, sub-pixel
 corner refinement, feature list/table files, dense optical flow and dense
-stereo disparity / depth) in PyTorch, with the reference's ``KLT*`` API,
+stereo disparity / depth, streaming and chunked serving of video) in
+PyTorch, with the reference's ``KLT*`` API,
 and a hand-written Hopper kernel for every TPU kernel of the JAX package:
 K1 pyramid level (csrc/pyramid.cu), K2 LK level (csrc/lk.cu), K3 min-eig
 map (csrc/eig.cu), K4 greedy extraction (csrc/extract.cu), K5 greedy
@@ -58,8 +59,10 @@ from .models import (  # noqa: F401
     SequenceTracker,
     Tracker,
     select_step_device,
+    sequence_chain_device,
     sequence_step_device,
     track_sequence,
+    track_sequence_chunked,
     track_sequence_device,
 )
 from .ops.disparity import (  # noqa: F401
@@ -90,5 +93,13 @@ from .ops.track import (  # noqa: F401
     track_features_pyramids_carry,
     track_features_pyramids_fb,
 )
+
+from .serving import (  # noqa: F401
+    BatchedStreamingTracker,
+    StreamingTracker,
+    prefetch_to_device,
+    serve_stream,
+)
+from .utils.loader import FrameLoader, load_frames  # noqa: F401
 
 __version__ = "0.1.0"

@@ -221,23 +221,56 @@ def level_shapes(h: int, w: int, sub: int, n_levels: int):
     return shapes
 
 
+def pyramid_numel(shapes) -> int:
+    """Floats of one pyramid buffer: image, gradx and grady of every level."""
+    return sum(3 * h * w for h, w in shapes)
+
+
+def pyramid_views(buf: torch.Tensor, shapes):
+    """(imgs, gradxs, gradys) of a pyramid buffer of ``pyramid_numel``
+    floats: level by level, the image, gradx and grady, each [H_l, W_l]."""
+    levels, off = [], 0
+    for h, w in shapes:
+        n = h * w
+        levels.append(tuple(buf[off + k * n:off + (k + 1) * n].view(h, w)
+                            for k in range(3)))
+        off += 3 * n
+    return tuple(tuple(lv[k] for lv in levels) for k in range(3))
+
+
 def pyramid_build(img: torch.Tensor, taps: LevelTaps, n_levels: int,
-                  eig_window: Optional[tuple] = None):
+                  eig_window: Optional[tuple] = None,
+                  out: Optional[torch.Tensor] = None):
     """A whole pyramid: (imgs, gradxs, gradys), tuples of [H_l, W_l] levels,
     finest first; level 0's image is the pre-smoothed frame. On CUDA at
     most two launches, whatever ``n_levels`` (csrc/pyramid.cu
     pft_pyramid_build): level 0, then every coarser level. The levels are
-    views of one buffer.
+    views of one buffer: ``out`` (float32, ``pyramid_numel`` of the
+    levels, on the frame's device) when given, else a new one.
 
     ``eig_window``: (window_width, window_height), odd; then the level-0
     launch also computes K3's int32 map of level 0's gradients, returned
     last: (imgs, gradxs, gradys, eig)."""
     global launches, eig_launches
+    shapes = level_shapes(*img.shape, taps.subsampling, n_levels)
+    if out is not None:
+        cuda.require(out.dtype == torch.float32 and out.is_contiguous()
+                     and out.numel() == pyramid_numel(shapes)
+                     and out.device == img.device,
+                     "pyramid_build: out must be a contiguous float32 buffer "
+                     "of the pyramid's size on the frame's device")
     if not cuda.use_kernel(img):
-        out = pyramid_build_reference(img, taps, n_levels)
+        levels = pyramid_build_reference(img, taps, n_levels)
+        if out is not None:
+            views = pyramid_views(out, shapes)
+            for dst, src in zip(views, levels):
+                for d, s in zip(dst, src):
+                    d.copy_(s)
+            levels = views
         if eig_window is None:
-            return out
-        return out + (min_eig_reference(out[1][0], out[2][0], *eig_window),)
+            return levels
+        return levels + (min_eig_reference(levels[1][0], levels[2][0],
+                                           *eig_window),)
     _require_image(img, "pyramid_build")
     cuda.require(n_levels >= 1, f"pyramid_build: {n_levels} levels")
     eig, ww, wh = None, 0, 0
@@ -245,9 +278,8 @@ def pyramid_build(img: torch.Tensor, taps: LevelTaps, n_levels: int,
         ww, wh = (int(v) for v in eig_window)
         _require_window(ww, wh)
         eig = torch.empty(img.shape, dtype=torch.int32, device=img.device)
-    shapes = level_shapes(*img.shape, taps.subsampling, n_levels)
-    buf = torch.empty((sum(3 * h * w for h, w in shapes),),
-                      dtype=torch.float32, device=img.device)
+    buf = out if out is not None else torch.empty(
+        (pyramid_numel(shapes),), dtype=torch.float32, device=img.device)
     fn = cuda.function("pft_pyramid_build",
                        [cuda.c_ptr] * 2 + [cuda.c_int] * 4 + _TAP_ARGS
                        + [cuda.c_ptr] + [cuda.c_int] * 2 + [cuda.c_ptr] * 2)
@@ -257,14 +289,8 @@ def pyramid_build(img: torch.Tensor, taps: LevelTaps, n_levels: int,
             _barrier(img.device).data_ptr(), cuda.stream_ptr(img.device))
     cuda.check(rc, "pft_pyramid_build")
     launches += 1 if n_levels == 1 else 2
-    levels, off = [], 0
-    for h, w in shapes:
-        n = h * w
-        levels.append(tuple(buf[off + k * n:off + (k + 1) * n].view(h, w)
-                            for k in range(3)))
-        off += 3 * n
-    out = tuple(tuple(lv[k] for lv in levels) for k in range(3))
+    levels = pyramid_views(buf, shapes)
     if eig is None:
-        return out
+        return levels
     eig_launches += 1
-    return out + (eig,)
+    return levels + (eig,)

@@ -52,23 +52,25 @@ def _require_float32_images(cfg) -> None:
             "pyramids only")
 
 
-def build_track_pyramids(img: torch.Tensor, cfg, *, with_eig: bool = False):
+def build_track_pyramids(img: torch.Tensor, cfg, *, with_eig: bool = False,
+                         out: torch.Tensor | None = None):
     """float image -> smooth -> pyramid -> per-level gradients.
 
     Reference parity: trackFeatures.py -> KLTTrackFeatures pyramid-build
     phase. ``img`` is a float32 [H, W] tensor on the device to build on.
     ``with_eig``: also K3's int32 min-eig map of level 0's gradients for
     ``cfg``'s window, computed in the level-0 launch (the selection map when
-    ``cfg.smoothBeforeSelecting``); returns (pyramids, map).
+    ``cfg.smoothBeforeSelecting``); returns (pyramids, map). ``out``: the
+    pyramid buffer to build into (``cuda_pyramid.pyramid_build``).
     """
     _require_float32_images(cfg)
-    out = pyramid_build(img.to(torch.float32).contiguous(), level_taps(cfg),
-                        cfg.nPyramidLevels,
-                        eig_window=((int(cfg.window_width),
-                                     int(cfg.window_height))
-                                    if with_eig else None))
-    pyr = TrackPyramids(img=out[0], gradx=out[1], grady=out[2])
-    return (pyr, out[3]) if with_eig else pyr
+    built = pyramid_build(img.to(torch.float32).contiguous(), level_taps(cfg),
+                          cfg.nPyramidLevels,
+                          eig_window=((int(cfg.window_width),
+                                       int(cfg.window_height))
+                                      if with_eig else None), out=out)
+    pyr = TrackPyramids(img=built[0], gradx=built[1], grady=built[2])
+    return (pyr, built[3]) if with_eig else pyr
 
 
 def track_features_pyramids_carry(pyr1: TrackPyramids, pyr2: TrackPyramids,
@@ -166,7 +168,9 @@ def track_features(img1, img2, fl: FeatureState, cfg,
     nx, ny, nval, carry_out = track_features_pyramids_carry(
         pyr1, pyr2, fl.x, fl.y, fl.val, cfg, carry=carry)
     out = fl._replace(x=nx, y=ny, val=nval)
-    if KLTGetVerbosity() > 0:
+    # the count is a host read: none while a CUDA graph is being captured
+    if KLTGetVerbosity() > 0 and not (
+            nval.is_cuda and torch.cuda.is_current_stream_capturing()):
         verbose_print(f"\t{int((nval >= 0).sum())} features "
                       "successfully tracked.")
     if return_carry:

@@ -4,7 +4,8 @@ The slice has no weights: a config plus pyramid, feature and affine
 template state is all a port step needs, so these helpers let a test start
 a port step or a host-API call from exactly the state the JAX package
 produced. They take plain numpy arrays (or anything ``np.asarray``
-accepts) and never import JAX.
+accepts) and never import JAX. Like every entry point of the port they
+put their tensors on the card unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -31,8 +32,8 @@ def _t(a, dtype, device) -> torch.Tensor:
     return torch.as_tensor(np.array(a, dtype=dtype), device=device)
 
 
-def pyramids_from_numpy(img_levels, gx_levels, gy_levels,
-                        device="cpu") -> TrackPyramids:
+def pyramids_from_numpy(img_levels, gx_levels, gy_levels, *,
+                        device="cuda") -> TrackPyramids:
     """Per-level image / gradx / grady arrays -> a port TrackPyramids."""
     return TrackPyramids(
         img=tuple(_t(a, np.float32, device) for a in img_levels),
@@ -40,14 +41,14 @@ def pyramids_from_numpy(img_levels, gx_levels, gy_levels,
         grady=tuple(_t(a, np.float32, device) for a in gy_levels))
 
 
-def features_from_numpy(x, y, val, device="cpu"):
+def features_from_numpy(x, y, val, *, device="cuda"):
     """(x, y, val) arrays -> float32, float32, int32 [N] tensors."""
     return (_t(x, np.float32, device), _t(y, np.float32, device),
             _t(val, np.int32, device))
 
 
-def affine_state_from_numpy(img, gradx, grady, x, y, A, valid, nit=None,
-                            device="cpu") -> AffineState:
+def affine_state_from_numpy(img, gradx, grady, x, y, A, valid, nit=None, *,
+                            device="cuda") -> AffineState:
     """The fields of an AffineState (e.g. ``[np.asarray(a) for a in
     jax_aff]``) -> a port AffineState; ``nit`` None stays None."""
     return AffineState(
@@ -58,18 +59,18 @@ def affine_state_from_numpy(img, gradx, grady, x, y, A, valid, nit=None,
         nit=None if nit is None else _t(nit, np.int32, device))
 
 
-def feature_state_from_arrays(x, y, val, aff=None,
-                              device="cpu") -> FeatureState:
+def feature_state_from_arrays(x, y, val, aff=None, *,
+                              device="cuda") -> FeatureState:
     """A JAX FeatureState's fields as arrays (e.g. ``np.asarray(fl.x)``,
     ``[np.asarray(a) for a in fl.aff]`` or None for ``aff``) -> a port
     FeatureState with its AffineState."""
-    x, y, val = features_from_numpy(x, y, val, device)
+    x, y, val = features_from_numpy(x, y, val, device=device)
     if aff is not None:
         aff = affine_state_from_numpy(*aff, device=device)
     return FeatureState(x, y, val, aff)
 
 
-def feature_table_from_numpy(x, y, val, device="cpu") -> FeatureTable:
+def feature_table_from_numpy(x, y, val, *, device="cuda") -> FeatureTable:
     """[F, N] (x, y, val) arrays -> a port FeatureTable."""
     return FeatureTable(x=_t(x, np.float32, device), y=_t(y, np.float32, device),
                         val=_t(val, np.int32, device))

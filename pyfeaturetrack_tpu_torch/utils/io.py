@@ -3,9 +3,10 @@
 Reference parity: pnmio.py (PGM/PPM read+write), writeFeatures.py
 (KLTWriteFeatureList / KLTReadFeatureList / KLTWriteFeatureTable /
 KLTReadFeatureTable) and storeFeatures.py table layout. Port of
-``pyfeaturetrack_tpu/utils/io.py`` with its pure-Python PNM parser (the
-native codec, ``read_image`` and ``write_image`` are not in the port);
-NumPy only. Files are byte-identical to the JAX package's: binary lists
+``pyfeaturetrack_tpu/utils/io.py``: PNM files parse through the native
+codec (``utils/native``, ``native/pnm_codec.cpp``) where it builds, else
+in Python with the same results and errors; ``read_image`` and
+``write_image`` take other formats through PIL, imported only for them. Files are byte-identical to the JAX package's: binary lists
 are ``KLTFL`` + int32 count + (float32 x, float32 y, int32 val) records,
 binary tables ``KLTFT`` + int32 (frames, features) + feature-major
 records, and the text forms are the same formatted lines.
@@ -66,11 +67,57 @@ def _pnm_int(f, path, what: str) -> int:
     return val
 
 
+def _pnm_read_native(path, who: str) -> np.ndarray | None:
+    """The native codec's read shared by pgm_read/ppm_read (None when the
+    codec is not available: the callers parse in Python). Every malformed
+    input is a KLTError, as in the Python parse."""
+    from . import native
+    if not native.available():
+        return None
+    data = Path(path).read_bytes()
+    rc, fmt, ncols, nrows, maxval, off = native.pnm_parse_header(data)
+    if rc == native.PNM_TRUNCATED:
+        raise KLTError(f"(pnm) {path}: unexpected end of file in header")
+    if rc == native.PNM_BAD_MAGIC or (who == "pgm_read" and fmt == 6) \
+            or (who == "ppm_read" and fmt != 6):
+        kind = "a PGM" if who == "pgm_read" else "a binary PPM"
+        raise KLTError(f"({who}) {path}: not {kind} file")
+    if rc != 0:
+        raise KLTError(f"(pnm) {path}: malformed header token")
+    if maxval > 255:
+        raise KLTError(f"({who}) {path}: maxval {maxval} > 255 unsupported")
+    npix = nrows * ncols * (3 if fmt == 6 else 1)
+    if fmt == 2:
+        n, pix = native.pnm_decode_ascii(data[off:], npix)
+        if n == native.PNM_BAD_TOKEN:
+            raise KLTError(f"({who}) {path}: bad pixel data (non-numeric "
+                           "or outside 0..255)")
+        if n != npix:
+            raise KLTError(f"({who}) {path}: truncated pixel data "
+                           f"({n} of {npix} values)")
+        img = pix
+    else:
+        if len(data) - off < npix:
+            raise KLTError(f"({who}) {path}: truncated pixel data")
+        img = np.frombuffer(data, np.uint8, count=npix, offset=off)
+    shape = (nrows, ncols, 3) if fmt == 6 else (nrows, ncols)
+    return img.reshape(shape)
+
+
 def pgm_read(path) -> np.ndarray:
     """Read a binary (P5) or ascii (P2) PGM file -> uint8 [H, W].
 
     Like the reference's 8-bit-only pnmio, maxval > 255 is rejected.
+    Parsed by the native codec where it builds (the per-byte Python
+    header parse is the ingest bottleneck at serving rates), else here.
     """
+    img = _pnm_read_native(path, "pgm_read")
+    if img is not None:
+        return img
+    return _pgm_read_python(path)
+
+
+def _pgm_read_python(path) -> np.ndarray:
     with open(path, "rb") as f:
         magic = _read_pnm_token(f)
         if magic not in (b"P5", b"P2"):
@@ -126,7 +173,15 @@ def ppm_write(path, rgb: np.ndarray) -> None:
 
 
 def ppm_read(path) -> np.ndarray:
-    """Read a binary (P6) PPM -> uint8 [H, W, 3]."""
+    """Read a binary (P6) PPM -> uint8 [H, W, 3] (the native codec where
+    it builds, as pgm_read)."""
+    img = _pnm_read_native(path, "ppm_read")
+    if img is not None:
+        return img.copy()  # writable, like the Python path
+    return _ppm_read_python(path)
+
+
+def _ppm_read_python(path) -> np.ndarray:
     with open(path, "rb") as f:
         magic = _read_pnm_token(f)
         if magic != b"P6":
@@ -140,6 +195,76 @@ def ppm_read(path) -> np.ndarray:
         if len(data) != nrows * ncols * 3:
             raise KLTError(f"(ppm_read) {path}: truncated pixel data")
     return np.frombuffer(data, dtype=np.uint8).reshape(nrows, ncols, 3).copy()
+
+
+def rgb_to_gray(rgb: np.ndarray) -> np.ndarray:
+    """ITU-R 601-2 luma (the PIL 'L' convention), rounded to uint8:
+    L = (299 R + 587 G + 114 B + 500) // 1000."""
+    rgb = np.asarray(rgb).astype(np.uint32)
+    luma = (299 * rgb[..., 0] + 587 * rgb[..., 1] + 114 * rgb[..., 2]
+            + 500) // 1000
+    return luma.astype(np.uint8)
+
+
+def read_image(path) -> np.ndarray:
+    """Read any image file -> uint8 grayscale [H, W].
+
+    PGM goes through :func:`pgm_read`; PPM through :func:`ppm_read` and
+    ITU-R 601 luma; a ``.pnm`` by its magic bytes; any other file is
+    decoded by PIL (imported here, for such files only) and converted to
+    mode 'L'.
+    """
+    p = str(path)
+    ext = p.rsplit(".", 1)[-1].lower() if "." in p else ""
+    if ext == "pgm":
+        return pgm_read(path)
+    if ext == "ppm":
+        return rgb_to_gray(ppm_read(path))
+    if ext == "pnm":
+        # P2/P5 gray -> pgm_read, P6 color -> ppm_read; P3 and anything
+        # else fall to PIL below, which decodes ascii PPM too
+        with open(path, "rb") as f:
+            magic = f.read(2)
+        if magic in (b"P2", b"P5"):
+            return pgm_read(path)
+        if magic == b"P6":
+            return rgb_to_gray(ppm_read(path))
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise KLTError(
+            f"(read_image) {path}: non-PNM formats need PIL ({e})") from e
+    try:
+        with Image.open(path) as im:
+            return np.asarray(im.convert("L"), dtype=np.uint8)
+    except Exception as e:
+        raise KLTError(f"(read_image) {path}: {e}") from e
+
+
+def write_image(path, img: np.ndarray) -> None:
+    """Write a uint8 image: [H, W] grayscale or [H, W, 3] RGB. PGM/PPM
+    use the reference-parity writers; other extensions go through PIL
+    (e.g. ``.png`` overlays for tools that cannot read PNM)."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8:
+        img = np.clip(img, 0, 255).astype(np.uint8)
+    p = str(path)
+    ext = p.rsplit(".", 1)[-1].lower() if "." in p else ""
+    if ext in ("pgm", "pnm") and img.ndim == 2:
+        pgm_write(path, img)
+        return
+    if ext == "ppm" and img.ndim == 3:
+        ppm_write(path, img)
+        return
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise KLTError(
+            f"(write_image) {path}: non-PNM formats need PIL ({e})") from e
+    try:
+        Image.fromarray(img).save(path)
+    except Exception as e:
+        raise KLTError(f"(write_image) {path}: {e}") from e
 
 
 def float_image_to_pgm(path, img: np.ndarray, scale: bool = True) -> None:

@@ -279,7 +279,7 @@ def _frames_pair(seed, shift):
 
 def _port_pyr(jpyr):
     return pyramids_from_numpy(*(tuple(np.asarray(a) for a in lv)
-                                 for lv in jpyr))
+                                 for lv in jpyr), device="cpu")
 
 
 def _assert_features(port: FeatureState, jfl, tol=POS_TOL):
@@ -338,7 +338,7 @@ def _capture_loss_and_replace(mode, win):
     val[3], val[9] = -1, -4                         # not live
     x[5], y[5] = 3.0, 60.0                          # tracked out of the frame
     jfl = JFeatureState(jnp.asarray(x), jnp.asarray(y), jnp.asarray(val))
-    tfl = FeatureState(*features_from_numpy(x, y, val))
+    tfl = FeatureState(*features_from_numpy(x, y, val, device="cpu"))
 
     def step(i, jfl, tfl):
         jx, jy, jv = jax_track(jpyrs[i], jpyrs[i + 1], jfl.x, jfl.y, jfl.val,
@@ -390,13 +390,13 @@ def test_affine_state_round_trip():
         A=jnp.asarray(rng.standard_normal((7, 2, 2)), jnp.float32),
         valid=jnp.asarray(rng.uniform(size=7) > 0.5),
         nit=jnp.asarray(rng.integers(0, 10, 7), jnp.int32))
-    taff = affine_state_from_numpy(*(np.asarray(a) for a in jaff))
+    taff = affine_state_from_numpy(*(np.asarray(a) for a in jaff), device="cpu")
     _assert_affine_state(taff, jaff, tol=0.0)
     assert taff.valid.dtype == torch.bool and taff.nit.dtype == torch.int32
-    back = affine_state_from_numpy(*(a.numpy() for a in taff))
+    back = affine_state_from_numpy(*(a.numpy() for a in taff), device="cpu")
     for name in AFF_FIELDS:
         assert torch.equal(getattr(back, name), getattr(taff, name))
     fresh = make_affine_state(7, config_from_jax(jcfg), device="cpu")
     _assert_affine_state(fresh, jax_make_affine_state(7, jcfg), tol=0.0)
-    assert affine_state_from_numpy(*(a.numpy() for a in fresh[:7])).nit \
+    assert affine_state_from_numpy(*(a.numpy() for a in fresh[:7]), device="cpu").nit \
         is None

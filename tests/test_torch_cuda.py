@@ -1058,3 +1058,141 @@ def test_stable_sort_ties_match_numpy(dev):
     _, order = torch.sort(-torch.tensor(vals, device=dev), stable=True)
     np.testing.assert_array_equal(order.cpu().numpy(),
                                   np.argsort(-vals, kind="stable"))
+
+
+# ---------------------------------------------------------------------------
+# The captured k-frame chain and the serving path on the card
+# ---------------------------------------------------------------------------
+
+def _scroll(n, seed=13, shift=4, shape=(120, 160)):
+    base = _texture(*shape, seed=seed)
+    return [np.roll(base, shift * i, axis=1) for i in range(n)]
+
+
+@pytest.mark.parametrize("affine,replace_lost,uint8", [
+    (-1, True, False), (2, True, True), (-1, False, True)])
+def test_captured_chain_equals_eager_steps(dev, affine, replace_lost, uint8):
+    """track_sequence_device(chain=4): two replays of the captured graph
+    and a tail step == the eager steps, bit for bit (default, config-3
+    style affine mode 2, and without refills); uint8 frames are cast
+    inside the graph."""
+    frames = _scroll(10)
+    if uint8:
+        frames = [f.astype(np.uint8) for f in frames]
+    cfg = tpft.create_config(mindist=8, affineConsistencyCheck=affine)
+    steps = tpft.track_sequence_device(frames, cfg=cfg, n_features=40,
+                                       replace_lost=replace_lost)
+    from pyfeaturetrack_tpu_torch.models import device_sequence as ds
+    ds._GRAPHS.clear()
+    for warm_up in (1, 0):
+        lk = cuda_lk.launches
+        chained = tpft.track_sequence_device(
+            frames, cfg=cfg, n_features=40, replace_lost=replace_lost,
+            chain=4)
+        # K2 once per step (a replay adds the launches its capture
+        # recorded), and once in the capture's warm-up step
+        assert cuda_lk.launches - lk == 9 + warm_up
+        for a, b in zip(chained, steps):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_chain_outputs_survive_the_next_replay(dev):
+    """Returned tensors are the caller's: a second replay leaves the first
+    call's hist, final state, AffineState and pyramid as they were."""
+    from pyfeaturetrack_tpu_torch.models.device_sequence import (
+        sequence_chain_device)
+    frames = _scroll(9)
+    cfg = tpft.create_config(mindist=8, affineConsistencyCheck=2).replace(
+        sequentialMode=True)
+    pyr, x, y, v, aff, _ = tpft.select_step_device(frames[0], cfg, 40,
+                                                   device="cuda")
+    first = sequence_chain_device(pyr, frames[1:5], x, y, v, cfg, aff=aff)
+    held = [*first[1], *first[2], *first[3], *first[0].img,
+            *first[0].gradx]
+    kept = [t.clone() for t in held]
+    second = sequence_chain_device(first[0], frames[5:9], *first[2], cfg,
+                                   aff=first[3])
+    torch.cuda.synchronize()
+    for a, b in zip(held, kept):
+        assert torch.equal(a, b)
+    assert not torch.equal(second[1][0], first[1][0])
+    # and the state the second call started from came from the graph's
+    # own buffers: the same as starting eagerly from the first outputs
+    p, sx, sy, sv, sa = first[0], *first[2], first[3]
+    for f in frames[5:9]:
+        p, sx, sy, sv, sa, _, _ = tpft.sequence_step_device(p, f, sx, sy, sv,
+                                                            cfg, aff=sa)
+    for a, b in zip(second[2], (sx, sy, sv)):
+        assert torch.equal(a, b)
+
+
+def test_graph_cache_reused_and_keyed_by_shape(dev):
+    from pyfeaturetrack_tpu_torch.models import device_sequence as ds
+    cfg = tpft.create_config(mindist=8).replace(sequentialMode=True)
+    ds._GRAPHS.clear()
+
+    def run(frames):
+        pyr, x, y, v, aff, _ = tpft.select_step_device(frames[0], cfg, 30,
+                                                       device="cuda")
+        return ds.sequence_chain_device(pyr, frames[1:], x, y, v, cfg)
+
+    a = _scroll(4)
+    run(a)
+    assert len(ds._GRAPHS) == 1
+    graph = next(iter(ds._GRAPHS.values()))
+    run(_scroll(4, seed=5))
+    assert len(ds._GRAPHS) == 1 and next(iter(ds._GRAPHS.values())) is graph
+    run(_scroll(4, shape=(96, 128)))                  # another frame size
+    run(_scroll(5))                                    # another chain length
+    run([f.astype(np.uint8) for f in a])               # another frame dtype
+    assert len(ds._GRAPHS) == 4
+    for i in range(ds.GRAPH_CACHE_SIZE + 2):
+        run(_scroll(3, shape=(64 + 8 * i, 96)))
+    assert len(ds._GRAPHS) == ds.GRAPH_CACHE_SIZE
+
+
+def test_prefetch_to_device_order_and_residency_on_card(dev):
+    from pyfeaturetrack_tpu_torch.serving import prefetch_to_device
+    frames = [np.full((48, 64), i, np.float32) for i in range(9)]
+    for dtype in (np.float32, np.uint8):
+        out = list(prefetch_to_device(iter(frames), depth=2, device=dev,
+                                      stage_dtype=dtype))
+        assert len(out) == 9
+        for i, a in enumerate(out):
+            assert a.is_cuda and a.dtype == (torch.uint8 if dtype is np.uint8
+                                             else torch.float32)
+            np.testing.assert_array_equal(a.cpu().numpy(), frames[i])
+
+
+@pytest.mark.parametrize("chain", [1, 3])
+def test_streaming_on_card_equals_device_loop(dev, chain):
+    from pyfeaturetrack_tpu_torch.serving import (BatchedStreamingTracker,
+                                                  serve_stream)
+    cfg = tpft.create_config(mindist=8, affineConsistencyCheck=2)
+    streams = [[f.astype(np.uint8) for f in _scroll(8, seed=20 + b,
+                                                    shift=3 + b)]
+               for b in range(3)]
+    singles = [serve_stream(s, cfg=cfg, n_features=25, chain=chain,
+                            prefetch=2, stage_uint8=True) for s in streams]
+    for s, got in zip(streams, singles):
+        want = tpft.track_sequence_device(s, cfg=cfg, n_features=25)
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
+    bt = BatchedStreamingTracker(cfg, n_streams=3, n_features=25,
+                                 chain=chain)
+    for i in range(8):
+        bt.feed(np.stack([s[i] for s in streams]))
+    table = bt.table()
+    for b, want in enumerate(singles):
+        for a, w in zip(table, want):
+            np.testing.assert_array_equal(a[:, b], w)
+
+
+def test_chunked_lockstep_on_card_equals_serial(dev):
+    frames = _scroll(10, seed=53, shift=3)
+    kw = dict(n_features=20, n_chunks=2, replace_lost=True)
+    serial, _, _ = tpft.track_sequence_chunked(frames, **kw)
+    batch, _, _ = tpft.track_sequence_chunked(frames, **kw, batched=True,
+                                              chain=3)
+    for k in ("x", "y", "val"):
+        np.testing.assert_array_equal(batch[k], serial[k])

@@ -53,7 +53,7 @@ def _pyramids(left, right, jcfg):
     jp = (build(jnp.asarray(left, jnp.float32), jcfg),
           build(jnp.asarray(right, jnp.float32), jcfg))
     tp = [pyramids_from_numpy(*(tuple(np.asarray(a) for a in lv)
-                                for lv in p)) for p in jp]
+                                for lv in p), device="cpu") for p in jp]
     return jp, tp
 
 

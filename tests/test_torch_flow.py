@@ -104,7 +104,7 @@ def _pyramids(img1, img2, jcfg):
     build = jax.jit(jax_build, static_argnames=("cfg",))
     jp = (build(jnp.asarray(img1), jcfg), build(jnp.asarray(img2), jcfg))
     tp = [pyramids_from_numpy(*(tuple(np.asarray(a) for a in lv)
-                                for lv in p)) for p in jp]
+                                for lv in p), device="cpu") for p in jp]
     return jp, tp
 
 

@@ -47,7 +47,12 @@ def test_import_leaves_jax_out():
             "'pyfeaturetrack_tpu_torch.models.sequence', "
             "'pyfeaturetrack_tpu_torch.ops.flow', "
             "'pyfeaturetrack_tpu_torch.ops.disparity', "
-            "'pyfeaturetrack_tpu_torch.ops.refine'):\n"
+            "'pyfeaturetrack_tpu_torch.ops.refine', "
+            "'pyfeaturetrack_tpu_torch.serving', "
+            "'pyfeaturetrack_tpu_torch.models.chunked', "
+            "'pyfeaturetrack_tpu_torch.utils.loader', "
+            "'pyfeaturetrack_tpu_torch.utils.native', "
+            "'pyfeaturetrack_tpu_torch.utils.staging'):\n"
             "    importlib.import_module(m)\n"
             "assert 'jax' not in sys.modules, 'jax imported'\n"
             "assert 'pyfeaturetrack_tpu' not in sys.modules\n"
@@ -137,12 +142,9 @@ def test_status_codes_match_jax():
 
 
 def test_public_names_match_jax():
-    """Every name of the JAX package's public surface that the port
-    covers is exported under the same name."""
-    left_out = {"track_sequence_chunked",
-                "BatchedStreamingTracker", "StreamingTracker",
-                "prefetch_to_device", "serve_stream", "FrameLoader",
-                "load_frames"}
+    """Every name of the JAX package's public surface is exported under the
+    same name."""
+    left_out = set()
     public = {n for n in dir(jpft) if not n.startswith("_")
               and not isinstance(getattr(jpft, n), type(sys))}
     assert public - left_out - set(dir(tpft)) == set()
@@ -155,7 +157,7 @@ def test_feature_numpy_round_trip():
     fl = feature_state_from_numpy(arr, device="cpu")
     assert fl.x.dtype == torch.float32 and fl.val.dtype == torch.int32
     np.testing.assert_array_equal(feature_state_to_numpy(fl), arr)
-    x, y, v = features_from_numpy(arr[:, 0], arr[:, 1], arr[:, 2])
+    x, y, v = features_from_numpy(arr[:, 0], arr[:, 1], arr[:, 2], device="cpu")
     assert v.dtype == torch.int32 and v.tolist() == [7, -4, 0]
 
 
@@ -183,6 +185,27 @@ def test_feature_state_from_numpy_takes_aff_second():
     assert sig["device"].default == "cuda"
     assert inspect.signature(empty_track_carry).parameters[
         "device"].default == "cuda"
+
+
+@pytest.mark.parametrize("name,n_positional", [
+    ("pyramids_from_numpy", 3), ("features_from_numpy", 3),
+    ("affine_state_from_numpy", 8), ("feature_state_from_arrays", 4),
+    ("feature_table_from_numpy", 3)])
+def test_convert_functions_default_to_the_card(name, n_positional):
+    """The state converters put their tensors on the card unless asked for
+    the CPU; ``device`` is keyword-only, after the JAX fields."""
+    import inspect
+
+    from pyfeaturetrack_tpu_torch.utils import convert
+    sig = inspect.signature(getattr(convert, name)).parameters
+    positional = [n for n, p in sig.items()
+                  if p.kind is p.POSITIONAL_OR_KEYWORD]
+    assert len(positional) == n_positional
+    assert sig["device"].kind is sig["device"].KEYWORD_ONLY
+    assert sig["device"].default == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises((RuntimeError, AssertionError)):
+            features_from_numpy([1.0], [2.0], [3])
 
 
 def test_pgm_round_trip(tmp_path):
@@ -216,6 +239,8 @@ def test_make_affine_state_defaults_to_the_card():
 
 
 def test_out_of_slice_parts_raise():
+    """bfloat16 storage and guided tracking raise; the chained step, once
+    out of the slice, runs."""
     from pyfeaturetrack_tpu_torch.models.device_sequence import (
         sequence_chain_device)
     frames = [np.zeros((64, 80), np.float32)] * 2
@@ -223,8 +248,12 @@ def test_out_of_slice_parts_raise():
         tpft.track_sequence_device(
             frames, cfg=tpft.create_config(image_dtype="bfloat16"),
             n_features=4, device="cpu")
-    with pytest.raises(NotImplementedError):
-        sequence_chain_device()
+    seq = tpft.create_config().replace(sequentialMode=True)
+    pyr, x, y, v, _, _ = tpft.select_step_device(torch.zeros(64, 80), seq, 4)
+    _, hist, final, _, ex, _ = sequence_chain_device(pyr, frames, x, y, v,
+                                                     seq)
+    assert hist[0].shape == (2, 4) and final[2].shape == (4,)
+    assert not bool(ex)
     cfg = tpft.create_config()
     pyr = tpft.build_track_pyramids(torch.zeros(64, 80), cfg)
     z = torch.zeros(3)

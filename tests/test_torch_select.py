@@ -300,7 +300,7 @@ def test_selection_matches_jax_from_same_eig(overrides, seed, replacing):
     assert not bool(jex)
     tx, ty, tv, tfilled, tex = select_features_from_eig_device(
         torch.tensor(eig), *features_from_numpy(lost[:, 0], lost[:, 1],
-                                                lost[:, 2]),
+                                                lost[:, 2], device="cpu"),
         config_from_jax(jcfg), replacing=replacing)
     assert not bool(tex)
     np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
@@ -314,7 +314,7 @@ def test_selection_empty_lattice():
     cfg = config_from_jax(create_config())
     eig = torch.ones((40, 40), dtype=torch.int32)
     x, y, v = features_from_numpy(np.full(5, -1.0), np.full(5, -1.0),
-                                  np.full(5, -1))
+                                  np.full(5, -1), device="cpu")
     nx, ny, nv, filled, ex = select_features_from_eig_device(
         eig, x, y, v, cfg, replacing=False)
     assert (nv.numpy() == -1).all() and not filled.any() and not ex

@@ -106,7 +106,7 @@ def test_stage_a_matches_dilation_route_and_jax(mindist, skip, border,
     cfg = config_from_jax(jcfg)
     eig = _eig(jcfg, seed=mindist + 3 * skip)
     x, y, val = _slots(replacing, seed=mindist)
-    tx, ty, tv = features_from_numpy(x, y, val)
+    tx, ty, tv = features_from_numpy(x, y, val, device="cpu")
     geom = _candidate_grid(cfg, eig.shape)
     assert geom[3] > 0 and geom[4] > 0
     got = cuda_select.candidate_lattice(
@@ -185,7 +185,7 @@ def test_stage_b_matches_jax_refill(mindist, skip, monkeypatch):
     jx, jy, jv, jf, jex = _jax_select(eig, x, y, val, jcfg, True, True)
     assert not bool(jex)
     tx, ty, tv, tf, tex = select_features_from_eig_device(
-        torch.tensor(eig), *features_from_numpy(x, y, val), cfg,
+        torch.tensor(eig), *features_from_numpy(x, y, val, device="cpu"), cfg,
         replacing=True)
     assert not bool(tex)
     for got, want in ((tx, jx), (ty, jy), (tv, jv), (tf, jf)):
@@ -206,7 +206,7 @@ def test_stage_b_matches_jax_mis(mindist, replacing, monkeypatch):
     jx, jy, jv, jf, jex = _jax_select(eig, x, y, val, jcfg, replacing, False)
     assert not bool(jex)
     geom = _candidate_grid(cfg, eig.shape)
-    tx, ty, tv = features_from_numpy(x, y, val)
+    tx, ty, tv = features_from_numpy(x, y, val, device="cpu")
     cands = cuda_select.candidate_lattice(
         torch.tensor(eig), tx, ty, tv, geom,
         min_eig=int(cfg.min_eigenvalue),
@@ -237,7 +237,7 @@ def test_large_frames_match_jax(shape, seg, replacing, monkeypatch):
     cfg = config_from_jax(jcfg)
     eig = _eig(jcfg, seed=shape[0], shape=shape)
     x, y, val = _slots(replacing, seed=shape[1], shape=shape)
-    tx, ty, tv = features_from_numpy(x, y, val)
+    tx, ty, tv = features_from_numpy(x, y, val, device="cpu")
     geom = _candidate_grid(cfg, eig.shape)
     cands = cuda_select.candidate_lattice(
         torch.tensor(eig), tx, ty, tv, geom,
@@ -270,7 +270,7 @@ def test_empty_lattice_fills_nothing():
     x, y, val = _slots(True, seed=2)
     jx, jy, jv, jf, _ = _jax_select(eig, x, y, val, jcfg, True, False)
     got = select_features_from_eig_device(
-        torch.tensor(eig), *features_from_numpy(x, y, val), cfg,
+        torch.tensor(eig), *features_from_numpy(x, y, val, device="cpu"), cfg,
         replacing=True)
     for g, want in zip(got[:4], (jx, jy, jv, jf)):
         np.testing.assert_array_equal(g.numpy(), np.asarray(want))

@@ -84,9 +84,9 @@ def _affine_margins(frames, jcfg, n_features, frame, lanes):
     jnew = jax_pyramids(jnp.asarray(frames[frame]), seq)
     nx, ny, _ = jax_track(pyr, jnew, x, y, v, seq)
     new = pyramids_from_numpy(*(tuple(np.asarray(a) for a in lv)
-                                for lv in jnew))
-    taff = affine_state_from_numpy(*(np.asarray(a) for a in aff))
-    x0, y0, _ = features_from_numpy(nx, ny, np.zeros(len(nx)))
+                                for lv in jnew), device="cpu")
+    taff = affine_state_from_numpy(*(np.asarray(a) for a in aff), device="cpu")
+    x0, y0, _ = features_from_numpy(nx, ny, np.zeros(len(nx)), device="cpu")
     img2, gx2, gy2 = new.img[0], new.gradx[0], new.grady[0]
     check = torch.ones(len(nx), dtype=torch.bool)
     bx, by, bA, _, _ = affine_track_batch(taff.img, img2, gx2, gy2, x0, y0,

@@ -87,7 +87,7 @@ def _setup(name):
     jp1 = jax_build(jnp.asarray(img1, jnp.float32), jcfg)
     jp2 = jax_build(jnp.asarray(img2, jnp.float32), jcfg)
     tp1, tp2 = (pyramids_from_numpy(*(tuple(np.asarray(a) for a in lv)
-                                      for lv in p)) for p in (jp1, jp2))
+                                      for lv in p), device="cpu") for p in (jp1, jp2))
     return jcfg, config_from_jax(jcfg), jp1, jp2, tp1, tp2, feats
 
 
@@ -99,7 +99,7 @@ def test_pyramidal_tracking_matches_jax(name):
         jnp.asarray(feats[:, 1], jnp.float32),
         jnp.asarray(feats[:, 2].astype(np.int32)), jcfg)
     tx, ty, tv = track_features_pyramids(tp1, tp2, *features_from_numpy(
-        feats[:, 0], feats[:, 1], feats[:, 2]), cfg)
+        feats[:, 0], feats[:, 1], feats[:, 2], device="cpu"), cfg)
     np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
     np.testing.assert_allclose(tx.numpy(), np.asarray(jx), atol=POS_TOL)
     np.testing.assert_allclose(ty.numpy(), np.asarray(jy), atol=POS_TOL)
@@ -157,13 +157,13 @@ def test_large_windows_match_jax(win):
     jp1 = jax_build(jnp.asarray(img1, jnp.float32), jcfg)
     jp2 = jax_build(jnp.asarray(img2, jnp.float32), jcfg)
     tp1, tp2 = (pyramids_from_numpy(*(tuple(np.asarray(a) for a in lv)
-                                      for lv in p)) for p in (jp1, jp2))
+                                      for lv in p), device="cpu") for p in (jp1, jp2))
     jx, jy, jv = jax.jit(jax_track, static_argnames=("cfg",))(
         jp1, jp2, jnp.asarray(feats[:, 0], jnp.float32),
         jnp.asarray(feats[:, 1], jnp.float32),
         jnp.asarray(feats[:, 2].astype(np.int32)), jcfg)
     tx, ty, tv = track_features_pyramids(tp1, tp2, *features_from_numpy(
-        feats[:, 0], feats[:, 1], feats[:, 2]), config_from_jax(jcfg))
+        feats[:, 0], feats[:, 1], feats[:, 2], device="cpu"), config_from_jax(jcfg))
     np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
     np.testing.assert_allclose(tx.numpy(), np.asarray(jx), atol=POS_TOL)
     np.testing.assert_allclose(ty.numpy(), np.asarray(jy), atol=POS_TOL)
@@ -206,7 +206,7 @@ def test_single_level_matches_pallas_vec_kernel():
 def test_carry_signature_same_results():
     """A passed TrackCarry comes back with ok cleared; results identical."""
     jcfg, cfg, _, _, tp1, tp2, feats = _setup("shift")
-    x, y, v = features_from_numpy(feats[:, 0], feats[:, 1], feats[:, 2])
+    x, y, v = features_from_numpy(feats[:, 0], feats[:, 1], feats[:, 2], device="cpu")
     a = track_features_pyramids_carry(tp1, tp2, x, y, v, cfg)
     carry = empty_track_carry(x.shape[0], cfg, device="cpu")._replace(
         ok=torch.ones(x.shape[0], dtype=torch.bool))
@@ -221,7 +221,7 @@ def test_inactive_lanes_pass_through():
     jcfg, cfg, _, _, tp1, tp2, feats = _setup("shift")
     vals = feats[:, 2].copy()
     vals[::3] = -1
-    x, y, v = features_from_numpy(feats[:, 0], feats[:, 1], vals)
+    x, y, v = features_from_numpy(feats[:, 0], feats[:, 1], vals, device="cpu")
     nx, ny, nv = track_features_pyramids(tp1, tp2, x, y, v, cfg)
     dead = vals < 0
     np.testing.assert_array_equal(nv.numpy()[dead], vals[dead])

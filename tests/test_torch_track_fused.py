@@ -73,12 +73,12 @@ def _run(jcfg, li, seed, shape=SHAPE):
     jp1, jp2 = (jax_build(jnp.asarray(im, jnp.float32), jcfg)
                 for im in (img1, img2))
     tp1, tp2 = (pyramids_from_numpy(*(tuple(np.asarray(a) for a in lv)
-                                      for lv in p)) for p in (jp1, jp2))
+                                      for lv in p), device="cpu") for p in (jp1, jp2))
     x, y, val = _features(jcfg, img1, seed)
     jx, jy, jv, _ = jax.jit(jax_track_carry, static_argnames=("cfg",))(
         jp1, jp2, jnp.asarray(x, jnp.float32), jnp.asarray(y, jnp.float32),
         jnp.asarray(val.astype(np.int32)), jcfg)
-    tx, ty, tv = track_pyramid(tp1, tp2, *features_from_numpy(x, y, val),
+    tx, ty, tv = track_pyramid(tp1, tp2, *features_from_numpy(x, y, val, device="cpu"),
                                cfg)
     np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
     np.testing.assert_allclose(tx.numpy(), np.asarray(jx), atol=POS_TOL)
@@ -145,9 +145,9 @@ def test_coarse_break_freezes_the_break_level_position():
         tp1, tp2 = (pyramids_from_numpy(*(tuple(np.asarray(a) for a in lv)
                                           for lv in jax_build(
                                               jnp.asarray(im, jnp.float32),
-                                              jcfg)))
+                                              jcfg)), device="cpu")
                     for im in (img1, img2))
-        x, y, v = features_from_numpy([115.0], [95.0], [0])
+        x, y, v = features_from_numpy([115.0], [95.0], [0], device="cpu")
         nx, ny, nv = track_pyramid_reference(tp1, tp2, x, y, v, cfg)
         assert int(nv[0]) == want and float(nx[0]) == -1.0
 
@@ -163,9 +163,9 @@ def test_track_call_goes_through_track_pyramid(monkeypatch):
     tp1, tp2 = (pyramids_from_numpy(*(tuple(np.asarray(a) for a in lv)
                                       for lv in jax_build(
                                           jnp.asarray(im, jnp.float32),
-                                          jcfg)))
+                                          jcfg)), device="cpu")
                 for im in (img1, img2))
-    x, y, v = features_from_numpy(*_features(jcfg, img1, 1))
+    x, y, v = features_from_numpy(*_features(jcfg, img1, 1), device="cpu")
     out = track_features_pyramids_carry(tp1, tp2, x, y, v,
                                         config_from_jax(jcfg))
     assert len(calls) == 1 and out[3] is None

@@ -102,7 +102,7 @@ def test_example1_matches_jax(capsys):
     _assert_lists(_np(trk), _np(jtrk), [img0, img1], jcfg)
     # tracking from JAX's own selection gives the same again
     trk2, _ = tpft.KLTTrackFeatures(cfg, img0, img1, feature_state_from_arrays(
-        np.asarray(jsel.x), np.asarray(jsel.y), np.asarray(jsel.val)))
+        np.asarray(jsel.x), np.asarray(jsel.y), np.asarray(jsel.val), device="cpu"))
     np.testing.assert_array_equal(_np(trk2), _np(trk))
     remaining = tpft.KLTCountRemainingFeatures(trk)
     print(f"Remaining: {remaining} / {N}")
@@ -170,10 +170,10 @@ def test_affine_steps_from_jax_state():
     pyr, x, y, v, aff, _ = jax_select_step(jnp.asarray(frames[0]), jcfg, N)
     for f in frames[1:]:
         tpyr = pyramids_from_numpy(*(tuple(np.asarray(a) for a in lv)
-                                     for lv in pyr))
-        taff = affine_state_from_numpy(*(np.asarray(a) for a in aff))
+                                     for lv in pyr), device="cpu")
+        taff = affine_state_from_numpy(*(np.asarray(a) for a in aff), device="cpu")
         _, tx, ty, tv, taff, _, _ = tpft.sequence_step_device(
-            tpyr, f, *features_from_numpy(x, y, v), cfg, True, aff=taff)
+            tpyr, f, *features_from_numpy(x, y, v, device="cpu"), cfg, True, aff=taff)
         pyr, x, y, v, aff, _, _ = jax_sequence_step(
             pyr, jnp.asarray(f), x, y, v, jcfg, True, aff=aff)
         np.testing.assert_array_equal(tv.numpy(), np.asarray(v))
@@ -273,7 +273,7 @@ def test_feature_files_byte_identical(tmp_path):
     np.testing.assert_array_equal(
         a, _np(tpft.KLTExtractFeatureList(ft, 0)))
     tab = feature_table_from_numpy(ft.x.numpy(), ft.y.numpy(),
-                                   ft.val.numpy())
+                                   ft.val.numpy(), device="cpu")
     for p, q in zip(tab, ft):
         assert torch.equal(p, q)
 
