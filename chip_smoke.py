@@ -144,7 +144,26 @@ Phases, in order; the first failure exits non-zero:
    aggregate frames/s by CUDA events, three runs; (g)
    track_sequence_chunked(batched=True, n_chunks=4, chain=8) equal to
    batched=False. Prints {"serving": ...};
-10. profile (only with --profile) — for config 2's host loop, its step
+10. sfm    — the SfM back end and monocular VO (BASELINE config 5): (a)
+   K2 with guided starts at 480x640 / 1000 features, starts 20-40 px
+   from the anchors, on the default and config-3 pyramids (a drift pair
+   30 px apart and the status mix), bit-equal to the plain level loop
+   with the same starts, one launch counted as guided, timed beside the
+   start-free call on the same lanes; (b) dense bundle adjustment on
+   bench.py's 20 x 2000 x 40,000 problem, 8 iterations: final/initial
+   cost under 1e-3, a second run bit-equal, iterations/s by CUDA events,
+   the device's busy share and kernels per iteration from a trace; (c)
+   run_vo_on_corridor(n_frames=100, kf_every=3, n_features=100) on the
+   host route and with device_loop=True, each run twice (identical
+   trajectories, landmarks and events), ATE under 1 % of travel,
+   launches counted over the first run (K1, K2, K3 in K1, K4, and K5 on
+   the host route; K3's standalone entry never), host syncs per
+   keyframe (torch.cuda.set_sync_debug_mode), frames/s; (d)
+   run_vo_on_circuit(n_frames=260, finalize=False): a loop closed, ATE
+   under 1 %, K2's guided launches counted; (e) stereo VO on
+   tests/test_stereo.py's 12 frames: raw error under 3 % of travel.
+   Prints {"sfm": ...};
+11. profile (only with --profile) — for config 2's host loop, its step
    time beside the device route's, three repeats, and for the config-3
    and the default device step, the step time by CUDA events, by host
    wall clock and through track_sequence_device, three repeats each;
@@ -162,7 +181,9 @@ path):
 the larger of the bytes each kernel must move over 3.35 TB/s and its
 float32 operations over 67 TFLOP/s, computed from this run's inputs;
 K8's entry also carries its 1-D mode's times and bound, K5's its list
-entry's, K2's the windows its status mix ran at; K9's launches are those
+entry's, K2's the windows its status mix ran at; K2 twice more: its
+guided entry, with the circuit's guided launches and the start-free
+time on the same lanes; K9's launches are those
 of its own phase's driven
 call, since no path of the package runs it),
 then the nvidia-smi line, then, as the last line, {"ok": true, "device":
@@ -261,16 +282,19 @@ def make_status_mix():
     return np.floor(a).astype(np.float32), np.floor(b).astype(np.float32)
 
 
-def k2_levels(pa, pb, x, y, live, cfg, cuda_lk, reference_path):
+def k2_levels(pa, pb, x, y, live, cfg, cuda_lk, reference_path, starts=None):
     """The coarse-to-fine level loop of ops/track.py (with its "broken"
     rule), yielding (level, args, kernel result, plain result) per level;
-    the next level starts from the kernel's result."""
+    the next level starts from the kernel's result. ``starts``: guided
+    frame-2 starts (x_init, y_init) in level-0 pixels."""
     import torch
     from pyfeaturetrack_tpu_torch.features import KLT_OOB, KLT_SMALL_DET
     s = float(cfg.subsampling)
     scale = torch.full((), s ** cfg.nPyramidLevels, device=x.device)
     xloc, yloc = x / scale, y / scale
     xout, yout = xloc, yloc
+    if starts is not None:
+        xout, yout = starts[0] / scale, starts[1] / scale
     broken = torch.zeros_like(live)
     for r in range(cfg.nPyramidLevels - 1, -1, -1):
         xloc, yloc = xloc * s, yloc * s
@@ -1930,6 +1954,374 @@ def serving_phase(pft, path_mods, k6, frames, sim, tables, cfg, cfg3,
     return report
 
 
+# ---- the SfM back end and monocular VO (BASELINE config 5) ----
+
+GUIDED_GAP = 15           # frames between the guided pair: (30, 15) px
+VO_FRAMES, VO_KF_EVERY, VO_FEATURES = 100, 3, 100
+CIRCUIT_FRAMES = 260
+BA_CAMS, BA_POINTS, BA_ITERS = 20, 2000, 8
+STEREO_BASELINE = 0.3
+
+
+def guided_case(pft, cuda_lk, cuda, pa, pb, x, y, val, xi, yi, c, name):
+    """K2 with guided starts against its plain level loop, bit for bit,
+    one launch counted as guided. Returns the kernel's (x, y, val)."""
+    import numpy as np
+    import torch
+    before, guided = cuda_lk.launches, cuda_lk.guided_launches
+    got = cuda_lk.track_pyramid(pa, pb, x, y, val, c, xi, yi)
+    if (cuda_lk.launches, cuda_lk.guided_launches) != (before + 1,
+                                                       guided + 1):
+        fail(f"guided track_pyramid ({name}) did not launch once as guided")
+    with cuda.reference_path():
+        want = cuda_lk.track_pyramid(pa, pb, x, y, val, c, xi, yi)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    codes = got[2][val >= 0].cpu().numpy()
+    print(f"K2 guided, {name} ({c.nPyramidLevels} levels, subsampling "
+          f"{c.subsampling}): final statuses (0,-1..-5) "
+          f"{np.bincount(-codes, minlength=6).tolist()}, bit-equal {same}")
+    if not same:
+        fail(f"K2 with guided starts ({name}) differs from its plain version")
+    return got
+
+
+def guided_k2(pft, cuda_lk, cuda, frames, cfg, cfg3, dev, smi, prof_dir):
+    """(a): K2's guided entry at 480x640 / 1000 features, starts 20-40 px
+    from the anchors, on the default and config-3 pyramids: the drift
+    pair (frames 0 and GUIDED_GAP: the texture moved 30 px right, 15 down;
+    starts within 2 px of it) and the status mix (starts 20-40 px off in
+    any direction). Returns the K2-guided report entry."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(SEED + 10)
+    n = N_FEATURES
+    dx, dy = DRIFT[0] * GUIDED_GAP, DRIFT[1] * GUIDED_GAP
+    mix0, mix1 = make_status_mix()
+    entry = None
+    for tag, c in (("default", cfg), ("config 3", cfg3)):
+        c = c.validated_window()
+        pairs = {
+            "drift pair": [torch.as_tensor(f, device=dev).to(torch.float32)
+                           for f in (frames[0], frames[GUIDED_GAP])],
+            "status mix": [torch.as_tensor(f, device=dev)
+                           for f in (mix0, mix1)]}
+        for name, (fa, fb) in pairs.items():
+            pa, pb = (pft.build_track_pyramids(f, c) for f in (fa, fb))
+            x = rng.uniform(-3.0, W + 3.0, n)
+            y = rng.uniform(-3.0, H + 3.0, n)
+            if name == "drift pair":
+                xi = x + dx + rng.uniform(-2.0, 2.0, n)
+                yi = y + dy + rng.uniform(-2.0, 2.0, n)
+            else:
+                ang = rng.uniform(0.0, 2 * np.pi, n)
+                r = rng.uniform(20.0, 40.0, n)
+                xi, yi = x + r * np.cos(ang), y + r * np.sin(ang)
+            val = np.where(rng.uniform(size=n) < 0.1, -1, 0)
+            t = [torch.as_tensor(a, dtype=torch.float32, device=dev)
+                 for a in (x, y, xi, yi)]
+            v = torch.as_tensor(val, dtype=torch.int32, device=dev)
+            got = guided_case(pft, cuda_lk, cuda, pa, pb, t[0], t[1], v,
+                              t[2], t[3], c, f"{tag}, {name}")
+            if name != "drift pair" or tag != "default":
+                continue
+            ok = got[2] == 0
+            err = (got[0][ok] - t[0][ok] - dx).abs().median().item()
+            print(f"drift pair: {int(ok.sum())} of {n} tracked across the "
+                  f"({dx}, {dy}) px shift, median x error {err:.4f} px")
+            if int(ok.sum()) < n // 2 or err > DRIFT_TOL:
+                fail("guided K2 did not recover the 30 px shift")
+            live = v >= 0
+            work = [0.0, 0.0]
+            for r, args, lg, lw in k2_levels(pa, pb, t[0], t[1], live, c,
+                                             cuda_lk, cuda.reference_path,
+                                             starts=(t[2], t[3])):
+                if not all(torch.equal(a, b) for a, b in zip(lg, lw)):
+                    fail(f"K2 guided level {r} differs from its plain "
+                         "version")
+                lw_ = k2_work(c, args[-1], lg[3])
+                work = [work[0] + lw_[0], work[1] + lw_[1]]
+            call = (pa, pb, t[0], t[1], v, c, t[2], t[3])
+            free = (pa, pb, t[0], t[1], v, c)
+            ms = time_ms(lambda: cuda_lk.track_pyramid(*call))
+            free_ms = time_ms(lambda: cuda_lk.track_pyramid(*free))
+            dev_ms, _ = device_ms(lambda: cuda_lk.track_pyramid(*call),
+                                  ["::lk_pyramid_kernel"], prof_dir)
+            free_dev, _ = device_ms(lambda: cuda_lk.track_pyramid(*free),
+                                    ["::lk_pyramid_kernel"], prof_dir)
+            with cuda.reference_path():
+                plain_ms = time_ms(lambda: cuda_lk.track_pyramid(*call),
+                                   reps=5)
+            print(f"K2 guided track call (drift pair, {n} features): "
+                  f"{ms:.4f} ms by events, {dev_ms:.4f} ms device; the same "
+                  f"lanes start-free {free_ms:.4f} ms by events, "
+                  f"{free_dev:.4f} ms device; plain {plain_ms:.4f} ms; "
+                  f"card {smi}")
+            entry = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                         device_ms=dev_ms, start_free_ms=free_ms,
+                         start_free_device_ms=free_dev, work=tuple(work))
+    return entry
+
+
+def ba_problem(dev):
+    """The config-5 core problem of bench.py's bench_sfm: 20 cameras on a
+    lateral track, 2000 landmarks 5-10 units deep, every landmark seen by
+    every camera (40,000 observations), exact poses, points perturbed by
+    0.05 units."""
+    import numpy as np
+    import torch
+    from pyfeaturetrack_tpu_torch import sfm
+    from pyfeaturetrack_tpu_torch.sfm.ba import make_problem
+    rng = np.random.default_rng(0)
+    C, L = BA_CAMS, BA_POINTS
+    K = np.array([[500.0, 0, 320], [0, 500.0, 240], [0, 0, 1]], np.float32)
+    Rs = sfm.so3_exp(torch.as_tensor(0.02 * rng.standard_normal((C, 3)),
+                                     dtype=torch.float32, device=dev))
+    ts = torch.as_tensor(np.stack([[-0.2 * i, 0.0, 0.0] for i in range(C)]),
+                         dtype=torch.float32, device=dev)
+    X = np.stack([rng.uniform(-3, 3, L), rng.uniform(-2, 2, L),
+                  rng.uniform(5, 10, L)], -1).astype(np.float32)
+    uv, _ = sfm.project(K, Rs[:, None], ts[:, None],
+                        torch.as_tensor(X, device=dev)[None])
+    cam = np.repeat(np.arange(C), L)
+    pt = np.tile(np.arange(L), C)
+    problem = make_problem(K, cam, pt, uv.reshape(-1, 2), np.ones(C * L),
+                           device=dev)
+    X0 = X + 0.05 * rng.standard_normal(X.shape).astype(np.float32)
+    return problem, Rs, ts, torch.as_tensor(X0, device=dev)
+
+
+def dense_ba(prof_dir, dev, smi):
+    """(b): dense bundle adjustment on the 20 x 2000 x 40,000 problem, 8
+    iterations: cost ratio, a second run bit-equal, iterations/s by CUDA
+    events, the device's busy share and kernels per iteration."""
+    import torch
+    from pyfeaturetrack_tpu_torch import sfm
+    problem, Rs, ts, X0 = ba_problem(dev)
+
+    def run():
+        return sfm.bundle_adjust(problem, Rs, ts, X0, n_iters=BA_ITERS)
+
+    first = run()
+    second = run()
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(first, second))
+    costs = first[3].cpu().numpy()
+    ratio = float(costs[-1] / max(costs[0], 1e-30))
+    print(f"BA {BA_CAMS} cameras x {BA_POINTS} landmarks x "
+          f"{BA_CAMS * BA_POINTS} observations, {BA_ITERS} iterations: "
+          f"costs {costs[0]:.6g} -> {costs[-1]:.6g} (ratio {ratio:.3e}); "
+          f"second run bit-equal {same}")
+    if not same:
+        fail("two BA runs on the card differ")
+    if not ratio < 1e-3:
+        fail(f"BA final/initial cost {ratio} is not below 1e-3")
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    times = []
+    for _ in range(3):
+        e0.record()
+        run()
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1))
+    ms = sorted(times)[1]
+    busy, kernels = device_ms(run, [""], prof_dir, reps=3)
+    out = {"iters_per_s": BA_ITERS / (ms / 1e3), "ms_per_call": ms,
+           "cost_ratio": ratio, "device_busy_ms": busy,
+           "busy_share": busy / ms, "kernels_per_iter": kernels / BA_ITERS,
+           "bit_equal_rerun": same}
+    print(f"BA: {out['iters_per_s']:.2f} iterations/s by CUDA events "
+          f"({ms:.3f} ms per {BA_ITERS}-iteration call, host syncs "
+          f"included), device busy {busy:.3f} ms = share "
+          f"{out['busy_share']:.3f}, {out['kernels_per_iter']:.1f} kernels "
+          f"per iteration; card {smi}")
+    return out
+
+
+def count_syncs(fn):
+    """fn() with torch's sync debug mode on: returns (result, number of
+    synchronizing CUDA calls it made)."""
+    import warnings
+    import torch
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            res = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return res, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def same_trajectory(a, b) -> bool:
+    """Two VO runs took the same decisions and reached the same bits."""
+    import numpy as np
+    ta, tb = a.trajectory(), b.trajectory()
+    return (a.events == b.events and all(np.array_equal(x, y)
+                                         for x, y in zip(ta, tb))
+            and set(a.landmarks) == set(b.landmarks)
+            and all(np.array_equal(a.landmarks[k], b.landmarks[k])
+                    for k in a.landmarks))
+
+
+def vo_runs(mods, cuda_lk, smi):
+    """(c) and (d): the corridor VO on the host route and with
+    device_loop=True, each twice (identical trajectories), launches
+    counted over the first run, syncs per keyframe; then the 260-frame
+    circuit with loop closure, K2's guided launches counted."""
+    import torch
+    from pyfeaturetrack_tpu_torch.utils import synthscene
+    out = {}
+    for route, dl in (("host", False), ("device_loop", True)):
+        pmods = {k: m for k, m in mods.items()
+                 if not (dl and k == "K5")}
+        for m in pmods.values():
+            m.launches = 0
+        guided0 = cuda_lk.guided_launches
+        vo1 = []
+        res, syncs = count_syncs(lambda: synthscene.run_vo_on_corridor(
+            n_frames=VO_FRAMES, kf_every=VO_KF_EVERY,
+            n_features=VO_FEATURES, device="cuda", device_loop=dl,
+            vo_out=vo1))
+        torch.cuda.synchronize()
+        counts = path_counts(pmods, f"corridor VO ({route})")
+        vo2 = []
+        res2 = synthscene.run_vo_on_corridor(
+            n_frames=VO_FRAMES, kf_every=VO_KF_EVERY,
+            n_features=VO_FEATURES, device="cuda", device_loop=dl,
+            vo_out=vo2)
+        same = same_trajectory(vo1[0], vo2[0])
+        kf = res["keyframes"]
+        print(f"corridor VO ({route}): {VO_FRAMES} frames, {kf} keyframes, "
+              f"{res['landmarks']} landmarks, ATE {res['ate_units']} units "
+              f"= {res['ate_pct_travel']}% of {res['travel_units']} units; "
+              f"{res2['wall_fps']} frames/s by wall clock (second run; "
+              f"first {res['wall_fps']} with sync counting); launches "
+              f"{counts}, guided K2 {cuda_lk.guided_launches - guided0}; "
+              f"host syncs {syncs} = {syncs / kf:.1f} per keyframe; "
+              f"second run identical {same}; "
+              f"card {smi}")
+        if not same:
+            fail(f"two corridor VO runs ({route}) differ")
+        if not res["ate_pct_travel"] < 1.0:
+            fail(f"corridor VO ({route}) ATE {res['ate_pct_travel']}% of "
+                 "travel is not under 1%")
+        out[route] = dict(res, second_wall_fps=res2["wall_fps"],
+                          launches=counts, syncs=syncs,
+                          syncs_per_keyframe=syncs / kf,
+                          identical_rerun=same)
+    for m in mods.values():
+        m.launches = 0
+    guided0 = cuda_lk.guided_launches
+    vo = []
+    res = synthscene.run_vo_on_circuit(n_frames=CIRCUIT_FRAMES,
+                                       finalize=False, device="cuda",
+                                       vo_out=vo)
+    torch.cuda.synchronize()
+    counts = path_counts(mods, "circuit VO")
+    guided = cuda_lk.guided_launches - guided0
+    print(f"circuit VO: {CIRCUIT_FRAMES} frames, {res['keyframes']} "
+          f"keyframes, {res['landmarks']} landmarks, loops closed "
+          f"{vo[0].loops_closed}, ATE {res['ate_units']} units = "
+          f"{res['ate_pct_travel']}% of {res['travel_units']} units, RPE "
+          f"median {res['rpe_trans_median_units']} units / "
+          f"{res['rpe_rot_median_deg']} deg; {res['wall_fps']} frames/s; "
+          f"launches {counts}, K2 guided {guided}; card {smi}")
+    if res["loop_closures"] < 1:
+        fail(f"the circuit closed no loop: {vo[0].events[-5:]}")
+    if not res["ate_pct_travel"] < 1.0:
+        fail(f"circuit ATE {res['ate_pct_travel']}% is not under 1%")
+    if guided <= 0:
+        fail("loop closure launched no guided K2 call")
+    out["circuit"] = dict(res, launches=counts, guided_launches=guided)
+    return out
+
+
+def stereo_vo(smi):
+    """(e): stereo VO on tests/test_stereo.py's scene (12 frames, 0.3
+    units baseline): metric error under 3% of travel with no alignment."""
+    import numpy as np
+    import torch
+    from pyfeaturetrack_tpu_torch import sfm
+    from pyfeaturetrack_tpu_torch.ops import cuda_lk
+    h, w = 240, 320
+    K = np.array([[260.0, 0, w / 2], [0, 260.0, h / 2], [0, 0, 1]])
+    rng = np.random.default_rng(80)
+    n_pts = 300
+    pts = np.stack([rng.uniform(-9.0, 9.0, n_pts),
+                    rng.uniform(-6.0, 6.0, n_pts),
+                    rng.uniform(6.0, 20.0, n_pts)], -1).astype(np.float32)
+    amp = rng.uniform(120, 255, n_pts)
+
+    def render(c):
+        uv, depth = sfm.project(K, torch.eye(3), torch.as_tensor(
+            -c, dtype=torch.float32), torch.as_tensor(pts))
+        uv, depth = uv.numpy(), depth.numpy()
+        img = np.full((h, w), 20.0)
+        rad = 6
+        for j in range(n_pts):
+            u, v = uv[j]
+            if depth[j] <= 1.0 or not (rad < u < w - rad - 1
+                                       and rad < v < h - rad - 1):
+                continue
+            cu, cv = int(u), int(v)
+            yy, xx = np.mgrid[cv - rad:cv + rad + 1, cu - rad:cu + rad + 1]
+            img[cv - rad:cv + rad + 1, cu - rad:cu + rad + 1] += (
+                amp[j] * np.exp(-((xx - u) ** 2 + (yy - v) ** 2) / 6.48))
+        return np.clip(img, 0, 255)
+
+    cs = [np.array([0.2 * i, 0.03 * i, 0.08 * i]) for i in range(12)]
+    guided0 = cuda_lk.guided_launches
+    vo = sfm.VisualOdometry(K, n_features=120, kf_every=2, window=6,
+                            stereo_baseline=STEREO_BASELINE,
+                            max_disparity=40.0)
+    for c in cs:
+        vo.feed(render(c), right=render(c + [STEREO_BASELINE, 0, 0]))
+    fi, _, _, c_est = vo.trajectory()
+    err = np.linalg.norm(c_est - np.stack(cs)[fi], axis=-1)
+    travel = float(np.linalg.norm(np.diff(np.stack(cs), axis=0),
+                                  axis=-1).sum())
+    guided = cuda_lk.guided_launches - guided0
+    print(f"stereo VO: {len(fi)} keyframes, {len(vo.landmarks)} metric "
+          f"landmarks, raw error max {err.max():.4f} units = "
+          f"{100 * err.max() / travel:.3f}% of {travel:.3f} units (bar 3%), "
+          f"K2 guided launches {guided}; card {smi}")
+    if not vo.initialized or not err.max() < 0.03 * travel:
+        fail(f"stereo VO error {err.max()} over the 3% bar: {vo.events}")
+    return {"keyframes": int(len(fi)), "landmarks": len(vo.landmarks),
+            "max_err_units": float(err.max()), "travel_units": travel,
+            "guided_launches": guided}
+
+
+def sfm_phase(pft, mods, frames, cfg, cfg3, report, dev, smi, prof_dir):
+    """The SfM back end and monocular VO on the card: (a) K2's guided
+    starts, (b) dense BA, (c) the 100-frame corridor VO (host route and
+    device_loop=True), (d) the 260-frame circuit with loop closure, (e)
+    stereo VO. Returns the numbers; adds K2's guided entry to ``report``."""
+    from pyfeaturetrack_tpu_torch.ops import cuda_lk
+    from pyfeaturetrack_tpu_torch.utils import cuda
+    out = {}
+    phase("sfm (a): K2 with guided starts, 480x640, 1000 features, starts "
+          "20-40 px from the anchors")
+    report["K2 guided"] = guided_k2(pft, cuda_lk, cuda, frames, cfg, cfg3,
+                                    dev, smi, prof_dir)
+    phase(f"sfm (b): dense bundle adjustment, {BA_CAMS} x {BA_POINTS} x "
+          f"{BA_CAMS * BA_POINTS}, {BA_ITERS} iterations")
+    out["ba"] = dense_ba(prof_dir, dev, smi)
+    phase(f"sfm (c, d): corridor VO ({VO_FRAMES} frames, kf_every "
+          f"{VO_KF_EVERY}, {VO_FEATURES} features), host route and "
+          f"device_loop; {CIRCUIT_FRAMES}-frame circuit with loop closure")
+    out.update(vo_runs(mods, cuda_lk, smi))
+    report["K2 guided"]["launches"] = out["circuit"]["guided_launches"]
+    phase("sfm (e): stereo VO, 12 frames, 0.3 units baseline")
+    out["stereo"] = stereo_vo(smi)
+    report["K2 guided"]["launches_per_path"] = {
+        "corridor host": 0, "corridor device_loop": 0,
+        "circuit": out["circuit"]["guided_launches"],
+        "stereo": out["stereo"]["guided_launches"]}
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -2989,6 +3381,14 @@ def main(argv=None) -> int:
         cfg3, staged, staged3, smi, root)
     print(json.dumps({"serving": serving}))
 
+    # ---- phase 10: the SfM back end and monocular VO ----
+    sfm_mods = {"K1": cuda_pyramid, "K2": cuda_lk, "K3": K3InK1(cuda_pyramid),
+                K3_STANDALONE: cuda_eig, "K4": cuda_select,
+                "K5": cuda_suppress}
+    sfm_out = sfm_phase(pft, sfm_mods, frames, cfg, cfg3, report, dev, smi,
+                        prof_dir)
+    print(json.dumps({"sfm": sfm_out}))
+
     if profile:
         profile_host_loop(pft, cfg, staged, root)
         profile_phase(pft, cfg3, sim, staged3, root, "config3")
@@ -3000,6 +3400,9 @@ def main(argv=None) -> int:
                     "pyfeaturetrack_tpu/ops/pallas_pyramid.py:132"),
              "K2": ("lk_pyramid", "pyfeaturetrack_tpu_torch/csrc/lk.cu",
                     "pyfeaturetrack_tpu/ops/pallas_lk_vec.py:663"),
+             "K2 guided": ("lk_pyramid (guided starts)",
+                           "pyfeaturetrack_tpu_torch/csrc/lk.cu",
+                           "pyfeaturetrack_tpu/ops/pallas_lk_vec.py:663"),
              "K3": ("min_eig_map in K1 level 0",
                     "pyfeaturetrack_tpu_torch/csrc/pyramid.cu",
                     "pyfeaturetrack_tpu/ops/pallas_eig.py:100"),
@@ -3020,7 +3423,8 @@ def main(argv=None) -> int:
                     "pyfeaturetrack_tpu_torch/csrc/window_terms.cu",
                     "pyfeaturetrack_tpu/ops/pallas_lk.py:140")}
     kernels = []
-    for k in ("K1", "K2", "K3", K3_STANDALONE, "K4", "K5", "K6", "K8", "K9"):
+    for k in ("K1", "K2", "K2 guided", "K3", K3_STANDALONE, "K4", "K5", "K6",
+              "K8", "K9"):
         name, source, replaces = names[k]
         r = report[k]
         b_ms, b_by = bound_ms(*r["work"])
@@ -3038,6 +3442,10 @@ def main(argv=None) -> int:
                 "level0_device_ms", "fused_bound_ms")})
         if k in ("K3", K3_STANDALONE):
             entry.update(launches_per_path=r["launches_per_path"])
+        if k == "K2 guided":
+            entry.update({f: r[f] for f in (
+                "start_free_ms", "start_free_device_ms",
+                "launches_per_path")})
         if k == "K9":
             entry.update({f: r[f] for f in (
                 "floor_device_ms", "n65536_ms", "n65536_device_ms",

@@ -26,7 +26,10 @@
 //     with val < 0 passed through unchanged). Level pointers and shapes pass
 //     by value up to PFT_LK_MAX_LEVELS levels (no frame of int32 size has
 //     more non-empty levels at subsampling 2 or more); a deeper pyramid
-//     (subsampling 1) passes them as a table in device memory.
+//     (subsampling 1) passes them as a table in device memory. Guided starts
+//     (ops/track.py:305-309): with x_init / y_init given, the coarsest
+//     level's frame-2 start is x_init / s^L (the same IEEE division) while
+//     the frame-1 anchor stays x / s^L; nullptr starts at x / s^L.
 //   * pft_lk_level: one level for given positions (ops/cuda_lk.lk_level).
 //
 // What bounds it on this card: latency of dependent gathers, not bytes or
@@ -92,6 +95,7 @@ lk_pyramid_kernel(const float* __restrict__ x_in, const float* __restrict__ y_in
                   const int* __restrict__ val_in, LKLevels L,
                   const float* const* __restrict__ dev_im, const int* __restrict__ dev_hw,
                   int n_levels, LKParams P, float scale, float s, int borderx, int bordery,
+                  const float* __restrict__ x_init, const float* __restrict__ y_init,
                   float* __restrict__ x_out, float* __restrict__ y_out,
                   int* __restrict__ val_out)
 {
@@ -110,6 +114,10 @@ lk_pyramid_kernel(const float* __restrict__ x_in, const float* __restrict__ y_in
     }
     float xloc = x0 / scale, yloc = y0 / scale;
     float xout = xloc, yout = yloc;
+    if (x_init != nullptr) {                    // guided start
+        xout = x_init[f] / scale;
+        yout = y_init[f] / scale;
+    }
     int status = KLT_TRACKED;
     for (int r = n_levels - 1; r >= 0; --r) {
         xloc = xloc * s;
@@ -204,7 +212,8 @@ extern "C" int pft_lk_level(const float* x1, const float* y1, const float* x2,
 // gy2), shapes: n_levels * 2 ints (H, W), both host arrays read here; above
 // PFT_LK_MAX_LEVELS levels the same two tables in device memory (dev_levels,
 // dev_shapes), which the kernel reads instead.
-// scale: float32 subsampling^n_levels; x, y, val in, x, y, val out [n].
+// scale: float32 subsampling^n_levels; x, y, val in, x, y, val out [n];
+// x_init, y_init: the guided frame-2 starts [n], both or neither (nullptr).
 extern "C" int pft_lk_pyramid(const float* x, const float* y, const int* val, int n,
                               const float* const* levels, const int* shapes,
                               int n_levels, int window_width, int window_height,
@@ -213,12 +222,14 @@ extern "C" int pft_lk_pyramid(const float* x, const float* y, const int* val, in
                               float step_factor, int lighting_insensitive,
                               float scale, float subsampling, int borderx, int bordery,
                               const float* const* dev_levels, const int* dev_shapes,
+                              const float* x_init, const float* y_init,
                               float* x_out, float* y_out, int* val_out, void* stream)
 {
     if (n <= 0) return 0;
     const bool by_value = n_levels <= PFT_LK_MAX_LEVELS;
     if (n_levels < 1 || window_width % 2 != 1 || window_height % 2 != 1 ||
-        (!by_value && (dev_levels == nullptr || dev_shapes == nullptr)))
+        (!by_value && (dev_levels == nullptr || dev_shapes == nullptr)) ||
+        ((x_init == nullptr) != (y_init == nullptr)))
         return PFT_INVALID_ARGUMENT;
     LKLevels L{};
     for (int r = 0; r < n_levels; ++r) {
@@ -243,11 +254,11 @@ extern "C" int pft_lk_pyramid(const float* x, const float* y, const int* val, in
         if (lighting_insensitive)                                                        \
             lk_pyramid_kernel<K, true><<<blocks, NT, 0, s>>>(                            \
                 x, y, val, L, dev_levels, dev_shapes, n_levels, P, scale, subsampling,   \
-                borderx, bordery, x_out, y_out, val_out);                                \
+                borderx, bordery, x_init, y_init, x_out, y_out, val_out);                \
         else                                                                             \
             lk_pyramid_kernel<K, false><<<blocks, NT, 0, s>>>(                           \
                 x, y, val, L, dev_levels, dev_shapes, n_levels, P, scale, subsampling,   \
-                borderx, bordery, x_out, y_out, val_out);                                \
+                borderx, bordery, x_init, y_init, x_out, y_out, val_out);                \
         return (int)cudaGetLastError();
     PFT_LK_SWITCH(npl, PFT_LK_PYRAMID)
 #undef PFT_LK_PYRAMID

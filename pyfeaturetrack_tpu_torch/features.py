@@ -202,9 +202,9 @@ def feature_state_from_numpy(arr: np.ndarray,
 
 
 def feature_state_to_numpy(fl: FeatureState) -> np.ndarray:
-    """FeatureState -> (N,3) float64 array of (x, y, val)."""
-    return np.stack([
-        fl.x.detach().cpu().numpy().astype(np.float64),
-        fl.y.detach().cpu().numpy().astype(np.float64),
-        fl.val.detach().cpu().numpy().astype(np.float64),
-    ], axis=1)
+    """FeatureState -> (N,3) float64 array of (x, y, val), in one
+    device-to-host copy (float64 holds every int32 val exactly)."""
+    return torch.stack([fl.x.detach().to(torch.float64),
+                        fl.y.detach().to(torch.float64),
+                        fl.val.detach().to(torch.float64)],
+                       dim=1).cpu().numpy()

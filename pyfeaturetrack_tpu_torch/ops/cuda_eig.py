@@ -62,6 +62,7 @@ def compute_min_eig_map(gradx: torch.Tensor, grady: torch.Tensor,
 launches = 0
 
 
+@cuda.plain_version
 def min_eig_reference(gradx: torch.Tensor, grady: torch.Tensor,
                       window_width: int, window_height: int) -> torch.Tensor:
     """Plain version of K3: int32 [H, W] with a zeroed border."""

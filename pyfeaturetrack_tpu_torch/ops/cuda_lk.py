@@ -8,7 +8,8 @@ JAX package runs around it in XLA (``ops/track.py:337-402``).
 * ``track_pyramid``: a whole track call, every level coarse to fine, the
   coarse-level "broken" rule and the final classification, in one launch.
   Its plain version, ``track_pyramid_reference``, is the level loop around
-  ``lk_level_reference``.
+  ``lk_level_reference``. Guided starts (``x_init``/``y_init``: loop
+  closure, relocalization, stereo) enter the same launch.
 * ``lk_level``: one level for given positions. ``lk_level_reference`` is
   ``track_feature_level`` in PyTorch: the same fixed-trip masked
   iteration, the same status order, with every window sum taken in the
@@ -40,8 +41,10 @@ _ONE_PLUS_EPS = 1.001     # ops/track._ONE_PLUS_EPS (reference bound check)
 # deeper pyramid passes them as a table in device memory
 LEVELS_BY_VALUE = 32
 
-# Kernel launches made by this wrapper.
+# Kernel launches made by this module's wrappers; guided_launches counts
+# the track_pyramid launches that took guided starts (also in launches).
 launches = 0
+guided_launches = 0
 
 
 class TrackCarry(NamedTuple):
@@ -100,6 +103,7 @@ def _bounds_ok(x, y, hw: int, hh: int, ncols: int, nrows: int):
             (y - hh >= 0.0) & (nrows - (y + hh) >= eps))
 
 
+@cuda.plain_version
 def lk_level_reference(x1, y1, x2, y2, img1, gx1, gy1, img2, gx2, gy2,
                        cfg, active, sum_fn=tree_sum, one_d=False):
     """Plain version of K2 = ``track_feature_level`` (track.py:155-234),
@@ -266,10 +270,14 @@ def lk_level(x1, y1, x2, y2, img1, gx1, gy1, img2, gx2, gy2, cfg, active):
     return xo, yo, st, it
 
 
-def track_pyramid_reference(pyr1, pyr2, x, y, val, cfg):
+@cuda.plain_version
+def track_pyramid_reference(pyr1, pyr2, x, y, val, cfg, x_init=None,
+                            y_init=None):
     """Plain version of ``track_pyramid``: the coarse-to-fine level loop of
     ``ops/track.py`` around ``lk_level_reference``, with its coarse-level
-    "broken" rule and the final classification."""
+    "broken" rule and the final classification. ``x_init``/``y_init``: the
+    guided frame-2 starts (ops/track.py:305-309), divided by s^L as ``x``
+    is; the frame-1 anchor stays ``x / s^L``."""
     nrows, ncols = pyr1.img[0].shape
     s = float(cfg.subsampling)
     n_levels = cfg.nPyramidLevels
@@ -281,6 +289,8 @@ def track_pyramid_reference(pyr1, pyr2, x, y, val, cfg):
     xloc = x / scale
     yloc = y / scale
     xout, yout = xloc, yloc
+    if x_init is not None:
+        xout, yout = x_init / scale, y_init / scale
 
     status = torch.full_like(val, KLT_TRACKED)
     # 'broken' freezes lanes that hit SMALL_DET / OOB at a coarser level
@@ -323,13 +333,13 @@ def _device_table(values, dtype, dev):
         dev, non_blocking=True)
 
 
-def _launch_pyramid(pyr1, pyr2, x, y, val, cfg, xo, yo, vo):
-    global launches
+def _launch_pyramid(pyr1, pyr2, x, y, val, cfg, x_init, y_init, xo, yo, vo):
+    global launches, guided_launches
     fn = cuda.function("pft_lk_pyramid",
                        [cuda.c_ptr] * 3 + [cuda.c_int] + [cuda.c_ptr] * 2
                        + [cuda.c_int] * 4 + [cuda.c_float] * 4 + [cuda.c_int]
                        + [cuda.c_float] * 2 + [cuda.c_int] * 2
-                       + [cuda.c_ptr] * 6)
+                       + [cuda.c_ptr] * 8)
     n_levels = cfg.nPyramidLevels
     ptr_list = [p[r].data_ptr() for r in range(n_levels)
                 for p in (pyr1.img, pyr1.gradx, pyr1.grady, pyr2.img,
@@ -350,26 +360,34 @@ def _launch_pyramid(pyr1, pyr2, x, y, val, cfg, xo, yo, vo):
             int(bool(cfg.lighting_insensitive)), _f32(s ** n_levels), _f32(s),
             int(cfg.borderx), int(cfg.bordery),
             *(None if t is None else t.data_ptr()
-              for t in (dev_ptrs, dev_shapes)),
+              for t in (dev_ptrs, dev_shapes, x_init, y_init)),
             xo.data_ptr(), yo.data_ptr(), vo.data_ptr(),
             cuda.stream_ptr(x.device))
     cuda.check(rc, "pft_lk_pyramid")
     launches += 1
+    guided_launches += x_init is not None
 
 
 def track_pyramid(pyr1, pyr2, x: torch.Tensor, y: torch.Tensor,
-                  val: torch.Tensor, cfg):
+                  val: torch.Tensor, cfg, x_init: torch.Tensor | None = None,
+                  y_init: torch.Tensor | None = None):
     """Pyramidal LK for a feature batch from prebuilt pyramids (objects
     with ``img``/``gradx``/``grady`` level tuples, finest first): every
     level coarse to fine, then the final classification. Returns (x, y,
     val); lost features get (-1, -1, status), lanes with ``val < 0`` pass
-    through. One launch on CUDA."""
+    through. ``x_init``/``y_init`` (both or neither): guided frame-2 starts
+    in level-0 pixels. One launch on CUDA."""
+    if (x_init is None) != (y_init is None):
+        raise ValueError("track_pyramid: give both x_init and y_init, or "
+                         "neither")
     n_levels = cfg.nPyramidLevels
     imgs = [p[r] for r in range(n_levels)
             for p in (pyr1.img, pyr1.gradx, pyr1.grady, pyr2.img, pyr2.gradx,
                       pyr2.grady)]
-    if not cuda.use_kernel(x, y, val, *imgs):
-        return track_pyramid_reference(pyr1, pyr2, x, y, val, cfg)
+    starts = () if x_init is None else (x_init, y_init)
+    if not cuda.use_kernel(x, y, val, *starts, *imgs):
+        return track_pyramid_reference(pyr1, pyr2, x, y, val, cfg, x_init,
+                                       y_init)
     ww, wh = cfg.window_width, cfg.window_height
     cuda.require(ww % 2 == 1 and wh % 2 == 1,
                  f"track_pyramid kernel takes odd windows, got {ww}x{wh}")
@@ -380,6 +398,9 @@ def track_pyramid(pyr1, pyr2, x: torch.Tensor, y: torch.Tensor,
                  and all(t.is_contiguous() for t in (x, y, val)),
                  "track_pyramid takes contiguous float32 x, y and int32 val "
                  "[N]")
+    cuda.require(all(t.dtype == torch.float32 and t.shape == (n,)
+                     and t.is_contiguous() for t in starts),
+                 "track_pyramid takes contiguous float32 [N] starts")
     for r in range(n_levels):
         level = imgs[6 * r:6 * r + 6]
         cuda.require(all(t.dtype == torch.float32 and t.dim() == 2
@@ -389,5 +410,6 @@ def track_pyramid(pyr1, pyr2, x: torch.Tensor, y: torch.Tensor,
                      "[H, W] images of one shape")
     xo, yo, vo = torch.empty_like(x), torch.empty_like(y), torch.empty_like(val)
     if n:
-        _launch_pyramid(pyr1, pyr2, x, y, val, cfg, xo, yo, vo)
+        _launch_pyramid(pyr1, pyr2, x, y, val, cfg, x_init, y_init, xo, yo,
+                        vo)
     return xo, yo, vo

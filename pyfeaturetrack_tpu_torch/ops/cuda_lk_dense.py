@@ -60,6 +60,7 @@ def seq_sum(v: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+@cuda.plain_version
 def _reference(imgs, u, v, cfg, one_d):
     """Plain version of one K8 level: (u or d, v or None, status,
     iteration) [H, W]."""

@@ -77,6 +77,7 @@ def level_taps(cfg) -> LevelTaps:
                  int(cfg.subsampling))
 
 
+@cuda.plain_version
 def pyramid_level_reference(img: torch.Tensor, taps: LevelTaps,
                             smooth: bool, with_pyr: bool):
     """Plain version of one K1 level. Returns (base, gradx, grady, next)
@@ -93,6 +94,7 @@ def pyramid_level_reference(img: torch.Tensor, taps: LevelTaps,
     return base, gx, gy, nxt
 
 
+@cuda.plain_version
 def pyramid_build_reference(img: torch.Tensor, taps: LevelTaps,
                             n_levels: int):
     """Plain version of ``pyramid_build``: ``pyramid_level_reference``
@@ -108,6 +110,7 @@ def pyramid_build_reference(img: torch.Tensor, taps: LevelTaps,
     return tuple(imgs), tuple(gxs), tuple(gys)
 
 
+@cuda.plain_version
 def level0_eig_reference(img: torch.Tensor, taps: LevelTaps, smooth: bool,
                          window_width: int,
                          window_height: int) -> torch.Tensor:

@@ -35,6 +35,7 @@ def _clamp_bounds(shape, hw: int, hh: int):
     return _f32(w - hw - 1.001), _f32(h - hh - 1.001)
 
 
+@cuda.plain_version
 def window_terms_reference(img2, gx2, gy2, w1, g1x, g1y, x2, y2, *, hw: int,
                            hh: int, step_factor: float) -> torch.Tensor:
     """Plain version of K9: [N, 5] float32 (gxx, gxy, gyy, ex, ey)."""

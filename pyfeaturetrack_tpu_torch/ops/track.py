@@ -12,8 +12,10 @@ two launches on CUDA).
 ``fb_reject`` / ``track_features_pyramids_fb`` the forward-backward gate
 (the backward pass is K2 from frame 2 to frame 1).
 
-Out of this port so far (raise NotImplementedError): guided tracking
-(``x_init``/``y_init``) and ``image_dtype`` other than float32.
+Guided tracking (``x_init``/``y_init``: the frame-2 search starts at an
+external motion prior, e.g. landmark projections) goes through the same
+K2 launch. Out of this port so far (raises NotImplementedError):
+``image_dtype`` other than float32.
 """
 
 from __future__ import annotations
@@ -81,15 +83,16 @@ def track_features_pyramids_carry(pyr1: TrackPyramids, pyr2: TrackPyramids,
     sequential window-carry signature of the JAX package.
 
     Returns (x, y, val, carry_out); lost features get (-1, -1, status).
-    The port does not reuse carried windows yet: ``carry_out`` is None
-    without a carry, else the carry with ``ok`` cleared, and results are
-    identical either way.
+    ``x_init``/``y_init`` (both or neither, float32 [N] level-0 pixels):
+    the coarsest level's frame-2 start is ``x_init / s^L`` instead of
+    ``x / s^L``; the frame-1 anchor stays ``x``. The port does not reuse
+    carried windows yet: ``carry_out`` is None without a carry, else the
+    carry with ``ok`` cleared, and results are identical either way.
     """
-    if x_init is not None or y_init is not None:
-        raise NotImplementedError("guided tracking (x_init/y_init) is not "
-                                  "in the port yet")
     _require_float32_images(cfg)
-    new_x, new_y, new_val = track_pyramid(pyr1, pyr2, x, y, val, cfg)
+    starts = () if x_init is None and y_init is None else (x_init, y_init)
+    new_x, new_y, new_val = track_pyramid(pyr1, pyr2, x, y, val, cfg,
+                                          *starts)
     carry_out = None
     if carry is not None:
         carry_out = carry._replace(ok=torch.zeros_like(carry.ok))
@@ -104,7 +107,8 @@ def track_features_pyramids(pyr1: TrackPyramids, pyr2: TrackPyramids,
 
     Reference parity: trackFeatures.py -> KLTTrackFeatures feature loop +
     coarse-to-fine level loop. Returns (x, y, val); lost features get
-    (-1, -1, status).
+    (-1, -1, status). ``x_init``/``y_init``: guided frame-2 starts
+    (``track_features_pyramids_carry``).
     """
     nx, ny, nval, _ = track_features_pyramids_carry(
         pyr1, pyr2, x, y, val, cfg, x_init=x_init, y_init=y_init)

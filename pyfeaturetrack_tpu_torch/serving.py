@@ -79,7 +79,9 @@ def prefetch_to_device(frames: Iterable, depth: int = 2, device="cuda",
             for f in frames:
                 if cancelled.is_set():
                     return
-                q.put((torch.from_numpy(_host_array(f, stage_dtype)), None))
+                # the queued frame owns its memory (utils/staging)
+                q.put((torch.from_numpy(np.array(_host_array(f, stage_dtype),
+                                                 copy=True)), None))
             return
         slots: list = [None] * depth       # [pinned frame, its copy event]
         with torch.cuda.device(dev):

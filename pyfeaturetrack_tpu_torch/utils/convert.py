@@ -3,7 +3,8 @@
 The slice has no weights: a config plus pyramid, feature and affine
 template state is all a port step needs, so these helpers let a test start
 a port step or a host-API call from exactly the state the JAX package
-produced. They take plain numpy arrays (or anything ``np.asarray``
+produced; the SfM back end adds bundle-adjustment problems, pose graphs
+and pose stacks. They take plain numpy arrays (or anything ``np.asarray``
 accepts) and never import JAX. Like every entry point of the port they
 put their tensors on the card unless the caller passes ``device="cpu"``.
 """
@@ -74,3 +75,24 @@ def feature_table_from_numpy(x, y, val, *, device="cuda") -> FeatureTable:
     """[F, N] (x, y, val) arrays -> a port FeatureTable."""
     return FeatureTable(x=_t(x, np.float32, device), y=_t(y, np.float32, device),
                         val=_t(val, np.int32, device))
+
+
+def ba_problem_from_numpy(K, cam_idx, pt_idx, uv, w, *, device="cuda"):
+    """The fields of a JAX ``sfm.BAProblem`` as arrays (e.g.
+    ``[np.asarray(a) for a in problem]``) -> a port BAProblem."""
+    from ..sfm.ba import make_problem
+    return make_problem(K, cam_idx, pt_idx, uv, w, device=device)
+
+
+def pose_graph_from_numpy(edge_i, edge_j, R_meas, t_meas, w_rot, w_trans, *,
+                          device="cuda"):
+    """The fields of a JAX ``sfm.PoseGraph`` as arrays -> a port
+    PoseGraph."""
+    from ..sfm.posegraph import make_pose_graph
+    return make_pose_graph(edge_i, edge_j, R_meas, t_meas, w_rot, w_trans,
+                           device=device)
+
+
+def poses_from_numpy(R, t, *, device="cuda"):
+    """(R [M, 3, 3], t [M, 3]) pose stacks -> float32 tensors."""
+    return _t(R, np.float32, device), _t(t, np.float32, device)

@@ -13,12 +13,21 @@ Dispatch rule (``use_kernel``): a CUDA tensor launches the kernel (or the
 call raises), a CPU tensor takes the kernel's plain PyTorch version. The
 only way to run a plain version on CUDA tensors is the explicit
 ``reference_path()`` context, which the kernel-vs-plain comparisons use.
+
+A plain version runs its CPU work on the calling thread alone
+(``plain_version``): PyTorch splits an elementwise op of a few thousand
+elements (``torch.sqrt`` of a 64 x 96 map) over its intra-op OpenMP
+threads, and a worker thread can round differently from the caller (seen
+after the JAX package's first XLA computation in the same process: the
+lower half of a min-eig map off by one), so the same call gave two
+results. On the calling thread the bits depend on the inputs only.
 """
 
 from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import os
 import shutil
 import subprocess
@@ -152,6 +161,43 @@ def use_kernel(*tensors: torch.Tensor) -> bool:
     if dev.type == "cpu":
         return False
     raise ValueError(f"unsupported device {dev}")
+
+
+_serial_lock = threading.Lock()
+_serial_depth = 0
+_serial_outside = 1
+
+
+@contextlib.contextmanager
+def calling_thread_only():
+    """Run the enclosed PyTorch CPU work on the calling thread: the
+    process's intra-op thread count is 1 while any such block runs (blocks
+    nest, also across Python threads), and the count from before the
+    outermost block comes back after it."""
+    global _serial_depth, _serial_outside
+    with _serial_lock:
+        if _serial_depth == 0:
+            _serial_outside = torch.get_num_threads()
+            if _serial_outside != 1:
+                torch.set_num_threads(1)
+        _serial_depth += 1
+    try:
+        yield
+    finally:
+        with _serial_lock:
+            _serial_depth -= 1
+            if _serial_depth == 0 and _serial_outside != 1:
+                torch.set_num_threads(_serial_outside)
+
+
+def plain_version(fn):
+    """Mark ``fn`` as a kernel's plain version: it runs in
+    ``calling_thread_only``, so its bits depend on its inputs alone."""
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        with calling_thread_only():
+            return fn(*args, **kwargs)
+    return run
 
 
 @contextlib.contextmanager

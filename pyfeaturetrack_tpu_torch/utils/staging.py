@@ -11,7 +11,8 @@ relay) does not carry over; its contract does.
 On the card a frame crosses from pinned host memory with a
 ``non_blocking`` copy on the current stream, so the host does not wait for
 the transfer; the caching host allocator keeps the pinned block until the
-copy has run.
+copy has run. On the CPU a staged frame is a copy too: it never aliases
+the caller's array.
 """
 
 from __future__ import annotations
@@ -58,8 +59,10 @@ def _stage(a, keep_uint8: bool, device) -> torch.Tensor:
         return a.to(dev)
     arr = host_frame(a, keep_uint8)
     if dev.type == "cpu":
-        return torch.from_numpy(arr.copy() if not arr.flags.writeable
-                                else arr)
+        # a staged frame owns its memory, as the pinned copy does on the
+        # card: a frame held for a later chain step must not alias a
+        # caller's (or a decoder's) buffer that may be rewritten meanwhile
+        return torch.from_numpy(np.array(arr, copy=True))
     pinned = torch.empty(arr.shape, dtype=torch_dtype(arr.dtype),
                          pin_memory=True)
     pinned.numpy()[...] = arr

@@ -378,6 +378,75 @@ def test_select_from_eig_large_frames(dev, shape, seg, replacing):
     assert bool(filled[3].any())
 
 
+@pytest.mark.parametrize("levels,sub", [(1, 4), (3, 2), (4, 2)])
+@pytest.mark.parametrize("li", [False, True])
+def test_track_pyramid_guided_bit_equal(dev, levels, sub, li):
+    """K2 with guided starts (x_init/y_init 20-40 px from the anchors)
+    against the plain level loop with the same starts, one launch per
+    call, counted as guided; starts at the anchors give the start-free
+    call's bits."""
+    cfg = tpft.create_config(nPyramidLevels=levels, subsampling=sub,
+                             lighting_insensitive=li)
+    h, w = 192, 256
+    base = _texture(h + 40, w + 40, seed=23)
+    a = base[:h, :w].copy()
+    b = np.ascontiguousarray(base[4:h + 4, 30:w + 30])
+    p1, p2 = (tpft.build_track_pyramids(torch.tensor(
+        f.astype(np.float32), device=dev), cfg) for f in (a, b))
+    rng = np.random.default_rng(levels + sub)
+    n = 300
+    x = rng.uniform(-3, w + 3, n)
+    y = rng.uniform(-3, h + 3, n)
+    xi = x - 30.0 + rng.uniform(-2, 2, n)
+    yi = y - 4.0 + rng.uniform(-2, 2, n)
+    val = np.where(rng.uniform(size=n) < 0.15, -1, 0)
+    x, y, xi, yi = (torch.tensor(t, dtype=torch.float32, device=dev)
+                    for t in (x, y, xi, yi))
+    val = torch.tensor(val, dtype=torch.int32, device=dev)
+    before, guided = cuda_lk.launches, cuda_lk.guided_launches
+    got = cuda_lk.track_pyramid(p1, p2, x, y, val, cfg, xi, yi)
+    assert cuda_lk.launches == before + 1
+    assert cuda_lk.guided_launches == guided + 1
+    want = _plain(cuda_lk.track_pyramid, p1, p2, x, y, val, cfg, xi, yi)
+    for a_, b_ in zip(got, want):
+        assert torch.equal(a_, b_)
+    assert int((got[2] == 0).sum()) > 20
+    same = cuda_lk.track_pyramid(p1, p2, x, y, val, cfg, x.clone(), y.clone())
+    free = cuda_lk.track_pyramid(p1, p2, x, y, val, cfg)
+    for a_, b_ in zip(same, free):
+        assert torch.equal(a_, b_)
+
+
+def test_bundle_adjust_deterministic_on_card(dev):
+    """The BA's segmented sums give the same bits on every run on the card
+    (index_add_'s atomics would not), and agree with the CPU run."""
+    from pyfeaturetrack_tpu_torch import sfm
+    from pyfeaturetrack_tpu_torch.sfm.ba import make_problem
+    rng = np.random.default_rng(0)
+    C, L = 6, 300
+    K = np.array([[500.0, 0, 320], [0, 500.0, 240], [0, 0, 1]], np.float32)
+    Rs = sfm.so3_exp(torch.tensor(0.02 * rng.standard_normal((C, 3)),
+                                  dtype=torch.float32))
+    ts = torch.tensor([[-0.2 * i, 0.0, 0.0] for i in range(C)])
+    X = torch.tensor(np.stack([rng.uniform(-3, 3, L), rng.uniform(-2, 2, L),
+                               rng.uniform(5, 10, L)], -1), dtype=torch.float32)
+    uv, _ = sfm.project(K, Rs[:, None], ts[:, None], X[None])
+    cam = np.repeat(np.arange(C), L)
+    pt = np.tile(np.arange(L), C)
+    X0 = X + 0.05 * torch.tensor(rng.standard_normal((L, 3)),
+                                 dtype=torch.float32)
+    out = []
+    for d in (dev, dev, torch.device("cpu")):
+        prob = make_problem(K, cam, pt, uv.reshape(-1, 2), np.ones(C * L),
+                            device=d)
+        out.append([o.cpu() for o in sfm.bundle_adjust(prob, Rs, ts, X0,
+                                                        n_iters=4)])
+    for a_, b_ in zip(out[0], out[1]):
+        assert torch.equal(a_, b_)
+    np.testing.assert_allclose(out[0][1].numpy(), out[2][1].numpy(),
+                               atol=1e-5)
+
+
 @pytest.mark.parametrize("levels,sub", [(1, 4), (2, 4), (3, 2), (4, 2)])
 @pytest.mark.parametrize("overrides", [
     {}, {"lighting_insensitive": True},

@@ -134,6 +134,91 @@ def test_feeds_serve_stream(tmp_path):
     np.testing.assert_allclose(via_loader[1], jy, atol=1e-4)
 
 
+def _drift_frames():
+    rng = np.random.default_rng(7)
+    base = np.zeros((64, 96), np.float64)
+    yy, xx = np.mgrid[0:64, 0:96]
+    for _ in range(40):
+        cx, cy = rng.uniform(8, 88), rng.uniform(8, 56)
+        base += rng.uniform(40, 90) * np.exp(
+            -((xx - cx) ** 2 + (yy - cy) ** 2) / rng.uniform(4, 16))
+    return [np.clip(np.roll(base, (i, -i), axis=(0, 1)), 0, 255
+                    ).astype(np.uint8) for i in range(5)]
+
+
+def test_serve_stream_repeats_bit_for_bit():
+    """serve_stream three times on the same frames, twice on this thread
+    and once from a second Python thread (whose intra-op thread count is
+    the process default, not this module's 2): the tables are equal bit
+    for bit."""
+    import threading
+    frames = _drift_frames()
+
+    def run():
+        return serve_stream(frames, n_features=20, chain=2, stage_uint8=True,
+                            device="cpu")
+
+    first, second = run(), run()
+    third = []
+    t = threading.Thread(target=lambda: third.append(run()))
+    t.start()
+    t.join()
+    for table in (second, third[0]):
+        for a, b in zip(first, table):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_plain_versions_run_on_the_calling_thread(monkeypatch):
+    """What keeps repeated calls equal: a kernel's plain version (here
+    K3's, whose torch.sqrt PyTorch would split over two threads at this
+    size) runs its CPU work with one intra-op thread, from this thread and
+    from a second one, blocks nest, and the count comes back after."""
+    import threading
+    from pyfeaturetrack_tpu_torch.ops import cuda_eig
+    from pyfeaturetrack_tpu_torch.utils import cuda
+    seen = []
+    real = cuda_eig.compute_min_eig_map
+    monkeypatch.setattr(cuda_eig, "compute_min_eig_map", lambda *a: (
+        seen.append(torch.get_num_threads()), real(*a))[1])
+    before = torch.get_num_threads()
+    assert before > 1
+    g = torch.rand(64, 96)
+    first = cuda_eig.min_eig_map(g, g.flip(0), 7, 7)
+    other = []
+    t = threading.Thread(target=lambda: other.append(
+        cuda_eig.min_eig_map(g, g.flip(0), 7, 7)))
+    t.start()
+    t.join()
+    assert torch.equal(first, other[0])
+    with cuda.calling_thread_only():
+        with cuda.calling_thread_only():
+            assert torch.get_num_threads() == 1
+        assert torch.get_num_threads() == 1
+    assert seen == [1, 1]
+    assert torch.get_num_threads() == before
+
+
+def test_serve_stream_owns_buffered_frames():
+    """A source that reuses one buffer for every frame (a camera's frame
+    ring, a decoder's output) gives the table of the frames themselves:
+    a frame held for a later chain step is the port's own copy."""
+    frames = _drift_frames()
+
+    def camera():
+        buf = np.empty_like(frames[0])
+        for f in frames:
+            buf[...] = f
+            yield buf
+
+    for prefetch in (0, 2):
+        got = serve_stream(camera(), n_features=20, chain=2,
+                           stage_uint8=True, prefetch=prefetch, device="cpu")
+        want = serve_stream(frames, n_features=20, chain=2, stage_uint8=True,
+                            device="cpu")
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
+
+
 # ---------------------------------------------------------------------------
 # The native PNM codec == the Python parse == the JAX package's reader
 # ---------------------------------------------------------------------------

@@ -52,7 +52,11 @@ def test_import_leaves_jax_out():
             "'pyfeaturetrack_tpu_torch.models.chunked', "
             "'pyfeaturetrack_tpu_torch.utils.loader', "
             "'pyfeaturetrack_tpu_torch.utils.native', "
-            "'pyfeaturetrack_tpu_torch.utils.staging'):\n"
+            "'pyfeaturetrack_tpu_torch.utils.staging', "
+            "'pyfeaturetrack_tpu_torch.sfm', "
+            "'pyfeaturetrack_tpu_torch.sfm.vo', "
+            "'pyfeaturetrack_tpu_torch.utils.trajectory', "
+            "'pyfeaturetrack_tpu_torch.utils.synthscene'):\n"
             "    importlib.import_module(m)\n"
             "assert 'jax' not in sys.modules, 'jax imported'\n"
             "assert 'pyfeaturetrack_tpu' not in sys.modules\n"
@@ -150,6 +154,42 @@ def test_public_names_match_jax():
     assert public - left_out - set(dir(tpft)) == set()
 
 
+@pytest.mark.parametrize("sub", ["sfm", "utils.trajectory",
+                                 "utils.synthscene"])
+def test_subpackage_names_match_jax(sub):
+    """The ``sfm`` subpackage exports every name of the JAX package's
+    ``sfm/__init__.py``; the trajectory and synthetic-scene modules every
+    public function of theirs."""
+    import importlib
+    jm = importlib.import_module(f"pyfeaturetrack_tpu.{sub}")
+    tm = importlib.import_module(f"pyfeaturetrack_tpu_torch.{sub}")
+    public = {n for n in dir(jm) if not n.startswith("_")
+              and not isinstance(getattr(jm, n), type(sys))
+              and getattr(getattr(jm, n), "__module__", "").startswith(
+                  "pyfeaturetrack_tpu")}
+    assert public, sub
+    assert public - set(dir(tm)) == set()
+
+
+def test_no_port_module_imports_jax():
+    """No file of the port (nor chip_smoke.py) names jax or the JAX
+    package in an import."""
+    import ast
+    files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    for f in files:
+        for node in ast.walk(ast.parse(f.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""] if node.level == 0 else []
+            else:
+                continue
+            for name in names:
+                root = name.split(".")[0]
+                assert root not in ("jax", "jaxlib", "pyfeaturetrack_tpu"), (
+                    f, name)
+
+
 def test_feature_numpy_round_trip():
     from pyfeaturetrack_tpu_torch.features import (feature_state_from_numpy,
                                                    feature_state_to_numpy)
@@ -239,8 +279,9 @@ def test_make_affine_state_defaults_to_the_card():
 
 
 def test_out_of_slice_parts_raise():
-    """bfloat16 storage and guided tracking raise; the chained step, once
-    out of the slice, runs."""
+    """bfloat16 storage, the windowed and the landmark-sharded bundle
+    adjustments raise; the chained step and guided tracking, once out of
+    the slice, run."""
     from pyfeaturetrack_tpu_torch.models.device_sequence import (
         sequence_chain_device)
     frames = [np.zeros((64, 80), np.float32)] * 2
@@ -256,7 +297,14 @@ def test_out_of_slice_parts_raise():
     assert not bool(ex)
     cfg = tpft.create_config()
     pyr = tpft.build_track_pyramids(torch.zeros(64, 80), cfg)
-    z = torch.zeros(3)
+    z = torch.full((3,), 30.0)
+    gx, gy, gv = tpft.track_features_pyramids(pyr, pyr, z, z, z.int(), cfg,
+                                              x_init=z + 1.0, y_init=z)
+    assert gx.shape == gy.shape == gv.shape == (3,)
+    from pyfeaturetrack_tpu_torch import sfm
     with pytest.raises(NotImplementedError):
-        tpft.track_features_pyramids(pyr, pyr, z, z, z.int(), cfg, x_init=z,
-                                     y_init=z)
+        sfm.run_sfm_windowed(None, np.eye(3), None, None)
+    with pytest.raises(NotImplementedError):
+        sfm.bundle_adjust_windowed(None, None, None, None)
+    with pytest.raises(NotImplementedError):
+        sfm.bundle_adjust(None, None, None, None, mesh=object())
