@@ -149,15 +149,26 @@ Phases, in order; the first failure exits non-zero:
    from the anchors, on the default and config-3 pyramids (a drift pair
    30 px apart and the status mix), bit-equal to the plain level loop
    with the same starts, one launch counted as guided, timed beside the
-   start-free call on the same lanes; (b) dense bundle adjustment on
-   bench.py's 20 x 2000 x 40,000 problem, 8 iterations: final/initial
-   cost under 1e-3, a second run bit-equal, iterations/s by CUDA events,
-   the device's busy share and kernels per iteration from a trace; (c)
+   start-free call on the same lanes; then at the VO's size (240x320)
+   K2's guided entry as loop closure and relocalization call it (the
+   circuit's lighting-insensitive config, photometric drift, a few and
+   all visible landmarks, identity and projected priors) and as stereo
+   does (five disparity hypotheses), both directions of each round trip
+   bit-equal to the plain version; select_step_device and
+   sequence_step_device over a 30-frame corridor at 100 features
+   bit-equal to their plain versions, a chain of 3 equal to its steps,
+   and the 30-frame corridor VO on both routes with kernels equal to the
+   run with plain versions (events, poses, landmarks); (b) dense bundle
+   adjustment on bench.py's 20 x 2000 x 40,000 problem, 8 iterations:
+   final/initial cost under 1e-3, a second run bit-equal, iterations/s
+   by CUDA events, the device's busy share and kernels per iteration from
+   a trace; (c)
    run_vo_on_corridor(n_frames=100, kf_every=3, n_features=100) on the
    host route and with device_loop=True, each run twice (identical
    trajectories, landmarks and events), ATE under 1 % of travel,
    launches counted over the first run (K1, K2, K3 in K1, K4, and K5 on
-   the host route; K3's standalone entry never), host syncs per
+   the host route; K3's standalone entry never; guided K2 never: the
+   count per route goes into the kernels line), host syncs per
    keyframe (torch.cuda.set_sync_debug_mode), frames/s; (d)
    run_vo_on_circuit(n_frames=260, finalize=False): a loop closed, ATE
    under 1 %, K2's guided launches counted; (e) stereo VO on
@@ -1961,6 +1972,11 @@ VO_FRAMES, VO_KF_EVERY, VO_FEATURES = 100, 3, 100
 CIRCUIT_FRAMES = 260
 BA_CAMS, BA_POINTS, BA_ITERS = 20, 2000, 8
 STEREO_BASELINE = 0.3
+STEREO_MAX_DISPARITY = 40.0
+VO_H, VO_W = 240, 320     # the VO's frames
+VO_CHECK_FRAMES = 30      # a corridor that bootstraps, held to the plain run
+VO_LANES = (37, 120)      # guided round trips: a few and all the features
+GUIDED_VO_GAP = 6         # circuit frames between a guided pair
 
 
 def guided_case(pft, cuda_lk, cuda, pa, pb, x, y, val, xi, yi, c, name):
@@ -2061,6 +2077,153 @@ def guided_k2(pft, cuda_lk, cuda, frames, cfg, cfg3, dev, smi, prof_dir):
                          device_ms=dev_ms, start_free_ms=free_ms,
                          start_free_device_ms=free_dev, work=tuple(work))
     return entry
+
+
+def guided_vo_cases(pft, cuda_lk, cuda, dev):
+    """(a) at the VO's size: K2's guided entry as loop closure,
+    relocalization and stereo call it (240x320), bit-equal to its plain
+    version in both directions of each round trip (sfm/loop.guided_retrack:
+    forward from the prior, then back from the forward result with the
+    anchors as starts). Loop closure and relocalization: the circuit's
+    robust config (lighting-insensitive residuals) on circuit frames 0 and
+    GUIDED_VO_GAP with their photometric drift, VO_LANES landmarks
+    projected into frame 0, starts at the anchors (relocalization's prior)
+    and at the landmarks' projections into the second frame (loop
+    closure's). Stereo: the VO's default config on the stereo scene's
+    left and right views, 120 lanes, hypotheses 0-40 px. Returns the
+    number of guided calls checked."""
+    import numpy as np
+    import torch
+    from pyfeaturetrack_tpu_torch import sfm
+    from pyfeaturetrack_tpu_torch.utils import synthscene
+
+    def t32(a):
+        return torch.as_tensor(np.asarray(a), dtype=torch.float32,
+                               device=dev)
+
+    def visible(K, R, t, pts, n):
+        """Pixels of up to n points in view (a spread over the list)."""
+        Xc = pts @ R.T + t
+        uv = (Xc @ K.T)[:, :2] / Xc[:, 2:]
+        idx = np.nonzero((Xc[:, 2] > 0.1) & (uv[:, 0] > 8)
+                         & (uv[:, 0] < VO_W - 9) & (uv[:, 1] > 8)
+                         & (uv[:, 1] < VO_H - 9))[0]
+        return idx[::max(1, len(idx) // n)][:n]
+
+    def round_trip(pa, pb, xa, ya, xi, yi, c, name):
+        val = torch.zeros(xa.shape[0], dtype=torch.int32, device=dev)
+        fx, fy, fv = guided_case(pft, cuda_lk, cuda, pa, pb, xa, ya, val,
+                                 xi, yi, c, f"{name}, forward")
+        guided_case(pft, cuda_lk, cuda, pb, pa, fx, fy, fv, xa, ya, c,
+                    f"{name}, back")
+        return 2
+
+    calls = 0
+    g = GUIDED_VO_GAP
+    K, Rs, ts, _, pts = synthscene.circuit_scene(CIRCUIT_FRAMES, VO_H, VO_W)
+    frames = synthscene.apply_photometric_drift(synthscene.render_blobs(
+        K, Rs[:g + 1], ts[:g + 1], pts, VO_H, VO_W))
+    robust = sfm.VisualOdometry(K, robust=True, device=dev)._tracker_cfg()
+    pa, pb = (pft.build_track_pyramids(t32(frames[i]), robust)
+              for i in (0, g))
+    for n in VO_LANES:
+        sel = visible(K, Rs[0], ts[0], pts, n)
+        uva = (pts[sel] @ Rs[0].T + ts[0]) @ K.T
+        uvb = (pts[sel] @ Rs[g].T + ts[g]) @ K.T
+        xa, ya = t32(uva[:, 0] / uva[:, 2]), t32(uva[:, 1] / uva[:, 2])
+        priors = {"identity prior": (xa, ya),
+                  "projected prior": (t32(uvb[:, 0] / uvb[:, 2]),
+                                      t32(uvb[:, 1] / uvb[:, 2]))}
+        for prior, (xi, yi) in priors.items():
+            calls += round_trip(pa, pb, xa, ya, xi, yi, robust,
+                                f"240x320 robust, {len(sel)} lanes, {prior}")
+    K, render, pts = stereo_scene()
+    c0 = np.zeros(3)
+    default = sfm.VisualOdometry(K, device=dev)._tracker_cfg()
+    pl, pr = (pft.build_track_pyramids(t32(render(c)), default)
+              for c in (c0, c0 + [STEREO_BASELINE, 0, 0]))
+    sel = visible(K, np.eye(3), -c0, pts, 120)
+    uv = (pts[sel] - c0) @ K.T
+    xl, yl = t32(uv[:, 0] / uv[:, 2]), t32(uv[:, 1] / uv[:, 2])
+    for d0 in np.arange(0.0, STEREO_MAX_DISPARITY + 1e-6, 10.0):
+        calls += round_trip(pl, pr, xl, yl, xl - float(d0), yl, default,
+                            f"240x320 stereo, {len(sel)} lanes, "
+                            f"hypothesis {d0:g} px")
+    return calls
+
+
+def vo_route_checks(pft, cuda_lk, cuda, dev, smi):
+    """The VO's tracking at its own size (240x320, VO_FEATURES features),
+    kernels against plain versions, bit for bit: select_step_device, then
+    sequence_step_device over a VO_CHECK_FRAMES-frame corridor with the
+    device_loop config (K1 with K3's map, K2, K4), and a chain of
+    VO_KF_EVERY frames equal to its steps; then run_vo_on_corridor over
+    those frames on each route (the host route: K1's eig-only launch, K2,
+    K4's stage A, K5), with kernels and with plain versions: the same
+    events, poses and landmarks."""
+    import numpy as np
+    import torch
+    from pyfeaturetrack_tpu_torch import sfm
+    from pyfeaturetrack_tpu_torch.utils import synthscene
+    n, k = VO_CHECK_FRAMES, VO_KF_EVERY
+    K, Rs, ts, _, pts = synthscene.corridor_scene(n, VO_H, VO_W)
+    imgs = [torch.as_tensor(f, dtype=torch.float32, device=dev)
+            for f in synthscene.render_blobs(K, Rs, ts, pts, VO_H, VO_W)]
+    c = sfm.VisualOdometry(K, device_loop=True, device=dev).cfg
+
+    def steps():
+        pyr, x, y, v, aff, _ = pft.select_step_device(imgs[0], c,
+                                                      VO_FEATURES)
+        first = (pyr, x, y, v, aff)
+        hist, carry = [(x, y, v)], None
+        for img in imgs[1:]:
+            pyr, x, y, v, aff, _, carry = pft.sequence_step_device(
+                pyr, img, x, y, v, c, True, aff=aff, carry=carry)
+            hist.append((x, y, v))
+        table = [torch.stack([h[j] for h in hist]).cpu().numpy()
+                 for j in range(3)]
+        return table, first
+
+    before = cuda_lk.launches
+    got, first = steps()
+    k2 = cuda_lk.launches - before
+    with cuda.reference_path():
+        want, _ = steps()
+    same = tables_equal(got, want)
+    pyr, x, y, v, aff = first
+    _, hist, _, _, _, _ = pft.sequence_chain_device(
+        pyr, tuple(imgs[1:1 + k]), x, y, v, c, True, aff=aff)
+    chain = [h.cpu().numpy() for h in hist]
+    chain_same = all(np.array_equal(a, b[1:1 + k])
+                     for a, b in zip(chain, got))
+    live = (got[2] >= 0).sum(axis=1)
+    print(f"device_loop steps, 240x320, {VO_FEATURES} features, {n} "
+          f"frames: K2 launched {k2}, live lanes per frame {live.min()}-"
+          f"{live.max()}, bit-equal to the plain versions {same}; a chain "
+          f"of {k} == its steps {chain_same}")
+    if not same:
+        fail("the device_loop steps at 240x320 differ from the plain "
+             "versions")
+    if k2 != n - 1 or not chain_same:
+        fail("the device_loop steps at 240x320 did not launch K2 once a "
+             "step, or the chain differs from them")
+    out = {"device_loop_steps_bit_equal": same}
+    for route, dl in (("host", False), ("device_loop", True)):
+        kw = dict(n_frames=n, kf_every=k, n_features=VO_FEATURES,
+                  device=dev, device_loop=dl)
+        res = synthscene.run_vo_on_corridor(**kw)
+        with cuda.reference_path():
+            ref = synthscene.run_vo_on_corridor(**kw)
+        same = same_trajectory(res["vo"], ref["vo"])
+        print(f"corridor VO ({route}), {n} frames, kernels against plain "
+              f"versions: {res['keyframes']} keyframes, "
+              f"{res['landmarks']} landmarks, events "
+              f"{res['vo'].events[:1]}..., identical {same}; card {smi}")
+        if not same:
+            fail(f"the {n}-frame corridor VO ({route}) with kernels differs "
+                 "from the run with plain versions")
+        out[f"{route}_vo_equals_plain"] = same
+    return out
 
 
 def ba_problem(dev):
@@ -2178,57 +2341,56 @@ def vo_runs(mods, cuda_lk, smi):
         for m in pmods.values():
             m.launches = 0
         guided0 = cuda_lk.guided_launches
-        vo1 = []
         res, syncs = count_syncs(lambda: synthscene.run_vo_on_corridor(
             n_frames=VO_FRAMES, kf_every=VO_KF_EVERY,
-            n_features=VO_FEATURES, device="cuda", device_loop=dl,
-            vo_out=vo1))
+            n_features=VO_FEATURES, device="cuda", device_loop=dl))
         torch.cuda.synchronize()
         counts = path_counts(pmods, f"corridor VO ({route})")
-        vo2 = []
+        guided = cuda_lk.guided_launches - guided0
         res2 = synthscene.run_vo_on_corridor(
             n_frames=VO_FRAMES, kf_every=VO_KF_EVERY,
-            n_features=VO_FEATURES, device="cuda", device_loop=dl,
-            vo_out=vo2)
-        same = same_trajectory(vo1[0], vo2[0])
+            n_features=VO_FEATURES, device="cuda", device_loop=dl)
+        same = same_trajectory(res.pop("vo"), res2.pop("vo"))
         kf = res["keyframes"]
         print(f"corridor VO ({route}): {VO_FRAMES} frames, {kf} keyframes, "
               f"{res['landmarks']} landmarks, ATE {res['ate_units']} units "
               f"= {res['ate_pct_travel']}% of {res['travel_units']} units; "
               f"{res2['wall_fps']} frames/s by wall clock (second run; "
               f"first {res['wall_fps']} with sync counting); launches "
-              f"{counts}, guided K2 {cuda_lk.guided_launches - guided0}; "
+              f"{counts}, guided K2 {guided}; "
               f"host syncs {syncs} = {syncs / kf:.1f} per keyframe; "
               f"second run identical {same}; "
               f"card {smi}")
         if not same:
             fail(f"two corridor VO runs ({route}) differ")
+        if guided != 0:
+            fail(f"the corridor VO ({route}) has no loop closure or stereo "
+                 f"but launched K2 with guided starts {guided} times")
         if not res["ate_pct_travel"] < 1.0:
             fail(f"corridor VO ({route}) ATE {res['ate_pct_travel']}% of "
                  "travel is not under 1%")
         out[route] = dict(res, second_wall_fps=res2["wall_fps"],
                           launches=counts, syncs=syncs,
                           syncs_per_keyframe=syncs / kf,
-                          identical_rerun=same)
+                          identical_rerun=same, guided_launches=guided)
     for m in mods.values():
         m.launches = 0
     guided0 = cuda_lk.guided_launches
-    vo = []
     res = synthscene.run_vo_on_circuit(n_frames=CIRCUIT_FRAMES,
-                                       finalize=False, device="cuda",
-                                       vo_out=vo)
+                                       finalize=False, device="cuda")
+    vo = res.pop("vo")
     torch.cuda.synchronize()
     counts = path_counts(mods, "circuit VO")
     guided = cuda_lk.guided_launches - guided0
     print(f"circuit VO: {CIRCUIT_FRAMES} frames, {res['keyframes']} "
           f"keyframes, {res['landmarks']} landmarks, loops closed "
-          f"{vo[0].loops_closed}, ATE {res['ate_units']} units = "
+          f"{vo.loops_closed}, ATE {res['ate_units']} units = "
           f"{res['ate_pct_travel']}% of {res['travel_units']} units, RPE "
           f"median {res['rpe_trans_median_units']} units / "
           f"{res['rpe_rot_median_deg']} deg; {res['wall_fps']} frames/s; "
           f"launches {counts}, K2 guided {guided}; card {smi}")
     if res["loop_closures"] < 1:
-        fail(f"the circuit closed no loop: {vo[0].events[-5:]}")
+        fail(f"the circuit closed no loop: {vo.events[-5:]}")
     if not res["ate_pct_travel"] < 1.0:
         fail(f"circuit ATE {res['ate_pct_travel']}% is not under 1%")
     if guided <= 0:
@@ -2237,14 +2399,14 @@ def vo_runs(mods, cuda_lk, smi):
     return out
 
 
-def stereo_vo(smi):
-    """(e): stereo VO on tests/test_stereo.py's scene (12 frames, 0.3
-    units baseline): metric error under 3% of travel with no alignment."""
+def stereo_scene():
+    """tests/test_stereo.py's scene: (K, render, points): 300 textured
+    points 6-20 units deep, render(c) the 240x320 view from camera
+    centre c with the identity rotation."""
     import numpy as np
     import torch
     from pyfeaturetrack_tpu_torch import sfm
-    from pyfeaturetrack_tpu_torch.ops import cuda_lk
-    h, w = 240, 320
+    h, w = VO_H, VO_W
     K = np.array([[260.0, 0, w / 2], [0, 260.0, h / 2], [0, 0, 1]])
     rng = np.random.default_rng(80)
     n_pts = 300
@@ -2270,11 +2432,21 @@ def stereo_vo(smi):
                 amp[j] * np.exp(-((xx - u) ** 2 + (yy - v) ** 2) / 6.48))
         return np.clip(img, 0, 255)
 
+    return K, render, pts
+
+
+def stereo_vo(smi):
+    """(e): stereo VO on tests/test_stereo.py's scene (12 frames, 0.3
+    units baseline): metric error under 3% of travel with no alignment."""
+    import numpy as np
+    from pyfeaturetrack_tpu_torch import sfm
+    from pyfeaturetrack_tpu_torch.ops import cuda_lk
+    K, render, _ = stereo_scene()
     cs = [np.array([0.2 * i, 0.03 * i, 0.08 * i]) for i in range(12)]
     guided0 = cuda_lk.guided_launches
     vo = sfm.VisualOdometry(K, n_features=120, kf_every=2, window=6,
                             stereo_baseline=STEREO_BASELINE,
-                            max_disparity=40.0)
+                            max_disparity=STEREO_MAX_DISPARITY)
     for c in cs:
         vo.feed(render(c), right=render(c + [STEREO_BASELINE, 0, 0]))
     fi, _, _, c_est = vo.trajectory()
@@ -2305,6 +2477,14 @@ def sfm_phase(pft, mods, frames, cfg, cfg3, report, dev, smi, prof_dir):
           "20-40 px from the anchors")
     report["K2 guided"] = guided_k2(pft, cuda_lk, cuda, frames, cfg, cfg3,
                                     dev, smi, prof_dir)
+    phase("sfm (a), at the VO's size: K2 with guided starts as loop "
+          "closure, relocalization and stereo call it (240x320); the VO's "
+          "tracking routes against their plain versions")
+    n_guided = guided_vo_cases(pft, cuda_lk, cuda, dev)
+    print(f"{n_guided} guided K2 calls at 240x320 bit-equal to the plain "
+          "version")
+    out["vo_kernels"] = dict(vo_route_checks(pft, cuda_lk, cuda, dev, smi),
+                             guided_calls_bit_equal=n_guided)
     phase(f"sfm (b): dense bundle adjustment, {BA_CAMS} x {BA_POINTS} x "
           f"{BA_CAMS * BA_POINTS}, {BA_ITERS} iterations")
     out["ba"] = dense_ba(prof_dir, dev, smi)
@@ -2316,7 +2496,8 @@ def sfm_phase(pft, mods, frames, cfg, cfg3, report, dev, smi, prof_dir):
     phase("sfm (e): stereo VO, 12 frames, 0.3 units baseline")
     out["stereo"] = stereo_vo(smi)
     report["K2 guided"]["launches_per_path"] = {
-        "corridor host": 0, "corridor device_loop": 0,
+        "corridor host": out["host"]["guided_launches"],
+        "corridor device_loop": out["device_loop"]["guided_launches"],
         "circuit": out["circuit"]["guided_launches"],
         "stereo": out["stereo"]["guided_launches"]}
     return out

@@ -163,31 +163,28 @@ def use_kernel(*tensors: torch.Tensor) -> bool:
     raise ValueError(f"unsupported device {dev}")
 
 
-_serial_lock = threading.Lock()
-_serial_depth = 0
-_serial_outside = 1
+_serial = threading.local()
 
 
 @contextlib.contextmanager
 def calling_thread_only():
-    """Run the enclosed PyTorch CPU work on the calling thread: the
-    process's intra-op thread count is 1 while any such block runs (blocks
-    nest, also across Python threads), and the count from before the
-    outermost block comes back after it."""
-    global _serial_depth, _serial_outside
-    with _serial_lock:
-        if _serial_depth == 0:
-            _serial_outside = torch.get_num_threads()
-            if _serial_outside != 1:
-                torch.set_num_threads(1)
-        _serial_depth += 1
+    """Run the enclosed PyTorch CPU work on the calling thread: this
+    thread's intra-op thread count (``torch.set_num_threads`` acts on the
+    calling thread alone) is 1 inside the block. Blocks nest; the
+    outermost one gives the thread back the count it had before. Each
+    Python thread keeps its own depth and count."""
+    depth = getattr(_serial, "depth", 0)
+    if depth == 0:
+        _serial.outside = torch.get_num_threads()
+        if _serial.outside != 1:
+            torch.set_num_threads(1)
+    _serial.depth = depth + 1
     try:
         yield
     finally:
-        with _serial_lock:
-            _serial_depth -= 1
-            if _serial_depth == 0 and _serial_outside != 1:
-                torch.set_num_threads(_serial_outside)
+        _serial.depth -= 1
+        if _serial.depth == 0 and _serial.outside != 1:
+            torch.set_num_threads(_serial.outside)
 
 
 def plain_version(fn):

@@ -159,14 +159,12 @@ def run_vo_on_circuit(n_frames: int = 520, h: int = 240, w: int = 320,
                       window: int = 6, seed: int = 7,
                       photometric: bool = True,
                       loop_closure: bool = True, laps: float = 1.08,
-                      finalize: bool = True, *, device="cuda",
-                      device_loop: bool = False, vo_out: list | None = None):
+                      finalize: bool = True, *, device="cuda"):
     """Config-5 long-horizon stress: 500+ frame
     closed circuit with a genuine revisit, photometric gain/bias
     drift, loop closure, and KITTI-format ATE/RPE gates. Returns the
-    run_vo_on_corridor metric dict plus loop/photometric flags.
-    ``vo_out``: a list that receives the VisualOdometry (for its
-    trajectory and events)."""
+    run_vo_on_corridor metric dict (with its "vo" entry) plus
+    loop/photometric flags."""
     import time
 
     from ..sfm import VisualOdometry
@@ -187,10 +185,7 @@ def run_vo_on_circuit(n_frames: int = 520, h: int = 240, w: int = 320,
                         window=window, min_parallax_px=10.0,
                         robust=photometric,
                         loop_closure=loop_closure, loop_min_gap=25,
-                        loop_radius=8.0, device_loop=device_loop,
-                        device=device)
-    if vo_out is not None:
-        vo_out.append(vo)
+                        loop_radius=8.0, device=device)
     t0 = time.perf_counter()
     for f in frames:
         vo.feed(f)
@@ -221,20 +216,19 @@ def run_vo_on_circuit(n_frames: int = 520, h: int = 240, w: int = 320,
         "rpe_rot_median_deg": round(float(np.degrees(np.median(re))),
                                     4),
         "wall_fps": round(n_frames / dt, 2),
+        "vo": vo,
     }
 
 
 def run_vo_on_corridor(n_frames: int = 120, h: int = 240, w: int = 320,
                        n_features: int = 120, kf_every: int = 2,
                        window: int = 6, seed: int = 5, *, device="cuda",
-                       device_loop: bool = False,
-                       vo_out: list | None = None):
+                       device_loop: bool = False):
     """Full config-5 front-end drive: render -> VisualOdometry (track ->
     bootstrap -> localize -> triangulate -> windowed BA) -> trajectory
     metrics. Returns a dict with ate (similarity-aligned RMSE), travel,
-    rpe translation stats, keyframe/landmark counts, and wall fps.
-    ``vo_out``: a list that receives the VisualOdometry (for its
-    trajectory and events)."""
+    rpe translation stats, keyframe/landmark counts, wall fps, and the
+    VisualOdometry itself under "vo" (its trajectory and events)."""
     import time
 
     from ..sfm import VisualOdometry
@@ -246,8 +240,6 @@ def run_vo_on_corridor(n_frames: int = 120, h: int = 240, w: int = 320,
     vo = VisualOdometry(K, n_features=n_features, kf_every=kf_every,
                         window=window, min_parallax_px=10.0,
                         device_loop=device_loop, device=device)
-    if vo_out is not None:
-        vo_out.append(vo)
     t0 = time.perf_counter()
     for f in frames:
         vo.feed(f)
@@ -277,4 +269,5 @@ def run_vo_on_corridor(n_frames: int = 120, h: int = 240, w: int = 320,
         "rpe_rot_median_deg": round(float(np.degrees(np.median(re))),
                                     4),
         "wall_fps": round(n_frames / dt, 2),
+        "vo": vo,
     }

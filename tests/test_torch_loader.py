@@ -198,6 +198,41 @@ def test_plain_versions_run_on_the_calling_thread(monkeypatch):
     assert torch.get_num_threads() == before
 
 
+@pytest.mark.parametrize("first_out", ["a", "b"])
+def test_calling_thread_only_keeps_each_threads_count(first_out):
+    """Two Python threads inside overlapping calling_thread_only blocks
+    (intra-op counts 3 and 2 before): each runs at one intra-op thread
+    inside and gets its own count back after, whichever leaves first;
+    this thread's count is not touched."""
+    import threading
+    from pyfeaturetrack_tpu_torch.utils import cuda
+    before = torch.get_num_threads()
+    counts = {"a": 3, "b": 2}
+    both = threading.Barrier(2, timeout=30)
+    left = threading.Event()
+    seen = {}
+
+    def worker(name):
+        torch.set_num_threads(counts[name])
+        with cuda.calling_thread_only():
+            both.wait()
+            seen[f"{name} inside"] = torch.get_num_threads()
+            both.wait()
+            if name != first_out:
+                assert left.wait(30)
+        seen[f"{name} after"] = torch.get_num_threads()
+        left.set()
+
+    threads = [threading.Thread(target=worker, args=(n,)) for n in counts]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(60)
+    assert seen == {"a inside": 1, "b inside": 1, "a after": 3,
+                    "b after": 2}
+    assert torch.get_num_threads() == before
+
+
 def test_serve_stream_owns_buffered_frames():
     """A source that reuses one buffer for every frame (a camera's frame
     ring, a decoder's output) gives the table of the frames themselves:

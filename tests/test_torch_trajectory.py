@@ -94,11 +94,10 @@ def test_corridor_drive_matches_jax():
     """run_vo_on_corridor at 36 frames on the CPU: the JAX run's keyframe
     and landmark counts, travel equal, ATE within 1e-3 units."""
     kw = dict(n_frames=36, n_features=100, kf_every=3)
-    vo = []
-    got = synthscene.run_vo_on_corridor(**kw, device="cpu", vo_out=vo)
+    got = synthscene.run_vo_on_corridor(**kw, device="cpu")
     want = jscene.run_vo_on_corridor(**kw)
     for key in ("n_frames", "keyframes", "landmarks", "travel_units"):
         assert got[key] == want[key], key
     assert abs(got["ate_units"] - want["ate_units"]) < 1e-3
     assert got["ate_pct_travel"] < 1.0
-    assert vo[0].initialized and len(vo[0].kf) == got["keyframes"]
+    assert got["vo"].initialized and len(got["vo"].kf) == got["keyframes"]
