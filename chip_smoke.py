@@ -174,7 +174,38 @@ Phases, in order; the first failure exits non-zero:
    under 1 %, K2's guided launches counted; (e) stereo VO on
    tests/test_stereo.py's 12 frames: raw error under 3 % of travel.
    Prints {"sfm": ...};
-11. profile (only with --profile) — for config 2's host loop, its step
+11. grad    — tests/test_differentiability.py's losses on the card, each
+   gradient with respect to the second frame: (a) tracked positions at
+   480x640 with 1000 features (K1, K2), (b) dense flow on the config-1
+   pair (K1, K8), (c) a config-3 step's positions (K1, K2, K6's stage,
+   K4's refill), (d) K9's window terms. Each forward's launches counted
+   (set to 0 just before it, read just after); the gradient finite and
+   nonzero, repeated bit for bit, and against the same loss under
+   reference_path() bit-equal or within GRAD_BAR of the largest
+   gradient with the differing pixels listed (deterministic algorithms
+   on for the phase); forward and backward (the plain versions' VJP) by
+   CUDA events; (e) the captured chain refuses a frame that requires
+   grad. Prints {"grad": ...};
+12. sfm (f)-(h) — the windowed BA on bench.py's configs 5b (60 cameras x
+   6000 landmarks x 12-frame windows, dense solver, 8 iterations) and 5c
+   (500 x 20,000 x 8, banded PCG with 16-camera groups, 6 iterations),
+   built draw for draw as bench.py builds them: final/initial cost under
+   1e-3 (5b) and 1e-2 (5c), a second run bit-equal, iterations/s by CUDA
+   events, busy share, kernels per iteration and the largest kernels from
+   a trace, host reads per GN step (fewer than the CG iterations), CG
+   iterations per step; (h) run_sfm_windowed, both solvers, on
+   tests/test_sfm_e2e.py's rendered scene tracked on the card: the final
+   cost under half the first, the aligned ATE below the initial, a rerun
+   bit-equal. Prints {"sfm_windowed": ...};
+13. tools   — checkpoint files of a SequenceTracker, a
+   StreamingTracker(chain=8) and the corridor VO (both routes), resumed
+   into fresh objects that continue bit-equal to the uninterrupted runs;
+   python -m pyfeaturetrack_tpu_torch on PGM files in its default,
+   --device-loop, --stream --chain 8, --flow and --vo modes, each output
+   equal to the API calls it wraps; utils/profiling.trace naming K1's and
+   K2's kernels, device_time_per_call and time_jitted. Prints
+   {"tools": ...};
+14. profile (only with --profile) — for config 2's host loop, its step
    time beside the device route's, three repeats, and for the config-3
    and the default device step, the step time by CUDA events, by host
    wall clock and through track_sequence_device, three repeats each;
@@ -196,9 +227,10 @@ entry's, K2's the windows its status mix ran at; K2 twice more: its
 guided entry, with the circuit's guided launches and the start-free
 time on the same lanes; K9's launches are those
 of its own phase's driven
-call, since no path of the package runs it),
-then the nvidia-smi line, then, as the last line, {"ok": true, "device":
-{...}}. Imports nothing of JAX.
+call, since no path of the package runs it; every entry's grad_launches
+are its launches in the grad phase's forwards),
+the script's wall time, then the nvidia-smi line, then, as the last line,
+{"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -2503,12 +2535,657 @@ def sfm_phase(pft, mods, frames, cfg, cfg3, report, dev, smi, prof_dir):
     return out
 
 
+# ---- phase 11: gradients through the kernels (the plain versions' VJP) ----
+
+GRAD_BAR = 1e-5           # |g - g_plain| <= GRAD_BAR max|g_plain| where not bit-equal
+GRAD_LISTED = 10          # differing pixels printed
+
+
+def with_event_ms(fn):
+    """(result, ms) of one fn() call by CUDA events."""
+    import torch
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    out = fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return out, e0.elapsed_time(e1)
+
+
+def grad_case(name, loss_fn, img, mods, expect, cuda, smi):
+    """The gradient of ``loss_fn`` with respect to ``img`` with kernels
+    (after one warm-up gradient; each kernel's launches counted over the
+    forward: the counts are set to 0 just before it and read just after)
+    and under reference_path() (twice: the plain route repeats bit for
+    bit); forward and backward timed by CUDA events; the two gradients
+    compared bit for bit, else at GRAD_BAR with the differing pixels
+    listed."""
+    import torch
+    warm = img.detach().clone().requires_grad_(True)
+    (g_warm,) = torch.autograd.grad(loss_fn(warm), warm)
+    leaf = img.detach().clone().requires_grad_(True)
+    torch.cuda.synchronize()
+    for m in mods.values():
+        m.launches = 0
+    loss, fwd_ms = with_event_ms(lambda: loss_fn(leaf))
+    counts = {k: m.launches for k, m in mods.items()}
+    (g,), bwd_ms = with_event_ms(lambda: torch.autograd.grad(loss, leaf))
+    if not torch.equal(g, g_warm):
+        fail(f"grad ({name}): two gradients through the kernels differ")
+    for k, n in expect.items():
+        if counts[k] < n:
+            fail(f"grad ({name}): the forward launched {k} {counts[k]} "
+                 f"times, expected at least {n}")
+    ref = []
+    with cuda.reference_path():
+        for _ in range(2):
+            leaf_p = img.detach().clone().requires_grad_(True)
+            loss_p, pf_ms = with_event_ms(lambda: loss_fn(leaf_p))
+            (gp,), pb_ms = with_event_ms(lambda: torch.autograd.grad(loss_p,
+                                                                 leaf_p))
+            ref.append(gp)
+    if not torch.equal(ref[0], ref[1]):
+        fail(f"grad ({name}): two plain-route gradients differ")
+    gp = ref[0]
+    finite = bool(torch.isfinite(g).all())
+    gmax = float(gp.abs().max())
+    diff = (g - gp).abs()
+    bad = torch.nonzero(g != gp)
+    listed = [(tuple(int(v) for v in p), float(g[tuple(p)]),
+               float(gp[tuple(p)])) for p in bad[:GRAD_LISTED].tolist()]
+    out = {"launches": counts, "forward_ms": fwd_ms, "backward_ms": bwd_ms,
+           "plain_forward_ms": pf_ms, "plain_backward_ms": pb_ms,
+           "loss": float(loss.detach()),
+           "loss_equal": bool(loss.detach() == loss_p.detach()),
+           "max_abs_grad": gmax, "nonzero": int((g != 0).sum()),
+           "bit_equal": len(bad) == 0, "pixels_differing": len(bad),
+           "max_abs_diff": float(diff.max()), "listed": listed}
+    print(f"grad ({name}): forward launches {counts}; loss {out['loss']:.6g} "
+          f"(plain route equal {out['loss_equal']}); gradient max "
+          f"{gmax:.6g}, {out['nonzero']} nonzero pixels, finite {finite}; "
+          f"against the plain route: bit-equal {out['bit_equal']}, "
+          f"{len(bad)} pixels differ, max diff {out['max_abs_diff']:.3g}"
+          + (f", first {listed}" if listed else "")
+          + f"; forward {fwd_ms:.3f} ms, backward (plain VJP) {bwd_ms:.3f} "
+          f"ms; plain route forward {pf_ms:.3f} ms, backward {pb_ms:.3f} ms "
+          f"(CUDA events); card {smi}")
+    if not finite or gmax <= 0.0 or out["nonzero"] == 0:
+        fail(f"grad ({name}): the gradient is not finite and nonzero")
+    if not out["loss_equal"]:
+        fail(f"grad ({name}): the loss differs from the plain route's")
+    if out["max_abs_diff"] > GRAD_BAR * gmax:
+        fail(f"grad ({name}): gradients differ from the plain route's by "
+             f"{out['max_abs_diff']} > {GRAD_BAR} x {gmax}")
+    return out
+
+
+def grad_phase(pft, frames, sim, cfg, cfg3, mods, dev, smi):
+    """(a) tests/test_differentiability.py's tracking loss at 480x640 with
+    1000 features (default config), (b) its dense-flow loss on the config-1
+    pair, (c) a config-3 step's positions (K2 and K6's stage), (d) K9's
+    window terms; each gradient against the plain route's. The plain
+    routes' gathers scatter their gradients with index_put_: deterministic
+    algorithms are on for the phase so both routes repeat."""
+    import numpy as np
+    import torch
+    from pyfeaturetrack_tpu_torch.ops import cuda_window_terms
+    from pyfeaturetrack_tpu_torch.ops.flow import dense_flow_pyramids
+    from pyfeaturetrack_tpu_torch.ops.interp import gather_window
+    from pyfeaturetrack_tpu_torch.utils import cuda
+    from pyfeaturetrack_tpu_torch.utils.io import pgm_read
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    out = {}
+    try:
+        img0, img1 = (torch.as_tensor(f, device=dev).to(torch.float32)
+                      for f in frames[:2])
+        _, x, y, val, _, _ = pft.select_step_device(img0, cfg, N_FEATURES)
+
+        def track_loss(i2):
+            p1 = pft.build_track_pyramids(img0, cfg)
+            p2 = pft.build_track_pyramids(i2, cfg)
+            nx, ny, nv = pft.track_features_pyramids(p1, p2, x, y, val, cfg)
+            return torch.where(nv == 0, nx + ny, 0.0).sum()
+
+        phase(f"grad (a): loss over {N_FEATURES} tracked positions, {H}x{W}, "
+              "default config; gradient with respect to frame 2")
+        out["tracking"] = grad_case("tracking", track_loss, img1, mods,
+                                    {"K1": 4, "K2": 1}, cuda, smi)
+
+        root = Path(__file__).resolve().parent
+        f0, f1 = (torch.as_tensor(np.array(pgm_read(
+            root / "examples" / "data" / f"img{i}.pgm")),
+            device=dev).to(torch.float32) for i in (0, 1))
+        fcfg = pft.create_config()
+
+        def flow_loss(i2):
+            fl = dense_flow_pyramids(pft.build_track_pyramids(f0, fcfg),
+                                     pft.build_track_pyramids(i2, fcfg),
+                                     fcfg)
+            return torch.where(fl.status == 0, fl.u ** 2 + fl.v ** 2,
+                               0.0).sum()
+
+        phase("grad (b): dense-flow loss on the config-1 pair "
+              f"({tuple(f0.shape)}), default config")
+        out["dense_flow"] = grad_case("dense flow", flow_loss, f1, mods,
+                                      {"K1": 4, "K8": fcfg.nPyramidLevels},
+                                      cuda, smi)
+
+        s0, s1, s2 = (torch.as_tensor(f, device=dev).to(torch.float32)
+                      for f in sim[:3])
+        pyr, sx, sy, sv, aff, _ = pft.select_step_device(s0, cfg3, N_FEATURES)
+        pyr, sx, sy, sv, aff, _, _ = pft.sequence_step_device(
+            pyr, s1, sx, sy, sv, cfg3, True, aff=aff)
+
+        def step_loss(i2):
+            _, nx, ny, nv, _, _, _ = pft.sequence_step_device(
+                pyr, i2, sx, sy, sv, cfg3, True, aff=aff)
+            return torch.where(nv == 0, nx + ny, 0.0).sum()
+
+        phase("grad (c): a config-3 step (K1, K2, K6's affine stage, K4's "
+              f"refill) at {H}x{W}, {N_FEATURES} features; loss over its "
+              "positions")
+        out["config3_step"] = grad_case("config-3 step", step_loss, s2, mods,
+                                        {"K1": 2, "K2": 1, "K6": 1}, cuda,
+                                        smi)
+
+        pa = pft.build_track_pyramids(img0, cfg)
+        pb = pft.build_track_pyramids(img1, cfg)
+        live = val >= 0
+        xa, ya = x[live], y[live]
+        hw, hh = cfg.window_width // 2, cfg.window_height // 2
+        w1, g1x, g1y = (gather_window(im, xa, ya, hw, hh).contiguous()
+                        for im in (pa.img[0], pa.gradx[0], pa.grady[0]))
+        # frame-2 positions a third of a pixel off the drift
+        xb = (xa + DRIFT[0] + 0.3).contiguous()
+        yb = (ya + DRIFT[1] - 0.3).contiguous()
+
+        def k9_loss(i2):
+            return cuda_window_terms.window_terms(
+                i2, pb.gradx[0], pb.grady[0], w1, g1x, g1y, xb, yb, hw=hw,
+                hh=hh, step_factor=cfg.step_factor).sum()
+
+        phase(f"grad (d): K9's window terms ({int(live.sum())} features, "
+              "a third of a pixel off the drift); loss over all five terms")
+        out["k9"] = grad_case("K9", k9_loss, pb.img[0], mods, {"K9": 1},
+                              cuda, smi)
+
+        phase("grad (e): the captured chain given a frame that requires grad")
+        pyr, cx, cy, cv, _, _ = pft.select_step_device(img0, cfg, N_FEATURES)
+        try:
+            pft.sequence_chain_device(
+                pyr, [img1.clone().requires_grad_(True), img1], cx, cy, cv,
+                cfg)
+            fail("the captured chain took a frame that requires grad")
+        except ValueError as e:
+            print(f"sequence_chain_device refused it: {e}")
+            out["chain_refuses_grad"] = True
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return out
+
+
+# ---- phase 12: windowed BA (BASELINE configs 5b, 5c) and run_sfm_windowed ----
+
+WBA = {"5b": dict(C=60, L=6000, kw=12, iters=8, solver="dense", g=1,
+                  ratio_bar=1e-3),
+       "5c": dict(C=500, L=20000, kw=8, iters=6, solver="cg", g=16,
+                  ratio_bar=1e-2)}
+E2E_FRAMES, E2E_H, E2E_W = 8, 240, 320
+
+
+def windowed_problem(C, L, kw, dev):
+    """bench.py's bench_sfm_windowed problem, draw for draw: C cameras on a
+    lateral track, L landmarks 5-12 units deep, each seen from a window of
+    kw cameras starting at a random camera, exact poses, landmarks
+    perturbed by 0.05 units."""
+    import numpy as np
+    import torch
+    from pyfeaturetrack_tpu_torch import sfm
+    from pyfeaturetrack_tpu_torch.sfm.ba_windowed import make_windowed_problem
+    rng = np.random.default_rng(0)
+    K = np.array([[500.0, 0, 320], [0, 500.0, 240], [0, 0, 1]], np.float32)
+    Rs = sfm.so3_exp(torch.as_tensor(0.01 * rng.standard_normal((C, 3)),
+                                     dtype=torch.float32, device=dev))
+    ts = torch.as_tensor(np.stack([[-0.15 * i, 0.0, 0.0] for i in range(C)]),
+                         dtype=torch.float32, device=dev)
+    X = np.stack([rng.uniform(-4, 4, L), rng.uniform(-3, 3, L),
+                  rng.uniform(5, 12, L)], -1).astype(np.float32)
+    c0 = rng.integers(0, C - kw + 1, L).astype(np.int32)
+    cidx = torch.as_tensor(c0[:, None] + np.arange(kw)[None, :], device=dev)
+    uv, _ = sfm.project(K, Rs[cidx], ts[cidx],
+                        torch.as_tensor(X, device=dev)[:, None])
+    problem = make_windowed_problem(K, c0, uv, np.ones((L, kw), np.float32),
+                                    device=dev)
+    X0 = X + 0.05 * rng.standard_normal(X.shape).astype(np.float32)
+    return problem, Rs, ts, torch.as_tensor(X0, device=dev)
+
+
+def windowed_ba(tag, prof_dir, dev, smi):
+    """(f) / (g): one configuration of WBA: costs, a second run bit-equal,
+    iterations/s by CUDA events, the device's busy share and kernels per
+    iteration from a trace, host reads per GN step
+    (torch.cuda.set_sync_debug_mode), CG iterations per GN step."""
+    import numpy as np
+    import torch
+    from pyfeaturetrack_tpu_torch import sfm
+    c = WBA[tag]
+    problem, Rs, ts, X0 = windowed_problem(c["C"], c["L"], c["kw"], dev)
+
+    def run():
+        return sfm.bundle_adjust_windowed(
+            problem, Rs, ts, X0, n_iters=c["iters"], point_only_iters=0,
+            solver=c["solver"], precond_block=c["g"], return_info=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    first, syncs = count_syncs(run)
+    second = run()
+    torch.cuda.synchronize()
+    same = (all(torch.equal(a, b) for a, b in zip(first[:4], second[:4]))
+            and torch.equal(first[4]["cg_iters"], second[4]["cg_iters"]))
+    costs = first[3].cpu().numpy()
+    cg = first[4]["cg_iters"].cpu().numpy().tolist()
+    ratio = float(costs[-1] / max(costs[0], 1e-30))
+    times = sorted(with_event_ms(run)[1] for _ in range(3))
+    ms = times[1]
+    busy, kernels = device_ms(run, [""], prof_dir, reps=1)
+    top = top_kernels(prof_dir / "kernel_times.json", c["iters"])
+    out = {"cameras": c["C"], "landmarks": c["L"], "window": c["kw"],
+           "iters": c["iters"], "solver": c["solver"],
+           "precond_block": c["g"], "costs": costs.tolist(),
+           "cost_ratio": ratio, "bit_equal_rerun": same,
+           "ms_per_call": ms, "iters_per_s": c["iters"] / (ms / 1e3),
+           "device_busy_ms": busy, "busy_share": busy / ms,
+           "kernels_per_iter": kernels / c["iters"],
+           "host_reads": syncs, "host_reads_per_step": syncs / c["iters"],
+           "cg_iters": cg, "top_kernels": top,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print(f"windowed BA, config {tag}: {c['C']} cameras x {c['L']} landmarks "
+          f"x {c['kw']}-frame windows, {c['iters']} iterations, solver "
+          f"{c['solver']} (groups of {c['g']}): costs {costs[0]:.6g} -> "
+          f"{costs[-1]:.6g} (ratio {ratio:.3e}), CG iterations per step {cg}; "
+          f"second run bit-equal {same}; {out['iters_per_s']:.2f} "
+          f"iterations/s by CUDA events ({ms:.3f} ms per call, median of 3, "
+          f"host reads included), device busy {busy:.3f} ms = share "
+          f"{out['busy_share']:.3f}, {out['kernels_per_iter']:.1f} kernels "
+          f"per iteration, {syncs} host reads = "
+          f"{out['host_reads_per_step']:.2f} per GN step, peak memory "
+          f"{out['peak_mem_gb']:.2f} GB; card {smi}")
+    for name, us, n in top:
+        print(f"  {us:9.1f} us/iteration  {n:6.1f} launches/iteration  {name}")
+    if not same:
+        fail(f"two windowed BA runs (config {tag}) on the card differ")
+    if not ratio < c["ratio_bar"]:
+        fail(f"windowed BA (config {tag}) final/initial cost {ratio} is not "
+             f"below {c['ratio_bar']}")
+    if c["solver"] == "cg" and not syncs < sum(cg):
+        fail(f"windowed BA (config {tag}) read the host {syncs} times for "
+             f"{sum(cg)} CG iterations")
+    if not np.isfinite(costs).all():
+        fail(f"windowed BA (config {tag}) costs are not finite")
+    return out
+
+
+def top_kernels(trace_path, per, n=8):
+    """The n kernels of a Chrome trace with the most device time: (name,
+    us per ``per``, launches per ``per``)."""
+    events = json.loads(Path(trace_path).read_text())
+    agg: dict = {}
+    for e in events.get("traceEvents", events):
+        if e.get("cat") == "kernel":
+            name = e.get("name", "").removeprefix("void ")[:80]
+            t, c = agg.get(name, (0.0, 0))
+            agg[name] = (t + e["dur"], c + 1)
+    return [(k, t / per, c / per) for k, (t, c) in
+            sorted(agg.items(), key=lambda kv: -kv[1][0])[:n]]
+
+
+def e2e_texture(nrows, ncols, seed):
+    """tests/conftest.py's make_textured_image: uniform noise, binomial
+    smoothing along each axis, stretched to 0..255 and floored."""
+    import numpy as np
+    r = np.random.default_rng(seed)
+    img = r.uniform(0, 255, size=(nrows, ncols))
+    k = np.array([1, 4, 6, 4, 1], dtype=np.float64)
+    k /= k.sum()
+    for axis in (0, 1):
+        img = np.apply_along_axis(
+            lambda m: np.convolve(m, k, mode="same"), axis, img)
+    lo, hi = img.min(), img.max()
+    return np.floor((img - lo) / (hi - lo) * 255.0)
+
+
+def e2e_scene():
+    """tests/test_sfm_e2e.py's scene: a textured plane seen by 8 cameras on
+    a lateral track with slight rotation, rendered through the plane
+    homographies at 240x320. Returns (K, Rs, ts, frames)."""
+    import numpy as np
+    import torch
+    from pyfeaturetrack_tpu_torch import sfm
+    K = np.array([[300.0, 0, E2E_W / 2], [0, 300.0, E2E_H / 2], [0, 0, 1]])
+    Rs, ts = [], []
+    for i in range(E2E_FRAMES):
+        w = np.array([0.004 * i, -0.006 * i, 0.002 * i], np.float32)
+        Rs.append(sfm.so3_exp(torch.as_tensor(w[None]))[0].numpy())
+        ts.append(np.array([-0.12 * i, 0.06 * i, 5.0], np.float32))
+    Rs, ts = np.stack(Rs), np.stack(ts)
+    tex = e2e_texture(720, 960, 77)
+    sx, sy = 960 / 4.8, 720 / 3.6
+    ys, xs = np.mgrid[0:E2E_H, 0:E2E_W].astype(np.float64)
+    pix = np.stack([xs, ys, np.ones_like(xs)], axis=-1)
+    frames = []
+    for Rk, tk in zip(Rs, ts):
+        Hk = K @ np.stack([Rk[:, 0], Rk[:, 1], tk], axis=1)
+        plane = pix @ np.linalg.inv(Hk).T
+        X = plane[..., 0] / plane[..., 2]
+        Y = plane[..., 1] / plane[..., 2]
+        u = np.clip((X + 2.4) * sx, 0, 960 - 1.001)
+        v = np.clip((Y + 1.8) * sy, 0, 720 - 1.001)
+        u0, v0 = u.astype(np.int64), v.astype(np.int64)
+        au, av = u - u0, v - v0
+        frames.append((1 - au) * (1 - av) * tex[v0, u0]
+                      + au * (1 - av) * tex[v0, u0 + 1]
+                      + (1 - au) * av * tex[v0 + 1, u0]
+                      + au * av * tex[v0 + 1, u0 + 1])
+    return K, Rs, ts, frames
+
+
+def sfm_windowed_e2e(dev, smi):
+    """(h): run_sfm_windowed on e2e_scene's frames tracked by the port on
+    the card (80 features, replace-lost), poses perturbed as
+    tests/test_sfm_e2e.py:112-118 does; both solvers, each twice."""
+    import numpy as np
+    import torch
+    from pyfeaturetrack_tpu_torch import sfm
+    from pyfeaturetrack_tpu_torch.models.sequence import track_sequence
+    K, Rs, ts, frames = e2e_scene()
+    ft, _ = track_sequence(frames, n_features=80, replace_lost=True,
+                           device=dev)
+    rng = np.random.default_rng(3)
+    dw = 0.004 * rng.standard_normal((E2E_FRAMES, 3)).astype(np.float32)
+    dw[0] = 0
+    R0 = (sfm.so3_exp(torch.as_tensor(dw)).numpy() @ Rs).astype(np.float32)
+    t0 = ts + 0.02 * rng.standard_normal(ts.shape).astype(np.float32)
+    t0[0] = ts[0]
+    ate0 = sfm.ate_rmse_aligned(t0, ts)
+    out = {}
+    for solver in ("dense", "cg"):
+        runs = [sfm.run_sfm_windowed(ft, K.astype(np.float32), R0, t0,
+                                     n_iters=15, solver=solver, device=dev)
+                for _ in range(2)]
+        torch.cuda.synchronize()
+        a, b = runs
+        same = all(torch.equal(a[k], b[k]) for k in ("R", "t", "X", "costs"))
+        costs = a["costs"].cpu().numpy()
+        ate = sfm.ate_rmse_aligned(a["t"], ts)
+        out[solver] = {"runs": len(a["runs"]),
+                       "n_observations": a["n_observations"],
+                       "first_cost": float(costs[0]),
+                       "final_cost": float(costs[-1]), "ate_init": ate0,
+                       "ate_final": ate, "bit_equal_rerun": same}
+        print(f"run_sfm_windowed ({solver}) on the tracked {E2E_FRAMES}-frame "
+              f"scene: {len(a['runs'])} runs, {a['n_observations']} "
+              f"observations, cost {costs[0]:.6g} -> {costs[-1]:.6g}, "
+              f"aligned ATE {ate0:.5f} -> {ate:.5f} units, rerun bit-equal "
+              f"{same}; card {smi}")
+        if not costs[-1] < 0.5 * costs[0]:
+            fail(f"run_sfm_windowed ({solver}): the final cost is not below "
+                 "half the first")
+        if not ate < ate0:
+            fail(f"run_sfm_windowed ({solver}): the aligned ATE did not fall")
+        if not same:
+            fail(f"two run_sfm_windowed ({solver}) runs on the card differ")
+    return out
+
+
+# ---- phase 13: checkpoint resume, the CLI and profiling on the card ----
+
+TOOLS_FRAMES = 25          # 1 + 3 chains of 8
+TOOLS_CUT = 9              # after the selection and one chain
+
+
+def resume_checks(pft, frames, dev, tmp, smi):
+    """A SequenceTracker, a StreamingTracker(chain=8) and the corridor
+    VisualOdometry (both routes) checkpointed mid-stream through files and
+    resumed into fresh objects: each continues bit-equal to the
+    uninterrupted run."""
+    import numpy as np
+    import torch
+    from pyfeaturetrack_tpu_torch import sfm
+    from pyfeaturetrack_tpu_torch.models.sequence import SequenceTracker
+    from pyfeaturetrack_tpu_torch.serving import StreamingTracker
+    from pyfeaturetrack_tpu_torch.utils import checkpoint as ck
+    from pyfeaturetrack_tpu_torch.utils import synthscene
+    out = {}
+    fs = frames[:TOOLS_FRAMES]
+
+    def seq(fr, tracker=None):
+        t = tracker or SequenceTracker(n_features=N_FEATURES, device=dev)
+        for f in fr:
+            t.step(f)
+        return t
+
+    full = seq(fs[:12])
+    part = seq(fs[:6])
+    ck.save_checkpoint(tmp / "seq.pt", ck.sequence_state(part))
+    fresh = SequenceTracker(n_features=N_FEATURES, device=dev)
+    ck.resume_sequence(fresh, ck.restore_checkpoint(tmp / "seq.pt",
+                                                    map_location=dev))
+    seq(fs[6:12], fresh)
+    out["sequence"] = all(torch.equal(a, b)
+                          for a, b in zip(full.fl[:3], fresh.fl[:3]))
+
+    def stream(fr, tracker=None):
+        t = tracker or StreamingTracker(n_features=N_FEATURES, chain=CHAIN,
+                                        device=dev)
+        for f in fr:
+            t.feed(f)
+        return t
+
+    sfull = stream(fs)
+    spart = stream(fs[:TOOLS_CUT])
+    ck.save_checkpoint(tmp / "stream.pt", ck.streaming_state(spart))
+    sfresh = StreamingTracker(n_features=N_FEATURES, chain=CHAIN, device=dev)
+    ck.resume_streaming(sfresh, ck.restore_checkpoint(tmp / "stream.pt"))
+    stream(fs[TOOLS_CUT:], sfresh)
+    a, b = sfull.drain(), sfresh.drain()
+    out["streaming"] = (all(np.array_equal(u[-1], v[-1])
+                            for u, v in zip(a, b))
+                        and all(torch.equal(u, v) for u, v in zip(
+                            sfull._lanes[0][1:4], sfresh._lanes[0][1:4])))
+
+    K, Rs, ts, _, pts = synthscene.corridor_scene(VO_CHECK_FRAMES, VO_H, VO_W)
+    imgs = synthscene.render_blobs(K, Rs, ts, pts, VO_H, VO_W)
+    for route, dl in (("host", False), ("device_loop", True)):
+        kw = dict(n_features=VO_FEATURES, kf_every=VO_KF_EVERY,
+                  device_loop=dl, device=dev)
+        vfull = sfm.VisualOdometry(K, **kw)
+        for f in imgs:
+            vfull.feed(f)
+        vpart = sfm.VisualOdometry(K, **kw)
+        for f in imgs[:VO_CHECK_FRAMES // 2]:
+            vpart.feed(f)
+        ck.save_checkpoint(tmp / f"vo_{route}.pt", ck.vo_state(vpart))
+        vfresh = sfm.VisualOdometry(K, **kw)
+        ck.resume_vo(vfresh, ck.restore_checkpoint(tmp / f"vo_{route}.pt"))
+        for f in imgs[vfresh.n_frames:]:
+            vfresh.feed(f)
+        ta, tb = vfull.trajectory(), vfresh.trajectory()
+        out[f"vo_{route}"] = (
+            vfull.initialized and all(np.array_equal(u, v)
+                                      for u, v in zip(ta, tb))
+            and set(vfull.landmarks) == set(vfresh.landmarks)
+            and all(np.array_equal(vfull.landmarks[k], vfresh.landmarks[k])
+                    for k in vfull.landmarks))
+    print(f"checkpoint resume on the card, bit-equal to the uninterrupted "
+          f"runs: SequenceTracker ({N_FEATURES} features, cut at frame 6 of "
+          f"12) {out['sequence']}, StreamingTracker(chain={CHAIN}) (cut at "
+          f"{TOOLS_CUT} of {TOOLS_FRAMES}) {out['streaming']}, corridor VO "
+          f"({VO_CHECK_FRAMES} frames, cut at {VO_CHECK_FRAMES // 2}) host "
+          f"{out['vo_host']}, device_loop {out['vo_device_loop']}; card {smi}")
+    for k, ok in out.items():
+        if not ok:
+            fail(f"checkpoint resume ({k}) does not continue bit-equal")
+    return out
+
+
+def cli_checks(pft, frames, dev, tmp, smi):
+    """``python -m pyfeaturetrack_tpu_torch`` on PGM files in its default,
+    --device-loop, --stream --chain 8, --flow and --vo modes, each output
+    file against the API calls the mode wraps on the same frames."""
+    import numpy as np
+    import torch
+    from pyfeaturetrack_tpu_torch import sfm
+    from pyfeaturetrack_tpu_torch.features import FeatureTable
+    from pyfeaturetrack_tpu_torch.models.device_sequence import (
+        track_sequence_device)
+    from pyfeaturetrack_tpu_torch.models.sequence import track_sequence
+    from pyfeaturetrack_tpu_torch.ops.flow import dense_flow_pyramids
+    from pyfeaturetrack_tpu_torch.serving import serve_stream
+    from pyfeaturetrack_tpu_torch.utils import synthscene
+    from pyfeaturetrack_tpu_torch.utils.io import pgm_write, write_feature_table
+    from pyfeaturetrack_tpu_torch.utils.loader import FrameLoader, load_frames
+    from pyfeaturetrack_tpu_torch.utils.staging import stage_f32
+    root = Path(__file__).resolve().parent
+    fdir, vdir = tmp / "frames", tmp / "corridor"
+    fdir.mkdir(parents=True, exist_ok=True)
+    vdir.mkdir(parents=True, exist_ok=True)
+    paths = [str(fdir / f"img{i}.pgm") for i in range(TOOLS_CUT + 1)]
+    for p, f in zip(paths, frames):
+        pgm_write(p, f)
+    K, Rs, ts, _, pts = synthscene.corridor_scene(VO_CHECK_FRAMES, VO_H, VO_W)
+    vpaths = [str(vdir / f"f{i:02d}.pgm") for i in range(VO_CHECK_FRAMES)]
+    for p, f in zip(vpaths, synthscene.render_blobs(K, Rs, ts, pts, VO_H,
+                                                    VO_W)):
+        pgm_write(p, np.clip(np.floor(f), 0, 255))
+    # the config the CLI builds from its default flags
+    cfg = pft.create_config(search_range=15, mindist=10, window_width=7,
+                            window_height=7, affineConsistencyCheck=-1,
+                            lighting_insensitive=False, sequentialMode=True)
+    loaded = load_frames(paths)
+
+    def cli(mode, args, inputs):
+        out = tmp / f"cli_{mode}"
+        res = subprocess.run(
+            [sys.executable, "-m", "pyfeaturetrack_tpu_torch", *inputs,
+             "--out", str(out), "--device", torch.device(dev).type, *args],
+            cwd=root,
+            capture_output=True, text=True, timeout=600)
+        if res.returncode != 0:
+            print(res.stdout[-2000:], res.stderr[-4000:])
+            fail(f"python -m pyfeaturetrack_tpu_torch ({mode}) exited "
+                 f"{res.returncode}")
+        return out, json.loads(res.stdout.strip().splitlines()[-1])
+
+    def table_file(x, y, v, name):
+        p = tmp / f"api_{name}.ft"
+        write_feature_table(FeatureTable(x=torch.as_tensor(x),
+                                         y=torch.as_tensor(y),
+                                         val=torch.as_tensor(v)), p)
+        return p.read_bytes()
+
+    results = {}
+    out, summ = cli("default", [], paths)
+    ft, _ = track_sequence(loaded, cfg=cfg, n_features=150, device=dev)
+    write_feature_table(ft, tmp / "api_default.ft")
+    results["default"] = ((out / "features.ft").read_bytes()
+                          == (tmp / "api_default.ft").read_bytes())
+    out, _ = cli("device_loop", ["--device-loop"], paths)
+    want = table_file(*track_sequence_device(loaded, cfg=cfg, n_features=150,
+                                             device=dev), "device_loop")
+    results["device_loop"] = (out / "features.ft").read_bytes() == want
+    out, _ = cli("stream", ["--stream", "--chain", str(CHAIN)], paths)
+    want = table_file(*serve_stream(FrameLoader(paths), cfg=cfg,
+                                    n_features=150, chain=CHAIN,
+                                    stage_uint8=True, device=dev), "stream")
+    results["stream"] = (out / "features.ft").read_bytes() == want
+    out, _ = cli("flow", ["--flow"], paths[:3])
+    fcfg = cfg.validated_window()
+    pyrs = [pft.build_track_pyramids(stage_f32(f, dev), fcfg)
+            for f in loaded[:3]]
+    fl = [dense_flow_pyramids(a, b, fcfg) for a, b in zip(pyrs, pyrs[1:])]
+    with np.load(out / "flow.npz") as z:
+        results["flow"] = all(
+            np.array_equal(z[k], np.stack([getattr(f, k).cpu().numpy()
+                                           for f in fl]))
+            for k in ("u", "v", "status"))
+    fx, cx, cy = float(K[0, 0]), float(K[0, 2]), float(K[1, 2])
+    out, summ = cli("vo", ["--vo", "--fx", repr(fx), "--cx", repr(cx),
+                           "--cy", repr(cy), "--kf-every", str(VO_KF_EVERY),
+                           "--features", str(VO_FEATURES)], vpaths)
+    vo = sfm.VisualOdometry(np.array([[fx, 0, cx], [0, fx, cy], [0, 0, 1]]),
+                            cfg=cfg, n_features=VO_FEATURES,
+                            kf_every=VO_KF_EVERY, device=dev)
+    for f in load_frames(vpaths):
+        vo.feed(f)
+    fi, R, t, c = vo.trajectory()
+    with np.load(out / "trajectory.npz") as z:
+        results["vo"] = (all(np.array_equal(z[k], v) for k, v in (
+            ("keyframe_frames", fi), ("R", R), ("t", t), ("centers", c),
+            ("landmarks", vo.map_points())))
+            and summ["keyframes"] == len(fi))
+    print(f"python -m pyfeaturetrack_tpu_torch --device cuda on PGM files, "
+          f"outputs equal to the API calls: {results}; VO summary {summ}; "
+          f"card {smi}")
+    for k, ok in results.items():
+        if not ok:
+            fail(f"the CLI's {k} mode differs from the API calls it wraps")
+    return results
+
+
+def profiling_checks(pft, frames, cfg, dev, tmp, smi):
+    """utils/profiling: a trace of a pyramid build and a track call names
+    K1's and K2's kernels; device time per track call from a trace."""
+    import torch
+    from pyfeaturetrack_tpu_torch.utils import profiling
+    img0, img1 = (torch.as_tensor(f, device=dev).to(torch.float32)
+                  for f in frames[:2])
+    _, x, y, val, _, _ = pft.select_step_device(img0, cfg, N_FEATURES)
+    p1 = pft.build_track_pyramids(img0, cfg)
+
+    def step():
+        p2 = pft.build_track_pyramids(img1, cfg)
+        return pft.track_features_pyramids(p1, p2, x, y, val, cfg)
+
+    step()
+    # the profiler can lose a session's first kernel records on this card
+    # (see device_ms): 8 steps a trace, up to three traces
+    for attempt in range(3):
+        with profiling.trace(str(tmp / "trace")):
+            for _ in range(8):
+                with profiling.named_scope("pft_track_step"):
+                    step()
+        events = json.loads((tmp / "trace" / "trace.json").read_text())
+        events = events.get("traceEvents", events)
+        kern = [e.get("name", "") for e in events
+                if e.get("cat") == "kernel"]
+        if kern:
+            break
+        print(f"profiling.trace recorded no kernel (attempt {attempt + 1})")
+    names = {k: any(n in e for e in kern for n in ns) for k, ns in (
+        ("K1", ("level0_kernel", "coarse_kernel")),
+        ("K2", ("lk_pyramid_kernel",)))}
+    scoped = any(e.get("name") == "pft_track_step" for e in events)
+    s_dev = profiling.device_time_per_call(step, iters=8)
+    s_ev = profiling.time_jitted(step, iters=20)
+    print(f"profiling.trace: {len(kern)} kernels traced, names K1 "
+          f"{names['K1']}, K2 {names['K2']}, named scope {scoped}; "
+          f"device_time_per_call {s_dev * 1e3:.4f} ms, time_jitted "
+          f"{s_ev * 1e3:.4f} ms (CUDA events) per build + track call; "
+          f"card {smi}")
+    if not all(names.values()) or not scoped:
+        fail("profiling.trace did not name K1's and K2's kernels and the "
+             "named scope")
+    return {"names": names, "scope": scoped, "device_ms": s_dev * 1e3,
+            "events_ms": s_ev * 1e3}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
                         help="after the smoke, time the step three ways and "
                         "trace it with torch.profiler")
     profile = parser.parse_args(argv).profile
+    t_start = time.perf_counter()
 
     phase("device")
     try:
@@ -3570,6 +4247,47 @@ def main(argv=None) -> int:
                         prof_dir)
     print(json.dumps({"sfm": sfm_out}))
 
+    # ---- phase 11: gradients through the kernels ----
+    grad_mods = {"K1": cuda_pyramid, "K2": cuda_lk, "K3": K3InK1(cuda_pyramid),
+                 K3_STANDALONE: cuda_eig, "K4": cuda_select,
+                 "K5": cuda_suppress, "K6": cuda_affine, "K8": cuda_lk_dense,
+                 "K9": cuda_window_terms}
+    guided0 = cuda_lk.guided_launches
+    grads = grad_phase(pft, frames, sim, cfg, cfg3, grad_mods, dev, smi)
+    for k in grad_mods:
+        report[k]["grad_launches"] = sum(
+            g["launches"][k] for g in grads.values() if isinstance(g, dict))
+    report["K2 guided"]["grad_launches"] = cuda_lk.guided_launches - guided0
+    print(json.dumps({"grad": grads}))
+
+    # ---- phase 12: the windowed BA and run_sfm_windowed ----
+    windowed = {}
+    for tag in WBA:
+        c = WBA[tag]
+        phase(f"sfm ({'f' if tag == '5b' else 'g'}): windowed BA, config "
+              f"{tag}: {c['C']} cameras x {c['L']} landmarks x {c['kw']}-frame "
+              f"windows, {c['iters']} iterations, solver {c['solver']}")
+        windowed[tag] = windowed_ba(tag, prof_dir, dev, smi)
+    phase(f"sfm (h): run_sfm_windowed on tests/test_sfm_e2e.py's scene "
+          f"({E2E_FRAMES} frames, {E2E_H}x{E2E_W}, 80 features) tracked on "
+          "the card; dense and CG")
+    windowed["e2e"] = sfm_windowed_e2e(dev, smi)
+    print(json.dumps({"sfm_windowed": windowed}))
+
+    # ---- phase 13: checkpoint resume, the CLI and profiling ----
+    tools_dir = root / "build" / "smoke_tools"
+    tools_dir.mkdir(parents=True, exist_ok=True)
+    phase("tools: checkpoint resume of SequenceTracker, StreamingTracker "
+          f"(chain {CHAIN}) and the corridor VO on the card")
+    tools = {"resume": resume_checks(pft, frames, dev, tools_dir, smi)}
+    phase("tools: python -m pyfeaturetrack_tpu_torch (default, --device-loop, "
+          f"--stream --chain {CHAIN}, --flow, --vo) against the API")
+    tools["cli"] = cli_checks(pft, frames, dev, tools_dir, smi)
+    phase("tools: utils/profiling on the card")
+    tools["profiling"] = profiling_checks(pft, frames, cfg, dev, tools_dir,
+                                          smi)
+    print(json.dumps({"tools": tools}))
+
     if profile:
         profile_host_loop(pft, cfg, staged, root)
         profile_phase(pft, cfg3, sim, staged3, root, "config3")
@@ -3615,7 +4333,8 @@ def main(argv=None) -> int:
                  "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                  "plain_ms": r["plain_ms"], "bound_ms": b_ms,
                  "bound_by": b_by, "library_ms": None,
-                 "device_ms": r["device_ms"]}
+                 "device_ms": r["device_ms"],
+                 "grad_launches": r["grad_launches"]}
         if k == "K1":
             entry.update({f: r[f] for f in (
                 "config3_ms", "config3_device_ms", "fused_ms",
@@ -3666,6 +4385,7 @@ def main(argv=None) -> int:
             entry["device_ms_lost"] = lost
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
+    print(f"chip_smoke.py wall time {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -429,15 +429,33 @@ def _staged_frames(frames, dev):
             host)
 
 
+def _lane_tensors(lane):
+    """Every tensor of a (pyr, x, y, val, aff, carry) lane state."""
+    pyr, x, y, val, aff, carry = lane
+    return (*pyr.img, *pyr.gradx, *pyr.grady, x, y, val,
+            *(aff if aff is not None else ()),
+            *(carry if carry is not None else ()))
+
+
 def chain_lanes(lanes, frames, cfg, replace_lost: bool = True):
     """k frame steps for each of B independent lanes: ``lanes`` is a list
     of (pyr, x, y, val, aff, carry) states on one device, ``frames`` k
     sequences of B frames (arrays or tensors). Returns (lanes, (hx, hy,
     hv) [B, k, N], exhausted [B] bool). On CUDA tensors, one replay of the
-    captured chain for this shape (captured at its first call)."""
+    captured chain for this shape (captured at its first call); a replay
+    records no gradients, so an input that requires grad raises
+    ValueError there."""
     x0 = lanes[0][1]
     if not cuda.use_kernel(x0):
         return _chain_plain(lanes, frames, cfg, replace_lost)
+    if cuda.records_grad(*(f for tick in frames for f in tick
+                           if isinstance(f, torch.Tensor)),
+                         *(t for lane in lanes for t in _lane_tensors(lane))):
+        raise ValueError(
+            "the chained step (sequence_chain_device, the streaming "
+            "trackers) replays a captured CUDA graph, which records no "
+            "gradients: detach its inputs, or differentiate the eager step "
+            "(sequence_step_device)")
     frames, dtype, host = _staged_frames(frames, x0.device)
     h, w = lanes[0][0].img[0].shape
     for tick in frames:

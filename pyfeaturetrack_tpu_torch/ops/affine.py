@@ -185,7 +185,6 @@ def affine_consistency_check(pyr1, pyr2, fl_before: FeatureState,
     is applied by mask (the JAX stage skips it under ``lax.cond`` when no
     lane needs it; the results are the same, without a host sync). On
     CUDA tensors the stage is one launch of K6's stage kernel."""
-    hw, hh = cfg.affine_window_width // 2, cfg.affine_window_height // 2
     n = fl_after.nFeatures
     dev = fl_after.x.device
     aff = fl_after.aff
@@ -194,45 +193,53 @@ def affine_consistency_check(pyr1, pyr2, fl_before: FeatureState,
     if aff.nit is None:
         aff = aff._replace(nit=torch.zeros((n,), dtype=torch.int32,
                                            device=dev))
-    if cuda.use_kernel(fl_before.x, fl_after.x, aff.img, pyr1.img[0],
-                       pyr2.img[0]):
-        x, y, val, aff = cuda_affine.affine_stage(pyr1, pyr2, fl_before,
-                                                  fl_after, aff, cfg)
-        return fl_after._replace(x=x, y=y, val=val, aff=aff)
+    x, y, val, aff = cuda_affine.affine_stage(pyr1, pyr2, fl_before, fl_after,
+                                              aff, cfg)
+    return fl_after._replace(x=x, y=y, val=val, aff=aff)
 
-    tracked = fl_after.val == KLT_TRACKED
+
+def stage_reference(level1, level2, before_xy, before_val, after_xy,
+                    after_val, aff: AffineState, cfg):
+    """Plain version of K6's stage (``cuda_affine.affine_stage``): the
+    eager composition of lost lanes, template capture, the check and the
+    selects. ``level1``/``level2``: (img, gradx, grady) of each frame's
+    level 0; ``aff`` sized for ``cfg`` with ``nit`` set. Returns (x, y,
+    val, AffineState)."""
+    hw, hh = cfg.affine_window_width // 2, cfg.affine_window_height // 2
+    bx, by = before_xy
+    ax, ay = after_xy
+    n = ax.shape[0]
+    dev = ax.device
+    tracked = after_val == KLT_TRACKED
     # lanes lost by translational tracking lose their template
     eye = identity_warps(n, dev)
-    lost = (fl_before.val >= 0) & ~tracked
+    lost = (before_val >= 0) & ~tracked
     aff = aff._replace(valid=aff.valid & ~lost,
                        A=torch.where(lost[:, None, None], eye, aff.A))
 
     # first successful track -> capture the template, skip the check
     need_capture = tracked & ~aff.valid
     cap = need_capture[:, None, None]
-    t_img, t_gx, t_gy = (gather_window(im, fl_before.x, fl_before.y, hw, hh)
-                         for im in (pyr1.img[0], pyr1.gradx[0],
-                                    pyr1.grady[0]))
+    t_img, t_gx, t_gy = (gather_window(im, bx, by, hw, hh) for im in level1)
     aff = AffineState(
         img=torch.where(cap, t_img, aff.img),
         gradx=torch.where(cap, t_gx, aff.gradx),
         grady=torch.where(cap, t_gy, aff.grady),
-        x=torch.where(need_capture, fl_before.x, aff.x),
-        y=torch.where(need_capture, fl_before.y, aff.y),
+        x=torch.where(need_capture, bx, aff.x),
+        y=torch.where(need_capture, by, aff.y),
         A=torch.where(cap, eye, aff.A),
         valid=aff.valid | need_capture,
         nit=torch.where(need_capture, _CAPTURE_NIT, aff.nit))
 
     check = tracked & aff.valid & ~need_capture
-    x, y, A, status, _ = cuda_affine.affine_track_batch(
-        aff.img, pyr2.img[0], pyr2.gradx[0], pyr2.grady[0], fl_after.x,
-        fl_after.y, aff.A, check, cfg)
+    x, y, A, status, _ = _affine_track_batch(aff.img, *level2, ax, ay, aff.A,
+                                             check, cfg)
 
     failed = check & (status != KLT_TRACKED)
-    new_x = torch.where(check, torch.where(failed, -1.0, x), fl_after.x)
-    new_y = torch.where(check, torch.where(failed, -1.0, y), fl_after.y)
-    new_val = torch.where(failed, status, fl_after.val)
+    new_x = torch.where(check, torch.where(failed, -1.0, x), ax)
+    new_y = torch.where(check, torch.where(failed, -1.0, y), ay)
+    new_val = torch.where(failed, status, after_val)
     keep = (check & ~failed)[:, None, None]
     aff = aff._replace(A=torch.where(keep, A, aff.A),
                        valid=aff.valid & ~failed)
-    return fl_after._replace(x=new_x, y=new_y, val=new_val, aff=aff)
+    return new_x, new_y, new_val, aff

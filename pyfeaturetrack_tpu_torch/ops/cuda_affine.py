@@ -74,7 +74,9 @@ def affine_track_batch(tmpl, img2, gx2, gy2, x0, y0, A0, check, cfg):
 
     Same contract as ``ops/affine._affine_track_batch``: ``tmpl`` float32
     [N, wh, ww]; ``img2``/``gx2``/``gy2`` float32 [H, W]; ``x0``/``y0``
-    float32 [N]; ``A0`` float32 [N, 2, 2]; ``check`` bool [N]."""
+    float32 [N]; ``A0`` float32 [N, 2, 2]; ``check`` bool [N]. One launch
+    on CUDA, differentiable in x, y and A through the plain version's
+    VJP."""
     feats = (tmpl, x0, y0, A0, check)
     imgs = (img2, gx2, gy2)
     if not cuda.use_kernel(*feats, *imgs):
@@ -98,14 +100,22 @@ def affine_track_batch(tmpl, img2, gx2, gy2, x0, y0, A0, check, cfg):
         t.dtype == torch.float32 and t.shape == shape and t.is_contiguous()
         for t in imgs), "affine kernel takes three contiguous float32 "
         "[H, W] images (H, W >= 2)")
-    xo, yo = torch.empty_like(x0), torch.empty_like(y0)
-    Ao = torch.empty_like(A0)
-    st = torch.empty((n,), dtype=torch.int32, device=x0.device)
-    nit = torch.empty((n,), dtype=torch.int32, device=x0.device)
-    if n:
-        _launch(tmpl, img2, gx2, gy2, x0, y0, A0, check, cfg, xo, yo, Ao, st,
-                nit)
-    return xo, yo, Ao, st, nit
+
+    def launch(tmpl, img2, gx2, gy2, x0, y0, A0, check):
+        xo, yo = torch.empty_like(x0), torch.empty_like(y0)
+        Ao = torch.empty_like(A0)
+        st = torch.empty((n,), dtype=torch.int32, device=x0.device)
+        nit = torch.empty((n,), dtype=torch.int32, device=x0.device)
+        if n:
+            _launch(tmpl, img2, gx2, gy2, x0, y0, A0, check, cfg, xo, yo,
+                    Ao, st, nit)
+        return xo, yo, Ao, st, nit
+
+    def plain(*ts):
+        return affine._affine_track_batch(*ts, cfg)
+
+    return cuda.with_plain_vjp(launch, plain, tmpl, img2, gx2, gy2, x0, y0,
+                               A0, check)
 
 
 def _ptrs(tensors):
@@ -113,16 +123,51 @@ def _ptrs(tensors):
     return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
 
 
+def _launch_stage(ts, cfg):
+    """One pft_affine_stage launch (none for an empty list) on the stage's
+    inputs in ``affine_stage``'s order: (x, y, val, *AffineState)."""
+    global launches
+    imgs, feats, vals, state = ts[:6], ts[6:10], ts[10:12], ts[12:18]
+    valid, nit = ts[18:]
+    n = feats[2].shape[0]
+    x, y = torch.empty_like(feats[2]), torch.empty_like(feats[3])
+    val = torch.empty_like(vals[1])
+    out = AffineState(*(torch.empty_like(t) for t in state),
+                      valid=torch.empty_like(valid),
+                      nit=torch.empty_like(nit))
+    if n:
+        fn = cuda.function("pft_affine_stage",
+                           [cuda.c_ptr] * 6 + [cuda.c_int] * 6
+                           + [cuda.c_int] + [cuda.c_float] * 4
+                           + [cuda.c_ptr] * 5)
+        tables = [_ptrs(t) for t in (imgs, feats, vals, state,
+                                     (x, y) + tuple(out[:6]))]
+        addr = [ctypes.addressof(t) for t in tables]
+        rc = fn(*addr[:4], valid.data_ptr(), nit.data_ptr(),
+                *imgs[0].shape, n, *_gn_params(cfg), addr[4],
+                val.data_ptr(), out.valid.data_ptr(), out.nit.data_ptr(),
+                cuda.stream_ptr(x.device))
+        cuda.check(rc, "pft_affine_stage")
+        launches += 1
+    return (x, y, val) + tuple(out)
+
+
 def affine_stage(pyr1, pyr2, fl_before, fl_after, aff: AffineState, cfg):
-    """The affine stage on the card in one launch: (x, y, val, AffineState),
+    """The affine stage, on the card in one launch: (x, y, val, AffineState),
     the values ``ops/affine.affine_consistency_check`` computes. ``aff``
     is sized for ``cfg`` with ``nit`` set; every tensor lies on one CUDA
-    device."""
-    global launches
-    ww, wh = _require_mode_and_window(cfg)
-    n = fl_after.nFeatures
+    device. Differentiable in the float outputs (x, y and the AffineState's
+    windows, anchors and warps) through the plain stage's VJP
+    (``ops/affine.stage_reference``). CPU tensors take that plain
+    version."""
     imgs = (pyr1.img[0], pyr1.gradx[0], pyr1.grady[0], pyr2.img[0],
             pyr2.gradx[0], pyr2.grady[0])
+    if not cuda.use_kernel(fl_before.x, fl_after.x, aff.img, *imgs):
+        return affine.stage_reference(
+            imgs[:3], imgs[3:], (fl_before.x, fl_before.y), fl_before.val,
+            (fl_after.x, fl_after.y), fl_after.val, aff, cfg)
+    ww, wh = _require_mode_and_window(cfg)
+    n = fl_after.nFeatures
     shape = imgs[0].shape
     cuda.require(len(shape) == 2 and shape[0] >= 2 and shape[1] >= 2 and all(
         t.dtype == torch.float32 and t.shape == shape and t.is_contiguous()
@@ -143,23 +188,16 @@ def affine_stage(pyr1, pyr2, fl_before, fl_after, aff: AffineState, cfg):
                  and aff.A.shape == (n, 2, 2) and aff.A.is_contiguous(),
                  "affine stage takes contiguous feature lists (float32 x, y, "
                  "int32 val [N]) and an AffineState sized for the config")
-    x, y = torch.empty_like(fl_after.x), torch.empty_like(fl_after.y)
-    val = torch.empty_like(fl_after.val)
-    out = AffineState(*(torch.empty_like(t) for t in state),
-                      valid=torch.empty_like(aff.valid),
-                      nit=torch.empty_like(aff.nit))
-    if n:
-        fn = cuda.function("pft_affine_stage",
-                           [cuda.c_ptr] * 6 + [cuda.c_int] * 6
-                           + [cuda.c_int] + [cuda.c_float] * 4
-                           + [cuda.c_ptr] * 5)
-        tables = [_ptrs(t) for t in (imgs, feats, vals, state,
-                                     (x, y) + tuple(out[:6]))]
-        addr = [ctypes.addressof(t) for t in tables]
-        rc = fn(*addr[:4], aff.valid.data_ptr(), aff.nit.data_ptr(),
-                shape[0], shape[1], n, *_gn_params(cfg), addr[4],
-                val.data_ptr(), out.valid.data_ptr(), out.nit.data_ptr(),
-                cuda.stream_ptr(x.device))
-        cuda.check(rc, "pft_affine_stage")
-        launches += 1
-    return x, y, val, out
+
+    def launch(*ts):
+        return _launch_stage(ts, cfg)
+
+    def plain(*ts):
+        x, y, val, aff = affine.stage_reference(
+            ts[:3], ts[3:6], ts[6:8], ts[10], ts[8:10], ts[11],
+            AffineState(*ts[12:]), cfg)
+        return (x, y, val) + tuple(aff)
+
+    outs = cuda.with_plain_vjp(launch, plain, *imgs, *feats, *vals, *state,
+                               aff.valid, aff.nit)
+    return outs[0], outs[1], outs[2], AffineState(*outs[3:])

@@ -47,6 +47,13 @@ launches = 0
 guided_launches = 0
 
 
+class _Levels(NamedTuple):
+    """A pyramid's level tuples (the fields of ``ops/track.TrackPyramids``)."""
+    img: tuple
+    gradx: tuple
+    grady: tuple
+
+
 class TrackCarry(NamedTuple):
     """Sequential-mode frame-1 window carry; the signature of
     ``pyfeaturetrack_tpu.ops.pallas_lk_vec.TrackCarry``.
@@ -376,7 +383,8 @@ def track_pyramid(pyr1, pyr2, x: torch.Tensor, y: torch.Tensor,
     level coarse to fine, then the final classification. Returns (x, y,
     val); lost features get (-1, -1, status), lanes with ``val < 0`` pass
     through. ``x_init``/``y_init`` (both or neither): guided frame-2 starts
-    in level-0 pixels. One launch on CUDA."""
+    in level-0 pixels. One launch on CUDA, differentiable in the positions
+    and the level images through the plain version's VJP."""
     if (x_init is None) != (y_init is None):
         raise ValueError("track_pyramid: give both x_init and y_init, or "
                          "neither")
@@ -408,8 +416,28 @@ def track_pyramid(pyr1, pyr2, x: torch.Tensor, y: torch.Tensor,
                          for t in level),
                      f"track_pyramid: level {r} needs six contiguous float32 "
                      "[H, W] images of one shape")
-    xo, yo, vo = torch.empty_like(x), torch.empty_like(y), torch.empty_like(val)
-    if n:
-        _launch_pyramid(pyr1, pyr2, x, y, val, cfg, x_init, y_init, xo, yo,
-                        vo)
-    return xo, yo, vo
+    n_starts = len(starts)
+
+    def split(feats):
+        # (x, y, val, x_init-or-None, y_init-or-None, pyr1, pyr2)
+        x, y, val = feats[:3]
+        xi, yi = feats[3:3 + n_starts] or (None, None)
+        lv = feats[3 + n_starts:]
+        pyr = tuple(_Levels(*(tuple(lv[6 * r + k + 3 * j]
+                                    for r in range(n_levels))
+                              for k in range(3))) for j in range(2))
+        return x, y, val, xi, yi, pyr
+
+    def launch(*feats):
+        x, y, val, xi, yi, (p1, p2) = split(feats)
+        xo, yo = torch.empty_like(x), torch.empty_like(y)
+        vo = torch.empty_like(val)
+        if n:
+            _launch_pyramid(p1, p2, x, y, val, cfg, xi, yi, xo, yo, vo)
+        return xo, yo, vo
+
+    def plain(*feats):
+        x, y, val, xi, yi, (p1, p2) = split(feats)
+        return track_pyramid_reference(p1, p2, x, y, val, cfg, xi, yi)
+
+    return cuda.with_plain_vjp(launch, plain, x, y, val, *starts, *imgs)

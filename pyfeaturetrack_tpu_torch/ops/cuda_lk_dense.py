@@ -111,21 +111,30 @@ def _launch(imgs, maps, start, coarse_shape, scale, cfg, one_d, out):
     launches += 1
 
 
+def _plain_level(imgs, u, v, cfg, one_d, scale):
+    """The plain version of ``_level``: ``upsample_flow`` where the start is
+    upsampled, then ``_reference``."""
+    if scale is not None:
+        shape = tuple(imgs[0].shape)
+        if u is None:
+            u = torch.zeros(shape, dtype=torch.float32,
+                            device=imgs[0].device)
+            v = torch.zeros_like(u)
+        else:
+            u = upsample_flow(u, shape, scale)
+            v = None if one_d else upsample_flow(v, shape, scale)
+    return _reference(imgs, u, v, cfg, one_d)
+
+
 def _level(imgs, u, v, cfg, one_d, scale=None):
     """One level: ``scale`` None starts from level-sized maps, else from
-    the coarser maps upsampled (u None: from zero)."""
+    the coarser maps upsampled (u None: from zero). One launch on CUDA,
+    differentiable in the level images and maps through the plain
+    version's VJP."""
     shape = tuple(imgs[0].shape)
     maps = tuple(t for t in ((u,) if one_d else (u, v)) if t is not None)
     if not cuda.use_kernel(*imgs, *maps):
-        if scale is not None:
-            if u is None:
-                u = torch.zeros(shape, dtype=torch.float32,
-                                device=imgs[0].device)
-                v = torch.zeros_like(u)
-            else:
-                u = upsample_flow(u, shape, scale)
-                v = None if one_d else upsample_flow(v, shape, scale)
-        return _reference(imgs, u, v, cfg, one_d)
+        return _plain_level(imgs, u, v, cfg, one_d, scale)
     ww, wh = cfg.window_width, cfg.window_height
     cuda.require(ww % 2 == 1 and wh % 2 == 1,
                  f"dense_level takes odd windows, got {ww}x{wh}")
@@ -147,16 +156,32 @@ def _level(imgs, u, v, cfg, one_d, scale=None):
         start, coarse = START_UP, tuple(u.shape)
         cuda.require(coarse[0] * coarse[1] >= 2,
                      "dense_level_up: a coarser map of two pixels or more")
-    dev = imgs[0].device
-    out = (torch.empty(shape, dtype=torch.float32, device=dev),
-           None if one_d else torch.empty(shape, dtype=torch.float32,
-                                          device=dev),
-           torch.empty(shape, dtype=torch.int32, device=dev),
-           torch.empty(shape, dtype=torch.int32, device=dev))
-    if shape[0] * shape[1]:
-        _launch(imgs, (u, v), start, coarse,
-                1.0 if scale is None else scale, cfg, one_d, out)
-    return out
+
+    def split(ts):
+        # six level images, then the maps given (u, or u and v; none)
+        m = ts[6:]
+        return ts[:6], (m[0] if m else None), (m[1] if len(m) > 1 else None)
+
+    def launch(*ts):
+        ims, u, v = split(ts)
+        dev = ims[0].device
+        out = (torch.empty(shape, dtype=torch.float32, device=dev),
+               None if one_d else torch.empty(shape, dtype=torch.float32,
+                                              device=dev),
+               torch.empty(shape, dtype=torch.int32, device=dev),
+               torch.empty(shape, dtype=torch.int32, device=dev))
+        if shape[0] * shape[1]:
+            _launch(ims, (u, v), start, coarse,
+                    1.0 if scale is None else scale, cfg, one_d, out)
+        return tuple(t for t in out if t is not None)
+
+    def plain(*ts):
+        ims, u, v = split(ts)
+        out = _plain_level(ims, u, v, cfg, one_d, scale)
+        return tuple(t for t in out if t is not None)
+
+    out = cuda.with_plain_vjp(launch, plain, *imgs, *maps)
+    return out if not one_d else (out[0], None) + tuple(out[1:])
 
 
 def dense_level(img1, gx1, gy1, img2, gx2, gy2, u, v, cfg):

@@ -150,19 +150,10 @@ def _require_image(img: torch.Tensor, what: str) -> None:
                  f"{what} takes a non-empty contiguous float32 [H, W] image")
 
 
-def pyramid_level(img: torch.Tensor, taps: LevelTaps, smooth: bool,
+def _launch_level(img: torch.Tensor, taps: LevelTaps, smooth: bool,
                   with_pyr: bool):
-    """One pyramid level: (base, gradx, grady, next-or-None), one launch on
-    CUDA.
-
-    ``img``: float32 [H, W]. ``smooth``: apply the level-0 pre-smooth
-    (base = smoothed img, else base = img). ``with_pyr``: also produce the
-    next level's decimated base.
-    """
+    """One K1 level launch: (base, gradx, grady, next-or-None)."""
     global launches
-    if not cuda.use_kernel(img):
-        return pyramid_level_reference(img, taps, smooth, with_pyr)
-    _require_image(img, "pyramid_level")
     h, w = img.shape
     sub = taps.subsampling
     base = torch.empty_like(img) if smooth else img
@@ -182,6 +173,32 @@ def pyramid_level(img: torch.Tensor, taps: LevelTaps, smooth: bool,
     cuda.check(rc, "pft_pyramid_level")
     launches += 1
     return base, gx, gy, dec
+
+
+def pyramid_level(img: torch.Tensor, taps: LevelTaps, smooth: bool,
+                  with_pyr: bool):
+    """One pyramid level: (base, gradx, grady, next-or-None), one launch on
+    CUDA (differentiable through the plain version's VJP).
+
+    ``img``: float32 [H, W]. ``smooth``: apply the level-0 pre-smooth
+    (base = smoothed img, else base = img). ``with_pyr``: also produce the
+    next level's decimated base.
+    """
+    if not cuda.use_kernel(img):
+        return pyramid_level_reference(img, taps, smooth, with_pyr)
+    _require_image(img, "pyramid_level")
+
+    def written(base, gx, gy, nxt):
+        # the maps the launch writes (base is img itself without smoothing)
+        return (((base,) if smooth else ()) + (gx, gy)
+                + ((nxt,) if with_pyr else ()))
+
+    outs = list(cuda.with_plain_vjp(
+        lambda im: written(*_launch_level(im, taps, smooth, with_pyr)),
+        lambda im: written(*pyramid_level_reference(im, taps, smooth,
+                                                    with_pyr)), img))
+    base = outs.pop(0) if smooth else img
+    return base, outs[0], outs[1], outs[2] if with_pyr else None
 
 
 def _require_window(window_width: int, window_height: int) -> None:
@@ -241,6 +258,31 @@ def pyramid_views(buf: torch.Tensor, shapes):
     return tuple(tuple(lv[k] for lv in levels) for k in range(3))
 
 
+def _launch_build(img, taps: LevelTaps, n_levels: int, eig_window, out,
+                  shapes):
+    """One pft_pyramid_build call (two launches past one level): (buf,) or
+    (buf, eig)."""
+    global launches, eig_launches
+    ww, wh = (0, 0) if eig_window is None else (int(v) for v in eig_window)
+    eig = None if eig_window is None else torch.empty(
+        img.shape, dtype=torch.int32, device=img.device)
+    buf = out if out is not None else torch.empty(
+        (pyramid_numel(shapes),), dtype=torch.float32, device=img.device)
+    fn = cuda.function("pft_pyramid_build",
+                       [cuda.c_ptr] * 2 + [cuda.c_int] * 4 + _TAP_ARGS
+                       + [cuda.c_ptr] + [cuda.c_int] * 2 + [cuda.c_ptr] * 2)
+    rc = fn(img.data_ptr(), buf.data_ptr(), *img.shape, n_levels,
+            taps.subsampling, *_c_taps(taps, True, True),
+            None if eig is None else eig.data_ptr(), ww, wh,
+            _barrier(img.device).data_ptr(), cuda.stream_ptr(img.device))
+    cuda.check(rc, "pft_pyramid_build")
+    launches += 1 if n_levels == 1 else 2
+    if eig is None:
+        return (buf,)
+    eig_launches += 1
+    return buf, eig
+
+
 def pyramid_build(img: torch.Tensor, taps: LevelTaps, n_levels: int,
                   eig_window: Optional[tuple] = None,
                   out: Optional[torch.Tensor] = None):
@@ -253,8 +295,10 @@ def pyramid_build(img: torch.Tensor, taps: LevelTaps, n_levels: int,
 
     ``eig_window``: (window_width, window_height), odd; then the level-0
     launch also computes K3's int32 map of level 0's gradients, returned
-    last: (imgs, gradxs, gradys, eig)."""
-    global launches, eig_launches
+    last: (imgs, gradxs, gradys, eig).
+
+    Differentiable on CUDA through the plain build's VJP (not with
+    ``out``)."""
     shapes = level_shapes(*img.shape, taps.subsampling, n_levels)
     if out is not None:
         cuda.require(out.dtype == torch.float32 and out.is_contiguous()
@@ -276,24 +320,22 @@ def pyramid_build(img: torch.Tensor, taps: LevelTaps, n_levels: int,
                                            *eig_window),)
     _require_image(img, "pyramid_build")
     cuda.require(n_levels >= 1, f"pyramid_build: {n_levels} levels")
-    eig, ww, wh = None, 0, 0
+    cuda.require(out is None or not cuda.records_grad(img),
+                 "pyramid_build: an out buffer records no gradients; leave "
+                 "out unset to differentiate the build")
     if eig_window is not None:
-        ww, wh = (int(v) for v in eig_window)
-        _require_window(ww, wh)
-        eig = torch.empty(img.shape, dtype=torch.int32, device=img.device)
-    buf = out if out is not None else torch.empty(
-        (pyramid_numel(shapes),), dtype=torch.float32, device=img.device)
-    fn = cuda.function("pft_pyramid_build",
-                       [cuda.c_ptr] * 2 + [cuda.c_int] * 4 + _TAP_ARGS
-                       + [cuda.c_ptr] + [cuda.c_int] * 2 + [cuda.c_ptr] * 2)
-    rc = fn(img.data_ptr(), buf.data_ptr(), *img.shape, n_levels,
-            taps.subsampling, *_c_taps(taps, True, True),
-            None if eig is None else eig.data_ptr(), ww, wh,
-            _barrier(img.device).data_ptr(), cuda.stream_ptr(img.device))
-    cuda.check(rc, "pft_pyramid_build")
-    launches += 1 if n_levels == 1 else 2
-    levels = pyramid_views(buf, shapes)
-    if eig is None:
-        return levels
-    eig_launches += 1
-    return levels + (eig,)
+        _require_window(*(int(v) for v in eig_window))
+
+    def launch(im):
+        return _launch_build(im, taps, n_levels, eig_window, out, shapes)
+
+    def plain(im):
+        # the buffer's layout (pyramid_views); K3's integer map has no
+        # gradient, so the backward leaves it out
+        levels = pyramid_build_reference(im, taps, n_levels)
+        return (torch.cat([t.reshape(-1) for lv in zip(*levels)
+                           for t in lv]),)
+
+    outs = cuda.with_plain_vjp(launch, plain, img)
+    levels = pyramid_views(outs[0], shapes)
+    return levels if eig_window is None else levels + (outs[1],)

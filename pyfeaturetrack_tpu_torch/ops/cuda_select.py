@@ -241,6 +241,17 @@ def fill_slots(n_acc: torch.Tensor, cand_x: torch.Tensor,
     return new_x, new_y, new_val, filled
 
 
+def kept_positions(free: torch.Tensor):
+    """The part of a slot fill's plain version (``fill_slots``) that its
+    position outputs' gradient depends on: they are ``where(free,
+    candidate or -1, x)`` with integer candidates, so their vector-Jacobian
+    product is that select's, which this reruns (x, y, val) -> (x, y) with
+    the free lanes zero. K4's and K5's backward."""
+    def plain(x, y, val):
+        return torch.where(free, 0.0, x), torch.where(free, 0.0, y)
+    return plain
+
+
 def _launch_chain(cands, budget, min_eig, dg, max_out, lists, slots, geom,
                   replacing, slots_out):
     global launches
@@ -280,7 +291,8 @@ def greedy_fill(cands: Candidates, x: torch.Tensor, y: torch.Tensor,
     """Stage B: the greedy chain over stage A's lattice (``dg``: box radius
     in lattice steps) into the feature slots. ``replacing=False``: every
     slot is free; ``replacing=True``: slots with ``val < 0`` are. The
-    budget is the number of free slots. Returns (x, y, val, filled)."""
+    budget is the number of free slots. Returns (x, y, val, filled); on
+    CUDA the kept lanes' positions carry gradients (``kept_positions``)."""
     min_eig = max(int(min_eig), 1)
     free = (val < 0) if replacing else torch.ones_like(val, dtype=torch.bool)
     n = int(val.shape[0])
@@ -297,13 +309,17 @@ def greedy_fill(cands: Candidates, x: torch.Tensor, y: torch.Tensor,
                  and all(t.is_contiguous() for t in (x, y, val)),
                  "greedy_fill takes contiguous float32 x, y and int32 val [N]")
     cuda.require(dg >= 0, "greedy_fill: dg >= 0")
-    out = (torch.empty_like(x), torch.empty_like(y), torch.empty_like(val),
-           torch.empty_like(free))
-    if n:
-        _launch_chain(cands, None, min_eig, int(dg), n,
-                      _chain_lists(n, x.device), (x, y, val), geom, replacing,
-                      out)
-    return out
+
+    def launch(x, y, val):
+        out = (torch.empty_like(x), torch.empty_like(y),
+               torch.empty_like(val), torch.empty_like(free))
+        if n:
+            _launch_chain(cands, None, min_eig, int(dg), n,
+                          _chain_lists(n, x.device), (x, y, val), geom,
+                          replacing, out)
+        return out
+
+    return cuda.with_plain_vjp(launch, kept_positions(free), x, y, val)
 
 
 def select_from_eig(eig: torch.Tensor, x: torch.Tensor, y: torch.Tensor,

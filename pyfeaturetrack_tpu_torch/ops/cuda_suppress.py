@@ -31,7 +31,7 @@ from __future__ import annotations
 import torch
 
 from ..utils import cuda
-from .cuda_select import fill_slots
+from .cuda_select import fill_slots, kept_positions
 
 # Kernel launches made by this wrapper.
 launches = 0
@@ -200,7 +200,8 @@ def suppress_and_fill(neg: torch.Tensor, order: torch.Tensor, *, geom,
     slots, free where ``val < 0`` when ``replacing``, else all. The greedy
     scan accepts at most as many candidates as there are free slots; the
     r-th acceptance fills the r-th free slot, the other free slots become
-    (-1, -1, KLT_NOT_FOUND). Returns the new (x, y, val)."""
+    (-1, -1, KLT_NOT_FOUND). Returns the new (x, y, val); on CUDA the kept
+    lanes' positions carry gradients (``cuda_select.kept_positions``)."""
     min_eig = int(min_eig)
     h, w = (int(s) for s in shape)
     if not cuda.use_kernel(neg, order, x, y, val):
@@ -221,9 +222,16 @@ def suppress_and_fill(neg: torch.Tensor, order: torch.Tensor, *, geom,
     cuda.require(h > 0 and w > 0 and geom[2] > 0 and geom[4] > 0
                  and k < 2 ** 31, "suppress_and_fill: a non-empty lattice")
     dev = neg.device
-    out = (torch.empty_like(x), torch.empty_like(y), torch.empty_like(val))
-    if n:
-        _launch_fill(neg, order, geom, min_eig, (h, w), int(mindist) - 1, x, y,
-                     val, replacing, _grid_scratch((h, w), dev),
-                     torch.empty((n,), dtype=torch.int32, device=dev), out)
-    return out
+
+    def launch(x, y, val):
+        out = (torch.empty_like(x), torch.empty_like(y),
+               torch.empty_like(val))
+        if n:
+            _launch_fill(neg, order, geom, min_eig, (h, w), int(mindist) - 1,
+                         x, y, val, replacing, _grid_scratch((h, w), dev),
+                         torch.empty((n,), dtype=torch.int32, device=dev),
+                         out)
+        return out
+
+    free = (val < 0) if replacing else torch.ones_like(val, dtype=torch.bool)
+    return cuda.with_plain_vjp(launch, kept_positions(free), x, y, val)

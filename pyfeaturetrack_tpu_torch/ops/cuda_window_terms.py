@@ -54,13 +54,35 @@ def window_terms_reference(img2, gx2, gy2, w1, g1x, g1y, x2, y2, *, hw: int,
                         step * tree_sum(dif * gy)], dim=-1)
 
 
+def _launch(img2, gx2, gy2, w1, g1x, g1y, x2, y2, *, hw: int, hh: int,
+            step_factor: float) -> torch.Tensor:
+    """One pft_window_terms launch (none for an empty batch): [N, 5]."""
+    global launches
+    n = x2.shape[0]
+    out = torch.empty((n, 5), dtype=torch.float32, device=x2.device)
+    if n:
+        x_hi, y_hi = _clamp_bounds(img2.shape, hw, hh)
+        fn = cuda.function("pft_window_terms",
+                           [cuda.c_ptr] * 8 + [cuda.c_int] * 5
+                           + [cuda.c_float] * 3 + [cuda.c_ptr] * 2)
+        rc = fn(*(t.data_ptr() for t in (img2, gx2, gy2, w1, g1x, g1y, x2,
+                                          y2)),
+                img2.shape[0], img2.shape[1], n, 2 * hw + 1, 2 * hh + 1,
+                _f32(step_factor), x_hi, y_hi, out.data_ptr(),
+                cuda.stream_ptr(x2.device))
+        cuda.check(rc, "pft_window_terms")
+        launches += 1
+    return out
+
+
 def window_terms(img2, gx2, gy2, w1, g1x, g1y, x2, y2, *, hw: int, hh: int,
                  step_factor: float) -> torch.Tensor:
     """One LK iteration's (gxx, gxy, gyy, ex, ey) per feature, [N, 5].
 
     ``img2``/``gx2``/``gy2``: float32 [H, W] frame-2 level images;
     ``w1``/``g1x``/``g1y``: float32 [N, 2hh+1, 2hw+1] frame-1 windows;
-    ``x2``/``y2``: float32 [N] frame-2 positions (clamped into the image)."""
+    ``x2``/``y2``: float32 [N] frame-2 positions (clamped into the image).
+    One launch on CUDA, differentiable through the plain version's VJP."""
     feats = (w1, g1x, g1y, x2, y2)
     imgs = (img2, gx2, gy2)
     if not cuda.use_kernel(*imgs, *feats):
@@ -76,16 +98,12 @@ def window_terms(img2, gx2, gy2, w1, g1x, g1y, x2, y2, *, hw: int, hh: int,
                  and all(t.shape == (n,) for t in feats[3:]),
                  "window_terms takes contiguous float32 [H, W] images, "
                  "[N, wh, ww] windows and [N] positions")
-    out = torch.empty((n, 5), dtype=torch.float32, device=x2.device)
-    if n:
-        global launches
-        x_hi, y_hi = _clamp_bounds(img2.shape, hw, hh)
-        fn = cuda.function("pft_window_terms",
-                           [cuda.c_ptr] * 8 + [cuda.c_int] * 5
-                           + [cuda.c_float] * 3 + [cuda.c_ptr] * 2)
-        rc = fn(*(t.data_ptr() for t in imgs + feats), img2.shape[0],
-                img2.shape[1], n, ww, wh, _f32(step_factor), x_hi, y_hi,
-                out.data_ptr(), cuda.stream_ptr(x2.device))
-        cuda.check(rc, "pft_window_terms")
-        launches += 1
-    return out
+
+    def launch(*ts):
+        return (_launch(*ts, hw=hw, hh=hh, step_factor=step_factor),)
+
+    def plain(*ts):
+        return (window_terms_reference(*ts, hw=hw, hh=hh,
+                                       step_factor=step_factor),)
+
+    return cuda.with_plain_vjp(launch, plain, *imgs, *feats)[0]

@@ -5,10 +5,10 @@ odometry (PyTorch port of ``pyfeaturetrack_tpu/sfm``).
 Consumes the tracker's feature tracks and produces camera poses +
 landmarks. The geometry runs as batched tensor programs on the caller's
 device (IEEE float32, ``geometry.require_fp32``); the Schur-complement
-reductions of the bundle adjustment are deterministic segmented sums.
-Not in the port yet (raise NotImplementedError): the windowed BA
-(``ba_windowed`` beyond ``column_runs``, ``run_sfm_windowed``; the next
-slice) and the landmark-sharded ``mesh`` path (ROADMAP Queue 1 item 7).
+reductions of the bundle adjustments (dense and windowed) are
+deterministic segmented sums. Not in the port yet (raises
+NotImplementedError): the landmark-sharded ``mesh`` path (ROADMAP Queue 1
+item 7).
 """
 
 from .geometry import (se3_apply, se3_compose, se3_exp, se3_inverse,  # noqa: F401

@@ -3,9 +3,10 @@
 
 KLT tracks (FeatureTable) -> observation set -> DLT triangulation from
 initial poses -> Schur-complement bundle adjustment -> refined poses +
-landmarks, with ATE metrics against ground truth (numpy, float64). The
-landmark-sharded ``mesh`` path is ROADMAP Queue 1 item 7 and
-``run_sfm_windowed`` the next slice; both raise NotImplementedError.
+landmarks, with ATE metrics against ground truth (numpy, float64);
+``run_sfm_windowed`` is the same pass through the windowed BA. The
+landmark-sharded ``mesh`` path is ROADMAP Queue 1 item 7 and raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -14,7 +15,9 @@ import numpy as np
 import torch
 
 from .ba import bundle_adjust, make_problem
-from .ba_windowed import column_runs
+from .ba_windowed import (bundle_adjust_windowed, column_runs, gate_windowed,
+                          make_windowed_problem, triangulate_windowed,
+                          windowed_from_feature_table)
 from .geometry import f32, project, to_host
 from .triangulate import triangulate_dlt
 
@@ -107,13 +110,33 @@ def run_sfm(ft, K, R0, t0, n_iters: int = 15, damping: float = 1e-3,
             "n_observations": int((np.asarray(w) > 0).sum())}
 
 
-def run_sfm_windowed(ft, K, R0, t0, n_iters: int = 15, **kwargs):
-    """The windowed (banded PCG) back-end pass: the next slice of the
-    port (ROADMAP Queue 1)."""
-    raise NotImplementedError(
-        "run_sfm_windowed: the windowed bundle adjustment "
-        "(sfm/ba_windowed.py beyond column_runs) is the next slice of the "
-        "port; use run_sfm")
+def run_sfm_windowed(ft, K, R0, t0, n_iters: int = 15,
+                     damping: float = 1e-3, min_track_len: int = 3,
+                     huber_delta: float | None = 3.0,
+                     max_init_reproj_error: float | None = 20.0,
+                     point_only_iters: int = 3, solver: str = "dense",
+                     precond_block: int = 1, *, device="cuda"):
+    """Windowed block-sparse back-end pass (the production-scale path), on
+    ``device`` ("cuda" unless the caller passes "cpu").
+
+    Splits the table into contiguous track runs (a refilled slot is a new
+    landmark), triangulates each run, gates observations whose initial
+    reprojection error exceeds ``max_init_reproj_error``, warm-starts with
+    camera-frozen point refinements, then runs robust windowed BA.
+    Returns a dict with refined (R, t, X) tensors, per-iteration costs,
+    the runs and the observation count.
+    """
+    c0, uv, w, runs = windowed_from_feature_table(ft, min_track_len)
+    problem = make_windowed_problem(K, c0, uv, w, device=device)
+    X0 = triangulate_windowed(K, R0, t0, problem.c0, problem.uv, problem.w)
+    if max_init_reproj_error is not None:
+        problem = gate_windowed(problem, R0, t0, X0, max_init_reproj_error)
+    R, t, X, costs = bundle_adjust_windowed(
+        problem, R0, t0, X0, n_iters=n_iters, damping=damping,
+        huber_delta=huber_delta, point_only_iters=point_only_iters,
+        solver=solver, precond_block=precond_block)
+    return {"R": R, "t": t, "X": X, "costs": costs, "runs": runs,
+            "n_observations": int((np.asarray(w) > 0).sum())}
 
 
 def ate_rmse(t_est, t_gt) -> float:

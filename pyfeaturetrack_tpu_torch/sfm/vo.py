@@ -32,8 +32,8 @@ and read the device through ``geometry.to_host``.
 
 The JAX package pads geometry inputs to buckets (``_bucket``) to reuse
 compiled XLA programs; eager PyTorch compiles nothing, so the port does
-not pad. Checkpoint resume (``utils/checkpoint.py``) is ROADMAP Queue 1
-item 8.
+not pad. Checkpoint resume: ``utils/checkpoint.vo_state`` /
+``resume_vo``.
 """
 
 from __future__ import annotations

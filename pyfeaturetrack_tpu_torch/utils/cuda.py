@@ -14,6 +14,12 @@ call raises), a CPU tensor takes the kernel's plain PyTorch version. The
 only way to run a plain version on CUDA tensors is the explicit
 ``reference_path()`` context, which the kernel-vs-plain comparisons use.
 
+Gradients (``with_plain_vjp``): when autograd records a kernel call (grad
+mode on, an input requiring grad), the launch runs inside a
+``torch.autograd.Function`` whose backward is the plain version's
+vector-Jacobian product, so the card route differentiates like the CPU
+route. Otherwise the call launches the kernel alone.
+
 A plain version runs its CPU work on the calling thread alone
 (``plain_version``): PyTorch splits an elementwise op of a few thousand
 elements (``torch.sqrt`` of a 64 x 96 map) over its intra-op OpenMP
@@ -214,3 +220,54 @@ def require(cond: bool, what: str) -> None:
     """Wrapper argument check: raise on anything a kernel does not take."""
     if not cond:
         raise ValueError(what)
+
+
+def records_grad(*tensors) -> bool:
+    """True when autograd records a call on these inputs: grad mode is on
+    and one of them (None entries skipped) requires grad."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+class _PlainVJP(torch.autograd.Function):
+    """A kernel launch whose backward is its plain version's
+    vector-Jacobian product: the forward is the kernel, unchanged; the
+    backward reruns the plain version on the saved inputs under
+    ``torch.enable_grad()`` and lets autograd differentiate it. Integer
+    outputs (statuses, counts, maps) are not differentiable."""
+
+    @staticmethod
+    def forward(ctx, kernel, plain, *inputs):
+        outs = tuple(kernel(*inputs))
+        ctx.plain = plain
+        ctx.save_for_backward(*inputs)
+        ctx.mark_non_differentiable(
+            *(o for o in outs if not o.is_floating_point()))
+        return outs
+
+    @staticmethod
+    def backward(ctx, *grads):
+        need = ctx.needs_input_grad[2:]
+        leaves = [t.detach().requires_grad_(n)
+                  for t, n in zip(ctx.saved_tensors, need)]
+        with torch.enable_grad():
+            outs = ctx.plain(*leaves)
+        pairs = [(o, g) for o, g in zip(outs, grads)
+                 if o.is_floating_point() and o.requires_grad]
+        wanted = [t for t, n in zip(leaves, need) if n]
+        got = iter(torch.autograd.grad(
+            [o for o, _ in pairs], wanted, [g for _, g in pairs],
+            allow_unused=True) if pairs and wanted else [None] * len(wanted))
+        return (None, None) + tuple(next(got) if n else None for n in need)
+
+
+def with_plain_vjp(kernel, plain, *inputs) -> tuple:
+    """``kernel(*inputs)`` (a tuple of tensors), made differentiable when
+    autograd records the call: its gradients are those of
+    ``plain(*inputs)``, the kernel's plain version, which returns the
+    kernel's outputs in the same order (trailing integer outputs, which
+    carry no gradient, may be left out). Without recording, the kernel
+    runs alone (nothing saved, one launch as before)."""
+    if not records_grad(*inputs):
+        return tuple(kernel(*inputs))
+    return _PlainVJP.apply(kernel, plain, *inputs)

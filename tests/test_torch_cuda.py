@@ -1265,3 +1265,92 @@ def test_chunked_lockstep_on_card_equals_serial(dev):
                                               chain=3)
     for k in ("x", "y", "val"):
         np.testing.assert_array_equal(batch[k], serial[k])
+
+
+def _grad_of(loss, img):
+    leaf = img.detach().clone().requires_grad_(True)
+    (g,) = torch.autograd.grad(loss(leaf), leaf)
+    return g
+
+
+@pytest.mark.parametrize("what", ["track", "flow"])
+def test_gradients_through_kernels_equal_plain_route(dev, what):
+    """A loss over tracked positions (K1, K2) or dense flow (K1, K8): the
+    gradient with respect to frame 2 through the kernels' autograd
+    Functions equals the plain route's, bit for bit (the backward is the
+    plain version's VJP); the forward launched the kernels."""
+    cfg = tpft.create_config()
+    img1 = torch.tensor(_texture(96, 128, 7), device=dev)
+    img2 = torch.roll(img1, (1, 2), (0, 1)).contiguous()
+    _, x, y, val, _, _ = tpft.select_step_device(img1, cfg, 40)
+
+    def loss(i2):
+        p1 = tpft.build_track_pyramids(img1, cfg)
+        p2 = tpft.build_track_pyramids(i2, cfg)
+        if what == "track":
+            nx, ny, nv = tpft.track_features_pyramids(p1, p2, x, y, val, cfg)
+            return torch.where(nv == 0, nx + ny, 0.0).sum()
+        from pyfeaturetrack_tpu_torch.ops.flow import dense_flow_pyramids
+        fl = dense_flow_pyramids(p1, p2, cfg)
+        return torch.where(fl.status == 0, fl.u ** 2 + fl.v ** 2, 0.0).sum()
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        mod = cuda_lk if what == "track" else cuda_lk_dense
+        before = mod.launches
+        g = _grad_of(loss, img2)
+        assert mod.launches > before
+        want = _plain(_grad_of, loss, img2)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert torch.isfinite(g).all() and g.abs().max() > 0
+    assert torch.equal(g, want), (g - want).abs().max()
+
+
+def test_captured_chain_refuses_inputs_that_require_grad(dev):
+    cfg = tpft.create_config().replace(sequentialMode=True)
+    img = torch.tensor(_texture(96, 128, 8), device=dev)
+    pyr, x, y, v, _, _ = tpft.select_step_device(img, cfg, 20)
+    with pytest.raises(ValueError, match="records no gradients"):
+        tpft.sequence_chain_device(pyr, [img.clone().requires_grad_(True),
+                                         img], x, y, v, cfg)
+
+
+@pytest.mark.parametrize("solver", ["dense", "cg"])
+def test_windowed_ba_rerun_bit_equal_on_card(dev, solver):
+    """The windowed BA's sums are segmented, not atomic: runs on the card
+    give the same bits, with the CG blocks replayed from a captured graph
+    or run eagerly (reference_path), and they converge."""
+    from pyfeaturetrack_tpu_torch import sfm
+    from pyfeaturetrack_tpu_torch.sfm.ba_windowed import (
+        make_windowed_problem)
+    rng = np.random.default_rng(0)
+    C, L, kw = 24, 400, 6
+    K = np.array([[500.0, 0, 320], [0, 500.0, 240], [0, 0, 1]], np.float32)
+    Rs = sfm.so3_exp(torch.tensor(0.01 * rng.standard_normal((C, 3)),
+                                  dtype=torch.float32, device=dev))
+    ts = torch.tensor([[-0.15 * i, 0.0, 0.0] for i in range(C)],
+                      dtype=torch.float32, device=dev)
+    X = np.stack([rng.uniform(-4, 4, L), rng.uniform(-3, 3, L),
+                  rng.uniform(5, 12, L)], -1).astype(np.float32)
+    c0 = rng.integers(0, C - kw + 1, L)
+    cidx = torch.tensor(c0[:, None] + np.arange(kw), device=dev)
+    uv, _ = sfm.project(K, Rs[cidx], ts[cidx],
+                        torch.tensor(X, device=dev)[:, None])
+    problem = make_windowed_problem(K, c0, uv, np.ones((L, kw)), device=dev)
+    X0 = torch.tensor(X + 0.05 * rng.standard_normal(X.shape)
+                      .astype(np.float32), device=dev)
+    def run():
+        return sfm.bundle_adjust_windowed(problem, Rs, ts, X0, n_iters=4,
+                                          point_only_iters=1, solver=solver,
+                                          precond_block=4, return_info=True)
+
+    runs = [run(), run(), _plain(run)]
+    # the second run replays the CG graph the first captured; the third
+    # runs the CG iterations eagerly
+    for other in runs[1:]:
+        for a, b in zip(runs[0][:4], other[:4]):
+            assert torch.equal(a, b)
+        assert torch.equal(runs[0][4]["cg_iters"], other[4]["cg_iters"])
+    costs = runs[0][3].cpu().numpy()
+    assert costs[-1] < 1e-2 * costs[0]

@@ -56,7 +56,11 @@ def test_import_leaves_jax_out():
             "'pyfeaturetrack_tpu_torch.sfm', "
             "'pyfeaturetrack_tpu_torch.sfm.vo', "
             "'pyfeaturetrack_tpu_torch.utils.trajectory', "
-            "'pyfeaturetrack_tpu_torch.utils.synthscene'):\n"
+            "'pyfeaturetrack_tpu_torch.utils.synthscene', "
+            "'pyfeaturetrack_tpu_torch.sfm.ba_windowed', "
+            "'pyfeaturetrack_tpu_torch.utils.checkpoint', "
+            "'pyfeaturetrack_tpu_torch.utils.profiling', "
+            "'pyfeaturetrack_tpu_torch.cli'):\n"
             "    importlib.import_module(m)\n"
             "assert 'jax' not in sys.modules, 'jax imported'\n"
             "assert 'pyfeaturetrack_tpu' not in sys.modules\n"
@@ -155,11 +159,14 @@ def test_public_names_match_jax():
 
 
 @pytest.mark.parametrize("sub", ["sfm", "utils.trajectory",
-                                 "utils.synthscene"])
+                                 "utils.synthscene", "sfm.ba_windowed",
+                                 "utils.checkpoint", "utils.profiling",
+                                 "cli"])
 def test_subpackage_names_match_jax(sub):
     """The ``sfm`` subpackage exports every name of the JAX package's
-    ``sfm/__init__.py``; the trajectory and synthetic-scene modules every
-    public function of theirs."""
+    ``sfm/__init__.py``; the trajectory, synthetic-scene, windowed BA,
+    checkpoint, profiling and CLI modules every public function of
+    theirs."""
     import importlib
     jm = importlib.import_module(f"pyfeaturetrack_tpu.{sub}")
     tm = importlib.import_module(f"pyfeaturetrack_tpu_torch.{sub}")
@@ -279,9 +286,9 @@ def test_make_affine_state_defaults_to_the_card():
 
 
 def test_out_of_slice_parts_raise():
-    """bfloat16 storage, the windowed and the landmark-sharded bundle
-    adjustments raise; the chained step and guided tracking, once out of
-    the slice, run."""
+    """bfloat16 storage and the landmark-sharded bundle adjustments
+    (dense and windowed) raise; the chained step, guided tracking and the
+    windowed bundle adjustment, once out of the slice, run."""
     from pyfeaturetrack_tpu_torch.models.device_sequence import (
         sequence_chain_device)
     frames = [np.zeros((64, 80), np.float32)] * 2
@@ -302,9 +309,15 @@ def test_out_of_slice_parts_raise():
                                               x_init=z + 1.0, y_init=z)
     assert gx.shape == gy.shape == gv.shape == (3,)
     from pyfeaturetrack_tpu_torch import sfm
+    from pyfeaturetrack_tpu_torch.sfm.ba_windowed import make_windowed_problem
+    problem = make_windowed_problem(
+        np.diag([100.0, 100.0, 1.0]), np.zeros(2, np.int64),
+        np.full((2, 2, 2), 5.0), np.ones((2, 2)), device="cpu")
+    R, t = np.stack([np.eye(3)] * 2), np.array([[0, 0, 0], [-0.1, 0, 0]])
+    X = np.array([[0.0, 0.0, 5.0], [0.2, 0.1, 6.0]])
+    *_, costs = sfm.bundle_adjust_windowed(problem, R, t, X, n_iters=1)
+    assert costs.shape == (1,)
     with pytest.raises(NotImplementedError):
-        sfm.run_sfm_windowed(None, np.eye(3), None, None)
-    with pytest.raises(NotImplementedError):
-        sfm.bundle_adjust_windowed(None, None, None, None)
+        sfm.bundle_adjust_windowed(problem, R, t, X, mesh=object())
     with pytest.raises(NotImplementedError):
         sfm.bundle_adjust(None, None, None, None, mesh=object())
