@@ -2822,6 +2822,17 @@ def windowed_ba(tag, prof_dir, dev, smi):
              f"{sum(cg)} CG iterations")
     if not np.isfinite(costs).all():
         fail(f"windowed BA (config {tag}) costs are not finite")
+    # the mesh layout's padding (the sharded path itself is not ported)
+    pp, Xp, n_pad = sfm.pad_windowed_for_mesh(problem, X0, 7)
+    padded = (n_pad == (-c["L"]) % 7 and Xp.shape[0] == c["L"] + n_pad
+              and bool((pp.w[c["L"]:] == 0).all())
+              and torch.equal(pp.uv[:c["L"]], problem.uv)
+              and torch.equal(Xp[:c["L"]], X0))
+    print(f"pad_windowed_for_mesh(7 devices): {n_pad} zero-weight landmarks "
+          f"added, the rest unchanged {padded}")
+    if not padded:
+        fail(f"pad_windowed_for_mesh (config {tag}) padded wrongly")
+    out["mesh_pad"] = n_pad
     return out
 
 

@@ -1354,3 +1354,6 @@ def test_windowed_ba_rerun_bit_equal_on_card(dev, solver):
         assert torch.equal(runs[0][4]["cg_iters"], other[4]["cg_iters"])
     costs = runs[0][3].cpu().numpy()
     assert costs[-1] < 1e-2 * costs[0]
+    pp, Xp, n_pad = sfm.pad_windowed_for_mesh(problem, X0, 7)
+    assert n_pad == 6 and Xp.shape == (L + 6, 3)
+    assert bool((pp.w[L:] == 0).all()) and torch.equal(Xp[:L], X0)
