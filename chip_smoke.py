@@ -205,7 +205,36 @@ Phases, in order; the first failure exits non-zero:
    equal to the API calls it wraps; utils/profiling.trace naming K1's and
    K2's kernels, device_time_per_call and time_jitted. Prints
    {"tools": ...};
-14. profile (only with --profile) — for config 2's host loop, its step
+14. parallel — the sharded paths of pyfeaturetrack_tpu_torch/parallel on
+   torch.distributed: (a) a one-rank NCCL group through
+   initialize_cluster (127.0.0.1, a free port), its (frame, feature),
+   pixrow and landmark meshes (an NCCL all_gather over each axis's group
+   returns its input: the combine layer skips axes of one rank), and on
+   them every sharded entry at the main paths' shapes against its
+   unsharded route: track_batch_sharded (4 pairs of the main frames and
+   the config-3 frames, 1000 features) and the full pair step (affine
+   mode 2, lighting-insensitive, refill) bit-equal; dense_flow_sharded
+   (the main pair) and dense_disparity_sharded (the dense-depth pair)
+   bit-equal; batched_serving_sharded (8 streams, chain 8) and
+   track_chunks_sharded (the 100 frames in 4 chunks, chain 8) bit-equal;
+   the dense BA (20 x 2000 x 40,000) and configs 5b and 5c with mesh=
+   bit-equal; track_sequence_multiprocess equal to track_sequence_chunked;
+   (b) the same entries as a 4-way split on the card (the ranks' bodies
+   one after another: meshes 2x2, 4x1, 1x4, pixrow 4, frame 4, landmark
+   4), equal to the unsharded routes, the BAs within the JAX package's
+   mesh bars (a converged cost within its residuals' float32
+   resolution), with each run's launches and collective census; K8's
+   row band: every level of the main pair's flow and of the stereo pair's
+   1-D disparity cut into 4 bands (120 rows at level 0, 30 at level 1),
+   each band launch bit-equal to the whole-level launch's rows and to the
+   plain band, the level-0 band timed by events and by the replay of a
+   captured graph of 20 launches (each band, and the whole level), with
+   its bound; (c) the one-rank overhead: each
+   sharded entry against its unsharded route by CUDA events, BA
+   iterations/s with and without mesh=; (d) the group destroyed however
+   the phase ends. Prints {"parallel": ...}; the kernels line's K8 entry
+   gains its band launches, times and bound;
+15. profile (only with --profile) — for config 2's host loop, its step
    time beside the device route's, three repeats, and for the config-3
    and the default device step, the step time by CUDA events, by host
    wall clock and through track_sequence_device, three repeats each;
@@ -222,7 +251,8 @@ timed as the eig-only launch, and its standalone entry, with launches per
 path):
 the larger of the bytes each kernel must move over 3.35 TB/s and its
 float32 operations over 67 TFLOP/s, computed from this run's inputs;
-K8's entry also carries its 1-D mode's times and bound, K5's its list
+K8's entry also carries its 1-D mode's times and bound and its row
+band's (launches in the parallel phase, times, bound), K5's its list
 entry's, K2's the windows its status mix ran at; K2 twice more: its
 guided entry, with the circuit's guided launches and the start-free
 time on the same lanes; K9's launches are those
@@ -3190,6 +3220,448 @@ def profiling_checks(pft, frames, cfg, dev, tmp, smi):
             "events_ms": s_ev * 1e3}
 
 
+# ---- the sharded paths on torch.distributed (parallel/) ----
+
+SPLIT = 4                 # ranks of the split run one after another here
+PAR_PAIRS = 4             # frame pairs of the sharded sparse steps
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def ba_within(got, want, windowed: bool, n_res: int, what: str) -> dict:
+    """The JAX package's landmark-mesh bars (tests/_mp_worker.py: dense t
+    1e-3, X 1e-2, costs rtol 1e-3; windowed R, t 1e-4, X 1e-3, costs rtol
+    1e-3), against the unsharded run; a cost once converged within the
+    float32 resolution of the n_res residuals it sums instead
+    (tests/test_torch_sfm.costs_close: 2 sqrt(c n_res) ulp(640)), since a
+    cost of 1e-9 of the first one is rounding. Returns the largest gaps."""
+    import numpy as np
+    g = [a.cpu().numpy().astype(np.float64) for a in got[:4]]
+    w = [a.cpu().numpy().astype(np.float64) for a in want[:4]]
+    gaps = {k: float(np.abs(a - b).max()) for k, a, b in
+            zip("RtX", g[:3], w[:3])}
+    ulp = float(np.spacing(np.float32(640.0)))
+    tol = np.maximum(1e-3 * np.abs(w[3]), 2 * np.sqrt(w[3] * n_res) * ulp)
+    gaps["cost_over_bar"] = float((np.abs(g[3] - w[3]) / tol).max())
+    rel = np.abs(g[3] - w[3]) / np.abs(w[3])
+    gaps["cost_rel"] = float(rel.max())
+    gaps["cost_rel_per_iteration"] = rel.tolist()
+    gaps["cost_ratio"] = float(w[3][-1] / w[3][0])
+    bars = {"R": 1e-4 if windowed else math.inf,
+            "t": 1e-4 if windowed else 1e-3,
+            "X": 1e-3 if windowed else 1e-2, "cost_over_bar": 1.0,
+            "cost_rel": math.inf}
+    bad = {k: v for k, v in gaps.items() if k in bars and not v <= bars[k]}
+    if bad:
+        fail(f"{what}: beyond the mesh bars: {bad}; costs {g[3].tolist()} "
+             f"against {w[3].tolist()}")
+    return gaps
+
+
+def graph_ms(fn, reps: int = 20, replays: int = 5) -> float:
+    """Device time per fn() call (ms): reps calls captured in one CUDA
+    graph (after a warm-up call on the capture's side stream), then its
+    replays timed by CUDA events, so no host launch time sits between the
+    kernels."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    for _ in range(replays):
+        graph.replay()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / (reps * replays)
+
+
+def k8_band_checks(pft, frames, cfg, dev, smi):
+    """parallel (b), K8: each level of the default 480x640 flow pair (and
+    of the stereo pair's 1-D levels) cut into SPLIT bands; every band launch
+    bit-equal to those rows of the whole-level launch and to the plain
+    version of the band; the level-0 band timed beside the whole level."""
+    import torch
+    from pyfeaturetrack_tpu_torch.ops import cuda_lk_dense
+    from pyfeaturetrack_tpu_torch.ops.disparity import _hypothesis_init
+    from pyfeaturetrack_tpu_torch.ops.flow import level_images
+    from pyfeaturetrack_tpu_torch.utils import cuda
+    s = float(cfg.subsampling)
+    p1, p2 = (pft.build_track_pyramids(torch.as_tensor(
+        f, device=dev).to(torch.float32), cfg) for f in frames[:2])
+    left, right, _ = make_stereo_pair()
+    pl, pr = (pft.build_track_pyramids(torch.as_tensor(f, device=dev), cfg)
+              for f in (left, right))
+    lv2 = [level_images(p1, p2, r) for r in (0, 1)]
+    lv1 = [level_images(pl, pr, r) for r in (0, 1)]
+    hw = cfg.window_width // 2
+    seed = _hypothesis_init(lv1[1][0], lv1[1][3], tuple(range(
+        0, int(64.0 / s) + 1, hw + 1)), hw, cfg.window_height // 2)
+    u1, v1, _, _ = cuda_lk_dense.dense_level_up(*lv2[1], None, None, s, cfg)
+    d1, _, _ = cuda_lk_dense.dense_level_1d(*lv1[1], seed, cfg)
+    calls = {
+        "2-D level 1 (zero start)": lambda band: cuda_lk_dense.dense_level_up(
+            *lv2[1], None, None, s, cfg, band=band),
+        "2-D level 0 (upsampled start)": lambda band:
+            cuda_lk_dense.dense_level_up(*lv2[0], u1, v1, s, cfg, band=band),
+        "1-D level 1 (seed map start)": lambda band:
+            cuda_lk_dense.dense_level_1d(*lv1[1], seed, cfg, band=band),
+        "1-D level 0 (upsampled start)": lambda band:
+            cuda_lk_dense.dense_level_1d_up(*lv1[0], d1, s, cfg, band=band)}
+    n0 = cuda_lk_dense.band_launches
+    checked = {}
+    for name, call in calls.items():
+        whole = call(None)
+        rows = whole[0].shape[0]
+        per = rows // SPLIT
+        for b in range(SPLIT):
+            band = (b * per, per)
+            got = call(band)
+            maps_equal(got, [t[b * per:(b + 1) * per] for t in whole],
+                       f"K8 {name} band {band} vs the whole level")
+            with cuda.reference_path():
+                maps_equal(got, call(band), f"K8 {name} band {band} vs plain")
+        checked[name] = f"{SPLIT} bands of {per} rows"
+        print(f"K8 {name}: {SPLIT} bands of {per} rows, each bit-equal to "
+              "the whole-level launch's rows and to the plain band")
+    per = H // SPLIT
+    band0 = (0, per)
+    call = calls["2-D level 0 (upsampled start)"]
+    got = call(band0)
+    band_ms = time_ms(lambda: call(band0))
+    whole_ms = time_ms(lambda: call(None))
+    # device time of each band and of the whole level: 20 calls captured in
+    # one CUDA graph, its replays timed (the profiler lost most of these
+    # launches' records in a trace of 10 calls on this card)
+    band_dev = [graph_ms(lambda b=b: call((b * per, per)))
+                for b in range(SPLIT)]
+    whole_dev = graph_ms(lambda: call(None))
+    with cuda.reference_path():
+        band_plain = time_ms(lambda: call(band0), reps=2)
+    work = k8_work(cfg, got[2], got[3], False,
+                   coarse=(u1.shape[0] // SPLIT, u1.shape[1]))
+    b_ms, b_by = bound_ms(*work)
+    print(f"K8 2-D level 0 band {band0} ({per} x {W} pixels, "
+          f"{iteration_line(got[3])}): {band_ms:.4f} ms by events against "
+          f"{whole_ms:.4f} ms for the whole level (back to back, host "
+          "launches included); from a captured graph of 20 launches, bands "
+          "0-3 " + ", ".join(f"{d:.4f}" for d in band_dev)
+          + f" ms, the whole level {whole_dev:.4f} ms; plain "
+          f"{band_plain:.4f} ms, bound {b_ms:.5f} ms ({b_by}); card {smi}")
+    return {"checked": checked, "band_ms": band_ms,
+            "band_device_ms": band_dev[0], "bands_device_ms": band_dev,
+            "whole_ms": whole_ms, "whole_device_ms": whole_dev,
+            "band_plain_ms": band_plain, "band_bound_ms": b_ms,
+            "band_bound_by": b_by,
+            "check_band_launches": cuda_lk_dense.band_launches - n0}
+
+
+def parallel_phase(pft, mods, frames, sim, cfg, cfg3, tables, report, dev,
+                   smi):
+    """parallel (a)-(d): every sharded entry in a one-rank NCCL group and
+    as a SPLIT-way split on the one card, each against the unsharded
+    route; K8's band launches; the one-rank overhead; the census. The
+    group is destroyed however the phase ends."""
+    import torch.distributed as dist
+    from pyfeaturetrack_tpu_torch.parallel import initialize_cluster
+
+    phase("parallel (a): a one-rank NCCL group through initialize_cluster; "
+          "its meshes")
+    info = initialize_cluster(coordinator_address=f"127.0.0.1:{free_port()}",
+                              num_processes=1, process_id=0)
+    try:
+        return _parallel_runs(pft, mods, frames, sim, cfg, cfg3, tables,
+                              report, dev, smi, info)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _parallel_runs(pft, mods, frames, sim, cfg, cfg3, tables, report, dev,
+                   smi, info):
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from pyfeaturetrack_tpu_torch import sfm
+    from pyfeaturetrack_tpu_torch.models.chunked import (
+        chunk_bounds, chunk_stack, track_chunks_batched)
+    from pyfeaturetrack_tpu_torch.ops import cuda_lk_dense
+    from pyfeaturetrack_tpu_torch.parallel import (
+        collective_census, sharding, split_mesh, track_sequence_multiprocess)
+    from pyfeaturetrack_tpu_torch.sfm.ba import pad_problem_for_mesh
+    print(f"initialize_cluster: {info}")
+    if info["backend"] != "nccl" or info["process_count"] != 1:
+        fail(f"initialize_cluster did not bring up one NCCL rank: {info}")
+    grid = sharding.make_mesh(1, 1)
+    pix = sharding.make_axis_mesh("pixrow")
+    lmk = sharding.make_axis_mesh("landmark")
+    # the combine layer skips an axis of one rank; each group's NCCL
+    # all-gather is exercised here directly
+    for mesh in (grid, pix, lmk):
+        for axis in mesh.mesh_dim_names:
+            t = torch.arange(6, dtype=torch.float32, device=dev) + 0.5
+            parts = [torch.empty_like(t)]
+            dist.all_gather(parts, t, group=mesh.get_group(axis))
+            torch.cuda.synchronize()
+            if not torch.equal(parts[0], t):
+                fail(f"NCCL all_gather over {axis} changed its input")
+    print(f"meshes {grid.mesh_dim_names} {tuple(grid.shape)}, "
+          f"{pix.mesh_dim_names}, {lmk.mesh_dim_names} on "
+          f"{grid.device_type}; an NCCL all_gather over each axis's group "
+          "returns its input")
+    splits = {"grid": [split_mesh(sh, ("frame", "feature"), dev)
+                       for sh in ((2, 2), (SPLIT, 1), (1, SPLIT))],
+              "pix": [split_mesh((SPLIT,), ("pixrow",), dev)],
+              "lmk": [split_mesh((SPLIT,), ("landmark",), dev)],
+              "frame": [split_mesh((SPLIT, 1), ("frame", "feature"), dev)]}
+    one = {"grid": grid, "pix": pix, "lmk": lmk, "frame": grid}
+
+    def pair_inputs(fr, table):
+        xs, ys, vs = (np.asarray(a[:PAR_PAIRS]) for a in table)
+        return (np.stack(fr[:PAR_PAIRS]), np.stack(fr[1:PAR_PAIRS + 1]),
+                xs, ys, vs)
+
+    def unsharded_pairs(inp, c, step):
+        outs = []
+        for b in range(PAR_PAIRS):
+            args = [torch.as_tensor(np.asarray(a[b]), device=dev)
+                    for a in inp]
+            args = [a.to(torch.float32) for a in args[:4]] + [
+                args[4].to(torch.int32)]
+            if step is None:
+                outs.append(pft.track_features_pyramids(
+                    pft.build_track_pyramids(args[0], c),
+                    pft.build_track_pyramids(args[1], c), *args[2:], c))
+            else:
+                outs.append(step(*args, c))
+        return tuple(torch.stack(o) for o in zip(*outs))
+
+    dcfg = pft.create_config()
+    full_cfg = pft.create_config(affineConsistencyCheck=2,
+                                 lighting_insensitive=True).validated_window()
+    t_in = pair_inputs(frames, tables["default"])
+    t3_in = pair_inputs(sim, tables["config 3"])
+    left, right, _ = make_stereo_pair()
+    streams = [make_frames(STREAM_TICKS, seed=SEED + 10 + b)
+               for b in range(N_STREAMS)]
+    batches = [np.stack([st[i] for st in streams])
+               for i in range(STREAM_TICKS)]
+    stack, inits = chunk_stack(frames, chunk_bounds(N_FRAMES, SPLIT),
+                               N_FEATURES, cfg)
+    c_in = (stack, inits[..., 0], inits[..., 1],
+            inits[..., 2].astype(np.int64))
+
+    def serve_unsharded():
+        tr = pft.BatchedStreamingTracker(cfg, n_streams=N_STREAMS,
+                                         n_features=N_FEATURES, chain=CHAIN)
+        for b in batches:
+            tr.feed(b)
+        return tr.table()
+
+    # the landmark layouts are made once per rank count (host work that a
+    # deployment does once per problem), outside the timed calls
+    ba_p, ba_R, ba_t, ba_X = ba_problem(dev)
+    ba_pads = {d: pad_problem_for_mesh(ba_p, BA_POINTS, d)[0]
+               for d in (1, SPLIT)}
+
+    def ba_sharded(mesh):
+        return sfm.bundle_adjust(
+            ba_pads[sharding.mesh_sizes(mesh)["landmark"]], ba_R, ba_t, ba_X,
+            n_iters=BA_ITERS, mesh=mesh)
+
+    def wba(tag):
+        c = WBA[tag]
+        p, R, t, X0 = windowed_problem(c["C"], c["L"], c["kw"], dev)
+        kw = dict(n_iters=c["iters"], point_only_iters=0,
+                  solver=c["solver"], precond_block=c["g"])
+        pads = {d: sfm.pad_windowed_for_mesh(p, X0, d)[:2]
+                for d in (1, SPLIT)}
+
+        def sharded(mesh):
+            pp, Xp = pads[sharding.mesh_sizes(mesh)["landmark"]]
+            out = sfm.bundle_adjust_windowed(pp, R, t, Xp, **kw, mesh=mesh)
+            return out[:2] + (out[2][:c["L"]], out[3])
+        return (sharded,
+                lambda: sfm.bundle_adjust_windowed(p, R, t, X0, **kw))
+
+    wba_5b, wba_5c = wba("5b"), wba("5c")
+    n_res = {"dense BA": 2 * BA_CAMS * BA_POINTS,
+             "windowed BA 5b": 2 * WBA["5b"]["L"] * WBA["5b"]["kw"],
+             "windowed BA 5c": 2 * WBA["5c"]["L"] * WBA["5c"]["kw"]}
+    sh = sharding
+    # name: (sharded(mesh), unsharded(), mesh kind, comparison, kernels
+    # the sharded run must launch)
+    cases = {
+        "track (default)": (
+            lambda m: sh.track_batch_sharded(*t_in, dcfg, m),
+            lambda: unsharded_pairs(t_in, dcfg, None), "grid", "exact",
+            ("K1", "K2")),
+        "track (config 3)": (
+            lambda m: sh.track_batch_sharded(*t3_in, cfg3, m),
+            lambda: unsharded_pairs(t3_in, cfg3, None), "grid", "exact",
+            ("K1", "K2")),
+        "full step": (
+            lambda m: sh.full_pair_batch_sharded(*t_in, full_cfg, m),
+            lambda: unsharded_pairs(t_in, full_cfg, sh.full_pair_step),
+            "grid", "exact", ("K1", "K2", "K3", "K4", "K6")),
+        "dense flow": (
+            lambda m: sh.dense_flow_sharded(frames[0], frames[1], dcfg, m),
+            lambda: pft.compute_dense_flow(frames[0], frames[1], dcfg),
+            "pix", "exact", ("K1", "K8")),
+        "dense disparity": (
+            lambda m: sh.dense_disparity_sharded(left, right, dcfg, m, 64.0),
+            lambda: pft.dense_disparity(left, right, dcfg,
+                                        max_disparity=64.0),
+            "pix", "exact", ("K1", "K8")),
+        "serving": (
+            lambda m: sh.batched_serving_sharded(batches, cfg, N_FEATURES, m,
+                                                 chain=CHAIN),
+            serve_unsharded, "frame", "exact", ("K1", "K2", "K3", "K4")),
+        "chunks": (
+            lambda m: sh.track_chunks_sharded(*c_in, cfg, m,
+                                              replace_lost=True,
+                                              chain=CHAIN)[:3],
+            lambda: track_chunks_batched(*c_in, cfg, replace_lost=True,
+                                         chain=CHAIN)[:3],
+            "frame", "exact", ("K1", "K2", "K3", "K4")),
+        "dense BA": (ba_sharded,
+                     lambda: sfm.bundle_adjust(ba_p, ba_R, ba_t, ba_X,
+                                               n_iters=BA_ITERS),
+                     "lmk", "ba", ()),
+        "windowed BA 5b": (wba_5b[0], wba_5b[1], "lmk", "wba", ()),
+        "windowed BA 5c": (wba_5c[0], wba_5c[1], "lmk", "wba", ())}
+
+    def counted_run(fn):
+        for m in mods.values():
+            m.launches = 0
+        cuda_lk_dense.band_launches = 0
+        res, census = collective_census(fn)
+        torch.cuda.synchronize()
+        counts = {k: m.launches for k, m in mods.items()}
+        counts["K8 band"] = cuda_lk_dense.band_launches
+        return res, census, counts
+
+    def flat(res):
+        if isinstance(res, dict):
+            return [res[k] for k in ("x", "y", "val")]
+        return list(res)
+
+    out = {}
+    band_launches = 0
+    phase(f"parallel (a), (b): each sharded entry on the one-rank meshes "
+          f"and as a {SPLIT}-way split on the card (ranks' bodies in turn) "
+          "against the unsharded route")
+    for name, (sharded, unsharded, kind, how, need) in cases.items():
+        want = unsharded()
+        got1, census1, counts1 = counted_run(lambda: sharded(one[kind]))
+        for k in need:
+            if counts1[k] <= 0:
+                fail(f"{name}, one rank: {k} was never launched ({counts1})")
+        if how == "exact":
+            maps_equal(flat(got1), flat(want), f"{name}, one rank")
+        else:
+            maps_equal(flat(got1)[:4], flat(want)[:4], f"{name}, one rank")
+        rec = {"one_rank": "bit-equal", "one_rank_launches": counts1,
+               "one_rank_collectives": len(census1["records"])}
+        for mesh in splits[kind]:
+            tag = "x".join(map(str, mesh.shape))
+            got, census, counts = counted_run(lambda: sharded(mesh))
+            for k in need:
+                if counts[k] <= 0:
+                    fail(f"{name}, split {tag}: {k} was never launched")
+            if how == "exact":
+                maps_equal(flat(got), flat(want), f"{name}, split {tag}")
+                rec[f"split_{tag}"] = "bit-equal"
+            else:
+                rec[f"split_{tag}"] = ba_within(got, want, how == "wba",
+                                                n_res[name],
+                                                f"{name}, split {tag}")
+            band_launches += counts["K8 band"]
+            rec[f"split_{tag}_launches"] = counts
+            rec[f"split_{tag}_census"] = {
+                k: v for k, v in census.items() if k != "records"}
+        print(f"{name}: one rank {rec['one_rank']} (launches {counts1}); "
+              + "; ".join(f"split {k[6:]} {v}" for k, v in rec.items()
+                          if k.startswith("split_") and "_l" not in k
+                          and "_c" not in k))
+        out[name] = rec
+
+    phase("parallel (b), K8's row band: each level cut into "
+          f"{SPLIT} bands")
+    out["K8 band"] = k8_band_checks(pft, frames, dcfg, dev, smi)
+
+    phase("parallel (a): track_sequence_multiprocess on the one-rank group "
+          f"against track_sequence_chunked ({N_FRAMES} frames, {SPLIT} "
+          "chunks)")
+    for m in mods.values():
+        m.launches = 0
+    table, ids = track_sequence_multiprocess(frames, n_features=N_FEATURES,
+                                             n_chunks=SPLIT)
+    counts = {k: m.launches for k, m in mods.items()}
+    ref, ref_ids, _ = pft.track_sequence_chunked(frames,
+                                                 n_features=N_FEATURES,
+                                                 n_chunks=SPLIT)
+    same = (all(np.array_equal(table[k], ref[k]) for k in ("x", "y", "val"))
+            and all(np.array_equal(a, b) for a, b in zip(ids, ref_ids)))
+    print(f"track_sequence_multiprocess table {table['x'].shape} equal to "
+          f"track_sequence_chunked's: {same}; launches {counts}")
+    if not same:
+        fail("track_sequence_multiprocess differs from "
+             "track_sequence_chunked")
+    for k in ("K1", "K2", "K5"):
+        if counts[k] <= 0:
+            fail(f"track_sequence_multiprocess never launched {k}")
+    out["track_sequence_multiprocess"] = {"equal": same, "launches": counts}
+
+    phase("parallel (c): the one-rank overhead, sharded entry against the "
+          "unsharded route, CUDA events (medians of 5, in turns)")
+    overhead = {}
+    for name, (sharded, unsharded, kind, how, _) in cases.items():
+        # in turns (sharded, unsharded, unsharded, sharded): each figure
+        # is the mean of its two medians of 5
+        turns = [event_ms(fn, reps=5, warmup=1)[0] for fn in (
+            lambda: sharded(one[kind]), unsharded, unsharded,
+            lambda: sharded(one[kind]))]
+        ms_sh, ms_un = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+        row = {"sharded_ms": ms_sh, "unsharded_ms": ms_un,
+               "ratio": ms_sh / ms_un, "turns_ms": turns}
+        if how != "exact":
+            iters = BA_ITERS if how == "ba" else WBA[name[-2:]]["iters"]
+            row.update(iters_per_s_mesh=iters / (ms_sh / 1e3),
+                       iters_per_s=iters / (ms_un / 1e3))
+        overhead[name] = row
+        print(f"{name}: sharded (one rank) {ms_sh:.4f} ms, unsharded "
+              f"{ms_un:.4f} ms, ratio {row['ratio']:.4f}"
+              + (f", iterations/s {row['iters_per_s_mesh']:.2f} with mesh= "
+                 f"against {row['iters_per_s']:.2f}" if how != "exact"
+                 else ""))
+    print(f"card {smi}")
+    out["overhead"] = overhead
+
+    phase("parallel (d): destroy the group")
+    dist.destroy_process_group()
+    if dist.is_initialized():
+        fail("the process group outlived destroy_process_group")
+    report["K8"]["band_launches"] = band_launches
+    for k in ("band_ms", "band_device_ms", "band_plain_ms", "band_bound_ms",
+              "band_bound_by"):
+        report["K8"][k] = out["K8 band"][k]
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -4299,6 +4771,15 @@ def main(argv=None) -> int:
                                           smi)
     print(json.dumps({"tools": tools}))
 
+    # ---- phase 14: the sharded paths (parallel/) ----
+    par_mods = {"K1": cuda_pyramid, "K2": cuda_lk, "K3": K3InK1(cuda_pyramid),
+                "K4": cuda_select, "K5": cuda_suppress, "K6": cuda_affine,
+                "K8": cuda_lk_dense}
+    par = parallel_phase(pft, par_mods, frames, sim, cfg, cfg3,
+                         {"default": (xs_main, ys_main, vs_main),
+                          "config 3": table3}, report, dev, smi)
+    print(json.dumps({"parallel": par}))
+
     if profile:
         profile_host_loop(pft, cfg, staged, root)
         profile_phase(pft, cfg3, sim, staged3, root, "config3")
@@ -4387,7 +4868,11 @@ def main(argv=None) -> int:
             b1_ms, b1_by = bound_ms(*r["work_1d"])
             entry.update(ms_1d=r["ms_1d"], device_ms_1d=r["device_ms_1d"],
                          plain_ms_1d=r["plain_ms_1d"],
-                         bound_ms_1d=b1_ms, bound_by_1d=b1_by)
+                         bound_ms_1d=b1_ms, bound_by_1d=b1_by,
+                         **{f: r[f] for f in (
+                             "band_launches", "band_ms", "band_device_ms",
+                             "band_plain_ms", "band_bound_ms",
+                             "band_bound_by")})
         # device times the profiler lost (device_ms) go out as null, named
         lost = [f for f, v in entry.items() if isinstance(v, float)
                 and math.isnan(v)]

@@ -27,7 +27,14 @@
 //     at (x2, y1); gy is never read, and there is no lighting variant (the
 //     JAX XLA route ignores the flag there, disparity.py:144, :168);
 //   * LIGHTING (2-D only): gain and bias as in K2;
-//   * no window-size cap.
+//   * no window-size cap;
+//   * a row band (row0, rows): the launch solves and writes only rows
+//     [row0, row0 + rows) of the level, into band-sized outputs, and
+//     reads its start from the WHOLE map (MAP: the level's, UP: the
+//     coarser level's) and its taps from the whole images, so a band's
+//     pixels get the bits of the same pixels in a whole-level launch
+//     (the sharded dense paths of parallel/sharding.py cut a level into
+//     bands, one per rank).
 // Status priorities are K2's: OOB before SMALL_DET inside the loop; after
 // it, OOB overrides any status, then LARGE_RESIDUE, then MAX_ITERATIONS.
 //
@@ -140,6 +147,12 @@ struct Start {
 // banks.
 struct Tile {
     int th, tw, s1, r1, s2, r2, stage1, stage2;
+};
+
+// The rows a launch solves: [row0, row0 + rows) of the level, written to
+// band-sized outputs (rows x W).
+struct Band {
+    int row0, rows;
 };
 
 // A window in one frame: the planes' pointers at its top-left and the row
@@ -261,7 +274,8 @@ __device__ __forceinline__ void block_bbox(int x0, int y0, bool in, int* scratch
 
 template <bool ONE_D, bool LIGHTING, int START>
 __global__ void __launch_bounds__(NT_MAX)
-lk_tile_kernel(Frame f1, Frame f2, Start S, LKParams P, Tile T, float* __restrict__ u_out,
+lk_tile_kernel(Frame f1, Frame f2, Start S, LKParams P, Tile T, Band B,
+               float* __restrict__ u_out,
                float* __restrict__ v_out, int* __restrict__ status_out,
                int* __restrict__ iter_out)
 {
@@ -275,11 +289,12 @@ lk_tile_kernel(Frame f1, Frame f2, Start S, LKParams P, Tile T, float* __restric
     // this thread's pixel: the warps tile the block's TH x TW pixels 4 x 8
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const int wpr = T.tw >> 3;
-    const int tr0 = blockIdx.y * T.th, tc0 = blockIdx.x * T.tw;
+    const int tr0 = B.row0 + blockIdx.y * T.th, tc0 = blockIdx.x * T.tw;
     const int row = tr0 + (warp / wpr) * 4 + (lane >> 3);
     const int col = tc0 + (warp % wpr) * 8 + (lane & 7);
-    const bool active = row < P.H && col < P.W;
-    const int p = active ? row * P.W + col : 0;
+    const bool active = row < B.row0 + B.rows && col < P.W;
+    const int p = active ? row * P.W + col : 0;               // in the level
+    const int po = active ? (row - B.row0) * P.W + col : 0;   // in the band
     const float x1 = (float)col, y1 = (float)row;
 
     // the start
@@ -468,13 +483,13 @@ lk_tile_kernel(Frame f1, Frame f2, Start S, LKParams P, Tile T, float* __restric
     K8_MARK(4);                                 // the final bounds and residue
     if (active) {
         if (ONE_D) {
-            u_out[p] = x1 - x;
+            u_out[po] = x1 - x;
         } else {
-            u_out[p] = x - x1;
-            v_out[p] = y - y1;
+            u_out[po] = x - x1;
+            v_out[po] = y - y1;
         }
-        status_out[p] = status;
-        iter_out[p] = it;
+        status_out[po] = status;
+        iter_out[po] = it;
     }
     K8_MARK(5);                                 // the outputs
     K8_CLOCKS_FLUSH;
@@ -485,7 +500,7 @@ int bank_stride(int n) { return n + ((8 - n) % 32 + 32) % 32; }
 
 template <bool ONE_D, bool LIGHTING, int START>
 int launch(const Frame& f1, const Frame& f2, const Start& S, const LKParams& P, Tile T,
-           float* uo, float* vo, int* st, int* iters, cudaStream_t stream)
+           const Band& B, float* uo, float* vo, int* st, int* iters, cudaStream_t stream)
 {
     const int nimg = ONE_D ? 2 : 3;
     const size_t b1 = sizeof(float) * nimg * (size_t)T.s1 * T.r1;
@@ -494,24 +509,24 @@ int launch(const Frame& f1, const Frame& f2, const Start& S, const LKParams& P, 
     T.stage2 = (T.stage1 ? b1 : 0) + b2 <= SMEM_MAX;
     const size_t smem = (T.stage1 ? b1 : 0) + (T.stage2 ? b2 : 0);
     pft_allow_smem(lk_tile_kernel<ONE_D, LIGHTING, START>, smem);
-    const dim3 grid(pft_ceil_div(P.W, T.tw), pft_ceil_div(P.H, T.th));
+    const dim3 grid(pft_ceil_div(P.W, T.tw), pft_ceil_div(B.rows, T.th));
     lk_tile_kernel<ONE_D, LIGHTING, START><<<grid, T.th * T.tw, smem, stream>>>(
-        f1, f2, S, P, T, uo, vo, st, iters);
+        f1, f2, S, P, T, B, uo, vo, st, iters);
     return (int)cudaGetLastError();
 }
 
 template <bool ONE_D, bool LIGHTING>
 int launch_start(int start, const Frame& f1, const Frame& f2, const Start& S,
-                 const LKParams& P, const Tile& T, float* uo, float* vo, int* st,
-                 int* iters, cudaStream_t s)
+                 const LKParams& P, const Tile& T, const Band& B, float* uo, float* vo,
+                 int* st, int* iters, cudaStream_t s)
 {
     switch (start) {
     case START_MAP:
-        return launch<ONE_D, LIGHTING, START_MAP>(f1, f2, S, P, T, uo, vo, st, iters, s);
+        return launch<ONE_D, LIGHTING, START_MAP>(f1, f2, S, P, T, B, uo, vo, st, iters, s);
     case START_ZERO:
-        return launch<ONE_D, LIGHTING, START_ZERO>(f1, f2, S, P, T, uo, vo, st, iters, s);
+        return launch<ONE_D, LIGHTING, START_ZERO>(f1, f2, S, P, T, B, uo, vo, st, iters, s);
     default:
-        return launch<ONE_D, LIGHTING, START_UP>(f1, f2, S, P, T, uo, vo, st, iters, s);
+        return launch<ONE_D, LIGHTING, START_UP>(f1, f2, S, P, T, B, uo, vo, st, iters, s);
     }
 }
 
@@ -522,7 +537,9 @@ int launch_start(int start, const Frame& f1, const Frame& f2, const Start& S,
 // float32 ratios ry = hc / H, rx = wc / W and the scale), u, v out. One-d:
 // ``u`` is the disparity map d in (start 0 or 2) and out, the ``v``
 // pointers are unused, start 1 is refused. tile_h x tile_w pixels per
-// block: a multiple of 4 by a multiple of 8, at most 1024 threads.
+// block: a multiple of 4 by a multiple of 8, at most 1024 threads. Rows
+// [row0, row0 + nrows_out) are solved and written to nrows_out x W outputs
+// (the whole level: row0 0, nrows_out H).
 extern "C" int pft_lk_dense_level(const float* img1, const float* gx1, const float* gy1,
                                   const float* img2, const float* gx2, const float* gy2,
                                   const float* u, const float* v, int start, int hc,
@@ -531,10 +548,11 @@ extern "C" int pft_lk_dense_level(const float* img1, const float* gx1, const flo
                                   float min_displacement, float min_determinant,
                                   float max_residue, float step_factor,
                                   int lighting_insensitive, int one_d, int tile_h,
-                                  int tile_w, float* u_out, float* v_out, int* status,
-                                  int* iteration, void* stream)
+                                  int tile_w, int row0, int nrows_out, float* u_out,
+                                  float* v_out, int* status, int* iteration, void* stream)
 {
     if (H <= 0 || W <= 0 || window_width % 2 != 1 || window_height % 2 != 1 ||
+        row0 < 0 || nrows_out <= 0 || row0 > H - nrows_out ||
         start < START_MAP || start > START_UP || (one_d && start == START_ZERO) ||
         (start == START_UP && (hc <= 0 || wc <= 0 || hc * wc < 2)) || tile_h <= 0 ||
         tile_w <= 0 || tile_h % 4 != 0 || tile_w % 8 != 0 || tile_h * tile_w > NT_MAX)
@@ -546,16 +564,17 @@ extern "C" int pft_lk_dense_level(const float* img1, const float* gx1, const flo
                  bank_stride(tile_w + ww + 1 + 2 * MARGIN + SLACK),
                  tile_h + wh + 1 + 2 * MARGIN + SLACK, 0, 0};
     const Frame f1{img1, gx1, gy1}, f2{img2, gx2, gy2};
+    const Band B{row0, nrows_out};
     const Start S{u, v, start == START_UP ? hc : H, start == START_UP ? wc : W, ry, rx,
                   scale};
     cudaStream_t s = (cudaStream_t)stream;
     if (one_d)
-        return launch_start<true, false>(start, f1, f2, S, P, T, u_out, v_out, status,
+        return launch_start<true, false>(start, f1, f2, S, P, T, B, u_out, v_out, status,
                                          iteration, s);
     return lighting_insensitive
-        ? launch_start<false, true>(start, f1, f2, S, P, T, u_out, v_out, status,
+        ? launch_start<false, true>(start, f1, f2, S, P, T, B, u_out, v_out, status,
                                     iteration, s)
-        : launch_start<false, false>(start, f1, f2, S, P, T, u_out, v_out, status,
+        : launch_start<false, false>(start, f1, f2, S, P, T, B, u_out, v_out, status,
                                      iteration, s);
 }
 

@@ -140,6 +140,24 @@ def _stitch_ids(prev_xy: np.ndarray, prev_ids: np.ndarray,
     return ids
 
 
+def chunk_stack(frames, bounds, n_features: int, cfg, *, device="cuda"):
+    """The lockstep inputs of ``bounds``' chunks: the [C, F, H, W] float32
+    frame stack (a short chunk padded by repeating its last frame) and the
+    [C, N, 3] initial selections (x, y, val), each chunk's first frame
+    through the host API on ``device``."""
+    max_len = max(e - s for (s, e) in bounds)
+    stack = np.zeros((len(bounds), max_len) + np.shape(frames[0]),
+                     np.float32)
+    inits = np.zeros((len(bounds), n_features, 3), np.float64)
+    for k, (s, e) in enumerate(bounds):
+        chunk = frames[s:e]
+        stack[k, :len(chunk)] = np.asarray(chunk, np.float32)
+        stack[k, len(chunk):] = chunk[-1]  # pad: repeat last frame
+        inits[k] = select_good_features_arrays(chunk[0], n_features, cfg,
+                                               device=device)
+    return stack, inits
+
+
 def track_sequence_chunked(frames, cfg: Optional[TrackerConfig] = None,
                            n_features: int = 150, n_chunks: int = 2,
                            replace_lost: bool = True,
@@ -172,16 +190,8 @@ def track_sequence_chunked(frames, cfg: Optional[TrackerConfig] = None,
     chunk_tables = []
     all_metrics = []
     if batched:
-        max_len = max(e - s for (s, e) in bounds)
-        stack = np.zeros((len(bounds), max_len) + np.shape(frames[0]),
-                         np.float32)
-        inits = np.zeros((len(bounds), n_features, 3), np.float64)
-        for k, (s, e) in enumerate(bounds):
-            chunk = frames[s:e]
-            stack[k, :len(chunk)] = np.asarray(chunk, np.float32)
-            stack[k, len(chunk):] = chunk[-1]  # pad: repeat last frame
-            inits[k] = select_good_features_arrays(chunk[0], n_features, cfg,
-                                                   device=device)
+        stack, inits = chunk_stack(frames, bounds, n_features, cfg,
+                                   device=device)
         xs, ys, vs, exhausted = track_chunks_batched(
             stack, inits[..., 0], inits[..., 1],
             inits[..., 2].astype(np.int64), cfg,

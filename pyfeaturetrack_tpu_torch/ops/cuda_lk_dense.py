@@ -20,6 +20,12 @@ Both start from level-sized maps. ``dense_level_up`` and
 start from ``interp.upsample_flow`` of them (the kernel computes it per
 pixel), and ``dense_level_up`` with no maps starts from zero.
 
+Every entry takes ``band=(row0, rows)``: only rows [row0, row0 + rows) of
+the level are solved and returned (band-sized maps), from the start the
+whole map gives those pixels, with the bits a whole-level call gives them
+(the row-sharded dense paths of ``parallel/sharding.py``, one band per
+rank). ``band`` None is the whole level.
+
 A CUDA tensor launches the kernel (one launch per call); a CPU tensor takes
 the plain version: ``upsample_flow`` where the start is upsampled, then
 K2's ``cuda_lk.lk_level_reference`` over chunks of the pixel grid, with
@@ -47,8 +53,10 @@ TILE = (16, 16)
 # The kernel's start modes (csrc/lk_dense.cu StartMode).
 START_MAP, START_ZERO, START_UP = 0, 1, 2
 
-# Kernel launches made by this wrapper.
+# Kernel launches made by this wrapper, and those of them on a row band
+# narrower than the level.
 launches = 0
+band_launches = 0
 
 
 def seq_sum(v: torch.Tensor) -> torch.Tensor:
@@ -60,19 +68,27 @@ def seq_sum(v: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+def _rows(shape, band):
+    """(row0, rows) of a level of ``shape`` for ``band`` (None: all)."""
+    return (0, shape[0]) if band is None else (int(band[0]), int(band[1]))
+
+
 @cuda.plain_version
-def _reference(imgs, u, v, cfg, one_d):
+def _reference(imgs, u, v, cfg, one_d, band=None):
     """Plain version of one K8 level: (u or d, v or None, status,
-    iteration) [H, W]."""
-    nrows, ncols = imgs[0].shape
+    iteration) [rows, W] over the band's rows (all rows for None), from
+    level-sized maps."""
+    row0, nrows = _rows(imgs[0].shape, band)
+    ncols = imgs[0].shape[1]
     dev = imgs[0].device
     x1 = torch.arange(ncols, dtype=torch.float32, device=dev).repeat(nrows)
-    y1 = torch.arange(nrows, dtype=torch.float32,
+    y1 = torch.arange(row0, row0 + nrows, dtype=torch.float32,
                       device=dev).repeat_interleave(ncols)
     if one_d:
-        x2, y2 = x1 - u.reshape(-1), y1
+        x2, y2 = x1 - u[row0:row0 + nrows].reshape(-1), y1
     else:
-        x2, y2 = x1 + u.reshape(-1), y1 + v.reshape(-1)
+        x2 = x1 + u[row0:row0 + nrows].reshape(-1)
+        y2 = y1 + v[row0:row0 + nrows].reshape(-1)
     active = torch.ones((CHUNK,), dtype=torch.bool, device=dev)
     parts = [lk_level_reference(x1[s:s + CHUNK], y1[s:s + CHUNK],
                                 x2[s:s + CHUNK], y2[s:s + CHUNK], *imgs, cfg,
@@ -89,14 +105,15 @@ def _reference(imgs, u, v, cfg, one_d):
     return grid(x - x1), grid(y - y1), grid(status), grid(iteration)
 
 
-def _launch(imgs, maps, start, coarse_shape, scale, cfg, one_d, out):
-    global launches
+def _launch(imgs, maps, start, coarse_shape, scale, cfg, one_d, out, band):
+    global launches, band_launches
     fn = cuda.function("pft_lk_dense_level",
                        [cuda.c_ptr] * 8 + [cuda.c_int] * 3
                        + [cuda.c_float] * 3 + [cuda.c_int] * 5
-                       + [cuda.c_float] * 4 + [cuda.c_int] * 4
+                       + [cuda.c_float] * 4 + [cuda.c_int] * 6
                        + [cuda.c_ptr] * 5)
     nrows, ncols = imgs[0].shape
+    row0, rows = _rows((nrows, ncols), band)
     hc, wc = coarse_shape
     u, v = maps
     ptr = (lambda t: None if t is None else t.data_ptr())  # noqa: E731
@@ -105,15 +122,17 @@ def _launch(imgs, maps, start, coarse_shape, scale, cfg, one_d, out):
             cfg.window_width, cfg.window_height, cfg.max_iterations,
             _f32(cfg.min_displacement), _f32(cfg.min_determinant),
             _f32(cfg.max_residue), _f32(cfg.step_factor),
-            int(bool(cfg.lighting_insensitive)), int(one_d), *TILE,
-            *(ptr(t) for t in out), cuda.stream_ptr(imgs[0].device))
+            int(bool(cfg.lighting_insensitive)), int(one_d), *TILE, row0,
+            rows, *(ptr(t) for t in out), cuda.stream_ptr(imgs[0].device))
     cuda.check(rc, "pft_lk_dense_level")
     launches += 1
+    band_launches += rows != nrows
 
 
-def _plain_level(imgs, u, v, cfg, one_d, scale):
-    """The plain version of ``_level``: ``upsample_flow`` where the start is
-    upsampled, then ``_reference``."""
+def _plain_level(imgs, u, v, cfg, one_d, scale, band=None):
+    """The plain version of ``_level``: ``upsample_flow`` (of the whole
+    map) where the start is upsampled, then ``_reference`` over the
+    band."""
     if scale is not None:
         shape = tuple(imgs[0].shape)
         if u is None:
@@ -123,35 +142,42 @@ def _plain_level(imgs, u, v, cfg, one_d, scale):
         else:
             u = upsample_flow(u, shape, scale)
             v = None if one_d else upsample_flow(v, shape, scale)
-    return _reference(imgs, u, v, cfg, one_d)
+    return _reference(imgs, u, v, cfg, one_d, band)
 
 
-def _level(imgs, u, v, cfg, one_d, scale=None):
+def _level(imgs, u, v, cfg, one_d, scale=None, band=None):
     """One level: ``scale`` None starts from level-sized maps, else from
-    the coarser maps upsampled (u None: from zero). One launch on CUDA,
-    differentiable in the level images and maps through the plain
-    version's VJP."""
-    shape = tuple(imgs[0].shape)
+    the coarser maps upsampled (u None: from zero); ``band`` (row0, rows)
+    solves only those rows. One launch on CUDA, differentiable in the
+    level images and maps through the plain version's VJP."""
+    level_shape = tuple(imgs[0].shape)
+    if band is not None:
+        row0, rows = _rows(level_shape, band)
+        if not (len(level_shape) == 2 and 0 <= row0 and 0 < rows
+                and row0 + rows <= level_shape[0]):
+            raise ValueError(f"band {tuple(band)} is not a run of rows of a "
+                             f"{level_shape} level")
+    shape = (_rows(level_shape, band)[1],) + level_shape[1:]
     maps = tuple(t for t in ((u,) if one_d else (u, v)) if t is not None)
     if not cuda.use_kernel(*imgs, *maps):
-        return _plain_level(imgs, u, v, cfg, one_d, scale)
+        return _plain_level(imgs, u, v, cfg, one_d, scale, band)
     ww, wh = cfg.window_width, cfg.window_height
     cuda.require(ww % 2 == 1 and wh % 2 == 1,
                  f"dense_level takes odd windows, got {ww}x{wh}")
-    cuda.require(len(shape) == 2 and all(
-        t.dtype == torch.float32 and t.shape == shape and t.is_contiguous()
-        for t in imgs), "dense_level takes contiguous float32 [H, W] level "
-        "images")
+    cuda.require(len(level_shape) == 2 and all(
+        t.dtype == torch.float32 and t.shape == level_shape
+        and t.is_contiguous() for t in imgs),
+        "dense_level takes contiguous float32 [H, W] level images")
     cuda.require(all(t.dtype == torch.float32 and t.dim() == 2
                      and t.shape == maps[0].shape and t.is_contiguous()
                      for t in maps),
                  "dense_level takes contiguous float32 maps of one shape")
     if scale is None:
-        start, coarse = START_MAP, shape
-        cuda.require(maps[0].shape == shape, "dense_level: maps of the "
-                     "level's shape")
+        start, coarse = START_MAP, level_shape
+        cuda.require(maps[0].shape == level_shape, "dense_level: maps of "
+                     "the level's shape")
     elif u is None:
-        start, coarse = START_ZERO, shape
+        start, coarse = START_ZERO, level_shape
     else:
         start, coarse = START_UP, tuple(u.shape)
         cuda.require(coarse[0] * coarse[1] >= 2,
@@ -172,48 +198,53 @@ def _level(imgs, u, v, cfg, one_d, scale=None):
                torch.empty(shape, dtype=torch.int32, device=dev))
         if shape[0] * shape[1]:
             _launch(ims, (u, v), start, coarse,
-                    1.0 if scale is None else scale, cfg, one_d, out)
+                    1.0 if scale is None else scale, cfg, one_d, out, band)
         return tuple(t for t in out if t is not None)
 
     def plain(*ts):
         ims, u, v = split(ts)
-        out = _plain_level(ims, u, v, cfg, one_d, scale)
+        out = _plain_level(ims, u, v, cfg, one_d, scale, band)
         return tuple(t for t in out if t is not None)
 
     out = cuda.with_plain_vjp(launch, plain, *imgs, *maps)
     return out if not one_d else (out[0], None) + tuple(out[1:])
 
 
-def dense_level(img1, gx1, gy1, img2, gx2, gy2, u, v, cfg):
+def dense_level(img1, gx1, gy1, img2, gx2, gy2, u, v, cfg, band=None):
     """One dense LK level over the pixel grid, started at grid + (u, v):
     (u, v, status, iteration) [H, W] (the contract of ``flow.flow_level``
-    plus the iteration map). Six float32 [H, W] level images, float32 maps."""
-    return _level((img1, gx1, gy1, img2, gx2, gy2), u, v, cfg, False)
+    plus the iteration map), or [rows, W] over ``band``. Six float32
+    [H, W] level images, float32 level-sized maps."""
+    return _level((img1, gx1, gy1, img2, gx2, gy2), u, v, cfg, False,
+                  band=band)
 
 
-def dense_level_1d(img1, gx1, gy1, img2, gx2, gy2, d, cfg):
+def dense_level_1d(img1, gx1, gy1, img2, gx2, gy2, d, cfg, band=None):
     """One dense 1-D LK level: refine the disparity map ``d`` (right-image
     window at (x - d, y)): (d, status, iteration) [H, W] (the contract of
-    ``disparity.disparity_level`` plus the iteration map). gy1 and gy2 are
-    not read."""
+    ``disparity.disparity_level`` plus the iteration map), or [rows, W]
+    over ``band``. gy1 and gy2 are not read."""
     d, _, status, iteration = _level((img1, gx1, gy1, img2, gx2, gy2), d,
-                                     None, cfg, True)
+                                     None, cfg, True, band=band)
     return d, status, iteration
 
 
-def dense_level_up(img1, gx1, gy1, img2, gx2, gy2, u, v, scale: float, cfg):
+def dense_level_up(img1, gx1, gy1, img2, gx2, gy2, u, v, scale: float, cfg,
+                   band=None):
     """``dense_level`` started at grid + ``upsample_flow`` of the coarser
     level's (u, v) maps to this level's shape, times ``scale``; u and v
     None: started at the grid (zero flow). Returns (u, v, status,
-    iteration) [H, W] at this level."""
+    iteration) [H, W] at this level, or [rows, W] over ``band``."""
     return _level((img1, gx1, gy1, img2, gx2, gy2), u, v, cfg, False,
-                  float(scale))
+                  float(scale), band)
 
 
-def dense_level_1d_up(img1, gx1, gy1, img2, gx2, gy2, d, scale: float, cfg):
+def dense_level_1d_up(img1, gx1, gy1, img2, gx2, gy2, d, scale: float, cfg,
+                      band=None):
     """``dense_level_1d`` started from ``upsample_flow`` of the coarser
     level's disparity map ``d`` to this level's shape, times ``scale``.
-    Returns (d, status, iteration) [H, W] at this level."""
+    Returns (d, status, iteration) [H, W] at this level, or [rows, W] over
+    ``band``."""
     d, _, status, iteration = _level((img1, gx1, gy1, img2, gx2, gy2), d,
-                                     None, cfg, True, float(scale))
+                                     None, cfg, True, float(scale), band)
     return d, status, iteration

@@ -26,6 +26,7 @@ import torch.nn.functional as F
 
 from ..features import KLT_TRACKED
 from .cuda_lk_dense import dense_level_1d, dense_level_1d_up
+from .flow import level_images, run_level_steps
 from .track import TrackPyramids, as_frame, build_track_pyramids
 
 
@@ -85,6 +86,19 @@ def dense_disparity_pyramids(pyr_l: TrackPyramids, pyr_r: TrackPyramids,
     level seeds from the SSD hypothesis sweep; each finer level refines the
     upsampled map (K8 reads the coarser map and upsamples it itself). The
     status map is the finest level's."""
+    return run_level_steps(disparity_level_steps(
+        pyr_l, pyr_r, cfg, max_disparity, hypothesis_stride))
+
+
+def disparity_level_steps(pyr_l: TrackPyramids, pyr_r: TrackPyramids, cfg,
+                          max_disparity: float = 64.0,
+                          hypothesis_stride: int | None = None, rows=None):
+    """``dense_disparity_pyramids``'s level loop as a generator (the
+    contract of ``flow.flow_level_steps``): per level it yields (d,
+    status) and is sent back the level's whole maps; ``rows`` solves one
+    band of each level. The SSD seed is always the WHOLE coarsest level's:
+    its float32 integral image rounds in row order from row 0, so a band's
+    own sums would give other bits than the whole map's."""
     s = float(cfg.subsampling)
     n_levels = cfg.nPyramidLevels
     hw, hh = cfg.window_width // 2, cfg.window_height // 2
@@ -101,12 +115,13 @@ def dense_disparity_pyramids(pyr_l: TrackPyramids, pyr_r: TrackPyramids,
                         device=coarse_l.device)
     status = None
     for r in range(n_levels - 1, -1, -1):
-        lvl = (pyr_l.img[r], pyr_l.gradx[r], pyr_l.grady[r], pyr_r.img[r],
-               pyr_r.gradx[r], pyr_r.grady[r])
+        lvl = level_images(pyr_l, pyr_r, r)
+        band = None if rows is None else rows(int(lvl[0].shape[0]))
         if tuple(lvl[0].shape) == tuple(d.shape):
-            d, status, _ = dense_level_1d(*lvl, d, cfg)
+            out = dense_level_1d(*lvl, d, cfg, band=band)
         else:
-            d, status, _ = dense_level_1d_up(*lvl, d, s, cfg)
+            out = dense_level_1d_up(*lvl, d, s, cfg, band=band)
+        d, status = yield out[:2]
     return DenseDisparity(d=d, status=status)
 
 

@@ -52,6 +52,43 @@ def flow_level(img1, gx1, gy1, img2, gx2, gy2, u, v, cfg):
     return u, v, status
 
 
+def level_images(pyr1: TrackPyramids, pyr2: TrackPyramids, r: int):
+    """Level ``r``'s six images in K8's order (img, gx, gy of each)."""
+    return (pyr1.img[r], pyr1.gradx[r], pyr1.grady[r], pyr2.img[r],
+            pyr2.gradx[r], pyr2.grady[r])
+
+
+def flow_level_steps(pyr1: TrackPyramids, pyr2: TrackPyramids, cfg,
+                     rows=None):
+    """The coarse-to-fine level loop as a generator: per level it yields
+    the (u, v, status) it solved and is sent back the level's WHOLE maps,
+    which start the next finer level; it returns the finest DenseFlow.
+    ``rows(height) -> (row0, rows)`` solves one band of each level (K8's
+    band launch; the sender gathers the bands), None the whole level."""
+    s = float(cfg.subsampling)
+    u = v = status = None
+    for r in range(cfg.nPyramidLevels - 1, -1, -1):
+        lvl = level_images(pyr1, pyr2, r)
+        band = None if rows is None else rows(int(lvl[0].shape[0]))
+        if u is not None and tuple(u.shape) == tuple(lvl[0].shape):
+            out = dense_level(*lvl, u, v, cfg, band=band)
+        else:
+            out = dense_level_up(*lvl, u, v, s, cfg, band=band)
+        u, v, status = yield out[:3]
+    return DenseFlow(u=u, v=v, status=status)
+
+
+def run_level_steps(steps):
+    """Drive a level-step generator on one device: each level's maps go
+    back as they are. Returns the generator's result."""
+    out = next(steps)
+    while True:
+        try:
+            out = steps.send(out)
+        except StopIteration as done:
+            return done.value
+
+
 def dense_flow_pyramids(pyr1: TrackPyramids, pyr2: TrackPyramids,
                         cfg) -> DenseFlow:
     """Coarse-to-fine dense LK over prebuilt pyramids. Flow starts at zero
@@ -59,16 +96,7 @@ def dense_flow_pyramids(pyr1: TrackPyramids, pyr2: TrackPyramids,
     the upsampled field (a level of the coarser one's shape from that field
     as it is). The status map is the finest level's. One K8 launch per
     level on CUDA tensors."""
-    s = float(cfg.subsampling)
-    u = v = status = None
-    for r in range(cfg.nPyramidLevels - 1, -1, -1):
-        lvl = (pyr1.img[r], pyr1.gradx[r], pyr1.grady[r], pyr2.img[r],
-               pyr2.gradx[r], pyr2.grady[r])
-        if u is not None and tuple(u.shape) == tuple(lvl[0].shape):
-            u, v, status, _ = dense_level(*lvl, u, v, cfg)
-        else:
-            u, v, status, _ = dense_level_up(*lvl, u, v, s, cfg)
-    return DenseFlow(u=u, v=v, status=status)
+    return run_level_steps(flow_level_steps(pyr1, pyr2, cfg))
 
 
 def flow_consistency(fwd: DenseFlow, bwd: DenseFlow, max_err: float = 0.5):

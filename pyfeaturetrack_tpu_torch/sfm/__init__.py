@@ -6,9 +6,8 @@ Consumes the tracker's feature tracks and produces camera poses +
 landmarks. The geometry runs as batched tensor programs on the caller's
 device (IEEE float32, ``geometry.require_fp32``); the Schur-complement
 reductions of the bundle adjustments (dense and windowed) are
-deterministic segmented sums. Not in the port yet (raises
-NotImplementedError): the landmark-sharded ``mesh`` path (ROADMAP Queue 1
-item 7).
+deterministic segmented sums; with ``mesh=`` their landmarks shard over
+a ``landmark`` axis (``parallel/sharding.py``).
 """
 
 from .geometry import (se3_apply, se3_compose, se3_exp, se3_inverse,  # noqa: F401

@@ -20,14 +20,21 @@ to run. Here each problem's observations are sorted by block once
 observations per block, ...] layout by plain (collision-free) stores, and
 summed along that axis: the same bits on every run.
 
-The landmark-sharded ``mesh`` path (``pad_problem_for_mesh``) is ROADMAP
-Queue 1 item 7 (multi-GPU) and raises NotImplementedError until then.
+Landmark sharding (``mesh=``, JAX ``_gn_step_sharded_body``): each rank
+of the mesh's ``landmark`` axis holds a contiguous block of landmarks and
+exactly their observations (``pad_problem_for_mesh``), forms its blocks'
+U, b_c, S_red, b_red and cost, and the camera system is combined ONCE per
+iteration (``parallel/sharding.SumParts``: the ranks' partials summed in
+rank order on every rank); each rank then solves the same camera system
+and back-substitutes its landmarks, and X is gathered at the end. The
+one-device route is the same body on a one-rank split.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..errors import KLTWarning
@@ -191,9 +198,9 @@ def _reduce_and_solve(U, b_c, S_red, b_red, damping, fix_first: bool):
     return dx.reshape(n_cameras, 6), info
 
 
-def _gn_step_dense(K, R, t, X, problem, segs, damping, fix_first: bool,
-                   huber_delta=None):
-    """One Gauss-Newton/LM step. Returns (R, t, X, cost, info)."""
+def _local_system(K, R, t, X, problem, segs, damping, huber_delta=None):
+    """The camera-system terms of the problem's landmarks, (U, b_c, S_red,
+    b_red, cost), and their back-substitution factors (V_inv, W, b_p)."""
     n_cameras, n_points = R.shape[0], X.shape[0]
     r, Jc, Jp, cost = _obs_terms(K, R, t, X, problem.cam_idx,
                                  problem.pt_idx, problem.uv, problem.w,
@@ -211,7 +218,16 @@ def _gn_step_dense(K, R, t, X, problem, segs, damping, fix_first: bool,
     b_red = torch.matmul(
         T1.permute(1, 2, 0, 3).reshape(n_cameras * 6, n_points * 3),
         b_p.reshape(n_points * 3)).reshape(n_cameras, 6)
+    return (U, b_c, S_red, b_red, cost), (V_inv, W, b_p)
 
+
+def _solve_and_update(R, t, X, sys_terms, point_terms, damping,
+                      fix_first: bool):
+    """Solve the (combined) camera system, back-substitute the landmarks.
+    Returns (R, t, X, cost, info)."""
+    U, b_c, S_red, b_red, cost = sys_terms
+    V_inv, W, b_p = point_terms
+    n_points = X.shape[0]
     dx_c, info = _reduce_and_solve(U, b_c, S_red, b_red, damping, fix_first)
 
     # rhs_p[l,j] = b_p[l,j] - sum_c,i W[l,c,i,j] dx_c[c,i]
@@ -234,6 +250,32 @@ def problem_segments(problem: BAProblem, n_cameras: int, n_points: int):
                      n_points * n_cameras))
 
 
+def _ba_body(coord, problem, R, t, X, n_iters, damping, fix_first, axis,
+             n_ranks, huber_delta):
+    """The landmark-sharded GN loop on one rank (parallel/sharding local
+    body): this rank's landmark block and observations, one combine of the
+    camera system per iteration, X gathered at the end."""
+    from ..parallel.sharding import Gather, SumParts, block
+    d = coord[axis]
+    lb = block(d, n_ranks, X.shape[0], "landmarks")
+    ob = block(d, n_ranks, problem.cam_idx.shape[0], "observations")
+    local = BAProblem(problem.K, *(a[ob] for a in problem[1:]))
+    X_loc = X[lb]
+    n_cameras = int(R.shape[0])
+    segs = problem_segments(local, n_cameras, int(X_loc.shape[0]))
+    costs, infos = [], []
+    for _ in range(n_iters):
+        sys_terms, point_terms = _local_system(problem.K, R, t, X_loc, local,
+                                               segs, damping, huber_delta)
+        sys_terms = yield SumParts(sys_terms, axis, "camera_system")
+        R, t, X_loc, cost, info = _solve_and_update(
+            R, t, X_loc, sys_terms, point_terms, damping, fix_first)
+        costs.append(cost)
+        infos.append(info)
+    (X,) = yield Gather((X_loc,), (0,), axis, "output")
+    return R, t, X, costs, infos
+
+
 def bundle_adjust(problem: BAProblem, R0, t0, X0, n_iters: int = 10,
                   damping: float = 1e-3, fix_first: bool = True,
                   mesh=None, axis: str = "landmark",
@@ -242,27 +284,33 @@ def bundle_adjust(problem: BAProblem, R0, t0, X0, n_iters: int = 10,
     Returns (R, t, X, costs); ``costs`` is a device tensor of
     per-iteration observation costs (before each step).
 
+    With ``mesh`` (a DeviceMesh or split with an ``axis`` dimension),
+    landmarks and their observations shard over ``axis``: rank d holds
+    landmarks [d L/D, (d+1) L/D) and exactly the observations that
+    reference them, with shard-local indices, in equal blocks
+    (``pad_problem_for_mesh`` arranges this). R, t, X and the costs come
+    back whole on every rank.
+
     One host read per call beyond the grouping: the solves' ``info``,
     checked once at the end (a singular reduced system gives NaN updates,
     as in the JAX package, and a warning here).
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "bundle_adjust(mesh=...): the landmark-sharded multi-GPU path is "
-            "ROADMAP Queue 1 item 7 (parallel/), not in the port yet")
-    del axis
+    from ..parallel import sharding
     dev = problem.uv.device
     require_fp32(dev)
     R, t, X = f32(R0, dev), f32(t0, dev), f32(X0, dev)
-    n_cameras, n_points = int(R.shape[0]), int(X.shape[0])
-    segs = problem_segments(problem, n_cameras, n_points)
-    costs, infos = [], []
-    for _ in range(n_iters):
-        R, t, X, cost, info = _gn_step_dense(
-            problem.K, R, t, X, problem, segs, damping, fix_first,
-            huber_delta)
-        costs.append(cost)
-        infos.append(info)
+    if mesh is None:
+        mesh = sharding.split_mesh((1,), (axis,), dev)
+    sizes = sharding.mesh_sizes(mesh)
+    if axis not in sizes:
+        raise ValueError(f"bundle_adjust: the mesh has no {axis!r} axis "
+                         f"({tuple(sizes)})")
+    if sharding.mesh_device(mesh).type != dev.type:
+        raise ValueError(f"bundle_adjust: the problem lies on {dev}, the "
+                         f"mesh computes on {sharding.mesh_device(mesh)}")
+    R, t, X, costs, infos = sharding.run_sharded(
+        mesh, _ba_body, problem, R, t, X, n_iters, damping, fix_first, axis,
+        sizes[axis], huber_delta)
     if infos and bool(to_host(torch.stack(infos).ne(0).any())):
         KLTWarning("(bundle_adjust) a reduced camera system was singular; "
                    "its update is NaN")
@@ -272,7 +320,35 @@ def bundle_adjust(problem: BAProblem, R0, t0, X0, n_iters: int = 10,
 
 
 def pad_problem_for_mesh(problem: BAProblem, n_points: int, n_dev: int):
-    """Landmark-shard layout for the mesh path: ROADMAP Queue 1 item 7."""
-    raise NotImplementedError(
-        "pad_problem_for_mesh: the landmark-sharded multi-GPU BA is ROADMAP "
-        "Queue 1 item 7 (parallel/), not in the port yet")
+    """Reorder and pad observations so each of ``n_dev`` ranks owns a
+    contiguous landmark block and exactly its observations (zero-weight
+    pads), with pt_idx rebased to the block. Returns (padded problem,
+    landmark padding count, observations per rank); ``n_points`` may grow
+    to a multiple of ``n_dev``: pad X0 with that many rows. The JAX
+    package's layout, on the problem's device."""
+    dev = problem.uv.device
+    cam_idx = to_host(problem.cam_idx)
+    pt_idx = to_host(problem.pt_idx)
+    uv = to_host(problem.uv)
+    w = to_host(problem.w)
+    l_pad = (-n_points) % n_dev
+    l_per = (n_points + l_pad) // n_dev
+    shard_of = pt_idx // l_per
+    per_shard = [np.nonzero(shard_of == d)[0] for d in range(n_dev)]
+    m_per = max(sel.size for sel in per_shard)
+    ci = np.zeros((n_dev, m_per), np.int64)
+    pi = np.zeros((n_dev, m_per), np.int64)
+    uvp = np.zeros((n_dev, m_per, 2), np.float32)
+    wp = np.zeros((n_dev, m_per), np.float32)
+    for d, sel in enumerate(per_shard):
+        k = sel.size
+        ci[d, :k] = cam_idx[sel]
+        pi[d, :k] = pt_idx[sel] - d * l_per
+        uvp[d, :k] = uv[sel]
+        wp[d, :k] = w[sel]
+    out = BAProblem(K=problem.K,
+                    cam_idx=torch.as_tensor(ci.reshape(-1), device=dev),
+                    pt_idx=torch.as_tensor(pi.reshape(-1), device=dev),
+                    uv=torch.as_tensor(uvp.reshape(-1, 2), device=dev),
+                    w=torch.as_tensor(wp.reshape(-1), device=dev))
+    return out, l_pad, m_per

@@ -23,8 +23,16 @@ past the last camera carry zero weight and add nothing.
 A feature slot that is lost and later refilled holds two physical
 landmarks, so ``windowed_from_feature_table`` splits each column into
 maximal contiguous live runs (``column_runs``), one landmark per run.
-The landmark-sharded ``mesh`` path is ROADMAP Queue 1 item 7 (multi-GPU)
-and raises NotImplementedError until then.
+
+Landmark sharding (``mesh=``, JAX ``_gn_step_windowed_sharded_body``):
+each rank of the ``landmark`` axis holds a contiguous block of landmark
+rows (``pad_windowed_for_mesh`` pads their count to a multiple of the
+ranks), runs the point-only warm start and assembles its banded camera
+system locally; the band, the right-hand sides and the cost are combined
+ONCE per GN step (``parallel/sharding.SumParts``, rank-order sums on
+every rank), outside the CG's captured graph, and every rank then runs the
+same camera solve and back-substitutes its landmarks. The one-device route
+is the same body on a one-rank split.
 """
 
 from __future__ import annotations
@@ -498,18 +506,6 @@ def _windowed_solve_and_update(R, t, X, sys_terms, point_terms, damping,
     return R_new, t + dx_c[:, 3:], X + dx_p, cost, cg_iters, info
 
 
-def _gn_step_windowed(K, R, t, X, problem, seg, damping, n_cameras: int,
-                      fix_first: bool = True, huber_delta=None,
-                      solver: str = "dense", precond_block: int = 1):
-    """One GN/LM step with K-windowed cross blocks."""
-    sys_terms, point_terms = _windowed_camera_system(
-        K, R, t, X, problem.c0, problem.uv, problem.w, seg, damping,
-        n_cameras, huber_delta)
-    return _windowed_solve_and_update(R, t, X, sys_terms, point_terms,
-                                      damping, n_cameras, fix_first, solver,
-                                      precond_block)
-
-
 def _points_only_step(K, R, t, X, c0, uv, w, damping, n_cameras: int):
     """Refine landmarks with the cameras frozen (each landmark an
     independent damped 3x3 solve): the warm start for weak triangulations
@@ -543,6 +539,38 @@ def gate_windowed(problem: WindowedBAProblem, R0, t0, X0,
     return problem._replace(w=problem.w * ok.to(problem.w.dtype))
 
 
+def _windowed_body(coord, problem, R, t, X, n_iters, damping, fix_first,
+                   huber_delta, point_only_iters, solver, precond_block, axis,
+                   n_ranks):
+    """The landmark-sharded windowed GN loop on one rank (parallel/sharding
+    local body): this rank's landmark rows, one combine of the banded
+    camera system per GN step, X gathered at the end."""
+    from ..parallel.sharding import Gather, SumParts, block
+    lb = block(coord[axis], n_ranks, X.shape[0], "landmark rows")
+    K = problem.K
+    c0, uv, w = problem.c0[lb], problem.uv[lb], problem.w[lb]
+    X_loc = X[lb]
+    n_cameras = int(R.shape[0])
+    for _ in range(point_only_iters):
+        X_loc = _points_only_step(K, R, t, X_loc, c0, uv, w, damping,
+                                  n_cameras)
+    # first cameras past the last one hold only ignored slots
+    seg = segments(c0.clamp(0, n_cameras - 1), n_cameras)
+    costs, cg_iters, infos = [], [], []
+    for _ in range(n_iters):
+        sys_terms, point_terms = _windowed_camera_system(
+            K, R, t, X_loc, c0, uv, w, seg, damping, n_cameras, huber_delta)
+        sys_terms = yield SumParts(sys_terms, axis, "camera_system")
+        R, t, X_loc, cost, k, info = _windowed_solve_and_update(
+            R, t, X_loc, sys_terms, point_terms, damping, n_cameras,
+            fix_first, solver, precond_block)
+        costs.append(cost)
+        cg_iters.append(k)
+        infos.append(info)
+    (X,) = yield Gather((X_loc,), (0,), axis, "output")
+    return R, t, X, costs, cg_iters, infos
+
+
 def bundle_adjust_windowed(problem: WindowedBAProblem, R0, t0, X0,
                            n_iters: int = 10, damping: float = 1e-3,
                            fix_first: bool = True,
@@ -564,35 +592,33 @@ def bundle_adjust_windowed(problem: WindowedBAProblem, R0, t0, X0,
     6g] camera blocks. ``return_info=True`` appends {"cg_iters": [n_iters]
     int32} (zeros for dense).
 
+    With ``mesh`` (a DeviceMesh or split with an ``axis`` dimension), the
+    landmark rows shard over ``axis`` in equal blocks (their count a
+    multiple of the ranks: ``pad_windowed_for_mesh``); R, t, X and the
+    costs come back whole on every rank.
+
     Host reads: the landmark grouping's width once per call, the CG flag
     once every ``CG_CHECK_EVERY`` iterations, and the solves' ``info`` at
     the end (a singular system gives NaN updates and a warning).
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "bundle_adjust_windowed(mesh=...): the landmark-sharded "
-            "multi-GPU path is ROADMAP Queue 1 item 7 (parallel/), not in "
-            "the port yet")
-    del axis
+    from ..parallel import sharding
     dev = problem.uv.device
     require_fp32(dev)
     R, t, X = f32(R0, dev), f32(t0, dev), f32(X0, dev)
-    n_cameras = int(R.shape[0])
-    c0 = problem.c0.to(torch.int64)
-    problem = problem._replace(c0=c0)
-    for _ in range(point_only_iters):
-        X = _points_only_step(problem.K, R, t, X, c0, problem.uv, problem.w,
-                              damping, n_cameras)
-    # first cameras past the last one hold only ignored slots
-    seg = segments(c0.clamp(0, n_cameras - 1), n_cameras)
-    costs, cg_iters, infos = [], [], []
-    for _ in range(n_iters):
-        R, t, X, cost, k, info = _gn_step_windowed(
-            problem.K, R, t, X, problem, seg, damping, n_cameras, fix_first,
-            huber_delta, solver, precond_block)
-        costs.append(cost)
-        cg_iters.append(k)
-        infos.append(info)
+    problem = problem._replace(c0=problem.c0.to(torch.int64))
+    if mesh is None:
+        mesh = sharding.split_mesh((1,), (axis,), dev)
+    sizes = sharding.mesh_sizes(mesh)
+    if axis not in sizes:
+        raise ValueError(f"bundle_adjust_windowed: the mesh has no {axis!r} "
+                         f"axis ({tuple(sizes)})")
+    if sharding.mesh_device(mesh).type != dev.type:
+        raise ValueError(f"bundle_adjust_windowed: the problem lies on {dev}, "
+                         f"the mesh computes on {sharding.mesh_device(mesh)}")
+    R, t, X, costs, cg_iters, infos = sharding.run_sharded(
+        mesh, _windowed_body, problem, R, t, X, n_iters, damping, fix_first,
+        huber_delta, point_only_iters, solver, precond_block, axis,
+        sizes[axis])
     if infos and bool(to_host(torch.stack(infos).ne(0).any())):
         KLTWarning("(bundle_adjust_windowed) a camera system or a "
                    "preconditioner block was singular; its update is NaN")

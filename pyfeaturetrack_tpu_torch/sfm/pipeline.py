@@ -4,9 +4,9 @@
 KLT tracks (FeatureTable) -> observation set -> DLT triangulation from
 initial poses -> Schur-complement bundle adjustment -> refined poses +
 landmarks, with ATE metrics against ground truth (numpy, float64);
-``run_sfm_windowed`` is the same pass through the windowed BA. The
-landmark-sharded ``mesh`` path is ROADMAP Queue 1 item 7 and raises
-NotImplementedError.
+``run_sfm_windowed`` is the same pass through the windowed BA.
+``run_sfm(mesh=...)`` shards the landmarks over the mesh's ``landmark``
+axis (``ba.pad_problem_for_mesh``, ``bundle_adjust(mesh=...)``).
 """
 
 from __future__ import annotations
@@ -14,7 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .ba import bundle_adjust, make_problem
+from .ba import bundle_adjust, make_problem, pad_problem_for_mesh
 from .ba_windowed import (bundle_adjust_windowed, column_runs, gate_windowed,
                           make_windowed_problem, triangulate_windowed,
                           windowed_from_feature_table)
@@ -77,12 +77,9 @@ def run_sfm(ft, K, R0, t0, n_iters: int = 15, damping: float = 1e-3,
     the observation count. Non-finite triangulations are parked at a
     finite dummy with their observations weighted out;
     ``max_init_reproj_error`` gates observations whose reprojection error
-    under the initial poses exceeds it.
+    under the initial poses exceeds it. ``mesh`` enables the
+    landmark-sharded BA (its ``landmark`` axis).
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "run_sfm(mesh=...): the landmark-sharded multi-GPU BA is "
-            "ROADMAP Queue 1 item 7 (parallel/), not in the port yet")
     cam_idx, pt_idx, uv, w, runs = observations_from_feature_table(
         ft, min_track_len, return_runs=True)
     X0 = initial_landmarks(K, R0, t0, ft, min_track_len, runs=runs,
@@ -104,9 +101,16 @@ def run_sfm(ft, K, R0, t0, n_iters: int = 15, damping: float = 1e-3,
         w = w * ok.astype(np.float32)
 
     problem = make_problem(K, cam_idx, pt_idx, uv, w, device=dev)
+    n_points = int(X0.shape[0])
+    if mesh is not None:
+        from ..parallel.sharding import LANDMARK_AXIS, mesh_sizes
+        problem, l_pad, _ = pad_problem_for_mesh(
+            problem, n_points, mesh_sizes(mesh)[LANDMARK_AXIS])
+        X0 = torch.cat([X0, X0.new_ones((l_pad, 3))])
     R, t, X, costs = bundle_adjust(problem, R0, t0, X0, n_iters=n_iters,
-                                   damping=damping, huber_delta=huber_delta)
-    return {"R": R, "t": t, "X": X, "costs": costs,
+                                   damping=damping, mesh=mesh,
+                                   huber_delta=huber_delta)
+    return {"R": R, "t": t, "X": X[:n_points], "costs": costs,
             "n_observations": int((np.asarray(w) > 0).sum())}
 
 

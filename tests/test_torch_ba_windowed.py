@@ -19,7 +19,8 @@ problem: groups of 4, 34 34 34 34 34 34 against 34 34 34 37 34 34; groups
 of 16 equal; block Jacobi, not compared, 40 41 45 57 45 45 against 40 41
 41 44 44 48; ROADMAP Queue 3). The window
 builder, the gate and the padding equal JAX's exactly. A rerun is
-bit-equal; ``mesh=`` raises NotImplementedError.
+bit-equal; the landmark mesh path (one rank, an 8-way split) within the
+JAX package's windowed mesh bars.
 """
 
 import numpy as np
@@ -345,10 +346,39 @@ def test_pad_for_mesh_matches_jax():
     assert n_pad == 5 and Xp.shape == (128, 3)
 
 
-def test_mesh_raises():
+@pytest.mark.parametrize("solver", ["dense", "cg"])
+def test_mesh_raises(solver):
+    """The landmark mesh path of both solvers: a one-rank mesh gives the
+    unsharded bits; a 4-way split of the padded problem stays within the
+    JAX package's own windowed mesh bars (R, t 1e-4, X 1e-3, costs rtol
+    1e-3) and reruns bit-equal; a mesh without the landmark axis, or rows
+    that do not split, raise ValueError."""
+    from pyfeaturetrack_tpu_torch.parallel import split_mesh
     jp, Rs, ts, X = staggered()
-    with pytest.raises(NotImplementedError, match="item 7"):
-        bw.bundle_adjust_windowed(port_problem(jp), Rs, ts, X, mesh=object())
+    R0, t0, X0 = _perturb(Rs, ts, X)
+    kw = dict(n_iters=3, point_only_iters=1, solver=solver)
+    pp = port_problem(jp)
+    want = bw.bundle_adjust_windowed(pp, R0, t0, X0, **kw)
+    one = bw.bundle_adjust_windowed(
+        pp, R0, t0, X0, **kw, mesh=split_mesh((1,), ("landmark",), CPU))
+    for a, b in zip(one, want):
+        assert torch.equal(a, b)
+    padded, Xp, n_pad = bw.pad_windowed_for_mesh(pp, X0, 8)
+    mesh = split_mesh((8,), ("landmark",), CPU)
+    got = bw.bundle_adjust_windowed(padded, R0, t0, Xp, **kw, mesh=mesh)
+    again = bw.bundle_adjust_windowed(padded, R0, t0, Xp, **kw, mesh=mesh)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    np.testing.assert_allclose(got[0].numpy(), want[0].numpy(), atol=1e-4)
+    np.testing.assert_allclose(got[1].numpy(), want[1].numpy(), atol=1e-4)
+    np.testing.assert_allclose(got[2][:X0.shape[0]].numpy(),
+                               want[2].numpy(), atol=1e-3)
+    np.testing.assert_allclose(got[3].numpy(), want[3].numpy(), rtol=1e-3)
+    with pytest.raises(ValueError):
+        bw.bundle_adjust_windowed(padded, R0, t0, Xp, **kw,
+                                  mesh=split_mesh((8,), ("pixrow",), CPU))
+    with pytest.raises(ValueError):
+        bw.bundle_adjust_windowed(pp, R0, t0, X0, **kw, mesh=mesh)
 
 
 # ---------------------------------------------------------------------------

@@ -9,7 +9,7 @@ launch), K4 (both stages), K5 (both entries) and K9 (N up
 to 65,536) bit-equal; K2
 (per level and per pyramidal track call), K6 and K8 (every start mode)
 statuses and iterations equal and positions (K6: and warps; K8: the flow
-and disparity maps) bit-equal (the kernels round and sum in their plain
+and disparity maps, whole levels and row bands) bit-equal (the kernels round and sum in their plain
 versions' order); the affine stage (K6's stage kernel) bit-equal in the
 feature list and all eight AffineState fields. Inputs are small seeded
 numpy images, but for the wide and tall K4 lattices, the deep K2
@@ -1357,3 +1357,84 @@ def test_windowed_ba_rerun_bit_equal_on_card(dev, solver):
     pp, Xp, n_pad = sfm.pad_windowed_for_mesh(problem, X0, 7)
     assert n_pad == 6 and Xp.shape == (L + 6, 3)
     assert bool((pp.w[L:] == 0).all()) and torch.equal(Xp[:L], X0)
+
+
+@pytest.mark.parametrize("shape,bands", [((480, 640), (0, 120, 240, 360, 480)),
+                                         ((120, 160), (0, 7, 64, 120)),
+                                         ((37, 53), (0, 1, 36, 37))])
+@pytest.mark.parametrize("overrides", [{}, {"lighting_insensitive": True}])
+@pytest.mark.parametrize("one_d", [False, True])
+def test_dense_level_band_bit_equal(dev, shape, bands, overrides, one_d):
+    """K8's row band: each band launch (every start mode) equals those rows
+    of the whole-level launch and the plain version of the band, bit for
+    bit; one launch each, counted as a band launch."""
+    h, w = shape
+    cfg = tpft.create_config(**overrides)
+    lvl, uc, vc = _start_case(dev, cfg, h, w)
+    from pyfeaturetrack_tpu_torch.ops.interp import upsample_flow
+    u, v = (upsample_flow(t, (h, w), 4.0) for t in (uc, vc))
+    if one_d:
+        calls = [lambda band: cuda_lk_dense.dense_level_1d_up(
+                     *lvl, -uc, 4.0, cfg, band=band),
+                 lambda band: cuda_lk_dense.dense_level_1d(*lvl, -u, cfg,
+                                                           band=band)]
+    else:
+        calls = [lambda band: cuda_lk_dense.dense_level_up(
+                     *lvl, uc, vc, 4.0, cfg, band=band),
+                 lambda band: cuda_lk_dense.dense_level(*lvl, u, v, cfg,
+                                                        band=band),
+                 lambda band: cuda_lk_dense.dense_level_up(
+                     *lvl, None, None, 4.0, cfg, band=band)]
+    for call in calls:
+        whole = call(None)
+        for r0, r1 in zip(bands[:-1], bands[1:]):
+            before = cuda_lk_dense.launches
+            bands_before = cuda_lk_dense.band_launches
+            got = call((r0, r1 - r0))
+            _dense_equal(got, _plain(call, (r0, r1 - r0)), before)
+            assert cuda_lk_dense.band_launches == (bands_before
+                                                   + (r1 - r0 < h))
+            for a, b in zip(got, whole):
+                if a is not None:
+                    assert torch.equal(a, b[r0:r1])
+
+
+def test_sharded_paths_split_on_card_equal_unsharded(dev):
+    """A 4-way split on the card (the ranks' bodies in turn): tracking,
+    the full step and dense flow equal the unsharded route bit for bit;
+    the dense BA reruns bit-equal."""
+    from pyfeaturetrack_tpu_torch.parallel import sharding, split_mesh
+    cfg = tpft.create_config()
+    a = _texture(96, 128, seed=3)
+    b = np.ascontiguousarray(np.roll(a, (1, 2), axis=(0, 1)))
+    imgs1, imgs2 = np.stack([a, b]), np.stack([b, a])
+    rng = np.random.default_rng(2)
+    xs = rng.uniform(10, 118, (2, 64)).astype(np.float32)
+    ys = rng.uniform(10, 86, (2, 64)).astype(np.float32)
+    vals = np.ones((2, 64), np.int32)
+    grid = split_mesh((2, 2), ("frame", "feature"), dev)
+    got = sharding.track_batch_sharded(imgs1, imgs2, xs, ys, vals, cfg, grid)
+    want = [tpft.track_features_pyramids(
+        tpft.build_track_pyramids(torch.tensor(imgs1[i], device=dev), cfg),
+        tpft.build_track_pyramids(torch.tensor(imgs2[i], device=dev), cfg),
+        *(torch.tensor(t[i], device=dev) for t in (xs, ys, vals)), cfg)
+        for i in range(2)]
+    for g, w in zip(got, (torch.stack(c) for c in zip(*want))):
+        assert torch.equal(g, w)
+    full_cfg = tpft.create_config(affineConsistencyCheck=2,
+                                  lighting_insensitive=True).validated_window()
+    got = sharding.full_pair_batch_sharded(imgs1, imgs2, xs, ys, vals,
+                                           full_cfg, grid)
+    want = [sharding.full_pair_step(
+        torch.tensor(imgs1[i], device=dev), torch.tensor(imgs2[i], device=dev),
+        *(torch.tensor(t[i], device=dev) for t in (xs, ys, vals)), full_cfg)
+        for i in range(2)]
+    for g, w in zip(got, (torch.stack(c) for c in zip(*want))):
+        assert torch.equal(g, w)
+    before = cuda_lk_dense.band_launches
+    got = sharding.dense_flow_sharded(a, b, cfg,
+                                      split_mesh((4,), ("pixrow",), dev))
+    want = tpft.compute_dense_flow(a, b, cfg)
+    assert cuda_lk_dense.band_launches == before + 4 * cfg.nPyramidLevels
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)

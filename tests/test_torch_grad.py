@@ -171,10 +171,11 @@ class StandIns:
 
     @staticmethod
     def cuda_lk_dense_launch(imgs, maps, start, coarse, scale, cfg, one_d,
-                             out):
+                             out, band):
         u, v = maps
         lvl_scale = None if start == cuda_lk_dense.START_MAP else scale
-        got = cuda_lk_dense._plain_level(imgs, u, v, cfg, one_d, lvl_scale)
+        got = cuda_lk_dense._plain_level(imgs, u, v, cfg, one_d, lvl_scale,
+                                         band)
         for dst, src in zip(out, got):
             if dst is not None:
                 dst.copy_(src)

@@ -496,12 +496,48 @@ def test_bundle_adjust_is_deterministic_and_matches_scatter_adds():
 
 
 def test_bundle_adjust_mesh_path_raises():
-    problem, (R0, t0, X0) = jax_problem(0.0)
+    """The landmark mesh path: a one-rank mesh gives the unsharded bits; a
+    4-way split stays within the JAX package's own mesh bars (t 1e-3, X
+    1e-2, costs rtol 1e-3) and reruns bit-equal; a mesh without the
+    landmark axis, or blocks that do not split, raise ValueError."""
+    from pyfeaturetrack_tpu_torch.parallel import split_mesh
+    problem, (R0, t0, X0) = jax_problem(0.3, drop=0.1)
     tp = ba_problem_from_numpy(*[np.asarray(a) for a in problem], device=CPU)
-    with pytest.raises(NotImplementedError):
-        sfm.bundle_adjust(tp, R0, t0, X0, mesh=object())
-    with pytest.raises(NotImplementedError):
-        ba.pad_problem_for_mesh(tp, 64, 4)
+    want = sfm.bundle_adjust(tp, R0, t0, X0, n_iters=3)
+    one = sfm.bundle_adjust(tp, R0, t0, X0, n_iters=3,
+                            mesh=split_mesh((1,), ("landmark",), CPU))
+    for a, b in zip(one, want):
+        assert torch.equal(a, b)
+    padded, l_pad, _ = ba.pad_problem_for_mesh(tp, 64, 4)
+    assert l_pad == 0
+    mesh = split_mesh((4,), ("landmark",), CPU)
+    got = sfm.bundle_adjust(padded, R0, t0, X0, n_iters=3, mesh=mesh)
+    again = sfm.bundle_adjust(padded, R0, t0, X0, n_iters=3, mesh=mesh)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    close(got[1], want[1], atol=1e-3)
+    close(got[2], want[2], atol=1e-2)
+    close(got[3], want[3], atol=0, rtol=1e-3)
+    with pytest.raises(ValueError):
+        sfm.bundle_adjust(padded, R0, t0, X0,
+                          mesh=split_mesh((4,), ("frame",), CPU))
+    with pytest.raises(ValueError):
+        sfm.bundle_adjust(tp, R0, t0, X0,
+                          mesh=split_mesh((5,), ("landmark",), CPU))
+
+
+@pytest.mark.parametrize("n_dev", [1, 4, 8, 5])
+def test_pad_problem_for_mesh_matches_jax(n_dev):
+    """The landmark-shard layout equals JAX's (order, shard-local indices,
+    zero-weight pads, the counts), also for a landmark count that does not
+    split."""
+    problem, _ = jax_problem(0.3, drop=0.1)
+    tp = ba_problem_from_numpy(*[np.asarray(a) for a in problem], device=CPU)
+    got = ba.pad_problem_for_mesh(tp, 64, n_dev)
+    want = jsfm.ba.pad_problem_for_mesh(problem, 64, n_dev)
+    assert got[1:] == want[1:]
+    for a, b in zip(got[0][1:], want[0][1:]):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
 
 
 def test_tf32_is_refused_on_the_card():
@@ -557,6 +593,30 @@ def test_run_sfm_matches_jax(gate):
     out = sfm.run_sfm_windowed(ft, K, R0, t0, n_iters=3, device=CPU)
     assert out["n_observations"] > 0
     assert torch.isfinite(out["costs"]).all()
+
+
+def test_run_sfm_mesh_matches_unsharded():
+    """run_sfm(mesh=...): the landmarks padded for the mesh's landmark axis
+    and sharded; a one-rank mesh gives the unsharded bits, a 4-way split
+    stays within JAX's mesh bars (t 1e-3, X 1e-2, costs rtol 1e-3) and
+    keeps X's rows (the padding sliced off)."""
+    from pyfeaturetrack_tpu_torch.parallel import split_mesh
+    Rs, ts, X, uv, val = scene_table()
+    R0, t0, _ = perturbed_init(Rs, ts, X, pose_noise=0.005)
+    ft = FeatureTable(x=t32(uv[..., 0]), y=t32(uv[..., 1]),
+                      val=torch.as_tensor(val))
+    want = sfm.run_sfm(ft, K, R0, t0, n_iters=4, device=CPU)
+    one = sfm.run_sfm(ft, K, R0, t0, n_iters=4, device=CPU,
+                      mesh=split_mesh((1,), ("landmark",), CPU))
+    for k in ("R", "t", "X", "costs"):
+        assert torch.equal(one[k], want[k])
+    got = sfm.run_sfm(ft, K, R0, t0, n_iters=4, device=CPU,
+                      mesh=split_mesh((4,), ("landmark",), CPU))
+    assert got["X"].shape == want["X"].shape
+    assert got["n_observations"] == want["n_observations"]
+    close(got["t"], want["t"], atol=1e-3)
+    close(got["X"], want["X"], atol=1e-2)
+    close(got["costs"], want["costs"], atol=0, rtol=1e-3)
 
 
 def test_trajectory_metrics_equal_jax():
