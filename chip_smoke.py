@@ -3354,16 +3354,34 @@ def k8_band_checks(pft, frames, cfg, dev, smi):
     work = k8_work(cfg, got[2], got[3], False,
                    coarse=(u1.shape[0] // SPLIT, u1.shape[1]))
     b_ms, b_by = bound_ms(*work)
+    # how many waves a band's and the level's blocks make on the card: the
+    # occupancy calculator's blocks an SM for this launch, times the SMs
+    per_sm = cuda_lk_dense.blocks_per_sm(cfg)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    th, tw = cuda_lk_dense.TILE
+    blocks = {"band": math.ceil(W / tw) * math.ceil(per / th),
+              "whole": math.ceil(W / tw) * math.ceil(H / th)}
+    waves = {k: n / (per_sm * sms) for k, n in blocks.items()}
+    share = [d / whole_dev for d in band_dev]
     print(f"K8 2-D level 0 band {band0} ({per} x {W} pixels, "
           f"{iteration_line(got[3])}): {band_ms:.4f} ms by events against "
           f"{whole_ms:.4f} ms for the whole level (back to back, host "
           "launches included); from a captured graph of 20 launches, bands "
           "0-3 " + ", ".join(f"{d:.4f}" for d in band_dev)
-          + f" ms, the whole level {whole_dev:.4f} ms; plain "
-          f"{band_plain:.4f} ms, bound {b_ms:.5f} ms ({b_by}); card {smi}")
+          + f" ms, the whole level {whole_dev:.4f} ms (each band "
+          + ", ".join(f"{x:.3f}" for x in share) + " of the level; all four "
+          f"{sum(share):.3f}); {per_sm} blocks of {th * tw} threads an SM "
+          f"(occupancy calculator) on {sms} SMs: a band's {blocks['band']} "
+          f"blocks {waves['band']:.3f} waves, the level's {blocks['whole']} "
+          f"{waves['whole']:.3f}; plain {band_plain:.4f} ms, bound "
+          f"{b_ms:.5f} ms ({b_by}); card {smi}")
     return {"checked": checked, "band_ms": band_ms,
             "band_device_ms": band_dev[0], "bands_device_ms": band_dev,
             "whole_ms": whole_ms, "whole_device_ms": whole_dev,
+            "band_share_of_level": share, "blocks_per_sm": per_sm,
+            "sms": sms, "band_blocks": blocks["band"],
+            "whole_blocks": blocks["whole"], "band_waves": waves["band"],
+            "whole_waves": waves["whole"],
             "band_plain_ms": band_plain, "band_bound_ms": b_ms,
             "band_bound_by": b_by,
             "check_band_launches": cuda_lk_dense.band_launches - n0}
@@ -3434,19 +3452,24 @@ def _parallel_runs(pft, mods, frames, sim, cfg, cfg3, tables, report, dev,
         return (np.stack(fr[:PAR_PAIRS]), np.stack(fr[1:PAR_PAIRS + 1]),
                 xs, ys, vs)
 
-    def unsharded_pairs(inp, c, step):
+    def unsharded_pairs(inp, c, full=False):
+        # per pair: the two-frame track, or the device sequence's step
+        # (track, affine check, refill) from frame 1's pyramids
         outs = []
         for b in range(PAR_PAIRS):
             args = [torch.as_tensor(np.asarray(a[b]), device=dev)
                     for a in inp]
             args = [a.to(torch.float32) for a in args[:4]] + [
                 args[4].to(torch.int32)]
-            if step is None:
-                outs.append(pft.track_features_pyramids(
-                    pft.build_track_pyramids(args[0], c),
-                    pft.build_track_pyramids(args[1], c), *args[2:], c))
+            pyr1 = pft.build_track_pyramids(args[0], c)
+            if full:
+                outs.append(pft.sequence_step_device(
+                    pyr1, args[1], *args[2:], c, replace_lost=True,
+                    aff=pft.make_affine_state(args[2].shape[0], c, dev))[1:4])
             else:
-                outs.append(step(*args, c))
+                outs.append(pft.track_features_pyramids(
+                    pyr1, pft.build_track_pyramids(args[1], c), *args[2:],
+                    c))
         return tuple(torch.stack(o) for o in zip(*outs))
 
     dcfg = pft.create_config()
@@ -3507,15 +3530,15 @@ def _parallel_runs(pft, mods, frames, sim, cfg, cfg3, tables, report, dev,
     cases = {
         "track (default)": (
             lambda m: sh.track_batch_sharded(*t_in, dcfg, m),
-            lambda: unsharded_pairs(t_in, dcfg, None), "grid", "exact",
+            lambda: unsharded_pairs(t_in, dcfg), "grid", "exact",
             ("K1", "K2")),
         "track (config 3)": (
             lambda m: sh.track_batch_sharded(*t3_in, cfg3, m),
-            lambda: unsharded_pairs(t3_in, cfg3, None), "grid", "exact",
+            lambda: unsharded_pairs(t3_in, cfg3), "grid", "exact",
             ("K1", "K2")),
         "full step": (
             lambda m: sh.full_pair_batch_sharded(*t_in, full_cfg, m),
-            lambda: unsharded_pairs(t_in, full_cfg, sh.full_pair_step),
+            lambda: unsharded_pairs(t_in, full_cfg, full=True),
             "grid", "exact", ("K1", "K2", "K3", "K4", "K6")),
         "dense flow": (
             lambda m: sh.dense_flow_sharded(frames[0], frames[1], dcfg, m),

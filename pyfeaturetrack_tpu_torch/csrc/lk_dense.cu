@@ -498,9 +498,13 @@ lk_tile_kernel(Frame f1, Frame f2, Start S, LKParams P, Tile T, Band B,
 // The smallest stride >= n that is 8 mod 32.
 int bank_stride(int n) { return n + ((8 - n) % 32 + 32) % 32; }
 
+// With ``blocks_per_sm``, nothing is launched: the CUDA occupancy
+// calculator's count of this launch's blocks that one SM holds at once is
+// written there instead.
 template <bool ONE_D, bool LIGHTING, int START>
 int launch(const Frame& f1, const Frame& f2, const Start& S, const LKParams& P, Tile T,
-           const Band& B, float* uo, float* vo, int* st, int* iters, cudaStream_t stream)
+           const Band& B, float* uo, float* vo, int* st, int* iters, cudaStream_t stream,
+           int* blocks_per_sm)
 {
     const int nimg = ONE_D ? 2 : 3;
     const size_t b1 = sizeof(float) * nimg * (size_t)T.s1 * T.r1;
@@ -509,6 +513,9 @@ int launch(const Frame& f1, const Frame& f2, const Start& S, const LKParams& P, 
     T.stage2 = (T.stage1 ? b1 : 0) + b2 <= SMEM_MAX;
     const size_t smem = (T.stage1 ? b1 : 0) + (T.stage2 ? b2 : 0);
     pft_allow_smem(lk_tile_kernel<ONE_D, LIGHTING, START>, smem);
+    if (blocks_per_sm)
+        return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            blocks_per_sm, lk_tile_kernel<ONE_D, LIGHTING, START>, T.th * T.tw, smem);
     const dim3 grid(pft_ceil_div(P.W, T.tw), pft_ceil_div(B.rows, T.th));
     lk_tile_kernel<ONE_D, LIGHTING, START><<<grid, T.th * T.tw, smem, stream>>>(
         f1, f2, S, P, T, B, uo, vo, st, iters);
@@ -518,16 +525,37 @@ int launch(const Frame& f1, const Frame& f2, const Start& S, const LKParams& P, 
 template <bool ONE_D, bool LIGHTING>
 int launch_start(int start, const Frame& f1, const Frame& f2, const Start& S,
                  const LKParams& P, const Tile& T, const Band& B, float* uo, float* vo,
-                 int* st, int* iters, cudaStream_t s)
+                 int* st, int* iters, cudaStream_t s, int* bps)
 {
     switch (start) {
     case START_MAP:
-        return launch<ONE_D, LIGHTING, START_MAP>(f1, f2, S, P, T, B, uo, vo, st, iters, s);
+        return launch<ONE_D, LIGHTING, START_MAP>(f1, f2, S, P, T, B, uo, vo, st, iters, s,
+                                                  bps);
     case START_ZERO:
-        return launch<ONE_D, LIGHTING, START_ZERO>(f1, f2, S, P, T, B, uo, vo, st, iters, s);
+        return launch<ONE_D, LIGHTING, START_ZERO>(f1, f2, S, P, T, B, uo, vo, st, iters, s,
+                                                   bps);
     default:
-        return launch<ONE_D, LIGHTING, START_UP>(f1, f2, S, P, T, B, uo, vo, st, iters, s);
+        return launch<ONE_D, LIGHTING, START_UP>(f1, f2, S, P, T, B, uo, vo, st, iters, s,
+                                                 bps);
     }
+}
+
+// The launch of one level (see pft_lk_dense_level), or with ``bps`` its
+// blocks per SM.
+int dispatch(const Frame& f1, const Frame& f2, const Start& S, const LKParams& P,
+             int start, int lighting_insensitive, int one_d, int tile_h, int tile_w,
+             const Band& B, float* uo, float* vo, int* st, int* iters, cudaStream_t s,
+             int* bps)
+{
+    const int ww = 2 * P.hw + 1, wh = 2 * P.hh + 1;
+    const Tile T{tile_h, tile_w, bank_stride(tile_w + ww - 1), tile_h + wh - 1,
+                 bank_stride(tile_w + ww + 1 + 2 * MARGIN + SLACK),
+                 tile_h + wh + 1 + 2 * MARGIN + SLACK, 0, 0};
+    if (one_d)
+        return launch_start<true, false>(start, f1, f2, S, P, T, B, uo, vo, st, iters, s, bps);
+    return lighting_insensitive
+        ? launch_start<false, true>(start, f1, f2, S, P, T, B, uo, vo, st, iters, s, bps)
+        : launch_start<false, false>(start, f1, f2, S, P, T, B, uo, vo, st, iters, s, bps);
 }
 
 }  // namespace
@@ -559,23 +587,30 @@ extern "C" int pft_lk_dense_level(const float* img1, const float* gx1, const flo
         return PFT_INVALID_ARGUMENT;
     const LKParams P{H, W, H * W, window_width / 2, window_height / 2, max_iterations,
                      min_displacement, min_determinant, max_residue, step_factor};
-    const int ww = window_width, wh = window_height;
-    const Tile T{tile_h, tile_w, bank_stride(tile_w + ww - 1), tile_h + wh - 1,
-                 bank_stride(tile_w + ww + 1 + 2 * MARGIN + SLACK),
-                 tile_h + wh + 1 + 2 * MARGIN + SLACK, 0, 0};
     const Frame f1{img1, gx1, gy1}, f2{img2, gx2, gy2};
     const Band B{row0, nrows_out};
     const Start S{u, v, start == START_UP ? hc : H, start == START_UP ? wc : W, ry, rx,
                   scale};
-    cudaStream_t s = (cudaStream_t)stream;
-    if (one_d)
-        return launch_start<true, false>(start, f1, f2, S, P, T, B, u_out, v_out, status,
-                                         iteration, s);
-    return lighting_insensitive
-        ? launch_start<false, true>(start, f1, f2, S, P, T, B, u_out, v_out, status,
-                                    iteration, s)
-        : launch_start<false, false>(start, f1, f2, S, P, T, B, u_out, v_out, status,
-                                     iteration, s);
+    return dispatch(f1, f2, S, P, start, lighting_insensitive, one_d, tile_h, tile_w, B,
+                    u_out, v_out, status, iteration, (cudaStream_t)stream, nullptr);
+}
+
+// Blocks of a pft_lk_dense_level launch with these arguments that one SM
+// holds at once (the CUDA occupancy calculator: the kernel instance's
+// registers, its threads and its shared memory), written to *blocks.
+extern "C" int pft_lk_dense_blocks_per_sm(int start, int window_width, int window_height,
+                                          int lighting_insensitive, int one_d, int tile_h,
+                                          int tile_w, int* blocks)
+{
+    if (window_width % 2 != 1 || window_height % 2 != 1 || start < START_MAP ||
+        start > START_UP || (one_d && start == START_ZERO) || tile_h <= 0 || tile_w <= 0 ||
+        tile_h % 4 != 0 || tile_w % 8 != 0 || tile_h * tile_w > NT_MAX)
+        return PFT_INVALID_ARGUMENT;
+    LKParams P{};
+    P.hw = window_width / 2;
+    P.hh = window_height / 2;
+    return dispatch(Frame{}, Frame{}, Start{}, P, start, lighting_insensitive, one_d, tile_h,
+                    tile_w, Band{}, nullptr, nullptr, nullptr, nullptr, nullptr, blocks);
 }
 
 PFT_PHASE_READER(pft_lk_dense_phase_clocks)

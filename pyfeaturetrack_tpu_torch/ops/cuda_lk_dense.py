@@ -35,6 +35,8 @@ every window summed sequentially in row-major tap order from 0
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from ..utils import cuda
@@ -127,6 +129,22 @@ def _launch(imgs, maps, start, coarse_shape, scale, cfg, one_d, out, band):
     cuda.check(rc, "pft_lk_dense_level")
     launches += 1
     band_launches += rows != nrows
+
+
+def blocks_per_sm(cfg, start: int = START_UP, one_d: bool = False) -> int:
+    """Blocks of a level launch with ``cfg``'s windows, ``start`` and TILE
+    that one SM holds at once, from the CUDA occupancy calculator (the
+    kernel's registers, threads and shared memory; no launch). A launch
+    over ``rows`` x W pixels has ceil(W / TILE[1]) * ceil(rows / TILE[0])
+    blocks."""
+    fn = cuda.function("pft_lk_dense_blocks_per_sm",
+                       [cuda.c_int] * 7 + [cuda.c_ptr])
+    out = ctypes.c_int(0)
+    rc = fn(start, cfg.window_width, cfg.window_height,
+            int(bool(cfg.lighting_insensitive)), int(one_d), *TILE,
+            ctypes.addressof(out))
+    cuda.check(rc, "pft_lk_dense_blocks_per_sm")
+    return out.value
 
 
 def _plain_level(imgs, u, v, cfg, one_d, scale, band=None):

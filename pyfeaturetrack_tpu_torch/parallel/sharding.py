@@ -417,23 +417,7 @@ def track_batch_sharded(imgs1, imgs2, x, y, val, cfg, mesh):
                        x, y, val, cfg, mesh_device(mesh))
 
 
-def full_pair_step(img1, img2, x, y, val, cfg, top_k: int = 256):
-    """The unsharded full pair body (JAX ``_full_pair_batch`` for one pair):
-    K1 builds (K3's map in frame 2's level-0 launch), K2, the affine check
-    (K6) and the refill of the lost slots (K4). Tensors in, (x, y, val)
-    out."""
-    p1 = build_track_pyramids(img1, cfg)
-    p2, eig = build_track_pyramids(img2, cfg, with_eig=True)
-    nx, ny, nv = track_features_pyramids(p1, p2, x, y, val, cfg)
-    aff = make_affine_state(x.shape[0], cfg, x.device)
-    after = affine_consistency_check(p1, p2, FeatureState(x, y, val, aff),
-                                     FeatureState(nx, ny, nv, aff), cfg)
-    return select_features_from_eig_device(
-        eig, after.x, after.y, after.val, cfg, replacing=True,
-        top_k=top_k)[:3]
-
-
-def _full_body(coord, sizes, imgs1, imgs2, x, y, val, cfg, dev, top_k):
+def _full_body(coord, sizes, imgs1, imgs2, x, y, val, cfg, dev):
     fb, kb = _pair_blocks(coord, sizes, len(imgs1), x.shape[1])
     pairs = _track_slice(imgs1, imgs2, x, y, val, fb, kb, cfg, dev, True)
     checked = []
@@ -448,13 +432,12 @@ def _full_body(coord, sizes, imgs1, imgs2, x, y, val, cfg, dev, top_k):
                         "refill")
     refilled = [select_features_from_eig_device(
         pairs[i][2], full[0][i], full[1][i], full[2][i], cfg,
-        replacing=True, top_k=top_k)[:3] for i in range(len(pairs))]
+        replacing=True)[:3] for i in range(len(pairs))]
     # every rank of a feature group now holds its frames' whole rows
     return (yield from _output(_stacked(refilled), ((FRAME_AXIS, 0),)))
 
 
-def full_pair_batch_sharded(imgs1, imgs2, x, y, val, cfg, mesh,
-                            top_k: int = 256):
+def full_pair_batch_sharded(imgs1, imgs2, x, y, val, cfg, mesh):
     """The full pair body over the (frame, feature) mesh: translational LK
     (K2) and the affine check (K6) on each rank's feature slice, then the
     refill (K3's map from K1's level-0 launch, K4) on the frame's features
@@ -462,7 +445,7 @@ def full_pair_batch_sharded(imgs1, imgs2, x, y, val, cfg, mesh,
     output gather). (x, y, val) [B, N] on every rank."""
     dev = mesh_device(mesh)
     return run_sharded(mesh, _full_body, mesh_sizes(mesh), imgs1, imgs2,
-                       x, y, val, cfg, dev, top_k)
+                       x, y, val, cfg, dev)
 
 
 # ---------------------------------------------------------------------------

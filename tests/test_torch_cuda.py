@@ -1425,9 +1425,14 @@ def test_sharded_paths_split_on_card_equal_unsharded(dev):
                                   lighting_insensitive=True).validated_window()
     got = sharding.full_pair_batch_sharded(imgs1, imgs2, xs, ys, vals,
                                            full_cfg, grid)
-    want = [sharding.full_pair_step(
-        torch.tensor(imgs1[i], device=dev), torch.tensor(imgs2[i], device=dev),
-        *(torch.tensor(t[i], device=dev) for t in (xs, ys, vals)), full_cfg)
+    # the device sequence's step (track, affine check, refill)
+    want = [tpft.sequence_step_device(
+        tpft.build_track_pyramids(torch.tensor(imgs1[i], device=dev),
+                                  full_cfg),
+        torch.tensor(imgs2[i], device=dev),
+        *(torch.tensor(t[i], device=dev) for t in (xs, ys, vals)), full_cfg,
+        replace_lost=True,
+        aff=tpft.make_affine_state(xs.shape[1], full_cfg, dev))[1:4]
         for i in range(2)]
     for g, w in zip(got, (torch.stack(c) for c in zip(*want))):
         assert torch.equal(g, w)

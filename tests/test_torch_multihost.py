@@ -14,10 +14,10 @@ four cards, ``torchrun --nproc_per_node 4 tests/test_torch_multihost.py
 Here: ``initialize_cluster`` with no cluster in the environment (the
 one-process summary) and with a named cluster that cannot be reached (it
 raises); ``host_chunk_assignment`` and ``allgather_boundary_states`` on 3
-ranks with 7 chunks; ``track_sequence_multiprocess`` on 4 ranks started
-by torchrun (joining from its environment) equal to
+ranks with 7 chunks; ``track_sequence_multiprocess`` on 4 ranks equal to
 ``track_sequence_chunked`` bit for bit (the mirror of
-tests/test_multiprocess.py's four-process test).
+tests/test_multiprocess.py's four-process test), and on one rank that
+joins from torchrun's variables.
 """
 
 import os
@@ -280,9 +280,11 @@ def _t(a, dtype, dev):
 
 def unsharded(case, dev="cpu"):
     """The case through the port's one-device entry points on ``dev``."""
+    from pyfeaturetrack_tpu_torch.models.device_sequence import (
+        sequence_step_device)
+    from pyfeaturetrack_tpu_torch.ops.affine import make_affine_state
     from pyfeaturetrack_tpu_torch.ops.track import (build_track_pyramids,
                                                     track_features_pyramids)
-    from pyfeaturetrack_tpu_torch.parallel import sharding
     f32, i32 = torch.float32, torch.int32
     if case in ("track", "full"):
         cfg = track_cfg() if case == "track" else full_cfg()
@@ -293,12 +295,16 @@ def unsharded(case, dev="cpu"):
             args = (_t(imgs1[b], f32, dev), _t(imgs2[b], f32, dev),
                     _t(xs[b], f32, dev), _t(ys[b], f32, dev),
                     _t(vals[b], i32, dev))
+            pyr1 = build_track_pyramids(args[0], cfg)
             if case == "full":
-                outs.append(sharding.full_pair_step(*args, cfg))
+                # the device sequence's step: track, affine check, refill
+                outs.append(sequence_step_device(
+                    pyr1, args[1], *args[2:], cfg, replace_lost=True,
+                    aff=make_affine_state(len(xs[b]), cfg, dev))[1:4])
             else:
                 outs.append(track_features_pyramids(
-                    build_track_pyramids(args[0], cfg),
-                    build_track_pyramids(args[1], cfg), *args[2:], cfg))
+                    pyr1, build_track_pyramids(args[1], cfg), *args[2:],
+                    cfg))
         return _np(torch.stack(c) for c in zip(*outs))
     if case == "flow":
         from pyfeaturetrack_tpu_torch.ops.flow import compute_dense_flow
@@ -498,20 +504,6 @@ def spawn_worlds(jobs, tmp_path: Path, timeout: float = 400):
     return [[dict(np.load(o)) for o in world] for world in outs]
 
 
-def torchrun_world(n: int, tmp_path: Path, job: str, timeout: float = 400):
-    """``job`` in n gloo ranks started by ``torchrun --standalone``: each
-    joins through initialize_cluster()'s reading of torchrun's
-    environment. Returns the ranks' saved results."""
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "torch.distributed.run", "--standalone",
-         "--nproc_per_node", str(n), __file__, "env", "-", "-",
-         str(tmp_path), job], env=_child_env(), stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT)
-    _wait([proc], timeout)
-    return [dict(np.load(tmp_path / f"{job}_{n}_rank{r}.npz"))
-            for r in range(n)]
-
-
 # ---------------------------------------------------------------------------
 # Tests
 # ---------------------------------------------------------------------------
@@ -588,24 +580,48 @@ def test_chunk_assignment_and_gather_uneven(tmp_path):
         np.testing.assert_array_equal(r["gathered_int"], want_int)
 
 
-def test_four_process_chunked_sequence_equals_chunked(tmp_path):
-    """4 gloo ranks started by torchrun (each joins through
-    initialize_cluster()'s reading of torchrun's environment) track 5
-    chunks of a real sequence (the uneven pad path), gather and stitch:
-    every rank's table equals the one-process track_sequence_chunked bit
-    for bit."""
+def _sequence_reference():
     from pyfeaturetrack_tpu_torch.config import create_config
     from pyfeaturetrack_tpu_torch.models.chunked import track_sequence_chunked
-    ranks = torchrun_world(4, tmp_path, "sequence")
-    ref, ref_ids, _ = track_sequence_chunked(
+    return track_sequence_chunked(
         sequence_frames(), cfg=create_config(mindist=5), n_features=20,
-        n_chunks=5, device="cpu")
+        n_chunks=5, device="cpu")[:2]
+
+
+def _assert_tables_equal(ranks, ref, ref_ids):
     for r in ranks:
         for k in ("x", "y", "val"):
             np.testing.assert_array_equal(r[f"table_{k}"], ref[k])
             assert r[f"table_{k}"].dtype == ref[k].dtype
         for i, ids in enumerate(ref_ids):
             np.testing.assert_array_equal(r[f"ids_{i}"], ids)
+
+
+def test_initialize_cluster_joins_from_the_torchrun_environment(tmp_path):
+    """A process given torchrun's variables (RANK, WORLD_SIZE,
+    MASTER_ADDR, MASTER_PORT, LOCAL_RANK) joins through
+    initialize_cluster() with no arguments: a one-rank gloo world whose
+    store takes a port the system picks (MASTER_PORT 0), so no two runs
+    can collide. Its track_sequence_multiprocess over 5 chunks equals
+    track_sequence_chunked bit for bit."""
+    env = dict(_child_env(), RANK="0", WORLD_SIZE="1",
+               MASTER_ADDR="127.0.0.1", MASTER_PORT="0", LOCAL_RANK="0")
+    proc = subprocess.Popen(
+        [sys.executable, __file__, "env", "-", "-", str(tmp_path),
+         "sequence"], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT)
+    _wait([proc], 400)
+    _assert_tables_equal([dict(np.load(tmp_path / "sequence_1_rank0.npz"))],
+                         *_sequence_reference())
+
+
+def test_four_process_chunked_sequence_equals_chunked(tmp_path):
+    """4 gloo ranks (file:// init) track 5 chunks of a real sequence (the
+    uneven pad path), gather and stitch: every rank's table equals the
+    one-process track_sequence_chunked bit for bit."""
+    (ranks,) = spawn_worlds([(4, "sequence")], tmp_path)
+    ref, ref_ids = _sequence_reference()
+    _assert_tables_equal(ranks, ref, ref_ids)
     assert ref["val"].shape[1] >= 15
     assert int((ref["val"][-1] >= 0).sum()) >= 10
 
