@@ -234,7 +234,27 @@ Phases, in order; the first failure exits non-zero:
    iterations/s with and without mesh=; (d) the group destroyed however
    the phase ends. Prints {"parallel": ...}; the kernels line's K8 entry
    gains its band launches, times and bound;
-15. profile (only with --profile) — for config 2's host loop, its step
+15. bf16 and config 4 — bfloat16 storage (cfg.image_dtype): K1 with K3's
+   map in its level-0 launch on bfloat16 levels (480x640 default, 481x643,
+   480x70, one level, config 3, a 13x13 window, 1088x1920 config 4), every
+   stored level and the map bit-equal to the plain version and every level
+   equal to the float32 build rounded; K2 (its track call, with and without
+   guided starts, and per level) at config 4 (4096 features) and on the
+   status mix (lighting-insensitive, 17x17); K6's stage on six config-3
+   steps and its batch; K8 2-D from zero, from the coarser maps, from maps
+   and on a row band, and 1-D, all bit-equal; each timed beside the
+   float32 kernel on the same shapes. Then the bfloat16 paths of K6 (30
+   config-3 frames) and K8 (compute_dense_flow, == the plain route), each
+   with its counts set to 0 first. Then BASELINE config 4 (1088x1920, 4096
+   features, 4 levels, subsampling 2), float32 and bfloat16:
+   track_sequence_device on 100 drifting frames with refill (launches per
+   kernel: the bfloat16 run is the path of the bfloat16 K1 and K2
+   entries), chained (k=8, == eager), 10 frames through the plain versions
+   (== the kernels' table), ms per frame by CUDA events, device busy time
+   and idle share from torch.profiler traces (build/profile/config4_*),
+   and the bound from utils/roofline.config4_counts. Prints {"config4":
+   ...};
+16. profile (only with --profile) — for config 2's host loop, its step
    time beside the device route's, three repeats, and for the config-3
    and the default device step, the step time by CUDA events, by host
    wall clock and through track_sequence_device, three repeats each;
@@ -258,7 +278,10 @@ guided entry, with the circuit's guided launches and the start-free
 time on the same lanes; K9's launches are those
 of its own phase's driven
 call, since no path of the package runs it; every entry's grad_launches
-are its launches in the grad phase's forwards),
+are its launches in the grad phase's forwards; the bf16 entries of K1, K2,
+K6 and K8 carry phase 15's launches (config 4's bfloat16 run for K1 and
+K2, the bfloat16 config-3 and dense runs for K6 and K8) and the float32
+kernel's times on the same shapes),
 the script's wall time, then the nvidia-smi line, then, as the last line,
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
@@ -325,17 +348,17 @@ def smooth_texture(rng, h, w):
     return (tex - tex.min()) / (tex.max() - tex.min()) * 255.0
 
 
-def make_frames(n_frames: int, seed: int = SEED):
-    """uint8 frames of a seeded smooth texture that moves by DRIFT each
-    frame (frame i is a crop of one large texture)."""
+def make_frames(n_frames: int, seed: int = SEED, h: int = H, w: int = W):
+    """uint8 h x w frames of a seeded smooth texture that moves by DRIFT
+    each frame (frame i is a crop of one large texture)."""
     import numpy as np
     dx, dy = DRIFT
     rng = np.random.default_rng(seed)
-    bh, bw = H + dy * n_frames, W + dx * n_frames
+    bh, bw = h + dy * n_frames, w + dx * n_frames
     tex = np.floor(smooth_texture(rng, bh, bw)).astype(np.uint8)
     y0, x0 = dy * n_frames, dx * n_frames
-    return [np.ascontiguousarray(tex[y0 - dy * i:y0 - dy * i + H,
-                                     x0 - dx * i:x0 - dx * i + W])
+    return [np.ascontiguousarray(tex[y0 - dy * i:y0 - dy * i + h,
+                                     x0 - dx * i:x0 - dx * i + w])
             for i in range(n_frames)]
 
 
@@ -711,9 +734,15 @@ def k1_build_check(pft, cuda_pyramid, cuda, img, cfg, name):
     return got
 
 
+def image_bytes(cfg) -> int:
+    """Bytes of one stored pyramid element (cfg.image_dtype)."""
+    return 2 if cfg.image_dtype == "bfloat16" else 4
+
+
 def k1_work(cfg, h, w, with_eig=False):
-    """Bytes and operations of one frame's pyramid build: the frame read
-    once, each level's image and gradient pair written once; per output
+    """Bytes and operations of one frame's pyramid build: the float32 frame
+    read once, each level's image and gradient pair written once in the
+    storage dtype; per output
     sample one multiply and one add per tap of each 1-D pass (the level-0
     pre-smooth, the four gradient passes, and the pyramid smoothing at the
     decimated samples only). ``with_eig``: and K3's int32 map written, with
@@ -728,7 +757,7 @@ def k1_work(cfg, h, w, with_eig=False):
         if level == 0:
             ops += 2 * 2 * ks * hl * wl
         ops += (4 * kd + 4 * kg) * hl * wl
-        nbytes += 3 * 4 * hl * wl
+        nbytes += 3 * image_bytes(cfg) * hl * wl
         if level < cfg.nPyramidLevels - 1:
             h2, w2 = hl // s, wl // s
             ops += 2 * kp * hl * w2 + 2 * kp * h2 * w2
@@ -751,7 +780,7 @@ def k2_work(cfg, active, iterations):
     n = active.shape[0]
     na = int(active.sum().item())
     its = int(iterations[active].sum().item())
-    nbytes = na * 6 * patch * 4 + n * (4 * 4 + 1 + 4 * 4)
+    nbytes = na * 6 * patch * image_bytes(cfg) + n * (4 * 4 + 1 + 4 * 4)
     return nbytes, na * npx * 31 + its * (npx * 34 + 12)
 
 
@@ -867,7 +896,8 @@ def k6_work(cfg, check, nit):
     nc = int(check.sum().item())
     its = int(nit.sum().item())
     n = check.shape[0]
-    nbytes = nc * (npx + 3 * foot) * 4 + n * (8 + 16 + 1 + 8 + 16 + 8)
+    nbytes = (nc * (npx * 4 + 3 * foot * image_bytes(cfg))
+              + n * (8 + 16 + 1 + 8 + 16 + 8))
     per_sample = 8 + 2 + 6 + 21 + 1 + jac + 2 * ns
     ops = its * (npx * per_sample + 2 * p * p * (p + 1)) + nc * npx * 26
     return nbytes, ops
@@ -894,7 +924,8 @@ def k6_stage_work(cfg, args, out):
     check = tracked & valid
     n_cap = int((tracked & ~valid).sum().item())
     per_lane = 2 * (3 * npx * 4 + 2 * 4 + 16 + 1 + 4) + 3 * 12 + 3 * 4
-    nbytes = n * per_lane + (n_cap + int(check.sum().item())) * 3 * foot * 4
+    nbytes = n * per_lane + ((n_cap + int(check.sum().item())) * 3 * foot
+                             * image_bytes(cfg))
     # the Gauss-Newton updates the kernel made: recount them with the batch
     # entry on the same inputs (the stage does not return them)
     from pyfeaturetrack_tpu_torch.ops import cuda_affine
@@ -932,10 +963,11 @@ def k8_work(cfg, status, iterations, one_d, coarse=None):
     hm, wm = (h, w) if coarse is None else coarse
     maps = 4 * nmaps * hm * wm
     up = 0 if coarse is None else 20 * nmaps * n
+    b = image_bytes(cfg)
     if one_d:
-        return (4 * 4 * h * w + maps + n * 12,
+        return (4 * b * h * w + maps + n * 12,
                 reached * npx * 10 + its * (npx * 20 + 4) + up)
-    return (6 * 4 * h * w + maps + n * 16,
+    return (6 * b * h * w + maps + n * 16,
             reached * npx * 10 + its * (npx * 34 + 12) + up)
 
 
@@ -1174,11 +1206,12 @@ def time_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def step_times(pft, cfg, staged, replace_lost=True, warmup=10):
+def step_times(pft, cfg, staged, replace_lost=True, warmup=10,
+               n_features=N_FEATURES):
     """CUDA-event time of each sequence_step_device over the staged frames
     (ms), after ``warmup`` steps."""
     import torch
-    pyr, x, y, v, aff, _ = pft.select_step_device(staged[0], cfg, N_FEATURES)
+    pyr, x, y, v, aff, _ = pft.select_step_device(staged[0], cfg, n_features)
     events = []
     for img in staged[1:]:
         e0 = torch.cuda.Event(enable_timing=True)
@@ -1752,12 +1785,13 @@ def tables_equal(a, b) -> bool:
     return all(np.array_equal(x, y) for x, y in zip(a, b))
 
 
-def chain_event_ms(pft, cfg, frames, staged0, k=CHAIN, skip=2):
+def chain_event_ms(pft, cfg, frames, staged0, k=CHAIN, skip=2,
+                   n_features=N_FEATURES):
     """CUDA-event ms per frame of each sequence_chain_device call over
     ``frames`` (tensors on the card, or host arrays: the pinned path),
     after ``skip`` calls."""
     import torch
-    pyr, x, y, v, aff, _ = pft.select_step_device(staged0, cfg, N_FEATURES)
+    pyr, x, y, v, aff, _ = pft.select_step_device(staged0, cfg, n_features)
     events = []
     for i in range(1, len(frames) - k + 1, k):
         e0 = torch.cuda.Event(enable_timing=True)
@@ -1771,17 +1805,18 @@ def chain_event_ms(pft, cfg, frames, staged0, k=CHAIN, skip=2):
     return [a.elapsed_time(b) / k for a, b in events[skip:]]
 
 
-def serving_traces(pft, cfg, staged, root, tag, k=CHAIN, n_chains=3):
+def serving_traces(pft, cfg, staged, root, tag, k=CHAIN, n_chains=3,
+                   n_features=N_FEATURES):
     """torch.profiler traces of n_chains * k frames through the eager step
-    and through chain replays (build/profile/serving_<tag>_{eager,chain}
-    .json): device kernels per frame, busy time and idle share, and the
-    port's kernels per frame of each (they must agree)."""
+    and through chain replays (build/profile/<tag>_{eager,chain}.json):
+    device kernels per frame, busy time and idle share, and the port's
+    kernels per frame of each (they must agree)."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
     n = n_chains * k
     out = {}
     for route in ("eager", "chain"):
-        state = list(pft.select_step_device(staged[0], cfg, N_FEATURES)[:5])
+        state = list(pft.select_step_device(staged[0], cfg, n_features)[:5])
 
         def advance(imgs):
             pyr, x, y, v, aff = state
@@ -1811,7 +1846,7 @@ def serving_traces(pft, cfg, staged, root, tag, k=CHAIN, n_chains=3):
             prof.step()
         print(f"{tag}, {route}:")
         kern = trace_summary(prof, root / "build" / "profile" /
-                             f"serving_{tag}_{route}.json", n)
+                             f"{tag}_{route}.json", n)
         no_standalone_k3(kern, f"{tag} {route}")
         busy, span = busy_span(kern)
         out[route] = dict(
@@ -1877,7 +1912,8 @@ def serving_phase(pft, path_mods, k6, frames, sim, tables, cfg, cfg3,
         # the profiler can lose a kernel's records (PERF.md section 7): a
         # pair of traces whose counts disagree is taken again, twice at most
         for attempt in range(3):
-            traces = serving_traces(pft, c, st, root, tag.replace(" ", ""))
+            traces = serving_traces(pft, c, st, root,
+                                    "serving_" + tag.replace(" ", ""))
             eager, chained = traces["eager"], traces["chain"]
             print(f"{tag}: device kernels per frame, eager "
                   f"{eager['kernels']:.2f}, chain {chained['kernels']:.2f}; "
@@ -3685,6 +3721,505 @@ def _parallel_runs(pft, mods, frames, sim, cfg, cfg3, tables, report, dev,
     return out
 
 
+
+# ---- phase 15: bfloat16 storage (cfg.image_dtype) and BASELINE config 4 ----
+
+# BASELINE config 4 at bench.py's shape: 1088x1920, 4096 features, a 4-level
+# pyramid at subsampling 2; the frames drift by DRIFT each
+C4_H, C4_W = 1088, 1920
+C4_FEATURES = 4096
+C4_FRAMES = 100
+C4_PLAIN_FRAMES = 10
+BF16 = "bfloat16"
+# the bfloat16 path runs of K6 (config 3) and K8 (dense flow)
+BF16_AFFINE_FRAMES = 30
+
+
+def config4(image_dtype="float32"):
+    """BASELINE config 4 as bench.py builds it (the default config with 4
+    levels at subsampling 2), sequential, in the given storage dtype."""
+    import pyfeaturetrack_tpu_torch as pft
+    return pft.create_config().replace(
+        nPyramidLevels=4, subsampling=2, image_dtype=image_dtype,
+        sequentialMode=True).validated_window()
+
+
+def k1_bf16_check(pft, cuda_pyramid, cuda, img, cfg, name):
+    """K1 with bfloat16 storage and K3's map in its level-0 launch against
+    its plain version, bit for bit (every stored level and the map); every
+    stored level equals the float32 build rounded to nearest even; at most
+    two launches. Returns (pyramids, map)."""
+    import torch
+    before = cuda_pyramid.launches
+    got, eig = pft.build_track_pyramids(img, cfg, with_eig=True)
+    n_launch = cuda_pyramid.launches - before
+    with cuda.reference_path():
+        want, eig_p = pft.build_track_pyramids(img, cfg, with_eig=True)
+    f32 = pft.build_track_pyramids(img, cfg.replace(image_dtype="float32"))
+    torch.cuda.synchronize()
+    trip = [(a, b, c) for ga, wa, fa in zip(got, want, f32)
+            for a, b, c in zip(ga, wa, fa)]
+    dtypes = {a.dtype for a, _, _ in trip}
+    same = all(a.shape == b.shape and torch.equal(a, b)
+               for a, b, _ in trip) and torch.equal(eig, eig_p)
+    rounded = all(torch.equal(a, c.to(torch.bfloat16)) for a, _, c in trip)
+    print(f"K1 bf16 build with K3's map, {name}: {cfg.nPyramidLevels} "
+          f"levels, subsampling {cfg.subsampling}, levels "
+          f"{[tuple(t.shape) for t in got.img]}: {n_launch} launches, "
+          f"dtypes {sorted(map(str, dtypes))}, bit-equal {same}, == the "
+          f"float32 build rounded {rounded}")
+    if dtypes != {torch.bfloat16}:
+        fail(f"K1 bf16 ({name}) stored {dtypes}")
+    if not same:
+        fail(f"K1 bf16 build ({name}) differs from its plain version")
+    if not rounded:
+        fail(f"K1 bf16 build ({name}) is not the float32 build rounded")
+    if n_launch != min(cfg.nPyramidLevels, 2):
+        fail(f"K1 bf16 build ({name}) took {n_launch} launches")
+    return got, eig
+
+
+def config4_phase(pft, mods, c4frames, report, dev, root):
+    """BASELINE config 4 (C4_H x C4_W, C4_FEATURES features, 4 levels,
+    subsampling 2) through the device route, float32 and bfloat16
+    storage: track_sequence_device eager (the path whose launches the
+    bf16 K1 and K2 entries report) and chained (k = CHAIN, equal bit for
+    bit), launches per kernel, ms per frame by CUDA events and device
+    time, idle share, the roofline bound (utils/roofline.config4_counts:
+    build + LK), and C4_PLAIN_FRAMES frames through the plain versions
+    with an identical table."""
+    import numpy as np
+    import torch
+    from pyfeaturetrack_tpu_torch.features import KLT_TRACKED
+    from pyfeaturetrack_tpu_torch.utils import cuda, roofline
+    out, tables = {}, {}
+    staged = [torch.as_tensor(f, device=dev).to(torch.float32)
+              for f in c4frames]
+    for dt in ("float32", BF16):
+        c4 = config4(dt)
+        phase(f"config 4 ({dt}): track_sequence_device, {C4_FRAMES} frames "
+              f"{C4_H}x{C4_W}, {C4_FEATURES} features, {c4.nPyramidLevels} "
+              f"levels, subsampling {c4.subsampling}, replace-lost; eager, "
+              f"then chained (k={CHAIN})")
+        for m in mods.values():
+            m.launches = 0
+        t0 = time.perf_counter()
+        table = pft.track_sequence_device(c4frames, cfg=c4,
+                                          n_features=C4_FEATURES,
+                                          replace_lost=True, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = path_counts(mods, f"config-4 {dt} path")
+        print(f"launches in the config-4 {dt} run: {counts} ({wall:.2f} s "
+              "wall, first calls included)")
+        expect_launches(counts, {"K1": 2 * C4_FRAMES, "K2": C4_FRAMES - 1,
+                                 "K3": C4_FRAMES, "K4": 2 * C4_FRAMES},
+                        f"config-4 {dt} path")
+        xs, ys, vs = table
+        if xs.shape != (C4_FRAMES, C4_FEATURES) or not (
+                np.isfinite(xs).all() and np.isfinite(ys).all()):
+            fail(f"config-4 {dt} table shape {xs.shape} or non-finite")
+        pair = (vs[1:] == KLT_TRACKED) & (vs[:-1] >= 0)
+        ddx = float(np.median((xs[1:] - xs[:-1])[pair]))
+        ddy = float(np.median((ys[1:] - ys[:-1])[pair]))
+        refills = int((vs[1:] > 0).sum())
+        print(f"tracked pairs {int(pair.sum())}, median displacement "
+              f"({ddx:.4f}, {ddy:.4f}) px vs drift {DRIFT}; refilled slots "
+              f"{refills}; live in last frame {int((vs[-1] >= 0).sum())}")
+        if abs(ddx - DRIFT[0]) > DRIFT_TOL or abs(ddy - DRIFT[1]) > DRIFT_TOL:
+            fail(f"config-4 {dt}: median displacement is not the drift")
+        if refills == 0:
+            fail(f"config-4 {dt}: no refill fired")
+        for m in mods.values():
+            m.launches = 0
+        chained = pft.track_sequence_device(c4frames, cfg=c4,
+                                            n_features=C4_FEATURES,
+                                            replace_lost=True, chain=CHAIN,
+                                            device="cuda")
+        torch.cuda.synchronize()
+        counts_c = path_counts(mods, f"config-4 {dt} chain")
+        same = tables_equal(chained, table)
+        print(f"chained (k={CHAIN}): launches {counts_c} (the capture's "
+              f"warm-up step included), table == eager {same}")
+        if not same:
+            fail(f"config-4 {dt}: the chained table differs from the eager")
+        with cuda.reference_path():
+            plain = pft.track_sequence_device(
+                c4frames[:C4_PLAIN_FRAMES], cfg=c4, n_features=C4_FEATURES,
+                replace_lost=True, device="cuda")
+        same = tables_equal(plain, tuple(t[:C4_PLAIN_FRAMES] for t in table))
+        print(f"plain-version run, {C4_PLAIN_FRAMES} frames: table == the "
+              f"kernels' {same}")
+        if not same:
+            fail(f"config-4 {dt}: the plain versions' table differs")
+        trace = serving_traces(pft, c4, staged, root, f"config4_{dt}",
+                               n_chains=2, n_features=C4_FEATURES)
+        sol, bound_by = roofline.bound_s(roofline.config4_counts(
+            c4, C4_H, C4_W, C4_FEATURES))
+        out[dt] = dict(launches=counts, launches_chain=counts_c,
+                       eager_device_us=trace["eager"]["busy_us"],
+                       chain_device_us=trace["chain"]["busy_us"],
+                       eager_kernels=trace["eager"]["kernels"],
+                       chain_kernels=trace["chain"]["kernels"],
+                       eager_idle=trace["eager"]["idle"],
+                       chain_idle=trace["chain"]["idle"],
+                       roofline_us=sol * 1e6, roofline_bound=bound_by,
+                       wall_s=wall, displacement=[ddx, ddy], refills=refills,
+                       eager_ms=[], chain_ms=[])
+        tables[dt] = table
+    # ms per frame by CUDA events, the two storage types in turns
+    phase("config 4: ms per frame by CUDA events, float32 and bfloat16 in "
+          "turns (f32, bf16, bf16, f32), eager and chained")
+    for dt in ("float32", BF16, BF16, "float32"):
+        c4 = config4(dt)
+        out[dt]["eager_ms"].append(float(np.median(step_times(
+            pft, c4, staged, n_features=C4_FEATURES))))
+        out[dt]["chain_ms"].append(float(np.median(chain_event_ms(
+            pft, c4, staged, staged[0], n_features=C4_FEATURES))))
+    for dt in ("float32", BF16):
+        r = out[dt]
+        print(f"config 4 {dt}: eager step median {r['eager_ms']} ms, chain "
+              f"{r['chain_ms']} ms per frame (two turns each); device busy "
+              f"{r['eager_device_us']:.1f} / {r['chain_device_us']:.1f} us "
+              f"per frame, idle share {r['eager_idle']:.3f} / "
+              f"{r['chain_idle']:.3f} (eager / chain); roofline "
+              f"(utils/roofline.config4_counts, build + LK) "
+              f"{r['roofline_us']:.2f} us ({r['roofline_bound']})")
+    # the selections differ (the bfloat16 refill map is that of the rounded
+    # gradients), so the two tables hold other features: compare the
+    # initial selection, then the lanes both tables hold since frame 0
+    (x32, y32, v32), (x16, y16, v16) = tables["float32"], tables[BF16]
+    same0 = (x32[0] == x16[0]) & (y32[0] == y16[0])
+    held = same0 & ((v32 == KLT_TRACKED) & (v16 == KLT_TRACKED))[1:].all(0)
+    apart = np.maximum(np.abs(x32 - x16), np.abs(y32 - y16))[-1, held]
+    dmax = float(apart.max()) if held.any() else 0.0
+    dmed = float(np.median(apart)) if held.any() else 0.0
+    print(f"config 4, bfloat16 against float32 storage: {int(same0.sum())} "
+          f"of {C4_FEATURES} initial selections equal; {int(held.sum())} "
+          f"lanes tracked in every frame of both, in the last frame at most "
+          f"{dmax:.4f} px apart (median {dmed:.4f}); live in the last frame "
+          f"{int((v32[-1] >= 0).sum())} / {int((v16[-1] >= 0).sum())}")
+    out["bf16_vs_f32"] = dict(same_initial=int(same0.sum()),
+                              held=int(held.sum()), max_px=dmax,
+                              median_px=dmed)
+    report["config4"] = out
+    return out
+
+
+def bf16_phase(pft, mods, frames, sim, cfg, cfg3, c4frames, report, dev,
+               prof_dir):
+    """The bfloat16 storage lane on the card: K1 (K3's map in its level-0
+    launch), K2 (with guided starts), K6 and K8 (2-D, 1-D, a row band) on
+    bfloat16 levels against their plain versions, bit for bit, and timed;
+    then the paths of K6 (config 3) and K8 (dense flow) with bfloat16
+    storage, each with its counts set to 0 before it. Fills report's
+    "K1 bf16", "K2 bf16", "K6 bf16" and "K8 bf16"."""
+    import numpy as np
+    import torch
+    from pyfeaturetrack_tpu_torch.features import KLT_TRACKED
+    from pyfeaturetrack_tpu_torch.ops import (cuda_affine, cuda_lk,
+                                              cuda_lk_dense, cuda_pyramid)
+    from pyfeaturetrack_tpu_torch.ops.affine import affine_consistency_check
+    from pyfeaturetrack_tpu_torch.ops.disparity import _hypothesis_init
+    from pyfeaturetrack_tpu_torch.utils import cuda
+    cfg16, cfg3_16, c4_16 = (c.replace(image_dtype=BF16)
+                             for c in (cfg, cfg3, config4()))
+    img0, img1 = (torch.as_tensor(f, device=dev).to(torch.float32)
+                  for f in frames[:2])
+    c4a, c4b = (torch.as_tensor(f, device=dev).to(torch.float32)
+                for f in c4frames[:2])
+
+    phase("bf16 kernels: K1 with K3's map, bfloat16 storage, against its "
+          "plain version")
+    rng = np.random.default_rng(SEED + 9)
+    odd = torch.as_tensor(np.floor(smooth_texture(rng, 481, 643)),
+                          dtype=torch.float32, device=dev)
+    for name, img, kcfg in (
+            ("480x640, default", img0, cfg16),
+            ("481x643, default", odd, cfg16),
+            ("480x70 (narrow levels)", img0[:, :70].contiguous(), cfg16),
+            ("480x640, one level", img0, cfg16.replace(nPyramidLevels=1)),
+            ("480x640, config 3", img0, cfg3_16),
+            ("480x640, 13x13 window", img0, pft.create_config(
+                window_width=13, window_height=13, image_dtype=BF16)),
+            (f"{C4_H}x{C4_W}, config 4", c4a, c4_16)):
+        k1_bf16_check(pft, cuda_pyramid, cuda, img, kcfg, name)
+    k1_names = ["::level0_kernel", "::coarse_kernel"]
+    k1 = {}
+    for tag, img, kcfg in (("480x640", img0, cfg), ("config 4", c4a,
+                                                    config4())):
+        for dt in ("float32", BF16):
+            c = kcfg.replace(image_dtype=dt)
+
+            def build(c=c, img=img):
+                return pft.build_track_pyramids(img, c, with_eig=True)
+            ms = time_ms(build)
+            dev_ms, _ = device_ms(build, k1_names, prof_dir)
+            with cuda.reference_path():
+                plain = time_ms(build, reps=3)
+            b_ms, b_by = bound_ms(*k1_work(c, *img.shape, with_eig=True))
+            k1[(tag, dt)] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain,
+                                 work=k1_work(c, *img.shape, with_eig=True))
+            print(f"K1 build with K3's map, {tag}, {dt}: {ms:.4f} ms by "
+                  f"events, {dev_ms:.4f} ms device, plain {plain:.4f} ms, "
+                  f"bound {b_ms:.6f} ms ({b_by})")
+    h4, w4 = c4a.shape
+    scratch = sum(hh * ww for hh, ww in cuda_pyramid.level_shapes(
+        h4, w4, 2, 4)[1:]) * 4
+    print(f"K1 bf16 at config 4: the float32 scratch of levels 1-3 is "
+          f"{scratch} bytes written and read once a build")
+    r = k1[("config 4", BF16)]
+    report["K1 bf16"] = dict(max_abs_err=0.0, ms=r["ms"],
+                             plain_ms=r["plain_ms"],
+                             device_ms=r["device_ms"], work=r["work"],
+                             scratch_bytes=scratch,
+                             f32_ms=k1[("config 4", "float32")]["ms"],
+                             f32_device_ms=k1[("config 4", "float32")][
+                                 "device_ms"],
+                             ms_480x640=k1[("480x640", BF16)]["ms"],
+                             device_ms_480x640=k1[("480x640", BF16)][
+                                 "device_ms"],
+                             f32_device_ms_480x640=k1[("480x640",
+                                                       "float32")]["device_ms"])
+
+    phase(f"bf16 kernels: K2 on bfloat16 levels ({C4_H}x{C4_W}, "
+          f"{C4_FEATURES} features, config 4; a status mix at {H}x{W}), "
+          "with and without guided starts, against its plain version")
+    pa, pb = (pft.build_track_pyramids(f, c4_16) for f in (c4a, c4b))
+    _, x, y, v, _, _ = pft.select_step_device(c4a, c4_16, C4_FEATURES)
+    live = v >= 0
+    k2_call_check(pa, pb, x, y, live, c4_16, cuda_lk, cuda.reference_path,
+                  "bf16, config 4")
+    xi = (x + float(DRIFT[0])).contiguous()
+    yi = (y + float(DRIFT[1])).contiguous()
+    guided_case(pft, cuda_lk, cuda, pa, pb, x, y, v, xi, yi, c4_16,
+                "bf16, config 4, starts at the drift")
+    work = [0, 0]
+    for r_, args, got, want in k2_levels(pa, pb, x, y, live, c4_16, cuda_lk,
+                                         cuda.reference_path):
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            fail(f"K2 bf16 level {r_} (config 4) differs from its plain "
+                 "version")
+        lw = k2_work(c4_16, args[-1], got[3])
+        work = [work[0] + lw[0], work[1] + lw[1]]
+    mix0, mix1 = (torch.as_tensor(f, device=dev) for f in make_status_mix())
+    mx = torch.as_tensor(rng.uniform(-4, W + 4, N_FEATURES),
+                         dtype=torch.float32, device=dev)
+    my = torch.as_tensor(rng.uniform(-4, H + 4, N_FEATURES),
+                         dtype=torch.float32, device=dev)
+    all_live = torch.ones(N_FEATURES, dtype=torch.bool, device=dev)
+    for name, over in (("status mix", {}),
+                       ("status mix, lighting-insensitive",
+                        {"lighting_insensitive": True}),
+                       ("status mix, 17x17 window",
+                        {"window_width": 17, "window_height": 17})):
+        kcfg = (pft.create_config(**over, image_dtype=BF16).replace(
+            sequentialMode=True) if "window_width" in over
+            else cfg16.replace(**over))
+        gain = 0.8 if over.get("lighting_insensitive") else 1.0
+        qa, qb = (pft.build_track_pyramids(f, kcfg)
+                  for f in (mix0, mix1 * gain))
+        k2_call_check(qa, qb, mx, my, all_live, kcfg, cuda_lk,
+                      cuda.reference_path, f"bf16, {name}")
+        for r_, _, got, want in k2_levels(qa, qb, mx, my, all_live, kcfg,
+                                          cuda_lk, cuda.reference_path):
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                fail(f"K2 bf16 ({name}) level {r_} differs from its plain "
+                     "version")
+    k2 = {}
+    for dt in ("float32", BF16):
+        c = c4_16.replace(image_dtype=dt)
+        p1, p2 = (pft.build_track_pyramids(f, c) for f in (c4a, c4b))
+
+        def call(p1=p1, p2=p2, c=c):
+            return cuda_lk.track_pyramid(p1, p2, x, y, v, c)
+        k2[dt] = dict(ms=time_ms(call),
+                      device_ms=device_ms(call, ["lk_pyramid_kernel"],
+                                          prof_dir)[0])
+        with cuda.reference_path():
+            k2[dt]["plain_ms"] = time_ms(call, reps=3)
+        print(f"K2 track call, config 4, {dt}: {k2[dt]['ms']:.4f} ms by "
+              f"events, {k2[dt]['device_ms']:.4f} ms device, plain "
+              f"{k2[dt]['plain_ms']:.4f} ms")
+    print(f"K2 bf16 bound {bound_ms(*work)[0]:.6f} ms ({bound_ms(*work)[1]})")
+    report["K2 bf16"] = dict(max_abs_err=0.0, ms=k2[BF16]["ms"],
+                             plain_ms=k2[BF16]["plain_ms"],
+                             device_ms=k2[BF16]["device_ms"], work=work,
+                             f32_ms=k2["float32"]["ms"],
+                             f32_device_ms=k2["float32"]["device_ms"])
+
+    phase("bf16 kernels: K6's affine stage on bfloat16 level 0 (config 3, "
+          f"{H}x{W}, {N_FEATURES} features), step by step, and its batch")
+    staged3 = [torch.as_tensor(f, device=dev).to(torch.float32)
+               for f in sim[:9]]
+    pyr, x3, y3, v3, aff, _ = pft.select_step_device(staged3[0], cfg3_16,
+                                                     N_FEATURES)
+    mid = None
+    for i, img in enumerate(staged3[1:], start=1):
+        pyr_new = pft.build_track_pyramids(img, cfg3_16)
+        tx, ty, tv = pft.track_features_pyramids(pyr, pyr_new, x3, y3, v3,
+                                                 cfg3_16)
+        args = (pyr, pyr_new, pft.FeatureState(x3, y3, v3, aff),
+                pft.FeatureState(tx, ty, tv, aff), cfg3_16)
+        out = stage_check(affine_consistency_check, cuda_affine, cuda, args,
+                          f"bf16 config-3 step {i}")
+        if i == 4:
+            mid = (args, out)
+        pyr, x3, y3, v3, aff, _, _ = pft.sequence_step_device(
+            pyr, img, x3, y3, v3, cfg3_16, True, aff=aff)
+    args, out = mid
+    p2, after = args[1], args[3]
+    check = (after.val == KLT_TRACKED) & out.aff.valid
+    bargs = (out.aff.img, p2.img[0], p2.gradx[0], p2.grady[0], after.x,
+             after.y, out.aff.A.contiguous(), check.contiguous())
+    got = cuda_affine.affine_track_batch(*bargs, cfg3_16)
+    with cuda.reference_path():
+        want = cuda_affine.affine_track_batch(*bargs, cfg3_16)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    print(f"K6 batch on bfloat16 level 0 ({int(check.sum().item())} checked "
+          f"lanes): bit-equal {same}")
+    if not same:
+        fail("K6's batch on bfloat16 levels differs from its plain version")
+    k6 = {}
+    for dt in ("float32", BF16):
+        c = cfg3_16.replace(image_dtype=dt)
+        a2 = (tuple(tuple(t.to(torch.float32) if dt == "float32" else t
+                          for t in part) for part in args[0]),
+              tuple(tuple(t.to(torch.float32) if dt == "float32" else t
+                          for t in part) for part in args[1]))
+        sargs = (pft.TrackPyramids(*a2[0]), pft.TrackPyramids(*a2[1]),
+                 args[2], args[3], c)
+
+        def stage(sargs=sargs):
+            return affine_consistency_check(*sargs)
+        k6[dt] = dict(ms=time_ms(stage),
+                      device_ms=device_ms(stage, ["stage_kernel"],
+                                          prof_dir)[0])
+        with cuda.reference_path():
+            k6[dt]["plain_ms"] = time_ms(stage, reps=3)
+        print(f"K6 stage, config-3 step 4, {dt} levels: {k6[dt]['ms']:.4f} "
+              f"ms by events, {k6[dt]['device_ms']:.4f} ms device, plain "
+              f"{k6[dt]['plain_ms']:.4f} ms")
+    k6w = k6_stage_work(cfg3_16, args, out)
+    report["K6 bf16"] = dict(max_abs_err=0.0, ms=k6[BF16]["ms"],
+                             plain_ms=k6[BF16]["plain_ms"],
+                             device_ms=k6[BF16]["device_ms"], work=k6w,
+                             f32_ms=k6["float32"]["ms"],
+                             f32_device_ms=k6["float32"]["device_ms"])
+
+    phase(f"bf16 kernels: K8 on bfloat16 levels ({H}x{W}): 2-D from the "
+          "coarser maps, from maps, a row band; 1-D (dense depth's pair)")
+    s = float(cfg16.subsampling)
+    p1, p2 = (pft.build_track_pyramids(f, cfg16) for f in (img0, img1))
+    lvl = [tuple(p[r_] for p in (p1.img, p1.gradx, p1.grady, p2.img,
+                                 p2.gradx, p2.grady)) for r_ in (0, 1)]
+
+    def k8_pair(fn, what, *a, **k):
+        got = fn(*a, **k)
+        with cuda.reference_path():
+            want = fn(*a, **k)
+        torch.cuda.synchronize()
+        maps_equal([t for t in got if t is not None],
+                   [t for t in want if t is not None], what)
+        print(f"K8 bf16 {what}: bit-equal True")
+        return got
+
+    u1, v1, _, _ = k8_pair(cuda_lk_dense.dense_level_up, "level 1, zero "
+                           "start", *lvl[1], None, None, s, cfg16)
+    u0, v0, st0, it0 = k8_pair(cuda_lk_dense.dense_level_up, "level 0, "
+                               "upsampled start", *lvl[0], u1, v1, s, cfg16)
+    k8_pair(cuda_lk_dense.dense_level, "level 0, map start", *lvl[0], u0, v0,
+            cfg16)
+    k8_pair(cuda_lk_dense.dense_level_up, "level 0, rows 120-239 (a band)",
+            *lvl[0], u1, v1, s, cfg16, band=(120, 120))
+    left, right, _ = make_stereo_pair()
+    pl, pr = (pft.build_track_pyramids(torch.as_tensor(f, device=dev), cfg16)
+              for f in (left, right))
+    hw, n_lv = cfg16.window_width // 2, cfg16.nPyramidLevels
+    hyp = tuple(range(0, int(64.0 / s ** (n_lv - 1)) + 1, hw + 1))
+    dseed = _hypothesis_init(pl.img[1].to(torch.float32),
+                             pr.img[1].to(torch.float32), hyp, hw,
+                             cfg16.window_height // 2)
+    lvs = [tuple(p[r_] for p in (pl.img, pl.gradx, pl.grady, pr.img,
+                                 pr.gradx, pr.grady)) for r_ in (0, 1)]
+    d1, _, _ = k8_pair(cuda_lk_dense.dense_level_1d, "1-D level 1, seed "
+                       "start", *lvs[1], dseed, cfg16)
+    k8_pair(cuda_lk_dense.dense_level_1d_up, "1-D level 0, upsampled start",
+            *lvs[0], d1, s, cfg16)
+    k8 = {}
+    for dt in ("float32", BF16):
+        c = cfg16.replace(image_dtype=dt)
+        q1, q2 = (pft.build_track_pyramids(f, c) for f in (img0, img1))
+        l0 = (q1.img[0], q1.gradx[0], q1.grady[0], q2.img[0], q2.gradx[0],
+              q2.grady[0])
+
+        def level(l0=l0, c=c):
+            return cuda_lk_dense.dense_level_up(*l0, u1, v1, s, c)
+        k8[dt] = dict(ms=time_ms(level),
+                      device_ms=device_ms(level, ["lk_tile_kernel"],
+                                          prof_dir)[0])
+        with cuda.reference_path():
+            k8[dt]["plain_ms"] = time_ms(level, reps=2)
+        print(f"K8 2-D level 0 (upsampled start), {dt}: {k8[dt]['ms']:.4f} "
+              f"ms by events, {k8[dt]['device_ms']:.4f} ms device, plain "
+              f"{k8[dt]['plain_ms']:.4f} ms")
+    k8w = k8_work(cfg16, st0, it0, False, coarse=tuple(u1.shape))
+    report["K8 bf16"] = dict(max_abs_err=0.0, ms=k8[BF16]["ms"],
+                             plain_ms=k8[BF16]["plain_ms"],
+                             device_ms=k8[BF16]["device_ms"], work=k8w,
+                             f32_ms=k8["float32"]["ms"],
+                             f32_device_ms=k8["float32"]["device_ms"])
+
+    # the bfloat16 paths of K6 and K8, each with its counts set to 0 first
+    phase(f"bf16 paths: track_sequence_device, config 3, bfloat16 storage, "
+          f"{BF16_AFFINE_FRAMES} frames; compute_dense_flow, bfloat16, on "
+          "the main pair")
+    mods3 = dict(mods, K6=cuda_affine)
+    for m in mods3.values():
+        m.launches = 0
+    xs, ys, vs = pft.track_sequence_device(sim[:BF16_AFFINE_FRAMES],
+                                           cfg=cfg3_16,
+                                           n_features=N_FEATURES,
+                                           replace_lost=True, device="cuda")
+    torch.cuda.synchronize()
+    counts3 = path_counts(mods3, "bf16 config-3 path")
+    expect_launches(counts3, {"K6": BF16_AFFINE_FRAMES - 1},
+                    "bf16 config-3 path")
+    pair = (vs[1:] == KLT_TRACKED) & (vs[:-1] >= 0)
+    px_, py_ = predicted(xs[:-1][pair].astype(np.float64),
+                         ys[:-1][pair].astype(np.float64))
+    ex, ey = xs[1:][pair] - px_, ys[1:][pair] - py_
+    print(f"bf16 config 3: launches {counts3}; tracked pairs "
+          f"{int(pair.sum())}, median error against the known motion "
+          f"({np.median(ex):.4f}, {np.median(ey):.4f}) px")
+    if not (np.isfinite(xs).all() and np.isfinite(ys).all()) or max(
+            abs(np.median(ex)), abs(np.median(ey))) > DRIFT_TOL:
+        fail("the bf16 config-3 tracks do not follow the known motion")
+    dmods = {"K1": cuda_pyramid, "K8": cuda_lk_dense}
+    for m in dmods.values():
+        m.launches = 0
+    fl = pft.compute_dense_flow(img0, img1, cfg16)
+    torch.cuda.synchronize()
+    dcounts = path_counts(dmods, "bf16 dense path")
+    expect_launches(dcounts, {"K1": 4, "K8": cfg16.nPyramidLevels},
+                    "bf16 dense path")
+    with cuda.reference_path():
+        fl_p = pft.compute_dense_flow(img0, img1, cfg16)
+    torch.cuda.synchronize()
+    maps_equal(fl, fl_p, "bf16 compute_dense_flow")
+    ok = fl.status == KLT_TRACKED
+    mu = fl.u[ok].median().item()
+    mv = fl.v[ok].median().item()
+    print(f"bf16 dense flow: launches {dcounts}, == plain route, tracked "
+          f"{ok.float().mean().item():.4f}, median flow ({mu:.4f}, "
+          f"{mv:.4f}) vs drift {DRIFT}")
+    if abs(mu - DRIFT[0]) > DRIFT_TOL or abs(mv - DRIFT[1]) > DRIFT_TOL:
+        fail("bf16 dense flow does not recover the drift")
+    report["K6 bf16"]["launches"] = counts3["K6"]
+    report["K8 bf16"]["launches"] = dcounts["K8"]
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -4803,6 +5338,20 @@ def main(argv=None) -> int:
                           "config 3": table3}, report, dev, smi)
     print(json.dumps({"parallel": par}))
 
+    # ---- phase 15: bfloat16 storage and BASELINE config 4 ----
+    t15 = time.perf_counter()
+    c4frames = make_frames(C4_FRAMES, SEED + 11, C4_H, C4_W)
+    c4_mods = {"K1": cuda_pyramid, "K2": cuda_lk, "K3": K3InK1(cuda_pyramid),
+               K3_STANDALONE: cuda_eig, "K4": cuda_select}
+    bf16_phase(pft, c4_mods, frames, sim, cfg, cfg3, c4frames, report, dev,
+               prof_dir)
+    c4 = config4_phase(pft, c4_mods, c4frames, report, dev, root)
+    report["K1 bf16"]["launches"] = c4[BF16]["launches"]["K1"]
+    report["K2 bf16"]["launches"] = c4[BF16]["launches"]["K2"]
+    del c4frames
+    print(json.dumps({"config4": c4}))
+    print(f"bf16 and config-4 phases: {time.perf_counter() - t15:.1f} s")
+
     if profile:
         profile_host_loop(pft, cfg, staged, root)
         profile_phase(pft, cfg3, sim, staged3, root, "config3")
@@ -4836,9 +5385,12 @@ def main(argv=None) -> int:
              "K9": ("window_terms",
                     "pyfeaturetrack_tpu_torch/csrc/window_terms.cu",
                     "pyfeaturetrack_tpu/ops/pallas_lk.py:140")}
+    names.update({f"{k} bf16": (f"{names[k][0]} (bfloat16 levels)",
+                                 *names[k][1:]) for k in ("K1", "K2", "K6",
+                                                          "K8")})
     kernels = []
     for k in ("K1", "K2", "K2 guided", "K3", K3_STANDALONE, "K4", "K5", "K6",
-              "K8", "K9"):
+              "K8", "K9", "K1 bf16", "K2 bf16", "K6 bf16", "K8 bf16"):
         name, source, replaces = names[k]
         r = report[k]
         b_ms, b_by = bound_ms(*r["work"])
@@ -4848,8 +5400,16 @@ def main(argv=None) -> int:
                  "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                  "plain_ms": r["plain_ms"], "bound_ms": b_ms,
                  "bound_by": b_by, "library_ms": None,
-                 "device_ms": r["device_ms"],
-                 "grad_launches": r["grad_launches"]}
+                 "device_ms": r["device_ms"]}
+        if k.endswith("bf16"):
+            # the float32 kernel on the same levels, upcast, timed beside
+            entry.update(f32_ms=r["f32_ms"], f32_device_ms=r["f32_device_ms"])
+            if k == "K1 bf16":
+                entry.update({f: r[f] for f in (
+                    "scratch_bytes", "ms_480x640", "device_ms_480x640",
+                    "f32_device_ms_480x640")})
+        else:
+            entry["grad_launches"] = r["grad_launches"]
         if k == "K1":
             entry.update({f: r[f] for f in (
                 "config3_ms", "config3_device_ms", "fused_ms",

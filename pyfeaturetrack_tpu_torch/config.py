@@ -76,9 +76,10 @@ class TrackerConfig:
     writeInternalImages: bool = False
 
     # Storage dtype of the cached pyramid/gradient levels (beyond the
-    # reference). Kept so configs round-trip with the JAX package; the
-    # port implements only "float32" and raises NotImplementedError on
-    # anything else.
+    # reference): "float32" or "bfloat16". Every level and gradient is
+    # built in float32 and stored in this dtype (bfloat16: rounded to
+    # nearest even); every consumer upcasts each stored value to float32
+    # at the tap, and all blending and sums stay float32.
     image_dtype: str = "float32"
 
     # ---- derived helpers -------------------------------------------------

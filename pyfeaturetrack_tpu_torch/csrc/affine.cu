@@ -29,6 +29,10 @@
 //     drift beyond affine_max_displacement_differ (OOB), each only for a lane
 //     still TRACKED. Unchecked lanes pass through with status TRACKED.
 //
+// The level-0 images are float32 or bfloat16 (cfg.image_dtype): the storage
+// type is a template parameter, each tap is upcast to float32 where it is
+// read, and templates, warps and sums stay float32.
+//
 // Two entries share that loop (affine_gn): pft_affine_track, the batch of
 // ops/cuda_affine.affine_track_batch, and pft_affine_stage, the whole
 // affine-consistency stage of ops/affine.affine_consistency_check (lost
@@ -95,11 +99,12 @@ __device__ __forceinline__ int tap(float xs, float ys, const AffParams& P,
     return y0 * P.W + x0;
 }
 
-__device__ __forceinline__ float blend(const float* __restrict__ im, int i00, int W,
-                                       float ax, float ay)
+template <typename TS>
+__device__ __forceinline__ float blend(const TS* __restrict__ im, int i00, int W, float ax,
+                                       float ay)
 {
-    const float p00 = im[i00], p01 = im[i00 + 1];
-    const float p10 = im[i00 + W], p11 = im[i00 + W + 1];
+    const float p00 = pft_tap(im + i00), p01 = pft_tap(im + i00 + 1);
+    const float p10 = pft_tap(im + i00 + W), p11 = pft_tap(im + i00 + W + 1);
     return (1.0f - ax) * (1.0f - ay) * p00 + ax * (1.0f - ay) * p01 +
            (1.0f - ax) * ay * p10 + ax * ay * p11;
 }
@@ -210,9 +215,9 @@ __device__ __forceinline__ void jacobian(float gx, float gy, float i, float j,
 // ([wh * ww] samples), start (x, y) = (x0, y0) and warp a.., which come
 // back updated, with the status and the number of updates `it`. Shared by
 // pft_affine_track and the affine stage.
-template <int NPL, int MODE>
-__device__ void affine_gn(const float* __restrict__ tmf, const float* __restrict__ img2,
-                          const float* __restrict__ gx2, const float* __restrict__ gy2,
+template <int NPL, int MODE, typename TS>
+__device__ void affine_gn(const float* __restrict__ tmf, const TS* __restrict__ img2,
+                          const TS* __restrict__ gx2, const TS* __restrict__ gy2,
                           const AffParams& P, int lane, float x0, float y0, float& x,
                           float& y, float& a00, float& a01, float& a10, float& a11,
                           int& status, int& it)
@@ -361,10 +366,10 @@ __device__ void affine_gn(const float* __restrict__ tmf, const float* __restrict
     PFT_PHASE(clk, 6, lane == 0);                // after the loop: bounds, residue, drift
 }
 
-template <int NPL, int MODE>
+template <int NPL, int MODE, typename TS>
 __global__ void __launch_bounds__(NT)
-affine_kernel(const float* __restrict__ tmpl, const float* __restrict__ img2,
-              const float* __restrict__ gx2, const float* __restrict__ gy2,
+affine_kernel(const float* __restrict__ tmpl, const TS* __restrict__ img2,
+              const TS* __restrict__ gx2, const TS* __restrict__ gy2,
               const float* __restrict__ x_in, const float* __restrict__ y_in,
               const float* __restrict__ A_in, const bool* __restrict__ check,
               AffParams P, float* __restrict__ x_out, float* __restrict__ y_out,
@@ -382,8 +387,8 @@ affine_kernel(const float* __restrict__ tmpl, const float* __restrict__ img2,
     int status = KLT_TRACKED, it = 0;
     if (check[f]) {
         const size_t npix = (size_t)(2 * P.hw + 1) * (2 * P.hh + 1);
-        affine_gn<NPL, MODE>(tmpl + f * npix, img2, gx2, gy2, P, lane, x0, y0, x, y,
-                             a00, a01, a10, a11, status, it);
+        affine_gn<NPL, MODE, TS>(tmpl + f * npix, img2, gx2, gy2, P, lane, x0, y0, x, y,
+                                 a00, a01, a10, a11, status, it);
     }
     if (lane == 0) {
         x_out[f] = x;
@@ -399,9 +404,11 @@ affine_kernel(const float* __restrict__ tmpl, const float* __restrict__ img2,
 
 // The affine stage's inputs and outputs (ops/affine.affine_consistency_check):
 // level 0 of both pyramids, the feature lists before and after translational
-// tracking, and the AffineState's eight fields, in and out.
+// tracking, and the AffineState's eight fields, in and out; the level
+// images in the storage type TS.
+template <typename TS>
 struct StageIn {
-    const float *img1, *gx1, *gy1, *img2, *gx2, *gy2;
+    const TS *img1, *gx1, *gy1, *img2, *gx2, *gy2;
     const float *xb, *yb;
     const int* vb;
     const float *xa, *ya;
@@ -426,7 +433,8 @@ struct StageOut {
 // round trip per round rather than one per sample.
 constexpr int TEMPLATE_ROUND = 8;
 
-__device__ __forceinline__ void template_out(const StageIn& I, const StageOut& O,
+template <typename TS>
+__device__ __forceinline__ void template_out(const StageIn<TS>& I, const StageOut& O,
                                              const AffParams& P, size_t tb, int lane,
                                              bool capture, float xb, float yb)
 {
@@ -470,9 +478,9 @@ __device__ __forceinline__ void template_out(const StageIn& I, const StageOut& O
 // order), its anchor, the identity warp, valid and nit = CAPTURE_NIT; a
 // lane tracked with a template is checked by affine_gn; then the selects on
 // x, y, val, A and valid. Every other template is copied through.
-template <int NPL, int MODE>
+template <int NPL, int MODE, typename TS>
 __global__ void __launch_bounds__(NT)
-stage_kernel(StageIn I, StageOut O, AffParams P)
+stage_kernel(StageIn<TS> I, StageOut O, AffParams P)
 {
     const int f = (blockIdx.x * NT + threadIdx.x) >> 5;
     const int lane = threadIdx.x & 31;
@@ -497,8 +505,8 @@ stage_kernel(StageIn I, StageOut O, AffParams P)
     int status = KLT_TRACKED, it = 0;
     PFT_PHASE(clk, 0, lane == 0);                // lane state, capture or copy
     if (check)
-        affine_gn<NPL, MODE>(I.t_img + tb, I.img2, I.gx2, I.gy2, P, lane, x0, y0, x, y,
-                             a00, a01, a10, a11, status, it);
+        affine_gn<NPL, MODE, TS>(I.t_img + tb, I.img2, I.gx2, I.gy2, P, lane, x0, y0, x, y,
+                                 a00, a01, a10, a11, status, it);
     PFT_PHASE_START(clk_out);
     const bool failed = check && status != KLT_TRACKED;
     const bool keep = check && !failed;
@@ -519,23 +527,24 @@ stage_kernel(StageIn I, StageOut O, AffParams P)
 }
 
 // pft_affine_track: one warp per feature, NT / 32 features per block.
-template <int NPL, int MODE>
-int launch(const float* tmpl, const float* img2, const float* gx2, const float* gy2,
+template <int NPL, int MODE, typename TS>
+int launch(const float* tmpl, const void* img2, const void* gx2, const void* gy2,
            const float* x0, const float* y0, const float* A0, const bool* check,
            const AffParams& P, float* xo, float* yo, float* Ao, int* st, int* nit,
            cudaStream_t stream)
 {
     const int blocks = pft_ceil_div(P.n, NT / 32);
-    affine_kernel<NPL, MODE><<<blocks, NT, 0, stream>>>(
-        tmpl, img2, gx2, gy2, x0, y0, A0, check, P, xo, yo, Ao, st, nit);
+    affine_kernel<NPL, MODE, TS><<<blocks, NT, 0, stream>>>(
+        tmpl, (const TS*)img2, (const TS*)gx2, (const TS*)gy2, x0, y0, A0, check, P, xo, yo,
+        Ao, st, nit);
     return (int)cudaGetLastError();
 }
 
-template <int NPL, int MODE>
-int launch_stage(const StageIn& I, const StageOut& O, const AffParams& P,
+template <int NPL, int MODE, typename TS>
+int launch_stage(const StageIn<TS>& I, const StageOut& O, const AffParams& P,
                  cudaStream_t stream)
 {
-    stage_kernel<NPL, MODE><<<pft_ceil_div(P.n, NT / 32), NT, 0, stream>>>(I, O, P);
+    stage_kernel<NPL, MODE, TS><<<pft_ceil_div(P.n, NT / 32), NT, 0, stream>>>(I, O, P);
     return (int)cudaGetLastError();
 }
 
@@ -569,24 +578,46 @@ int dispatch(int window_width, int window_height, int mode, Args&&... args)
 #undef PFT_AFFINE_MODES
 }
 
-template <int NPL, int MODE>
+// The two launches for storage type TS, as dispatch takes them.
+template <typename TS>
 struct TrackLaunch {
-    template <typename... A>
-    static int run(A&&... a) { return launch<NPL, MODE>(a...); }
+    template <int NPL, int MODE>
+    struct Run {
+        template <typename... A>
+        static int run(A&&... a) { return launch<NPL, MODE, TS>(a...); }
+    };
 };
 
-template <int NPL, int MODE>
+template <typename TS>
 struct StageLaunch {
-    template <typename... A>
-    static int run(A&&... a) { return launch_stage<NPL, MODE>(a...); }
+    template <int NPL, int MODE>
+    struct Run {
+        template <typename... A>
+        static int run(A&&... a) { return launch_stage<NPL, MODE, TS>(a...); }
+    };
 };
+
+// The stage's inputs with the level images as storage type TS.
+template <typename TS>
+StageIn<TS> stage_in(const void* const* pyr, const float* const* feats,
+                     const int* const* vals, const float* const* state, const bool* valid,
+                     const int* nit)
+{
+    return StageIn<TS>{(const TS*)pyr[0], (const TS*)pyr[1], (const TS*)pyr[2],
+                       (const TS*)pyr[3], (const TS*)pyr[4], (const TS*)pyr[5],
+                       feats[0], feats[1], vals[0], feats[2], feats[3], vals[1],
+                       state[0], state[1], state[2], state[3], state[4], state[5],
+                       valid, nit};
+}
 
 }  // namespace
 
-// Any odd window. A0 is [n, 2, 2] row-major; outputs likewise.
-extern "C" int pft_affine_track(const float* tmpl, const float* img2, const float* gx2,
-                                const float* gy2, const float* x0, const float* y0,
-                                const float* A0, const bool* check, int H, int W, int n,
+// Any odd window. A0 is [n, 2, 2] row-major; outputs likewise. The three
+// images float32 (bf16 0) or bfloat16 (bf16 1).
+extern "C" int pft_affine_track(const float* tmpl, const void* img2, const void* gx2,
+                                const void* gy2, const float* x0, const float* y0,
+                                const float* A0, const bool* check, int bf16, int H, int W,
+                                int n,
                                 int window_width, int window_height, int mode,
                                 int max_iterations, float min_displacement,
                                 float min_determinant, float max_residue,
@@ -600,20 +631,28 @@ extern "C" int pft_affine_track(const float* tmpl, const float* img2, const floa
     const AffParams P{H, W, n, window_width / 2, window_height / 2, max_iterations,
                       min_displacement, min_determinant, max_residue,
                       max_displacement_differ};
-    return dispatch<TrackLaunch>(window_width, window_height, mode, tmpl, img2, gx2, gy2,
-                                 x0, y0, A0, check, P, x_out, y_out, A_out, status, nit,
-                                 (cudaStream_t)stream);
+    cudaStream_t s = (cudaStream_t)stream;
+    if (bf16)
+        return dispatch<TrackLaunch<__nv_bfloat16>::Run>(window_width, window_height, mode,
+                                                         tmpl, img2, gx2, gy2, x0, y0, A0,
+                                                         check, P, x_out, y_out, A_out,
+                                                         status, nit, s);
+    return dispatch<TrackLaunch<float>::Run>(window_width, window_height, mode, tmpl, img2,
+                                             gx2, gy2, x0, y0, A0, check, P, x_out, y_out,
+                                             A_out, status, nit, s);
 }
 
 // The affine stage in one launch. pyr: level 0 of both pyramids, six [H, W]
-// images (img1, gx1, gy1, img2, gx2, gy2); feats: fl_before's and fl_after's
+// images (img1, gx1, gy1, img2, gx2, gy2), float32 (bf16 0) or bfloat16
+// (bf16 1); feats: fl_before's and fl_after's
 // (x, y) [n] float32 and val [n] int32 as (xb, yb, xa, ya); vals: (vb, va);
 // state: the AffineState in (img, gradx, grady [n, wh, ww], x, y [n], A
 // [n, 2, 2]), valid [n] bool, nit [n] int32; out: x, y [n], then the new
 // AffineState's float fields in the same order; val_out, valid_out, nit_out.
-extern "C" int pft_affine_stage(const float* const* pyr, const float* const* feats,
+extern "C" int pft_affine_stage(const void* const* pyr, const float* const* feats,
                                 const int* const* vals, const float* const* state,
-                                const bool* valid, const int* nit, int H, int W, int n,
+                                const bool* valid, const int* nit, int bf16, int H, int W,
+                                int n,
                                 int window_width, int window_height, int mode,
                                 int max_iterations, float min_displacement,
                                 float min_determinant, float max_residue,
@@ -626,14 +665,16 @@ extern "C" int pft_affine_stage(const float* const* pyr, const float* const* fea
     const AffParams P{H, W, n, window_width / 2, window_height / 2, max_iterations,
                       min_displacement, min_determinant, max_residue,
                       max_displacement_differ};
-    const StageIn I{pyr[0],   pyr[1],   pyr[2],   pyr[3],   pyr[4],   pyr[5],
-                    feats[0], feats[1], vals[0],  feats[2], feats[3], vals[1],
-                    state[0], state[1], state[2], state[3], state[4], state[5],
-                    valid,    nit};
     const StageOut O{out[0], out[1], val_out, out[2], out[3], out[4],
                      out[5], out[6], out[7],  valid_out, nit_out};
-    return dispatch<StageLaunch>(window_width, window_height, mode, I, O, P,
-                                 (cudaStream_t)stream);
+    cudaStream_t s = (cudaStream_t)stream;
+    if (bf16)
+        return dispatch<StageLaunch<__nv_bfloat16>::Run>(
+            window_width, window_height, mode,
+            stage_in<__nv_bfloat16>(pyr, feats, vals, state, valid, nit), O, P, s);
+    return dispatch<StageLaunch<float>::Run>(
+        window_width, window_height, mode,
+        stage_in<float>(pyr, feats, vals, state, valid, nit), O, P, s);
 }
 
 PFT_PHASE_READER(pft_affine_phase_clocks)

@@ -7,7 +7,10 @@
 // versions do, which is what lets K1 and K3 agree with them bit for bit.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #define PFT_MAX_TAPS 71   // ops/kernels.MAX_KERNEL_WIDTH
 #define PFT_INVALID_ARGUMENT 9999
@@ -38,6 +41,39 @@ static inline void pft_allow_smem(K kernel, size_t bytes) {
 __host__ __device__ static inline int pft_ceil_div(int a, int b)
 {
     return (a + b - 1) / b;
+}
+
+// Level storage (cfg.image_dtype): float or __nv_bfloat16. A stored value is
+// the float32 one rounded to nearest even (__float2bfloat16_rn: XLA's
+// convert, torch's .to(torch.bfloat16)); a tap reads it back as float32
+// exactly (the bits shifted into the high half), and every sum is float32.
+template <typename TS>
+inline constexpr bool pft_is_bf16 = std::is_same<TS, __nv_bfloat16>::value;
+
+static __device__ __forceinline__ float pft_tap(const float* p) { return *p; }
+static __device__ __forceinline__ float pft_tap(const __nv_bfloat16* p)
+{
+    return __uint_as_float((unsigned)*reinterpret_cast<const unsigned short*>(p) << 16);
+}
+// The same through the read-only data cache.
+static __device__ __forceinline__ float pft_ldg(const float* p) { return __ldg(p); }
+static __device__ __forceinline__ float pft_ldg(const __nv_bfloat16* p)
+{
+    return __uint_as_float((unsigned)__ldg(reinterpret_cast<const unsigned short*>(p)) << 16);
+}
+static __device__ __forceinline__ void pft_store(float* p, float v) { *p = v; }
+static __device__ __forceinline__ void pft_store(__nv_bfloat16* p, float v)
+{
+    *p = __float2bfloat16_rn(v);
+}
+// v as the storage type holds it, as float32.
+template <typename TS>
+static __device__ __forceinline__ float pft_stored(float v)
+{
+    if constexpr (pft_is_bf16<TS>)
+        return __bfloat162float(__float2bfloat16_rn(v));
+    else
+        return v;
 }
 
 // Phase clocks, for measurement builds only (-DPFT_PHASE_CLOCKS, made by

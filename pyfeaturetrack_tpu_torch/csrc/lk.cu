@@ -13,7 +13,10 @@
 //   * the fixed-trip iteration, SMALL_DET, OOB, LARGE_RESIDUE and
 //     MAX_ITERATIONS in the reference's order;
 //   * the lighting-insensitive variant (gain alpha, bias beta) as a
-//     compile-time switch.
+//     compile-time switch;
+//   * levels stored as float32 or bfloat16 (cfg.image_dtype): the storage
+//     type is a template parameter of the same kernel, each tap upcast to
+//     float32 where it is read, the window sums float32.
 //
 // Two entries:
 //   * pft_lk_pyramid, the tracker's: one launch per track call. A warp
@@ -54,20 +57,21 @@ namespace {
 
 constexpr int NT = 128;                 // 4 features per block
 
-// The pyramid pair, level r at index r: six float32 [H, W] images each.
+// The pyramid pair, level r at index r: six [H, W] images each, in the
+// launch's storage type.
 struct LKLevels {
-    const float* im[PFT_LK_MAX_LEVELS][6];   // img1, gx1, gy1, img2, gx2, gy2
+    const void* im[PFT_LK_MAX_LEVELS][6];    // img1, gx1, gy1, img2, gx2, gy2
     int H[PFT_LK_MAX_LEVELS], W[PFT_LK_MAX_LEVELS];
 };
 
-template <int NPL, bool LIGHTING>
+template <int NPL, bool LIGHTING, typename TS>
 __global__ void __launch_bounds__(NT)
 lk_level_kernel(const float* __restrict__ x1, const float* __restrict__ y1,
                 const float* __restrict__ x2_in, const float* __restrict__ y2_in,
                 const bool* __restrict__ active,
-                const float* __restrict__ img1, const float* __restrict__ gx1,
-                const float* __restrict__ gy1, const float* __restrict__ img2,
-                const float* __restrict__ gx2, const float* __restrict__ gy2,
+                const TS* __restrict__ img1, const TS* __restrict__ gx1,
+                const TS* __restrict__ gy1, const TS* __restrict__ img2,
+                const TS* __restrict__ gx2, const TS* __restrict__ gy2,
                 LKParams P, float* __restrict__ x2_out, float* __restrict__ y2_out,
                 int* __restrict__ status_out, int* __restrict__ iter_out)
 {
@@ -77,9 +81,9 @@ lk_level_kernel(const float* __restrict__ x1, const float* __restrict__ y1,
     float x = x2_in[f], y = y2_in[f];
     int status = KLT_TRACKED, it = 0;
     if (active[f]) {
-        const float* const f1[3] = {img1, gx1, gy1};
-        const float* const f2[3] = {img2, gx2, gy2};
-        status = lk_level_body<NPL, LIGHTING>(f1, f2, x1[f], y1[f], x, y, it, lane, P);
+        const TS* const f1[3] = {img1, gx1, gy1};
+        const TS* const f2[3] = {img2, gx2, gy2};
+        status = lk_level_body<NPL, LIGHTING, TS>(f1, f2, x1[f], y1[f], x, y, it, lane, P);
     }
     if (lane == 0) {
         x2_out[f] = x;
@@ -89,11 +93,11 @@ lk_level_kernel(const float* __restrict__ x1, const float* __restrict__ y1,
     }
 }
 
-template <int NPL, bool LIGHTING>
+template <int NPL, bool LIGHTING, typename TS>
 __global__ void __launch_bounds__(NT)
 lk_pyramid_kernel(const float* __restrict__ x_in, const float* __restrict__ y_in,
                   const int* __restrict__ val_in, LKLevels L,
-                  const float* const* __restrict__ dev_im, const int* __restrict__ dev_hw,
+                  const void* const* __restrict__ dev_im, const int* __restrict__ dev_hw,
                   int n_levels, LKParams P, float scale, float s, int borderx, int bordery,
                   const float* __restrict__ x_init, const float* __restrict__ y_init,
                   float* __restrict__ x_out, float* __restrict__ y_out,
@@ -125,20 +129,20 @@ lk_pyramid_kernel(const float* __restrict__ x_in, const float* __restrict__ y_in
         xout = xout * s;
         yout = yout * s;
         LKParams Q = P;
-        const float* im[6];
+        const TS* im[6];
         if (dev_im == nullptr) {
             Q.H = L.H[r];
             Q.W = L.W[r];
-            for (int m = 0; m < 6; ++m) im[m] = L.im[r][m];
+            for (int m = 0; m < 6; ++m) im[m] = static_cast<const TS*>(L.im[r][m]);
         } else {
             Q.H = dev_hw[2 * r];
             Q.W = dev_hw[2 * r + 1];
-            for (int m = 0; m < 6; ++m) im[m] = dev_im[6 * r + m];
+            for (int m = 0; m < 6; ++m) im[m] = static_cast<const TS*>(dev_im[6 * r + m]);
         }
-        const float* const f1[3] = {im[0], im[1], im[2]};
-        const float* const f2[3] = {im[3], im[4], im[5]};
+        const TS* const f1[3] = {im[0], im[1], im[2]};
+        const TS* const f2[3] = {im[3], im[4], im[5]};
         int it;
-        status = lk_level_body<NPL, LIGHTING>(f1, f2, xloc, yloc, xout, yout, it, lane, Q);
+        status = lk_level_body<NPL, LIGHTING, TS>(f1, f2, xloc, yloc, xout, yout, it, lane, Q);
         // broken: the reference leaves its level loop on these two codes
         if (status == KLT_SMALL_DET || status == KLT_OOB) break;
     }
@@ -173,11 +177,11 @@ lk_pyramid_kernel(const float* __restrict__ x_in, const float* __restrict__ y_in
             return PFT_INVALID_ARGUMENT; \
     }
 
-// Any odd window size.
+// Any odd window size; the six images float32 (bf16 0) or bfloat16 (1).
 extern "C" int pft_lk_level(const float* x1, const float* y1, const float* x2,
                             const float* y2, const bool* active,
-                            const float* img1, const float* gx1, const float* gy1,
-                            const float* img2, const float* gx2, const float* gy2,
+                            const void* img1, const void* gx1, const void* gy1,
+                            const void* img2, const void* gx2, const void* gy2, int bf16,
                             int H, int W, int n, int window_width, int window_height,
                             int max_iterations, float min_displacement,
                             float min_determinant, float max_residue,
@@ -193,35 +197,41 @@ extern "C" int pft_lk_level(const float* x1, const float* y1, const float* x2,
                      min_displacement, min_determinant, max_residue, step_factor};
     const int blocks = pft_ceil_div(n, NT / 32);
     cudaStream_t s = (cudaStream_t)stream;
+#define PFT_LK_LEVEL_TS(K, LI, TS)                                                       \
+    lk_level_kernel<K, LI, TS><<<blocks, NT, 0, s>>>(                                    \
+        x1, y1, x2, y2, active, (const TS*)img1, (const TS*)gx1, (const TS*)gy1,         \
+        (const TS*)img2, (const TS*)gx2, (const TS*)gy2, P, x2_out, y2_out, status,      \
+        iteration)
 #define PFT_LK_LEVEL(K)                                                                  \
     case K:                                                                              \
-        if (lighting_insensitive)                                                        \
-            lk_level_kernel<K, true><<<blocks, NT, 0, s>>>(                              \
-                x1, y1, x2, y2, active, img1, gx1, gy1, img2, gx2, gy2, P, x2_out,       \
-                y2_out, status, iteration);                                              \
-        else                                                                             \
-            lk_level_kernel<K, false><<<blocks, NT, 0, s>>>(                             \
-                x1, y1, x2, y2, active, img1, gx1, gy1, img2, gx2, gy2, P, x2_out,       \
-                y2_out, status, iteration);                                              \
+        if (lighting_insensitive) {                                                      \
+            if (bf16) PFT_LK_LEVEL_TS(K, true, __nv_bfloat16);                           \
+            else PFT_LK_LEVEL_TS(K, true, float);                                        \
+        } else {                                                                         \
+            if (bf16) PFT_LK_LEVEL_TS(K, false, __nv_bfloat16);                          \
+            else PFT_LK_LEVEL_TS(K, false, float);                                       \
+        }                                                                                \
         return (int)cudaGetLastError();
     PFT_LK_SWITCH(npl, PFT_LK_LEVEL)
 #undef PFT_LK_LEVEL
+#undef PFT_LK_LEVEL_TS
 }
 
 // levels: n_levels * 6 device pointers (level r: img1, gx1, gy1, img2, gx2,
-// gy2), shapes: n_levels * 2 ints (H, W), both host arrays read here; above
+// gy2; every image float32 for bf16 0, bfloat16 for bf16 1), shapes:
+// n_levels * 2 ints (H, W), both host arrays read here; above
 // PFT_LK_MAX_LEVELS levels the same two tables in device memory (dev_levels,
 // dev_shapes), which the kernel reads instead.
 // scale: float32 subsampling^n_levels; x, y, val in, x, y, val out [n];
 // x_init, y_init: the guided frame-2 starts [n], both or neither (nullptr).
 extern "C" int pft_lk_pyramid(const float* x, const float* y, const int* val, int n,
-                              const float* const* levels, const int* shapes,
-                              int n_levels, int window_width, int window_height,
+                              const void* const* levels, const int* shapes,
+                              int n_levels, int bf16, int window_width, int window_height,
                               int max_iterations, float min_displacement,
                               float min_determinant, float max_residue,
                               float step_factor, int lighting_insensitive,
                               float scale, float subsampling, int borderx, int bordery,
-                              const float* const* dev_levels, const int* dev_shapes,
+                              const void* const* dev_levels, const int* dev_shapes,
                               const float* x_init, const float* y_init,
                               float* x_out, float* y_out, int* val_out, void* stream)
 {
@@ -249,17 +259,21 @@ extern "C" int pft_lk_pyramid(const float* x, const float* y, const int* val, in
                      step_factor};
     const int blocks = pft_ceil_div(n, NT / 32);
     cudaStream_t s = (cudaStream_t)stream;
+#define PFT_LK_PYRAMID_TS(K, LI, TS)                                                     \
+    lk_pyramid_kernel<K, LI, TS><<<blocks, NT, 0, s>>>(                                  \
+        x, y, val, L, dev_levels, dev_shapes, n_levels, P, scale, subsampling, borderx,  \
+        bordery, x_init, y_init, x_out, y_out, val_out)
 #define PFT_LK_PYRAMID(K)                                                                \
     case K:                                                                              \
-        if (lighting_insensitive)                                                        \
-            lk_pyramid_kernel<K, true><<<blocks, NT, 0, s>>>(                            \
-                x, y, val, L, dev_levels, dev_shapes, n_levels, P, scale, subsampling,   \
-                borderx, bordery, x_init, y_init, x_out, y_out, val_out);                \
-        else                                                                             \
-            lk_pyramid_kernel<K, false><<<blocks, NT, 0, s>>>(                           \
-                x, y, val, L, dev_levels, dev_shapes, n_levels, P, scale, subsampling,   \
-                borderx, bordery, x_init, y_init, x_out, y_out, val_out);                \
+        if (lighting_insensitive) {                                                      \
+            if (bf16) PFT_LK_PYRAMID_TS(K, true, __nv_bfloat16);                         \
+            else PFT_LK_PYRAMID_TS(K, true, float);                                      \
+        } else {                                                                         \
+            if (bf16) PFT_LK_PYRAMID_TS(K, false, __nv_bfloat16);                        \
+            else PFT_LK_PYRAMID_TS(K, false, float);                                     \
+        }                                                                                \
         return (int)cudaGetLastError();
     PFT_LK_SWITCH(npl, PFT_LK_PYRAMID)
 #undef PFT_LK_PYRAMID
+#undef PFT_LK_PYRAMID_TS
 }

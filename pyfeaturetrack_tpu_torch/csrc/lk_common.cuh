@@ -4,6 +4,8 @@
 // and K2's per-level solve (lk_level_body), which both of K2's entries
 // run. Every function rounds each product and sum on its own (the library
 // is built with -fmad=false), in the order of the plain PyTorch versions.
+// The level images are float or __nv_bfloat16 (TS, cfg.image_dtype): each
+// tap is upcast to float32 where it is read (common.cuh pft_ldg).
 #pragma once
 
 #include "common.cuh"
@@ -80,7 +82,8 @@ __device__ __forceinline__ Patch patch_at(float x, float y, const LKParams& P)
 
 // Window tap (row j, column i) of ``im``: (1-a)(1-b) p00 + a(1-b) p01 +
 // (1-a) b p10 + a b p11 in that order, reads clamped into the image.
-__device__ __forceinline__ float blend_tap(const float* __restrict__ im, const Patch& q,
+template <typename TS>
+__device__ __forceinline__ float blend_tap(const TS* __restrict__ im, const Patch& q,
                                            int j, int i, const LKParams& P)
 {
     int r0 = q.y0 + j, c0 = q.x0 + i;
@@ -89,8 +92,8 @@ __device__ __forceinline__ float blend_tap(const float* __restrict__ im, const P
     r1 = r1 < P.H ? r1 : P.H - 1;
     c0 = c0 < P.W ? c0 : P.W - 1;
     c1 = c1 < P.W ? c1 : P.W - 1;
-    const float p00 = __ldg(im + r0 * P.W + c0), p01 = __ldg(im + r0 * P.W + c1);
-    const float p10 = __ldg(im + r1 * P.W + c0), p11 = __ldg(im + r1 * P.W + c1);
+    const float p00 = pft_ldg(im + r0 * P.W + c0), p01 = pft_ldg(im + r0 * P.W + c1);
+    const float p10 = pft_ldg(im + r1 * P.W + c0), p11 = pft_ldg(im + r1 * P.W + c1);
     return q.w00 * p00 + q.w01 * p01 + q.w10 * p10 + q.w11 * p11;
 }
 
@@ -117,8 +120,8 @@ __device__ __forceinline__ LanePixels<NPL> lane_pixels(int lane, const LKParams&
 
 // Bilinear windows of up to three images at (x, y) in the warp layout,
 // sharing one patch and one blend (ops/track._gather3); padding pixels 0.
-template <int NPL, int NIMG>
-__device__ __forceinline__ void gather(const float* const (&imgs)[NIMG],
+template <int NPL, int NIMG, typename TS>
+__device__ __forceinline__ void gather(const TS* const (&imgs)[NIMG],
                                        float x, float y, const LanePixels<NPL>& px,
                                        const LKParams& P, float (&out)[NIMG][NPL])
 {
@@ -177,8 +180,8 @@ __device__ __forceinline__ float lane_add(float acc, float v, int k)
 // of being held in registers, so any window size runs. With lighting
 // compensation the frame-2 window is walked twice per iteration: once for
 // its gain sums, once for the normal equations.
-template <bool LIGHTING>
-__device__ int lk_level_body_any(const float* const (&f1)[3], const float* const (&f2)[3],
+template <bool LIGHTING, typename TS>
+__device__ int lk_level_body_any(const TS* const (&f1)[3], const TS* const (&f2)[3],
                                  float xa, float ya, float& x, float& y, int& it, int lane,
                                  const LKParams& P)
 {
@@ -305,18 +308,18 @@ __device__ int lk_level_body_any(const float* const (&f1)[3], const float* const
 // MAX_ITERATIONS, track.py:231-233). Every lane ends with the same sums, so
 // all branches are warp-uniform. Returns the level status. NPL 0: windows
 // above 8 pixels per lane, lk_level_body_any.
-template <int NPL, bool LIGHTING>
-__device__ __forceinline__ int lk_level_body(const float* const (&f1)[3],
-                                             const float* const (&f2)[3],
+template <int NPL, bool LIGHTING, typename TS>
+__device__ __forceinline__ int lk_level_body(const TS* const (&f1)[3],
+                                             const TS* const (&f2)[3],
                                              float xa, float ya, float& x, float& y,
                                              int& it, int lane, const LKParams& P)
 {
     if constexpr (NPL == 0) {
-        return lk_level_body_any<LIGHTING>(f1, f2, xa, ya, x, y, it, lane, P);
+        return lk_level_body_any<LIGHTING, TS>(f1, f2, xa, ya, x, y, it, lane, P);
     } else {
     const float n = (float)((2 * P.hw + 1) * (2 * P.hh + 1));
     const LanePixels<NPL> px = lane_pixels<NPL>(lane, P);
-    const float* const f2img[1] = {f2[0]};
+    const TS* const f2img[1] = {f2[0]};
     float w1[3][NPL];
     gather<NPL, 3>(f1, xa, ya, px, P, w1);
 

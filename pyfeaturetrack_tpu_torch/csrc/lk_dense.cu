@@ -28,6 +28,11 @@
 //     JAX XLA route ignores the flag there, disparity.py:144, :168);
 //   * LIGHTING (2-D only): gain and bias as in K2;
 //   * no window-size cap;
+//   * levels stored as float32 or bfloat16 (cfg.image_dtype, the template
+//     parameter TS): the staged planes hold each tap upcast to float32, a
+//     window read from device memory upcasts each tap it reads, and the
+//     sums are float32 (the JAX package upcasts whole levels first, which
+//     gives the same values);
 //   * a row band (row0, rows): the launch solves and writes only rows
 //     [row0, row0 + rows) of the level, into band-sized outputs, and
 //     reads its start from the WHOLE map (MAP: the level's, UP: the
@@ -125,11 +130,13 @@ constexpr int K8_SLOTS = 7;
 #define K8_CLOCKS_FLUSH
 #endif
 
-// The images one frame contributes: img, gx, gy (gy unused in 1-D).
+// The images one frame contributes: img, gx, gy (gy unused in 1-D), in the
+// storage type.
+template <typename TS>
 struct Frame {
-    const float* img;
-    const float* gx;
-    const float* gy;
+    const TS* img;
+    const TS* gx;
+    const TS* gy;
 };
 
 // Where the start comes from: maps (MAP: level-sized; UP: the coarser
@@ -155,12 +162,53 @@ struct Band {
     int row0, rows;
 };
 
-// A window in one frame: the planes' pointers at its top-left and the row
-// stride (shared or device memory, read as generic addresses).
+// One plane of a window from its top-left, read as float32: staged in shared
+// memory (float32), or the level in device memory. Float storage reads
+// either through one generic address; bfloat16 storage upcasts a device
+// read (pft_tap) and holds the two kinds apart.
+template <typename TS>
+struct Plane {
+    const float* p;
+    __device__ __forceinline__ float operator[](int i) const { return p[i]; }
+    __device__ __forceinline__ Plane operator+(int o) const { return Plane{p + o}; }
+};
+
+template <>
+struct Plane<__nv_bfloat16> {
+    const float* s;             // staged, else null
+    const __nv_bfloat16* g;     // in device memory, else null
+    __device__ __forceinline__ float operator[](int i) const
+    {
+        return s != nullptr ? s[i] : pft_tap(g + i);
+    }
+    __device__ __forceinline__ Plane operator+(int o) const
+    {
+        return Plane{s != nullptr ? s + o : nullptr, g != nullptr ? g + o : nullptr};
+    }
+};
+
+template <typename TS>
+__device__ __forceinline__ Plane<TS> staged(const float* p)
+{
+    if constexpr (pft_is_bf16<TS>)
+        return Plane<TS>{p, nullptr};
+    else
+        return Plane<TS>{p};
+}
+
+template <typename TS>
+__device__ __forceinline__ Plane<TS> in_device(const TS* p)
+{
+    if constexpr (pft_is_bf16<TS>)
+        return Plane<TS>{nullptr, p};
+    else
+        return Plane<TS>{p};
+}
+
+// A window in one frame: its planes from the top-left and the row stride.
+template <typename TS>
 struct Win {
-    const float* a;
-    const float* b;
-    const float* c;
+    Plane<TS> a, b, c;
     int stride;
 };
 
@@ -188,7 +236,8 @@ __device__ __forceinline__ float sample_map(const float* __restrict__ m, int hc,
 // Blended tap i of one plane's window row (top row r0, next row r1), with
 // the previous column carried: p00 = c0, p10 = c1 on entry; the new column
 // becomes the carry.
-__device__ __forceinline__ float blend_carry(const float* r0, const float* r1, int i,
+template <class Row>
+__device__ __forceinline__ float blend_carry(const Row& r0, const Row& r1, int i,
                                              const Patch& q, float& c0, float& c1)
 {
     const float p01 = r0[i + 1], p11 = r1[i + 1];
@@ -201,14 +250,15 @@ __device__ __forceinline__ float blend_carry(const float* r0, const float* r1, i
 // Lighting compensation of the frame-2 window (track.py:120-128): gain
 // alpha = sqrt((s11 / n) / (s22 / n)), bias beta = m1 - alpha mean(w2), the
 // window sums taken in row-major order from 0.
-__device__ __forceinline__ void gain_bias(const Win& f2, const Patch& q, int ww, int wh,
+template <typename TS>
+__device__ __forceinline__ void gain_bias(const Win<TS>& f2, const Patch& q, int ww, int wh,
                                           float s11, float m1, float n, float& alpha,
                                           float& beta)
 {
     float s22 = 0.0f, sw2 = 0.0f;
     for (int j = 0; j < wh; ++j) {
-        const float* r0 = f2.a + j * f2.stride;
-        const float* r1 = r0 + f2.stride;
+        const Plane<TS> r0 = f2.a + j * f2.stride;
+        const Plane<TS> r1 = r0 + f2.stride;
         float c0 = r0[0], c1 = r1[0];
         for (int i = 0; i < ww; ++i) {
             const float w2 = blend_carry(r0, r1, i, q, c0, c1);
@@ -221,13 +271,14 @@ __device__ __forceinline__ void gain_bias(const Win& f2, const Patch& q, int ww,
 }
 
 // Stage rows [oy, oy + ey) x cols [ox, ox + ex) of a frame's first nimg
-// planes into a buffer of stride s and plane size `plane`. Each thread
-// issues STAGE_BATCH loads before it stores them, so their latency is paid
-// once per batch, not once per sample.
+// planes into a buffer of stride s and plane size `plane`, as float32. Each
+// thread issues STAGE_BATCH loads before it stores them, so their latency
+// is paid once per batch, not once per sample.
 constexpr int STAGE_BATCH = 4;
 
-__device__ __forceinline__ void stage(float* dst, int s, int plane, const Frame& f, int nimg,
-                                      int W, int oy, int ox, int ey, int ex)
+template <typename TS>
+__device__ __forceinline__ void stage(float* dst, int s, int plane, const Frame<TS>& f,
+                                      int nimg, int W, int oy, int ox, int ey, int ex)
 {
     const int per = ey * ex, total = nimg * per;
     for (int base = threadIdx.x; base < total; base += STAGE_BATCH * blockDim.x) {
@@ -240,8 +291,8 @@ __device__ __forceinline__ void stage(float* dst, int s, int plane, const Frame&
                 if (i >= total) continue;
                 const int k = i / per, rc = i - k * per, r = rc / ex, c = rc - r * ex;
                 if (pass == 0) {
-                    const float* src = k == 0 ? f.img : (k == 1 ? f.gx : f.gy);
-                    v[b] = __ldg(src + (size_t)(oy + r) * W + ox + c);
+                    const TS* src = k == 0 ? f.img : (k == 1 ? f.gx : f.gy);
+                    v[b] = pft_ldg(src + (size_t)(oy + r) * W + ox + c);
                 } else {
                     dst[k * plane + r * s + c] = v[b];
                 }
@@ -272,9 +323,9 @@ __device__ __forceinline__ void block_bbox(int x0, int y0, bool in, int* scratch
     }
 }
 
-template <bool ONE_D, bool LIGHTING, int START>
+template <bool ONE_D, bool LIGHTING, int START, typename TS>
 __global__ void __launch_bounds__(NT_MAX)
-lk_tile_kernel(Frame f1, Frame f2, Start S, LKParams P, Tile T, Band B,
+lk_tile_kernel(Frame<TS> f1, Frame<TS> f2, Start S, LKParams P, Tile T, Band B,
                float* __restrict__ u_out,
                float* __restrict__ v_out, int* __restrict__ status_out,
                int* __restrict__ iter_out)
@@ -345,13 +396,15 @@ lk_tile_kernel(Frame f1, Frame f2, Start S, LKParams P, Tile T, Band B,
     K8_MARK(0);                                 // the start and the staging
 
     // this pixel's frame-1 window (read only when ok1)
-    Win w1;
+    Win<TS> w1;
     if (T.stage1) {
         const int off = (row - P.hh - oy1) * T.s1 + (col - P.hw - ox1);
-        w1 = Win{sm1 + off, sm1 + plane1 + off, sm1 + 2 * plane1 + off, T.s1};
+        w1 = Win<TS>{staged<TS>(sm1 + off), staged<TS>(sm1 + plane1 + off),
+                     staged<TS>(sm1 + 2 * plane1 + off), T.s1};
     } else {
         const int off = (row - P.hh) * P.W + (col - P.hw);
-        w1 = Win{f1.img + off, f1.gx + off, f1.gy + off, P.W};
+        w1 = Win<TS>{in_device(f1.img + off), in_device(f1.gx + off), in_device(f1.gy + off),
+                     P.W};
     }
 
     float s11 = 0.0f, m1 = 0.0f;
@@ -371,11 +424,13 @@ lk_tile_kernel(Frame f1, Frame f2, Start S, LKParams P, Tile T, Band B,
     auto frame2 = [&](const Patch& q) {
         if (q.x0 >= ox2 && q.x0 + ww < ox2 + ex2 && q.y0 >= oy2 && q.y0 + wh < oy2 + ey2) {
             const int off = (q.y0 - oy2) * T.s2 + (q.x0 - ox2);
-            return Win{sm2 + off, sm2 + plane2 + off, sm2 + 2 * plane2 + off, T.s2};
+            return Win<TS>{staged<TS>(sm2 + off), staged<TS>(sm2 + plane2 + off),
+                           staged<TS>(sm2 + 2 * plane2 + off), T.s2};
         }
         K8_COUNT(6);
         const int off = q.y0 * P.W + q.x0;
-        return Win{f2.img + off, f2.gx + off, f2.gy + off, P.W};
+        return Win<TS>{in_device(f2.img + off), in_device(f2.gx + off), in_device(f2.gy + off),
+                       P.W};
     };
 
     int status = KLT_TRACKED, it = 0;
@@ -385,17 +440,17 @@ lk_tile_kernel(Frame f1, Frame f2, Start S, LKParams P, Tile T, Band B,
             break;
         }
         const Patch q = patch_at(x, y, P);
-        const Win w2 = frame2(q);
+        const Win<TS> w2 = frame2(q);
         float alpha = 1.0f, beta = 0.0f;
         if (LIGHTING) gain_bias(w2, q, ww, wh, s11, m1, n, alpha, beta);
         float gxx = 0.0f, gxy = 0.0f, gyy = 0.0f, ex = 0.0f, ey = 0.0f;
         for (int j = 0; j < wh; ++j) {
-            const float* i1 = w1.a + j * w1.stride;
-            const float* x1r = w1.b + j * w1.stride;
-            const float* i20 = w2.a + j * w2.stride;
-            const float* i21 = i20 + w2.stride;
-            const float* x20 = w2.b + j * w2.stride;
-            const float* x21 = x20 + w2.stride;
+            const Plane<TS> i1 = w1.a + j * w1.stride;
+            const Plane<TS> x1r = w1.b + j * w1.stride;
+            const Plane<TS> i20 = w2.a + j * w2.stride;
+            const Plane<TS> i21 = i20 + w2.stride;
+            const Plane<TS> x20 = w2.b + j * w2.stride;
+            const Plane<TS> x21 = x20 + w2.stride;
             float ci0 = i20[0], ci1 = i21[0], cx0 = x20[0], cx1 = x21[0];
             if (ONE_D) {
                 for (int i = 0; i < ww; ++i) {
@@ -407,9 +462,9 @@ lk_tile_kernel(Frame f1, Frame f2, Start S, LKParams P, Tile T, Band B,
                     ex = ex + (v1 - v2) * gx;
                 }
             } else {
-                const float* y1r = w1.c + j * w1.stride;
-                const float* y20 = w2.c + j * w2.stride;
-                const float* y21 = y20 + w2.stride;
+                const Plane<TS> y1r = w1.c + j * w1.stride;
+                const Plane<TS> y20 = w2.c + j * w2.stride;
+                const Plane<TS> y21 = y20 + w2.stride;
                 float cy0 = y20[0], cy1 = y21[0];
                 for (int i = 0; i < ww; ++i) {
                     const float v1 = i1[i], g1x = x1r[i], g1y = y1r[i];
@@ -462,14 +517,14 @@ lk_tile_kernel(Frame f1, Frame f2, Start S, LKParams P, Tile T, Band B,
     if (!bounds_ok(x, y, P)) status = KLT_OOB;
     if (status == KLT_TRACKED) {
         const Patch q = patch_at(x, y, P);
-        const Win w2 = frame2(q);
+        const Win<TS> w2 = frame2(q);
         float alpha = 1.0f, beta = 0.0f;
         if (LIGHTING) gain_bias(w2, q, ww, wh, s11, m1, n, alpha, beta);
         float r = 0.0f;
         for (int j = 0; j < wh; ++j) {
-            const float* i1 = w1.a + j * w1.stride;
-            const float* i20 = w2.a + j * w2.stride;
-            const float* i21 = i20 + w2.stride;
+            const Plane<TS> i1 = w1.a + j * w1.stride;
+            const Plane<TS> i20 = w2.a + j * w2.stride;
+            const Plane<TS> i21 = i20 + w2.stride;
             float c0 = i20[0], c1 = i21[0];
             for (int i = 0; i < ww; ++i) {
                 const float v2 = blend_carry(i20, i21, i, q, c0, c1);
@@ -501,10 +556,10 @@ int bank_stride(int n) { return n + ((8 - n) % 32 + 32) % 32; }
 // With ``blocks_per_sm``, nothing is launched: the CUDA occupancy
 // calculator's count of this launch's blocks that one SM holds at once is
 // written there instead.
-template <bool ONE_D, bool LIGHTING, int START>
-int launch(const Frame& f1, const Frame& f2, const Start& S, const LKParams& P, Tile T,
-           const Band& B, float* uo, float* vo, int* st, int* iters, cudaStream_t stream,
-           int* blocks_per_sm)
+template <bool ONE_D, bool LIGHTING, int START, typename TS>
+int launch(const Frame<TS>& f1, const Frame<TS>& f2, const Start& S, const LKParams& P,
+           Tile T, const Band& B, float* uo, float* vo, int* st, int* iters,
+           cudaStream_t stream, int* blocks_per_sm)
 {
     const int nimg = ONE_D ? 2 : 3;
     const size_t b1 = sizeof(float) * nimg * (size_t)T.s1 * T.r1;
@@ -512,18 +567,18 @@ int launch(const Frame& f1, const Frame& f2, const Start& S, const LKParams& P, 
     T.stage1 = b1 <= SMEM_MAX;
     T.stage2 = (T.stage1 ? b1 : 0) + b2 <= SMEM_MAX;
     const size_t smem = (T.stage1 ? b1 : 0) + (T.stage2 ? b2 : 0);
-    pft_allow_smem(lk_tile_kernel<ONE_D, LIGHTING, START>, smem);
+    pft_allow_smem(lk_tile_kernel<ONE_D, LIGHTING, START, TS>, smem);
     if (blocks_per_sm)
         return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            blocks_per_sm, lk_tile_kernel<ONE_D, LIGHTING, START>, T.th * T.tw, smem);
+            blocks_per_sm, lk_tile_kernel<ONE_D, LIGHTING, START, TS>, T.th * T.tw, smem);
     const dim3 grid(pft_ceil_div(P.W, T.tw), pft_ceil_div(B.rows, T.th));
-    lk_tile_kernel<ONE_D, LIGHTING, START><<<grid, T.th * T.tw, smem, stream>>>(
+    lk_tile_kernel<ONE_D, LIGHTING, START, TS><<<grid, T.th * T.tw, smem, stream>>>(
         f1, f2, S, P, T, B, uo, vo, st, iters);
     return (int)cudaGetLastError();
 }
 
-template <bool ONE_D, bool LIGHTING>
-int launch_start(int start, const Frame& f1, const Frame& f2, const Start& S,
+template <bool ONE_D, bool LIGHTING, typename TS>
+int launch_start(int start, const Frame<TS>& f1, const Frame<TS>& f2, const Start& S,
                  const LKParams& P, const Tile& T, const Band& B, float* uo, float* vo,
                  int* st, int* iters, cudaStream_t s, int* bps)
 {
@@ -542,7 +597,8 @@ int launch_start(int start, const Frame& f1, const Frame& f2, const Start& S,
 
 // The launch of one level (see pft_lk_dense_level), or with ``bps`` its
 // blocks per SM.
-int dispatch(const Frame& f1, const Frame& f2, const Start& S, const LKParams& P,
+template <typename TS>
+int dispatch(const Frame<TS>& f1, const Frame<TS>& f2, const Start& S, const LKParams& P,
              int start, int lighting_insensitive, int one_d, int tile_h, int tile_w,
              const Band& B, float* uo, float* vo, int* st, int* iters, cudaStream_t s,
              int* bps)
@@ -564,13 +620,14 @@ int dispatch(const Frame& f1, const Frame& f2, const Start& S, const LKParams& P
 // H x W; 1: none read; 2: the coarser level's hc x wc maps, with the
 // float32 ratios ry = hc / H, rx = wc / W and the scale), u, v out. One-d:
 // ``u`` is the disparity map d in (start 0 or 2) and out, the ``v``
-// pointers are unused, start 1 is refused. tile_h x tile_w pixels per
+// pointers are unused, start 1 is refused. The six images are float32
+// (bf16 0) or bfloat16 (bf16 1). tile_h x tile_w pixels per
 // block: a multiple of 4 by a multiple of 8, at most 1024 threads. Rows
 // [row0, row0 + nrows_out) are solved and written to nrows_out x W outputs
 // (the whole level: row0 0, nrows_out H).
-extern "C" int pft_lk_dense_level(const float* img1, const float* gx1, const float* gy1,
-                                  const float* img2, const float* gx2, const float* gy2,
-                                  const float* u, const float* v, int start, int hc,
+extern "C" int pft_lk_dense_level(const void* img1, const void* gx1, const void* gy1,
+                                  const void* img2, const void* gx2, const void* gy2,
+                                  const float* u, const float* v, int bf16, int start, int hc,
                                   int wc, float ry, float rx, float scale, int H, int W,
                                   int window_width, int window_height, int max_iterations,
                                   float min_displacement, float min_determinant,
@@ -587,10 +644,18 @@ extern "C" int pft_lk_dense_level(const float* img1, const float* gx1, const flo
         return PFT_INVALID_ARGUMENT;
     const LKParams P{H, W, H * W, window_width / 2, window_height / 2, max_iterations,
                      min_displacement, min_determinant, max_residue, step_factor};
-    const Frame f1{img1, gx1, gy1}, f2{img2, gx2, gy2};
     const Band B{row0, nrows_out};
     const Start S{u, v, start == START_UP ? hc : H, start == START_UP ? wc : W, ry, rx,
                   scale};
+    if (bf16) {
+        using TS = __nv_bfloat16;
+        const Frame<TS> f1{(const TS*)img1, (const TS*)gx1, (const TS*)gy1},
+            f2{(const TS*)img2, (const TS*)gx2, (const TS*)gy2};
+        return dispatch(f1, f2, S, P, start, lighting_insensitive, one_d, tile_h, tile_w, B,
+                        u_out, v_out, status, iteration, (cudaStream_t)stream, nullptr);
+    }
+    const Frame<float> f1{(const float*)img1, (const float*)gx1, (const float*)gy1},
+        f2{(const float*)img2, (const float*)gx2, (const float*)gy2};
     return dispatch(f1, f2, S, P, start, lighting_insensitive, one_d, tile_h, tile_w, B,
                     u_out, v_out, status, iteration, (cudaStream_t)stream, nullptr);
 }
@@ -609,8 +674,9 @@ extern "C" int pft_lk_dense_blocks_per_sm(int start, int window_width, int windo
     LKParams P{};
     P.hw = window_width / 2;
     P.hh = window_height / 2;
-    return dispatch(Frame{}, Frame{}, Start{}, P, start, lighting_insensitive, one_d, tile_h,
-                    tile_w, Band{}, nullptr, nullptr, nullptr, nullptr, nullptr, blocks);
+    return dispatch(Frame<float>{}, Frame<float>{}, Start{}, P, start, lighting_insensitive,
+                    one_d, tile_h, tile_w, Band{}, nullptr, nullptr, nullptr, nullptr, nullptr,
+                    blocks);
 }
 
 PFT_PHASE_READER(pft_lk_dense_phase_clocks)

@@ -153,8 +153,8 @@ __device__ __forceinline__ void grid_for(int rows, int cols, F&& f)
 // SMOOTH, the pre-smoothed frame `src` (`work` holds the frame tile and the
 // horizontal pass; STORE: the tile's own part written to base_out); else
 // `src` loaded as it is. Ends on a barrier.
-template <class TL, int RS, bool SMOOTH, bool CG, bool STORE>
-__device__ __forceinline__ void tile_base(const float* src, float* base_out, int H, int W,
+template <class TL, int RS, bool SMOOTH, bool CG, bool STORE, typename TS>
+__device__ __forceinline__ void tile_base(const float* src, TS* base_out, int H, int W,
                                           int TH, int TW, int R0, int C0, int R,
                                           const K1Taps& T, float* base, float* work, int ph)
 {
@@ -184,7 +184,7 @@ __device__ __forceinline__ void tile_base(const float* src, float* base_out, int
                 v = conv<RS>(hs + r * bcols + c, bcols, T.s);
             base[r * bcols + c] = v;
             if (STORE && r >= R && r < R + TH && gr < H && c >= R && c < R + TW && gc < W)
-                base_out[(size_t)gr * W + gc] = v;
+                pft_store(base_out + (size_t)gr * W + gc, v);
         });
     } else {
         load_region<NT, CG>(base, src, R0 - R, C0 - R, brows, bcols, H, W);
@@ -229,29 +229,37 @@ __device__ __forceinline__ void pyramid_rows(float* hp, const float* base, const
     });
 }
 
-// Its vertical pass at the decimated rows: the next level's samples.
-template <class TL, int RP>
-__device__ __forceinline__ void pyramid_cols(float* dec, const float* hp, const DecimatedSpan& d,
-                                             int H, int W, int sub, int TW, int R0, int rp,
-                                             const K1Taps& T)
+// Its vertical pass at the decimated rows: the next level's samples, in
+// float32 to `dec` (the source of the next level's build) and, with
+// bfloat16 storage, rounded to `dec16` (the stored next level).
+template <class TL, int RP, typename TS>
+__device__ __forceinline__ void pyramid_cols(float* dec, TS* dec16, const float* hp,
+                                             const DecimatedSpan& d, int H, int W, int sub,
+                                             int TW, int R0, int rp, const K1Taps& T)
 {
     const int subhalf = sub / 2, w2 = W / sub;
     grid_for<TL::NT>(d.n_j, d.n_q, [&](int j, int q) {
         const int gr = subhalf + (d.j_lo + j) * sub;
-        dec[(size_t)(d.j_lo + j) * w2 + d.q_lo + q] =
+        const size_t o = (size_t)(d.j_lo + j) * w2 + d.q_lo + q;
+        const float v =
             (gr >= rp && gr < H - rp) ? conv<RP>(hp + (gr - R0) * TW + q, TW, T.p) : 0.0f;
+        dec[o] = v;
+        if constexpr (pft_is_bf16<TS>) pft_store(dec16 + o, v);
     });
 }
 
 // One TH x TL::TW output tile of one level at (R0, C0): gx, gy and, with_pyr,
-// the decimated samples of the next level that fall inside the tile.
+// the decimated samples of the next level that fall inside the tile (dec,
+// and dec16 with bfloat16 storage: pyramid_cols).
 // SMOOTH: `src` is the raw frame and the tile first builds its base (written
-// to base_out); else `src` is the level's base. `sm`: the block's dynamic
-// shared memory (tile_smem floats). Inlined, so that the taps stay kernel
-// parameters (constant-bank operands) instead of a local-memory copy.
-template <class TL, int RS, int RG, int RP, bool SMOOTH, bool CG>
-__device__ __forceinline__ void build_tile(const float* src, float* base_out, float* gx,
-                                           float* gy, float* dec, int H, int W,
+// to base_out); else `src` is the level's float32 base. Stores go out in
+// the storage type TS; everything in shared memory is float32. `sm`: the
+// block's dynamic shared memory (tile_smem floats). Inlined, so that the
+// taps stay kernel parameters (constant-bank operands) instead of a
+// local-memory copy.
+template <class TL, int RS, int RG, int RP, bool SMOOTH, bool CG, typename TS>
+__device__ __forceinline__ void build_tile(const float* src, TS* base_out, TS* gx, TS* gy,
+                                           float* dec, TS* dec16, int H, int W,
                                            bool with_pyr, int sub, int TH, int R0,
                                            int C0, const K1Taps& T, float* sm)
 {
@@ -295,12 +303,14 @@ __device__ __forceinline__ void build_tile(const float* src, float* base_out, fl
         const int gr = R0 + r, gc = C0 + c;
         if (gr >= H || gc >= W) return;
         const size_t o = (size_t)gr * W + gc;
-        gx[o] = (gr >= rgx && gr < H - rgx) ? conv<RG>(hd + (r + rv - rgx) * TW + c, TW, T.g)
-                                            : 0.0f;
-        gy[o] = (gr >= rdx && gr < H - rdx) ? conv<RG>(hg + (r + rv - rdx) * TW + c, TW, T.d)
-                                            : 0.0f;
+        pft_store(gx + o, (gr >= rgx && gr < H - rgx)
+                              ? conv<RG>(hd + (r + rv - rgx) * TW + c, TW, T.g)
+                              : 0.0f);
+        pft_store(gy + o, (gr >= rdx && gr < H - rdx)
+                              ? conv<RG>(hg + (r + rv - rdx) * TW + c, TW, T.d)
+                              : 0.0f);
     });
-    pyramid_cols<TL, RP>(dec, hp, d, H, W, sub, TW, R0, rp, T);
+    pyramid_cols<TL, RP>(dec, dec16, hp, d, H, W, sub, TW, R0, rp, T);
     PFT_PHASE(clk, ph + 4, clock0);             // the vertical passes and stores
 }
 
@@ -352,10 +362,12 @@ struct EigTile {
 // then the horizontal sums and the eigenvalue. Every gradient is the same
 // conv at the same global position as build_tile's, with borders decided
 // from global coordinates, so the stored pair and the map's pair have the
-// same bits.
-template <class TL, int RS, int RG, int RP, bool SMOOTH, bool STORE>
-__device__ __forceinline__ void build_tile_eig(const float* src, float* base_out, float* gx,
-                                               float* gy, float* dec, int* eig, int H, int W,
+// same bits. With bfloat16 storage each gradient is rounded to it before
+// it is stored and before the window sums: the map is that of the stored
+// gradients, upcast (the JAX package computes the refill map from them).
+template <class TL, int RS, int RG, int RP, bool SMOOTH, bool STORE, typename TS>
+__device__ __forceinline__ void build_tile_eig(const float* src, TS* base_out, TS* gx, TS* gy,
+                                               float* dec, TS* dec16, int* eig, int H, int W,
                                                bool with_pyr, int sub, int TH, int R0, int C0,
                                                const K1Taps& T, const EigWin& E, float* sm)
 {
@@ -402,16 +414,18 @@ __device__ __forceinline__ void build_tile_eig(const float* src, float* base_out
                 vx = conv<RG>(hd + (r + rv - rgx) * EC + c, EC, T.g);
             if (gr >= rdx && gr < H - rdx)
                 vy = conv<RG>(hg + (r + rv - rdx) * EC + c, EC, T.d);
+            vx = pft_stored<TS>(vx);
+            vy = pft_stored<TS>(vy);
             if (STORE && r >= hh && r < hh + TH && c >= hw && c < hw + TW) {
                 const size_t o = (size_t)gr * W + gc;
-                gx[o] = vx;
-                gy[o] = vy;
+                pft_store(gx + o, vx);
+                pft_store(gy + o, vy);
             }
         }
         gxe[r * EC + c] = vx;
         gye[r * EC + c] = vy;
     });
-    if (with_pyr) pyramid_cols<TL, RP>(dec, hp, d, H, W, sub, TW, R0, rp, T);
+    if (with_pyr) pyramid_cols<TL, RP>(dec, dec16, hp, d, H, W, sub, TW, R0, rp, T);
     __syncthreads();
     PFT_PHASE(clk, 4, clock0);                  // the vertical passes and stores
 
@@ -454,20 +468,21 @@ inline int tile_smem(int TH, int rs, int rg, int rd, int rp, bool smooth)
 // (WITH), or the map alone (ONLY).
 enum class EigMode { NONE, WITH, ONLY };
 
-template <class TL, int RS, int RG, int RP, bool SMOOTH, EigMode M>
+template <class TL, int RS, int RG, int RP, bool SMOOTH, EigMode M, typename TS>
 __global__ void __launch_bounds__(TL::NT)
-level0_kernel(const float* __restrict__ img, float* __restrict__ base, float* __restrict__ gx,
-              float* __restrict__ gy, float* __restrict__ dec, int* __restrict__ eig, int H,
-              int W, int with_pyr, int sub, int th, K1Taps T, EigWin E)
+level0_kernel(const float* __restrict__ img, TS* __restrict__ base, TS* __restrict__ gx,
+              TS* __restrict__ gy, float* __restrict__ dec, TS* __restrict__ dec16,
+              int* __restrict__ eig, int H, int W, int with_pyr, int sub, int th, K1Taps T,
+              EigWin E)
 {
     extern __shared__ float sm[];
     if constexpr (M == EigMode::NONE)
-        build_tile<TL, RS, RG, RP, SMOOTH, false>(img, base, gx, gy, dec, H, W, with_pyr != 0,
-                                                  sub, th, blockIdx.y * th,
+        build_tile<TL, RS, RG, RP, SMOOTH, false>(img, base, gx, gy, dec, dec16, H, W,
+                                                  with_pyr != 0, sub, th, blockIdx.y * th,
                                                   blockIdx.x * TL::TW, T, sm);
     else
         build_tile_eig<TL, RS, RG, RP, SMOOTH, M == EigMode::WITH>(
-            img, base, gx, gy, dec, eig, H, W, with_pyr != 0, sub, th, blockIdx.y * th,
+            img, base, gx, gy, dec, dec16, eig, H, W, with_pyr != 0, sub, th, blockIdx.y * th,
             blockIdx.x * E.tw, T, E, sm);
 }
 
@@ -494,32 +509,49 @@ __device__ void grid_barrier(unsigned* bar)
 }
 
 // Levels 1 .. n_levels - 1 of the pyramid in `buf` (level l at its offset:
-// [img, gx, gy], each H_l x W_l, H_l = H_{l-1} / sub): each block walks the
-// level's tiles, then the grid meets at a barrier before the next level.
-template <class TL, int RG, int RP>
+// [img, gx, gy], each H_l x W_l, H_l = H_{l-1} / sub, in the storage type):
+// each block walks the level's tiles, then the grid meets at a barrier
+// before the next level. Each level is built from its float32 image: the
+// level's own in `buf` (float storage), else its copy in `scratch` (levels
+// 1 .. n_levels - 1 in order, H_l x W_l floats each), where the level above
+// wrote it beside the rounded one it stores.
+template <class TL, int RG, int RP, typename TS>
 __global__ void __launch_bounds__(TL::NT)
-coarse_kernel(float* buf, int H0, int W0, int n_levels, int sub, K1Taps T, unsigned* bar)
+coarse_kernel(TS* buf, float* scratch, int H0, int W0, int n_levels, int sub, K1Taps T,
+              unsigned* bar)
 {
     extern __shared__ float sm[];
-    size_t off = 3 * (size_t)H0 * W0;
+    size_t off = 3 * (size_t)H0 * W0, soff = 0;
     int H = H0 / sub, W = W0 / sub;
     for (int l = 1; l < n_levels; ++l) {
         const size_t n = (size_t)H * W;
-        float* img = buf + off;
+        TS* lv = buf + off;
+        const float* src;
+        float* dec;
+        TS* dec16 = nullptr;
+        if constexpr (pft_is_bf16<TS>) {
+            src = scratch + soff;
+            dec = scratch + soff + n;
+            dec16 = lv + 3 * n;
+        } else {
+            src = lv;
+            dec = lv + 3 * n;
+        }
         const bool with_pyr = l < n_levels - 1;
         constexpr int TH = TL::TH, TW = TL::TW;
         const int tx = pft_ceil_div(W, TW), nt = tx * pft_ceil_div(H, TH);
         for (int t = blockIdx.x; t < nt; t += gridDim.x) {
             const int ty = t / tx;
-            build_tile<TL, 0, RG, RP, false, true>(img, nullptr, img + n, img + 2 * n,
-                                               img + 3 * n, H, W, with_pyr, sub, TH, ty * TH,
-                                               (t - ty * tx) * TW, T, sm);
+            build_tile<TL, 0, RG, RP, false, true>(src, (TS*)nullptr, lv + n, lv + 2 * n, dec,
+                                                   dec16, H, W, with_pyr, sub, TH, ty * TH,
+                                                   (t - ty * tx) * TW, T, sm);
             __syncthreads();
         }
         PFT_PHASE_START(clk);
         if (with_pyr) grid_barrier(bar);
         PFT_PHASE(clk, 16, threadIdx.x == 0);   // the grid barrier
         off += 3 * n;
+        soff += n;
         H /= sub;
         W /= sub;
     }
@@ -580,8 +612,8 @@ bool eig_tile_shape(int H, int W, bool smooth, int rs, int rv, int rp, int hw, i
     return best > 0;
 }
 
-template <class TL, int RS, int RG, int RP, bool SMOOTH, EigMode M>
-int launch_level0(const float* img, float* base, float* gx, float* gy, float* dec, int* eig,
+template <class TL, int RS, int RG, int RP, bool SMOOTH, EigMode M, typename TS>
+int launch_level0(const float* img, TS* base, TS* gx, TS* gy, float* dec, TS* dec16, int* eig,
                   int H, int W, int with_pyr, int sub, const K1Taps& T, int ww, int wh,
                   cudaStream_t s)
 {
@@ -598,41 +630,41 @@ int launch_level0(const float* img, float* base, float* gx, float* gy, float* de
             return PFT_INVALID_ARGUMENT;
         smem = sizeof(float) * EigTile(th, E.tw, SMOOTH, rs, rv, rp, E.hw, E.hh).total();
     }
-    auto kernel = level0_kernel<TL, RS, RG, RP, SMOOTH, M>;
+    auto kernel = level0_kernel<TL, RS, RG, RP, SMOOTH, M, TS>;
     pft_allow_smem(kernel, smem);
     const dim3 grid(pft_ceil_div(W, E.tw), pft_ceil_div(H, th));
-    kernel<<<grid, TL::NT, smem, s>>>(img, base, gx, gy, dec, eig, H, W, with_pyr, sub, th, T,
-                                      E);
+    kernel<<<grid, TL::NT, smem, s>>>(img, base, gx, gy, dec, dec16, eig, H, W, with_pyr, sub,
+                                      th, T, E);
     return (int)cudaGetLastError();
 }
 
-template <bool SMOOTH, EigMode M>
-int level0(Radii k, const float* img, float* base, float* gx, float* gy, float* dec, int* eig,
-           int H, int W, int with_pyr, int sub, const K1Taps& T, int ww, int wh,
+template <bool SMOOTH, EigMode M, typename TS>
+int level0(Radii k, const float* img, TS* base, TS* gx, TS* gy, float* dec, TS* dec16,
+           int* eig, int H, int W, int with_pyr, int sub, const K1Taps& T, int ww, int wh,
            cudaStream_t s)
 {
     switch (k) {
         case Radii::S2G3P10:
             return launch_level0<Level0Tile, 2, 3, 10, SMOOTH, M>(
-                img, base, gx, gy, dec, eig, H, W, with_pyr, sub, T, ww, wh, s);
+                img, base, gx, gy, dec, dec16, eig, H, W, with_pyr, sub, T, ww, wh, s);
         case Radii::S2G3P5:
             return launch_level0<Level0Tile, 2, 3, 5, SMOOTH, M>(
-                img, base, gx, gy, dec, eig, H, W, with_pyr, sub, T, ww, wh, s);
+                img, base, gx, gy, dec, dec16, eig, H, W, with_pyr, sub, T, ww, wh, s);
         case Radii::S3G3P5:
             return launch_level0<Level0Tile, 3, 3, 5, SMOOTH, M>(
-                img, base, gx, gy, dec, eig, H, W, with_pyr, sub, T, ww, wh, s);
+                img, base, gx, gy, dec, dec16, eig, H, W, with_pyr, sub, T, ww, wh, s);
         default:
             return launch_level0<AnyTile, -1, -1, -1, SMOOTH, M>(
-                img, base, gx, gy, dec, eig, H, W, with_pyr, sub, T, ww, wh, s);
+                img, base, gx, gy, dec, dec16, eig, H, W, with_pyr, sub, T, ww, wh, s);
     }
 }
 
-template <class TL, int RG, int RP>
-int launch_coarse(float* buf, int H, int W, int n_levels, int sub, const K1Taps& T,
-                  unsigned* bar, cudaStream_t s)
+template <class TL, int RG, int RP, typename TS>
+int launch_coarse(TS* buf, float* scratch, int H, int W, int n_levels, int sub,
+                  const K1Taps& T, unsigned* bar, cudaStream_t s)
 {
     const size_t smem = sizeof(float) * tile_smem<TL>(TL::TH, 0, T.g.r, T.d.r, T.p.r, false);
-    auto kernel = coarse_kernel<TL, RG, RP>;
+    auto kernel = coarse_kernel<TL, RG, RP, TS>;
     pft_allow_smem(kernel, smem);
     int dev = 0, sms = 0, per_sm = 0;
     cudaGetDevice(&dev);
@@ -646,7 +678,7 @@ int launch_coarse(float* buf, int H, int W, int n_levels, int sub, const K1Taps&
     int blocks = per_sm * sms;
     if (tiles < blocks) blocks = tiles;
     if (blocks < 1) blocks = 1;
-    void* args[] = {&buf, &H, &W, &n_levels, &sub, const_cast<K1Taps*>(&T), &bar};
+    void* args[] = {&buf, &scratch, &H, &W, &n_levels, &sub, const_cast<K1Taps*>(&T), &bar};
     cudaLaunchCooperativeKernel((const void*)kernel, dim3(blocks), dim3(TL::NT), args, smem,
                                 s);
     return (int)cudaGetLastError();
@@ -683,10 +715,10 @@ extern "C" int pft_pyramid_level(const float* in, float* base, float* gx, float*
     const int with_pyr = p_ntaps > 0;
     const Radii k = pick(smooth ? T.s.r : -1, T.g.r, T.d.r, with_pyr ? T.p.r : -1);
     cudaStream_t s = (cudaStream_t)stream;
-    return smooth ? level0<true, EigMode::NONE>(k, in, base, gx, gy, dec, nullptr, H, W,
-                                                with_pyr, sub, T, 0, 0, s)
-                  : level0<false, EigMode::NONE>(k, in, base, gx, gy, dec, nullptr, H, W,
-                                                 with_pyr, sub, T, 0, 0, s);
+    return smooth ? level0<true, EigMode::NONE>(k, in, base, gx, gy, dec, (float*)nullptr,
+                                                nullptr, H, W, with_pyr, sub, T, 0, 0, s)
+                  : level0<false, EigMode::NONE>(k, in, base, gx, gy, dec, (float*)nullptr,
+                                                 nullptr, H, W, with_pyr, sub, T, 0, 0, s);
 }
 
 // K3's int32 map [H, W] of the window_width x window_height window (odd)
@@ -706,22 +738,70 @@ extern "C" int pft_pyramid_eig(const float* in, int* eig, int H, int W, int smoo
         return PFT_INVALID_ARGUMENT;
     const Radii k = pick(smooth ? T.s.r : -1, T.g.r, T.d.r, -1);
     cudaStream_t s = (cudaStream_t)stream;
-    return smooth ? level0<true, EigMode::ONLY>(k, in, nullptr, nullptr, nullptr, nullptr, eig,
-                                                H, W, 0, 1, T, window_width, window_height, s)
-                  : level0<false, EigMode::ONLY>(k, in, nullptr, nullptr, nullptr, nullptr,
-                                                 eig, H, W, 0, 1, T, window_width,
-                                                 window_height, s);
+    float* none = nullptr;
+    return smooth ? level0<true, EigMode::ONLY>(k, in, none, none, none, none, none, eig, H, W,
+                                                0, 1, T, window_width, window_height, s)
+                  : level0<false, EigMode::ONLY>(k, in, none, none, none, none, none, eig, H,
+                                                 W, 0, 1, T, window_width, window_height, s);
 }
 
+namespace {
+
+// pft_pyramid_build in storage type TS (see there).
+template <typename TS>
+int build(const float* img, TS* buf, float* scratch, int H, int W, int n_levels, int sub,
+          const K1Taps& T, int* eig, int window_width, int window_height, unsigned* bar,
+          cudaStream_t s)
+{
+    const size_t n0 = (size_t)H * W;
+    const int with_pyr = n_levels > 1;
+    // level 1's image: float32 to buf (float storage) or to scratch, where
+    // bfloat16 storage keeps the float32 source of every coarser level
+    float* dec;
+    TS* dec16 = nullptr;
+    if constexpr (pft_is_bf16<TS>) {
+        dec = scratch;
+        dec16 = buf + 3 * n0;
+    } else {
+        dec = buf + 3 * n0;
+    }
+    const Radii k = pick(T.s.r, T.g.r, T.d.r, T.p.r);
+    int rc = eig != nullptr
+                 ? level0<true, EigMode::WITH>(k, img, buf, buf + n0, buf + 2 * n0, dec, dec16,
+                                               eig, H, W, with_pyr, sub, T, window_width,
+                                               window_height, s)
+                 : level0<true, EigMode::NONE>(k, img, buf, buf + n0, buf + 2 * n0, dec, dec16,
+                                               nullptr, H, W, with_pyr, sub, T, 0, 0, s);
+    if (rc != 0 || !with_pyr) return rc;
+    switch (k) {
+        case Radii::S2G3P10:
+            return launch_coarse<CoarseTile, 3, 10>(buf, scratch, H, W, n_levels, sub, T, bar,
+                                                    s);
+        case Radii::S2G3P5:
+        case Radii::S3G3P5:
+            return launch_coarse<CoarseTile, 3, 5>(buf, scratch, H, W, n_levels, sub, T, bar,
+                                                   s);
+        default:
+            return launch_coarse<AnyTile, -1, -1>(buf, scratch, H, W, n_levels, sub, T, bar,
+                                                  s);
+    }
+}
+
+}  // namespace
+
 // A whole pyramid of n_levels levels of the [H, W] frame `img` into `buf`:
-// level l at offset sum_{k<l} 3 H_k W_k floats as [img, gx, gy] (level 0's
-// img is the pre-smoothed frame), H_l = H_{l-1} / sub. Two launches (one
-// for a single level). eig: null, or an int32 [H, W] map that launch 1
-// fills with K3's map of the window_width x window_height window (odd) over
-// level 0's gradients. bar: two uint32 of device memory, zero before the
+// level l at offset sum_{k<l} 3 H_k W_k elements as [img, gx, gy] (level
+// 0's img is the pre-smoothed frame), H_l = H_{l-1} / sub, float32 (bf16 0)
+// or bfloat16 (bf16 1: each value built in float32 and rounded to nearest
+// even where it is stored; scratch then holds sum_{l>=1} H_l W_l floats,
+// the float32 images of levels 1 .. n_levels - 1 that the coarser levels
+// are built from, and may be null for one level). Two launches (one for a
+// single level). eig: null, or an int32 [H, W] map that launch 1 fills
+// with K3's map of the window_width x window_height window (odd) over level
+// 0's stored gradients. bar: two uint32 of device memory, zero before the
 // first build on this stream, left that way by every build.
-extern "C" int pft_pyramid_build(const float* img, float* buf, int H, int W, int n_levels,
-                                 int sub, const float* s_rev, int s_ntaps,
+extern "C" int pft_pyramid_build(const float* img, void* buf, float* scratch, int bf16, int H,
+                                 int W, int n_levels, int sub, const float* s_rev, int s_ntaps,
                                  const float* g_rev, int g_ntaps,
                                  const float* d_rev, int d_ntaps,
                                  const float* p_rev, int p_ntaps, int* eig,
@@ -730,31 +810,16 @@ extern "C" int pft_pyramid_build(const float* img, float* buf, int H, int W, int
 {
     K1Taps T;
     if (H <= 0 || W <= 0 || n_levels < 1 || sub < 1 || bar == nullptr ||
+        (bf16 && n_levels > 1 && scratch == nullptr) ||
         (eig != nullptr && (window_width < 1 || window_height < 1 ||
                             window_width % 2 == 0 || window_height % 2 == 0)) ||
         !load_all(&T, s_rev, s_ntaps, g_rev, g_ntaps, d_rev, d_ntaps, p_rev, p_ntaps))
         return PFT_INVALID_ARGUMENT;
     cudaStream_t s = (cudaStream_t)stream;
-    const size_t n0 = (size_t)H * W;
-    const int with_pyr = n_levels > 1;
-    const Radii k = pick(T.s.r, T.g.r, T.d.r, T.p.r);
-    int rc = eig != nullptr
-                 ? level0<true, EigMode::WITH>(k, img, buf, buf + n0, buf + 2 * n0,
-                                               buf + 3 * n0, eig, H, W, with_pyr, sub, T,
-                                               window_width, window_height, s)
-                 : level0<true, EigMode::NONE>(k, img, buf, buf + n0, buf + 2 * n0,
-                                               buf + 3 * n0, nullptr, H, W, with_pyr, sub, T,
-                                               0, 0, s);
-    if (rc != 0 || !with_pyr) return rc;
-    switch (k) {
-        case Radii::S2G3P10:
-            return launch_coarse<CoarseTile, 3, 10>(buf, H, W, n_levels, sub, T, bar, s);
-        case Radii::S2G3P5:
-        case Radii::S3G3P5:
-            return launch_coarse<CoarseTile, 3, 5>(buf, H, W, n_levels, sub, T, bar, s);
-        default:
-            return launch_coarse<AnyTile, -1, -1>(buf, H, W, n_levels, sub, T, bar, s);
-    }
+    return bf16 ? build(img, (__nv_bfloat16*)buf, scratch, H, W, n_levels, sub, T, eig,
+                        window_width, window_height, bar, s)
+                : build(img, (float*)buf, scratch, H, W, n_levels, sub, T, eig, window_width,
+                        window_height, bar, s);
 }
 
 PFT_PHASE_READER(pft_pyramid_phase_clocks)

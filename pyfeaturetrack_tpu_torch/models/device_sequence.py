@@ -48,8 +48,9 @@ the card are copied into the graph's frame buffer before the replay.
 ``chain_lanes`` runs B independent lanes (streams, chunks) in one graph,
 their steps in lane order within each frame.
 
-Out of this port (raise NotImplementedError): ``image_dtype`` other than
-float32.
+The pyramids are stored in ``cfg.image_dtype`` (float32 or bfloat16), the
+captured chain's two pyramid buffers too; with bfloat16 storage the refill
+map is K3's map of the stored level-0 gradients, upcast.
 """
 
 from __future__ import annotations
@@ -69,7 +70,8 @@ from ..ops import (cuda_affine, cuda_eig, cuda_lk, cuda_lk_dense,
                    cuda_window_terms)
 from ..ops.affine import affine_consistency_check, make_affine_state
 from ..ops.cuda_lk import TrackCarry
-from ..ops.cuda_pyramid import level_shapes, pyramid_numel, pyramid_views
+from ..ops.cuda_pyramid import (level_shapes, pyramid_numel, pyramid_views,
+                                storage_dtype)
 from ..ops.select import selection_eig_map
 from ..ops.select_device import (DEFAULT_TOP_K,
                                  select_features_from_eig_device)
@@ -77,13 +79,6 @@ from ..ops.track import (TrackPyramids, as_frame, build_track_pyramids,
                          track_features_pyramids_carry)
 from ..utils import cuda
 from ..utils.staging import host_frame, stage_raw
-
-
-def _check_cfg(cfg) -> None:
-    if cfg.image_dtype != "float32":
-        raise NotImplementedError(
-            f"image_dtype={cfg.image_dtype!r}: the port stores float32 "
-            "pyramids only")
 
 
 def _build_with_map(img: torch.Tensor, cfg, with_map: bool, out=None):
@@ -108,7 +103,6 @@ def select_step_device(img, cfg, n_features: int,
     Returns (pyr, x, y, val, aff, exhausted); ``aff`` is a fresh
     AffineState when ``cfg.affineConsistencyCheck >= 0``, else None, and
     ``exhausted`` is a False device scalar."""
-    _check_cfg(cfg)
     img = as_frame(img, device)
     pyr, eig = _build_with_map(img, cfg, True)
     dev = img.device
@@ -160,7 +154,6 @@ def sequence_step_device(pyr_prev: TrackPyramids, img_new, x: torch.Tensor,
     returns ``carry`` with ``ok`` cleared: no window reuse yet, identical
     results)."""
     del top_k          # the extraction scans every candidate
-    _check_cfg(cfg)
     return _step(pyr_prev, as_frame(img_new, x.device), x, y, val, cfg,
                  replace_lost, aff, carry)
 
@@ -242,7 +235,7 @@ class _ChainGraph:
             # recorded in the graph once its frames are on the card
             self.staged = torch.cuda.Event(external=True)
         self.pyr_buf = torch.zeros((2, b, pyramid_numel(self.shapes)),
-                                   dtype=torch.float32, **on)
+                                   dtype=storage_dtype(cfg), **on)
         self.x = torch.full((b, n), -1.0, dtype=torch.float32, **on)
         self.y = torch.full((b, n), -1.0, dtype=torch.float32, **on)
         self.val = torch.full((b, n), KLT_NOT_FOUND, dtype=torch.int32,
@@ -493,7 +486,6 @@ def sequence_chain_device(pyr_prev: TrackPyramids, imgs, x: torch.Tensor,
     returned tensor is the caller's own: a later call changes none of
     them."""
     del top_k
-    _check_cfg(cfg)
     lanes, hist, ex = chain_lanes([(pyr_prev, x, y, val, aff, carry)],
                                   [[img] for img in imgs], cfg, replace_lost)
     pyr, x, y, val, aff, carry = lanes[0]

@@ -106,7 +106,6 @@ def _step(d, mode: int):
     return dA, d[:, 4], d[:, 5]
 
 
-@cuda.plain_version
 def _affine_track_batch(tmpl, img2, gx2, gy2, x0, y0, A0, check, cfg):
     """Plain version of K6: batched Gauss-Newton template matching
     (oracle am_track_feature_affine, vectorized; affine.py:100-177 of the

@@ -15,6 +15,10 @@ any warped footprint from global memory. Their semantics are
   list and on all eight AffineState fields) in one launch; its plain
   version is that function's eager composition.
 
+Level-0 images stored as float32 or bfloat16 (``cfg.image_dtype``): every
+tap is upcast to float32 where it is read; templates, warps and sums are
+float32.
+
 A CUDA tensor launches the kernel (one launch per call); a CPU tensor
 takes the plain version.
 """
@@ -28,7 +32,7 @@ import torch
 from ..features import AffineState
 from ..utils import cuda
 from . import affine
-from .cuda_lk import _f32
+from .cuda_lk import _f32, _is_bf16
 
 # Kernel launches made by this module's wrappers.
 launches = 0
@@ -57,12 +61,13 @@ def _launch(tmpl, img2, gx2, gy2, x0, y0, A0, check, cfg, xo, yo, Ao, st,
             nit):
     global launches
     fn = cuda.function("pft_affine_track",
-                       [cuda.c_ptr] * 8 + [cuda.c_int] * 7
+                       [cuda.c_ptr] * 8 + [cuda.c_int] * 8
                        + [cuda.c_float] * 4 + [cuda.c_ptr] * 6)
     nrows, ncols = img2.shape
     rc = fn(*(t.data_ptr() for t in (tmpl, img2, gx2, gy2, x0, y0, A0,
                                       check)),
-            nrows, ncols, x0.shape[0], *_gn_params(cfg),
+            int(img2.dtype == torch.bfloat16), nrows, ncols, x0.shape[0],
+            *_gn_params(cfg),
             xo.data_ptr(), yo.data_ptr(), Ao.data_ptr(), st.data_ptr(),
             nit.data_ptr(), cuda.stream_ptr(img2.device))
     cuda.check(rc, "pft_affine_track")
@@ -73,7 +78,8 @@ def affine_track_batch(tmpl, img2, gx2, gy2, x0, y0, A0, check, cfg):
     """Affine Gauss-Newton for a feature batch: (x, y, A, status, nit).
 
     Same contract as ``ops/affine._affine_track_batch``: ``tmpl`` float32
-    [N, wh, ww]; ``img2``/``gx2``/``gy2`` float32 [H, W]; ``x0``/``y0``
+    [N, wh, ww]; ``img2``/``gx2``/``gy2`` [H, W] of one dtype (float32 or
+    bfloat16, upcast at the tap); ``x0``/``y0``
     float32 [N]; ``A0`` float32 [N, 2, 2]; ``check`` bool [N]. One launch
     on CUDA, differentiable in x, y and A through the plain version's
     VJP."""
@@ -96,10 +102,10 @@ def affine_track_batch(tmpl, img2, gx2, gy2, x0, y0, A0, check, cfg):
                  "affine kernel takes contiguous float32 [N] positions, "
                  "[N, 2, 2] warps and a bool [N] mask")
     shape = img2.shape
+    _is_bf16(imgs, "affine kernel")
     cuda.require(len(shape) == 2 and shape[0] >= 2 and shape[1] >= 2 and all(
-        t.dtype == torch.float32 and t.shape == shape and t.is_contiguous()
-        for t in imgs), "affine kernel takes three contiguous float32 "
-        "[H, W] images (H, W >= 2)")
+        t.shape == shape and t.is_contiguous() for t in imgs),
+        "affine kernel takes three contiguous [H, W] images (H, W >= 2)")
 
     def launch(tmpl, img2, gx2, gy2, x0, y0, A0, check):
         xo, yo = torch.empty_like(x0), torch.empty_like(y0)
@@ -137,14 +143,15 @@ def _launch_stage(ts, cfg):
                       nit=torch.empty_like(nit))
     if n:
         fn = cuda.function("pft_affine_stage",
-                           [cuda.c_ptr] * 6 + [cuda.c_int] * 6
+                           [cuda.c_ptr] * 6 + [cuda.c_int] * 7
                            + [cuda.c_int] + [cuda.c_float] * 4
                            + [cuda.c_ptr] * 5)
         tables = [_ptrs(t) for t in (imgs, feats, vals, state,
                                      (x, y) + tuple(out[:6]))]
         addr = [ctypes.addressof(t) for t in tables]
         rc = fn(*addr[:4], valid.data_ptr(), nit.data_ptr(),
-                *imgs[0].shape, n, *_gn_params(cfg), addr[4],
+                int(imgs[0].dtype == torch.bfloat16), *imgs[0].shape, n,
+                *_gn_params(cfg), addr[4],
                 val.data_ptr(), out.valid.data_ptr(), out.nit.data_ptr(),
                 cuda.stream_ptr(x.device))
         cuda.check(rc, "pft_affine_stage")
@@ -169,10 +176,11 @@ def affine_stage(pyr1, pyr2, fl_before, fl_after, aff: AffineState, cfg):
     ww, wh = _require_mode_and_window(cfg)
     n = fl_after.nFeatures
     shape = imgs[0].shape
+    _is_bf16(imgs, "affine stage")
     cuda.require(len(shape) == 2 and shape[0] >= 2 and shape[1] >= 2 and all(
-        t.dtype == torch.float32 and t.shape == shape and t.is_contiguous()
-        for t in imgs), "affine stage takes level 0 of both pyramids as six "
-        "contiguous float32 [H, W] images (H, W >= 2)")
+        t.shape == shape and t.is_contiguous() for t in imgs),
+        "affine stage takes level 0 of both pyramids as six contiguous "
+        "[H, W] images of one shape (H, W >= 2)")
     feats = (fl_before.x, fl_before.y, fl_after.x, fl_after.y)
     vals = (fl_before.val, fl_after.val)
     state = (aff.img, aff.gradx, aff.grady, aff.x, aff.y, aff.A)

@@ -65,8 +65,11 @@ launches = 0
 @cuda.plain_version
 def min_eig_reference(gradx: torch.Tensor, grady: torch.Tensor,
                       window_width: int, window_height: int) -> torch.Tensor:
-    """Plain version of K3: int32 [H, W] with a zeroed border."""
-    eig = compute_min_eig_map(gradx, grady, window_width, window_height)
+    """Plain version of K3: int32 [H, W] with a zeroed border. Gradients
+    stored as bfloat16 are upcast first: the sums are float32."""
+    eig = compute_min_eig_map(gradx.to(torch.float32),
+                              grady.to(torch.float32), window_width,
+                              window_height)
     return torch.clamp(eig, max=_EIG_LIMIT).to(torch.int32)
 
 

@@ -17,6 +17,9 @@ JAX package runs around it in XLA (``ops/track.py:337-402``).
   kernel compute the same bits. K8's plain version (``cuda_lk_dense``) is
   the same function with its own sum order and 1-D mode.
 
+Levels stored as float32 or bfloat16 (``cfg.image_dtype``): every tap is
+upcast to float32 where it is read, and all blending and sums are float32.
+
 A CUDA tensor launches the kernel (one launch per call); a CPU tensor
 takes the plain version.
 """
@@ -80,6 +83,19 @@ def empty_track_carry(n: int, cfg, device="cuda") -> TrackCarry:
         ok=torch.zeros((n,), dtype=torch.bool, device=device))
 
 
+_LEVEL_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _is_bf16(imgs, what: str) -> bool:
+    """The one storage dtype of a launch's level images (float32 or
+    bfloat16) as the C entries' flag."""
+    dtypes = {t.dtype for t in imgs}
+    cuda.require(len(dtypes) == 1 and dtypes <= set(_LEVEL_DTYPES),
+                 f"{what}: the level images share one dtype, float32 or "
+                 f"bfloat16, not {sorted(map(str, dtypes))}")
+    return dtypes == {torch.bfloat16}
+
+
 def _f32(v: float) -> float:
     """A config threshold as the float32 value the kernel compares with."""
     return float(np.float32(v))
@@ -110,7 +126,6 @@ def _bounds_ok(x, y, hw: int, hh: int, ncols: int, nrows: int):
             (y - hh >= 0.0) & (nrows - (y + hh) >= eps))
 
 
-@cuda.plain_version
 def lk_level_reference(x1, y1, x2, y2, img1, gx1, gy1, img2, gx2, gy2,
                        cfg, active, sum_fn=tree_sum, one_d=False):
     """Plain version of K2 = ``track_feature_level`` (track.py:155-234),
@@ -226,15 +241,16 @@ def _launch(x1, y1, x2, y2, active, img1, gx1, gy1, img2, gx2, gy2, cfg,
             xo, yo, st, it):
     global launches
     fn = cuda.function("pft_lk_level",
-                       [cuda.c_ptr] * 11 + [cuda.c_int] * 6
+                       [cuda.c_ptr] * 11 + [cuda.c_int] * 7
                        + [cuda.c_float] * 4 + [cuda.c_int]
                        + [cuda.c_ptr] * 5)
     nrows, ncols = img1.shape
     rc = fn(*(t.data_ptr() for t in (x1, y1, x2, y2, active, img1, gx1, gy1,
                                      img2, gx2, gy2)),
-            nrows, ncols, x1.shape[0], cfg.window_width, cfg.window_height,
-            cfg.max_iterations, _f32(cfg.min_displacement),
-            _f32(cfg.min_determinant), _f32(cfg.max_residue),
+            int(img1.dtype == torch.bfloat16), nrows, ncols, x1.shape[0],
+            cfg.window_width, cfg.window_height, cfg.max_iterations,
+            _f32(cfg.min_displacement), _f32(cfg.min_determinant),
+            _f32(cfg.max_residue),
             _f32(cfg.step_factor), int(bool(cfg.lighting_insensitive)),
             xo.data_ptr(), yo.data_ptr(), st.data_ptr(), it.data_ptr(),
             cuda.stream_ptr(img1.device))
@@ -246,8 +262,9 @@ def lk_level(x1, y1, x2, y2, img1, gx1, gy1, img2, gx2, gy2, cfg, active):
     """One LK pyramid level for a feature batch: (x2, y2, status, iteration).
 
     ``x1``/``y1``: frame-1 positions, ``x2``/``y2``: frame-2 starting
-    guesses (float32 [N]); six float32 [H, W] level images; ``active``:
-    bool [N]. Same contract as ``track_feature_level``."""
+    guesses (float32 [N]); six [H, W] level images of one dtype (float32
+    or bfloat16, upcast at the tap); ``active``: bool [N]. Same contract
+    as ``track_feature_level``."""
     feats = (x1, y1, x2, y2, active)
     imgs = (img1, gx1, gy1, img2, gx2, gy2)
     if not cuda.use_kernel(*feats, *imgs):
@@ -264,9 +281,10 @@ def lk_level(x1, y1, x2, y2, img1, gx1, gy1, img2, gx2, gy2, cfg, active):
                  "lk_level takes contiguous float32 [N] positions and a bool "
                  "[N] mask")
     shape = img1.shape
+    _is_bf16(imgs, "lk_level")
     cuda.require(len(shape) == 2 and all(
-        t.dtype == torch.float32 and t.shape == shape and t.is_contiguous()
-        for t in imgs), "lk_level takes six contiguous float32 [H, W] images")
+        t.shape == shape and t.is_contiguous() for t in imgs),
+        "lk_level takes six contiguous [H, W] images of one shape")
     xo = torch.empty_like(x2)
     yo = torch.empty_like(y2)
     st = torch.empty((n,), dtype=torch.int32, device=x2.device)
@@ -277,7 +295,6 @@ def lk_level(x1, y1, x2, y2, img1, gx1, gy1, img2, gx2, gy2, cfg, active):
     return xo, yo, st, it
 
 
-@cuda.plain_version
 def track_pyramid_reference(pyr1, pyr2, x, y, val, cfg, x_init=None,
                             y_init=None):
     """Plain version of ``track_pyramid``: the coarse-to-fine level loop of
@@ -344,7 +361,7 @@ def _launch_pyramid(pyr1, pyr2, x, y, val, cfg, x_init, y_init, xo, yo, vo):
     global launches, guided_launches
     fn = cuda.function("pft_lk_pyramid",
                        [cuda.c_ptr] * 3 + [cuda.c_int] + [cuda.c_ptr] * 2
-                       + [cuda.c_int] * 4 + [cuda.c_float] * 4 + [cuda.c_int]
+                       + [cuda.c_int] * 5 + [cuda.c_float] * 4 + [cuda.c_int]
                        + [cuda.c_float] * 2 + [cuda.c_int] * 2
                        + [cuda.c_ptr] * 8)
     n_levels = cfg.nPyramidLevels
@@ -361,7 +378,8 @@ def _launch_pyramid(pyr1, pyr2, x, y, val, cfg, x_init, y_init, xo, yo, vo):
     s = float(cfg.subsampling)
     rc = fn(x.data_ptr(), y.data_ptr(), val.data_ptr(), x.shape[0],
             ctypes.addressof(ptrs), ctypes.addressof(shapes), n_levels,
-            cfg.window_width, cfg.window_height, cfg.max_iterations,
+            int(pyr1.img[0].dtype == torch.bfloat16), cfg.window_width,
+            cfg.window_height, cfg.max_iterations,
             _f32(cfg.min_displacement), _f32(cfg.min_determinant),
             _f32(cfg.max_residue), _f32(cfg.step_factor),
             int(bool(cfg.lighting_insensitive)), _f32(s ** n_levels), _f32(s),
@@ -383,8 +401,9 @@ def track_pyramid(pyr1, pyr2, x: torch.Tensor, y: torch.Tensor,
     level coarse to fine, then the final classification. Returns (x, y,
     val); lost features get (-1, -1, status), lanes with ``val < 0`` pass
     through. ``x_init``/``y_init`` (both or neither): guided frame-2 starts
-    in level-0 pixels. One launch on CUDA, differentiable in the positions
-    and the level images through the plain version's VJP."""
+    in level-0 pixels. The level images share one dtype, float32 or
+    bfloat16 (upcast at the tap). One launch on CUDA, differentiable in
+    the positions and the level images through the plain version's VJP."""
     if (x_init is None) != (y_init is None):
         raise ValueError("track_pyramid: give both x_init and y_init, or "
                          "neither")
@@ -409,13 +428,13 @@ def track_pyramid(pyr1, pyr2, x: torch.Tensor, y: torch.Tensor,
     cuda.require(all(t.dtype == torch.float32 and t.shape == (n,)
                      and t.is_contiguous() for t in starts),
                  "track_pyramid takes contiguous float32 [N] starts")
+    _is_bf16(imgs, "track_pyramid")
     for r in range(n_levels):
         level = imgs[6 * r:6 * r + 6]
-        cuda.require(all(t.dtype == torch.float32 and t.dim() == 2
-                         and t.shape == level[0].shape and t.is_contiguous()
-                         for t in level),
-                     f"track_pyramid: level {r} needs six contiguous float32 "
-                     "[H, W] images of one shape")
+        cuda.require(all(t.dim() == 2 and t.shape == level[0].shape
+                         and t.is_contiguous() for t in level),
+                     f"track_pyramid: level {r} needs six contiguous [H, W] "
+                     "images of one shape")
     n_starts = len(starts)
 
     def split(feats):

@@ -24,7 +24,9 @@ Every entry takes ``band=(row0, rows)``: only rows [row0, row0 + rows) of
 the level are solved and returned (band-sized maps), from the start the
 whole map gives those pixels, with the bits a whole-level call gives them
 (the row-sharded dense paths of ``parallel/sharding.py``, one band per
-rank). ``band`` None is the whole level.
+rank). ``band`` None is the whole level. The level images are float32 or
+bfloat16 (``cfg.image_dtype``); each tap is upcast to float32 where it is
+read, and the maps stay float32.
 
 A CUDA tensor launches the kernel (one launch per call); a CPU tensor takes
 the plain version: ``upsample_flow`` where the start is upsampled, then
@@ -40,7 +42,7 @@ import ctypes
 import torch
 
 from ..utils import cuda
-from .cuda_lk import _f32, lk_level_reference
+from .cuda_lk import _f32, _is_bf16, lk_level_reference
 from .interp import upsample_flow
 
 # Pixels per plain-version chunk: its [chunk, wh+1, ww+1] patch gathers stay
@@ -75,7 +77,6 @@ def _rows(shape, band):
     return (0, shape[0]) if band is None else (int(band[0]), int(band[1]))
 
 
-@cuda.plain_version
 def _reference(imgs, u, v, cfg, one_d, band=None):
     """Plain version of one K8 level: (u or d, v or None, status,
     iteration) [rows, W] over the band's rows (all rows for None), from
@@ -110,7 +111,7 @@ def _reference(imgs, u, v, cfg, one_d, band=None):
 def _launch(imgs, maps, start, coarse_shape, scale, cfg, one_d, out, band):
     global launches, band_launches
     fn = cuda.function("pft_lk_dense_level",
-                       [cuda.c_ptr] * 8 + [cuda.c_int] * 3
+                       [cuda.c_ptr] * 8 + [cuda.c_int] * 4
                        + [cuda.c_float] * 3 + [cuda.c_int] * 5
                        + [cuda.c_float] * 4 + [cuda.c_int] * 6
                        + [cuda.c_ptr] * 5)
@@ -119,7 +120,8 @@ def _launch(imgs, maps, start, coarse_shape, scale, cfg, one_d, out, band):
     hc, wc = coarse_shape
     u, v = maps
     ptr = (lambda t: None if t is None else t.data_ptr())  # noqa: E731
-    rc = fn(*(t.data_ptr() for t in imgs), ptr(u), ptr(v), start, hc, wc,
+    rc = fn(*(t.data_ptr() for t in imgs), ptr(u), ptr(v),
+            int(imgs[0].dtype == torch.bfloat16), start, hc, wc,
             _f32(hc / nrows), _f32(wc / ncols), _f32(scale), nrows, ncols,
             cfg.window_width, cfg.window_height, cfg.max_iterations,
             _f32(cfg.min_displacement), _f32(cfg.min_determinant),
@@ -182,10 +184,10 @@ def _level(imgs, u, v, cfg, one_d, scale=None, band=None):
     ww, wh = cfg.window_width, cfg.window_height
     cuda.require(ww % 2 == 1 and wh % 2 == 1,
                  f"dense_level takes odd windows, got {ww}x{wh}")
+    _is_bf16(imgs, "dense_level")
     cuda.require(len(level_shape) == 2 and all(
-        t.dtype == torch.float32 and t.shape == level_shape
-        and t.is_contiguous() for t in imgs),
-        "dense_level takes contiguous float32 [H, W] level images")
+        t.shape == level_shape and t.is_contiguous() for t in imgs),
+        "dense_level takes contiguous [H, W] level images of one shape")
     cuda.require(all(t.dtype == torch.float32 and t.dim() == 2
                      and t.shape == maps[0].shape and t.is_contiguous()
                      for t in maps),
@@ -231,8 +233,9 @@ def _level(imgs, u, v, cfg, one_d, scale=None, band=None):
 def dense_level(img1, gx1, gy1, img2, gx2, gy2, u, v, cfg, band=None):
     """One dense LK level over the pixel grid, started at grid + (u, v):
     (u, v, status, iteration) [H, W] (the contract of ``flow.flow_level``
-    plus the iteration map), or [rows, W] over ``band``. Six float32
-    [H, W] level images, float32 level-sized maps."""
+    plus the iteration map), or [rows, W] over ``band``. Six [H, W] level
+    images of one dtype (float32 or bfloat16, upcast at the tap), float32
+    level-sized maps."""
     return _level((img1, gx1, gy1, img2, gx2, gy2), u, v, cfg, False,
                   band=band)
 

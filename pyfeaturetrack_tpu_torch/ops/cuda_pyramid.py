@@ -4,12 +4,15 @@ Port of ``pyfeaturetrack_tpu/ops/pallas_pyramid.py`` (fused_level_build /
 fused_level_build_tiled, driven by build_track_pyramids_pallas).
 
 * ``pyramid_build``: a whole pyramid (the level-0 pre-smooth, every
-  level's gradient pair, every decimated level) in at most two launches.
-  Its plain version, ``pyramid_build_reference``, composes
-  ``pyramid_level_reference`` over the levels.
+  level's gradient pair, every decimated level) in at most two launches,
+  stored as float32 or bfloat16 (``cfg.image_dtype``, ``storage_dtype``):
+  every level is built in float32 from the float32 level above it and
+  rounded to nearest even only where it is stored. Its plain version,
+  ``pyramid_build_reference``, composes ``pyramid_level_reference`` over
+  the levels, then casts.
   Asked for a window, its level-0 launch also returns K3's quantized
-  min-eig map of level 0's gradients (csrc/eig_common.cuh); plain version
-  ``min_eig_reference`` of the plain build's gradients.
+  min-eig map of level 0's stored gradients, upcast (csrc/eig_common.cuh);
+  plain version ``min_eig_reference`` of the plain build's gradients.
 * ``pyramid_level``: one level (the optional pre-smooth, the gradient pair
   and, for every level but the last, the decimated pyramid-smoothed image
   that is the next level's base) in one launch; plain version
@@ -40,6 +43,17 @@ from .pyramid import decimate
 # those the level-0 launches that computed K3's map.
 launches = 0
 eig_launches = 0
+
+_STORAGE = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def storage_dtype(cfg) -> torch.dtype:
+    """The dtype ``cfg.image_dtype`` stores the levels in."""
+    name = getattr(cfg, "image_dtype", "float32")
+    if name not in _STORAGE:
+        raise ValueError(f"image_dtype={name!r}: the levels are stored as "
+                         f"one of {sorted(_STORAGE)}")
+    return _STORAGE[name]
 
 
 class LevelTaps(NamedTuple):
@@ -77,7 +91,6 @@ def level_taps(cfg) -> LevelTaps:
                  int(cfg.subsampling))
 
 
-@cuda.plain_version
 def pyramid_level_reference(img: torch.Tensor, taps: LevelTaps,
                             smooth: bool, with_pyr: bool):
     """Plain version of one K1 level. Returns (base, gradx, grady, next)
@@ -94,7 +107,6 @@ def pyramid_level_reference(img: torch.Tensor, taps: LevelTaps,
     return base, gx, gy, nxt
 
 
-@cuda.plain_version
 def pyramid_build_reference(img: torch.Tensor, taps: LevelTaps,
                             n_levels: int):
     """Plain version of ``pyramid_build``: ``pyramid_level_reference``
@@ -110,7 +122,6 @@ def pyramid_build_reference(img: torch.Tensor, taps: LevelTaps,
     return tuple(imgs), tuple(gxs), tuple(gys)
 
 
-@cuda.plain_version
 def level0_eig_reference(img: torch.Tensor, taps: LevelTaps, smooth: bool,
                          window_width: int,
                          window_height: int) -> torch.Tensor:
@@ -242,13 +253,15 @@ def level_shapes(h: int, w: int, sub: int, n_levels: int):
 
 
 def pyramid_numel(shapes) -> int:
-    """Floats of one pyramid buffer: image, gradx and grady of every level."""
+    """Elements of one pyramid buffer: image, gradx and grady of every
+    level."""
     return sum(3 * h * w for h, w in shapes)
 
 
 def pyramid_views(buf: torch.Tensor, shapes):
     """(imgs, gradxs, gradys) of a pyramid buffer of ``pyramid_numel``
-    floats: level by level, the image, gradx and grady, each [H_l, W_l]."""
+    elements: level by level, the image, gradx and grady, each [H_l,
+    W_l], in the buffer's dtype."""
     levels, off = [], 0
     for h, w in shapes:
         n = h * w
@@ -259,20 +272,29 @@ def pyramid_views(buf: torch.Tensor, shapes):
 
 
 def _launch_build(img, taps: LevelTaps, n_levels: int, eig_window, out,
-                  shapes):
+                  shapes, dtype):
     """One pft_pyramid_build call (two launches past one level): (buf,) or
-    (buf, eig)."""
+    (buf, eig). A bfloat16 build past one level also writes the float32
+    decimated images of levels 1 .. n - 1 to a scratch buffer, the source
+    each coarser level is built from."""
     global launches, eig_launches
     ww, wh = (0, 0) if eig_window is None else (int(v) for v in eig_window)
     eig = None if eig_window is None else torch.empty(
         img.shape, dtype=torch.int32, device=img.device)
     buf = out if out is not None else torch.empty(
-        (pyramid_numel(shapes),), dtype=torch.float32, device=img.device)
+        (pyramid_numel(shapes),), dtype=dtype, device=img.device)
+    bf16 = dtype == torch.bfloat16
+    scratch = None
+    if bf16 and n_levels > 1:
+        scratch = torch.empty((sum(h * w for h, w in shapes[1:]),),
+                              dtype=torch.float32, device=img.device)
     fn = cuda.function("pft_pyramid_build",
-                       [cuda.c_ptr] * 2 + [cuda.c_int] * 4 + _TAP_ARGS
+                       [cuda.c_ptr] * 3 + [cuda.c_int] * 5 + _TAP_ARGS
                        + [cuda.c_ptr] + [cuda.c_int] * 2 + [cuda.c_ptr] * 2)
-    rc = fn(img.data_ptr(), buf.data_ptr(), *img.shape, n_levels,
-            taps.subsampling, *_c_taps(taps, True, True),
+    rc = fn(img.data_ptr(), buf.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), int(bf16),
+            *img.shape, n_levels, taps.subsampling,
+            *_c_taps(taps, True, True),
             None if eig is None else eig.data_ptr(), ww, wh,
             _barrier(img.device).data_ptr(), cuda.stream_ptr(img.device))
     cuda.check(rc, "pft_pyramid_build")
@@ -283,31 +305,43 @@ def _launch_build(img, taps: LevelTaps, n_levels: int, eig_window, out,
     return buf, eig
 
 
+def _stored(levels, dtype):
+    """The plain build's float32 levels as stored in ``dtype``."""
+    if dtype == torch.float32:
+        return levels
+    return tuple(tuple(t.to(dtype) for t in part) for part in levels)
+
+
 def pyramid_build(img: torch.Tensor, taps: LevelTaps, n_levels: int,
                   eig_window: Optional[tuple] = None,
-                  out: Optional[torch.Tensor] = None):
+                  out: Optional[torch.Tensor] = None,
+                  dtype: torch.dtype = torch.float32):
     """A whole pyramid: (imgs, gradxs, gradys), tuples of [H_l, W_l] levels,
-    finest first; level 0's image is the pre-smoothed frame. On CUDA at
-    most two launches, whatever ``n_levels`` (csrc/pyramid.cu
+    finest first, stored in ``dtype`` (float32 or bfloat16: built in
+    float32, each level from the float32 level above it, and rounded to
+    nearest even where stored); level 0's image is the pre-smoothed frame.
+    On CUDA at most two launches, whatever ``n_levels`` (csrc/pyramid.cu
     pft_pyramid_build): level 0, then every coarser level. The levels are
-    views of one buffer: ``out`` (float32, ``pyramid_numel`` of the
+    views of one buffer: ``out`` (``dtype``, ``pyramid_numel`` of the
     levels, on the frame's device) when given, else a new one.
 
     ``eig_window``: (window_width, window_height), odd; then the level-0
-    launch also computes K3's int32 map of level 0's gradients, returned
-    last: (imgs, gradxs, gradys, eig).
+    launch also computes K3's int32 map of level 0's stored gradients
+    (upcast), returned last: (imgs, gradxs, gradys, eig).
 
     Differentiable on CUDA through the plain build's VJP (not with
     ``out``)."""
+    cuda.require(dtype in (torch.float32, torch.bfloat16),
+                 f"pyramid_build stores float32 or bfloat16, not {dtype}")
     shapes = level_shapes(*img.shape, taps.subsampling, n_levels)
     if out is not None:
-        cuda.require(out.dtype == torch.float32 and out.is_contiguous()
+        cuda.require(out.dtype == dtype and out.is_contiguous()
                      and out.numel() == pyramid_numel(shapes)
                      and out.device == img.device,
-                     "pyramid_build: out must be a contiguous float32 buffer "
+                     f"pyramid_build: out must be a contiguous {dtype} buffer "
                      "of the pyramid's size on the frame's device")
     if not cuda.use_kernel(img):
-        levels = pyramid_build_reference(img, taps, n_levels)
+        levels = _stored(pyramid_build_reference(img, taps, n_levels), dtype)
         if out is not None:
             views = pyramid_views(out, shapes)
             for dst, src in zip(views, levels):
@@ -327,12 +361,13 @@ def pyramid_build(img: torch.Tensor, taps: LevelTaps, n_levels: int,
         _require_window(*(int(v) for v in eig_window))
 
     def launch(im):
-        return _launch_build(im, taps, n_levels, eig_window, out, shapes)
+        return _launch_build(im, taps, n_levels, eig_window, out, shapes,
+                             dtype)
 
     def plain(im):
         # the buffer's layout (pyramid_views); K3's integer map has no
         # gradient, so the backward leaves it out
-        levels = pyramid_build_reference(im, taps, n_levels)
+        levels = _stored(pyramid_build_reference(im, taps, n_levels), dtype)
         return (torch.cat([t.reshape(-1) for lv in zip(*levels)
                            for t in lv]),)
 

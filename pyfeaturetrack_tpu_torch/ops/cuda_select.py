@@ -98,7 +98,6 @@ def _lattice_maxima(cells: torch.Tensor, nx: int, seg: int) -> Candidates:
                       rarg.to(torch.int32).contiguous(), nx, seg)
 
 
-@cuda.plain_version
 def candidate_lattice_reference(eig, x, y, val, geom, *, min_eig: int,
                                 radius: int) -> Candidates:
     """Plain version of stage A, in lattice space: each kept feature
@@ -194,7 +193,6 @@ def candidate_lattice(eig: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
     return out
 
 
-@cuda.plain_version
 def greedy_extract_reference(cand: torch.Tensor, min_eig: int, dg: int,
                              budget: torch.Tensor, max_out: int):
     """Plain version of the chain: the obvious loop (``argmax`` returns the

@@ -48,7 +48,6 @@ def grid_bytes(shape) -> int:
     return 4 * h * ((w + 31) // 32)
 
 
-@cuda.plain_version
 def greedy_suppress_reference(cand_x: torch.Tensor, cand_y: torch.Tensor,
                               valid: torch.Tensor, budget: torch.Tensor,
                               shape, mindist: int, max_out: int):
@@ -155,7 +154,6 @@ def decode_candidates(neg: torch.Tensor, order: torch.Tensor, geom,
     return cand_x, cand_y, vals, vals >= min_eig
 
 
-@cuda.plain_version
 def suppress_and_fill_reference(neg, order, geom, min_eig, shape, mindist,
                                 x, y, val, replacing):
     """Plain version of the fused entry: the decode, ``greedy_suppress``'s

@@ -13,7 +13,9 @@ No path of either package calls it (the JAX package's LK level computes
 these terms inside K2 / track_feature_level); it is held to the TPU kernel
 and to ``xla_window_terms`` on the CPU and to its plain version on the
 card. A CUDA tensor launches the kernel; a CPU tensor takes the plain
-version, whose sums are ``tree_sum``, the kernel's warp order.
+version, whose sums are ``tree_sum``, the kernel's warp order. It takes
+float32 levels only: bfloat16 storage (``cfg.image_dtype``) is not ported
+to K9, and its entry says so on either device.
 """
 
 from __future__ import annotations
@@ -35,7 +37,6 @@ def _clamp_bounds(shape, hw: int, hh: int):
     return _f32(w - hw - 1.001), _f32(h - hh - 1.001)
 
 
-@cuda.plain_version
 def window_terms_reference(img2, gx2, gy2, w1, g1x, g1y, x2, y2, *, hw: int,
                            hh: int, step_factor: float) -> torch.Tensor:
     """Plain version of K9: [N, 5] float32 (gxx, gxy, gyy, ex, ey)."""
@@ -85,6 +86,10 @@ def window_terms(img2, gx2, gy2, w1, g1x, g1y, x2, y2, *, hw: int, hh: int,
     One launch on CUDA, differentiable through the plain version's VJP."""
     feats = (w1, g1x, g1y, x2, y2)
     imgs = (img2, gx2, gy2)
+    if any(t.dtype == torch.bfloat16 for t in imgs):
+        raise NotImplementedError(
+            "window_terms (K9) takes float32 levels: bfloat16 storage "
+            "(image_dtype='bfloat16') is not ported to K9")
     if not cuda.use_kernel(*imgs, *feats):
         return window_terms_reference(img2, gx2, gy2, w1, g1x, g1y, x2, y2,
                                       hw=hw, hh=hh, step_factor=step_factor)

@@ -108,8 +108,10 @@ def disparity_level_steps(pyr_l: TrackPyramids, pyr_r: TrackPyramids, cfg,
     max_d_coarse = int(max_disparity / s ** (n_levels - 1))
     hypotheses = tuple(range(0, max_d_coarse + 1, int(hypothesis_stride)))
     if len(hypotheses) > 1:
-        d = _hypothesis_init(coarse_l, pyr_r.img[n_levels - 1], hypotheses,
-                             hw, hh)
+        # the coarsest level upcast, as stored (bfloat16 levels included)
+        d = _hypothesis_init(coarse_l.to(torch.float32),
+                             pyr_r.img[n_levels - 1].to(torch.float32),
+                             hypotheses, hw, hh)
     else:
         d = torch.zeros(coarse_l.shape, dtype=torch.float32,
                         device=coarse_l.device)

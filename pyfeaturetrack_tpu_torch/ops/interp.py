@@ -30,7 +30,8 @@ def bilinear(img: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor
     ay = ys - yt.to(ys.dtype)
     x0 = xt.clamp(0, w - 2).long()
     y0 = yt.clamp(0, h - 2).long()
-    flat = img.reshape(-1)
+    # the taps upcast to float32: levels may be stored as bfloat16
+    flat = img.reshape(-1).to(xs.dtype)
     i00 = y0 * w + x0
     p00 = flat[i00]
     p01 = flat[i00 + 1]
@@ -104,7 +105,8 @@ def window_from_patch(patch: torch.Tensor, ax: torch.Tensor,
                       ay: torch.Tensor) -> torch.Tensor:
     """Blend the four shifted (h x w) views of an (h+1 x w+1) patch with
     the shared per-feature bilinear weights (blend order of interp.py:
-    104-109 of the JAX package)."""
+    104-109 of the JAX package); a bfloat16 patch is upcast first."""
+    patch = patch.to(ax.dtype)
     a = ax[:, None, None]
     b = ay[:, None, None]
     p00 = patch[:, :-1, :-1]

@@ -55,7 +55,10 @@ def selection_eig_map(img: torch.Tensor, cfg, pyr=None) -> torch.Tensor:
     ``build_track_pyramids(..., with_eig=True)``)."""
     ww, wh = int(cfg.window_width), int(cfg.window_height)
     if pyr is not None and cfg.smoothBeforeSelecting:
-        return min_eig_map(pyr.gradx[0], pyr.grady[0], ww, wh)
+        # the stored gradients upcast (bfloat16 storage included), as the
+        # JAX package's quantized_min_eig_map reads them
+        return min_eig_map(pyr.gradx[0].to(torch.float32),
+                           pyr.grady[0].to(torch.float32), ww, wh)
     return level0_eig(img, level_taps(cfg),
                       smooth=bool(cfg.smoothBeforeSelecting),
                       window_width=ww, window_height=wh)

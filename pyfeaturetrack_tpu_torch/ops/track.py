@@ -14,8 +14,11 @@ two launches on CUDA).
 
 Guided tracking (``x_init``/``y_init``: the frame-2 search starts at an
 external motion prior, e.g. landmark projections) goes through the same
-K2 launch. Out of this port so far (raises NotImplementedError):
-``image_dtype`` other than float32.
+K2 launch.
+
+Storage (``cfg.image_dtype``): the levels are built in float32 and stored
+as float32 or bfloat16 (``cuda_pyramid.storage_dtype``); K2 reads either
+and upcasts each tap.
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ from ..errors import KLTGetVerbosity, verbose_print
 from ..features import KLT_FB_INCONSISTENT, KLT_TRACKED, FeatureState
 from .convolve import to_float_image
 from .cuda_lk import TrackCarry, track_pyramid
-from .cuda_pyramid import level_taps, pyramid_build
+from .cuda_pyramid import level_taps, pyramid_build, storage_dtype
 
 
 class TrackPyramids(NamedTuple):
@@ -47,30 +50,25 @@ class TrackPyramids(NamedTuple):
 as_frame = to_float_image
 
 
-def _require_float32_images(cfg) -> None:
-    if getattr(cfg, "image_dtype", "float32") != "float32":
-        raise NotImplementedError(
-            f"image_dtype={cfg.image_dtype!r}: the port stores float32 "
-            "pyramids only")
-
-
 def build_track_pyramids(img: torch.Tensor, cfg, *, with_eig: bool = False,
                          out: torch.Tensor | None = None):
     """float image -> smooth -> pyramid -> per-level gradients.
 
     Reference parity: trackFeatures.py -> KLTTrackFeatures pyramid-build
     phase. ``img`` is a float32 [H, W] tensor on the device to build on.
+    The levels are stored in ``cfg.image_dtype`` (built in float32).
     ``with_eig``: also K3's int32 min-eig map of level 0's gradients for
-    ``cfg``'s window, computed in the level-0 launch (the selection map when
-    ``cfg.smoothBeforeSelecting``); returns (pyramids, map). ``out``: the
-    pyramid buffer to build into (``cuda_pyramid.pyramid_build``).
+    ``cfg``'s window (of the stored gradients, upcast), computed in the
+    level-0 launch (the selection map when ``cfg.smoothBeforeSelecting``);
+    returns (pyramids, map). ``out``: the pyramid buffer to build into
+    (``cuda_pyramid.pyramid_build``).
     """
-    _require_float32_images(cfg)
     built = pyramid_build(img.to(torch.float32).contiguous(), level_taps(cfg),
                           cfg.nPyramidLevels,
                           eig_window=((int(cfg.window_width),
                                        int(cfg.window_height))
-                                      if with_eig else None), out=out)
+                                      if with_eig else None), out=out,
+                          dtype=storage_dtype(cfg))
     pyr = TrackPyramids(img=built[0], gradx=built[1], grady=built[2])
     return (pyr, built[3]) if with_eig else pyr
 
@@ -89,7 +87,6 @@ def track_features_pyramids_carry(pyr1: TrackPyramids, pyr2: TrackPyramids,
     carried windows yet: ``carry_out`` is None without a carry, else the
     carry with ``ok`` cleared, and results are identical either way.
     """
-    _require_float32_images(cfg)
     starts = () if x_init is None and y_init is None else (x_init, y_init)
     new_x, new_y, new_val = track_pyramid(pyr1, pyr2, x, y, val, cfg,
                                           *starts)

@@ -32,6 +32,7 @@ import torch
 
 from ..features import AffineState, FeatureState
 from ..ops.track import TrackPyramids
+from .convert import level_tensor
 from .staging import target_device
 
 
@@ -115,9 +116,10 @@ def _host_int(a) -> int:
 
 
 def _pyramids_from(obj, dev) -> TrackPyramids:
+    """Pyramid levels in their storage dtype (``convert.level_tensor``:
+    bfloat16 levels of either package stay bfloat16)."""
     f = _fields(obj)
-    return TrackPyramids(*(tuple(_tensor(t, dev, torch.float32)
-                                 for t in f[k])
+    return TrackPyramids(*(tuple(level_tensor(t, dev) for t in f[k])
                            for k in ("img", "gradx", "grady")))
 
 
@@ -146,10 +148,8 @@ def _lane(pyr, x, y, val, aff, b, dev):
     ``b`` None, as a (pyr, x, y, val, aff, carry) lane."""
     def pick(t):
         return t if b is None else t[b]
-    p = _fields(pyr)
-    pyr = TrackPyramids(*(tuple(_tensor(pick(t), dev, torch.float32)
-                                for t in p[k])
-                          for k in ("img", "gradx", "grady")))
+    pyr = _pyramids_from({k: [pick(t) for t in v]
+                          for k, v in _fields(pyr).items()}, dev)
     if aff is not None:
         aff = {k: (None if v is None else pick(v))
                for k, v in _fields(aff).items()}

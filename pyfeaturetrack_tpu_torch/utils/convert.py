@@ -33,13 +33,30 @@ def _t(a, dtype, device) -> torch.Tensor:
     return torch.as_tensor(np.array(a, dtype=dtype), device=device)
 
 
+def level_tensor(a, device) -> torch.Tensor:
+    """A stored pyramid level as a tensor on ``device``: a torch tensor
+    keeps its dtype; a bfloat16 array (``np.asarray`` of a JAX bfloat16
+    array has ``ml_dtypes``' bfloat16 dtype, which ``torch.from_numpy``
+    refuses) goes through a uint16 view into a bfloat16 tensor, bits
+    unchanged; any other array becomes float32."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device).contiguous()
+    arr = np.asarray(a)
+    if arr.dtype.name == "bfloat16":
+        bits = np.ascontiguousarray(arr).view(np.uint16)
+        return torch.from_numpy(bits.copy()).view(torch.bfloat16).to(device)
+    return _t(arr, np.float32, device)
+
+
 def pyramids_from_numpy(img_levels, gx_levels, gy_levels, *,
                         device="cuda") -> TrackPyramids:
-    """Per-level image / gradx / grady arrays -> a port TrackPyramids."""
+    """Per-level image / gradx / grady arrays -> a port TrackPyramids, in
+    the levels' storage dtype (bfloat16 levels stay bfloat16, bit for bit;
+    others become float32)."""
     return TrackPyramids(
-        img=tuple(_t(a, np.float32, device) for a in img_levels),
-        gradx=tuple(_t(a, np.float32, device) for a in gx_levels),
-        grady=tuple(_t(a, np.float32, device) for a in gy_levels))
+        img=tuple(level_tensor(a, device) for a in img_levels),
+        gradx=tuple(level_tensor(a, device) for a in gx_levels),
+        grady=tuple(level_tensor(a, device) for a in gy_levels))
 
 
 def features_from_numpy(x, y, val, *, device="cuda"):

@@ -20,13 +20,16 @@ mode on, an input requiring grad), the launch runs inside a
 vector-Jacobian product, so the card route differentiates like the CPU
 route. Otherwise the call launches the kernel alone.
 
-A plain version runs its CPU work on the calling thread alone
-(``plain_version``): PyTorch splits an elementwise op of a few thousand
-elements (``torch.sqrt`` of a 64 x 96 map) over its intra-op OpenMP
-threads, and a worker thread can round differently from the caller (seen
-after the JAX package's first XLA computation in the same process: the
-lower half of a min-eig map off by one), so the same call gave two
-results. On the calling thread the bits depend on the inputs only.
+K3's plain map (``ops/cuda_eig.min_eig_reference``, the one plain version
+marked ``plain_version``) runs its CPU work on the calling thread alone:
+PyTorch splits an elementwise op of a few thousand elements
+(``torch.sqrt`` of a 64 x 96 map) over its intra-op OpenMP threads, and a
+worker thread can round differently from the caller (seen after the JAX
+package's first XLA computation in the same process: the lower half of a
+min-eig map off by one), so the same call gave two quantized maps, and
+with them two selections. On the calling thread its bits depend on the
+inputs only. The other plain versions keep the intra-op threads: their
+float outputs are compared within the bars, not quantized.
 """
 
 from __future__ import annotations
@@ -194,7 +197,7 @@ def calling_thread_only():
 
 
 def plain_version(fn):
-    """Mark ``fn`` as a kernel's plain version: it runs in
+    """Run ``fn`` (a kernel's plain version whose output is quantized) in
     ``calling_thread_only``, so its bits depend on its inputs alone."""
     @functools.wraps(fn)
     def run(*args, **kwargs):

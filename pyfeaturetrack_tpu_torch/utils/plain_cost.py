@@ -1,9 +1,10 @@
-"""What running the plain versions on the calling thread costs on the CPU.
+"""What the calling-thread rule costs on the CPU.
 
 Times the port's CPU route at the VO's frame size (240x320), once as the
-package runs it (every plain version inside ``cuda.calling_thread_only``:
-one intra-op thread) and once with that block replaced by a no-op (the
-process's intra-op threads), and prints one JSON line of medians in ms:
+package runs it (K3's plain map inside ``cuda.calling_thread_only``: one
+intra-op thread; ``utils/cuda.plain_version``) and once with that block
+replaced by a no-op (the process's intra-op threads), and prints one JSON
+line of medians in ms:
 
     python -m pyfeaturetrack_tpu_torch.utils.plain_cost [--threads N]
 """

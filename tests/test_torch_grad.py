@@ -150,8 +150,9 @@ class StandIns:
 
     @staticmethod
     def cuda_pyramid_launch_build(img, taps, n_levels, eig_window, out,
-                                  shapes):
-        levels = cuda_pyramid.pyramid_build_reference(img, taps, n_levels)
+                                  shapes, dtype):
+        levels = cuda_pyramid._stored(
+            cuda_pyramid.pyramid_build_reference(img, taps, n_levels), dtype)
         buf = torch.cat([t.reshape(-1) for lv in zip(*levels) for t in lv])
         if eig_window is None:
             return (buf,)

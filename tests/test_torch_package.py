@@ -170,12 +170,14 @@ LEFT_OUT = {"parallel.scaling": {"predict_scaling_efficiency"}}
                                  "utils.synthscene", "sfm.ba_windowed",
                                  "utils.checkpoint", "utils.profiling",
                                  "cli", "parallel", "parallel.sharding",
-                                 "parallel.multihost", "parallel.scaling"])
+                                 "parallel.multihost", "parallel.scaling",
+                                 "utils.roofline"])
 def test_subpackage_names_match_jax(sub):
     """The ``sfm`` and ``parallel`` subpackages export every name of the
     JAX package's ``__init__.py``; the trajectory, synthetic-scene,
-    windowed BA, checkpoint, profiling, CLI, sharding, multihost and
-    scaling modules every public function of theirs (``LEFT_OUT`` aside)."""
+    windowed BA, checkpoint, profiling, CLI, sharding, multihost, scaling
+    and roofline modules every public function of theirs (``LEFT_OUT``
+    aside)."""
     import importlib
     jm = importlib.import_module(f"pyfeaturetrack_tpu.{sub}")
     tm = importlib.import_module(f"pyfeaturetrack_tpu_torch.{sub}")
@@ -295,16 +297,22 @@ def test_make_affine_state_defaults_to_the_card():
 
 
 def test_out_of_slice_parts_raise():
-    """bfloat16 storage raises; the chained step, guided tracking and the
-    windowed bundle adjustment, with and without a landmark mesh, once out
-    of the slice, run."""
+    """bfloat16 storage, the chained step, guided tracking and the windowed
+    bundle adjustment, with and without a landmark mesh, once out of the
+    slice, run; an image_dtype the port does not store raises."""
     from pyfeaturetrack_tpu_torch.models.device_sequence import (
         sequence_chain_device)
     frames = [np.zeros((64, 80), np.float32)] * 2
-    with pytest.raises(NotImplementedError):
-        tpft.track_sequence_device(
-            frames, cfg=tpft.create_config(image_dtype="bfloat16"),
-            n_features=4, device="cpu")
+    table = tpft.track_sequence_device(
+        frames, cfg=tpft.create_config(image_dtype="bfloat16"),
+        n_features=4, device="cpu")
+    assert [t.shape for t in table] == [(2, 4)] * 3
+    bf16 = tpft.build_track_pyramids(
+        torch.zeros(64, 80), tpft.create_config(image_dtype="bfloat16"))
+    assert {t.dtype for lv in bf16 for t in lv} == {torch.bfloat16}
+    with pytest.raises(ValueError, match="image_dtype"):
+        tpft.build_track_pyramids(
+            torch.zeros(64, 80), tpft.create_config(image_dtype="float16"))
     seq = tpft.create_config().replace(sequentialMode=True)
     pyr, x, y, v, _, _ = tpft.select_step_device(torch.zeros(64, 80), seq, 4)
     _, hist, final, _, ex, _ = sequence_chain_device(pyr, frames, x, y, v,
