@@ -254,7 +254,23 @@ Phases, in order; the first failure exits non-zero:
    and idle share from torch.profiler traces (build/profile/config4_*),
    and the bound from utils/roofline.config4_counts. Prints {"config4":
    ...};
-16. profile (only with --profile) — for config 2's host loop, its step
+16. ops surface — the JAX package's op-level names on the card, each
+   once with every count set to 0 before and read after:
+   compute_pyramid + compute_gradient_pyramids at 1088x1920 (4 levels,
+   subsampling 2; K1's level launch, 7 launches), quantized_min_eig_map
+   (K3's standalone launch) and selection_eig_map_core (K1's eig-only
+   level 0) at 1088x1920, select_features_device and replace_lost_device
+   at 480x640, 1000 features (K1's eig-only level 0 and K4's two
+   stages each), track_feature_level on levels 1 and 0 (K2's per-level
+   launch), suppress_and_fill on 4096 sorted candidates (K5) and
+   gather_window_fast on 1000 windows; each bit-equal to its plain
+   version on the card and timed; capture_device_trace over 20 default
+   device steps beside device_time_per_call and CUDA events;
+   enforce_min_distance (g++) equal to K5 on the whole sorted lattice;
+   predict_scaling_efficiency for track, config4 and serving_tick at d =
+   1, 2 and 4 on splits of the card. Prints {"ops_surface": ...}; the
+   kernels line gains one entry for each of these launches;
+17. profile (only with --profile) — for config 2's host loop, its step
    time beside the device route's, three repeats, and for the config-3
    and the default device step, the step time by CUDA events, by host
    wall clock and through track_sequence_device, three repeats each;
@@ -450,7 +466,8 @@ class K3InK1:
         self.mod.eig_launches = value
 
 
-# K3's standalone entry (ops/cuda_eig): no path launches it any more.
+# K3's standalone entry (ops/cuda_eig): no tracking path launches it
+# (quantized_min_eig_map does, in the ops-surface phase).
 K3_STANDALONE = "K3 standalone"
 
 
@@ -4220,6 +4237,373 @@ def bf16_phase(pft, mods, frames, sim, cfg, cfg3, c4frames, report, dev,
     report["K8 bf16"]["launches"] = dcounts["K8"]
 
 
+# ---- the op-level surface: the JAX package's ops names on the card ----
+
+OPS_LEVELS = 4            # compute_pyramid at C4_H x C4_W, subsampling 2
+OPS_CANDIDATES = 4096     # suppress_and_fill's candidate list
+OPS_TRACE_CALLS = 20      # default device steps under capture_device_trace
+OPS_SPLITS = (1, 2, 4)    # predict_scaling_efficiency's rank counts
+
+
+def ops_pyramid_work(taps, h, w, n_levels):
+    """compute_pyramid + compute_gradient_pyramids as one function: the
+    frame read once, levels 1 .. n-1 and every level's gradient pair
+    written once (float32); per output sample one multiply and one add per
+    tap of each 1-D pass (the pyramid smoothing at the decimated samples
+    only, four gradient passes)."""
+    kg, kd, kp = (len(t) for t in (taps.grad_g, taps.grad_d, taps.pyr))
+    s = taps.subsampling
+    nbytes, ops, hl, wl = 4 * h * w, 0, h, w
+    for level in range(n_levels):
+        nbytes += 8 * hl * wl + (4 * hl * wl if level else 0)
+        ops += (4 * kd + 4 * kg) * hl * wl
+        if level < n_levels - 1:
+            h2, w2 = hl // s, wl // s
+            ops += 2 * kp * hl * w2 + 2 * kp * h2 * w2
+            hl, wl = h2, w2
+    return nbytes, ops
+
+
+def ops_entry(name, source, replaces, launches, ms, plain_ms, dev_ms, work,
+              **extra):
+    """One kernels-line entry of the ops phase (bit-equal: error 0)."""
+    b_ms, b_by = bound_ms(*work)
+    entry = {"name": name, "route": "cuda", "source": source,
+             "replaces": replaces, "launches": launches, "max_abs_err": 0.0,
+             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+             "bound_by": b_by, "library_ms": None, "device_ms": dev_ms}
+    entry.update(extra)
+    # device times the profiler lost go out as null
+    return {k: None if isinstance(v, float) and math.isnan(v) else v
+            for k, v in entry.items()}
+
+
+def bit_equal(got, want) -> bool:
+    """Tensors equal bit for bit (shapes and values), through tuples;
+    other leaves (a pyramid's subsampling) equal."""
+    import torch
+    if isinstance(got, torch.Tensor):
+        return got.shape == want.shape and torch.equal(got, want)
+    if isinstance(got, (tuple, list)):
+        return len(got) == len(want) and all(bit_equal(a, b)
+                                             for a, b in zip(got, want))
+    return got == want
+
+
+def ops_surface_phase(pft, frames, dev, smi, prof_dir):
+    """The JAX package's op-level names on the card, each once at a full
+    width with every kernel's count set to 0 just before and read just
+    after (the path): compute_pyramid and compute_gradient_pyramids at
+    C4_H x C4_W (4 levels, subsampling 2: K1's level launch),
+    quantized_min_eig_map (K3's standalone launch) and
+    selection_eig_map_core (K1's eig-only level 0) at C4_H x C4_W,
+    select_features_device and replace_lost_device at 480x640, 1000
+    features (K1's eig-only level 0 and K4), track_feature_level on levels
+    1 and 0 (K2's per-level launch), suppress_and_fill on OPS_CANDIDATES
+    sorted candidates (K5) and gather_window_fast on 1000 windows. Then
+    each result against its plain version on the same inputs, bit for bit;
+    times by CUDA events and device time; capture_device_trace over the
+    default device step against device_time_per_call and CUDA events;
+    enforce_min_distance against K5 on the same sorted candidates; and
+    predict_scaling_efficiency for the three workloads on splits of
+    OPS_SPLITS ranks. Returns (summary, kernels-line entries)."""
+    import numpy as np
+    import torch
+    from pyfeaturetrack_tpu_torch.ops import (cuda_eig, cuda_lk,
+                                              cuda_pyramid, cuda_select,
+                                              cuda_suppress)
+    from pyfeaturetrack_tpu_torch.ops import select as sel
+    from pyfeaturetrack_tpu_torch.ops import select_device as sd
+    from pyfeaturetrack_tpu_torch.ops.interp import (gather_window_fast,
+                                                     gather_windows)
+    from pyfeaturetrack_tpu_torch.ops.pyramid import (
+        compute_gradient_pyramids, compute_pyramid)
+    from pyfeaturetrack_tpu_torch.ops.track import track_feature_level
+    from pyfeaturetrack_tpu_torch.parallel.scaling import (
+        predict_scaling_efficiency)
+    from pyfeaturetrack_tpu_torch.utils import (cuda, native, profiling,
+                                                traceview)
+    t_phase = time.perf_counter()
+    cfg = pft.create_config()
+    ww, wh = cfg.window_width, cfg.window_height
+    core_kw = dict(window_width=ww, window_height=wh, smooth_before=True,
+                   smooth_sigma=cfg.smooth_sigma, grad_sigma=cfg.grad_sigma)
+    big = torch.as_tensor(make_frames(1, SEED + 13, C4_H, C4_W)[0],
+                          device=dev).to(torch.float32)
+    a = torch.as_tensor(frames[0], device=dev).to(torch.float32)
+    b = torch.as_tensor(frames[1], device=dev).to(torch.float32)
+    # inputs: the pair's pyramids and the sorted candidate lattice of a
+    pa = pft.build_track_pyramids(a, cfg)
+    pb = pft.build_track_pyramids(b, cfg)
+    eig_a = sel.selection_eig_map_core(a, **core_kw)
+    geom = sd._candidate_grid(cfg, eig_a.shape)
+    bx, by, lstep, ny, nx = geom
+    lattice = eig_a[by:by + ny * lstep:lstep, bx:bx + nx * lstep:lstep]
+    neg, order = torch.sort((-lattice).reshape(-1), stable=True)
+    all_x = (bx + (order % nx) * lstep).to(torch.int32)
+    all_y = (by + (order // nx) * lstep).to(torch.int32)
+    all_v = -neg
+    kc = OPS_CANDIDATES
+    cand = (all_x[:kc].contiguous(), all_y[:kc].contiguous(),
+            all_v[:kc].contiguous())
+    n = N_FEATURES
+    empty = (torch.full((n,), -1.0, device=dev),
+             torch.full((n,), -1.0, device=dev),
+             torch.full((n,), -1, dtype=torch.int32, device=dev))
+    slots_all = torch.ones(n, dtype=torch.bool, device=dev)
+    s = float(cfg.subsampling)
+    sdiv = torch.full((), s, device=dev)
+    torch.cuda.synchronize()
+
+    mods = {"K1": cuda_pyramid, "K1 eig-only": K3InK1(cuda_pyramid),
+            "K2": cuda_lk, K3_STANDALONE: cuda_eig, "K4": cuda_select,
+            "K5": cuda_suppress}
+    for m in mods.values():
+        m.launches = 0
+    pyr = compute_pyramid(big, 2, OPS_LEVELS, cfg.pyramid_sigma_fact)
+    gxp, gyp = compute_gradient_pyramids(pyr, cfg.grad_sigma)
+    qmap = sel.quantized_min_eig_map(gxp.levels[0], gyp.levels[0], ww, wh)
+    cmap = sel.selection_eig_map_core(big, **core_kw)
+    picked = sd.select_features_device(a, *empty, cfg, replacing=False)
+    x0, y0, v0 = picked[:3]
+    live = v0 >= 0
+    lvl1 = track_feature_level(x0 / sdiv, y0 / sdiv, x0 / sdiv, y0 / sdiv,
+                               pa.img[1], pa.gradx[1], pa.grady[1],
+                               pb.img[1], pb.gradx[1], pb.grady[1], cfg,
+                               live)
+    x2, y2 = lvl1[0] * s, lvl1[1] * s
+    lvl0 = track_feature_level(x0, y0, x2, y2, pa.img[0], pa.gradx[0],
+                               pa.grady[0], pb.img[0], pb.gradx[0],
+                               pb.grady[0], cfg, live)
+    v1 = torch.where(lvl0[2] == 0, v0, torch.full_like(v0, -1))
+    x1 = torch.where(v1 >= 0, lvl0[0], torch.full_like(lvl0[0], -1.0))
+    y1 = torch.where(v1 >= 0, lvl0[1], torch.full_like(lvl0[1], -1.0))
+    refill = sd.replace_lost_device(b, x1, y1, v1, cfg, replacing=True)
+    sup = sd.suppress_and_fill(*cand, cand[2] >= 1, slots_all, *empty,
+                               cfg.mindist)
+    win = gather_window_fast(pb.img[0], x1, y1, ww // 2, wh // 2)
+    torch.cuda.synchronize()
+    counts = {k: m.launches for k, m in mods.items()}
+    print(f"ops surface path: launches {counts}")
+    expect_launches(counts, {"K1": (OPS_LEVELS - 1) + OPS_LEVELS + 1 + 2,
+                             "K1 eig-only": 3, "K2": 2, K3_STANDALONE: 1,
+                             "K4": 4, "K5": 1}, "ops surface path")
+
+    calls = {
+        "compute_pyramid": lambda: compute_pyramid(big, 2, OPS_LEVELS,
+                                                   cfg.pyramid_sigma_fact),
+        "compute_gradient_pyramids": lambda: compute_gradient_pyramids(
+            pyr, cfg.grad_sigma),
+        "quantized_min_eig_map": lambda: sel.quantized_min_eig_map(
+            gxp.levels[0], gyp.levels[0], ww, wh),
+        "selection_eig_map_core": lambda: sel.selection_eig_map_core(
+            big, **core_kw),
+        "select_features_device": lambda: sd.select_features_device(
+            a, *empty, cfg, replacing=False),
+        "track_feature_level 1": lambda: track_feature_level(
+            x0 / sdiv, y0 / sdiv, x0 / sdiv, y0 / sdiv, pa.img[1],
+            pa.gradx[1], pa.grady[1], pb.img[1], pb.gradx[1], pb.grady[1],
+            cfg, live),
+        "track_feature_level 0": lambda: track_feature_level(
+            x0, y0, x2, y2, pa.img[0], pa.gradx[0], pa.grady[0], pb.img[0],
+            pb.gradx[0], pb.grady[0], cfg, live),
+        "replace_lost_device": lambda: sd.replace_lost_device(
+            b, x1, y1, v1, cfg, replacing=True),
+        "suppress_and_fill": lambda: sd.suppress_and_fill(
+            *cand, cand[2] >= 1, slots_all, *empty, cfg.mindist),
+        "gather_window_fast": lambda: gather_window_fast(
+            pb.img[0], x1, y1, ww // 2, wh // 2),
+    }
+    got = {"compute_pyramid": pyr, "compute_gradient_pyramids": (gxp, gyp),
+           "quantized_min_eig_map": qmap, "selection_eig_map_core": cmap,
+           "select_features_device": picked, "track_feature_level 1": lvl1,
+           "track_feature_level 0": lvl0, "replace_lost_device": refill,
+           "suppress_and_fill": sup, "gather_window_fast": win}
+    equal = {}
+    with cuda.reference_path():
+        for k, fn in calls.items():
+            equal[k] = bit_equal(got[k], fn())
+    equal["gather_window_fast == gather_windows"] = bit_equal(
+        win, gather_windows((pb.img[0],), x1, y1, ww // 2, wh // 2)[0])
+    torch.cuda.synchronize()
+    print("ops surface, bit-equal to the plain versions on the card: "
+          + ", ".join(f"{k} {v}" for k, v in equal.items()))
+    if not all(equal.values()):
+        fail(f"an ops-surface name differs from its plain version: {equal}")
+    n_live = int(live.sum())
+    tracked = int((lvl0[2] == 0).sum())
+    n_sel, n_ref = int((v0 >= 0).sum()), int((refill[2] >= 0).sum())
+    print(f"ops surface: {n_sel} of {n} selected, {tracked} of {n_live} "
+          f"tracked over levels 1 and 0, {n_ref} live after the refill, "
+          f"suppress_and_fill filled {int(sup[3].sum())} of {n}")
+    if n_sel != n or tracked < n_live // 2 or n_ref != n:
+        fail("ops surface: the selection, track or refill came out short")
+
+    kernels = {
+        "compute_pyramid": ("level0_kernel",),
+        "compute_gradient_pyramids": ("level0_kernel",),
+        "quantized_min_eig_map": ("eig_kernel",),
+        "selection_eig_map_core": ("level0_kernel",),
+        "select_features_device": ("level0_kernel", "lattice_kernel",
+                                   "chain_kernel"),
+        "track_feature_level 1": ("lk_level_kernel",),
+        "track_feature_level 0": ("lk_level_kernel",),
+        "replace_lost_device": ("level0_kernel", "lattice_kernel",
+                                "chain_kernel"),
+        "suppress_and_fill": ("suppress_kernel",),
+    }
+    times = {}
+    for k, kern in kernels.items():
+        ev = time_ms(calls[k], 20)
+        dv, _ = device_ms(calls[k], kern, prof_dir)
+        with cuda.reference_path():
+            pl = time_ms(calls[k], 2)
+        times[k] = (ev, dv, pl)
+        print(f"ops surface {k}: events {ev:.4f} ms, device {dv:.4f} ms, "
+              f"plain {pl:.4f} ms per call ({smi})")
+    win_ms = time_ms(calls["gather_window_fast"], 20)
+    print(f"ops surface gather_window_fast, 1000 windows: events "
+          f"{win_ms:.4f} ms ({smi})")
+
+    # the default device step under capture_device_trace
+    seq = pft.create_config().replace(sequentialMode=True).validated_window()
+    spyr, sx, sy, sv, _, _ = pft.select_step_device(a, seq, n)
+    step = lambda: pft.sequence_step_device(spyr, b, sx, sy, sv, seq)  # noqa: E731
+    step()
+    torch.cuda.synchronize()
+    tv = traceview.capture_device_trace(step, n_calls=OPS_TRACE_CALLS,
+                                        trace_dir=str(prof_dir / "traceview"),
+                                        settle_s=0.0)
+    dt_ms = profiling.device_time_per_call(step, iters=OPS_TRACE_CALLS) * 1e3
+    ev_ms = time_ms(step, OPS_TRACE_CALLS)
+    print(f"capture_device_trace, {OPS_TRACE_CALLS} default device steps: "
+          f"per_call_ms {tv['per_call_ms']:.4f} (busy {tv['device_busy_ms']:.4f}"
+          f" ms, summed durations {tv['sum_durations_ms']:.4f} ms, "
+          f"{tv['ops_per_call']} device events a call, span "
+          f"{tv['span_ms']:.4f} ms); device_time_per_call {dt_ms:.4f} ms; "
+          f"CUDA events {ev_ms:.4f} ms ({smi})")
+    print(f"  top ops: {tv['top_ops'][:5]}")
+    if tv["op_events"] == 0 or tv["per_call_ms"] <= 0:
+        fail("capture_device_trace recorded no device event of the step")
+    if tv["per_call_ms"] > 1.1 * ev_ms:
+        fail("capture_device_trace's busy time exceeds the step's events")
+
+    # the native greedy against K5 on the whole sorted lattice
+    mind = int(cfg.mindist)
+    xs_h, ys_h, vs_h = (t.cpu().numpy() for t in (all_x, all_y, all_v))
+    feats = np.full((n, 3), -1.0)
+    t0 = time.perf_counter()
+    nat = native.enforce_min_distance(
+        xs_h, ys_h, vs_h, np.arange(xs_h.shape[0]), feats,
+        tuple(eig_a.shape), mind, max(int(cfg.min_eigenvalue), 1), True)
+    nat_ms = (time.perf_counter() - t0) * 1e3
+    k5 = sd.suppress_and_fill(all_x, all_y, all_v,
+                              all_v >= max(int(cfg.min_eigenvalue), 1),
+                              slots_all, *empty, mind)
+    k5_np = np.column_stack([t.cpu().numpy() for t in k5[:3]])
+    same_nat = bool(np.array_equal(nat, k5_np))
+    print(f"enforce_min_distance (native, g++) on {xs_h.shape[0]} sorted "
+          f"candidates: {nat_ms:.3f} ms on the host; == K5's selection "
+          f"{same_nat}")
+    if not same_nat:
+        fail("enforce_min_distance differs from K5 on the same candidates")
+
+    # the scaling prediction on splits of the card
+    pred = {}
+    for wl in ("track", "config4", "serving_tick"):
+        r = predict_scaling_efficiency(device_counts=list(OPS_SPLITS),
+                                       workload=wl, device=dev)
+        rows = {d: {"model_step_s": row["model_step_s"],
+                    "predicted_weak_efficiency":
+                        row["predicted_weak_efficiency"],
+                    "step_collective_bytes":
+                        row["collectives"]["total_approx_bytes"],
+                    "census_bytes": row["census"]["total_bytes"],
+                    "per_device_flops": row["per_device_flops"],
+                    "per_device_bytes": row["per_device_bytes"]}
+                for d, row in r["per_device"].items()}
+        pred[wl] = rows
+        print(f"predict_scaling_efficiency {wl}: " + json.dumps(rows))
+        if any(not math.isfinite(v["model_step_s"]) for v in rows.values()):
+            fail(f"predict_scaling_efficiency ({wl}) is not finite")
+
+    taps = cuda_pyramid.sigma_taps(grad_sigma=cfg.grad_sigma,
+                                   pyr_sigma=2 * cfg.pyramid_sigma_fact,
+                                   subsampling=2)
+    pyr_ev = times["compute_pyramid"][0] + times[
+        "compute_gradient_pyramids"][0]
+    pyr_dv = times["compute_pyramid"][1] + times[
+        "compute_gradient_pyramids"][1]
+    pyr_pl = times["compute_pyramid"][2] + times[
+        "compute_gradient_pyramids"][2]
+    k2_work_sum = [sum(v) for v in zip(
+        k2_work(cfg, live, lvl1[3]), k2_work(cfg, live, lvl0[3]))]
+    k2_t = [times["track_feature_level 1"][i]
+            + times["track_feature_level 0"][i] for i in range(3)]
+    _, order5, nacc5 = cuda_suppress.greedy_suppress(
+        cand[0], cand[1], cand[2] >= 1, shape=tuple(eig_a.shape),
+        mindist=cfg.mindist, budget=torch.tensor([n], dtype=torch.int32,
+                                                 device=dev), max_out=n)
+    entries = [
+        ops_entry("K1 pyramid_level (compute_pyramid + "
+                  "compute_gradient_pyramids, 4 levels)",
+                  "pyfeaturetrack_tpu_torch/csrc/pyramid.cu",
+                  "pyfeaturetrack_tpu/ops/pallas_pyramid.py:132",
+                  counts["K1"] - counts["K1 eig-only"], pyr_ev, pyr_pl,
+                  pyr_dv, ops_pyramid_work(taps, C4_H, C4_W, OPS_LEVELS)),
+        ops_entry("K1 eig-only level 0 (selection_eig_map_core)",
+                  "pyfeaturetrack_tpu_torch/csrc/pyramid.cu",
+                  "pyfeaturetrack_tpu/ops/pallas_eig.py:100",
+                  counts["K1 eig-only"],
+                  *times["selection_eig_map_core"][::2],
+                  times["selection_eig_map_core"][1],
+                  k3_in_k1_work(cfg, C4_H, C4_W)),
+        ops_entry("K2 lk_level (track_feature_level, levels 1 and 0)",
+                  "pyfeaturetrack_tpu_torch/csrc/lk.cu",
+                  "pyfeaturetrack_tpu/ops/pallas_lk_vec.py:663",
+                  counts["K2"], k2_t[0], k2_t[2], k2_t[1], k2_work_sum),
+        ops_entry("K3 min_eig_map (quantized_min_eig_map)",
+                  "pyfeaturetrack_tpu_torch/csrc/eig.cu",
+                  "pyfeaturetrack_tpu/ops/pallas_eig.py:100",
+                  counts[K3_STANDALONE],
+                  *times["quantized_min_eig_map"][::2],
+                  times["quantized_min_eig_map"][1],
+                  k3_work(cfg, C4_H, C4_W)),
+        ops_entry("K4 select_from_eig (select_features_device, "
+                  "replace_lost_device)",
+                  "pyfeaturetrack_tpu_torch/csrc/extract.cu",
+                  "pyfeaturetrack_tpu/ops/pallas_select.py:251",
+                  counts["K4"], *times["select_features_device"][::2],
+                  times["select_features_device"][1],
+                  [u + v for u, v in zip(
+                      k3_in_k1_work(cfg, H, W),
+                      k4_work(ny, nx, n, n_sel,
+                              max(0, (cfg.mindist - 1) // lstep)))],
+                  refill_ms=times["replace_lost_device"][0],
+                  refill_device_ms=times["replace_lost_device"][1],
+                  refill_plain_ms=times["replace_lost_device"][2]),
+        ops_entry("K5 greedy_suppress (suppress_and_fill, 4096 candidates)",
+                  "pyfeaturetrack_tpu_torch/csrc/suppress.cu",
+                  "pyfeaturetrack_tpu/ops/pallas_select.py:136",
+                  counts["K5"], *times["suppress_and_fill"][::2],
+                  times["suppress_and_fill"][1],
+                  k5_work(kc, nacc5, order5, n, cfg.mindist, n)),
+    ]
+    summary = {"launches": counts, "bit_equal": equal,
+               "times_ms": {k: {"events": v[0], "device": None
+                                if math.isnan(v[1]) else v[1], "plain": v[2]}
+                            for k, v in times.items()},
+               "gather_window_fast_ms": win_ms,
+               "traceview": {k: tv[k] for k in (
+                   "per_call_ms", "device_busy_ms", "sum_durations_ms",
+                   "ops_per_call", "span_ms")},
+               "device_time_per_call_ms": dt_ms, "step_events_ms": ev_ms,
+               "native_greedy_ms": nat_ms, "native_equals_k5": same_nat,
+               "predict_scaling_efficiency": pred, "card": smi,
+               "seconds": time.perf_counter() - t_phase}
+    return summary, entries
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -5352,6 +5736,19 @@ def main(argv=None) -> int:
     print(json.dumps({"config4": c4}))
     print(f"bf16 and config-4 phases: {time.perf_counter() - t15:.1f} s")
 
+    # ---- phase 16: the op-level surface (ops exports, traceview, the
+    # scaling prediction, the native greedy) ----
+    phase("ops surface: compute_pyramid, compute_gradient_pyramids, "
+          "quantized_min_eig_map, selection_eig_map_core at "
+          f"{C4_H}x{C4_W}; select_features_device, replace_lost_device, "
+          f"track_feature_level at {H}x{W}, {N_FEATURES} features; "
+          f"suppress_and_fill on {OPS_CANDIDATES} candidates; "
+          "gather_window_fast; capture_device_trace; enforce_min_distance; "
+          "predict_scaling_efficiency")
+    ops_summary, ops_kernels = ops_surface_phase(pft, frames, dev, smi,
+                                                 prof_dir)
+    print(json.dumps({"ops_surface": ops_summary}))
+
     if profile:
         profile_host_loop(pft, cfg, staged, root)
         profile_phase(pft, cfg3, sim, staged3, root, "config3")
@@ -5463,6 +5860,7 @@ def main(argv=None) -> int:
         if lost:
             entry["device_ms_lost"] = lost
         kernels.append(entry)
+    kernels.extend(ops_kernels)
     print(json.dumps({"kernels": kernels}))
     print(f"chip_smoke.py wall time {time.perf_counter() - t_start:.1f} s")
     print(smi)

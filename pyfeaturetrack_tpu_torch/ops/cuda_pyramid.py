@@ -91,6 +91,15 @@ def level_taps(cfg) -> LevelTaps:
                  int(cfg.subsampling))
 
 
+def sigma_taps(smooth_sigma: float = 1.0, grad_sigma: float = 1.0,
+               pyr_sigma: float = 1.0, subsampling: int = 2) -> LevelTaps:
+    """The taps of the given sigmas, for the op-level entries that name
+    sigmas instead of a config (a pass a launch does not run ignores its
+    taps)."""
+    return _taps(float(smooth_sigma), float(grad_sigma), float(pyr_sigma),
+                 int(subsampling))
+
+
 def pyramid_level_reference(img: torch.Tensor, taps: LevelTaps,
                             smooth: bool, with_pyr: bool):
     """Plain version of one K1 level. Returns (base, gradx, grady, next)

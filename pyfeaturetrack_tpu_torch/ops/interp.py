@@ -117,6 +117,23 @@ def window_from_patch(patch: torch.Tensor, ax: torch.Tensor,
             (1.0 - a) * b * p10 + a * b * p11)
 
 
+def gather_patch(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+                 hw: int, hh: int):
+    """Integer patch [N, 2hh+2, 2hw+2] whose top-left is floor(x)-hw /
+    floor(y)-hh, plus the per-feature fractional offsets (ax, ay): every
+    tap of a window shares one fractional part, so one integer gather and
+    ``window_from_patch`` give the window (interp.py:82-95 of the JAX
+    package)."""
+    rows, cols, ax, ay = patch_indices(img.shape, x, y, hw, hh)
+    return img[rows, cols], ax, ay
+
+
+def gather_window_fast(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+                       hw: int, hh: int) -> torch.Tensor:
+    """Patch-gather + blend form of ``gather_window`` (the same values)."""
+    return window_from_patch(*gather_patch(img, x, y, hw, hh))
+
+
 def gather_windows(imgs, x: torch.Tensor, y: torch.Tensor, hw: int, hh: int):
     """Bilinear windows [N, 2hh+1, 2hw+1] of each image in ``imgs`` at the
     same per-feature positions (one index computation, shared blend)."""

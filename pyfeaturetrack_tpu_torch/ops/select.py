@@ -24,8 +24,10 @@ arrays' device:
    the r-th acceptance into the r-th free slot, as the host greedy's slot
    walk does.
 
-The min-eig map's plain version (``compute_min_eig_map``) sits beside
-K3 in ops/cuda_eig.py.
+The op-level names of the JAX module: ``compute_min_eig_map`` (the
+float map, beside K3 in ops/cuda_eig.py), ``quantized_min_eig_map`` (K3's
+standalone launch on given gradients) and ``selection_eig_map_core``
+(K1's eig-only level-0 launch on an image).
 """
 
 from __future__ import annotations
@@ -37,31 +39,57 @@ from ..errors import KLTGetVerbosity, KLTWarning, verbose_print
 from ..features import (KLT_NOT_FOUND, FeatureState, create_feature_list,
                         feature_state_from_numpy,
                         feature_state_to_numpy, reset_affine)
-from .cuda_eig import min_eig_map
-from .cuda_pyramid import level0_eig, level_taps, pyramid_level
+from .cuda_eig import compute_min_eig_map, min_eig_map  # noqa: F401
+from .cuda_pyramid import level0_eig, level_taps, pyramid_level, sigma_taps
 from .cuda_select import candidate_lattice
 from .cuda_suppress import suppress_and_fill
 from .select_device import _candidate_grid, premask_radius
 from .track import as_frame
 
 
+def quantized_min_eig_map(gradx: torch.Tensor, grady: torch.Tensor,
+                          window_width: int, window_height: int
+                          ) -> torch.Tensor:
+    """Min-eig map cast to the reference's int32 candidate values
+    (truncation toward zero, clamped at the int limit). Gradients stored
+    as bfloat16 are upcast: the structure-tensor sums are float32.
+
+    K3's standalone launch (``cuda_eig.min_eig_map``, csrc/eig.cu) on
+    CUDA tensors; ``cuda_eig.min_eig_reference`` on CPU tensors."""
+    return min_eig_map(gradx.to(torch.float32).contiguous(),
+                       grady.to(torch.float32).contiguous(),
+                       int(window_width), int(window_height))
+
+
+def selection_eig_map_core(img, *, window_width: int, window_height: int,
+                           smooth_before: bool, smooth_sigma: float,
+                           grad_sigma: float) -> torch.Tensor:
+    """float image -> (optional smooth) -> gradients -> min-eig map, in
+    one K1 level-0 launch that stores no gradient (``cuda_pyramid.
+    level0_eig``, K3's arithmetic inside it). A numpy image goes to the
+    card."""
+    return level0_eig(as_frame(img), sigma_taps(smooth_sigma, grad_sigma),
+                      smooth=bool(smooth_before),
+                      window_width=int(window_width),
+                      window_height=int(window_height))
+
+
 def selection_eig_map(img: torch.Tensor, cfg, pyr=None) -> torch.Tensor:
     """int32 min-eig map for selection: K3 over the level-0 gradients of
     ``img``, pre-smoothed when smoothBeforeSelecting (the default), in one
-    K1 level-0 launch that stores no gradient. With smoothBeforeSelecting
-    the pyramid base is smoothed exactly so, and a frame's TrackPyramids
-    ``pyr`` holds the same gradients: K3's standalone entry reads those
-    (the device route takes the map from the build instead,
+    K1 level-0 launch that stores no gradient (``selection_eig_map_core``).
+    With smoothBeforeSelecting the pyramid base is smoothed exactly so, and
+    a frame's TrackPyramids ``pyr`` holds the same gradients: K3's
+    standalone entry reads those (``quantized_min_eig_map``; the device
+    route takes the map from the build instead,
     ``build_track_pyramids(..., with_eig=True)``)."""
     ww, wh = int(cfg.window_width), int(cfg.window_height)
     if pyr is not None and cfg.smoothBeforeSelecting:
-        # the stored gradients upcast (bfloat16 storage included), as the
-        # JAX package's quantized_min_eig_map reads them
-        return min_eig_map(pyr.gradx[0].to(torch.float32),
-                           pyr.grady[0].to(torch.float32), ww, wh)
-    return level0_eig(img, level_taps(cfg),
-                      smooth=bool(cfg.smoothBeforeSelecting),
-                      window_width=ww, window_height=wh)
+        return quantized_min_eig_map(pyr.gradx[0], pyr.grady[0], ww, wh)
+    return selection_eig_map_core(
+        img, window_width=ww, window_height=wh,
+        smooth_before=bool(cfg.smoothBeforeSelecting),
+        smooth_sigma=cfg.smooth_sigma, grad_sigma=cfg.grad_sigma)
 
 
 def _write_internal_images(img: torch.Tensor, cfg) -> None:

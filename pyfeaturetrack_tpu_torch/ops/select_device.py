@@ -7,7 +7,9 @@ One route for both uses, K4 (``ops/cuda_select.select_from_eig``): stage A
 builds the candidate lattice from the eig map (kept features pre-mask
 their mindist boxes on a refill), stage B scans the FULL candidate pool in
 the host greedy's order and writes the acceptances into the free slots,
-so the result is the host greedy's exactly and never "exhausted":
+so the result is the host greedy's exactly and never "exhausted"
+(``select_features_device`` from an image, ``replace_lost_device`` the
+same callable, ``select_features_from_eig_device`` from a map):
 
 * initial selection: every slot free, no pre-mask, budget = n_features;
 * refill: free slots are ``val < 0``, kept features pre-mask their
@@ -19,6 +21,11 @@ pass is not exhausted. ``top_k`` stays in the signatures so callers match
 and is not used. ``candidate_map`` is the pre-mask as the JAX package
 builds it (stamp, dilate, sample the lattice), the reference the tests
 hold stage A against.
+
+``suppress_and_fill`` and ``fill_slots`` are the JAX module's op-level
+pair over priority-ordered candidates: K5's scan (``cuda_suppress.
+greedy_suppress``), which accepts the set of JAX's maximal-independent-set
+fixpoint, then the slot fill.
 """
 
 from __future__ import annotations
@@ -27,7 +34,9 @@ import torch
 import torch.nn.functional as F
 
 from ..features import KLT_NOT_FOUND
-from .cuda_select import fill_slots, select_from_eig  # noqa: F401
+from . import cuda_select
+from .cuda_select import select_from_eig
+from .cuda_suppress import greedy_suppress
 
 # Signature compatibility with the JAX package (unused: the extraction
 # scans every candidate).
@@ -127,3 +136,111 @@ def candidate_map(eig: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
         cand = torch.where(cand_blocked, 0, cand)
     # candidates below the bar count as 0 (< min_eig >= 1)
     return torch.where(cand < min_eig, 0, cand).contiguous(), free
+
+
+def select_features_device(img, x: torch.Tensor, y: torch.Tensor,
+                           val: torch.Tensor, cfg, *, replacing: bool,
+                           top_k: int = DEFAULT_TOP_K):
+    """(Re)selection from an image into the (x, y, val) feature arrays:
+    the eig map of ``selection_eig_map_core`` (K1's eig-only level-0
+    launch), then ``select_features_from_eig_device`` (K4, stages A and
+    B). ``replacing=False``: overwrite every slot (KLTSelectGoodFeatures);
+    ``replacing=True``: keep val >= 0 slots and refill the rest
+    (KLTReplaceLostFeatures). The image goes to the feature arrays'
+    device. Returns (x, y, val, filled, exhausted); ``exhausted`` is always
+    False (the extraction scans every candidate)."""
+    # ops/select.py imports this module
+    from .select import selection_eig_map_core
+    from .track import as_frame
+    eig = selection_eig_map_core(
+        as_frame(img, x.device), window_width=int(cfg.window_width),
+        window_height=int(cfg.window_height),
+        smooth_before=bool(cfg.smoothBeforeSelecting),
+        smooth_sigma=float(cfg.smooth_sigma),
+        grad_sigma=float(cfg.grad_sigma))
+    return select_features_from_eig_device(eig, x, y, val, cfg,
+                                           replacing=replacing, top_k=top_k)
+
+
+# The JAX package's jitted form of the same function (the port has no jit).
+replace_lost_device = select_features_device
+
+
+def fill_slots(accepted: torch.Tensor, cand_x: torch.Tensor,
+               cand_y: torch.Tensor, cand_val: torch.Tensor,
+               free: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+               val: torch.Tensor):
+    """Assign the r-th accepted candidate (bool [K] ``accepted``, priority
+    order) to the r-th free slot, in order; the other free slots become
+    (-1, -1, KLT_NOT_FOUND). Returns (x, y, val, filled, exhausted):
+    ``exhausted`` is True when free slots were left unfilled. The accepted
+    lanes are ranked on the device (no host read), then
+    ``cuda_select.fill_slots`` places them."""
+    k = cand_x.shape[0]
+    if k == 0:
+        return _none_accepted(free, x, y, val)
+    rank = torch.cumsum(accepted.to(torch.int64), 0) - 1
+    # candidate index of each acceptance rank; ranks past the last are k
+    # (dropped with the extra slot)
+    first = torch.full((k + 1,), k, dtype=torch.int64, device=cand_x.device)
+    first.scatter_(0, torch.where(accepted, rank, k),
+                   torch.arange(k, dtype=torch.int64, device=cand_x.device))
+    idx = first[:k].clamp(max=k - 1)
+    n_acc = accepted.sum()
+    nx, ny, nval, filled = cuda_select.fill_slots(
+        n_acc, cand_x[idx], cand_y[idx], cand_val[idx], free, x, y, val)
+    return nx, ny, nval, filled, (free & ~filled).any()
+
+
+def _none_accepted(free, x, y, val):
+    """``fill_slots`` with no candidate: every free slot comes back empty."""
+    return (torch.where(free, -1.0, x), torch.where(free, -1.0, y),
+            torch.where(free, KLT_NOT_FOUND, val), torch.zeros_like(free),
+            free.any())
+
+
+def _bounding_frame(cand_x, cand_y, valid):
+    """(origin x, origin y, (rows, cols)) of the valid candidates' bounding
+    box (one host read); a 1 x 1 frame when none is valid."""
+    if not bool(valid.any()):
+        return 0, 0, (1, 1)
+    big = torch.iinfo(torch.int32).max
+    xs, ys = cand_x.to(torch.int64), cand_y.to(torch.int64)
+    box = torch.stack([torch.where(valid, xs, big).min(),
+                       torch.where(valid, ys, big).min(),
+                       torch.where(valid, xs, -big).max(),
+                       torch.where(valid, ys, -big).max()]).tolist()
+    x0, y0, x1, y1 = box
+    return x0, y0, (y1 - y0 + 1, x1 - x0 + 1)
+
+
+def suppress_and_fill(cand_x: torch.Tensor, cand_y: torch.Tensor,
+                      cand_val: torch.Tensor, valid: torch.Tensor,
+                      free: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+                      val: torch.Tensor, mindist: int):
+    """Greedy mindist suppression over priority-ordered candidates, then
+    the slot fill (select_device.py:81-112 of the JAX package).
+
+    ``cand_*`` [K]: integer pixel coordinates and values in priority order
+    (``valid[i]`` False lanes are pre-rejected); ``free`` bool [N]: the
+    output slots to fill. A candidate is accepted when no accepted
+    candidate of higher priority lies within ``mindist - 1`` pixels
+    (Chebyshev): the set JAX's fixpoint accepts. K5's scan
+    (``cuda_suppress.greedy_suppress``, one launch on CUDA tensors, its
+    plain version on CPU tensors) runs over the valid candidates' bounding
+    box as its frame (one host read) and stops once every free slot has a
+    candidate, which leaves the fill unchanged. Returns (x, y, val,
+    filled, exhausted) as ``fill_slots``."""
+    if cand_x.shape[0] == 0:
+        return _none_accepted(free, x, y, val)
+    cx, cy = cand_x.to(torch.int32), cand_y.to(torch.int32)
+    x0, y0, shape = _bounding_frame(cx, cy, valid)
+    _, order, n_acc = greedy_suppress(
+        (cx - x0).contiguous(), (cy - y0).contiguous(),
+        valid.to(torch.bool).contiguous(), shape=shape, mindist=int(mindist),
+        budget=free.sum().to(torch.int32).reshape(1),
+        max_out=int(free.shape[0]))
+    idx = order.to(torch.int64)
+    nx, ny, nval, filled = cuda_select.fill_slots(
+        n_acc, cand_x[idx], cand_y[idx], cand_val[idx], free, x, y, val)
+    return nx, ny, nval, filled, (free & ~filled).any()

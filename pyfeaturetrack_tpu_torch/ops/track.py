@@ -8,7 +8,9 @@ coarse-level "broken" rule and the final classification, one launch on
 CUDA); the pyramid build is K1 (ops/cuda_pyramid.pyramid_build: at most
 two launches on CUDA).
 
-``track_features`` is the images-in entry of the host API and
+``track_feature_level`` is one level for given positions: K2's per-level
+launch (ops/cuda_lk.lk_level). ``track_features`` is the images-in entry
+of the host API and
 ``fb_reject`` / ``track_features_pyramids_fb`` the forward-backward gate
 (the backward pass is K2 from frame 2 to frame 1).
 
@@ -30,7 +32,7 @@ import torch
 from ..errors import KLTGetVerbosity, verbose_print
 from ..features import KLT_FB_INCONSISTENT, KLT_TRACKED, FeatureState
 from .convolve import to_float_image
-from .cuda_lk import TrackCarry, track_pyramid
+from .cuda_lk import TrackCarry, lk_level, track_pyramid
 from .cuda_pyramid import level_taps, pyramid_build, storage_dtype
 
 
@@ -71,6 +73,29 @@ def build_track_pyramids(img: torch.Tensor, cfg, *, with_eig: bool = False,
                           dtype=storage_dtype(cfg))
     pyr = TrackPyramids(img=built[0], gradx=built[1], grady=built[2])
     return (pyr, built[3]) if with_eig else pyr
+
+
+def build_track_pyramids_jit(img: torch.Tensor, cfg, **kwargs):
+    """``build_track_pyramids``: the JAX package's jitted build. The port
+    has no jit, so it is the same function under the JAX package's name."""
+    return build_track_pyramids(img, cfg, **kwargs)
+
+
+def track_feature_level(x1, y1, x2, y2, img1, gx1, gy1, img2, gx2, gy2,
+                        cfg, active_in):
+    """One pyramid level of iterative translational LK for all features.
+
+    Reference parity: trackFeatures.py -> _trackFeature, vectorized over
+    features. ``active_in`` (bool [N]) masks features still being tracked
+    (lanes with False pass through unchanged with status KLT_TRACKED).
+    Returns (x2, y2, status, iteration) with status in {TRACKED, OOB,
+    SMALL_DET, LARGE_RESIDUE, MAX_ITERATIONS}.
+
+    K2's per-level launch (``cuda_lk.lk_level``, csrc/lk.cu
+    ``pft_lk_level``) on CUDA tensors; ``cuda_lk.lk_level_reference`` on
+    CPU tensors."""
+    return lk_level(x1, y1, x2, y2, img1, gx1, gy1, img2, gx2, gy2, cfg,
+                    active_in)
 
 
 def track_features_pyramids_carry(pyr1: TrackPyramids, pyr2: TrackPyramids,

@@ -587,41 +587,63 @@ def _random_pairs(cfg, b, image_shape, n_features, shift):
     return imgs1, imgs2, xs, ys, np.ones((b, n_features), np.int32)
 
 
-def multichip_track_step(mesh=None, cfg=None, image_shape=(64, 96),
-                         n_features: int = 64, *, device=None):
-    """One sharded tracking step on small random shapes over ``mesh`` (a
-    (frame, feature) mesh; None: the world, ``make_mesh(world / f, f)``
-    with f = 2 for an even world). Returns the tracked (x, y, val)."""
+def _entry_mesh(n_devices, mesh, device, pair_split: bool):
+    """The mesh of a multichip entry: ``mesh`` when given; else, with
+    ``n_devices``, JAX's mesh of that many ranks (a (n / f, f) frame x
+    feature mesh with f = 2 for an even count when ``pair_split``, else
+    n x 1) over the world's first ranks under a process group, or an
+    in-process split of that shape on ``device`` (default the card)
+    without one; else the world (``_world_mesh``)."""
+    if mesh is not None:
+        return mesh
+    if n_devices is None:
+        return _world_mesh(device)
+    n = int(n_devices)
+    nf = 2 if pair_split and n % 2 == 0 else 1
+    if dist.is_available() and dist.is_initialized():
+        return make_mesh(n // nf, nf, devices=list(range(n)))
+    return split_mesh((n // nf, nf), (FRAME_AXIS, FEATURE_AXIS),
+                      device or "cuda")
+
+
+def multichip_track_step(n_devices: int | None = None, cfg=None,
+                         image_shape=(64, 96), n_features: int = 64, *,
+                         mesh=None, device=None):
+    """One sharded tracking step on small random shapes over ``n_devices``
+    ranks (``_entry_mesh``: JAX's (n / f, f) mesh) or ``mesh``. Returns the
+    tracked (x, y, val)."""
     from ..config import create_config
     cfg = cfg if cfg is not None else create_config()
-    mesh = mesh if mesh is not None else _world_mesh(device)
+    mesh = _entry_mesh(n_devices, mesh, device, True)
     b = mesh_sizes(mesh)[FRAME_AXIS]
     return track_batch_sharded(*_random_pairs(cfg, b, image_shape,
                                               n_features, 1), cfg, mesh)
 
 
-def multichip_full_step(mesh=None, image_shape=(64, 96),
-                        n_features: int = 64, *, device=None):
+def multichip_full_step(n_devices: int | None = None, image_shape=(64, 96),
+                        n_features: int = 64, *, mesh=None, device=None):
     """One sharded FULL step (translational LK with lighting-insensitive
-    residuals, the affine check, the refill) on small random shapes."""
+    residuals, the affine check, the refill) on small random shapes over
+    ``n_devices`` ranks (JAX's (n / f, f) mesh) or ``mesh``."""
     from ..config import create_config
     cfg = create_config(affineConsistencyCheck=2,
                         lighting_insensitive=True).validated_window()
-    mesh = mesh if mesh is not None else _world_mesh(device)
+    mesh = _entry_mesh(n_devices, mesh, device, True)
     b = mesh_sizes(mesh)[FRAME_AXIS]
     return full_pair_batch_sharded(*_random_pairs(cfg, b, image_shape,
                                                   n_features, 2), cfg, mesh)
 
 
-def multichip_chunked_sequence(mesh=None, image_shape=(64, 96),
-                               n_frames: int = 4, n_features: int = 16,
-                               chain: int = 2, *, device=None):
+def multichip_chunked_sequence(n_devices: int | None = None,
+                               image_shape=(64, 96), n_frames: int = 4,
+                               n_features: int = 16, chain: int = 2, *,
+                               mesh=None, device=None):
     """The chunk-sharded lockstep sequence (replace-lost on, chained) with
-    one chunk per ``frame`` rank, on rolled random frames. Returns the
-    [C, F, N] (x, y, val) history."""
+    one chunk per ``frame`` rank (``n_devices`` of them, or ``mesh``'s), on
+    rolled random frames. Returns the [C, F, N] (x, y, val) history."""
     from ..config import create_config
     cfg = create_config().replace(sequentialMode=True).validated_window()
-    mesh = mesh if mesh is not None else _world_mesh(device)
+    mesh = _entry_mesh(n_devices, mesh, device, False)
     c = mesh_sizes(mesh)[FRAME_AXIS]
     h, w = image_shape
     rng = np.random.default_rng(3)
@@ -635,15 +657,16 @@ def multichip_chunked_sequence(mesh=None, image_shape=(64, 96),
                                 replace_lost=True, chain=chain)[:3]
 
 
-def multichip_batched_serving(mesh=None, image_shape=(64, 96),
-                              n_features: int = 16, n_steps: int = 3, *,
-                              device=None):
+def multichip_batched_serving(n_devices: int | None = None,
+                              image_shape=(64, 96), n_features: int = 16,
+                              n_steps: int = 3, *, mesh=None, device=None):
     """The stream-sharded batched serving tick, one stream per ``frame``
-    rank: a selection on the first frame batch, then ``n_steps`` frames in
-    one chain. Returns the (x, y, val) history [1 + n_steps, B, N]."""
+    rank (``n_devices`` of them, or ``mesh``'s): a selection on the first
+    frame batch, then ``n_steps`` frames in one chain. Returns the (x, y,
+    val) history [1 + n_steps, B, N]."""
     from ..config import create_config
     cfg = create_config().replace(sequentialMode=True).validated_window()
-    mesh = mesh if mesh is not None else _world_mesh(device)
+    mesh = _entry_mesh(n_devices, mesh, device, False)
     b = mesh_sizes(mesh)[FRAME_AXIS]
     h, w = image_shape
     rng = np.random.default_rng(9)

@@ -1,1 +1,3 @@
 """Utilities: CUDA build/dispatch, PGM I/O, JAX-state conversion."""
+
+from . import io, viz  # noqa: F401

@@ -54,12 +54,12 @@ def _plain_tree(obj):
     return obj
 
 
-def save_checkpoint(path, tree: Any) -> None:
+def save_checkpoint(path, pytree: Any) -> None:
     """Save a tree (FeatureTable, FeatureState, a ``*_state`` dict, ...)
     to the file ``path`` (overwritten; parent directories created)."""
     path = Path(path).absolute()
     path.parent.mkdir(parents=True, exist_ok=True)
-    torch.save(_plain_tree(tree), path)
+    torch.save(_plain_tree(pytree), path)
 
 
 def _like(template, obj):

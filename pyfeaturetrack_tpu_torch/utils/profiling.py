@@ -6,14 +6,13 @@
 ``torch.profiler`` trace of a region (host ops and, with a card, its
 kernels) into a Chrome trace file. ``time_jitted`` times calls with CUDA
 events on the card (a host clock on the CPU, where there is no device
-time); ``device_time_per_call`` sums the kernel time a trace records per
-call, and raises where no kernel ran on a card.
+time); ``device_time_per_call`` reads the device busy time of a trace per
+call (``utils/traceview``), and raises where no kernel ran on a card.
 """
 
 from __future__ import annotations
 
 import contextlib
-import json
 import tempfile
 import time
 from pathlib import Path
@@ -81,26 +80,22 @@ def time_jitted(fn, *args, iters: int = 50, warmup: int = 3) -> float:
 
 
 def device_time_per_call(fn, *args, iters: int = 8) -> float:
-    """Seconds of kernel time per call of ``fn(*args)``: the durations of
-    the CUDA kernels a torch.profiler trace of ``iters`` calls records,
-    summed, over ``iters``. Raises RuntimeError without a card or when the
-    trace holds no kernel: there is no device time to report."""
+    """Seconds of device time per call of ``fn(*args)``: the busy time of
+    the device lane of a torch.profiler trace of ``iters`` calls
+    (``utils/traceview.parse_device_trace``: kernels, copies and fills,
+    their per-stream interval union) over ``iters``. Raises RuntimeError
+    without a card or when the trace holds no device event: there is no
+    device time to report."""
+    from .traceview import capture_device_trace
     if not torch.cuda.is_available():
         raise RuntimeError("device_time_per_call: no CUDA device; a host "
                            "time is not a device time")
     fn(*args)
     torch.cuda.synchronize()
-    with profile(activities=_activities()) as prof:
-        for _ in range(iters):
-            fn(*args)
-        torch.cuda.synchronize()
     with tempfile.TemporaryDirectory() as tmp:
-        path = Path(tmp) / "trace.json"
-        prof.export_chrome_trace(str(path))
-        events = json.loads(path.read_text())
-    events = events.get("traceEvents", events)
-    durs = [e["dur"] for e in events if e.get("cat") == "kernel"]
-    if not durs:
+        rep = capture_device_trace(lambda: fn(*args), n_calls=iters,
+                                   trace_dir=tmp, settle_s=0.0)
+    if not rep["op_events"]:
         raise RuntimeError("device_time_per_call: the trace holds no CUDA "
                            "kernel of the call")
-    return sum(durs) / iters / 1e6
+    return rep["device_busy_ms"] / iters / 1e3

@@ -40,6 +40,9 @@ H100 = {
     "f32_flops": 67e12,
     "bf16_flops": 989e12,
 }
+# NVLink 4 between two H100 SXM cards: 900 GB/s both ways, 450 GB/s in one
+# direction (the same data sheet); parallel/scaling's link rate.
+NVLINK_BYTES_PER_S = 450e9
 
 _F32 = 4  # bytes
 

@@ -72,6 +72,15 @@ def test_numpy_leaves_load_with_weights_only(tmp_path):
     assert arrs["c"][0].dtype == bool
 
 
+def test_save_checkpoint_takes_jax_argument_names(tmp_path):
+    """``save_checkpoint(path, pytree=...)``, as the JAX package's is
+    called, writes the tree that ``restore_checkpoint`` reads back."""
+    tree = {"x": torch.arange(4.0), "n": 3}
+    save_checkpoint(path=tmp_path / "kw", pytree=tree)
+    back = restore_checkpoint(tmp_path / "kw")
+    assert torch.equal(back["x"], tree["x"]) and back["n"] == 3
+
+
 def test_sequence_resume_continues_identically(tmp_path):
     frames = frames_of(51, 6)
     t1 = SequenceTracker(n_features=25, device=CPU)

@@ -1443,3 +1443,63 @@ def test_sharded_paths_split_on_card_equal_unsharded(dev):
     assert cuda_lk_dense.band_launches == before + 4 * cfg.nPyramidLevels
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+def _same(a, b):
+    if isinstance(a, torch.Tensor):
+        return a.shape == b.shape and torch.equal(a, b)
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(_same(u, v) for u, v in zip(a, b))
+    return a == b
+
+
+@pytest.mark.parametrize("shape", [(120, 160), (97, 130)])
+def test_ops_surface_bit_equal(dev, shape):
+    """The JAX package's op-level names on the card: each launches the
+    kernel named in its docstring and equals its plain version bit for
+    bit (compute_pyramid / compute_gradient_pyramids: K1 level launches;
+    quantized_min_eig_map: K3; selection_eig_map_core: K1 eig-only;
+    select_features_device: that and K4; track_feature_level: K2's level
+    launch; suppress_and_fill: K5)."""
+    from pyfeaturetrack_tpu_torch.ops import select as sel
+    from pyfeaturetrack_tpu_torch.ops import select_device as sd
+    from pyfeaturetrack_tpu_torch.ops.pyramid import (
+        compute_gradient_pyramids, compute_pyramid)
+    from pyfeaturetrack_tpu_torch.ops.track import track_feature_level
+    cfg = tpft.create_config(mindist=5)
+    img = torch.tensor(_texture(*shape, seed=shape[1]), device=dev)
+    img2 = torch.roll(img, 1, 1)
+    n = 40
+    empty = (torch.full((n,), -1.0, device=dev),
+             torch.full((n,), -1.0, device=dev),
+             torch.full((n,), -1, dtype=torch.int32, device=dev))
+    pa, pb = (tpft.build_track_pyramids(t, cfg) for t in (img, img2))
+    core = dict(window_width=7, window_height=7, smooth_before=True,
+                smooth_sigma=cfg.smooth_sigma, grad_sigma=cfg.grad_sigma)
+    sel_out = sd.select_features_device(img, *empty, cfg, replacing=False)
+    x, y, v = sel_out[:3]
+    cx = torch.arange(60, dtype=torch.int32, device=dev) * 3 % shape[1]
+    cy = torch.arange(60, dtype=torch.int32, device=dev) * 7 % shape[0]
+    calls = {
+        "pyramid": (lambda: compute_pyramid(img, 2, 3, 0.9), cuda_pyramid, 2),
+        "gradients": (lambda: compute_gradient_pyramids(
+            compute_pyramid(img, 2, 3, 0.9), 1.0), cuda_pyramid, 5),
+        "quantized": (lambda: sel.quantized_min_eig_map(
+            pa.gradx[0], pa.grady[0], 7, 7), cuda_eig, 1),
+        "core": (lambda: sel.selection_eig_map_core(img, **core),
+                 cuda_pyramid, 1),
+        "select": (lambda: sd.select_features_device(
+            img, *empty, cfg, replacing=False), cuda_select, 2),
+        "level": (lambda: track_feature_level(
+            x, y, x, y, pa.img[0], pa.gradx[0], pa.grady[0], pb.img[0],
+            pb.gradx[0], pb.grady[0], cfg, v >= 0), cuda_lk, 1),
+        "suppress": (lambda: sd.suppress_and_fill(
+            cx, cy, cx + cy, cx > 0, torch.ones(n, dtype=torch.bool,
+                                                device=dev), *empty, 4),
+                     cuda_suppress, 1),
+    }
+    for name, (fn, mod, want) in calls.items():
+        before = mod.launches
+        got = fn()
+        assert mod.launches - before == want, name
+        assert _same(got, _plain(fn)), name

@@ -154,21 +154,41 @@ def test_mesh_without_a_group_refuses():
 
 
 def test_multichip_entries_run():
-    """The JAX package's multichip entries, on one-rank and 2-rank splits:
-    their shapes, and the 2-rank split equal to the one-rank run."""
+    """The JAX package's multichip entries, on one-rank and 2-rank splits
+    passed as ``mesh=``: their shapes, and the 2-rank split equal to the
+    one-rank run."""
     one = split_mesh((1, 1), ("frame", "feature"), CPU)
     two = split_mesh((2, 1), ("frame", "feature"), CPU)
-    x, y, v = sharding.multichip_track_step(one)
+    x, y, v = sharding.multichip_track_step(mesh=one)
     assert x.shape == (1, 64) and torch.isfinite(x).all()
-    got = sharding.multichip_full_step(two)
+    got = sharding.multichip_full_step(mesh=two)
     assert got[2].shape == (2, 64) and (got[2] >= 0).sum() > 64
-    hist = sharding.multichip_chunked_sequence(two)
+    hist = sharding.multichip_chunked_sequence(mesh=two)
     assert hist[0].shape == (2, 4, 16)
-    serve = sharding.multichip_batched_serving(two)
+    serve = sharding.multichip_batched_serving(mesh=two)
     assert serve[0].shape == (4, 2, 16)
     feat = split_mesh((1, 2), ("frame", "feature"), CPU)
-    assert_same(mh._np(sharding.multichip_track_step(feat)),
-                mh._np(sharding.multichip_track_step(one)))
+    assert_same(mh._np(sharding.multichip_track_step(mesh=feat)),
+                mh._np(sharding.multichip_track_step(mesh=one)))
+
+
+def test_multichip_entries_take_n_devices_first():
+    """JAX-style calls, ``n_devices`` first: each builds JAX's mesh of that
+    many ranks as an in-process split (``(n / 2, 2)`` for the pair steps
+    of an even count, ``n x 1`` for chunks and streams) and equals the
+    call on that split passed as ``mesh=``."""
+    pair4 = split_mesh((2, 2), ("frame", "feature"), CPU)
+    assert_same(mh._np(sharding.multichip_track_step(4, device=CPU)),
+                mh._np(sharding.multichip_track_step(mesh=pair4)))
+    x, _, _ = sharding.multichip_track_step(3, device=CPU)
+    assert x.shape == (3, 64)
+    got = sharding.multichip_full_step(2, device=CPU)
+    assert got[2].shape == (1, 64)
+    two = split_mesh((2, 1), ("frame", "feature"), CPU)
+    assert_same(mh._np(sharding.multichip_chunked_sequence(2, device=CPU)),
+                mh._np(sharding.multichip_chunked_sequence(mesh=two)))
+    serve = sharding.multichip_batched_serving(2, device=CPU)
+    assert serve[0].shape == (4, 2, 16)
 
 
 def test_shard_feature_state():

@@ -30,7 +30,7 @@ from pyfeaturetrack_tpu_torch.ops.select import (replace_lost_features,
                                                  select_good_features,
                                                  select_good_features_arrays,
                                                  selection_eig_map)
-from pyfeaturetrack_tpu_torch.ops.select_device import fill_slots
+from pyfeaturetrack_tpu_torch.ops.cuda_select import fill_slots
 from pyfeaturetrack_tpu_torch.utils.convert import config_from_jax
 
 torch.set_num_threads(2)
