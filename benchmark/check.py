@@ -10,14 +10,14 @@ program's. The start (the first frame's selection, which no step covers)
 is checked on its own. Rows are sampled from the seed once the window has
 closed.
 
-Per lane: a lane the reference refilled matches when the program refilled
-it at the same pixel; a lane the reference tracked matches when the
-program tracked it within ``TRACK_TOL_PX``; a lost lane matches when the
-status code is the same. The numbers compared, each against the limit
+Per lane: a lane the reference tracked matches when the program tracked
+it within ``TRACK_TOL_PX``; a lost lane matches when the status code is
+the same; fresh picks (the start, and each step's refills) match as sets
+of pixels (``compare_picks``). The numbers compared, each against the limit
 that the cell's file under ``limits/`` sets, are:
 
-* ``start_mismatch``: share of the first frame's slots selected
-  differently;
+* ``start_mismatch``: share of the first frame's slots whose pick only
+  one side made;
 * ``step_mismatch``: share of the sampled steps' lanes that do not match;
 * ``gap_p99_px``: the 99th percentile of the position gap over lanes both
   sides tracked.
@@ -29,29 +29,41 @@ import numpy as np
 
 from reference.klt import Reference
 
-# px: the KLT stopping step; two correct solutions that stop one step
-# apart lie closer than this
-TRACK_TOL_PX = 0.1
+# px: two float32 solutions of one track lie about 1e-4 px apart; a
+# track from levels stored in bfloat16 lands 1e-2 px or more away
+TRACK_TOL_PX = 0.01
 NUMBERS = ("start_mismatch", "step_mismatch", "gap_p99_px")
+
+
+def _picks(x, y, v) -> set:
+    """Pixels of the slots holding a freshly selected feature (value > 0)."""
+    keep = np.asarray(v) > 0
+    return set(zip(np.asarray(x)[keep].tolist(), np.asarray(y)[keep].tolist()))
+
+
+def compare_picks(ref, got) -> int:
+    """Picks only one side made: a selection's r-th pick fills the r-th
+    free slot, so one candidate taken or suppressed differently shifts
+    every later pick to another slot, and slot by slot one rounding of the
+    map would read as a mismatch of all the picks that follow it."""
+    want, have = _picks(*ref), _picks(*got)
+    return max(len(want), len(have)) - len(want & have)
 
 
 def compare_rows(ref, got) -> dict:
     """Lane counts of one row: (lanes, mismatched, gaps of lanes both
-    tracked)."""
+    tracked). Tracked and lost lanes are compared slot by slot, refills
+    as sets of picks (``compare_picks``)."""
     rx, ry, rv = ref
     gx, gy, gv = (np.asarray(c, np.float64) for c in got)
     gv = gv.astype(np.int64)
-    refilled = rv > 0
     tracked = rv == 0
-    lost = rv < 0
-    ok = np.zeros(rv.shape, bool)
-    ok |= refilled & (gv > 0) & (gx == rx) & (gy == ry)
     gap = np.hypot(gx - rx, gy - ry)
     both = tracked & (gv == 0)
-    ok |= both & (gap <= TRACK_TOL_PX)
-    ok |= lost & (gv == rv)
-    return {"lanes": int(rv.size), "bad": int((~ok).sum()),
-            "gaps": gap[both]}
+    bad = int((tracked & ~(both & (gap <= TRACK_TOL_PX))).sum())
+    bad += int(((rv < 0) & (gv != rv)).sum())
+    bad += compare_picks(ref, (gx, gy, gv))
+    return {"lanes": int(rv.size), "bad": bad, "gaps": gap[both]}
 
 
 def check_session(session, cfg: dict, traffic: dict, seed: int,
@@ -80,9 +92,8 @@ def check_session(session, cfg: dict, traffic: dict, seed: int,
     for s in start_streams:
         key, f = frame(0, s)
         got = lane(session.rows.row(0), s)
-        c = compare_rows(ref.start(key, f, n), got)
-        start_lanes += c["lanes"]
-        start_bad += c["bad"]
+        start_lanes += n
+        start_bad += compare_picks(ref.start(key, f, n), got)
 
     pool = np.concatenate([np.arange(max(first, 1), first + rows)
                            for first, rows in windows])

@@ -31,16 +31,19 @@ class Trace:
              e.get("name", ""))
             for e in events if e.get("ph") == "X"
             and e.get("cat") in DEVICE_CATEGORIES)
+        # host events nest: an outer event sorts before the inner ones
+        # that start with it
+        outer_first = (lambda e: (e[0], -e[1]))
         self.ranges = sorted(
-            (float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0)),
-             e.get("name", ""))
-            for e in events if e.get("ph") == "X"
-            and e.get("cat") == ANNOTATION)
+            ((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0)),
+              e.get("name", ""))
+             for e in events if e.get("ph") == "X"
+             and e.get("cat") == ANNOTATION), key=outer_first)
         self.host_ops = sorted(
-            (float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0)),
-             e.get("name", ""))
-            for e in events if e.get("ph") == "X"
-            and e.get("cat") in HOST_OP_CATEGORIES)
+            ((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0)),
+              e.get("name", ""))
+             for e in events if e.get("ph") == "X"
+             and e.get("cat") in HOST_OP_CATEGORIES), key=outer_first)
         self.busy = union([(a, b) for a, b, _ in self.device])
         self._busy_starts = [a for a, _ in self.busy]
         self._range_starts = [a for a, _, _ in self.ranges]
@@ -124,6 +127,13 @@ def _innermost(events, starts, t, scan: int = 4096):
     return None
 
 
+def kernel_name(name: str) -> str:
+    """A device event's name without its return type, anonymous
+    namespace and argument list, at most 120 characters."""
+    name = name.removeprefix("void ").replace("(anonymous namespace)::", "")
+    return name.split("(")[0].strip()[:120] or name[:120]
+
+
 def top_device_ops(trace: Trace, a: float, b: float, n: int = 10) -> list:
     """[[name, seconds]] of the ``n`` device operations that took the most
     time inside [a, b], names cut at their argument list."""
@@ -131,7 +141,7 @@ def top_device_ops(trace: Trace, a: float, b: float, n: int = 10) -> list:
     for s, t, name in trace.device:
         if t <= a or s >= b:
             continue
-        key = name.removeprefix("void ").split("(")[0][:120]
+        key = kernel_name(name)
         acc[key] = acc.get(key, 0.0) + (min(t, b) - max(s, a)) * 1e-6
     return [[k, v] for k, v in sorted(acc.items(), key=lambda kv: -kv[1])[:n]]
 

@@ -55,10 +55,6 @@ class Spans:
     def count(self, name: str) -> int:
         return sum(n == name for n in self.names)
 
-    def of(self, name: str) -> list:
-        return [(a, b) for n, a, b in zip(self.names, self.t0, self.t1)
-                if n == name]
-
 
 def _annotate(traced: bool, name: str):
     if not traced:
@@ -84,11 +80,6 @@ class Rows:
             if r >= first:
                 return tuple(c[r - first] for c in cols)
         raise IndexError(r)
-
-    def rows(self, a: int, b: int):
-        """(x, y, val) of rows a..b-1 stacked."""
-        out = [self.row(r) for r in range(a, b)]
-        return tuple(np.stack([o[j] for o in out]) for j in range(3))
 
 
 class VideoSession:

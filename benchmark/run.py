@@ -8,7 +8,7 @@ of the checkout. Its parts are found by name:
 * ``configs/<config>.json``: the deployment (frame size, features, the
   KLT context);
 * ``traffic/<traffic>.json``: the traffic's parameters, read by the one
-  generator (``scene.py``) and the one driver (``drive.py``, by ``mode``);
+  generator (``scene.py``) and the one loop (``drive.py``, by ``mode``);
 * ``limits/<workload>.json``: the limits of the numbers the correctness
   check compares (``check.py``), with the readings they were set from;
 * ``metrics/<metric>.py``: one reader a metric; ``--trace 0`` prints the
@@ -42,7 +42,6 @@ from pathlib import Path  # noqa: E402
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "pyfeaturetrack_tpu")
-PROGRAM = "pyfeaturetrack_tpu_torch"
 
 
 def _paths() -> None:
@@ -170,7 +169,7 @@ def traced_slice(session, traffic: dict, on_card: bool):
 def run(parts: dict, seed: int, seconds: float, trace: bool, device,
         t_start: float = T_START) -> dict:
     """One run of a cell (``load_cell``'s parts) on ``device``; returns the
-    result line's dict and the compared numbers' lines for stderr."""
+    result line's dict, the compared numbers under ``checks`` last."""
     import numpy as np
     import torch
 
@@ -180,12 +179,17 @@ def run(parts: dict, seed: int, seconds: float, trace: bool, device,
     import pyfeaturetrack_tpu_torch as pft
     import scene
 
+    imports_s = time.perf_counter() - t_start
     cell, config, traffic = parts["cell"], parts["config"], parts["traffic"]
     on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.init()
+    context_s = time.perf_counter() - t_start
     cfg = tracker_config(pft, config)
     h, w = config["frame"]["height"], config["frame"]["width"]
     streams = int(traffic.get("streams", 1))
     frames = scene.render_streams(seed, streams, traffic, h, w, device)
+    render_s = time.perf_counter() - t_start
     session = drive.MODES[traffic["mode"]](
         pft, cfg, int(config["n_features"]), frames, traffic, device)
     session.setup()
@@ -211,8 +215,10 @@ def run(parts: dict, seed: int, seconds: float, trace: bool, device,
     if on_card:
         torch.cuda.empty_cache()
 
+    t_check = time.perf_counter()
     numbers = check.check_session(session, config, traffic, seed, windows,
                                   device)
+    check_s = time.perf_counter() - t_check
     correct, checks = check.verdict(numbers, parts["limits"])
 
     ctx = Context(mode=traffic["mode"], cell=cell, config=config,
@@ -244,6 +250,13 @@ def run(parts: dict, seed: int, seconds: float, trace: bool, device,
             "p50": float(np.percentile(late, 50)),
             "p95": float(np.percentile(late, 95)),
             "max": float(late.max())}
+    result["timings_s"] = {
+        "imports": imports_s, "context": context_s, "rendered": render_s,
+        "setup": setup_s, "check": check_s,
+        "feed_mean": spans.total_ns("feed") / max(spans.count("feed"), 1) * 1e-9,
+        "drain_mean": spans.total_ns("drain") / max(spans.count("drain"), 1) * 1e-9}
+    result["checked"] = {k: numbers[k] for k in ("steps", "lanes",
+                                                 "tracked_lanes")}
     result["checks"] = checks
     return result
 

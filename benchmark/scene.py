@@ -8,13 +8,16 @@ the output of a decoder. Optionally blocks of fresh smoothed noise move
 over a share of each frame, the moving objects of street video: features
 on them fail the next frame and are refilled.
 
-The pan follows a smooth seeded path: its heading turns ``turns`` full
-times over the clip with a seeded wiggle, and its speed in px a frame
-swings ``speed_cycles`` times between the two ends of ``motion_px``. Every
-seed gets the same distribution of speeds and headings, in another order
-(the phases come from the seed), so the work a frame costs does not depend
-on the seed. Playback runs the clip forwards and backwards
-(``pingpong``), so the motion stays continuous however long a run is.
+The pan's path comes from the traffic alone, not the seed: its heading
+starts at ``heading_deg`` (spread evenly over the streams of a rig) and
+turns ``turns`` times over the clip with a slow wiggle, and its speed in
+px a frame swings ``speed_cycles`` times between the two ends of
+``motion_px``. Features leave a frame at a rate set by the pan's
+direction, and each costs a refill, so a seeded heading would make the
+seed change the work; the seed draws the texture, and the occluders'
+starts, headings and order of speeds. Playback runs the clip forwards and
+backwards (``pingpong``), so the motion stays continuous however long a
+run is.
 """
 
 from __future__ import annotations
@@ -53,47 +56,58 @@ def smooth_texture(gen: torch.Generator, shape, device) -> torch.Tensor:
     return (tex - lo) / (hi - lo) * 255.0
 
 
-def pan_path(rng: np.random.Generator, n: int, motion_px, turns: float,
-             speed_cycles: float) -> np.ndarray:
+def pan_path(n: int, motion_px, turns: float, speed_cycles: float,
+             heading: float) -> np.ndarray:
     """[n, 2] (x, y) camera offsets in px: frame i moves by a speed within
-    ``motion_px`` along a heading that turns ``turns`` times over the
-    clip."""
+    ``motion_px`` along a heading that starts at ``heading`` (radians) and
+    turns ``turns`` times over the clip, with a slow wiggle."""
     lo, hi = (float(v) for v in motion_px)
     t = np.arange(n, dtype=np.float64) / max(n, 1)
-    ph = rng.uniform(0.0, 2.0 * math.pi, 4)
-    heading = ph[0] + 2.0 * math.pi * turns * t + 0.5 * np.sin(
-        2.0 * math.pi * 3.0 * t + ph[1])
+    head = heading + 2.0 * math.pi * turns * t + 0.5 * np.sin(
+        2.0 * math.pi * 3.0 * t)
     speed = lo + (hi - lo) * 0.5 * (1.0 - np.cos(
-        2.0 * math.pi * speed_cycles * t + ph[2]))
-    step = np.stack([speed * np.cos(heading), speed * np.sin(heading)], 1)
+        2.0 * math.pi * speed_cycles * t))
+    step = np.stack([speed * np.cos(head), speed * np.sin(head)], 1)
     step[0] = 0.0
     return np.cumsum(step, axis=0)
 
 
 def _occluders(rng, n, h, w, share, blocks, speed_px):
-    """Per frame and block the (row, col) of a side x side block that
-    moves at a constant seeded velocity and bounces off the frame's
-    edges; ``side`` makes the blocks cover ``share`` of the frame."""
+    """Per frame and block the (row, col) of a side x side block; ``side``
+    makes the blocks cover ``share`` of the frame. The frame is cut into a
+    grid of one cell a block, and each block bounces inside its own cell,
+    so blocks never overlap and cover the same area in every frame of
+    every seed; the speeds are spread evenly over ``speed_px`` and the
+    seed draws only each block's speed, heading and start."""
+    rows = max(1, int(round(math.sqrt(blocks * h / w))))
+    cols = -(-blocks // rows)
+    ch, cw = h // rows, w // cols
     side = max(1, int(round(math.sqrt(share * h * w / blocks))))
-    side = min(side, h, w)
-    start = rng.uniform(0.0, 1.0, (blocks, 2)) * [h - side, w - side]
+    side = min(side, ch, cw)
+    span = np.array([ch - side, cw - side], dtype=np.float64)
+    start = rng.uniform(0.0, 1.0, (blocks, 2)) * span
     ang = rng.uniform(0.0, 2.0 * math.pi, blocks)
-    spd = rng.uniform(*speed_px, blocks)
+    spd = rng.permutation(np.linspace(*speed_px, blocks))
     vel = np.stack([spd * np.sin(ang), spd * np.cos(ang)], 1)
     pos = start[None] + np.arange(n)[:, None, None] * vel[None]
-    span = np.array([h - side, w - side], dtype=np.float64)
     period = 2.0 * np.maximum(span, 1.0)
     pos = np.mod(pos, period)
     pos = np.where(pos > span, period - pos, pos)
-    return side, np.floor(pos).astype(np.int64)
+    cell = np.array([[(j // cols) * ch, (j % cols) * cw]
+                     for j in range(blocks)])
+    return side, np.floor(pos).astype(np.int64) + cell[None]
 
 
 def render_clip(seed: int, stream: int, n: int, h: int, w: int, traffic,
-                device) -> torch.Tensor:
-    """uint8 [n, h, w] frames of one clip on ``device``."""
+                device, streams: int = 1) -> torch.Tensor:
+    """uint8 [n, h, w] frames of stream ``stream`` of ``streams`` on
+    ``device``. The streams' headings are spread evenly around the
+    traffic's ``heading_deg``."""
     rng = _rng(seed, stream)
-    path = pan_path(rng, n, traffic["motion_px"], traffic.get("turns", 1.0),
-                    traffic.get("speed_cycles", 2.0))
+    heading = math.radians(float(traffic.get("heading_deg", 0.0))
+                           + 360.0 * stream / streams)
+    path = pan_path(n, traffic["motion_px"], traffic.get("turns", 1.0),
+                    traffic.get("speed_cycles", 2.0), heading)
     path -= path.min(axis=0)
     th = int(math.ceil(path[:, 1].max())) + h + 2
     tw = int(math.ceil(path[:, 0].max())) + w + 2
@@ -132,7 +146,8 @@ def render_streams(seed: int, streams: int, traffic, h: int, w: int,
         return render_clip(seed, 0, n, h, w, traffic, device).cpu().numpy()
     out = np.empty((n, streams, h, w), dtype=np.uint8)
     for s in range(streams):
-        out[:, s] = render_clip(seed, s, n, h, w, traffic, device).cpu().numpy()
+        out[:, s] = render_clip(seed, s, n, h, w, traffic, device,
+                                streams).cpu().numpy()
     return out
 
 
