@@ -1,5 +1,8 @@
-"""Whether what the timed path returned is right: the comparison with the
-plain reference (``reference/klt.py``).
+"""Whether the KLT rows the timed path returned are right: the comparison
+with the plain reference (``reference/klt.py``). A traffic file names its
+check (``"check": "klt_steps"``) and the run finds it as
+``checks/<check>.py``; ``check`` returns the numbers that the cell's
+``limits/<cell>.json`` bounds.
 
 A frame's answer is the row of (x, y, val) that a drain returned for it.
 Tracking is a recurrence, so the reference follows the program step by
@@ -7,8 +10,8 @@ step: for a sampled row t it takes the program's row t - 1 as the state,
 rebuilds both frames' pyramids and the selection map from the frames
 themselves, tracks and refills, and compares its row t with the
 program's. The start (the first frame's selection, which no step covers)
-is checked on its own. Rows are sampled from the seed once the window has
-closed.
+is checked on its own, for every stream. Rows are sampled from the seed
+once the window has closed.
 
 Per lane: a lane the reference tracked matches when the program tracked
 it within ``TRACK_TOL_PX``; a lost lane matches when the status code is
@@ -16,8 +19,8 @@ the same; fresh picks (the start, and each step's refills) match as sets
 of pixels (``compare_picks``). The numbers compared, each against the limit
 that the cell's file under ``limits/`` sets, are:
 
-* ``start_mismatch``: share of the first frame's slots whose pick only
-  one side made;
+* ``start_mismatch``: share of the first frame's slots, over every
+  stream, whose pick only one side made;
 * ``step_mismatch``: share of the sampled steps' lanes that do not match;
 * ``gap_p99_px``: the 99th percentile of the position gap over lanes both
   sides tracked.
@@ -32,6 +35,9 @@ from reference.klt import Reference
 # px: two float32 solutions of one track lie about 1e-4 px apart; a
 # track from levels stored in bfloat16 lands 1e-2 px or more away
 TRACK_TOL_PX = 0.01
+# rows whose step the reference repeats, drawn from the seed: each costs a
+# float64 track and refill, well under a second at 4096 features
+CHECK_STEPS = 16
 NUMBERS = ("start_mismatch", "step_mismatch", "gap_p99_px")
 
 
@@ -66,12 +72,11 @@ def compare_rows(ref, got) -> dict:
     return {"lanes": int(rv.size), "bad": bad, "gaps": gap[both]}
 
 
-def check_session(session, cfg: dict, traffic: dict, seed: int,
-                  windows: list, device) -> dict:
+def check(session, cfg: dict, traffic: dict, seed: int, windows: list,
+          device) -> dict:
     """The compared numbers for a session's rows: ``windows`` holds
     (first row, rows) of each measured stretch."""
     ref = Reference(cfg["klt"], device)
-    k = int(traffic.get("check_steps", 16))
     streams = int(traffic.get("streams", 1))
     n = int(cfg["n_features"])
     rng = np.random.default_rng(np.random.SeedSequence([int(seed), 11]))
@@ -84,12 +89,8 @@ def check_session(session, cfg: dict, traffic: dict, seed: int,
     def lane(row, s):
         return row if streams == 1 else tuple(c[s] for c in row)
 
-    # the start: row 0 of a few streams drawn from the seed
-    start_streams = sorted(rng.choice(
-        streams, size=min(streams, int(traffic.get("check_start_streams", 1))),
-        replace=False).tolist())
     start_lanes = start_bad = 0
-    for s in start_streams:
+    for s in range(streams):
         key, f = frame(0, s)
         got = lane(session.rows.row(0), s)
         start_lanes += n
@@ -97,7 +98,7 @@ def check_session(session, cfg: dict, traffic: dict, seed: int,
 
     pool = np.concatenate([np.arange(max(first, 1), first + rows)
                            for first, rows in windows])
-    picks = sorted(rng.choice(pool, size=min(k, len(pool)),
+    picks = sorted(rng.choice(pool, size=min(CHECK_STEPS, len(pool)),
                               replace=False).tolist())
     lanes = bad = 0
     gaps = []
@@ -109,7 +110,7 @@ def check_session(session, cfg: dict, traffic: dict, seed: int,
         out = ref.step(kp, fp, kn, fn, np.asarray(prev[0], np.float64),
                        np.asarray(prev[1], np.float64),
                        np.asarray(prev[2], np.int64),
-                       replace_lost=bool(cfg.get("replace_lost", True)))
+                       replace_lost=bool(cfg["replace_lost"]))
         c = compare_rows(out, lane(session.rows.row(r), s))
         lanes += c["lanes"]
         bad += c["bad"]
@@ -121,11 +122,3 @@ def check_session(session, cfg: dict, traffic: dict, seed: int,
         "gap_p99_px": float(np.quantile(gaps, 0.99)) if gaps.size else 0.0,
         "steps": len(picks), "lanes": lanes, "tracked_lanes": int(gaps.size),
     }
-
-
-def verdict(numbers: dict, limits: dict) -> tuple:
-    """(correct, {name: {"value", "limit"}}): correct when every compared
-    number is within its limit."""
-    out = {name: {"value": numbers[name], "limit": limits[name]}
-           for name in NUMBERS}
-    return all(v["value"] <= v["limit"] for v in out.values()), out

@@ -25,10 +25,9 @@ import run
 
 
 def readings(parts: dict, seed: int, seconds: float, lane: str) -> dict:
-    import check
     parts = copy.deepcopy(parts)
     parts["config"]["klt"]["image_dtype"] = lane
-    parts["limits"] = {k: float("inf") for k in check.NUMBERS}
+    parts["limits"] = {k: float("inf") for k in parts["limits"]}
     out = run.run(parts, seed, seconds, False, "cuda", time.perf_counter())
     return {"seed": seed, "lane": lane, "correct_path": out["correct"],
             **{k: v["value"] for k, v in out["checks"].items()},
@@ -43,7 +42,6 @@ def main(argv=None) -> int:
     ap.add_argument("--seconds", type=float, default=2.0)
     args = ap.parse_args(argv)
     run._paths()
-    import check
     parts = run.load_cell(args.workload)
     rows = []
     for lane, seeds in (("float32", args.seeds), ("bfloat16",
@@ -52,7 +50,7 @@ def main(argv=None) -> int:
             rows.append(readings(parts, s, args.seconds, lane))
             print(json.dumps(rows[-1]), flush=True)
     summary = {}
-    for k in check.NUMBERS:
+    for k in parts["limits"]:
         sound = [r[k] for r in rows if r["lane"] == "float32"]
         ctrl = [r[k] for r in rows if r["lane"] == "bfloat16"]
         summary[k] = {"sound_max": max(sound) if sound else None,

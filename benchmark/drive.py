@@ -1,18 +1,9 @@
-"""The two ways a traffic file drives the program, and the spans around
-each call into it.
+"""What every way of driving the program shares: the spans around each
+call into it, and the drained rows.
 
-``video`` (recorded footage): one ``StreamingTracker(chain=k)`` fed host
-uint8 frames as fast as it takes them, its table drained every
-``drain_every`` frames. ``drain_every`` is a multiple of ``chain``, so
-every window frame goes through the captured chain and a drain forces out
-no partial chain.
-
-``lockstep`` (live cameras): one ``BatchedStreamingTracker(n_streams=B,
-chain=1)``; an open loop on the camera clock: tick i is due at
-``start + i / rate_hz``; at each tick one ``feed`` of the B frames, then
-one ``drain`` (the host pull of their positions). A tick's latency runs
-from its due time to the drain's return, so a late tick also charges the
-wait it imposed on the ticks behind it.
+A traffic file's ``mode`` names the module ``modes/<mode>.py`` whose
+``Session`` drives the program (``run.load``); each mode builds on this
+module.
 
 A span is (name, start ns, end ns) on the host's perf counter, kept in
 memory. In a traced slice each call also runs under a
@@ -23,11 +14,6 @@ on the trace's host timeline beside the device's kernels.
 from __future__ import annotations
 
 import contextlib
-import time
-
-import numpy as np
-
-from scene import pingpong
 
 SPAN_FEED = "feed"
 SPAN_DRAIN = "drain"
@@ -56,7 +42,7 @@ class Spans:
         return sum(n == name for n in self.names)
 
 
-def _annotate(traced: bool, name: str):
+def annotate(traced: bool, name: str):
     if not traced:
         return contextlib.nullcontext()
     import torch
@@ -80,171 +66,3 @@ class Rows:
             if r >= first:
                 return tuple(c[r - first] for c in cols)
         raise IndexError(r)
-
-
-class VideoSession:
-    """Recorded footage through ``StreamingTracker(chain=k)``."""
-
-    def __init__(self, pft, cfg, n_features: int, frames: np.ndarray,
-                 traffic, device):
-        self.chain = int(traffic["chain"])
-        self.drain_every = int(traffic["drain_every"])
-        if self.drain_every % self.chain:
-            raise ValueError("drain_every must be a multiple of chain")
-        self.frames = frames
-        self.tracker = pft.StreamingTracker(
-            cfg, n_features=n_features, replace_lost=True, chain=self.chain,
-            device=device)
-        self.rows = Rows()
-        self.fed = 0
-        self.spans = Spans()
-
-    def frame_index(self, r: int) -> int:
-        """Clip index of row r's frame."""
-        return pingpong(r, self.frames.shape[0])
-
-    def _feed(self, traced: bool) -> None:
-        frame = self.frames[self.frame_index(self.fed)]
-        with _annotate(traced, SPAN_FEED):
-            t0 = time.perf_counter_ns()
-            self.tracker.feed(frame)
-            t1 = time.perf_counter_ns()
-        self.spans.add(SPAN_FEED, t0, t1)
-        self.fed += 1
-
-    def _drain(self, traced: bool) -> None:
-        with _annotate(traced, SPAN_DRAIN):
-            t0 = time.perf_counter_ns()
-            cols = self.tracker.drain()
-            t1 = time.perf_counter_ns()
-        self.spans.add(SPAN_DRAIN, t0, t1)
-        self.rows.add(cols)
-
-    def period(self, traced: bool = False) -> None:
-        for _ in range(self.drain_every):
-            self._feed(traced)
-        self._drain(traced)
-
-    def setup(self) -> None:
-        """The first frame's selection, one drain period (the chain's
-        capture is its first replay) and its drain."""
-        self._feed(False)
-        self.period()
-
-    def window(self, seconds: float) -> dict:
-        """Drain periods until ``seconds`` have passed; returns the
-        window's first row, rows and seconds."""
-        self.spans = Spans()
-        first = self.rows.n
-        t0 = time.perf_counter()
-        while True:
-            self.period()
-            elapsed = time.perf_counter() - t0
-            if elapsed >= seconds:
-                break
-        return {"first_row": first, "rows": self.rows.n - first,
-                "seconds": elapsed}
-
-    def traced_slice(self, periods: int) -> tuple:
-        """``periods`` drain periods inside one ``slice`` range; returns
-        (first row, rows, spans of the slice)."""
-        spans, self.spans = self.spans, Spans()
-        first = self.rows.n
-        with _annotate(True, SPAN_SLICE):
-            t0 = time.perf_counter_ns()
-            for _ in range(periods):
-                self.period(traced=True)
-            t1 = time.perf_counter_ns()
-        self.spans.add(SPAN_SLICE, t0, t1)
-        sliced, self.spans = self.spans, spans
-        return first, self.rows.n - first, sliced
-
-    def close(self) -> None:
-        self.tracker = None
-
-
-class LockstepSession:
-    """B live cameras through ``BatchedStreamingTracker(chain=1)``, one
-    tick every 1 / rate_hz seconds on the camera clock."""
-
-    def __init__(self, pft, cfg, n_features: int, frames: np.ndarray,
-                 traffic, device):
-        self.rate = float(traffic["rate_hz"])
-        self.streams = int(traffic["streams"])
-        self.frames = frames                      # [T, B, H, W] uint8
-        self.tracker = pft.BatchedStreamingTracker(
-            cfg, n_streams=self.streams, n_features=n_features,
-            replace_lost=True, chain=int(traffic.get("chain", 1)),
-            device=device)
-        self.rows = Rows()
-        self.fed = 0
-        self.spans = Spans()
-        self.latency_ms: list = []
-        self.late_ms: list = []
-        self.warm = int(traffic.get("warm_ticks", 3))
-
-    def frame_index(self, r: int) -> int:
-        return pingpong(r, self.frames.shape[0])
-
-    def _tick(self, traced: bool) -> None:
-        batch = self.frames[self.frame_index(self.fed)]
-        with _annotate(traced, SPAN_TICK):
-            with _annotate(traced, SPAN_FEED):
-                t0 = time.perf_counter_ns()
-                self.tracker.feed(batch)
-                t1 = time.perf_counter_ns()
-            with _annotate(traced, SPAN_DRAIN):
-                cols = self.tracker.drain()
-                t2 = time.perf_counter_ns()
-        self.spans.add(SPAN_FEED, t0, t1)
-        self.spans.add(SPAN_DRAIN, t1, t2)
-        self.spans.add(SPAN_TICK, t0, t2)
-        self.rows.add(cols)
-        self.fed += 1
-
-    def setup(self) -> None:
-        """The first tick's selections and a few eager ticks."""
-        for _ in range(1 + self.warm):
-            self._tick(False)
-
-    def _run(self, n_ticks: int, traced: bool) -> dict:
-        self.latency_ms, self.late_ms = [], []
-        start = time.perf_counter() + 0.002
-        for i in range(n_ticks):
-            due = start + i / self.rate
-            now = time.perf_counter()
-            if now < due:
-                if due - now > 0.002:
-                    time.sleep(due - now - 0.0015)
-                while time.perf_counter() < due:
-                    pass
-            self.late_ms.append(max(0.0, time.perf_counter() - due) * 1e3)
-            self._tick(traced)
-            self.latency_ms.append((time.perf_counter() - due) * 1e3)
-        return {"seconds": time.perf_counter() - start}
-
-    def window(self, seconds: float) -> dict:
-        """round(seconds * rate_hz) ticks on the camera clock."""
-        self.spans = Spans()
-        first = self.rows.n
-        out = self._run(int(round(seconds * self.rate)), False)
-        out.update(first_row=first, rows=self.rows.n - first,
-                   latency_ms=self.latency_ms, late_ms=self.late_ms)
-        return out
-
-    def traced_slice(self, ticks: int) -> tuple:
-        spans, self.spans = self.spans, Spans()
-        first = self.rows.n
-        with _annotate(True, SPAN_SLICE):
-            t0 = time.perf_counter_ns()
-            self._run(ticks, True)
-            t1 = time.perf_counter_ns()
-        self.spans.add(SPAN_SLICE, t0, t1)
-        sliced, self.spans = self.spans, spans
-        return first, self.rows.n - first, sliced
-
-    def close(self) -> None:
-        self.tracker = None
-
-
-MODES = {"video": VideoSession, "lockstep": LockstepSession}

@@ -8,9 +8,11 @@ of the checkout. Its parts are found by name:
 * ``configs/<config>.json``: the deployment (frame size, features, the
   KLT context);
 * ``traffic/<traffic>.json``: the traffic's parameters, read by the one
-  generator (``scene.py``) and the one loop (``drive.py``, by ``mode``);
-* ``limits/<workload>.json``: the limits of the numbers the correctness
-  check compares (``check.py``), with the readings they were set from;
+  generator (``scene.py``); its ``mode`` names the loop that drives the
+  program (``modes/<mode>.py``) and its ``check`` the comparison with the
+  plain reference (``checks/<check>.py``);
+* ``limits/<workload>.json``: the limits of the numbers the check
+  compares, with the readings they were set from;
 * ``metrics/<metric>.py``: one reader a metric; ``--trace 0`` prints the
   cell's ``end_to_end`` metrics, ``--trace 1`` its ``per_layer`` ones.
 
@@ -18,9 +20,9 @@ A run renders the cell's clips on the card from ``--seed``, sets the
 program up and warms it (``setup_s``), measures for ``--seconds``, and
 with ``--trace 1`` then runs a fixed slice of the same traffic under
 ``torch.profiler``. Once the window has closed and the memory peak is read,
-the plain reference (``reference/klt.py``) checks a sample of the
-answers. The run fails, and prints no result, without a CUDA card, or if
-JAX or the JAX package was loaded into the process.
+the check compares a sample of the answers with the plain reference. The
+run fails, and prints no result, without a CUDA card, or if JAX or the
+JAX package was loaded into the process.
 """
 
 from __future__ import annotations
@@ -85,12 +87,22 @@ def cell_metrics(bench: dict, name: str, trace: bool) -> list:
             if name in m.get("workloads", [name] if m["moves"] in own else [])]
 
 
-def reader(metric: str):
+def load(kind: str, name: str):
+    """The module ``<kind>/<name>.py`` of the benchmark (a mode, a check or
+    a metric's reader), found by name."""
     spec = importlib.util.spec_from_file_location(
-        f"bench_metric_{metric}", HERE / "metrics" / f"{metric}.py")
+        f"bench_{kind}_{name}", HERE / kind / f"{name}.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def verdict(numbers: dict, limits: dict) -> tuple:
+    """(correct, {name: {"value", "limit"}}): correct when every number
+    the cell's limits bound is within its limit."""
+    out = {name: {"value": numbers[name], "limit": limit}
+           for name, limit in limits.items()}
+    return all(v["value"] <= v["limit"] for v in out.values()), out
 
 
 def tracker_config(pft, config: dict):
@@ -111,50 +123,47 @@ class Context:
     def __init__(self, **kw):
         self.__dict__.update(kw)
 
-    def roofline(self, kernel: str, names) -> float | None:
-        """Percent of the least time (``counts``) the slice's frames need
-        in ``kernel`` over its kernels' device time in the trace."""
+    def roofline(self, names, count) -> float | None:
+        """Percent of the least time the slice's frames need in a kernel
+        over its kernels' (``names``) device time in the trace. ``count(klt,
+        h, w, prev_val, val)`` gives one frame's (bytes, operations) from
+        the configuration's ``klt`` and the slots' values before and after
+        the frame's step; the least time is ``counts.bound_s`` of each,
+        summed over the slice's frames and streams."""
+        import counts
         if self.trace is None:
             return None
         a, b = self.slice_us
         dev_s = sum(self.trace.kernel_us(n, a, b) for n in names) * 1e-6
         if dev_s <= 0.0:
             return None
-        return 100.0 * self.bounds[kernel] / dev_s
+        h, w = self.config["frame"]["height"], self.config["frame"]["width"]
+        first, n = self.slice_rows
+        least = 0.0
+        for r in range(first, first + n):
+            prev = self.rows.row(r - 1)[2]
+            cur = self.rows.row(r)[2]
+            for pv, cv in zip(prev.reshape(-1, prev.shape[-1]),
+                              cur.reshape(-1, cur.shape[-1])):
+                least += counts.bound_s(*count(self.config["klt"], h, w,
+                                               pv, cv))
+        return 100.0 * least / dev_s
 
 
-def slice_bounds(session, config: dict, first: int, n: int) -> dict:
-    """{kernel: least seconds} summed over the slice's frames and streams."""
-    import counts
-    h, w = config["frame"]["height"], config["frame"]["width"]
-    out: dict = {}
-    for r in range(first, first + n):
-        prev = session.rows.row(r - 1)[2]
-        cur = session.rows.row(r)[2]
-        for pv, cv in zip(prev.reshape(-1, prev.shape[-1]),
-                          cur.reshape(-1, cur.shape[-1])):
-            for k, (nb, ops) in counts.frame_counts(
-                    config["klt"], h, w, pv, cv).items():
-                out[k] = out.get(k, 0.0) + counts.bound_s(nb, ops)
-    return out
-
-
-def traced_slice(session, traffic: dict, on_card: bool):
-    """The traffic's fixed slice under torch.profiler; (first row, rows,
+def traced_slice(session, on_card: bool):
+    """The session's fixed slice under torch.profiler; (first row, rows,
     Trace). The Chrome trace goes to a temporary directory under TMPDIR,
     deleted once read."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     import devtrace
-    size = int(traffic["trace_periods" if traffic["mode"] == "video"
-                       else "trace_ticks"])
     tmp = tempfile.mkdtemp(prefix="bench_trace_")
     try:
         acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
                                          if on_card else [])
         with profile(activities=acts) as prof:
-            first, n, _ = session.traced_slice(size)
+            first, n, _ = session.traced_slice()
             if on_card:
                 torch.cuda.synchronize()
         path = os.path.join(tmp, "trace.json")
@@ -173,7 +182,6 @@ def run(parts: dict, seed: int, seconds: float, trace: bool, device,
     import numpy as np
     import torch
 
-    import check
     import devtrace
     import drive
     import pyfeaturetrack_tpu_torch as pft
@@ -190,8 +198,8 @@ def run(parts: dict, seed: int, seconds: float, trace: bool, device,
     streams = int(traffic.get("streams", 1))
     frames = scene.render_streams(seed, streams, traffic, h, w, device)
     render_s = time.perf_counter() - t_start
-    session = drive.MODES[traffic["mode"]](
-        pft, cfg, int(config["n_features"]), frames, traffic, device)
+    session = load("modes", traffic["mode"]).Session(
+        pft, cfg, config, frames, traffic, device)
     session.setup()
     if on_card:
         torch.cuda.synchronize()
@@ -202,13 +210,12 @@ def run(parts: dict, seed: int, seconds: float, trace: bool, device,
         torch.cuda.synchronize()
     spans = session.spans
     windows = [(window["first_row"], window["rows"])]
-    tr = slice_us = None
-    bounds: dict = {}
+    tr = slice_us = slice_rows = None
     if trace:
-        first, n, tr = traced_slice(session, traffic, on_card)
+        first, n, tr = traced_slice(session, on_card)
         windows.append((first, n))
+        slice_rows = (first, n)
         (slice_us,) = tr.named(drive.SPAN_SLICE)
-        bounds = slice_bounds(session, config, first, n)
     peak = torch.cuda.max_memory_allocated() if on_card else 0
     session.close()
     gc.collect()
@@ -216,18 +223,18 @@ def run(parts: dict, seed: int, seconds: float, trace: bool, device,
         torch.cuda.empty_cache()
 
     t_check = time.perf_counter()
-    numbers = check.check_session(session, config, traffic, seed, windows,
-                                  device)
+    numbers = load("checks", traffic["check"]).check(
+        session, config, traffic, seed, windows, device)
     check_s = time.perf_counter() - t_check
-    correct, checks = check.verdict(numbers, parts["limits"])
+    correct, checks = verdict(numbers, parts["limits"])
 
     ctx = Context(mode=traffic["mode"], cell=cell, config=config,
                   traffic=traffic, streams=streams, setup_s=setup_s,
                   window=window, spans=spans, trace=tr, slice_us=slice_us,
-                  bounds=bounds)
+                  slice_rows=slice_rows, rows=session.rows)
     metrics = {}
     for m in cell_metrics(parts["bench"], cell["name"], trace):
-        value = reader(m["name"])(ctx)
+        value = load("metrics", m["name"]).read(ctx)
         if value is not None:
             metrics[m["name"]] = {"value": float(value), "unit": m["unit"]}
     dev = {"platform": "gpu" if on_card else "cpu",
@@ -255,8 +262,8 @@ def run(parts: dict, seed: int, seconds: float, trace: bool, device,
         "setup": setup_s, "check": check_s,
         "feed_mean": spans.total_ns("feed") / max(spans.count("feed"), 1) * 1e-9,
         "drain_mean": spans.total_ns("drain") / max(spans.count("drain"), 1) * 1e-9}
-    result["checked"] = {k: numbers[k] for k in ("steps", "lanes",
-                                                 "tracked_lanes")}
+    result["checked"] = {k: v for k, v in numbers.items()
+                         if k not in checks}
     result["checks"] = checks
     return result
 

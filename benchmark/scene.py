@@ -4,20 +4,17 @@ The generator behind every traffic file. A clip is one camera panning over
 a smooth random texture (``smooth_texture``: white noise under a binomial
 filter, as the repository's chip smoke script makes it), rendered at
 sub-pixel offsets by bilinear sampling and stored as uint8 grey frames,
-the output of a decoder. Optionally blocks of fresh smoothed noise move
-over a share of each frame, the moving objects of street video: features
-on them fail the next frame and are refilled.
+the output of a decoder.
 
-The pan's path comes from the traffic alone, not the seed: its heading
-starts at ``heading_deg`` (spread evenly over the streams of a rig) and
-turns ``turns`` times over the clip with a slow wiggle, and its speed in
-px a frame swings ``speed_cycles`` times between the two ends of
+The pan's path is the same for every seed: its heading starts at
+``HEADING_DEG`` (spread evenly over the streams of a rig) and turns
+``TURNS`` times over the clip with a slow wiggle, and its speed in px a
+frame swings ``SPEED_CYCLES`` times between the two ends of the traffic's
 ``motion_px``. Features leave a frame at a rate set by the pan's
 direction, and each costs a refill, so a seeded heading would make the
-seed change the work; the seed draws the texture, and the occluders'
-starts, headings and order of speeds. Playback runs the clip forwards and
-backwards (``pingpong``), so the motion stays continuous however long a
-run is.
+seed change the work; the seed draws the texture alone. Playback runs the
+clip forwards and backwards (``pingpong``), so the motion stays continuous
+however long a run is.
 """
 
 from __future__ import annotations
@@ -28,10 +25,9 @@ import numpy as np
 import torch
 
 _BINOMIAL = (1.0, 4.0, 6.0, 4.0, 1.0)
-
-
-def _rng(seed: int, *key: int) -> np.random.Generator:
-    return np.random.default_rng(np.random.SeedSequence([int(seed), *key]))
+HEADING_DEG = 30.0
+TURNS = 0.25
+SPEED_CYCLES = 0.5
 
 
 def _torch_seed(seed: int, *key: int) -> int:
@@ -56,58 +52,28 @@ def smooth_texture(gen: torch.Generator, shape, device) -> torch.Tensor:
     return (tex - lo) / (hi - lo) * 255.0
 
 
-def pan_path(n: int, motion_px, turns: float, speed_cycles: float,
-             heading: float) -> np.ndarray:
+def pan_path(n: int, motion_px, heading: float) -> np.ndarray:
     """[n, 2] (x, y) camera offsets in px: frame i moves by a speed within
     ``motion_px`` along a heading that starts at ``heading`` (radians) and
-    turns ``turns`` times over the clip, with a slow wiggle."""
+    turns ``TURNS`` times over the clip, with a slow wiggle."""
     lo, hi = (float(v) for v in motion_px)
     t = np.arange(n, dtype=np.float64) / max(n, 1)
-    head = heading + 2.0 * math.pi * turns * t + 0.5 * np.sin(
+    head = heading + 2.0 * math.pi * TURNS * t + 0.5 * np.sin(
         2.0 * math.pi * 3.0 * t)
     speed = lo + (hi - lo) * 0.5 * (1.0 - np.cos(
-        2.0 * math.pi * speed_cycles * t))
+        2.0 * math.pi * SPEED_CYCLES * t))
     step = np.stack([speed * np.cos(head), speed * np.sin(head)], 1)
     step[0] = 0.0
     return np.cumsum(step, axis=0)
 
 
-def _occluders(rng, n, h, w, share, blocks, speed_px):
-    """Per frame and block the (row, col) of a side x side block; ``side``
-    makes the blocks cover ``share`` of the frame. The frame is cut into a
-    grid of one cell a block, and each block bounces inside its own cell,
-    so blocks never overlap and cover the same area in every frame of
-    every seed; the speeds are spread evenly over ``speed_px`` and the
-    seed draws only each block's speed, heading and start."""
-    rows = max(1, int(round(math.sqrt(blocks * h / w))))
-    cols = -(-blocks // rows)
-    ch, cw = h // rows, w // cols
-    side = max(1, int(round(math.sqrt(share * h * w / blocks))))
-    side = min(side, ch, cw)
-    span = np.array([ch - side, cw - side], dtype=np.float64)
-    start = rng.uniform(0.0, 1.0, (blocks, 2)) * span
-    ang = rng.uniform(0.0, 2.0 * math.pi, blocks)
-    spd = rng.permutation(np.linspace(*speed_px, blocks))
-    vel = np.stack([spd * np.sin(ang), spd * np.cos(ang)], 1)
-    pos = start[None] + np.arange(n)[:, None, None] * vel[None]
-    period = 2.0 * np.maximum(span, 1.0)
-    pos = np.mod(pos, period)
-    pos = np.where(pos > span, period - pos, pos)
-    cell = np.array([[(j // cols) * ch, (j % cols) * cw]
-                     for j in range(blocks)])
-    return side, np.floor(pos).astype(np.int64) + cell[None]
-
-
 def render_clip(seed: int, stream: int, n: int, h: int, w: int, traffic,
                 device, streams: int = 1) -> torch.Tensor:
     """uint8 [n, h, w] frames of stream ``stream`` of ``streams`` on
-    ``device``. The streams' headings are spread evenly around the
-    traffic's ``heading_deg``."""
-    rng = _rng(seed, stream)
-    heading = math.radians(float(traffic.get("heading_deg", 0.0))
-                           + 360.0 * stream / streams)
-    path = pan_path(n, traffic["motion_px"], traffic.get("turns", 1.0),
-                    traffic.get("speed_cycles", 2.0), heading)
+    ``device``. The streams' headings are spread evenly around
+    ``HEADING_DEG``."""
+    heading = math.radians(HEADING_DEG + 360.0 * stream / streams)
+    path = pan_path(n, traffic["motion_px"], heading)
     path -= path.min(axis=0)
     th = int(math.ceil(path[:, 1].max())) + h + 2
     tw = int(math.ceil(path[:, 0].max())) + w + 2
@@ -115,11 +81,6 @@ def render_clip(seed: int, stream: int, n: int, h: int, w: int, traffic,
     gen.manual_seed(_torch_seed(seed, stream, 1))
     tex = smooth_texture(gen, (th, tw), device)
     out = torch.empty((n, h, w), dtype=torch.uint8, device=device)
-    share = float(traffic.get("occluded_share", 0.0))
-    if share > 0.0:
-        blocks = int(traffic.get("occluder_blocks", 6))
-        side, pos = _occluders(rng, n, h, w, share, blocks,
-                               traffic.get("occluder_speed_px", (2.0, 8.0)))
     for i in range(n):
         x, y = path[i]
         ix, iy = int(x), int(y)
@@ -127,11 +88,6 @@ def render_clip(seed: int, stream: int, n: int, h: int, w: int, traffic,
         win = tex[iy:iy + h + 1, ix:ix + w + 1]
         frame = ((1 - fx) * (1 - fy) * win[:h, :w] + fx * (1 - fy) * win[:h, 1:]
                  + (1 - fx) * fy * win[1:, :w] + fx * fy * win[1:, 1:])
-        if share > 0.0:
-            noise = smooth_texture(gen, (blocks, side, side), device)
-            for b in range(blocks):
-                r, c = pos[i, b]
-                frame[r:r + side, c:c + side] = noise[b]
         out[i] = frame.floor().clamp_(0.0, 255.0).to(torch.uint8)
     return out
 

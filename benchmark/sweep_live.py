@@ -2,13 +2,15 @@
 traffic at several stream counts B, one window each, in one process.
 
     python3 benchmark/sweep_live.py --workload vga1000_live30hz \
-        --streams 24,32,40,48 --seed 5 --seconds 8
+        --streams 26,28,30,32,34,36 --seed <n> --seconds 20
 
 For each B it prints the p95 and p50 latency, the mean latency of the
 window's first and last thirds (a backlog that grows shows as a last
 third above the first) and how late the generator ran. The port sustains
-B when p95 stays under one tick (1000 / rate_hz ms); the cell takes four
-fifths of the largest such B. The benchmark's own runs never run this.
+B when p95 stays under one tick (1000 / rate_hz ms); the knee is the
+largest B sustained on every seed swept (two or more). The knee moves
+with the machine's host, so the cell takes about four fifths of the
+lowest knee found. The benchmark's own runs never run this.
 """
 
 from __future__ import annotations
@@ -31,7 +33,6 @@ def main(argv=None) -> int:
     ap.add_argument("--seconds", type=float, default=8.0)
     args = ap.parse_args(argv)
     run._paths()
-    import drive
     import pyfeaturetrack_tpu_torch as pft
     import scene
     base = run.load_cell(args.workload)
@@ -41,9 +42,9 @@ def main(argv=None) -> int:
         traffic["streams"] = b
         h, w = config["frame"]["height"], config["frame"]["width"]
         frames = scene.render_streams(args.seed, b, traffic, h, w, "cuda")
-        session = drive.LockstepSession(
-            pft, run.tracker_config(pft, config), int(config["n_features"]),
-            frames, traffic, "cuda")
+        session = run.load("modes", traffic["mode"]).Session(
+            pft, run.tracker_config(pft, config), config, frames, traffic,
+            "cuda")
         session.setup()
         win = session.window(args.seconds)
         lat = np.asarray(win["latency_ms"])

@@ -19,13 +19,13 @@ for p in (str(BENCH), str(ROOT)):
 
 def tiny_parts(cell: str, **traffic) -> dict:
     """The parts of ``cell`` with the frame cut to 96x128, 40 features, a
-    short clip and few checked steps."""
+    short clip."""
     import run
     parts = copy.deepcopy(run.load_cell(cell))
     parts["config"]["frame"] = {"height": 96, "width": 128, "dtype": "uint8"}
     parts["config"]["n_features"] = 40
     tr = parts["traffic"]
-    tr.update(clip_frames=8, check_steps=4, check_start_streams=1)
+    tr["clip_frames"] = 8
     if tr["mode"] == "video":
         tr.update(drain_every=16, trace_periods=1)
     else:

@@ -4,7 +4,8 @@ verdict against limits."""
 import numpy as np
 import pytest
 
-import check
+import run
+from checks import klt_steps
 
 
 def row(x, y, v):
@@ -26,33 +27,33 @@ REF = row([10, 20.5, -1, 40, -1], [11, 21.25, -1, 41, -1], [0, 0, -4, 77, -1])
     (row([10, 20.5, 40, -1, -1], [11, 21.25, 41, -1, -1], [0, 0, 5, -1, -1]), 1),
 ])
 def test_compare_rows(got, bad):
-    c = check.compare_rows(REF, got)
+    c = klt_steps.compare_rows(REF, got)
     assert c["lanes"] == 5 and c["bad"] == bad
 
 
 def test_gaps_of_lanes_both_tracked():
     got = row([10.003, 20.5, -1, 40, -1], [11.004, 21.25, -1, 41, -1],
               [0, -3, -4, 1, -1])
-    assert check.compare_rows(REF, got)["gaps"] == pytest.approx([0.005])
+    assert klt_steps.compare_rows(REF, got)["gaps"] == pytest.approx([0.005])
 
 
 def test_picks_compare_as_sets():
     ref = row([5, 6, 7, -1], [1, 2, 3, -1], [9, 8, 7, -1])
-    assert check.compare_picks(ref, row([7, 5, 6, -1], [3, 1, 2, -1],
+    assert klt_steps.compare_picks(ref, row([7, 5, 6, -1], [3, 1, 2, -1],
                                         [7, 9, 8, -1])) == 0
-    assert check.compare_picks(ref, row([7, 5, 9, -1], [3, 1, 2, -1],
+    assert klt_steps.compare_picks(ref, row([7, 5, 9, -1], [3, 1, 2, -1],
                                         [7, 9, 8, -1])) == 1
-    assert check.compare_picks(ref, row([7, 5, 6, 9], [3, 1, 2, 9],
+    assert klt_steps.compare_picks(ref, row([7, 5, 6, 9], [3, 1, 2, 9],
                                         [7, 9, 8, 1])) == 1
 
 
 def test_verdict():
     limits = {"start_mismatch": 0.05, "step_mismatch": 0.005,
               "gap_p99_px": 0.001}
-    ok, out = check.verdict({"start_mismatch": 0.05, "step_mismatch": 0.0,
-                             "gap_p99_px": 1e-4}, limits)
-    assert ok and list(out) == list(check.NUMBERS)
+    ok, out = run.verdict({"start_mismatch": 0.05, "step_mismatch": 0.0,
+                           "gap_p99_px": 1e-4}, limits)
+    assert ok and list(out) == list(limits)
     assert out["gap_p99_px"] == {"value": 1e-4, "limit": 0.001}
-    ok, _ = check.verdict({"start_mismatch": 0.0, "step_mismatch": 0.006,
+    ok, _ = run.verdict({"start_mismatch": 0.0, "step_mismatch": 0.006,
                            "gap_p99_px": 1e-4}, limits)
     assert not ok

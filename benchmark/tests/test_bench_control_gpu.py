@@ -5,7 +5,6 @@ a card: python -m pytest benchmark/tests -m gpu"""
 
 import pytest
 
-import check
 import control
 import run
 from conftest import bench_json
@@ -19,5 +18,5 @@ def test_control_fails_sound_passes(card, cell):
     limits = parts["limits"]
     for lane, want in (("bfloat16", False), ("float32", True)):
         got = control.readings(parts, 2 ** 31 + 101, 1.0, lane)
-        correct, _ = check.verdict(got, limits)
+        correct, _ = run.verdict(got, limits)
         assert correct is want, (lane, got)

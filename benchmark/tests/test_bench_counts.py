@@ -80,8 +80,9 @@ def test_bound_takes_the_larger():
 
 
 def test_counts_import_nothing_of_the_program():
-    code = ("import sys; sys.path.insert(0, %r); import counts, check, "
-            "devtrace; from reference import klt; print(sorted(m for m in "
+    code = ("import sys; sys.path.insert(0, %r); import counts, devtrace; "
+            "from checks import klt_steps; from reference import klt; "
+            "print(sorted(m for m in "
             "sys.modules if m.split('.')[0].startswith('pyfeaturetrack')))"
             % str(BENCH))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -53,10 +53,15 @@ def half_left_out(real):
     return chain if real is serving.chain_lanes else step
 
 
+@pytest.mark.parametrize("replace_lost", [True, False])
 @pytest.mark.parametrize("cell", CELLS)
-def test_sound_run_is_correct(cell):
-    res = run.run(tiny_parts(cell), SEED, 0.3, False, "cpu",
-                  time.perf_counter())
+def test_sound_run_is_correct(cell, replace_lost):
+    """The configuration's ``replace_lost`` reaches both the program and
+    the reference: were it to reach one side alone, the refills would
+    differ."""
+    parts = tiny_parts(cell)
+    parts["config"]["replace_lost"] = replace_lost
+    res = run.run(parts, SEED, 0.3, False, "cpu", time.perf_counter())
     assert res["correct"] is True, res["checks"]
 
 

@@ -59,7 +59,11 @@ def test_benchmark_json_shape():
 def test_every_part_found_by_name(cell):
     parts = run.load_cell(cell)
     b = parts["bench"]
-    assert parts["traffic"]["mode"] in ("video", "lockstep")
+    tr = parts["traffic"]
+    assert (BENCH / "modes" / f"{tr['mode']}.py").is_file()
+    assert (BENCH / "checks" / f"{tr['check']}.py").is_file()
+    assert set(parts["limits"]) <= set(run.load("checks", tr["check"])
+                                       .NUMBERS)
     for trace in (False, True):
         got = run.cell_metrics(b, cell, trace)
         assert got, (cell, trace)
