@@ -1,0 +1,13 @@
+"""Median over every tick of the window of the milliseconds from the
+tick's due time on the camera clock to the return of the host pull (the
+drain) of its positions; every frame of a tick waits for the tick. The
+window runs untraced before the traced slice, so a traced run reads it."""
+
+import numpy as np
+
+
+def read(ctx):
+    lat = ctx.window.get("latency_ms")
+    if not lat:
+        return None
+    return float(np.percentile(np.asarray(lat, np.float64), 50))

@@ -93,7 +93,8 @@ def check_result(res: dict, trace: bool):
 
 @pytest.mark.parametrize("cell,trace", [("vga1000_video_chain8", False),
                                         ("vga1000_video_chain8", True),
-                                        ("vga1000_live30hz", False)])
+                                        ("vga1000_live30hz", False),
+                                        ("vga1000_live30hz", True)])
 def test_result_line_schema(cell, trace):
     res = run.run(tiny_parts(cell), 2 ** 31 + 11, 0.3, trace, "cpu",
                   time.perf_counter())
@@ -101,6 +102,10 @@ def test_result_line_schema(cell, trace):
     assert res["correct"] is True
     names = {m["name"] for m in run.cell_metrics(bench_json(), cell, trace)}
     assert set(res["metrics"]) <= names
+    if cell == "vga1000_live30hz":
+        want = ({"serving.frame_latency_p50_ms", "serving.frame_latency_p95_ms"}
+                if trace else {"live_frames_per_s"})
+        assert want <= set(res["metrics"])
     json.loads(json.dumps(res))
 
 
