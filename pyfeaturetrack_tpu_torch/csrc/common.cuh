@@ -38,6 +38,22 @@ static inline void pft_allow_smem(K kernel, size_t bytes) {
                              (int)bytes);
 }
 
+// Device counters (utils/profiling.DEVICE_COUNTERS): one int64 buffer per
+// device, [PFT_N_COUNTERS][PFT_COUNTER_SLOTS]; the host sums each row's
+// slots. A kernel spreads its adds over the slots (a warp adds to the slot of
+// its index), so no one address takes a launch's every atomic. A null buffer
+// counts nothing; the counts never feed back into a result.
+#define PFT_COUNTER_SLOTS 64
+enum PftCounter { PFT_K2_GN_STEPS, PFT_K2_LANE_LEVELS, PFT_K4_ACCEPTS, PFT_K4_RESCANS,
+                  PFT_N_COUNTERS };
+
+static __device__ __forceinline__ void pft_count(unsigned long long* c, PftCounter k,
+                                                 int slot, unsigned long long n)
+{
+    if (c != nullptr && n != 0ull)
+        atomicAdd(c + k * PFT_COUNTER_SLOTS + (slot & (PFT_COUNTER_SLOTS - 1)), n);
+}
+
 __host__ __device__ static inline int pft_ceil_div(int a, int b)
 {
     return (a + b - 1) / b;

@@ -45,7 +45,9 @@
 // inside the box. Three block barriers per acceptance. Acceptances collect
 // in shared memory, 256 at a time. After the chain the CTA writes the r-th
 // acceptance into the r-th free slot (x, y, val, filled), as fill_slots
-// does, and -1, -1, KLT_NOT_FOUND into free slots left empty.
+// does, and -1, -1, KLT_NOT_FOUND into free slots left empty. On a refill,
+// thread 0 then adds the chain's acceptances and its segment rescans to the
+// device counters (common.cuh): two atomics a launch.
 //
 // What bounds it on this card: the chain is serial (each acceptance
 // depends on the previous box), so the latency of one acceptance: the
@@ -220,7 +222,8 @@ chain_kernel(const int* __restrict__ lat, Lattice G, const int* __restrict__ seg
              const float* __restrict__ y, const int* __restrict__ val, int n,
              int replacing, int borderx, int bordery, int step,
              float* __restrict__ x_out, float* __restrict__ y_out,
-             int* __restrict__ val_out, bool* __restrict__ filled)
+             int* __restrict__ val_out, bool* __restrict__ filled,
+             unsigned long long* __restrict__ counters)
 {
     extern __shared__ int smem[];
     const int seg = SEG > 0 ? SEG : G.seg;
@@ -236,12 +239,15 @@ chain_kernel(const int* __restrict__ lat, Lattice G, const int* __restrict__ seg
     int* sc = split ? sv + nsegs : rc;
     unsigned* bits = BSMEM ? reinterpret_cast<unsigned*>(acc + 3 * ACC_CHUNK + 2 * nsegs)
                            : gbits;
-    __shared__ int s_budget, s_r, s_c, s_v, s_wcount[32], s_wpre[32], s_total;
+    __shared__ int s_budget, s_r, s_c, s_v, s_wcount[32], s_wpre[32], s_total, s_rescans;
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     const bool fill = x != nullptr;
 
     // the budget: given (the chain alone), else the free slots of val
-    if (tid == 0) s_budget = budget_ptr != nullptr ? *budget_ptr : (replacing ? 0 : n);
+    if (tid == 0) {
+        s_budget = budget_ptr != nullptr ? *budget_ptr : (replacing ? 0 : n);
+        s_rescans = 0;
+    }
     __syncthreads();
     if (budget_ptr == nullptr && replacing) {
         int cnt = 0;
@@ -290,7 +296,7 @@ chain_kernel(const int* __restrict__ lat, Lattice G, const int* __restrict__ seg
     // recomputes it from the segment maxima (B2); one warp per touched
     // group of 32 rows recomputes the group's maximum if it lay in the box
     // (B3).
-    int nacc = 0;
+    int nacc = 0, rescans = 0;        // rescans: this warp's
     while (nacc < budget) {
         if (warp == 0) {
             int v = INT_MIN, idx = INT_MAX;
@@ -333,6 +339,7 @@ chain_kernel(const int* __restrict__ lat, Lattice G, const int* __restrict__ seg
             for (int s = ca / seg; s <= cb / seg; ++s) {
                 const int e = rr * G.nseg + s;
                 if (sv[e] > 0 && sc[e] >= ca && sc[e] <= cb) {
+                    ++rescans;
                     int bv = INT_MIN, bc = INT_MAX;
                     // 32 columns a step, lane = column % 32. The segment's
                     // bitmap words, up to 32 a round, come one per lane and
@@ -419,6 +426,8 @@ chain_kernel(const int* __restrict__ lat, Lattice G, const int* __restrict__ seg
             out_v[base + j] = acc[2 * ACC_CHUNK + j];
         }
     }
+    if (counters != nullptr && replacing && lane == 0 && rescans > 0)
+        atomicAdd(&s_rescans, rescans);
     __syncthreads();
 
     for (int i = nacc + tid; i < max_out; i += B_NT) {
@@ -426,7 +435,13 @@ chain_kernel(const int* __restrict__ lat, Lattice G, const int* __restrict__ seg
         out_c[i] = 0;
         out_v[i] = 0;
     }
-    if (tid == 0) *n_acc_out = nacc;
+    if (tid == 0) {
+        *n_acc_out = nacc;
+        if (replacing) {
+            pft_count(counters, PFT_K4_ACCEPTS, 0, (unsigned long long)nacc);
+            pft_count(counters, PFT_K4_RESCANS, 0, (unsigned long long)s_rescans);
+        }
+    }
     if (!fill) return;
 
     // slot fill: block-wide exclusive scan of the free mask, chunk by chunk
@@ -529,7 +544,7 @@ static long long bitmap_bytes(int ny, int stride) { return 4LL * ny * (stride / 
 // memory, or null to count the free slots of val. out_r, out_c, out_v:
 // [max_out] acceptances in order (lanes >= n_acc zero), n_acc: one int32.
 // x, y, val [n]: the slots to fill (null: the chain alone), x_out, y_out,
-// val_out, filled [n].
+// val_out, filled [n]. counters: the device counters (common.cuh), or null.
 extern "C" int pft_greedy_chain(const int* lat, int ny, int nx, int seg, int stride,
                                 const int* seg_v, const int* seg_c, const int* row_v,
                                 const int* row_c, unsigned* bits, const int* budget,
@@ -537,7 +552,8 @@ extern "C" int pft_greedy_chain(const int* lat, int ny, int nx, int seg, int str
                                 int* out_v, int* n_acc, const float* x, const float* y,
                                 const int* val, int n, int replacing, int borderx,
                                 int bordery, int step, float* x_out, float* y_out,
-                                int* val_out, bool* filled, void* stream)
+                                int* val_out, bool* filled, unsigned long long* counters,
+                                void* stream)
 {
     if (ny <= 0 || nx <= 0 || dg < 0 || max_out < 0 || n < 0 || seg < 32 ||
         (seg & (seg - 1)) != 0 || stride % seg != 0 || stride < nx || bits == nullptr ||
@@ -557,7 +573,7 @@ extern "C" int pft_greedy_chain(const int* lat, int ny, int nx, int seg, int str
         chain_kernel<0, false, false><<<1, B_NT, (size_t)smem, s>>>(
             lat, G, seg_v, seg_c, row_v, row_c, bits, budget, min_eig, dg, max_out, out_r,
             out_c, out_v, n_acc, x, y, val, n, replacing, borderx, bordery, step, x_out,
-            y_out, val_out, filled);
+            y_out, val_out, filled, counters);
         return (int)cudaGetLastError();
     }
     const bool bsmem = smem + bitmap_bytes(ny, stride) <= limit;
@@ -567,7 +583,7 @@ extern "C" int pft_greedy_chain(const int* lat, int ny, int nx, int seg, int str
     chain_kernel<SEG, BS><<<1, B_NT, (size_t)smem, s>>>(                                 \
         lat, G, seg_v, seg_c, row_v, row_c, bits, budget, min_eig, dg, max_out, out_r,   \
         out_c, out_v, n_acc, x, y, val, n, replacing, borderx, bordery, step, x_out,     \
-        y_out, val_out, filled);                                                         \
+        y_out, val_out, filled, counters);                                               \
     return (int)cudaGetLastError();
 #define PFT_CHAIN(SEG)                                                                   \
     case SEG:                                                                            \

@@ -47,7 +47,9 @@
 // iteration loop, and the level walk, on its own. The window sums are warp
 // reductions in one fixed order (per-lane ascending k, then an xor
 // butterfly 16, 8, 4, 2, 1), which the plain version reproduces, so both
-// give the same bits. Lane 0 writes the feature's result.
+// give the same bits. Lane 0 writes the feature's result and, into the
+// device counters (common.cuh), the Gauss-Newton steps its levels ran and
+// the levels it entered: two atomics a warp, on the slot of its feature.
 
 #include "lk_common.cuh"
 
@@ -101,7 +103,7 @@ lk_pyramid_kernel(const float* __restrict__ x_in, const float* __restrict__ y_in
                   int n_levels, LKParams P, float scale, float s, int borderx, int bordery,
                   const float* __restrict__ x_init, const float* __restrict__ y_init,
                   float* __restrict__ x_out, float* __restrict__ y_out,
-                  int* __restrict__ val_out)
+                  int* __restrict__ val_out, unsigned long long* __restrict__ counters)
 {
     const int f = (blockIdx.x * NT + threadIdx.x) >> 5;
     const int lane = threadIdx.x & 31;
@@ -123,6 +125,7 @@ lk_pyramid_kernel(const float* __restrict__ x_in, const float* __restrict__ y_in
         yout = y_init[f] / scale;
     }
     int status = KLT_TRACKED;
+    int steps = 0, levels = 0;
     for (int r = n_levels - 1; r >= 0; --r) {
         xloc = xloc * s;
         yloc = yloc * s;
@@ -143,6 +146,8 @@ lk_pyramid_kernel(const float* __restrict__ x_in, const float* __restrict__ y_in
         const TS* const f2[3] = {im[3], im[4], im[5]};
         int it;
         status = lk_level_body<NPL, LIGHTING, TS>(f1, f2, xloc, yloc, xout, yout, it, lane, Q);
+        steps += it;
+        ++levels;
         // broken: the reference leaves its level loop on these two codes
         if (status == KLT_SMALL_DET || status == KLT_OOB) break;
     }
@@ -156,6 +161,8 @@ lk_pyramid_kernel(const float* __restrict__ x_in, const float* __restrict__ y_in
         x_out[f] = lost ? -1.0f : xout;
         y_out[f] = lost ? -1.0f : yout;
         val_out[f] = (status == KLT_OOB || out_of_view) ? KLT_OOB : status;
+        pft_count(counters, PFT_K2_GN_STEPS, f, (unsigned long long)steps);
+        pft_count(counters, PFT_K2_LANE_LEVELS, f, (unsigned long long)levels);
     }
 }
 
@@ -224,6 +231,7 @@ extern "C" int pft_lk_level(const float* x1, const float* y1, const float* x2,
 // dev_shapes), which the kernel reads instead.
 // scale: float32 subsampling^n_levels; x, y, val in, x, y, val out [n];
 // x_init, y_init: the guided frame-2 starts [n], both or neither (nullptr).
+// counters: the device counters (common.cuh), or nullptr.
 extern "C" int pft_lk_pyramid(const float* x, const float* y, const int* val, int n,
                               const void* const* levels, const int* shapes,
                               int n_levels, int bf16, int window_width, int window_height,
@@ -233,7 +241,8 @@ extern "C" int pft_lk_pyramid(const float* x, const float* y, const int* val, in
                               float scale, float subsampling, int borderx, int bordery,
                               const void* const* dev_levels, const int* dev_shapes,
                               const float* x_init, const float* y_init,
-                              float* x_out, float* y_out, int* val_out, void* stream)
+                              float* x_out, float* y_out, int* val_out,
+                              unsigned long long* counters, void* stream)
 {
     if (n <= 0) return 0;
     const bool by_value = n_levels <= PFT_LK_MAX_LEVELS;
@@ -262,7 +271,7 @@ extern "C" int pft_lk_pyramid(const float* x, const float* y, const int* val, in
 #define PFT_LK_PYRAMID_TS(K, LI, TS)                                                     \
     lk_pyramid_kernel<K, LI, TS><<<blocks, NT, 0, s>>>(                                  \
         x, y, val, L, dev_levels, dev_shapes, n_levels, P, scale, subsampling, borderx,  \
-        bordery, x_init, y_init, x_out, y_out, val_out)
+        bordery, x_init, y_init, x_out, y_out, val_out, counters)
 #define PFT_LK_PYRAMID(K)                                                                \
     case K:                                                                              \
         if (lighting_insensitive) {                                                      \

@@ -48,6 +48,13 @@ the card are copied into the graph's frame buffer before the replay.
 ``chain_lanes`` runs B independent lanes (streams, chunks) in one graph,
 their steps in lane order within each frame.
 
+Tracing (``utils/profiling``): the eager step's phases run in ``step.*``
+spans, the chain's staging, replay and capture in ``chain.*`` spans; the
+chain counts its captures, replays, state loads and evictions, and every
+wait of the host on the card counts under ``host_syncs``. A replay adds
+what its capture recorded to the kernel modules' launch counters, and its
+K2 and K4 launches add to the device counters as eager ones do.
+
 The pyramids are stored in ``cfg.image_dtype`` (float32 or bfloat16), the
 captured chain's two pyramid buffers too; with bfloat16 storage the refill
 map is K3's map of the stored level-0 gradients, upcast.
@@ -65,9 +72,6 @@ import torch
 from ..config import TrackerConfig, create_config
 from ..errors import KLTWarning
 from ..features import KLT_NOT_FOUND, AffineState, FeatureState, reset_affine
-from ..ops import (cuda_affine, cuda_eig, cuda_lk, cuda_lk_dense,
-                   cuda_pyramid, cuda_select, cuda_suppress,
-                   cuda_window_terms)
 from ..ops.affine import affine_consistency_check, make_affine_state
 from ..ops.cuda_lk import TrackCarry
 from ..ops.cuda_pyramid import (level_shapes, pyramid_numel, pyramid_views,
@@ -78,6 +82,8 @@ from ..ops.select_device import (DEFAULT_TOP_K,
 from ..ops.track import (TrackPyramids, as_frame, build_track_pyramids,
                          track_features_pyramids_carry)
 from ..utils import cuda
+from ..utils.profiling import (count, device_counters, host_sync,
+                               launch_counters, named_scope)
 from ..utils.staging import host_frame, stage_raw
 
 
@@ -121,23 +127,29 @@ def _step(pyr_prev, img_new, x, y, val, cfg, replace_lost, aff, carry,
           pyr_out=None):
     """One frame step on a float32 frame on the features' device (the body
     shared by ``sequence_step_device`` and the captured chain)."""
-    pyr_new, eig = _build_with_map(img_new, cfg, replace_lost, out=pyr_out)
-    nx, ny, nval, carry = track_features_pyramids_carry(
-        pyr_prev, pyr_new, x, y, val, cfg, carry=carry)
+    with named_scope("step.pyramid"):
+        pyr_new, eig = _build_with_map(img_new, cfg, replace_lost,
+                                       out=pyr_out)
+    with named_scope("step.track"):
+        nx, ny, nval, carry = track_features_pyramids_carry(
+            pyr_prev, pyr_new, x, y, val, cfg, carry=carry)
     if cfg.affineConsistencyCheck >= 0:
-        after = affine_consistency_check(
-            pyr_prev, pyr_new, FeatureState(x, y, val, aff),
-            FeatureState(nx, ny, nval, aff), cfg)
+        with named_scope("step.affine"):
+            after = affine_consistency_check(
+                pyr_prev, pyr_new, FeatureState(x, y, val, aff),
+                FeatureState(nx, ny, nval, aff), cfg)
         nx, ny, nval, aff = after.x, after.y, after.val, after.aff
-    exhausted = torch.zeros((), dtype=torch.bool, device=x.device)
-    if replace_lost:
-        # always launched; budget 0 (nothing lost) leaves every slot as is
-        lost = nval < 0
-        nx, ny, nval, _, exhausted = select_features_from_eig_device(
-            eig, nx, ny, nval, cfg, replacing=True)
-        if aff is not None:
-            # refilled slots are fresh features: their templates recapture
-            aff = reset_affine(aff, lost)
+    with named_scope("step.refill"):
+        exhausted = torch.zeros((), dtype=torch.bool, device=x.device)
+        if replace_lost:
+            # always launched; budget 0 (nothing lost) leaves every slot as is
+            lost = nval < 0
+            nx, ny, nval, _, exhausted = select_features_from_eig_device(
+                eig, nx, ny, nval, cfg, replacing=True)
+            if aff is not None:
+                # refilled slots are fresh features: their templates
+                # recapture
+                aff = reset_affine(aff, lost)
     return pyr_new, nx, ny, nval, aff, exhausted, carry
 
 
@@ -181,19 +193,6 @@ def _chain_plain(lanes, frames, cfg, replace_lost):
     hist = tuple(torch.stack([torch.stack([r[j] for r in lane_rows])
                               for lane_rows in rows]) for j in range(3))
     return lanes, hist, torch.stack(ex)
-
-
-# Every kernel module's launch counters: a replay adds what its capture
-# recorded (the capture itself launches nothing).
-_COUNTERS = ((cuda_pyramid, "launches"), (cuda_pyramid, "eig_launches"),
-             (cuda_lk, "launches"), (cuda_eig, "launches"),
-             (cuda_select, "launches"), (cuda_suppress, "launches"),
-             (cuda_affine, "launches"), (cuda_lk_dense, "launches"),
-             (cuda_window_terms, "launches"))
-
-
-def _counts() -> list:
-    return [getattr(m, a) for m, a in _COUNTERS]
 
 
 def _flat(lanes) -> list:
@@ -256,6 +255,8 @@ class _ChainGraph:
                      torch.zeros((b, k, n), dtype=torch.int32, **on))
         self.exhausted = torch.zeros((b,), dtype=torch.bool, **on)
         self._held = None
+        # the replays add into the device counters the capture saw
+        device_counters(dev)
         self._capture(dev)
 
     def _lane(self, b: int, buf: int = 0):
@@ -312,15 +313,18 @@ class _ChainGraph:
             _step(pyr, self.frames[0, 0].to(torch.float32), x, y, val,
                   self.cfg, self.replace_lost, aff, carry)
         torch.cuda.current_stream(dev).wait_stream(stream)
-        before = _counts()
+        # the kernel modules' launch counters: a replay adds what its capture
+        # recorded (the capture itself launches nothing)
+        self.counters = launch_counters()
+        before = [getattr(m, a) for m, a in self.counters]
         self.graph = torch.cuda.CUDAGraph()
         # thread_local: a prefetch thread may stage frames meanwhile
         with torch.cuda.graph(self.graph, stream=stream,
                               capture_error_mode="thread_local"):
             self._body()
-        after = _counts()
-        self.deltas = [a - c for a, c in zip(after, before)]
-        for (mod, attr), v in zip(_COUNTERS, before):
+        self.deltas = [getattr(m, a) - c
+                       for (m, a), c in zip(self.counters, before)]
+        for (mod, attr), v in zip(self.counters, before):
             setattr(mod, attr, v)
 
     def _holds(self, lanes) -> bool:
@@ -353,7 +357,9 @@ class _ChainGraph:
     def _stage(self, frames) -> None:
         if self.pinned is not None:
             # the last replay has copied its frames out of the pinned buffer
-            self.staged.synchronize()
+            with named_scope("chain.stage_wait"):
+                host_sync("sync.chain_stage_wait")
+                self.staged.synchronize()
             for j, tick in enumerate(frames):
                 for b, f in enumerate(tick):
                     self.pinned_np[j, b] = f
@@ -365,25 +371,31 @@ class _ChainGraph:
     def run(self, lanes, frames):
         """Replay on the current stream: (lanes, hist, exhausted), every
         tensor a copy of the graph's buffers."""
-        self._stage(frames)
-        if not self._holds(lanes):
-            self._load(lanes)
-        self.graph.replay()
-        for (mod, attr), d in zip(_COUNTERS, self.deltas):
-            setattr(mod, attr, getattr(mod, attr) + d)
-        pyr_all = self.pyr_buf[0].clone()
-        x, y, val = self.x.clone(), self.y.clone(), self.val.clone()
-        aff = None if self.aff is None else [t.clone() for t in self.aff]
-        carry = (None if self.carry is None
-                 else [t.clone() for t in self.carry])
-        out = [(TrackPyramids(*pyramid_views(pyr_all[b], self.shapes)),
-                x[b], y[b], val[b],
-                None if aff is None else AffineState(*(t[b] for t in aff)),
-                None if carry is None else TrackCarry(*(t[b] for t in carry)))
-               for b in range(self.b)]
-        self._held = [(t, t._version) for t in _flat(out)]
-        return (out, tuple(h.clone() for h in self.hist),
-                self.exhausted.clone())
+        with named_scope("chain.stage"):
+            self._stage(frames)
+        with named_scope("chain.replay"):
+            count("chain.replays")
+            if not self._holds(lanes):
+                count("chain.state_loads")
+                self._load(lanes)
+            self.graph.replay()
+            for (mod, attr), d in zip(self.counters, self.deltas):
+                setattr(mod, attr, getattr(mod, attr) + d)
+            pyr_all = self.pyr_buf[0].clone()
+            x, y, val = self.x.clone(), self.y.clone(), self.val.clone()
+            aff = None if self.aff is None else [t.clone() for t in self.aff]
+            carry = (None if self.carry is None
+                     else [t.clone() for t in self.carry])
+            out = [(TrackPyramids(*pyramid_views(pyr_all[b], self.shapes)),
+                    x[b], y[b], val[b],
+                    None if aff is None else
+                    AffineState(*(t[b] for t in aff)),
+                    None if carry is None else
+                    TrackCarry(*(t[b] for t in carry)))
+                   for b in range(self.b)]
+            self._held = [(t, t._version) for t in _flat(out)]
+            return (out, tuple(h.clone() for h in self.hist),
+                    self.exhausted.clone())
 
 
 # Captured chains by (cfg, lanes, H, W, N, k, replace_lost, affine state,
@@ -462,10 +474,13 @@ def chain_lanes(lanes, frames, cfg, replace_lost: bool = True):
     with _graph_lock:
         graph = _GRAPHS.get(key)
         if graph is None:
-            graph = _ChainGraph(cfg, lanes, len(frames), dtype, host,
-                                replace_lost)
+            count("chain.captures")
+            with named_scope("chain.capture"):
+                graph = _ChainGraph(cfg, lanes, len(frames), dtype, host,
+                                    replace_lost)
             _GRAPHS[key] = graph
             while len(_GRAPHS) > GRAPH_CACHE_SIZE:
+                count("chain.evictions")
                 _GRAPHS.popitem(last=False)
         else:
             _GRAPHS.move_to_end(key)
@@ -554,7 +569,9 @@ def track_sequence_device(frames: Iterable, cfg: Optional[TrackerConfig]
             chunks.append((x, y, val))
             i += 1
         exhausted = exhausted | ex
+    host_sync("sync.sequence_table", 3)
     table = stack_history_chunks(chunks)
+    host_sync("sync.sequence_exhausted")
     if bool(exhausted):
         warn_selection_exhausted("track_sequence_device", top_k)
     return table

@@ -30,12 +30,13 @@ import ctypes
 import torch
 
 from ..features import AffineState
-from ..utils import cuda
+from ..utils import cuda, profiling
 from . import affine
 from .cuda_lk import _f32, _is_bf16
 
 # Kernel launches made by this module's wrappers.
 launches = 0
+profiling.launch_counter(__name__, "launches")
 
 
 def _require_mode_and_window(cfg):

@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import torch
 
-from ..utils import cuda
+from ..utils import cuda, profiling
 
 # Largest float32 strictly below 2^31: the float->int32 cast then
 # saturates like the reference's int clamp instead of overflowing.
@@ -60,6 +60,7 @@ def compute_min_eig_map(gradx: torch.Tensor, grady: torch.Tensor,
 
 # Kernel launches made by this wrapper.
 launches = 0
+profiling.launch_counter(__name__, "launches")
 
 
 @cuda.plain_version

@@ -21,7 +21,9 @@ Levels stored as float32 or bfloat16 (``cfg.image_dtype``): every tap is
 upcast to float32 where it is read, and all blending and sums are float32.
 
 A CUDA tensor launches the kernel (one launch per call); a CPU tensor
-takes the plain version.
+takes the plain version. ``track_pyramid``'s launch adds the Gauss-Newton
+steps it ran and the levels its lanes entered to the card's device counters
+(``utils/profiling.DEVICE_COUNTERS``).
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ import torch.nn.functional as F
 
 from ..features import (KLT_LARGE_RESIDUE, KLT_MAX_ITERATIONS, KLT_OOB,
                         KLT_SMALL_DET, KLT_TRACKED)
-from ..utils import cuda
+from ..utils import cuda, profiling
 from .interp import gather_windows
 
 _ONE_PLUS_EPS = 1.001     # ops/track._ONE_PLUS_EPS (reference bound check)
@@ -48,6 +50,7 @@ LEVELS_BY_VALUE = 32
 # the track_pyramid launches that took guided starts (also in launches).
 launches = 0
 guided_launches = 0
+profiling.launch_counter(__name__, "launches", "guided_launches")
 
 
 class _Levels(NamedTuple):
@@ -363,7 +366,7 @@ def _launch_pyramid(pyr1, pyr2, x, y, val, cfg, x_init, y_init, xo, yo, vo):
                        [cuda.c_ptr] * 3 + [cuda.c_int] + [cuda.c_ptr] * 2
                        + [cuda.c_int] * 5 + [cuda.c_float] * 4 + [cuda.c_int]
                        + [cuda.c_float] * 2 + [cuda.c_int] * 2
-                       + [cuda.c_ptr] * 8)
+                       + [cuda.c_ptr] * 9)
     n_levels = cfg.nPyramidLevels
     ptr_list = [p[r].data_ptr() for r in range(n_levels)
                 for p in (pyr1.img, pyr1.gradx, pyr1.grady, pyr2.img,
@@ -376,6 +379,7 @@ def _launch_pyramid(pyr1, pyr2, x, y, val, cfg, x_init, y_init, xo, yo, vo):
         dev_ptrs = _device_table(ptr_list, torch.int64, x.device)
         dev_shapes = _device_table(shape_list, torch.int32, x.device)
     s = float(cfg.subsampling)
+    counts = profiling.device_counters(x.device)
     rc = fn(x.data_ptr(), y.data_ptr(), val.data_ptr(), x.shape[0],
             ctypes.addressof(ptrs), ctypes.addressof(shapes), n_levels,
             int(pyr1.img[0].dtype == torch.bfloat16), cfg.window_width,
@@ -387,6 +391,7 @@ def _launch_pyramid(pyr1, pyr2, x, y, val, cfg, x_init, y_init, xo, yo, vo):
             *(None if t is None else t.data_ptr()
               for t in (dev_ptrs, dev_shapes, x_init, y_init)),
             xo.data_ptr(), yo.data_ptr(), vo.data_ptr(),
+            None if counts is None else counts.data_ptr(),
             cuda.stream_ptr(x.device))
     cuda.check(rc, "pft_lk_pyramid")
     launches += 1

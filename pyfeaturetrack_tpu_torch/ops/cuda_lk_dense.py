@@ -41,7 +41,7 @@ import ctypes
 
 import torch
 
-from ..utils import cuda
+from ..utils import cuda, profiling
 from .cuda_lk import _f32, _is_bf16, lk_level_reference
 from .interp import upsample_flow
 
@@ -61,6 +61,7 @@ START_MAP, START_ZERO, START_UP = 0, 1, 2
 # narrower than the level.
 launches = 0
 band_launches = 0
+profiling.launch_counter(__name__, "launches", "band_launches")
 
 
 def seq_sum(v: torch.Tensor) -> torch.Tensor:

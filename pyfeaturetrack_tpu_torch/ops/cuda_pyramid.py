@@ -33,7 +33,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..utils import cuda
+from ..utils import cuda, profiling
 from .convolve import convolve_separate
 from .cuda_eig import min_eig_reference
 from .kernels import compute_kernels
@@ -43,6 +43,7 @@ from .pyramid import decimate
 # those the level-0 launches that computed K3's map.
 launches = 0
 eig_launches = 0
+profiling.launch_counter(__name__, "launches", "eig_launches")
 
 _STORAGE = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 

@@ -21,7 +21,8 @@ given lattice map (stage A over the map, then stage B without slots).
 A CUDA tensor launches the kernels, one per stage, with the budget counted
 on the device, so a refill needs no host sync; a CPU tensor takes the plain
 versions (``candidate_lattice_reference``; ``greedy_extract_reference`` and
-``fill_slots``).
+``fill_slots``). On a refill, stage B adds its acceptances and segment
+rescans to the card's device counters (``utils/profiling.DEVICE_COUNTERS``).
 """
 
 from __future__ import annotations
@@ -32,10 +33,11 @@ import torch
 import torch.nn.functional as F
 
 from ..features import KLT_NOT_FOUND
-from ..utils import cuda
+from ..utils import cuda, profiling
 
 # Kernel launches made by this module's wrappers (each stage counts one).
 launches = 0
+profiling.launch_counter(__name__, "launches")
 
 # Stage B holds every segment maximum in shared memory, so the lattice's
 # layout follows its shared-memory count (csrc/extract.cu chain_smem, with
@@ -256,7 +258,7 @@ def _launch_chain(cands, budget, min_eig, dg, max_out, lists, slots, geom,
     fn = cuda.function("pft_greedy_chain",
                        [cuda.c_ptr] + [cuda.c_int] * 4 + [cuda.c_ptr] * 6
                        + [cuda.c_int] * 3 + [cuda.c_ptr] * 7
-                       + [cuda.c_int] * 5 + [cuda.c_ptr] * 5)
+                       + [cuda.c_int] * 5 + [cuda.c_ptr] * 6)
     borderx, bordery, step = geom[:3]
     ptr = (lambda t: None if t is None else t.data_ptr())  # noqa: E731
     x, y, val = slots if slots is not None else (None, None, None)
@@ -267,12 +269,14 @@ def _launch_chain(cands, budget, min_eig, dg, max_out, lists, slots, geom,
     # decides)
     bits = torch.empty((ny, stride // 32 + 2), dtype=torch.int32,
                        device=cells.device)
+    counts = profiling.device_counters(cells.device)
     rc = fn(cells.data_ptr(), ny, cands.nx, cands.seg, stride,
             *(t.data_ptr() for t in cands[1:5]), bits.data_ptr(), ptr(budget),
             min_eig, dg, max_out, *(t.data_ptr() for t in lists), ptr(x),
             ptr(y), ptr(val), 0 if val is None else val.shape[0],
             int(bool(replacing)), borderx, bordery, step,
-            *(ptr(t) for t in slots_out), cuda.stream_ptr(cells.device))
+            *(ptr(t) for t in slots_out), ptr(counts),
+            cuda.stream_ptr(cells.device))
     cuda.check(rc, "pft_greedy_chain")
     launches += 1
 

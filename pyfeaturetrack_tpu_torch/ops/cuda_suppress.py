@@ -30,11 +30,12 @@ from __future__ import annotations
 
 import torch
 
-from ..utils import cuda
+from ..utils import cuda, profiling
 from .cuda_select import fill_slots, kept_positions
 
 # Kernel launches made by this wrapper.
 launches = 0
+profiling.launch_counter(__name__, "launches")
 
 # Dynamic shared memory the kernel leaves for the coverage grid (227 KB on
 # the H100, less its static buffers: csrc/suppress.cu SMEM_GRID_MAX); a

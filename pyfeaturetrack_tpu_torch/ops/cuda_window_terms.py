@@ -22,12 +22,13 @@ from __future__ import annotations
 
 import torch
 
-from ..utils import cuda
+from ..utils import cuda, profiling
 from .cuda_lk import _f32, tree_sum
 from .interp import gather_windows
 
 # Kernel launches made by this wrapper.
 launches = 0
+profiling.launch_counter(__name__, "launches")
 
 
 def _clamp_bounds(shape, hw: int, hh: int):

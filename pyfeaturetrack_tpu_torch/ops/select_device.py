@@ -34,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from ..features import KLT_NOT_FOUND
+from ..utils.profiling import host_sync
 from . import cuda_select
 from .cuda_select import select_from_eig
 from .cuda_suppress import greedy_suppress
@@ -201,11 +202,14 @@ def _none_accepted(free, x, y, val):
 
 def _bounding_frame(cand_x, cand_y, valid):
     """(origin x, origin y, (rows, cols)) of the valid candidates' bounding
-    box (one host read); a 1 x 1 frame when none is valid."""
+    box (two host reads: ``host_syncs``); a 1 x 1 frame when none is
+    valid."""
+    host_sync("sync.bounding_frame")
     if not bool(valid.any()):
         return 0, 0, (1, 1)
     big = torch.iinfo(torch.int32).max
     xs, ys = cand_x.to(torch.int64), cand_y.to(torch.int64)
+    host_sync("sync.bounding_frame")
     box = torch.stack([torch.where(valid, xs, big).min(),
                        torch.where(valid, ys, big).min(),
                        torch.where(valid, xs, -big).max(),

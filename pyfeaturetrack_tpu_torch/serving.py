@@ -24,6 +24,11 @@ chain that :meth:`flush` forces out, run the eager step. ``prefetch``
 moves the staging to a worker thread, which copies each frame on a side
 stream from a ring of pinned slots; the consuming stream waits on the
 frame's copy event.
+
+Tracing (``utils/profiling``): each fed item runs inside a ``serving.feed``
+span, its staging, eager steps, history and pulls in spans of their own,
+and adds to the ``serving.ticks`` counter; each
+wait of the host on the card counts under ``host_syncs``.
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ from .models.device_sequence import (chain_lanes, select_step_device,
                                      sequence_step_device,
                                      warn_selection_exhausted)
 from .ops.select_device import DEFAULT_TOP_K
+from .utils.profiling import count, host_sync, named_scope
 from .utils.staging import stage_raw, target_device, torch_dtype
 
 _STOP = object()
@@ -178,15 +184,18 @@ class _StreamingBase:
 
     def feed(self, item) -> Optional[tuple]:
         """Process one input (tensor on the card or host array)."""
-        frames = self._coerce(item)
-        if self._lanes is None:
-            self._start(frames)
-        else:
-            self._pending.append(frames)
-            if len(self._pending) >= self.chain:
-                self._advance(self._pending)
-                self._pending = []
-        self.n_frames += 1
+        with named_scope("serving.feed"):
+            with named_scope("serving.stage"):
+                frames = self._coerce(item)
+            count("serving.ticks")
+            if self._lanes is None:
+                self._start(frames)
+            else:
+                self._pending.append(frames)
+                if len(self._pending) >= self.chain:
+                    self._advance(self._pending)
+                    self._pending = []
+            self.n_frames += 1
         return None
 
     def _start(self, frames) -> None:
@@ -208,22 +217,25 @@ class _StreamingBase:
         if len(ticks) == self.chain and self.chain > 1:
             self._lanes, hist, ex = chain_lanes(self._lanes, ticks, self.cfg,
                                                 self.replace_lost)
-            self._chunks.append(hist)
-            self._note_exhausted(ex)
+            with named_scope("serving.history"):
+                self._chunks.append(hist)
+                self._note_exhausted(ex)
             return
         for tick in ticks:
             exhausted = []
             for b, f in enumerate(tick):
                 pyr, x, y, val, aff, carry = self._lanes[b]
-                pyr, x, y, val, aff, ex, carry = sequence_step_device(
-                    pyr, f, x, y, val, self.cfg, self.replace_lost,
-                    self.top_k, aff, carry)
+                with named_scope("serving.step"):
+                    pyr, x, y, val, aff, ex, carry = sequence_step_device(
+                        pyr, f, x, y, val, self.cfg, self.replace_lost,
+                        self.top_k, aff, carry)
                 self._lanes[b] = (pyr, x, y, val, aff, carry)
                 exhausted.append(ex)
-            self._chunks.append(tuple(
-                torch.stack([lane[j] for lane in self._lanes])[:, None]
-                for j in (1, 2, 3)))
-            self._note_exhausted(torch.stack(exhausted))
+            with named_scope("serving.history"):
+                self._chunks.append(tuple(
+                    torch.stack([lane[j] for lane in self._lanes])[:, None]
+                    for j in (1, 2, 3)))
+                self._note_exhausted(torch.stack(exhausted))
 
     def flush(self) -> None:
         """Force out any buffered partial chain (ends a latency window);
@@ -236,21 +248,26 @@ class _StreamingBase:
         """Wait for all dispatched work (throughput-benchmark fence)."""
         self.flush()
         if self._lanes is not None and self.device.type == "cuda":
+            host_sync("sync.block")
             torch.cuda.current_stream(self._lanes[0][1].device).synchronize()
 
     def _migrate_history(self) -> None:
         """Pull the device history chunks to the host (one copy per
         column), so device memory stays bounded by the pull cadence and
         each table() only transfers rows produced since the previous
-        pull."""
-        if self._exhausted is not None and bool(self._exhausted):
-            warn_selection_exhausted(self._name, self.top_k)
-            self._exhausted = None          # warn once per pull
-        if self._chunks:
-            cols = tuple(torch.cat([c[j] for c in self._chunks], dim=1)
-                         .cpu().numpy() for j in range(3))
-            self._host_chunks.append(self._host_rows(cols))
-        self._chunks = []
+        pull. Each read and copy waits for the card (``host_syncs``)."""
+        with named_scope("serving.pull"):
+            if self._exhausted is not None:
+                host_sync("sync.pull_exhausted")
+                if bool(self._exhausted):
+                    warn_selection_exhausted(self._name, self.top_k)
+                    self._exhausted = None          # warn once per pull
+            if self._chunks:
+                host_sync("sync.pull_copy", 3)
+                cols = tuple(torch.cat([c[j] for c in self._chunks], dim=1)
+                             .cpu().numpy() for j in range(3))
+                self._host_chunks.append(self._host_rows(cols))
+            self._chunks = []
 
     def table(self) -> tuple:
         """(x, y, val) numpy arrays, frames stacked on axis 0. History

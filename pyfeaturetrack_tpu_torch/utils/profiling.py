@@ -1,29 +1,191 @@
-"""Tracing and timing helpers (PyTorch port of
+"""Tracing, counting and timing helpers (PyTorch port of
 ``pyfeaturetrack_tpu/utils/profiling.py``).
 
-``named_scope`` labels a region in profiler traces
-(``torch.profiler.record_function``); ``trace`` collects a
-``torch.profiler`` trace of a region (host ops and, with a card, its
-kernels) into a Chrome trace file. ``time_jitted`` times calls with CUDA
-events on the card (a host clock on the CPU, where there is no device
-time); ``device_time_per_call`` reads the device busy time of a trace per
-call (``utils/traceview``), and raises where no kernel ran on a card.
+Spans. ``named_scope`` labels a region in profiler traces: under an active
+``torch.profiler`` it is a ``record_function`` range, on the host timeline
+to which the profiler aligns the card's kernels and copies; with no
+profiler it is one shared no-op context, so the program's spans cost a
+flag read when nobody traces. ``SPANS`` lists every span the program
+opens. The spans of one fed frame or tick nest inside that call's
+``serving.feed``; names carry no ids.
+
+Counters, always on, plain integer adds:
+
+* host counters (``count``): ``serving.ticks`` (``feed`` calls),
+  ``chain.captures``, ``chain.replays``, ``chain.state_loads`` (replays
+  whose state was copied in first), ``chain.evictions`` (captured chains
+  dropped from the cache), and ``host_syncs``, every wait of the host on
+  the card, each also under its site's ``sync.<site>`` (``host_sync``);
+* the kernel modules' launch counters, which each module registers when
+  it is imported (``launch_counter``), as ``<module>.<name>``;
+* device counters (``DEVICE_COUNTERS``), added by K2 and K4 on the card
+  into one int64 buffer per device (``device_counters``).
+
+``counters()`` returns all three (one device-to-host copy per device; no
+hot path calls it) and ``reset_counters()`` zeroes them. The counters are
+process totals; like the launch ints, the host counters take no lock, so
+two threads adding at once may lose an add.
+
+``trace`` collects a ``torch.profiler`` trace of a region (host ops and,
+with a card, its kernels) into a Chrome trace file. ``time_jitted`` times
+calls with CUDA events on the card (a host clock on the CPU, where there is
+no device time); ``device_time_per_call`` reads the device busy time of a
+trace per call (``utils/traceview``), and raises where no kernel ran on a
+card.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import tempfile
+import sys
+import threading
 import time
 from pathlib import Path
 
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
+# Every span of the program: name -> (layer, what it covers, the metric or
+# use that reads it). The benchmark's own ranges are ``feed``, ``drain``,
+# ``tick`` and ``slice``; no span takes one of those names.
+SPANS = {
+    "serving.feed": (
+        "serving", "_StreamingBase.feed: one fed frame (B frames a tick)",
+        "parent of every span below; the traced breakdown"),
+    "serving.stage": (
+        "serving", "_coerce: the fed frames through utils/staging.stage_raw",
+        "serving.stage_us_per_frame, serving.stage_ms_per_tick"),
+    "serving.step": (
+        "serving", "one stream's eager sequence_step_device in _advance",
+        "serving.step_ms_per_tick"),
+    "serving.history": (
+        "serving", "a tick's or chain's history rows and exhausted flag",
+        "the breakdown"),
+    "serving.pull": (
+        "serving", "_migrate_history: the exhausted read, the cat, the copies",
+        "the breakdown; serving.host_syncs_per_tick counts its syncs"),
+    "step.pyramid": (
+        "device step", "_step: K1's pyramid build with K3's map",
+        "the breakdown"),
+    "step.track": (
+        "device step", "_step: the K2 track call", "the breakdown"),
+    "step.affine": (
+        "device step", "_step: the affine-consistency stage (when configured)",
+        "the breakdown"),
+    "step.refill": (
+        "device step", "_step: K4's refill and the templates' reset",
+        "the breakdown"),
+    "chain.stage": (
+        "captured chain", "_ChainGraph._stage: the chain's frames copied "
+        "into the graph's frame buffer (or its pinned block)",
+        "chain.stage_us_per_frame"),
+    "chain.stage_wait": (
+        "captured chain", "inside chain.stage: the wait for the last replay "
+        "to have read the pinned frames",
+        "the breakdown; the wait counts as sync.chain_stage_wait"),
+    "chain.replay": (
+        "captured chain", "_ChainGraph.run: the state check or load, the "
+        "replay, the output clones", "chain.replay_us_per_frame"),
+    "chain.capture": (
+        "captured chain", "_ChainGraph.__init__: buffers, warm-up, capture",
+        "operators: a graph captured again"),
+}
+
+_profiler_on = torch._C._autograd._profiler_enabled
+_NO_SPAN = contextlib.nullcontext()
+
 
 def named_scope(name: str):
-    """A context manager that names the enclosed work in profiler traces."""
-    return record_function(name)
+    """A context manager that names the enclosed work in profiler traces: a
+    ``record_function`` range while a profiler runs, else the one shared
+    no-op context."""
+    return record_function(name) if _profiler_on() else _NO_SPAN
+
+
+# Host counters by name (module docstring).
+_host: collections.defaultdict = collections.defaultdict(int)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the host counter ``name``."""
+    _host[name] += n
+
+
+def host_sync(site: str, n: int = 1) -> None:
+    """Count ``n`` waits of the host on the card at ``site``
+    (``sync.<where>``), under ``host_syncs`` and under the site."""
+    _host["host_syncs"] += n
+    _host[site] += n
+
+
+# The kernel modules' launch counters, (module name, attribute), in the
+# order the modules registered them.
+_launch: list = []
+
+
+def launch_counter(module: str, *attrs: str) -> None:
+    """Register the integer attributes ``attrs`` of the module ``module``
+    (its ``__name__``, at import) as launch counters."""
+    _launch.extend((module, a) for a in attrs if (module, a) not in _launch)
+
+
+def launch_counters() -> list:
+    """(module, attribute) of every registered launch counter."""
+    return [(sys.modules[m], a) for m, a in _launch]
+
+
+# The kernels' device counters, in the rows of csrc/common.cuh PftCounter:
+# K2's Gauss-Newton steps and the (lane, level) pairs it entered; K4's
+# acceptances and segment rescans on refills.
+DEVICE_COUNTERS = ("k2.gn_steps", "k2.lane_levels", "k4.refill_acceptances",
+                   "k4.refill_rescans")
+DEVICE_SLOTS = 64           # csrc/common.cuh PFT_COUNTER_SLOTS
+_device: dict = {}
+_device_lock = threading.Lock()
+
+
+def device_counters(dev: torch.device):
+    """The device counter buffer of card ``dev`` (int64 [counters, slots]),
+    made at its first use. A captured CUDA graph adds into the buffer that
+    existed when it was captured, so the buffer is made before any capture
+    and only ever zeroed in place; while a capture runs on a card that has
+    none yet, None (nothing counted)."""
+    buf = _device.get(dev.index)
+    if buf is None:
+        if torch.cuda.is_current_stream_capturing():
+            return None
+        with _device_lock:
+            buf = _device.get(dev.index)
+            if buf is None:
+                buf = _device[dev.index] = torch.zeros(
+                    (len(DEVICE_COUNTERS), DEVICE_SLOTS), dtype=torch.int64,
+                    device=dev)
+    return buf
+
+
+def counters() -> dict:
+    """Every counter by name: the host counters, the launch counters and the
+    device counters summed over devices (one device-to-host copy per card:
+    a wait on the card, not counted)."""
+    out = dict(_host)
+    for m, a in _launch:
+        out[f"{m.rsplit('.', 1)[-1]}.{a}"] = getattr(sys.modules[m], a)
+    totals = [0] * len(DEVICE_COUNTERS)
+    for buf in list(_device.values()):
+        totals = [t + v for t, v in zip(totals, buf.sum(1).tolist())]
+    out.update(zip(DEVICE_COUNTERS, totals))
+    return out
+
+
+def reset_counters() -> None:
+    """Zero every counter (the device buffers in place)."""
+    _host.clear()
+    for mod, attr in launch_counters():
+        setattr(mod, attr, 0)
+    for buf in list(_device.values()):
+        buf.zero_()
 
 
 def _activities():
