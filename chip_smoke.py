@@ -1965,7 +1965,7 @@ def serving_phase(pft, path_mods, k6, frames, sim, tables, cfg, cfg3,
               f"{rep['chain_ms']:.4f} ms ({min(dev_chain):.4f}-"
               f"{max(dev_chain):.4f}, frames on the card), "
               f"{rep['chain_host_uint8_ms']:.4f} ms (numpy uint8 frames, "
-              f"pinned staging in the graph); device busy "
+              f"one pinned block a chain); device busy "
               f"{eager['busy_us']:.1f} us eager, {chained['busy_us']:.1f} us "
               f"chain; idle share {eager['idle']:.3f} eager, "
               f"{chained['idle']:.3f} chain; card {smi}")

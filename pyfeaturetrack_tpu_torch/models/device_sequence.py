@@ -34,26 +34,30 @@ table comes back to the host once, at the end of
 Chained steps. ``sequence_chain_device`` advances k frames per call, the
 counterpart of the JAX package's jitted k-frame program. On CPU tensors
 it is the steps one by one. On the card the k steps are one captured CUDA
-graph (``_ChainGraph``), replayed once per k frames: the frames' copy to
-the card, each step's pyramid build, K2, the affine stage, the refill and
-the writes into the history rows, with no host work between them. The
+graph (``_ChainGraph``), replayed once per k frames: each step's pyramid
+build, K2, the affine stage, the refill and the writes into the history
+rows, with no host work between them. The
 graph holds the carried state (the pyramids, in two buffers the steps
 alternate between; x, y, val; every AffineState field; the TrackCarry) in
 its own buffers; a call whose state is not the one the graph handed out
 last is copied in first, and every tensor a call returns is a copy, so a
-later replay never changes what a caller holds. Host frames enter through
-a pinned buffer of k frames in the staged dtype (``utils/staging``: uint8
-stays uint8 and is cast on the card, inside the graph); frames already on
-the card are copied into the graph's frame buffer before the replay.
+later replay never changes what a caller holds. The frames reach the
+graph's frame buffer before the replay, in the staged dtype
+(``utils/staging``: uint8 stays uint8 and is cast on the card, inside the
+graph): a ``utils/staging.HostBlock`` of the chain's host frames in one
+copy (the streaming trackers write theirs at feed; other host frames are
+written into the graph's own block), frames already on the card one copy
+each.
 ``chain_lanes`` runs B independent lanes (streams, chunks) in one graph,
 their steps in lane order within each frame.
 
 Tracing (``utils/profiling``): the eager step's phases run in ``step.*``
 spans, the chain's staging, replay and capture in ``chain.*`` spans; the
-chain counts its captures, replays, state loads and evictions, and every
-wait of the host on the card counts under ``host_syncs``. A replay adds
-what its capture recorded to the kernel modules' launch counters, and its
-K2 and K4 launches add to the device counters as eager ones do.
+chain counts its captures, replays, block stages (replays whose frames
+crossed as one ``HostBlock``), state loads and evictions, and every wait
+of the host on the card counts under ``host_syncs``. A replay adds what
+its capture recorded to the kernel modules' launch counters, and its K2
+and K4 launches add to the device counters as eager ones do.
 
 The pyramids are stored in ``cfg.image_dtype`` (float32 or bfloat16), the
 captured chain's two pyramid buffers too; with bfloat16 storage the refill
@@ -84,7 +88,7 @@ from ..ops.track import (TrackPyramids, as_frame, build_track_pyramids,
 from ..utils import cuda
 from ..utils.profiling import (count, device_counters, host_sync,
                                launch_counters, named_scope)
-from ..utils.staging import host_frame, stage_raw
+from ..utils.staging import HostBlock, host_frame, stage_raw
 
 
 def _build_with_map(img: torch.Tensor, cfg, with_map: bool, out=None):
@@ -211,12 +215,12 @@ class _ChainGraph:
     """k frame steps of B lanes, captured in one CUDA graph on one device.
 
     The graph's own buffers hold the frames ([k, B, H, W] in the staged
-    dtype, and a pinned host copy when frames come from the host) and the
-    lanes' carried state, each lane's pyramid in two buffers that the steps
-    alternate between (buffer 0 holds the state between replays)."""
+    dtype) and the lanes' carried state, each lane's pyramid in two buffers
+    that the steps alternate between (buffer 0 holds the state between
+    replays). Host frames that come without a block of their own are
+    written into the graph's block (made at their first chain)."""
 
-    def __init__(self, cfg, lanes, k: int, frame_dtype, host: bool,
-                 replace_lost: bool):
+    def __init__(self, cfg, lanes, k: int, frame_dtype, replace_lost: bool):
         pyr, x0, _, _, aff, carry = lanes[0]
         dev = x0.device
         b, n = len(lanes), x0.shape[0]
@@ -226,13 +230,7 @@ class _ChainGraph:
         on = dict(device=dev)
         # zeroed frames and dead lanes: the warm-up step runs on them
         self.frames = torch.zeros((k, b, h, w), dtype=frame_dtype, **on)
-        self.pinned = self.staged = None
-        if host:
-            self.pinned = torch.zeros((k, b, h, w), dtype=frame_dtype,
-                                      pin_memory=True)
-            self.pinned_np = self.pinned.numpy()
-            # recorded in the graph once its frames are on the card
-            self.staged = torch.cuda.Event(external=True)
+        self.block = None
         self.pyr_buf = torch.zeros((2, b, pyramid_numel(self.shapes)),
                                    dtype=storage_dtype(cfg), **on)
         self.x = torch.full((b, n), -1.0, dtype=torch.float32, **on)
@@ -269,9 +267,6 @@ class _ChainGraph:
                 TrackCarry(*(t[b] for t in self.carry)))
 
     def _body(self) -> None:
-        if self.pinned is not None:
-            self.frames.copy_(self.pinned, non_blocking=True)
-            self.staged.record()
         lanes = [self._lane(b) for b in range(self.b)]
         ex = []
         for j in range(self.k):
@@ -355,14 +350,22 @@ class _ChainGraph:
                     d.copy_(s)
 
     def _stage(self, frames) -> None:
-        if self.pinned is not None:
-            # the last replay has copied its frames out of the pinned buffer
-            with named_scope("chain.stage_wait"):
-                host_sync("sync.chain_stage_wait")
-                self.staged.synchronize()
+        if not isinstance(frames, HostBlock) and isinstance(frames[0][0],
+                                                            np.ndarray):
+            # host frames without a block: into the graph's own, once its
+            # last copy has run
+            if self.block is None:
+                self.block = HostBlock(tuple(self.frames.shape),
+                                       self.frames.dtype, self.frames.device)
+            else:
+                self.block.wait()
             for j, tick in enumerate(frames):
                 for b, f in enumerate(tick):
-                    self.pinned_np[j, b] = f
+                    self.block.array[j, b] = f
+            frames = self.block
+        if isinstance(frames, HostBlock):
+            count("chain.block_stages")
+            frames.copy_to(self.frames)
         else:
             for j, tick in enumerate(frames):
                 for b, f in enumerate(tick):
@@ -399,7 +402,7 @@ class _ChainGraph:
 
 
 # Captured chains by (cfg, lanes, H, W, N, k, replace_lost, affine state,
-# carry, frame dtype, host frames, device), least recently used first.
+# carry, frame dtype, device), least recently used first.
 _GRAPHS: OrderedDict = OrderedDict()
 GRAPH_CACHE_SIZE = 8
 _graph_lock = threading.Lock()
@@ -414,10 +417,10 @@ def _capture_stream(dev: torch.device) -> torch.cuda.Stream:
 
 
 def _staged_frames(frames, dev):
-    """The chain's frames as the graph takes them: (frames, dtype, host).
-    Host frames become C-contiguous numpy arrays (uint8 kept when every
-    frame is uint8, else float32); if any frame is already on the card,
-    every frame is staged there."""
+    """The chain's frames as the graph takes them: (frames, dtype). Host
+    frames become C-contiguous numpy arrays (uint8 kept when every frame is
+    uint8, else float32); if any frame is already on the card, every frame
+    is staged there."""
     flat = [f for tick in frames for f in tick]
     host = not any(isinstance(f, torch.Tensor) and f.is_cuda for f in flat)
     if host:
@@ -430,8 +433,7 @@ def _staged_frames(frames, dev):
     if host and not uint8:
         arrs = [a.astype(np.float32, copy=False) for a in arrs]
     b = len(frames[0])
-    return ([arrs[j * b:(j + 1) * b] for j in range(len(frames))], dtype,
-            host)
+    return [arrs[j * b:(j + 1) * b] for j in range(len(frames))], dtype
 
 
 def _lane_tensors(lane):
@@ -445,38 +447,47 @@ def _lane_tensors(lane):
 def chain_lanes(lanes, frames, cfg, replace_lost: bool = True):
     """k frame steps for each of B independent lanes: ``lanes`` is a list
     of (pyr, x, y, val, aff, carry) states on one device, ``frames`` k
-    sequences of B frames (arrays or tensors). Returns (lanes, (hx, hy,
-    hv) [B, k, N], exhausted [B] bool). On CUDA tensors, one replay of the
-    captured chain for this shape (captured at its first call); a replay
+    sequences of B frames (arrays or tensors) or a ``HostBlock`` of them.
+    Returns (lanes, (hx, hy, hv) [B, k, N], exhausted [B] bool). On CUDA
+    tensors, one replay of the captured chain for this shape (captured at
+    its first call), which takes a block's frames in one copy; a replay
     records no gradients, so an input that requires grad raises
     ValueError there."""
     x0 = lanes[0][1]
+    block = frames if isinstance(frames, HostBlock) else None
+    if block is not None:
+        frames = block.tensor                   # [k, B, H, W], no grad
     if not cuda.use_kernel(x0):
         return _chain_plain(lanes, frames, cfg, replace_lost)
-    if cuda.records_grad(*(f for tick in frames for f in tick
-                           if isinstance(f, torch.Tensor)),
+    given = () if block is not None else (
+        f for tick in frames for f in tick if isinstance(f, torch.Tensor))
+    if cuda.records_grad(*given,
                          *(t for lane in lanes for t in _lane_tensors(lane))):
         raise ValueError(
             "the chained step (sequence_chain_device, the streaming "
             "trackers) replays a captured CUDA graph, which records no "
             "gradients: detach its inputs, or differentiate the eager step "
             "(sequence_step_device)")
-    frames, dtype, host = _staged_frames(frames, x0.device)
     h, w = lanes[0][0].img[0].shape
-    for tick in frames:
-        cuda.require(len(tick) == len(lanes) and all(
-            tuple(f.shape) == (h, w) for f in tick),
-            f"chain_lanes: every frame step takes {len(lanes)} frames of "
-            f"{h}x{w}")
+    takes = (f"chain_lanes: every frame step takes {len(lanes)} frames of "
+             f"{h}x{w}")
+    if block is not None:
+        cuda.require(tuple(frames.shape[1:]) == (len(lanes), h, w), takes)
+        dtype = frames.dtype
+    else:
+        frames, dtype = _staged_frames(frames, x0.device)
+        for tick in frames:
+            cuda.require(len(tick) == len(lanes) and all(
+                tuple(f.shape) == (h, w) for f in tick), takes)
     key = (cfg, len(lanes), h, w, x0.shape[0], len(frames),
            bool(replace_lost), lanes[0][4] is not None,
-           lanes[0][5] is not None, dtype, host, x0.device)
+           lanes[0][5] is not None, dtype, x0.device)
     with _graph_lock:
         graph = _GRAPHS.get(key)
         if graph is None:
             count("chain.captures")
             with named_scope("chain.capture"):
-                graph = _ChainGraph(cfg, lanes, len(frames), dtype, host,
+                graph = _ChainGraph(cfg, lanes, len(frames), dtype,
                                     replace_lost)
             _GRAPHS[key] = graph
             while len(_GRAPHS) > GRAPH_CACHE_SIZE:
@@ -484,7 +495,7 @@ def chain_lanes(lanes, frames, cfg, replace_lost: bool = True):
                 _GRAPHS.popitem(last=False)
         else:
             _GRAPHS.move_to_end(key)
-        return graph.run(lanes, frames)
+        return graph.run(lanes, frames if block is None else block)
 
 
 def sequence_chain_device(pyr_prev: TrackPyramids, imgs, x: torch.Tensor,

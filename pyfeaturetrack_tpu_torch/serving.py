@@ -14,21 +14,35 @@ reads each frame from disk synchronously before tracking it. Port of
   stages upcoming frames on the card ahead of their consumption.
 - :func:`serve_stream` — a whole stream through a ``StreamingTracker``.
 
-On the card. A fed frame is staged at once (``utils/staging.stage_raw``:
-pinned host memory, a ``non_blocking`` copy on the current stream; uint8
-stays uint8 and is cast on the card). ``chain`` > 1 buffers that many
-frames and advances them with one replay of the captured k-frame graph
-(``device_sequence.chain_lanes``: for B streams, one graph holding the B
-streams' steps in stream order); ``chain`` 1, and the tail of a partial
-chain that :meth:`flush` forces out, run the eager step. ``prefetch``
-moves the staging to a worker thread, which copies each frame on a side
-stream from a ring of pinned slots; the consuming stream waits on the
-frame's copy event.
+On the card. ``chain`` > 1 buffers that many frames and advances them with
+one replay of the captured k-frame graph (``device_sequence.chain_lanes``:
+for B streams, one graph holding the B streams' steps in stream order);
+``chain`` 1, and a partial chain that :meth:`flush` (``emit_every``, a
+drain) forces out, run the eager step. Staging (uint8 stays uint8 and is
+cast on the card, any other dtype becomes float32):
+
+- a chained stream's host frames, after the stream's first, are written
+  at ``feed`` into slot j of the chain's pinned block
+  (``utils/staging.HostBlock``, ``[chain, B, H, W]``; the tracker keeps
+  two and uses them in turn, and waits for a block's last copy before its
+  next chain's first write). A full chain's block crosses in one copy into
+  the captured graph's frame buffer; a partial chain's filled slots cross
+  in one copy too;
+- every other frame is staged at once, one copy each
+  (``utils/staging.stage_raw``: pinned host memory, a ``non_blocking``
+  copy on the current stream): the first frame, ``chain`` 1, tensors
+  already on the card, and a host frame whose shape or staged dtype
+  differs from its chain's first.
+
+``prefetch`` moves the staging to a worker thread, which copies each frame
+on a side stream from a ring of pinned slots; the consuming stream waits
+on the frame's copy event, and the frames, on the card, are staged one by
+one.
 
 Tracing (``utils/profiling``): each fed item runs inside a ``serving.feed``
-span, its staging, eager steps, history and pulls in spans of their own,
-and adds to the ``serving.ticks`` counter; each
-wait of the host on the card counts under ``host_syncs``.
+span, its staging (the block write or ``stage_raw``), eager steps, history
+and pulls in spans of their own, and adds to the ``serving.ticks``
+counter; each wait of the host on the card counts under ``host_syncs``.
 """
 
 from __future__ import annotations
@@ -47,7 +61,7 @@ from .models.device_sequence import (chain_lanes, select_step_device,
                                      warn_selection_exhausted)
 from .ops.select_device import DEFAULT_TOP_K
 from .utils.profiling import count, host_sync, named_scope
-from .utils.staging import stage_raw, target_device, torch_dtype
+from .utils.staging import HostBlock, stage_raw, target_device, torch_dtype
 
 _STOP = object()
 
@@ -155,8 +169,9 @@ class _StreamingBase:
     (streams) of device state, chain buffering, device-history
     bookkeeping with host migration on pull, exhaustion surfacing, and the
     flush/block/table/drain lifecycle. Subclasses define the wire format
-    (``_coerce``: one fed item to B staged frames) and the host row
-    layout (``_host_rows``/``_empty_rows``)."""
+    (``_coerce``: one fed item to B staged frames; ``_host_batch``: one
+    fed host item as a [B, H, W] array) and the host row layout
+    (``_host_rows``/``_empty_rows``)."""
 
     _name = "StreamingTracker"
 
@@ -171,7 +186,11 @@ class _StreamingBase:
         self.chain = int(chain)
         self.device = torch.device(device)
         self._lanes = None          # per stream (pyr, x, y, val, aff, carry)
-        self._pending: list = []    # staged items awaiting a chain
+        self._pending: list = []    # items awaiting a chain: B staged
+                                    # frames, or a slot of self._block
+        self._blocks = [None, None]  # HostBlocks, one a chain in turn
+        self._turn = 0
+        self._block = None          # the buffered chain's block
         self._chunks: list = []     # device history chunks, [B, k, N] each
         self._host_chunks: list = []  # history already pulled to host
         self._exhausted = None
@@ -186,7 +205,7 @@ class _StreamingBase:
         """Process one input (tensor on the card or host array)."""
         with named_scope("serving.feed"):
             with named_scope("serving.stage"):
-                frames = self._coerce(item)
+                frames = self._stage(item)
             count("serving.ticks")
             if self._lanes is None:
                 self._start(frames)
@@ -197,6 +216,48 @@ class _StreamingBase:
                     self._pending = []
             self.n_frames += 1
         return None
+
+    def _stage(self, item):
+        """``item`` as the chain buffer holds it: the slot of the chain's
+        host block it was written into, or B frames staged one by one
+        (module notes)."""
+        if (self._lanes is None or self.chain == 1
+                or isinstance(item, torch.Tensor)
+                and (item.is_cuda or self.device.type == "cpu")):
+            return self._coerce(item)
+        batch = self._host_batch(item)
+        shape = (self.chain, *batch.shape)
+        dtype = torch.uint8 if batch.dtype == np.uint8 else torch.float32
+        if self._block is None:
+            self._block = self._next_block(shape, dtype)
+        elif not self._block.holds(shape, dtype):
+            return self._coerce(item)
+        j = len(self._pending)
+        self._block.array[j] = batch
+        return j
+
+    def _next_block(self, shape, dtype) -> HostBlock:
+        """The block after the last chain's, its last copy waited for; made
+        anew where it is not of ``shape`` and ``dtype``."""
+        self._turn = 1 - self._turn
+        block = self._blocks[self._turn]
+        if block is None or not block.holds(shape, dtype):
+            block = self._blocks[self._turn] = HostBlock(
+                shape, dtype, target_device(self.device))
+        else:
+            block.wait()
+        return block
+
+    def _unblock(self, ticks: list, block) -> list:
+        """``ticks`` with every block slot replaced by its B frames on the
+        device: the filled slots cross in one copy."""
+        if block is None:
+            return ticks
+        n = 1 + max(j for j in ticks if isinstance(j, int))
+        staged = block.copy_to(torch.empty((n, *block.shape[1:]),
+                                           dtype=block.dtype,
+                                           device=block.device))
+        return [list(staged[j]) if isinstance(j, int) else j for j in ticks]
 
     def _start(self, frames) -> None:
         self._lanes = []
@@ -212,16 +273,20 @@ class _StreamingBase:
         self._note_exhausted(torch.stack(exhausted))
 
     def _advance(self, ticks: list) -> None:
-        # a full chain replays the captured k-frame graph; partial chains
-        # (flush/emit tails) and chain 1 run the eager step
+        # a full chain replays the captured k-frame graph, its frames one
+        # block where every one is a slot of it; partial chains (flush/emit
+        # tails) and chain 1 run the eager step
+        block, self._block = self._block, None
         if len(ticks) == self.chain and self.chain > 1:
-            self._lanes, hist, ex = chain_lanes(self._lanes, ticks, self.cfg,
+            frames = (block if all(isinstance(j, int) for j in ticks)
+                      else self._unblock(ticks, block))
+            self._lanes, hist, ex = chain_lanes(self._lanes, frames, self.cfg,
                                                 self.replace_lost)
             with named_scope("serving.history"):
                 self._chunks.append(hist)
                 self._note_exhausted(ex)
             return
-        for tick in ticks:
+        for tick in self._unblock(ticks, block):
             exhausted = []
             for b, f in enumerate(tick):
                 pyr, x, y, val, aff, carry = self._lanes[b]
@@ -325,6 +390,9 @@ class StreamingTracker(_StreamingBase):
     def _coerce(self, frame) -> list:
         return [stage_raw(frame, self.device)]
 
+    def _host_batch(self, frame) -> np.ndarray:
+        return _host_array(frame, None)[None]
+
     def _host_rows(self, cols) -> tuple:
         return tuple(c[0] for c in cols)        # [1, k, N] -> [k, N]
 
@@ -365,15 +433,22 @@ class BatchedStreamingTracker(_StreamingBase):
         super().__init__(cfg, n_features, replace_lost, top_k, chain, device)
         self.n_streams = int(n_streams)
 
-    def _coerce(self, batch) -> list:
-        if not isinstance(batch, torch.Tensor):
-            batch = np.asarray(batch)
+    def _checked(self, batch):
         if batch.ndim != 3 or batch.shape[0] != self.n_streams:
             raise KLTError(
                 f"({self._name}.feed) expected a "
                 f"[{self.n_streams}, H, W] frame batch, got "
                 f"{tuple(batch.shape)}")
-        return list(stage_raw(batch, self.device))   # one copy per batch
+        return batch
+
+    def _coerce(self, batch) -> list:
+        if not isinstance(batch, torch.Tensor):
+            batch = np.asarray(batch)
+        # one copy per batch
+        return list(stage_raw(self._checked(batch), self.device))
+
+    def _host_batch(self, batch) -> np.ndarray:
+        return self._checked(_host_array(batch, None))
 
     def _host_rows(self, cols) -> tuple:
         # [B, k, N] -> [k, B, N] host rows

@@ -12,7 +12,8 @@ opens. The spans of one fed frame or tick nest inside that call's
 Counters, always on, plain integer adds:
 
 * host counters (``count``): ``serving.ticks`` (``feed`` calls),
-  ``chain.captures``, ``chain.replays``, ``chain.state_loads`` (replays
+  ``chain.captures``, ``chain.replays``, ``chain.block_stages`` (replays
+  whose frames crossed as one host block), ``chain.state_loads`` (replays
   whose state was copied in first), ``chain.evictions`` (captured chains
   dropped from the cache), and ``host_syncs``, every wait of the host on
   the card, each also under its site's ``sync.<site>`` (``host_sync``);
@@ -55,7 +56,9 @@ SPANS = {
         "serving", "_StreamingBase.feed: one fed frame (B frames a tick)",
         "parent of every span below; the traced breakdown"),
     "serving.stage": (
-        "serving", "_coerce: the fed frames through utils/staging.stage_raw",
+        "serving", "_StreamingBase._stage: a chained host frame written into "
+        "its chain's host block (after the block's wait, at a chain's first "
+        "frame), else the fed frames through utils/staging.stage_raw",
         "serving.stage_us_per_frame, serving.stage_ms_per_tick"),
     "serving.step": (
         "serving", "one stream's eager sequence_step_device in _advance",
@@ -79,12 +82,9 @@ SPANS = {
         "the breakdown"),
     "chain.stage": (
         "captured chain", "_ChainGraph._stage: the chain's frames copied "
-        "into the graph's frame buffer (or its pinned block)",
-        "chain.stage_us_per_frame"),
-    "chain.stage_wait": (
-        "captured chain", "inside chain.stage: the wait for the last replay "
-        "to have read the pinned frames",
-        "the breakdown; the wait counts as sync.chain_stage_wait"),
+        "into the graph's frame buffer: a host block in one copy (host "
+        "frames that come without one first written into the graph's own), "
+        "frames on the card one by one", "chain.stage_us_per_frame"),
     "chain.replay": (
         "captured chain", "_ChainGraph.run: the state check or load, the "
         "replay, the output clones", "chain.replay_us_per_frame"),

@@ -12,13 +12,23 @@ On the card a frame crosses from pinned host memory with a
 ``non_blocking`` copy on the current stream, so the host does not wait for
 the transfer; the caching host allocator keeps the pinned block until the
 copy has run. On the CPU a staged frame is a copy too: it never aliases
-the caller's array.
+the caller's array. That per-frame path serves the first frame of a
+stream, a stream that is not chained, and a chained stream's frames that
+are tensors already or differ from their chain's first in shape or staged
+dtype.
+
+A chained stream's host frames go through a ``HostBlock`` instead: one
+block of a chain's frames in the staged dtype, written a frame at a time
+as frames are fed and copied to the device in one go. The streaming
+trackers (``serving``) keep two and use them in turn, one a chain.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .profiling import host_sync
 
 
 def target_device(device) -> torch.device:
@@ -80,3 +90,43 @@ def stage_raw(a, device="cuda") -> torch.Tensor:
     consumer casts to float32 on the device); other dtypes convert to
     float32 on the host first. A tensor already there passes through."""
     return _stage(a, True, device)
+
+
+class HostBlock:
+    """k frame steps of B host frames, ``[k, B, H, W]`` in the staged dtype:
+    pinned memory for a card, plain memory for the CPU. ``array`` is the
+    block as numpy, written a frame at a time; ``copy_to`` copies its
+    leading frame steps to the device in one copy on the current stream,
+    without waiting, and records an event after it. ``wait`` waits for
+    that event (``sync.stage_block``): call it before the first write
+    after a copy."""
+
+    def __init__(self, shape: tuple, dtype: torch.dtype,
+                 device: torch.device):
+        self.shape, self.dtype, self.device = shape, dtype, device
+        self.tensor = torch.empty(shape, dtype=dtype,
+                                  pin_memory=device.type == "cuda")
+        self.array = self.tensor.numpy()
+        self._copied = None      # the event after the last copy, once made
+
+    def holds(self, shape: tuple, dtype: torch.dtype) -> bool:
+        """True when the block is of ``shape`` and ``dtype``."""
+        return shape == self.shape and dtype == self.dtype
+
+    def wait(self) -> None:
+        """Wait until the block's last copy to the device has run."""
+        if self._copied is not None:
+            host_sync("sync.stage_block")
+            self._copied.synchronize()
+
+    def copy_to(self, out: torch.Tensor) -> torch.Tensor:
+        """Copy the block's first ``len(out)`` frame steps into ``out`` (on
+        the block's device) and return it."""
+        n = out.shape[0]
+        out.copy_(self.tensor if n == self.shape[0] else self.tensor[:n],
+                  non_blocking=True)
+        if self.device.type == "cuda":
+            if self._copied is None:
+                self._copied = torch.cuda.Event()
+            self._copied.record(torch.cuda.current_stream(self.device))
+        return out

@@ -1257,6 +1257,163 @@ def test_streaming_on_card_equals_device_loop(dev, chain):
             np.testing.assert_array_equal(a[:, b], w)
 
 
+def _counted(fn):
+    """fn()'s result and how much it grew the chain's counters."""
+    from pyfeaturetrack_tpu_torch.utils.profiling import counters
+    names = ("chain.replays", "chain.block_stages", "sync.stage_block",
+             "chain.captures")
+    before = counters()
+    out = fn()
+    after = counters()
+    return out, {n: after.get(n, 0) - before.get(n, 0) for n in names}
+
+
+def _streamed(tracker, frames, flush_at=(), drain_at=()):
+    """Feed ``frames`` one by one (a flush or a drain after the listed
+    indices); the drained parts stacked as one table."""
+    parts = []
+    for i, f in enumerate(frames):
+        tracker.feed(f)
+        if i in flush_at:
+            tracker.flush()
+        if i in drain_at:
+            parts.append(tracker.drain())
+    parts.append(tracker.drain())
+    return tuple(np.concatenate([p[j] for p in parts]) for j in range(3))
+
+
+def _assert_same(got, want):
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("chain", [8, 3])
+@pytest.mark.parametrize("dtype", [np.uint8, np.float32])
+@pytest.mark.parametrize("how", ["flush", "emit_every", "drain"])
+def test_streaming_host_blocks_equal_device_loop(dev, chain, dtype, how):
+    """A chained stream's host frames cross as one block a chain: with a
+    flush in the middle of a chain, ``emit_every`` 5, or drains off a chain
+    boundary, the table == track_sequence_device's, bit for bit; every
+    replay took its frames as a block, and from the third chain on each
+    chain's first write waited for its block's last copy."""
+    from pyfeaturetrack_tpu_torch.serving import StreamingTracker
+    frames = [f.astype(dtype) for f in _scroll(30, seed=61, shift=3)]
+    cfg = tpft.create_config(mindist=8)
+    want = tpft.track_sequence_device(frames, cfg=cfg, n_features=30)
+    tr = StreamingTracker(cfg, n_features=30, chain=chain,
+                          emit_every=5 if how == "emit_every" else 0)
+    got, grew = _counted(lambda: _streamed(
+        tr, frames, flush_at=(chain + 2,) if how == "flush" else (),
+        drain_at=(chain + 2, 2 * chain + 3) if how == "drain" else ()))
+    _assert_same(got, want)
+    # emit_every 5 flushes every chain of 8 before it fills
+    assert (grew["chain.replays"] > 0) == (how != "emit_every" or chain < 5)
+    assert grew["chain.block_stages"] == grew["chain.replays"]
+    assert grew["sync.stage_block"] > 0
+
+
+def test_batched_host_blocks_equal_single_streams(dev):
+    """BatchedStreamingTracker(n_streams=3, chain=4) fed host uint8
+    batches: one block of [4, 3, H, W] a chain; each stream == its own
+    track_sequence_device."""
+    from pyfeaturetrack_tpu_torch.serving import BatchedStreamingTracker
+    cfg = tpft.create_config(mindist=8)
+    streams = [[f.astype(np.uint8) for f in _scroll(18, seed=70 + b,
+                                                    shift=2 + b)]
+               for b in range(3)]
+    bt = BatchedStreamingTracker(cfg, n_streams=3, n_features=25, chain=4)
+    table, grew = _counted(lambda: _streamed(
+        bt, [np.stack([s[i] for s in streams]) for i in range(18)],
+        drain_at=(6,)))
+    assert grew["chain.block_stages"] == grew["chain.replays"] == 3
+    for b, s in enumerate(streams):
+        want = tpft.track_sequence_device(s, cfg=cfg, n_features=25)
+        _assert_same([t[:, b] for t in table], want)
+
+
+def test_reused_host_buffer_equals_distinct_frames(dev):
+    """One numpy buffer, rewritten after every feed as a decoder does,
+    tracks like distinct frames: the block write at feed is the frame's own
+    copy."""
+    from pyfeaturetrack_tpu_torch.serving import StreamingTracker
+    frames = [f.astype(np.uint8) for f in _scroll(26, seed=62, shift=3)]
+    cfg = tpft.create_config(mindist=8)
+    want = _streamed(StreamingTracker(cfg, n_features=30, chain=8), frames)
+    tr = StreamingTracker(cfg, n_features=30, chain=8)
+    buf = np.empty_like(frames[0])
+    for f in frames:
+        buf[...] = f
+        tr.feed(buf)
+        buf[...] = 255 - f
+    _assert_same(tr.table(), want)
+
+
+def test_two_trackers_share_a_graph_not_their_frames(dev):
+    """Two trackers of the same shapes, fed in turn, share one captured
+    graph and each equals its solo run: each writes its own blocks, and
+    its block crosses into the graph's frame buffer just before its
+    replay."""
+    from pyfeaturetrack_tpu_torch.serving import StreamingTracker
+    cfg = tpft.create_config(mindist=8)
+    clips = [[f.astype(np.uint8) for f in _scroll(25, seed=63 + c,
+                                                  shift=2 + c)]
+             for c in range(2)]
+    solo = [_streamed(StreamingTracker(cfg, n_features=30, chain=8), c)
+            for c in clips]
+
+    def in_turn():
+        trackers = [StreamingTracker(cfg, n_features=30, chain=8)
+                    for _ in clips]
+        for i in range(25):
+            for tr, c in zip(trackers, clips):
+                tr.feed(c[i])
+        return [tr.table() for tr in trackers]
+
+    tables, grew = _counted(in_turn)
+    assert grew["chain.captures"] == 0
+    assert grew["chain.block_stages"] == grew["chain.replays"] == 6
+    for got, want in zip(tables, solo):
+        _assert_same(got, want)
+
+
+def test_device_tensor_mid_chain_takes_the_per_frame_path(dev):
+    """A frame already on the card, fed in the middle of a chain of host
+    frames, is staged on its own; that chain's slots cross in one copy and
+    the chain replays from frames on the card: the table == the per-frame
+    path's (every frame on the card) and track_sequence_device's."""
+    from pyfeaturetrack_tpu_torch.serving import StreamingTracker
+    frames = [f.astype(np.uint8) for f in _scroll(17, seed=64, shift=3)]
+    cfg = tpft.create_config(mindist=8)
+    per_frame, grew_all = _counted(lambda: _streamed(
+        StreamingTracker(cfg, n_features=30, chain=8),
+        [torch.tensor(f, device=dev) for f in frames]))
+    assert grew_all["chain.block_stages"] == 0
+    mixed = [torch.tensor(f, device=dev) if i == 4 else f
+             for i, f in enumerate(frames)]
+    got, grew = _counted(lambda: _streamed(
+        StreamingTracker(cfg, n_features=30, chain=8), mixed))
+    assert grew["chain.replays"] == 2 and grew["chain.block_stages"] == 1
+    _assert_same(got, per_frame)
+    _assert_same(got, tpft.track_sequence_device(frames, cfg=cfg,
+                                                 n_features=30))
+
+
+@pytest.mark.parametrize("chain,prefetch", [(1, 0), (8, 2)])
+def test_no_block_stages_off_the_chained_host_path(dev, chain, prefetch):
+    """``chain`` 1 (no replay) and ``prefetch`` 2 (frames on the card)
+    stage frame by frame: no chain crosses as a block."""
+    from pyfeaturetrack_tpu_torch.serving import serve_stream
+    frames = [f.astype(np.uint8) for f in _scroll(18, seed=65, shift=3)]
+    cfg = tpft.create_config(mindist=8)
+    got, grew = _counted(lambda: serve_stream(
+        frames, cfg=cfg, n_features=30, chain=chain, prefetch=prefetch,
+        stage_uint8=True))
+    assert grew["chain.block_stages"] == 0
+    assert grew["chain.replays"] == (0 if chain == 1 else 2)
+    _assert_same(got, tpft.track_sequence_device(frames, cfg=cfg,
+                                                 n_features=30))
+
+
 def test_chunked_lockstep_on_card_equals_serial(dev):
     frames = _scroll(10, seed=53, shift=3)
     kw = dict(n_features=20, n_chunks=2, replace_lost=True)

@@ -135,6 +135,48 @@ def test_streaming_tracker_drain_releases_history():
     assert x3.shape == (0, 20)
 
 
+@pytest.mark.parametrize("how,dtype", [
+    ("reused_buffer", np.uint8), ("mid_chain_flush", np.float32),
+    ("off_boundary_drain", np.uint8), ("emit_every", np.float32),
+    ("tensor_mid_chain", np.uint8)])
+def test_chained_host_frames_through_host_blocks(how, dtype):
+    """A chained stream's host frames are written into the tracker's host
+    blocks at feed (two, one a chain in turn): with one numpy buffer
+    rewritten after every feed as a decoder does, a flush in the middle of
+    a chain, drains off a chain boundary, ``emit_every`` 5, and a tensor on
+    the device fed in the middle of a chain (staged on its own), the table
+    == track_sequence_device on the same frames, bit for bit."""
+    frames = [f.astype(dtype) for f in _rolling_frames(n_frames=12)]
+    cfg = tpft.create_config(mindist=8)
+    want = tpft.track_sequence_device(frames, cfg=cfg, n_features=20,
+                                      device="cpu")
+    tr = StreamingTracker(cfg, n_features=20, chain=3,
+                          emit_every=5 if how == "emit_every" else 0,
+                          device="cpu")
+    buf = np.empty_like(frames[0])
+    parts = []
+    for i, f in enumerate(frames):
+        if how == "reused_buffer":
+            buf[...] = f
+            tr.feed(buf)
+            buf[...] = 255 - f           # the decoder's next frame lands
+        elif how == "tensor_mid_chain" and i == 5:
+            tr.feed(torch.tensor(f))
+        else:
+            emitted = tr.feed(f)
+            if emitted is not None:
+                assert emitted[0].shape == (i + 1, 20)
+        if how == "mid_chain_flush" and i == 5:
+            tr.flush()
+        if how == "off_boundary_drain" and i in (4, 8):
+            parts.append(tr.drain())
+    parts.append(tr.drain())
+    got = tuple(np.concatenate([p[j] for p in parts]) for j in range(3))
+    _assert_tables(got, want, exact=True)
+    assert all(b is not None and b.tensor.dtype == torch.from_numpy(
+        frames[0]).dtype for b in tr._blocks)
+
+
 def test_prefetch_abandoned_consumer_stops_worker():
     """Breaking out of a prefetch iterator unblocks and stops the
     staging thread (no leak of the source or staged frames)."""
