@@ -50,7 +50,10 @@
 // warp-uniform; each warp leaves the loop as soon as its feature converges
 // or fails, which equals the plain version's masked fixed-trip loop because
 // an inactive lane changes nothing. Lane 0 writes the feature's result and
-// its Gauss-Newton update count.
+// its Gauss-Newton update count. In the stage, lane 0 of a checked lane also
+// adds to the device counters (common.cuh): the lane checked, its updates,
+// and the lane when the check rejects it; at most three atomics a warp, on
+// the slot of its feature.
 
 #include <math.h>
 
@@ -480,7 +483,7 @@ __device__ __forceinline__ void template_out(const StageIn<TS>& I, const StageOu
 // x, y, val, A and valid. Every other template is copied through.
 template <int NPL, int MODE, typename TS>
 __global__ void __launch_bounds__(NT)
-stage_kernel(StageIn<TS> I, StageOut O, AffParams P)
+stage_kernel(StageIn<TS> I, StageOut O, AffParams P, unsigned long long* __restrict__ counters)
 {
     const int f = (blockIdx.x * NT + threadIdx.x) >> 5;
     const int lane = threadIdx.x & 31;
@@ -522,6 +525,11 @@ stage_kernel(StageIn<TS> I, StageOut O, AffParams P)
         O.t_A[4 * f + 3] = keep ? a11 : b11;
         O.t_valid[f] = (valid1 || capture) && !failed;
         O.t_nit[f] = capture ? CAPTURE_NIT : I.t_nit[f];
+        if (check) {
+            pft_count(counters, PFT_K6_CHECKED, f, 1ull);
+            pft_count(counters, PFT_K6_GN_STEPS, f, (unsigned long long)it);
+            pft_count(counters, PFT_K6_REJECTIONS, f, failed ? 1ull : 0ull);
+        }
     }
     PFT_PHASE(clk_out, 7, lane == 0);            // the outputs
 }
@@ -542,9 +550,10 @@ int launch(const float* tmpl, const void* img2, const void* gx2, const void* gy2
 
 template <int NPL, int MODE, typename TS>
 int launch_stage(const StageIn<TS>& I, const StageOut& O, const AffParams& P,
-                 cudaStream_t stream)
+                 unsigned long long* counters, cudaStream_t stream)
 {
-    stage_kernel<NPL, MODE, TS><<<pft_ceil_div(P.n, NT / 32), NT, 0, stream>>>(I, O, P);
+    stage_kernel<NPL, MODE, TS><<<pft_ceil_div(P.n, NT / 32), NT, 0, stream>>>(I, O, P,
+                                                                               counters);
     return (int)cudaGetLastError();
 }
 
@@ -649,6 +658,7 @@ extern "C" int pft_affine_track(const float* tmpl, const void* img2, const void*
 // state: the AffineState in (img, gradx, grady [n, wh, ww], x, y [n], A
 // [n, 2, 2]), valid [n] bool, nit [n] int32; out: x, y [n], then the new
 // AffineState's float fields in the same order; val_out, valid_out, nit_out.
+// counters: the device counters (common.cuh), or nullptr.
 extern "C" int pft_affine_stage(const void* const* pyr, const float* const* feats,
                                 const int* const* vals, const float* const* state,
                                 const bool* valid, const int* nit, int bf16, int H, int W,
@@ -657,7 +667,8 @@ extern "C" int pft_affine_stage(const void* const* pyr, const float* const* feat
                                 int max_iterations, float min_displacement,
                                 float min_determinant, float max_residue,
                                 float max_displacement_differ, float* const* out,
-                                int* val_out, bool* valid_out, int* nit_out, void* stream)
+                                int* val_out, bool* valid_out, int* nit_out,
+                                unsigned long long* counters, void* stream)
 {
     if (n <= 0) return 0;
     if (H < 2 || W < 2 || window_width % 2 != 1 || window_height % 2 != 1)
@@ -671,10 +682,10 @@ extern "C" int pft_affine_stage(const void* const* pyr, const float* const* feat
     if (bf16)
         return dispatch<StageLaunch<__nv_bfloat16>::Run>(
             window_width, window_height, mode,
-            stage_in<__nv_bfloat16>(pyr, feats, vals, state, valid, nit), O, P, s);
+            stage_in<__nv_bfloat16>(pyr, feats, vals, state, valid, nit), O, P, counters, s);
     return dispatch<StageLaunch<float>::Run>(
         window_width, window_height, mode,
-        stage_in<float>(pyr, feats, vals, state, valid, nit), O, P, s);
+        stage_in<float>(pyr, feats, vals, state, valid, nit), O, P, counters, s);
 }
 
 PFT_PHASE_READER(pft_affine_phase_clocks)

@@ -45,7 +45,7 @@ static inline void pft_allow_smem(K kernel, size_t bytes) {
 // counts nothing; the counts never feed back into a result.
 #define PFT_COUNTER_SLOTS 64
 enum PftCounter { PFT_K2_GN_STEPS, PFT_K2_LANE_LEVELS, PFT_K4_ACCEPTS, PFT_K4_RESCANS,
-                  PFT_N_COUNTERS };
+                  PFT_K6_CHECKED, PFT_K6_GN_STEPS, PFT_K6_REJECTIONS, PFT_N_COUNTERS };
 
 static __device__ __forceinline__ void pft_count(unsigned long long* c, PftCounter k,
                                                  int slot, unsigned long long n)

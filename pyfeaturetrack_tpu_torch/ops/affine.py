@@ -28,7 +28,7 @@ import torch
 from ..features import (KLT_LARGE_RESIDUE, KLT_OOB, KLT_SMALL_DET,
                         KLT_TRACKED, AffineState, FeatureState,
                         empty_affine_state, identity_warps)
-from ..utils import cuda
+from ..utils import cuda, profiling
 from . import cuda_affine
 from .cuda_lk import _f32, tree_sum
 from .interp import bilinear, gather_window
@@ -198,12 +198,15 @@ def affine_consistency_check(pyr1, pyr2, fl_before: FeatureState,
 
 
 def stage_reference(level1, level2, before_xy, before_val, after_xy,
-                    after_val, aff: AffineState, cfg):
+                    after_val, aff: AffineState, cfg, counts=None):
     """Plain version of K6's stage (``cuda_affine.affine_stage``): the
     eager composition of lost lanes, template capture, the check and the
     selects. ``level1``/``level2``: (img, gradx, grady) of each frame's
     level 0; ``aff`` sized for ``cfg`` with ``nit`` set. Returns (x, y,
-    val, AffineState)."""
+    val, AffineState). ``counts``: a device counter buffer
+    (``utils/profiling.device_counters``) to add the kernel's counts to
+    (lanes checked, their Gauss-Newton updates, lanes rejected), or
+    None."""
     hw, hh = cfg.affine_window_width // 2, cfg.affine_window_height // 2
     bx, by = before_xy
     ax, ay = after_xy
@@ -231,10 +234,15 @@ def stage_reference(level1, level2, before_xy, before_val, after_xy,
         nit=torch.where(need_capture, _CAPTURE_NIT, aff.nit))
 
     check = tracked & aff.valid & ~need_capture
-    x, y, A, status, _ = _affine_track_batch(aff.img, *level2, ax, ay, aff.A,
-                                             check, cfg)
+    x, y, A, status, nit = _affine_track_batch(aff.img, *level2, ax, ay,
+                                               aff.A, check, cfg)
 
     failed = check & (status != KLT_TRACKED)
+    if counts is not None:
+        profiling.add_device_counts(counts, {
+            "k6.checked_lanes": check.sum(),
+            "k6.gn_steps": torch.where(check, nit, 0).sum(),
+            "k6.rejections": failed.sum()})
     new_x = torch.where(check, torch.where(failed, -1.0, x), ax)
     new_y = torch.where(check, torch.where(failed, -1.0, y), ay)
     new_val = torch.where(failed, status, after_val)

@@ -19,6 +19,11 @@ Level-0 images stored as float32 or bfloat16 (``cfg.image_dtype``): every
 tap is upcast to float32 where it is read; templates, warps and sums are
 float32.
 
+Counting: the stage adds the lanes it checked, their Gauss-Newton updates
+and the lanes it rejected to the device counters ``k6.checked_lanes``,
+``k6.gn_steps`` and ``k6.rejections`` (``utils/profiling.DEVICE_COUNTERS``);
+its plain version adds the same counts. The batch counts nothing.
+
 A CUDA tensor launches the kernel (one launch per call); a CPU tensor
 takes the plain version.
 """
@@ -132,7 +137,8 @@ def _ptrs(tensors):
 
 def _launch_stage(ts, cfg):
     """One pft_affine_stage launch (none for an empty list) on the stage's
-    inputs in ``affine_stage``'s order: (x, y, val, *AffineState)."""
+    inputs in ``affine_stage``'s order: (x, y, val, *AffineState); it adds
+    to the card's device counters."""
     global launches
     imgs, feats, vals, state = ts[:6], ts[6:10], ts[10:12], ts[12:18]
     valid, nit = ts[18:]
@@ -146,14 +152,16 @@ def _launch_stage(ts, cfg):
         fn = cuda.function("pft_affine_stage",
                            [cuda.c_ptr] * 6 + [cuda.c_int] * 7
                            + [cuda.c_int] + [cuda.c_float] * 4
-                           + [cuda.c_ptr] * 5)
+                           + [cuda.c_ptr] * 6)
         tables = [_ptrs(t) for t in (imgs, feats, vals, state,
                                      (x, y) + tuple(out[:6]))]
         addr = [ctypes.addressof(t) for t in tables]
+        counts = profiling.device_counters(x.device)
         rc = fn(*addr[:4], valid.data_ptr(), nit.data_ptr(),
                 int(imgs[0].dtype == torch.bfloat16), *imgs[0].shape, n,
                 *_gn_params(cfg), addr[4],
                 val.data_ptr(), out.valid.data_ptr(), out.nit.data_ptr(),
+                None if counts is None else counts.data_ptr(),
                 cuda.stream_ptr(x.device))
         cuda.check(rc, "pft_affine_stage")
         launches += 1
@@ -167,13 +175,14 @@ def affine_stage(pyr1, pyr2, fl_before, fl_after, aff: AffineState, cfg):
     device. Differentiable in the float outputs (x, y and the AffineState's
     windows, anchors and warps) through the plain stage's VJP
     (``ops/affine.stage_reference``). CPU tensors take that plain
-    version."""
+    version, which adds the same K6 counts to the device's counters."""
     imgs = (pyr1.img[0], pyr1.gradx[0], pyr1.grady[0], pyr2.img[0],
             pyr2.gradx[0], pyr2.grady[0])
     if not cuda.use_kernel(fl_before.x, fl_after.x, aff.img, *imgs):
         return affine.stage_reference(
             imgs[:3], imgs[3:], (fl_before.x, fl_before.y), fl_before.val,
-            (fl_after.x, fl_after.y), fl_after.val, aff, cfg)
+            (fl_after.x, fl_after.y), fl_after.val, aff, cfg,
+            counts=profiling.device_counters(fl_after.x.device))
     ww, wh = _require_mode_and_window(cfg)
     n = fl_after.nFeatures
     shape = imgs[0].shape

@@ -302,6 +302,18 @@ class _StreamingBase:
                     for j in (1, 2, 3)))
                 self._note_exhausted(torch.stack(exhausted))
 
+    def affine_state(self, stream: int = 0):
+        """Stream ``stream``'s AffineState (templates, anchors, warps,
+        valid flags) as the last chain or step handed it out: None with the
+        affine-consistency check off, or before the first frame. Read-only,
+        with no copy and no host sync: a replay hands out copies of the
+        graph's buffers and an eager step makes new tensors, so a later
+        ``feed`` never changes what this returned (writing into it would
+        make the next chain load the written state)."""
+        if self._lanes is None:
+            return None
+        return self._lanes[stream][4]
+
     def flush(self) -> None:
         """Force out any buffered partial chain (ends a latency window);
         its frames run step by step."""

@@ -19,8 +19,9 @@ Counters, always on, plain integer adds:
   the card, each also under its site's ``sync.<site>`` (``host_sync``);
 * the kernel modules' launch counters, which each module registers when
   it is imported (``launch_counter``), as ``<module>.<name>``;
-* device counters (``DEVICE_COUNTERS``), added by K2 and K4 on the card
-  into one int64 buffer per device (``device_counters``).
+* device counters (``DEVICE_COUNTERS``), added by K2, K4 and K6 on the
+  card into one int64 buffer per device (``device_counters``); K6's plain
+  stage adds the same counts into its device's buffer (the CPU's too).
 
 ``counters()`` returns all three (one device-to-host copy per device; no
 hot path calls it) and ``reset_counters()`` zeroes them. The counters are
@@ -138,31 +139,44 @@ def launch_counters() -> list:
 
 # The kernels' device counters, in the rows of csrc/common.cuh PftCounter:
 # K2's Gauss-Newton steps and the (lane, level) pairs it entered; K4's
-# acceptances and segment rescans on refills.
+# acceptances and segment rescans on refills; the lanes K6's affine stage
+# checked against their templates, their Gauss-Newton updates and the lanes
+# it rejected.
 DEVICE_COUNTERS = ("k2.gn_steps", "k2.lane_levels", "k4.refill_acceptances",
-                   "k4.refill_rescans")
+                   "k4.refill_rescans", "k6.checked_lanes", "k6.gn_steps",
+                   "k6.rejections")
 DEVICE_SLOTS = 64           # csrc/common.cuh PFT_COUNTER_SLOTS
 _device: dict = {}
 _device_lock = threading.Lock()
 
 
 def device_counters(dev: torch.device):
-    """The device counter buffer of card ``dev`` (int64 [counters, slots]),
+    """The device counter buffer of device ``dev`` (int64 [counters, slots]),
     made at its first use. A captured CUDA graph adds into the buffer that
     existed when it was captured, so the buffer is made before any capture
     and only ever zeroed in place; while a capture runs on a card that has
     none yet, None (nothing counted)."""
-    buf = _device.get(dev.index)
+    key = dev.index if dev.type == "cuda" else dev.type
+    buf = _device.get(key)
     if buf is None:
-        if torch.cuda.is_current_stream_capturing():
+        if dev.type == "cuda" and torch.cuda.is_current_stream_capturing():
             return None
         with _device_lock:
-            buf = _device.get(dev.index)
+            buf = _device.get(key)
             if buf is None:
-                buf = _device[dev.index] = torch.zeros(
+                buf = _device[key] = torch.zeros(
                     (len(DEVICE_COUNTERS), DEVICE_SLOTS), dtype=torch.int64,
                     device=dev)
     return buf
+
+
+def add_device_counts(buf: torch.Tensor, counts: dict) -> None:
+    """Add each 0-dim tensor of ``counts`` ({device counter: n}) into slot
+    0 of its row of ``buf`` (``device_counters``), on the buffer's device
+    and with no host sync: a plain version counting what its kernel
+    counts."""
+    for name, n in counts.items():
+        buf[DEVICE_COUNTERS.index(name), 0] += n
 
 
 def counters() -> dict:

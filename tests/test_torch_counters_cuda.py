@@ -1,5 +1,5 @@
-"""The device counters of K2 and K4 and the captured chain's counters, on
-the card. Every test is marked ``gpu`` and skips where torch sees no CUDA
+"""The device counters of K2, K4 and K6 and the captured chain's counters,
+on the card. Every test is marked ``gpu`` and skips where torch sees no CUDA
 device; on a GPU machine run them (no JAX needed) with
 
     python -m pytest --noconftest tests/test_torch_counters_cuda.py -q
@@ -7,10 +7,13 @@ device; on a GPU machine run them (no JAX needed) with
 K2's Gauss-Newton steps lie between the (lane, level) pairs it entered
 and ``max_iterations`` times those; K4's refill acceptances equal the
 slots it filled, and its rescans match a lattice built to hold a known
-number; counting changes no output bit (the launch with no
-counter buffer is the one before the counters); ten chains of one shape
-are one capture and ten replays, and a replay adds what the same steps
-add when run one by one."""
+number; K6's affine stage counts, on a lane mix of known counts
+(``tests/_affine_lanes.py``), the lanes it checked, their Gauss-Newton
+updates and the lanes it rejected, as its plain version does; counting
+changes no output bit (the launch with no counter buffer is the one
+before the counters); ten chains of one shape are one capture and ten
+replays, and a replay adds what the same steps add when run one by one
+(config 3's too, with the affine stage)."""
 
 from collections import OrderedDict
 
@@ -190,3 +193,88 @@ def test_a_replay_adds_what_its_steps_add(dev):
     stepped = _grew(before, _device_counts())
     assert chained == stepped
     assert chained["k2.lane_levels"] > 0
+
+
+K6_COUNTERS = ("k6.checked_lanes", "k6.gn_steps", "k6.rejections")
+
+
+def _k6_stage(mix):
+    from pyfeaturetrack_tpu_torch.ops import affine
+    return affine.affine_consistency_check(mix["pyr1"], mix["pyr2"],
+                                           mix["before"], mix["after"],
+                                           mix["cfg"])
+
+
+def test_k6_counts_a_known_lane_mix(dev):
+    """Checked lanes: the lanes tracked with a template; updates: the
+    iteration cap for each lane that passes, plus the rejected lanes'; the
+    rejected lanes; the same counts as the plain stage on the card."""
+    from _affine_lanes import lane_mix
+    from pyfeaturetrack_tpu_torch.ops import affine
+    from pyfeaturetrack_tpu_torch.utils import cuda
+    mix = lane_mix(dev)
+    cfg, g, after = mix["cfg"], mix["groups"], mix["after"]
+    before = _device_counts()
+    out = _k6_stage(mix)
+    got = _grew(before, _device_counts())
+    before = _device_counts()
+    with cuda.reference_path():
+        plain = _k6_stage(mix)
+    assert _grew(before, _device_counts()) == got
+    level2 = (mix["pyr2"].img[0], mix["pyr2"].gradx[0], mix["pyr2"].grady[0])
+    *_, nit = affine._affine_track_batch(after.aff.img, *level2, after.x,
+                                         after.y, after.aff.A, g["reject"],
+                                         cfg)
+    n_cap, n_reject = int(g["cap"].sum()), int(g["reject"].sum())
+    assert {k: got[k] for k in K6_COUNTERS} == {
+        "k6.checked_lanes": n_cap + n_reject,
+        "k6.gn_steps": cfg.affine_max_iterations * n_cap
+        + int(nit[g["reject"]].sum()),
+        "k6.rejections": n_reject}
+    assert got["k2.gn_steps"] == got["k4.refill_acceptances"] == 0
+    assert bool((out.val[g["cap"]] == 0).all())
+    assert bool((out.val[g["reject"]] < 0).all())
+    for a, b in zip((out.x, out.y, out.val, *out.aff),
+                    (plain.x, plain.y, plain.val, *plain.aff)):
+        assert torch.equal(a, b)
+
+
+def test_k6_counting_changes_no_output_bit(dev, monkeypatch):
+    """The affine stage with the counter buffer and without one (null:
+    nothing counted) gives the same bits."""
+    from _affine_lanes import lane_mix
+    mix = lane_mix(dev)
+    counted = _k6_stage(mix)
+    before = _device_counts()
+    monkeypatch.setattr(profiling, "device_counters", lambda d: None)
+    uncounted = _k6_stage(mix)
+    monkeypatch.undo()
+    assert _device_counts() == before
+    for a, b in zip((counted.x, counted.y, counted.val, *counted.aff),
+                    (uncounted.x, uncounted.y, uncounted.val,
+                     *uncounted.aff)):
+        assert torch.equal(a, b)
+
+
+def test_a_config3_replay_adds_what_its_steps_add(dev):
+    """With the affine stage in the chain (config 3), a replay adds to K2's,
+    K4's and K6's counters what the same steps add run one by one."""
+    cfg = tpft.create_config(affineConsistencyCheck=2, nPyramidLevels=3,
+                             subsampling=2).replace(sequentialMode=True)
+    frames = [torch.tensor(f, device=dev) for f in _pan(9, h=240, w=320)]
+    pyr, x, y, val, aff, _ = select_step_device(frames[0], cfg, 300)
+    # frames 1-4 capture templates; the chain over 5-8 checks them
+    for f in frames[1:5]:
+        pyr, x, y, val, aff, *_ = sequence_step_device(pyr, f, x, y, val, cfg,
+                                                       aff=aff)
+    sequence_chain_device(pyr, frames[5:], x, y, val, cfg, aff=aff)
+    before = _device_counts()
+    sequence_chain_device(pyr, frames[5:], x, y, val, cfg, aff=aff)
+    chained = _grew(before, _device_counts())
+    before = _device_counts()
+    for f in frames[5:]:
+        pyr, x, y, val, aff, *_ = sequence_step_device(pyr, f, x, y, val, cfg,
+                                                       aff=aff)
+    stepped = _grew(before, _device_counts())
+    assert chained == stepped
+    assert chained["k6.checked_lanes"] > 0 and chained["k2.lane_levels"] > 0

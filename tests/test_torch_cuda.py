@@ -1287,6 +1287,85 @@ def _assert_same(got, want):
         np.testing.assert_array_equal(a, b)
 
 
+def _warped(n, h=480, w=640, seed=31):
+    """uint8 frames that pan (2, 1) px, roll 0.05 deg and zoom 0.1 % a frame
+    about the centre under a static textured box (rows 300-400, columns
+    240-400), by bilinear sampling of one texture."""
+    tex = _texture(h + 160, w + 160, seed)
+    box = _texture(100, 160, seed + 1)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
+    xx, yy = xx - (w - 1) / 2.0, yy - (h - 1) / 2.0
+    out = []
+    for i in range(n):
+        th, z = np.radians(0.05 * i), 1.05 * 1.001 ** i
+        qx = (np.cos(th) * xx + np.sin(th) * yy) / z + (w - 1) / 2.0 + 80 + 2 * i
+        qy = (-np.sin(th) * xx + np.cos(th) * yy) / z + (h - 1) / 2.0 + 80 + i
+        x0, y0 = np.floor(qx).astype(np.int64), np.floor(qy).astype(np.int64)
+        ax, ay = qx - x0, qy - y0
+        v = ((1 - ax) * (1 - ay) * tex[y0, x0] + ax * (1 - ay) * tex[y0, x0 + 1]
+             + (1 - ax) * ay * tex[y0 + 1, x0] + ax * ay * tex[y0 + 1, x0 + 1])
+        v[300:400, 240:400] = box
+        out.append(np.floor(v).astype(np.uint8))
+    return out
+
+
+def test_config3_chain8_at_vga_equals_eager_steps(dev):
+    """BASELINE config 3 (the affine check, 3 levels at subsampling 2) at
+    480x640 and 1000 features through StreamingTracker(chain=8), fed host
+    uint8 frames that pan, roll and zoom under a static overlay: every
+    chain is one replay whose frames cross as one block; the table and the
+    final AffineState == eager sequence_step_device's, bit for bit;
+    affine_state() is the chain's copy (none of the graph's buffers), which
+    later feeds leave unchanged, and the stage checked and rejected
+    lanes."""
+    from pyfeaturetrack_tpu_torch.models import device_sequence as ds
+    from pyfeaturetrack_tpu_torch.serving import StreamingTracker
+    from pyfeaturetrack_tpu_torch.utils.profiling import counters
+    cfg = tpft.create_config(affineConsistencyCheck=2, nPyramidLevels=3,
+                             subsampling=2).replace(sequentialMode=True)
+    frames = _warped(33)
+    tr = StreamingTracker(cfg, n_features=1000, chain=8)
+    tr.feed(frames[0])
+    assert tr.affine_state() is not None and not bool(
+        tr.affine_state().valid.any())
+    before = counters()
+    held = None
+    for i, f in enumerate(frames[1:], 1):
+        tr.feed(f)
+        if i == 16:
+            held = tr.affine_state()
+            kept = [t.clone() for t in held]
+    grew = {k: counters()[k] - before.get(k, 0)
+            for k in ("chain.replays", "chain.block_stages",
+                      "k6.checked_lanes", "k6.rejections")}
+    got = tr.table()
+    last = tr.affine_state()
+    torch.cuda.synchronize()
+    assert grew["chain.replays"] == grew["chain.block_stages"] == 4
+    assert grew["k6.checked_lanes"] > 1000 and grew["k6.rejections"] > 0
+    for a, b in zip(held, kept):
+        assert torch.equal(a, b)
+    graph = next(reversed(ds._GRAPHS.values()))      # the tracker's, last used
+    bufs = {t.untyped_storage().data_ptr() for t in graph.aff}
+    assert not bufs & {t.untyped_storage().data_ptr() for t in last}
+
+    pyr, x, y, v, aff, _ = tpft.select_step_device(
+        torch.tensor(frames[0], device=dev), cfg, 1000)
+    rows = [(x, y, v)]
+    carry = None
+    for f in frames[1:]:
+        pyr, x, y, v, aff, _, carry = tpft.sequence_step_device(
+            pyr, torch.tensor(f, device=dev), x, y, v, cfg, aff=aff,
+            carry=carry)
+        rows.append((x, y, v))
+    want = tuple(torch.stack([r[j] for r in rows]).cpu().numpy()
+                 for j in range(3))
+    _assert_same(got, want)
+    for a, b in zip(last, aff):
+        assert torch.equal(a, b)
+    assert int(last.valid.sum()) > 500
+
+
 @pytest.mark.parametrize("chain", [8, 3])
 @pytest.mark.parametrize("dtype", [np.uint8, np.float32])
 @pytest.mark.parametrize("how", ["flush", "emit_every", "drain"])

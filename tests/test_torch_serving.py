@@ -177,6 +177,46 @@ def test_chained_host_frames_through_host_blocks(how, dtype):
         frames[0]).dtype for b in tr._blocks)
 
 
+@pytest.mark.parametrize("batched", [False, True])
+def test_affine_state_is_what_the_chain_handed_out(batched):
+    """``affine_state(stream)``: None before the first frame and with the
+    affine check off; with it on, stream b's AffineState as the last chain
+    handed it out (the tracker's own lane state, no copy), which later
+    feeds, chained and flushed, leave unchanged; both trackers."""
+    frames = [f.astype(np.uint8) for f in _rolling_frames(n_frames=9,
+                                                          shift=2)]
+    on = tpft.create_config(mindist=8, affineConsistencyCheck=2)
+
+    def tracker(cfg):
+        if batched:
+            return BatchedStreamingTracker(cfg, n_streams=2, n_features=20,
+                                           chain=2, device="cpu")
+        return StreamingTracker(cfg, n_features=20, chain=2, device="cpu")
+
+    def item(f):
+        return np.stack([f, f[:, ::-1].copy()]) if batched else f
+
+    streams = range(2 if batched else 1)
+    off = tracker(tpft.create_config(mindist=8))
+    tr = tracker(on)
+    assert tr.affine_state() is None
+    for f in frames[:5]:
+        off.feed(item(f))
+        tr.feed(item(f))
+    assert all(off.affine_state(b) is None for b in streams)
+    held = [tr.affine_state(b) for b in streams]
+    assert all(h is tr._lanes[b][4] for b, h in zip(streams, held))
+    assert all(bool(h.valid.any()) for h in held)
+    kept = [[t.clone() for t in h] for h in held]
+    for f in frames[5:8]:
+        tr.feed(item(f))
+    tr.flush()
+    for h, k in zip(held, kept):
+        for a, b in zip(h, k):
+            assert torch.equal(a, b)
+    assert not torch.equal(tr.affine_state(0).A, held[0].A)
+
+
 def test_prefetch_abandoned_consumer_stops_worker():
     """Breaking out of a prefetch iterator unblocks and stops the
     staging thread (no leak of the source or staged frames)."""

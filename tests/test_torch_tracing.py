@@ -202,3 +202,34 @@ def test_reset_zeroes_every_counter(monkeypatch):
     profiling.reset_counters()
     assert all(v == 0 for v in profiling.counters().values())
     assert profiling._device[0] is buf and not buf.any()
+
+
+def test_plain_affine_stage_counts_a_known_lane_mix():
+    """K6's plain stage (the CPU route) adds to the device counters what its
+    kernel adds on the card (tests/test_torch_counters_cuda.py): the lanes
+    it checked against their templates, their Gauss-Newton updates (the
+    iteration cap for each lane that passes) and the lanes it rejected."""
+    from _affine_lanes import lane_mix
+    from pyfeaturetrack_tpu_torch.ops import affine
+
+    mix = lane_mix("cpu")
+    cfg, g, after = mix["cfg"], mix["groups"], mix["after"]
+    names = ("k6.checked_lanes", "k6.gn_steps", "k6.rejections")
+    before = {k: profiling.counters()[k] for k in names}
+    out = affine.affine_consistency_check(mix["pyr1"], mix["pyr2"],
+                                          mix["before"], after, cfg)
+    grew = {k: profiling.counters()[k] - before[k] for k in names}
+    # the rejected lanes' updates: the Gauss-Newton batch on them alone
+    level2 = (mix["pyr2"].img[0], mix["pyr2"].gradx[0], mix["pyr2"].grady[0])
+    *_, nit = affine._affine_track_batch(after.aff.img, *level2, after.x,
+                                         after.y, after.aff.A, g["reject"],
+                                         cfg)
+    cap = cfg.affine_max_iterations
+    n_cap, n_reject = int(g["cap"].sum()), int(g["reject"].sum())
+    assert grew == {"k6.checked_lanes": n_cap + n_reject,
+                    "k6.gn_steps": cap * n_cap + int(nit[g["reject"]].sum()),
+                    "k6.rejections": n_reject}
+    assert bool((out.val[g["cap"]] == 0).all())
+    assert bool((out.val[g["reject"]] < 0).all())
+    assert bool(out.aff.valid[g["capture"]].all())
+    assert not bool(out.aff.valid[g["lost"] | g["dead"] | g["reject"]].any())
