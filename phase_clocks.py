@@ -12,10 +12,15 @@ then:
 
 * K6: the config-3 sequence of chip_smoke.py (480x640, 1000 features,
   similarity motion) is stepped to its middle; that step's affine stage
-  runs N times. Each warp's lane 0 sums the cycles of each phase of its
-  feature (csrc/affine.cu: lane state and template capture or copy; the
-  template into registers; per Gauss-Newton iteration the bounds vote, the
-  samples, the butterflies, the solve; after the loop; the outputs).
+  runs N times (its device time first, by the profiler, with the
+  package's library). Thread 0 of each feature sums the cycles of each
+  phase of its feature (csrc/affine.cu: lane state and template capture
+  or copy; per Gauss-Newton iteration the samples with the bounds vote
+  and the per-lane sums, the butterflies with the wait for the feature's
+  warps, the solve and the update; after the loop; the
+  outputs), in all and feature by feature: each phase's mean over the
+  checked features beside the slowest feature's, and the distribution of
+  updates per checked feature. ``--k6-only`` stops there.
 * K1: the default build (2 levels, 480x640) and the config-3 build (3
   levels) N times each, as the device route runs them (with K3's map in
   the level-0 launch), and the default build without the map. Thread 0
@@ -48,7 +53,7 @@ then:
   position and frame-1 loads, the frame-2 patch staged, the blends and
   per-lane sums, the butterflies and the store).
 
-Prints, per phase, cycles per launch summed over warps (K6) or blocks
+Prints, per phase, cycles per launch summed over features (K6) or blocks
 (K1), marks per launch and the share of the kernel's counted cycles, and
 the card's name and power limit. The counters add atomics, so the totals
 are not the production kernels' times: the shares are what to read.
@@ -64,12 +69,15 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+UNITS = 4096           # PFT_PHASE_UNITS (csrc/common.cuh)
 K6_PHASES = dict(enumerate([
-    "lane state, template capture or copy", "template into registers",
-    "bounds vote (per iteration)",
-    "samples: taps, blends, products (per iteration)",
-    "butterflies (per iteration)", "solve and update (per iteration)",
+    "lane state, template capture or copy",
+    "samples, bounds vote, per-lane sums (per iteration)",
+    "butterflies, the feature's wait (per iteration)",
+    "solve and update (per iteration)",
     "after the loop: bounds, residue, drift", "outputs"]))
+K6_GN_PHASE = 1        # the first phase only a checked feature marks
+K6_UPDATE_PHASE = 3    # marked once per Gauss-Newton update
 K5_PHASES = {0: "zeroing (grid, outputs) and the budget",
              1: "window: test, compaction (per 512 candidates)",
              2: "serial walk (per batch of 32 survivors)",
@@ -131,6 +139,75 @@ def read_clocks(lib, entry: str):
     if fn(ctypes.addressof(cycles), ctypes.addressof(counts)) != 0:
         sys.exit(f"phase_clocks: {entry} failed")
     return list(cycles), list(counts)
+
+
+def read_units(lib, entry: str, n: int):
+    """The unit records of PFT_PHASE_UNIT and PFT_PHASE_STAMP: uint32
+    [n, 2, 16]."""
+    import numpy as np
+    units = (ctypes.c_uint * (UNITS * 2 * 16))()
+    fn = getattr(lib, entry)
+    fn.argtypes = [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    if fn(ctypes.addressof(units)) != 0:
+        sys.exit(f"phase_clocks: {entry} failed")
+    got = np.frombuffer(units, dtype=np.uint32).reshape(UNITS, 2, 16)
+    return got[:n].copy()
+
+
+def report_k6_units(units, reps: int):
+    """K6 by feature: each phase's mean cycles over the checked features
+    beside the slowest one's (the largest total), the distribution of
+    Gauss-Newton updates per checked feature, and the last launch's
+    timeline (each feature's start and end by the global timer: whether
+    the slowest feature or later waves of blocks set the launch's
+    time)."""
+    import numpy as np
+    cycles, marks = units[:, 0] / reps, units[:, 1] / reps
+    checked = marks[:, K6_GN_PHASE] > 0
+    phases = list(K6_PHASES)
+    total = cycles[:, phases].sum(axis=1)
+    slow = int(np.flatnonzero(checked)[np.argmax(total[checked])])
+    print(f"\nK6 by feature, per launch: {int(checked.sum())} checked of "
+          f"{len(checked)}; the slowest is feature {slow}")
+    print(f"  {'phase':58s} {'mean cycles':>12s} {'slowest':>10s} "
+          f"{'its marks':>10s}")
+    for k, name in K6_PHASES.items():
+        print(f"  {name:58s} {cycles[checked, k].mean():12.0f} "
+              f"{cycles[slow, k]:10.0f} {marks[slow, k]:10.1f}")
+    print(f"  {'total':58s} {total[checked].mean():12.0f} "
+          f"{total[slow]:10.0f}")
+    ups = marks[checked, K6_UPDATE_PHASE]
+    hist = np.bincount(np.rint(ups).astype(int))
+    print(f"  updates per checked feature: mean {ups.mean():.4f}, p99 "
+          f"{np.percentile(ups, 99):.1f}, max {ups.max():.0f}; histogram "
+          f"{dict(enumerate(hist.tolist()))}")
+    print(f"  total cycles by updates: " + ", ".join(
+        f"{u}: {total[checked][np.rint(ups) == u].mean():.0f}"
+        for u in range(len(hist)) if hist[u]))
+    # the stamps are the timer's low 32 bits: differences modulo 2**32
+    ref = int(units[0, 0, 14])
+    start, end = ((units[:, 0, k].astype(np.int64) - ref + 2 ** 31) % 2 ** 32
+                  - 2 ** 31 for k in (14, 15))
+    t0 = start.min()
+    start, end = (start - t0) / 1e3, (end - t0) / 1e3          # us
+    last = int(np.argmax(end))
+    upd = np.rint(marks[:, K6_UPDATE_PHASE]).astype(int)
+    print(f"  timeline of the last launch (us from the first start): last "
+          f"end {end.max():.2f}; the last feature to end ({last}, "
+          f"{upd[last]} updates) ran {start[last]:.2f}-{end[last]:.2f}; "
+          f"the slowest ({slow}) {start[slow]:.2f}-{end[slow]:.2f}; "
+          f"{len(set(units[:, 1, 14].tolist()))} SMs")
+    bins = np.arange(0.0, end.max() + 2.0, 2.0)
+    print("  features started by 2 us bin: "
+          f"{np.histogram(start, bins)[0].tolist()}; ended: "
+          f"{np.histogram(end, bins)[0].tolist()}")
+    for u in range(len(hist)):
+        m = checked & (upd == u)
+        if m.any():
+            print(f"  {u} updates: {int(m.sum())} features, run "
+                  f"{np.median(end[m] - start[m]):.2f} us median, "
+                  f"{(end[m] - start[m]).max():.2f} max")
 
 
 def report(title, names: dict, cycles, counts, launches):
@@ -246,7 +323,10 @@ def k8_tile_sweep(cs, cfg, levels, reps):
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--reps", type=int, default=20)
-    reps = parser.parse_args(argv).reps
+    parser.add_argument("--k6-only", action="store_true",
+                        help="measure K6's affine stage alone")
+    opts = parser.parse_args(argv)
+    reps = opts.reps
     import torch
     if not torch.cuda.is_available():
         sys.exit("phase_clocks: needs a CUDA device")
@@ -258,14 +338,11 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     cfg = pft.create_config().replace(sequentialMode=True).validated_window()
     main_frames = cs.make_frames(cs.N_FRAMES)
-    _, _, lvl0, u1, v1 = cs.dense_flow_levels(pft, main_frames, cfg, dev)
-    k8_levels = (lvl0, u1, v1, *cs.dense_depth_levels(pft, cfg, dev))
-    k8_tile_sweep(cs, cfg, k8_levels, reps)
-    k9_calls = k9_inputs(pft, cs, cfg, main_frames, dev)
-    t0 = time.perf_counter()
-    lib = use_library(build_clock_library())
-    print(f"card: {smi}; clock build {time.perf_counter() - t0:.1f} s")
-
+    if not opts.k6_only:
+        _, _, lvl0, u1, v1 = cs.dense_flow_levels(pft, main_frames, cfg, dev)
+        k8_levels = (lvl0, u1, v1, *cs.dense_depth_levels(pft, cfg, dev))
+        k8_tile_sweep(cs, cfg, k8_levels, reps)
+        k9_calls = k9_inputs(pft, cs, cfg, main_frames, dev)
     cfg3 = cs.config3()
     frames = [torch.as_tensor(f, device=dev).to(torch.float32)
               for f in cs.make_similarity_frames(cs.N_FRAMES // 2 + 1)]
@@ -278,14 +355,29 @@ def main(argv=None) -> int:
     tx, ty, tv = pft.track_features_pyramids(pyr, pyr_new, x, y, v, cfg3)
     args = (pyr, pyr_new, pft.FeatureState(x, y, v, aff),
             pft.FeatureState(tx, ty, tv, aff), cfg3)
+    k6_ms, _ = cs.device_ms(lambda: affine_consistency_check(*args),
+                            ("stage_kernel",), ROOT / "build" / "phase_clocks",
+                            reps)
+    print(f"K6 stage_kernel with the package's library, config-3 step "
+          f"{cs.N_FRAMES // 2}: {k6_ms * 1e3:.2f} us a launch (profiler)")
+    t0 = time.perf_counter()
+    lib = use_library(build_clock_library())
+    print(f"card: {smi}; clock build {time.perf_counter() - t0:.1f} s")
+
     affine_consistency_check(*args)
     read_clocks(lib, "pft_affine_phase_clocks")
+    read_units(lib, "pft_affine_phase_units", cs.N_FEATURES)
     for _ in range(reps):
         affine_consistency_check(*args)
     cycles, counts = read_clocks(lib, "pft_affine_phase_clocks")
     report(f"K6 affine stage, config-3 step {cs.N_FRAMES // 2}, "
-           f"{cs.N_FEATURES} lanes, summed over warps", K6_PHASES, cycles,
+           f"{cs.N_FEATURES} lanes, summed over features", K6_PHASES, cycles,
            counts, reps)
+    report_k6_units(read_units(lib, "pft_affine_phase_units", cs.N_FEATURES),
+                    reps)
+    if opts.k6_only:
+        print(f"\n{smi}")
+        return 0
 
     for name, c, img, eig in (
             ("default build with K3's map, 2 levels", cfg, frames[0], True),

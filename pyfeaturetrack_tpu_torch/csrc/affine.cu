@@ -20,7 +20,8 @@
 //     + a b p11 in that order (interp.py:14-35);
 //   * the P(P+1)/2 entries of J J^T and the P entries of J (tmpl - I2w), each
 //     a per-lane ascending sum then an xor butterfly (16, 8, 4, 2, 1), the
-//     order ops/cuda_lk.tree_sum reproduces in the plain version;
+//     order ops/cuda_lk.tree_sum reproduces in the plain version: window
+//     sample p belongs to lane p mod 32 at row k = p div 32;
 //   * unpivoted Gauss-Jordan with det (ops/linalg.gauss_solve_det order:
 //     |pivot| < 1e-30 divides by 1, every row eliminated, then row k
 //     replaced), SMALL_DET on |det| < min_determinant, the update of x, y, A
@@ -39,21 +40,47 @@
 // lanes, template capture, the check, the selects on the feature list and
 // the AffineState) in one launch, where the eager stage took some 170.
 //
-// What bounds it on this card: latency of dependent gathers and the serial
-// per-feature solve, not bytes or FLOPs (1000 features x a few iterations x
-// 225 samples x 3 images), and, around the batch kernel, the host's launches
-// of the eager stage. Design: one warp per feature, window sample s on
-// lane s mod 32 (8 passes for 15x15); the template stays in registers for
-// the whole loop (windows above 8 samples per lane re-read it, Window<0>);
-// every lane ends a butterfly with the same sums, so every
-// lane runs the (tiny) Gauss-Jordan itself and all branches are
-// warp-uniform; each warp leaves the loop as soon as its feature converges
-// or fails, which equals the plain version's masked fixed-trip loop because
-// an inactive lane changes nothing. Lane 0 writes the feature's result and
-// its Gauss-Newton update count. In the stage, lane 0 of a checked lane also
-// adds to the device counters (common.cuh): the lane checked, its updates,
-// and the lane when the check rejects it; at most three atomics a warp, on
-// the slot of its feature.
+// What bounds it on this card: neither bytes nor FLOPs (1000 features x a
+// few iterations x 225 samples x 3 images is about a microsecond of either)
+// but the serial path of the features that iterate longest: each
+// Gauss-Newton iteration is a round of dependent bilinear taps, 27 sums and
+// a 6x7 solve whose pivots follow one another, and a feature that never
+// meets affine_min_displacement runs all affine_max_iterations of them; a
+// launch ends with its slowest feature, later still when that feature's
+// block waits for a slot behind earlier ones. On one warp a feature's
+// iteration took about 3.3 us; spread as below, about 1.4 us.
+// Design: that path is spread over a feature's threads. A feature gets WPF
+// warps (ops/cuda_affine.launch_shape: one a row of 32 samples, at most 8;
+// a window of more rows walks them WPF at a time) and each thread takes the
+// window sample of its lane at the rows of its warp: its offsets and
+// template value once, each iteration its taps, blends and products, which
+// go to shared memory as float4 by row, lane and group of four sums. Warp w
+// then adds up groups w, w + WPF, ... lane by lane over the rows in
+// ascending order and runs one butterfly for a group's four sums, pairing
+// them in the first two levels; every add takes the one-warp butterfly's
+// operands, so every sum is the one-warp sum bit for bit. Every warp then
+// solves the system with a column of [J J^T | J diff] a lane and updates
+// x, y and the warp itself: the warps compute the same bits, so no
+// broadcast and no barrier follows the solve. Each pivot step broadcasts
+// the pivot column by shuffle, divides once a lane and eliminates with a
+// multiply and a subtract an element, each element with its own sequence of
+// operations. A zero dividend (the eliminated entries) is answered by its
+// signed zero, as the division would: the division sends zeros to its slow
+// path, some hundreds of cycles a step. All of a feature's branches are
+// uniform, its barriers are named (one a feature, so features that share a
+// block never wait for one another), and the bounds vote is one bar.red.or
+// over the feature's threads, taken with the products. A feature leaves
+// the loop as soon as it converges or fails, which equals the plain
+// version's masked fixed-trip loop because an inactive lane changes
+// nothing. The stage reads the lane's state and its thread's first
+// template samples in one round trip, before the check. Blocks are capped
+// at MIN_BLOCKS an SM's worth of registers, so that three features of 8
+// warps share an SM; at four, 64 registers a thread, the spills cost what
+// the fourth feature gains.
+// Thread 0 of a feature writes its result and its Gauss-Newton update count.
+// In the stage, it also adds to the device counters (common.cuh): the lane
+// checked, its updates, and the lane when the check rejects it; at most
+// three atomics a feature, on the slot of its feature.
 
 #include <math.h>
 
@@ -61,24 +88,108 @@
 
 namespace {
 
-constexpr int NT = 128;                 // 4 features per block
+constexpr int MAX_THREADS = 256;        // a block: at most 8 warps
+constexpr int MIN_BLOCKS = 3;           // such blocks an SM holds: 85 registers a thread
 constexpr int KLT_TRACKED = 0;
 constexpr int KLT_SMALL_DET = -2;
 constexpr int KLT_OOB = -4;
 constexpr int KLT_LARGE_RESIDUE = -5;
 constexpr float ONE_PLUS_EPS = 1.001f;  // ops/affine._ONE_PLUS_EPS
 constexpr int CAPTURE_NIT = 5;          // ops/affine._CAPTURE_NIT
+constexpr unsigned FULL = 0xffffffffu;
 
 struct AffParams {
     int H, W, n, hw, hh, max_iterations;
     float min_displacement, min_determinant, max_residue, max_drift;
 };
 
+// The system's size by mode: NP parameters, the J J^T upper triangle (NTRI
+// entries, row by row) then J diff, NS sums in all, in NG groups of four
+// (the last padded with zeros); a lane's groups lie NGP float4 apart, NGP
+// odd so that a quarter warp's 16-byte accesses meet no bank twice.
+template <int MODE>
+struct System {
+    static constexpr int NP = MODE == 0 ? 2 : (MODE == 1 ? 4 : 6);
+    static constexpr int NTRI = NP * (NP + 1) / 2;
+    static constexpr int NS = NTRI + NP;
+    static constexpr int NG = (NS + 3) / 4;
+    static constexpr int NGP = NG | 1;
+};
+
+// A feature's shared memory: the products of a chunk of WPF window rows, the
+// residues of one, the system, and what only the stage's outputs need.
+template <int WPF, int MODE>
+struct FeatureShared {
+    float4 prod[WPF][32][System<MODE>::NGP];   // row of the chunk, lane, group
+    float res[WPF][32];
+    float sums[4 * System<MODE>::NG];
+    float out[2];              // the stage's new anchor and nit, for the outputs
+    int nit_out;
+};
+constexpr int CONTINUE = 0, CONVERGED = 1, SINGULAR = 2;
+
+// This thread's place: feature f, warp w of its WPF warps, lane, and the
+// feature's named barrier (1 + its index in the block; 0 is __syncthreads').
+struct Feat {
+    int f, w, lane, bar;
+    __device__ bool first() const { return w == 0 && lane == 0; }
+};
+
+template <int WPF>
+__device__ __forceinline__ void feat_sync(const Feat& F)
+{
+    asm volatile("bar.sync %0, %1;" ::"r"(F.bar), "n"(32 * WPF) : "memory");
+}
+
+// The feature's barrier, returning whether any of its threads holds p.
+template <int WPF>
+__device__ __forceinline__ bool feat_any(const Feat& F, bool p)
+{
+    int r;
+    asm volatile(
+        "{\n\t.reg .pred p, q;\n\tsetp.ne.s32 q, %1, 0;\n\t"
+        "bar.red.or.pred p, %2, %3, q;\n\tselp.s32 %0, 1, 0, p;\n\t}"
+        : "=r"(r)
+        : "r"((int)p), "r"(F.bar), "n"(32 * WPF)
+        : "memory");
+    return r != 0;
+}
+
 __device__ __forceinline__ float warp_sum(float acc)
 {
     for (int off = 16; off >= 1; off >>= 1)
-        acc = acc + __shfl_xor_sync(0xffffffffu, acc, off);
+        acc = acc + __shfl_xor_sync(FULL, acc, off);
     return acc;
+}
+
+// a / b, IEEE. A zero dividend (every entry of a column already
+// eliminated) is divided as 1 and answered by its signed zero: the division
+// sends a zero to its slow path, some hundreds of cycles.
+__device__ __forceinline__ float divide(float a, float b)
+{
+    const float q = (a == 0.0f ? 1.0f : a) / b;
+    return a == 0.0f && !isnan(b) ? __int_as_float((__float_as_int(a) ^ __float_as_int(b)) &
+                                                   0x80000000)
+                                  : q;
+}
+
+__device__ __forceinline__ float4 add4(float4 a, float4 b)
+{
+    return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+// warp_sum of each of the four per-lane sums (x, y, z, w) in one butterfly:
+// the first two levels pair them up, so every add takes the operands
+// warp_sum's takes (in either order) and every result is warp_sum's bit for
+// bit. The sums land on lanes 0 (x), 16 (y), 8 (z) and 24 (w).
+__device__ __forceinline__ float warp_sum4(float4 a, int lane)
+{
+    const bool h16 = lane & 16, h8 = lane & 8;
+    const float p = (h16 ? a.y : a.x) + __shfl_xor_sync(FULL, h16 ? a.x : a.y, 16);
+    const float q = (h16 ? a.w : a.z) + __shfl_xor_sync(FULL, h16 ? a.z : a.w, 16);
+    float r = (h8 ? q : p) + __shfl_xor_sync(FULL, h8 ? p : q, 8);
+    for (int off = 4; off >= 1; off >>= 1) r = r + __shfl_xor_sync(FULL, r, off);
+    return r;
 }
 
 __device__ __forceinline__ bool sample_out(float xs, float ys, const AffParams& P)
@@ -102,98 +213,47 @@ __device__ __forceinline__ int tap(float xs, float ys, const AffParams& P,
     return y0 * P.W + x0;
 }
 
+// Through the read-only data cache: the level images do not change in a launch.
 template <typename TS>
 __device__ __forceinline__ float blend(const TS* __restrict__ im, int i00, int W, float ax,
                                        float ay)
 {
-    const float p00 = pft_tap(im + i00), p01 = pft_tap(im + i00 + 1);
-    const float p10 = pft_tap(im + i00 + W), p11 = pft_tap(im + i00 + W + 1);
+    const float p00 = pft_ldg(im + i00), p01 = pft_ldg(im + i00 + 1);
+    const float p10 = pft_ldg(im + i00 + W), p11 = pft_ldg(im + i00 + W + 1);
     return (1.0f - ax) * (1.0f - ay) * p00 + ax * (1.0f - ay) * p01 +
            (1.0f - ax) * ay * p10 + ax * ay * p11;
 }
 
-// The window samples of one lane: sample p = lane + 32 k, its column and
-// row offsets (i - hw, j - hh) and its template value. NPL > 0: up to NPL
-// samples per lane, held in registers for the whole loop; NPL 0: windows
-// above 8 samples per lane (over 256 samples, e.g. 17x17), whose offsets
-// are recomputed and whose template is re-read (L1/L2) where a sample is
-// needed. Both walk the samples in the same order, so the sums agree.
-template <int NPL>
-struct Window {
-    static constexpr int CAP = NPL > 0 ? NPL : 1;
-    float tm[CAP];      // template samples of this lane
-    float oi[CAP];      // column offset i - hw
-    float oj[CAP];      // row offset j - hh
-    bool in[CAP];       // sample exists (not padding beyond ww * wh)
-    const float* tmf;   // the feature's template (NPL 0)
-    int lane, ww, npix, hw, hh;
+// Column and row offsets (i - hw, j - hh) of window sample p.
+__device__ __forceinline__ void offsets(int p, const AffParams& P, float& i, float& j)
+{
+    const int ww = 2 * P.hw + 1, r = p / ww;
+    i = (float)(p - r * ww - P.hw);
+    j = (float)(r - P.hh);
+}
 
-    __device__ __forceinline__ void load(const float* __restrict__ t, int lane_,
-                                         const AffParams& P)
-    {
-        tmf = t;
-        lane = lane_;
-        hw = P.hw;
-        hh = P.hh;
-        ww = 2 * P.hw + 1;
-        npix = ww * (2 * P.hh + 1);
-        if constexpr (NPL > 0) {
-#pragma unroll
-            for (int k = 0; k < NPL; ++k) {
-                const int p = lane + 32 * k;
-                in[k] = p < npix;
-                const int r = in[k] ? p / ww : 0, c = in[k] ? p - r * ww : 0;
-                oi[k] = (float)(c - hw);
-                oj[k] = (float)(r - hh);
-                tm[k] = in[k] ? t[p] : 0.0f;
-            }
-        }
-    }
-    __device__ __forceinline__ int count() const
-    {
-        return NPL > 0 ? NPL : pft_ceil_div(npix, 32);
-    }
-    // sample k: false for padding; else its offsets and template value
-    __device__ __forceinline__ bool at(int k, float& i, float& j, float& t) const
-    {
-        if constexpr (NPL > 0) {
-            i = oi[k];
-            j = oj[k];
-            t = tm[k];
-            return in[k];
-        } else {
-            const int p = lane + 32 * k;
-            if (p >= npix) return false;
-            const int r = p / ww, c = p - r * ww;
-            i = (float)(c - hw);
-            j = (float)(r - hh);
-            t = tmf[p];
-            return true;
-        }
-    }
+// A thread's window sample p: whether it lies in the window, its offsets
+// and its template value.
+struct Sample {
+    bool in;
+    float i, j, t;
 };
 
-template <int NPL>
-__device__ __forceinline__ bool warp_oob(const Window<NPL>& w, float x, float y,
-                                         float a00, float a01, float a10, float a11,
-                                         const AffParams& P)
+__device__ __forceinline__ Sample sample_at(const float* __restrict__ tmf, const AffParams& P,
+                                            int p, int npix)
 {
-    bool bad = false;
-#pragma unroll
-    for (int k = 0; k < (NPL > 0 ? NPL : w.count()); ++k) {
-        float i, j, t;
-        if (!w.at(k, i, j, t)) continue;
-        const float xs = x + a00 * i + a01 * j;
-        const float ys = y + a10 * i + a11 * j;
-        bad = bad || sample_out(xs, ys, P);
+    Sample s{p < npix, 0.0f, 0.0f, 0.0f};
+    if (s.in) {
+        offsets(p, P, s.i, s.j);
+        s.t = tmf[p];
     }
-    return __any_sync(0xffffffffu, bad) != 0;
+    return s;
 }
 
 // Jacobian rows of one sample (ops/affine._jacobian).
 template <int MODE>
 __device__ __forceinline__ void jacobian(float gx, float gy, float i, float j,
-                                         float (&J)[MODE == 0 ? 2 : (MODE == 1 ? 4 : 6)])
+                                         float (&J)[System<MODE>::NP])
 {
     if (MODE == 0) {
         J[0] = gx;
@@ -213,164 +273,250 @@ __device__ __forceinline__ void jacobian(float gx, float gy, float i, float j,
     }
 }
 
-// The Gauss-Newton loop and the post-loop tests for the feature of this
-// warp (ops/affine._affine_track_batch, one checked lane): template `tmf`
-// ([wh * ww] samples), start (x, y) = (x0, y0) and warp a.., which come
-// back updated, with the status and the number of updates `it`. Shared by
-// pft_affine_track and the affine stage.
-template <int NPL, int MODE, typename TS>
-__device__ void affine_gn(const float* __restrict__ tmf, const TS* __restrict__ img2,
-                          const TS* __restrict__ gx2, const TS* __restrict__ gy2,
-                          const AffParams& P, int lane, float x0, float y0, float& x,
-                          float& y, float& a00, float& a01, float& a10, float& a11,
-                          int& status, int& it)
+// The products of this thread's sample (zero past the window) into row w of
+// the chunk; returns whether the warped sample is out of bounds.
+template <int WPF, int MODE, typename TS>
+__device__ __forceinline__ bool sample_products(const Sample& q, const TS* __restrict__ img2,
+                                                const TS* __restrict__ gx2,
+                                                const TS* __restrict__ gy2,
+                                                const AffParams& P, const Feat& F, float x,
+                                                float y, float a00, float a01, float a10,
+                                                float a11, FeatureShared<WPF, MODE>& S)
 {
-    constexpr int NP = MODE == 0 ? 2 : (MODE == 1 ? 4 : 6);
-    constexpr int NS = NP * (NP + 1) / 2 + NP;   // J J^T upper triangle, then J diff
-    PFT_PHASE_START(clk);
-    Window<NPL> w;
-    w.load(tmf, lane, P);
-    PFT_PHASE(clk, 1, lane == 0);                // template into registers
-    status = KLT_TRACKED;
-    it = 0;
-    for (int step = 0; step < P.max_iterations; ++step) {
-        const bool oob = warp_oob<NPL>(w, x, y, a00, a01, a10, a11, P);
-        PFT_PHASE(clk, 2, lane == 0);            // the warp's bounds vote
-        if (oob) {
-            status = KLT_OOB;
-            break;
-        }
-        float acc[NS];
-#pragma unroll
-        for (int s = 0; s < NS; ++s) acc[s] = 0.0f;
-#pragma unroll
-        for (int k = 0; k < (NPL > 0 ? NPL : w.count()); ++k) {
-            float v[NS];
-            float i, j, t;
-            if (w.at(k, i, j, t)) {
-                const float xs = x + a00 * i + a01 * j;
-                const float ys = y + a10 * i + a11 * j;
-                float ax, ay;
-                const int i00 = tap(xs, ys, P, ax, ay);
-                const float diff = t - blend(img2, i00, P.W, ax, ay);
-                float J[NP];
-                jacobian<MODE>(blend(gx2, i00, P.W, ax, ay),
-                               blend(gy2, i00, P.W, ax, ay), i, j, J);
-                int s = 0;
-#pragma unroll
-                for (int a = 0; a < NP; ++a)
-#pragma unroll
-                    for (int b = a; b < NP; ++b) v[s++] = J[a] * J[b];
-#pragma unroll
-                for (int a = 0; a < NP; ++a) v[s++] = J[a] * diff;
-            } else {
-#pragma unroll
-                for (int s = 0; s < NS; ++s) v[s] = 0.0f;
-            }
-#pragma unroll
-            for (int s = 0; s < NS; ++s) acc[s] = k == 0 ? v[s] : acc[s] + v[s];
-        }
-        PFT_PHASE(clk, 3, lane == 0);            // samples: taps, blends, products
-#pragma unroll
-        for (int s = 0; s < NS; ++s) acc[s] = warp_sum(acc[s]);
-        PFT_PHASE(clk, 4, lane == 0);            // the butterflies
-
-        // augmented normal system [J J^T | J diff], symmetric fill
-        float aug[NP][NP + 1];
+    constexpr int NP = System<MODE>::NP, NG = System<MODE>::NG;
+    float v[4 * NG] = {};
+    bool out = false;
+    if (q.in) {
+        const float xs = x + a00 * q.i + a01 * q.j;
+        const float ys = y + a10 * q.i + a11 * q.j;
+        out = sample_out(xs, ys, P);
+        float ax, ay;
+        const int i00 = tap(xs, ys, P, ax, ay);
+        const float diff = q.t - blend(img2, i00, P.W, ax, ay);
+        float J[NP];
+        jacobian<MODE>(blend(gx2, i00, P.W, ax, ay), blend(gy2, i00, P.W, ax, ay), q.i, q.j,
+                       J);
         int s = 0;
 #pragma unroll
         for (int a = 0; a < NP; ++a)
 #pragma unroll
-            for (int b = a; b < NP; ++b) {
-                aug[a][b] = acc[s];
-                aug[b][a] = acc[s];
-                ++s;
-            }
+            for (int b = a; b < NP; ++b) v[s++] = J[a] * J[b];
 #pragma unroll
-        for (int a = 0; a < NP; ++a) aug[a][NP] = acc[s++];
+        for (int a = 0; a < NP; ++a) v[s++] = J[a] * diff;
+    }
+#pragma unroll
+    for (int g = 0; g < NG; ++g)
+        S.prod[F.w][F.lane][g] =
+            make_float4(v[4 * g], v[4 * g + 1], v[4 * g + 2], v[4 * g + 3]);
+    return out;
+}
 
-        float det = 1.0f;
+// Gauss-Jordan on each warp of the feature and the update of x, y and the
+// warp: every warp computes the same bits, so the feature's warps need no
+// broadcast. Element (r, c) of the augmented system [J J^T | J diff] lies
+// on lane c + (NP + 1) h, h = r mod H, in slot r div H of that lane's
+// RPL (the lanes past the H-th block of NP + 1 repeat its lanes). Each pivot step k broadcasts
+// the pivot, the pivot row's element of each column and the pivot column's
+// element of each row by shuffle, divides once a lane and eliminates with a
+// multiply and a subtract an element, each element with its own sequence
+// of operations. Returns CONTINUE, CONVERGED or SINGULAR (nothing updated).
+template <int WPF, int MODE>
+__device__ __forceinline__ int solve(const AffParams& P, const Feat& F, float& x, float& y,
+                                     float& a00, float& a01, float& a10, float& a11,
+                                     const FeatureShared<WPF, MODE>& S)
+{
+    constexpr int NP = System<MODE>::NP, NTRI = System<MODE>::NTRI, NC = NP + 1;
+    constexpr int H = NP < 32 / NC ? NP : 32 / NC, RPL = (NP + H - 1) / H;
+    const int c = F.lane % NC, h = min(F.lane / NC, H - 1);
+    float el[RPL];
 #pragma unroll
-        for (int k = 0; k < NP; ++k) {
-            const float piv = aug[k][k];
-            det = det * piv;
-            const float safe = fabsf(piv) < 1e-30f ? 1.0f : piv;
-            float row[NP + 1];
+    for (int j = 0; j < RPL; ++j) {
+        const int r = h + H * j, a = min(r, c), b = max(r, c);   // the symmetric fill
+        el[j] = r >= NP ? 0.0f
+                        : S.sums[c == NP ? NTRI + r : a * NP - a * (a - 1) / 2 + (b - a)];
+    }
+    float det = 1.0f;
 #pragma unroll
-            for (int c = 0; c <= NP; ++c) row[c] = aug[k][c] / safe;
+    for (int k = 0; k < NP; ++k) {
+        const float piv = __shfl_sync(FULL, el[k / H], k + NC * (k % H));
+        const float own = __shfl_sync(FULL, el[k / H], c + NC * (k % H));   // (k, c)
+        float ck[RPL];                                                      // (r, k)
 #pragma unroll
-            for (int r = 0; r < NP; ++r) {
-                if (r == k) continue;
-                const float fct = aug[r][k];
+        for (int j = 0; j < RPL; ++j) ck[j] = __shfl_sync(FULL, el[j], k + NC * h);
+        det = det * piv;
+        const float safe = fabsf(piv) < 1e-30f ? 1.0f : piv;
+        const float row = divide(own, safe);
 #pragma unroll
-                for (int c = 0; c <= NP; ++c) aug[r][c] = aug[r][c] - fct * row[c];
+        for (int j = 0; j < RPL; ++j) {
+            const int r = h + H * j;
+            el[j] = r == k ? row : el[j] - ck[j] * row;
+        }
+    }
+    if (fabsf(det) < P.min_determinant) return SINGULAR;
+    float d[NP];
+#pragma unroll
+    for (int r = 0; r < NP; ++r) d[r] = __shfl_sync(FULL, el[r / H], NP + NC * (r % H));
+    float dx, dy;
+    if (MODE == 0) {
+        dx = d[0];
+        dy = d[1];
+    } else if (MODE == 1) {
+        a00 = a00 + d[0];
+        a01 = a01 + -d[1];
+        a10 = a10 + d[1];
+        a11 = a11 + d[0];
+        dx = d[2];
+        dy = d[3];
+    } else {
+        a00 = a00 + d[0];
+        a10 = a10 + d[1];
+        a01 = a01 + d[2];
+        a11 = a11 + d[3];
+        dx = d[4];
+        dy = d[5];
+    }
+    x = x + dx;
+    y = y + dy;
+    return fabsf(dx) < P.min_displacement && fabsf(dy) < P.min_displacement ? CONVERGED
+                                                                            : CONTINUE;
+}
+
+// The Gauss-Newton loop and the post-loop tests for the feature of F, run by
+// all of its threads (ops/affine._affine_track_batch, one checked lane):
+// template `tmf` ([wh * ww] samples), start (x, y) = (x0, y0) and warp a..,
+// which come back updated (in every warp), with the status and the number
+// of updates `it` (in warp 0). Shared by pft_affine_track and the stage.
+template <int WPF, int MODE, typename TS>
+__device__ void affine_gn(const float* __restrict__ tmf, const TS* __restrict__ img2,
+                          const TS* __restrict__ gx2, const TS* __restrict__ gy2,
+                          const AffParams& P, const Feat& F, FeatureShared<WPF, MODE>& S,
+                          float x0, float y0, float& x, float& y, float& a00, float& a01,
+                          float& a10, float& a11, int& status, int& it)
+{
+    constexpr int NS = System<MODE>::NS, NG = System<MODE>::NG;
+    constexpr int GPW = (NG + WPF - 1) / WPF;    // groups of four sums a warp adds up
+    const int npix = (2 * P.hw + 1) * (2 * P.hh + 1);
+    const int rows = pft_ceil_div(npix, 32);
+    const Sample first = sample_at(tmf, P, F.lane + 32 * F.w, npix);
+    PFT_PHASE_START(clk);
+    status = KLT_TRACKED;
+    it = 0;
+    for (int step = 0; step < P.max_iterations; ++step) {
+        // the samples, WPF rows a chunk; the vote over all of them
+        bool out = false, oob = false;
+        float4 acc[GPW] = {};
+        for (int k0 = 0; k0 < rows; k0 += WPF) {
+            const int kc = min(WPF, rows - k0);
+            const Sample q =
+                k0 == 0 ? first : sample_at(tmf, P, F.lane + 32 * (k0 + F.w), npix);
+            out = sample_products<WPF, MODE, TS>(q, img2, gx2, gy2, P, F, x, y, a00, a01, a10,
+                                                 a11, S) ||
+                  out;
+            const bool any = feat_any<WPF>(F, out);
+            const bool last = k0 + WPF >= rows;
+            if (last && any) {
+                oob = true;
+                break;
             }
 #pragma unroll
-            for (int c = 0; c <= NP; ++c) aug[k][c] = row[c];
+            for (int u = 0; u < GPW; ++u) {
+                const int g = F.w + WPF * u;
+                if (g >= NG) continue;
+                float4 a = k0 == 0 ? S.prod[0][F.lane][g] : add4(acc[u], S.prod[0][F.lane][g]);
+#pragma unroll
+                for (int kk = 1; kk < WPF; ++kk) {
+                    const float4 v = S.prod[kk][F.lane][g];   // rows past kc unused
+                    if (kk < kc) a = add4(a, v);
+                }
+                acc[u] = a;
+            }
+            if (!last) feat_sync<WPF>(F);       // the next chunk reuses prod
         }
-        if (fabsf(det) < P.min_determinant) {
+        PFT_PHASE_UNIT(clk, 1, F.first(), F.f);  // samples, vote, per-lane sums
+        if (oob) {
+            status = KLT_OOB;
+            break;
+        }
+#pragma unroll
+        for (int u = 0; u < GPW; ++u) {
+            const int g = F.w + WPF * u;
+            if (g >= NG) continue;
+            const float r = warp_sum4(acc[u], F.lane);
+            const int s = 4 * g + (F.lane >> 4) + ((F.lane >> 2) & 2);
+            if ((F.lane & 7) == 0) S.sums[s] = r;
+        }
+        feat_sync<WPF>(F);
+        PFT_PHASE_UNIT(clk, 2, F.first(), F.f);  // butterflies, the feature's wait
+        const int ctl = solve<WPF, MODE>(P, F, x, y, a00, a01, a10, a11, S);
+        if (ctl == SINGULAR) {
             status = KLT_SMALL_DET;
             break;
         }
-        float dx, dy;
-        if (MODE == 0) {
-            dx = aug[0][NP];
-            dy = aug[1][NP];
-        } else if (MODE == 1) {
-            const float d0 = aug[0][NP], d1 = aug[1][NP];
-            a00 = a00 + d0;
-            a01 = a01 + -d1;
-            a10 = a10 + d1;
-            a11 = a11 + d0;
-            dx = aug[2][NP];
-            dy = aug[3][NP];
-        } else {
-            a00 = a00 + aug[0][NP];
-            a10 = a10 + aug[1][NP];
-            a01 = a01 + aug[2][NP];
-            a11 = a11 + aug[3][NP];
-            dx = aug[4][NP];
-            dy = aug[5][NP];
-        }
-        x = x + dx;
-        y = y + dy;
         ++it;
-        PFT_PHASE(clk, 5, lane == 0);            // the solve and the update
-        if (fabsf(dx) < P.min_displacement && fabsf(dy) < P.min_displacement)
-            break;
+        PFT_PHASE_UNIT(clk, 3, F.first(), F.f);  // solve and update
+        if (ctl == CONVERGED) break;
     }
 
-    if (status == KLT_TRACKED && warp_oob<NPL>(w, x, y, a00, a01, a10, a11, P))
-        status = KLT_OOB;
+    // after the loop: the bounds vote and the residue in one pass
     if (status == KLT_TRACKED) {
+        bool out = false;
         float acc = 0.0f;
-#pragma unroll
-        for (int k = 0; k < (NPL > 0 ? NPL : w.count()); ++k) {
+        for (int k0 = 0; k0 < rows; k0 += WPF) {
+            const int kc = min(WPF, rows - k0);
+            const Sample q =
+                k0 == 0 ? first : sample_at(tmf, P, F.lane + 32 * (k0 + F.w), npix);
             float v = 0.0f;
-            float i, j, t;
-            if (w.at(k, i, j, t)) {
-                const float xs = x + a00 * i + a01 * j;
-                const float ys = y + a10 * i + a11 * j;
+            if (q.in) {
+                const float xs = x + a00 * q.i + a01 * q.j;
+                const float ys = y + a10 * q.i + a11 * q.j;
+                out = out || sample_out(xs, ys, P);
                 float ax, ay;
                 const int i00 = tap(xs, ys, P, ax, ay);
-                v = fabsf(t - blend(img2, i00, P.W, ax, ay));
+                v = fabsf(q.t - blend(img2, i00, P.W, ax, ay));
             }
-            acc = k == 0 ? v : acc + v;
+            S.res[F.w][F.lane] = v;
+            const bool any = feat_any<WPF>(F, out);
+            const bool last = k0 + WPF >= rows;
+            if (last && any) {
+                status = KLT_OOB;
+                break;
+            }
+            if (F.w == 0) {
+#pragma unroll
+                for (int kk = 0; kk < WPF; ++kk) {
+                    const float v = S.res[kk][F.lane];       // rows past kc unused
+                    if (kk < kc) acc = k0 + kk == 0 ? v : acc + v;
+                }
+            }
+            if (!last) feat_sync<WPF>(F);
         }
-        const float residue = warp_sum(acc) / (float)w.npix;
-        if (residue > P.max_residue) status = KLT_LARGE_RESIDUE;
+        if (status == KLT_TRACKED && F.w == 0) {
+            const float residue = warp_sum(acc) / (float)npix;
+            if (residue > P.max_residue) status = KLT_LARGE_RESIDUE;
+        }
     }
-    if (status == KLT_TRACKED) {
+    if (status == KLT_TRACKED && F.w == 0) {
         // torch.maximum semantics: a NaN distance never passes the test
         const float ddx = fabsf(x - x0), ddy = fabsf(y - y0);
         if (!isnan(ddx) && !isnan(ddy) && fmaxf(ddx, ddy) > P.max_drift)
             status = KLT_OOB;
     }
-    PFT_PHASE(clk, 6, lane == 0);                // after the loop: bounds, residue, drift
+    PFT_PHASE_UNIT(clk, 4, F.first(), F.f);           // after the loop: bounds, residue, drift
 }
 
-template <int NPL, int MODE, typename TS>
-__global__ void __launch_bounds__(NT)
+// This thread's feature, given WPF warps a feature, and its shared memory.
+template <int WPF, int MODE>
+__device__ __forceinline__ Feat feature_of(FeatureShared<WPF, MODE>*& S)
+{
+    extern __shared__ float4 pft_affine_smem[];
+    const int warp = threadIdx.x >> 5, fib = warp / WPF;
+    S = reinterpret_cast<FeatureShared<WPF, MODE>*>(pft_affine_smem) + fib;
+    return Feat{(int)blockIdx.x * (int)(blockDim.x / (32 * WPF)) + fib, warp - fib * WPF,
+                (int)(threadIdx.x & 31), 1 + fib};
+}
+
+template <int WPF, int MODE, typename TS>
+__global__ void __launch_bounds__(MAX_THREADS, MIN_BLOCKS)
 affine_kernel(const float* __restrict__ tmpl, const TS* __restrict__ img2,
               const TS* __restrict__ gx2, const TS* __restrict__ gy2,
               const float* __restrict__ x_in, const float* __restrict__ y_in,
@@ -379,9 +525,10 @@ affine_kernel(const float* __restrict__ tmpl, const TS* __restrict__ img2,
               float* __restrict__ A_out, int* __restrict__ status_out,
               int* __restrict__ nit_out)
 {
-    const int f = (blockIdx.x * NT + threadIdx.x) >> 5;
-    const int lane = threadIdx.x & 31;
-    if (f >= P.n) return;                        // whole warp
+    FeatureShared<WPF, MODE>* S;
+    const Feat F = feature_of<WPF, MODE>(S);
+    const int f = F.f;
+    if (f >= P.n) return;                        // the whole feature
 
     const float x0 = x_in[f], y0 = y_in[f];
     float x = x0, y = y0;
@@ -390,10 +537,10 @@ affine_kernel(const float* __restrict__ tmpl, const TS* __restrict__ img2,
     int status = KLT_TRACKED, it = 0;
     if (check[f]) {
         const size_t npix = (size_t)(2 * P.hw + 1) * (2 * P.hh + 1);
-        affine_gn<NPL, MODE, TS>(tmpl + f * npix, img2, gx2, gy2, P, lane, x0, y0, x, y,
+        affine_gn<WPF, MODE, TS>(tmpl + f * npix, img2, gx2, gy2, P, F, *S, x0, y0, x, y,
                                  a00, a01, a10, a11, status, it);
     }
-    if (lane == 0) {
+    if (F.w == 0 && F.lane == 0) {
         x_out[f] = x;
         y_out[f] = y;
         A_out[4 * f] = a00;
@@ -429,67 +576,66 @@ struct StageOut {
     int* t_nit;
 };
 
-// The lane's three template windows of the new AffineState: captured (the
-// bilinear windows of pyr1 level 0 at (xb, yb)) or copied from the old
-// state. TEMPLATE_ROUND samples per lane at a time, every load of a round
-// issued before its first store, so a window waits for about one memory
-// round trip per round rather than one per sample.
-constexpr int TEMPLATE_ROUND = 8;
-
-template <typename TS>
+// The three template windows of the new AffineState, each thread its own
+// samples (those it samples in affine_gn): captured (the bilinear windows of
+// pyr1 level 0 at (xb, yb)) or copied from the old state, whose values at
+// the thread's first sample, `first`, were read with the lane's state.
+template <int WPF, typename TS>
 __device__ __forceinline__ void template_out(const StageIn<TS>& I, const StageOut& O,
-                                             const AffParams& P, size_t tb, int lane,
-                                             bool capture, float xb, float yb)
+                                             const AffParams& P, const Feat& F, size_t tb,
+                                             bool capture, float xb, float yb,
+                                             const float (&first)[3])
 {
-    const int ww = 2 * P.hw + 1, npix = ww * (2 * P.hh + 1);
-    for (int k0 = 0; 32 * k0 < npix; k0 += TEMPLATE_ROUND) {
-        float t[3][TEMPLATE_ROUND];
-#pragma unroll
-        for (int u = 0; u < TEMPLATE_ROUND; ++u) {
-            const int p = lane + 32 * (k0 + u);
-            t[0][u] = t[1][u] = t[2][u] = 0.0f;
-            if (p >= npix) continue;
-            if (capture) {
-                const int r = p / ww, c = p - r * ww;
-                float ax, ay;
-                const int i00 = tap(xb + (float)(c - P.hw), yb + (float)(r - P.hh), P, ax,
-                                    ay);
-                t[0][u] = blend(I.img1, i00, P.W, ax, ay);
-                t[1][u] = blend(I.gx1, i00, P.W, ax, ay);
-                t[2][u] = blend(I.gy1, i00, P.W, ax, ay);
-            } else {
-                t[0][u] = I.t_img[tb + p];
-                t[1][u] = I.t_gx[tb + p];
-                t[2][u] = I.t_gy[tb + p];
-            }
+    const int npix = (2 * P.hw + 1) * (2 * P.hh + 1);
+    for (int p = F.lane + 32 * F.w; p < npix; p += 32 * WPF) {
+        float t0 = first[0], t1 = first[1], t2 = first[2];
+        if (capture) {
+            float i, j, ax, ay;
+            offsets(p, P, i, j);
+            const int i00 = tap(xb + i, yb + j, P, ax, ay);
+            t0 = blend(I.img1, i00, P.W, ax, ay);
+            t1 = blend(I.gx1, i00, P.W, ax, ay);
+            t2 = blend(I.gy1, i00, P.W, ax, ay);
+        } else if (p >= 32 * WPF) {
+            t0 = I.t_img[tb + p];
+            t1 = I.t_gx[tb + p];
+            t2 = I.t_gy[tb + p];
         }
-#pragma unroll
-        for (int u = 0; u < TEMPLATE_ROUND; ++u) {
-            const int p = lane + 32 * (k0 + u);
-            if (p >= npix) continue;
-            O.t_img[tb + p] = t[0][u];
-            O.t_gx[tb + p] = t[1][u];
-            O.t_gy[tb + p] = t[2][u];
-        }
+        O.t_img[tb + p] = t0;
+        O.t_gx[tb + p] = t1;
+        O.t_gy[tb + p] = t2;
     }
 }
 
-// The whole affine stage for the feature of this warp: a lane lost by
+// The whole affine stage for the feature of this thread: a lane lost by
 // translational tracking drops its template and gets the identity warp; a
 // first successful track captures the template (three bilinear windows of
 // pyr1 level 0 at the pre-track position, interp.bilinear's clamp and blend
 // order), its anchor, the identity warp, valid and nit = CAPTURE_NIT; a
 // lane tracked with a template is checked by affine_gn; then the selects on
-// x, y, val, A and valid. Every other template is copied through.
-template <int NPL, int MODE, typename TS>
-__global__ void __launch_bounds__(NT)
+// x, y, val, A and valid. Every other template is copied through. The
+// thread's first template samples are read with the lane's state, so that
+// the copy waits for no second round trip; what only the outputs need waits
+// in shared memory.
+template <int WPF, int MODE, typename TS>
+__global__ void __launch_bounds__(MAX_THREADS, MIN_BLOCKS)
 stage_kernel(StageIn<TS> I, StageOut O, AffParams P, unsigned long long* __restrict__ counters)
 {
-    const int f = (blockIdx.x * NT + threadIdx.x) >> 5;
-    const int lane = threadIdx.x & 31;
-    if (f >= P.n) return;                        // whole warp
+    FeatureShared<WPF, MODE>* S;
+    const Feat F = feature_of<WPF, MODE>(S);
+    const int f = F.f;
+    if (f >= P.n) return;                        // the whole feature
+    PFT_PHASE_STAMP(14, F.first(), f);
     PFT_PHASE_START(clk);
 
+    const int npix = (2 * P.hw + 1) * (2 * P.hh + 1), p0 = F.lane + 32 * F.w;
+    const size_t tb = (size_t)f * npix;
+    float first[3] = {};
+    if (p0 < npix) {
+        first[0] = I.t_img[tb + p0];
+        first[1] = I.t_gx[tb + p0];
+        first[2] = I.t_gy[tb + p0];
+    }
     const int va = I.va[f], vb = I.vb[f];
     const bool tracked = va == KLT_TRACKED;
     const bool lost = vb >= 0 && !tracked;
@@ -497,72 +643,91 @@ stage_kernel(StageIn<TS> I, StageOut O, AffParams P, unsigned long long* __restr
     const bool capture = tracked && !valid1;
     const bool check = tracked && valid1;
     const bool ident = lost || capture;
+    const float xb = I.xb[f], yb = I.yb[f], x0 = I.xa[f], y0 = I.ya[f];
+    if (F.first()) {
+        S->out[0] = capture ? xb : I.t_x[f];
+        S->out[1] = capture ? yb : I.t_y[f];
+        S->nit_out = capture ? CAPTURE_NIT : I.t_nit[f];
+    }
     const float b00 = ident ? 1.0f : I.t_A[4 * f], b01 = ident ? 0.0f : I.t_A[4 * f + 1];
     const float b10 = ident ? 0.0f : I.t_A[4 * f + 2], b11 = ident ? 1.0f : I.t_A[4 * f + 3];
-
-    const size_t tb = (size_t)f * (2 * P.hw + 1) * (2 * P.hh + 1);
-    template_out(I, O, P, tb, lane, capture, I.xb[f], I.yb[f]);
-
-    const float x0 = I.xa[f], y0 = I.ya[f];
+    template_out<WPF>(I, O, P, F, tb, capture, xb, yb, first);
     float x = x0, y = y0, a00 = b00, a01 = b01, a10 = b10, a11 = b11;
     int status = KLT_TRACKED, it = 0;
-    PFT_PHASE(clk, 0, lane == 0);                // lane state, capture or copy
+    PFT_PHASE_UNIT(clk, 0, F.first(), f);        // lane state, capture or copy
     if (check)
-        affine_gn<NPL, MODE, TS>(I.t_img + tb, I.img2, I.gx2, I.gy2, P, lane, x0, y0, x, y,
+        affine_gn<WPF, MODE, TS>(I.t_img + tb, I.img2, I.gx2, I.gy2, P, F, *S, x0, y0, x, y,
                                  a00, a01, a10, a11, status, it);
+    if (!F.first()) return;
     PFT_PHASE_START(clk_out);
     const bool failed = check && status != KLT_TRACKED;
     const bool keep = check && !failed;
-    if (lane == 0) {
-        O.x[f] = check ? (failed ? -1.0f : x) : x0;
-        O.y[f] = check ? (failed ? -1.0f : y) : y0;
-        O.val[f] = failed ? status : va;
-        O.t_x[f] = capture ? I.xb[f] : I.t_x[f];
-        O.t_y[f] = capture ? I.yb[f] : I.t_y[f];
-        O.t_A[4 * f] = keep ? a00 : b00;
-        O.t_A[4 * f + 1] = keep ? a01 : b01;
-        O.t_A[4 * f + 2] = keep ? a10 : b10;
-        O.t_A[4 * f + 3] = keep ? a11 : b11;
-        O.t_valid[f] = (valid1 || capture) && !failed;
-        O.t_nit[f] = capture ? CAPTURE_NIT : I.t_nit[f];
-        if (check) {
-            pft_count(counters, PFT_K6_CHECKED, f, 1ull);
-            pft_count(counters, PFT_K6_GN_STEPS, f, (unsigned long long)it);
-            pft_count(counters, PFT_K6_REJECTIONS, f, failed ? 1ull : 0ull);
-        }
+    O.x[f] = check ? (failed ? -1.0f : x) : x0;
+    O.y[f] = check ? (failed ? -1.0f : y) : y0;
+    O.val[f] = failed ? status : va;
+    O.t_x[f] = S->out[0];
+    O.t_y[f] = S->out[1];
+    O.t_A[4 * f] = keep ? a00 : b00;
+    O.t_A[4 * f + 1] = keep ? a01 : b01;
+    O.t_A[4 * f + 2] = keep ? a10 : b10;
+    O.t_A[4 * f + 3] = keep ? a11 : b11;
+    O.t_valid[f] = (valid1 || capture) && !failed;
+    O.t_nit[f] = S->nit_out;
+    if (check) {
+        pft_count(counters, PFT_K6_CHECKED, f, 1ull);
+        pft_count(counters, PFT_K6_GN_STEPS, f, (unsigned long long)it);
+        pft_count(counters, PFT_K6_REJECTIONS, f, failed ? 1ull : 0ull);
     }
-    PFT_PHASE(clk_out, 7, lane == 0);            // the outputs
+    PFT_PHASE_UNIT(clk_out, 5, true, f);         // the outputs
+    PFT_PHASE_STAMP(15, true, f);
 }
 
-// pft_affine_track: one warp per feature, NT / 32 features per block.
-template <int NPL, int MODE, typename TS>
-int launch(const float* tmpl, const void* img2, const void* gx2, const void* gy2,
-           const float* x0, const float* y0, const float* A0, const bool* check,
-           const AffParams& P, float* xo, float* yo, float* Ao, int* st, int* nit,
-           cudaStream_t stream)
+// The launch of WPF warps a feature and fpb features a block, with each
+// feature's shared memory.
+template <int WPF, int MODE, typename K, typename... A>
+int launch_features(K kernel, int n, int fpb, cudaStream_t stream, A... args)
 {
-    const int blocks = pft_ceil_div(P.n, NT / 32);
-    affine_kernel<NPL, MODE, TS><<<blocks, NT, 0, stream>>>(
-        tmpl, (const TS*)img2, (const TS*)gx2, (const TS*)gy2, x0, y0, A0, check, P, xo, yo,
-        Ao, st, nit);
+    const size_t smem = (size_t)fpb * sizeof(FeatureShared<WPF, MODE>);
+    pft_allow_smem(kernel, smem);
+    kernel<<<pft_ceil_div(n, fpb), 32 * WPF * fpb, smem, stream>>>(args...);
     return (int)cudaGetLastError();
 }
 
-template <int NPL, int MODE, typename TS>
-int launch_stage(const StageIn<TS>& I, const StageOut& O, const AffParams& P,
-                 unsigned long long* counters, cudaStream_t stream)
-{
-    stage_kernel<NPL, MODE, TS><<<pft_ceil_div(P.n, NT / 32), NT, 0, stream>>>(I, O, P,
-                                                                               counters);
-    return (int)cudaGetLastError();
-}
+// The two launches for storage type TS, as dispatch takes them.
+template <typename TS>
+struct TrackLaunch {
+    template <int WPF, int MODE>
+    struct Run {
+        static int run(int fpb, cudaStream_t s, const float* tmpl, const void* img2,
+                       const void* gx2, const void* gy2, const float* x0, const float* y0,
+                       const float* A0, const bool* check, const AffParams& P, float* xo,
+                       float* yo, float* Ao, int* st, int* nit)
+        {
+            return launch_features<WPF, MODE>(affine_kernel<WPF, MODE, TS>, P.n, fpb, s,
+                                              tmpl, (const TS*)img2, (const TS*)gx2,
+                                              (const TS*)gy2, x0, y0, A0, check, P, xo, yo,
+                                              Ao, st, nit);
+        }
+    };
+};
 
-// The instantiation for a window (samples per lane: 1-8 in registers, 0
-// above) and mode.
+template <typename TS>
+struct StageLaunch {
+    template <int WPF, int MODE>
+    struct Run {
+        static int run(int fpb, cudaStream_t s, const StageIn<TS>& I, const StageOut& O,
+                       const AffParams& P, unsigned long long* counters)
+        {
+            return launch_features<WPF, MODE>(stage_kernel<WPF, MODE, TS>, P.n, fpb, s, I, O,
+                                              P, counters);
+        }
+    };
+};
+
+// The instantiation for warps a feature (1-8) and mode.
 template <template <int, int> class Launch, typename... Args>
-int dispatch(int window_width, int window_height, int mode, Args&&... args)
+int dispatch(int wpf, int mode, Args&&... args)
 {
-    const int npl = pft_ceil_div(window_width * window_height, 32);
 #define PFT_AFFINE_MODES(K)                                                             \
     case K:                                                                             \
         switch (mode) {                                                                 \
@@ -571,8 +736,7 @@ int dispatch(int window_width, int window_height, int mode, Args&&... args)
             case 2: return Launch<K, 2>::run(args...);                                  \
             default: return PFT_INVALID_ARGUMENT;                                       \
         }
-    switch (npl <= 8 ? npl : 0) {
-        PFT_AFFINE_MODES(0)
+    switch (wpf) {
         PFT_AFFINE_MODES(1)
         PFT_AFFINE_MODES(2)
         PFT_AFFINE_MODES(3)
@@ -587,25 +751,6 @@ int dispatch(int window_width, int window_height, int mode, Args&&... args)
 #undef PFT_AFFINE_MODES
 }
 
-// The two launches for storage type TS, as dispatch takes them.
-template <typename TS>
-struct TrackLaunch {
-    template <int NPL, int MODE>
-    struct Run {
-        template <typename... A>
-        static int run(A&&... a) { return launch<NPL, MODE, TS>(a...); }
-    };
-};
-
-template <typename TS>
-struct StageLaunch {
-    template <int NPL, int MODE>
-    struct Run {
-        template <typename... A>
-        static int run(A&&... a) { return launch_stage<NPL, MODE, TS>(a...); }
-    };
-};
-
 // The stage's inputs with the level images as storage type TS.
 template <typename TS>
 StageIn<TS> stage_in(const void* const* pyr, const float* const* feats,
@@ -619,15 +764,24 @@ StageIn<TS> stage_in(const void* const* pyr, const float* const* feats,
                        valid, nit};
 }
 
+// The arguments both entries check: odd windows, images of at least 2x2,
+// a launch shape of at most MAX_THREADS threads a block.
+bool refuse(int H, int W, int window_width, int window_height, int wpf, int fpb)
+{
+    return H < 2 || W < 2 || window_width % 2 != 1 || window_height % 2 != 1 || wpf < 1 ||
+           fpb < 1 || 32 * wpf * fpb > MAX_THREADS;
+}
+
 }  // namespace
 
 // Any odd window. A0 is [n, 2, 2] row-major; outputs likewise. The three
-// images float32 (bf16 0) or bfloat16 (bf16 1).
+// images float32 (bf16 0) or bfloat16 (bf16 1). warps_per_feature (1-8) and
+// features_per_block (ops/cuda_affine.launch_shape) shape the launch.
 extern "C" int pft_affine_track(const float* tmpl, const void* img2, const void* gx2,
                                 const void* gy2, const float* x0, const float* y0,
                                 const float* A0, const bool* check, int bf16, int H, int W,
-                                int n,
-                                int window_width, int window_height, int mode,
+                                int n, int window_width, int window_height, int mode,
+                                int warps_per_feature, int features_per_block,
                                 int max_iterations, float min_displacement,
                                 float min_determinant, float max_residue,
                                 float max_displacement_differ, float* x_out,
@@ -635,20 +789,19 @@ extern "C" int pft_affine_track(const float* tmpl, const void* img2, const void*
                                 void* stream)
 {
     if (n <= 0) return 0;
-    if (H < 2 || W < 2 || window_width % 2 != 1 || window_height % 2 != 1)
+    if (refuse(H, W, window_width, window_height, warps_per_feature, features_per_block))
         return PFT_INVALID_ARGUMENT;
     const AffParams P{H, W, n, window_width / 2, window_height / 2, max_iterations,
                       min_displacement, min_determinant, max_residue,
                       max_displacement_differ};
     cudaStream_t s = (cudaStream_t)stream;
     if (bf16)
-        return dispatch<TrackLaunch<__nv_bfloat16>::Run>(window_width, window_height, mode,
-                                                         tmpl, img2, gx2, gy2, x0, y0, A0,
-                                                         check, P, x_out, y_out, A_out,
-                                                         status, nit, s);
-    return dispatch<TrackLaunch<float>::Run>(window_width, window_height, mode, tmpl, img2,
-                                             gx2, gy2, x0, y0, A0, check, P, x_out, y_out,
-                                             A_out, status, nit, s);
+        return dispatch<TrackLaunch<__nv_bfloat16>::Run>(
+            warps_per_feature, mode, features_per_block, s, tmpl, img2, gx2, gy2, x0, y0, A0,
+            check, P, x_out, y_out, A_out, status, nit);
+    return dispatch<TrackLaunch<float>::Run>(warps_per_feature, mode, features_per_block, s,
+                                             tmpl, img2, gx2, gy2, x0, y0, A0, check, P,
+                                             x_out, y_out, A_out, status, nit);
 }
 
 // The affine stage in one launch. pyr: level 0 of both pyramids, six [H, W]
@@ -658,12 +811,13 @@ extern "C" int pft_affine_track(const float* tmpl, const void* img2, const void*
 // state: the AffineState in (img, gradx, grady [n, wh, ww], x, y [n], A
 // [n, 2, 2]), valid [n] bool, nit [n] int32; out: x, y [n], then the new
 // AffineState's float fields in the same order; val_out, valid_out, nit_out.
-// counters: the device counters (common.cuh), or nullptr.
+// counters: the device counters (common.cuh), or nullptr. The launch shape
+// as pft_affine_track's.
 extern "C" int pft_affine_stage(const void* const* pyr, const float* const* feats,
                                 const int* const* vals, const float* const* state,
                                 const bool* valid, const int* nit, int bf16, int H, int W,
-                                int n,
-                                int window_width, int window_height, int mode,
+                                int n, int window_width, int window_height, int mode,
+                                int warps_per_feature, int features_per_block,
                                 int max_iterations, float min_displacement,
                                 float min_determinant, float max_residue,
                                 float max_displacement_differ, float* const* out,
@@ -671,7 +825,7 @@ extern "C" int pft_affine_stage(const void* const* pyr, const float* const* feat
                                 unsigned long long* counters, void* stream)
 {
     if (n <= 0) return 0;
-    if (H < 2 || W < 2 || window_width % 2 != 1 || window_height % 2 != 1)
+    if (refuse(H, W, window_width, window_height, warps_per_feature, features_per_block))
         return PFT_INVALID_ARGUMENT;
     const AffParams P{H, W, n, window_width / 2, window_height / 2, max_iterations,
                       min_displacement, min_determinant, max_residue,
@@ -681,11 +835,12 @@ extern "C" int pft_affine_stage(const void* const* pyr, const float* const* feat
     cudaStream_t s = (cudaStream_t)stream;
     if (bf16)
         return dispatch<StageLaunch<__nv_bfloat16>::Run>(
-            window_width, window_height, mode,
-            stage_in<__nv_bfloat16>(pyr, feats, vals, state, valid, nit), O, P, counters, s);
+            warps_per_feature, mode, features_per_block, s,
+            stage_in<__nv_bfloat16>(pyr, feats, vals, state, valid, nit), O, P, counters);
     return dispatch<StageLaunch<float>::Run>(
-        window_width, window_height, mode,
-        stage_in<float>(pyr, feats, vals, state, valid, nit), O, P, counters, s);
+        warps_per_feature, mode, features_per_block, s,
+        stage_in<float>(pyr, feats, vals, state, valid, nit), O, P, counters);
 }
 
 PFT_PHASE_READER(pft_affine_phase_clocks)
+PFT_PHASE_UNIT_READER(pft_affine_phase_units)

@@ -97,19 +97,43 @@ static __device__ __forceinline__ float pft_stored(float v)
 // kernel marks the end of phase k with PFT_PHASE(t, k, on): the cycles
 // since the previous mark (clock64) and a count go to per-file sums, which
 // PFT_PHASE_READER's entry copies to the host and clears.
+// PFT_PHASE_UNIT(t, k, on, u) also adds them to unit u's own record (a
+// kernel's unit of work, e.g. K6's feature; units below PFT_PHASE_UNITS),
+// which PFT_PHASE_UNIT_READER's entry copies out ([unit][cycles, marks]
+// [phase], 32-bit) and clears. PFT_PHASE_STAMP(k, on, u) writes into unit
+// u's slot k (14 or 15, above the phases) the low 32 bits of the global
+// nanosecond timer and the SM's id: the last launch's start or end.
 #ifdef PFT_PHASE_CLOCKS
+#define PFT_PHASE_UNITS 4096
 namespace {
 __device__ unsigned long long pft_phase_cycles[32];
 __device__ unsigned long long pft_phase_counts[32];
+__device__ unsigned int pft_phase_unit[PFT_PHASE_UNITS][2][16];
 }  // namespace
 #define PFT_PHASE_START(t) long long t = clock64()
-#define PFT_PHASE(t, k, on)                                                         \
+#define PFT_PHASE_UNIT(t, k, on, u)                                                 \
     do {                                                                            \
         if (on) {                                                                   \
             const long long pft_now_ = clock64();                                   \
             atomicAdd(&pft_phase_cycles[k], (unsigned long long)(pft_now_ - (t)));  \
             atomicAdd(&pft_phase_counts[k], 1ull);                                  \
+            if ((u) >= 0 && (u) < PFT_PHASE_UNITS) {                                \
+                atomicAdd(&pft_phase_unit[u][0][k], (unsigned int)(pft_now_ - (t)));  \
+                atomicAdd(&pft_phase_unit[u][1][k], 1u);                            \
+            }                                                                       \
             (t) = pft_now_;                                                         \
+        }                                                                           \
+    } while (0)
+#define PFT_PHASE(t, k, on) PFT_PHASE_UNIT(t, k, on, -1)
+#define PFT_PHASE_STAMP(k, on, u)                                                   \
+    do {                                                                            \
+        if ((on) && (u) >= 0 && (u) < PFT_PHASE_UNITS) {                            \
+            unsigned long long pft_ns_;                                             \
+            unsigned int pft_sm_;                                                   \
+            asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(pft_ns_));             \
+            asm volatile("mov.u32 %0, %%smid;" : "=r"(pft_sm_));                    \
+            pft_phase_unit[u][0][k] = (unsigned int)pft_ns_;                        \
+            pft_phase_unit[u][1][k] = pft_sm_;                                      \
         }                                                                           \
     } while (0)
 #define PFT_PHASE_READER(name)                                                      \
@@ -123,8 +147,21 @@ __device__ unsigned long long pft_phase_counts[32];
         cudaMemcpyToSymbol(pft_phase_counts, zero, sizeof(zero));                   \
         return (int)cudaGetLastError();                                             \
     }
+#define PFT_PHASE_UNIT_READER(name)                                                 \
+    extern "C" int name(unsigned int* units)                                        \
+    {                                                                               \
+        cudaDeviceSynchronize();                                                    \
+        cudaMemcpyFromSymbol(units, pft_phase_unit, sizeof(pft_phase_unit));        \
+        void* pft_dev_ = nullptr;                                                   \
+        cudaGetSymbolAddress(&pft_dev_, pft_phase_unit);                            \
+        cudaMemset(pft_dev_, 0, sizeof(pft_phase_unit));                            \
+        return (int)cudaGetLastError();                                             \
+    }
 #else
 #define PFT_PHASE_START(t)
 #define PFT_PHASE(t, k, on)
+#define PFT_PHASE_UNIT(t, k, on, u)
+#define PFT_PHASE_STAMP(k, on, u)
 #define PFT_PHASE_READER(name)
+#define PFT_PHASE_UNIT_READER(name)
 #endif

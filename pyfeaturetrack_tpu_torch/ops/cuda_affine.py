@@ -54,10 +54,27 @@ def _require_mode_and_window(cfg):
     return ww, wh
 
 
+# Warps in a block of either launch, at most.
+BLOCK_WARPS = 8
+
+
+def launch_shape(window_width: int, window_height: int) -> tuple[int, int]:
+    """(warps a feature, features a block) of both K6 launches: a warp for
+    each row of 32 window samples, at most BLOCK_WARPS (a window of more
+    rows walks them that many at a time), and as many features as fill a
+    block of BLOCK_WARPS warps. The mode changes only the number of sums
+    the warps share, so the shape follows the window alone."""
+    rows = -(-window_width * window_height // 32)
+    warps = min(rows, BLOCK_WARPS)
+    return warps, BLOCK_WARPS // warps
+
+
 def _gn_params(cfg):
-    """The window, mode and Gauss-Newton settings both C entries take."""
-    return (cfg.affine_window_width, cfg.affine_window_height,
-            int(cfg.affineConsistencyCheck), cfg.affine_max_iterations,
+    """The window, mode, launch shape and Gauss-Newton settings both C
+    entries take."""
+    ww, wh = cfg.affine_window_width, cfg.affine_window_height
+    return (ww, wh, int(cfg.affineConsistencyCheck), *launch_shape(ww, wh),
+            cfg.affine_max_iterations,
             _f32(cfg.affine_min_displacement), _f32(cfg.min_determinant),
             _f32(cfg.affine_max_residue),
             _f32(cfg.affine_max_displacement_differ))
@@ -67,7 +84,7 @@ def _launch(tmpl, img2, gx2, gy2, x0, y0, A0, check, cfg, xo, yo, Ao, st,
             nit):
     global launches
     fn = cuda.function("pft_affine_track",
-                       [cuda.c_ptr] * 8 + [cuda.c_int] * 8
+                       [cuda.c_ptr] * 8 + [cuda.c_int] * 10
                        + [cuda.c_float] * 4 + [cuda.c_ptr] * 6)
     nrows, ncols = img2.shape
     rc = fn(*(t.data_ptr() for t in (tmpl, img2, gx2, gy2, x0, y0, A0,
@@ -150,9 +167,8 @@ def _launch_stage(ts, cfg):
                       nit=torch.empty_like(nit))
     if n:
         fn = cuda.function("pft_affine_stage",
-                           [cuda.c_ptr] * 6 + [cuda.c_int] * 7
-                           + [cuda.c_int] + [cuda.c_float] * 4
-                           + [cuda.c_ptr] * 6)
+                           [cuda.c_ptr] * 6 + [cuda.c_int] * 10
+                           + [cuda.c_float] * 4 + [cuda.c_ptr] * 6)
         tables = [_ptrs(t) for t in (imgs, feats, vals, state,
                                      (x, y) + tuple(out[:6]))]
         addr = [ctypes.addressof(t) for t in tables]

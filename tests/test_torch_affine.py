@@ -9,7 +9,8 @@
   in interpret mode at their own bar: statuses exact, 1e-3.
 * ``affine_consistency_check`` against JAX's on capture, loss and a
   template kept through a replace: features and the whole AffineState.
-* ``affine_state_from_numpy`` round trip. The slice end to end
+* ``affine_state_from_numpy`` round trip; K6's launch shape by window.
+  The slice end to end
   (``track_sequence_device`` in modes 0, 1, 2) is in
   test_torch_sequence.py.
 
@@ -47,7 +48,8 @@ import pyfeaturetrack_tpu_torch as tpft
 from pyfeaturetrack_tpu_torch.features import FeatureState, reset_affine
 from pyfeaturetrack_tpu_torch.ops.affine import (affine_consistency_check,
                                                  make_affine_state)
-from pyfeaturetrack_tpu_torch.ops.cuda_affine import affine_track_batch
+from pyfeaturetrack_tpu_torch.ops.cuda_affine import (affine_track_batch,
+                                                      launch_shape)
 from pyfeaturetrack_tpu_torch.ops.interp import bilinear, gather_window
 from pyfeaturetrack_tpu_torch.ops.linalg import gauss_solve_det, inv3x3
 from pyfeaturetrack_tpu_torch.utils.convert import (affine_state_from_numpy,
@@ -400,3 +402,17 @@ def test_affine_state_round_trip():
     _assert_affine_state(fresh, jax_make_affine_state(7, jcfg), tol=0.0)
     assert affine_state_from_numpy(*(a.numpy() for a in fresh[:7]), device="cpu").nit \
         is None
+
+
+@pytest.mark.parametrize("win,shape", [
+    ((3, 3), (1, 8)), ((7, 7), (2, 4)), ((9, 11), (4, 2)),
+    ((11, 17), (6, 1)), ((15, 15), (8, 1)), ((17, 17), (8, 1)),
+    ((21, 21), (8, 1)), ((25, 25), (8, 1)), ((51, 51), (8, 1))])
+def test_affine_launch_shape(win, shape):
+    """K6's launch shape from the window: a warp for each row of 32
+    samples, 8 at most (windows above 256 samples walk their rows 8 at a
+    time), and as many features as fill a block of 8 warps."""
+    warps, per_block = launch_shape(*win)
+    assert (warps, per_block) == shape
+    assert warps <= -(-win[0] * win[1] // 32)
+    assert 32 * warps * per_block <= 256

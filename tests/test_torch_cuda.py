@@ -896,49 +896,118 @@ def test_affine_track_large_windows_bit_equal(dev, mode, win):
     assert {0, -4}.issubset(set(got[3][check].tolist()))
 
 
+AFFINE_GROUPS = ("tracked", "flat", "noise", "edge", "drift", "wander",
+                 "capture", "lost", "dead")
+
+
+def _affine_stage_mix(dev, n, cfg):
+    """The affine stage's inputs on a lane mix of n lanes, lane i in group
+    AFFINE_GROUPS[i % 9]: frame 2 shows frame 1's content moved by (+3, +2)
+    px, with a flat block (SMALL_DET) and a patch of fresh noise
+    (LARGE_RESIDUE); lanes across the left edge (OOB), started 2.5 px off
+    the optimum (drift: OOB), with a noise template (wander: runs to
+    affine_max_iterations), first tracks (captured), lost and dead lanes.
+    Returns (pyr1, pyr2, fl_before, fl_after) and the groups."""
+    from pyfeaturetrack_tpu_torch.features import FeatureState
+    h, w = 240, 320
+    base = _texture(h + 8, w + 8, seed=30 + cfg.affine_window_width)
+    a = base[4:4 + h, 4:4 + w].copy()
+    b = base[2:2 + h, 1:1 + w].copy()            # content at (x + 3, y + 2)
+    a[60:120, 40:140] = b[62:122, 43:143] = 128.0
+    rng = np.random.default_rng(n)
+    b[150:230, 200:310] = rng.uniform(0, 255, (80, 110))
+    p1, p2 = (tpft.build_track_pyramids(torch.tensor(f, device=dev), cfg)
+              for f in (a, b))
+    groups = np.array([AFFINE_GROUPS[i % 9] for i in range(n)])
+    box = {"flat": (60, 120, 75, 105), "noise": (212, 292, 163, 213),
+           "edge": (0.5, 5.0, 30, h - 30)}
+    x = np.empty(n)
+    y = np.empty(n)
+    for g in AFFINE_GROUPS:
+        m = groups == g
+        x0, x1, y0, y1 = box.get(g, (20, 190, 130, 220))
+        x[m] = rng.uniform(x0, x1, m.sum())
+        y[m] = rng.uniform(y0, y1, m.sum())
+    off = np.where(groups == "drift", 2.5, 0.3)
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)  # noqa: E731
+    xb, yb = f32(x), f32(y)
+    xa, ya = f32(x + 3.0 + off), f32(y + 2.0 - 0.2)
+    g = {k: torch.tensor(groups == k, device=dev) for k in AFFINE_GROUPS}
+    hw, hh = cfg.affine_window_width // 2, cfg.affine_window_height // 2
+    tmpl = gather_window(p1.img[0], xb, yb, hw, hh)
+    noise = f32(rng.uniform(0, 255, tmpl.shape))
+    zero = torch.zeros(n, dtype=torch.int32, device=dev)
+    aff = tpft.AffineState(
+        img=torch.where(g["wander"][:, None, None], noise, tmpl).contiguous(),
+        gradx=gather_window(p1.gradx[0], xb, yb, hw, hh).contiguous(),
+        grady=gather_window(p1.grady[0], xb, yb, hw, hh).contiguous(),
+        x=xb, y=yb, A=torch.eye(2, device=dev).repeat(n, 1, 1).contiguous(),
+        valid=~(g["capture"] | g["dead"]),
+        nit=(torch.arange(n, device=dev) % 7).to(torch.int32))
+    val_before = torch.where(g["dead"], -1, zero)
+    val_after = torch.where(g["lost"], -4, val_before)
+    before = FeatureState(xb, yb, val_before, aff)
+    after = FeatureState(torch.where(g["dead"] | g["lost"], -1.0, xa),
+                         torch.where(g["dead"] | g["lost"], -1.0, ya),
+                         val_after, aff)
+    return (p1, p2, before, after), groups
+
+
+@pytest.mark.parametrize("n", [1, 33, 1000])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("mode", [0, 1, 2])
-@pytest.mark.parametrize("win", [15, 21])
-def test_affine_stage_bit_equal(dev, mode, win):
+@pytest.mark.parametrize("win", [7, 15, 17, 21, 25])
+def test_affine_stage_bit_equal(dev, mode, win, dtype, n):
     """K6's stage kernel (one launch per stage) against the eager stage on
-    the card, over a capture step, two check steps and a replace: the
-    feature list and all eight AffineState fields, bit for bit."""
+    the card, over a lane mix (_affine_stage_mix) and the step after it,
+    which checks the captured templates and refills the lanes the first
+    dropped: the feature list and all eight AffineState fields, bit for
+    bit. At 1000 lanes the first step ends lanes TRACKED, SMALL_DET, OOB
+    and LARGE_RESIDUE, runs some to affine_max_iterations (read from the
+    batch entry on the checked lanes, itself == its plain version) and
+    captures and drops templates."""
     from pyfeaturetrack_tpu_torch.features import FeatureState, reset_affine
     from pyfeaturetrack_tpu_torch.ops.affine import affine_consistency_check
-    cfg = tpft.create_config(mindist=6, affineConsistencyCheck=mode,
+    cfg = tpft.create_config(affineConsistencyCheck=mode,
                              affine_window_width=win,
-                             affine_window_height=win)
-    base = _texture(150, 200, seed=40 + mode)
-    frames = [np.ascontiguousarray(base[i:i + 120, 2 * i:2 * i + 160])
-              for i in range(4)]
-    frames[2][30:60, 40:80] = np.random.default_rng(mode).uniform(
-        0, 255, (30, 40))
-    pyrs = [tpft.build_track_pyramids(torch.tensor(f, device=dev), cfg)
-            for f in frames]
-    fl = tpft.KLTSelectGoodFeatures(cfg, frames[0], 60)
-    x, y, v = fl.x, fl.y, fl.val
-    v = torch.where(torch.arange(60, device=dev) % 9 == 4, -1, v)
-    aff = tpft.make_affine_state(60, cfg)
-    for i in range(3):
-        tx, ty, tv = tpft.track_features_pyramids(pyrs[i], pyrs[i + 1], x, y,
-                                                  v, cfg)
-        args = (pyrs[i], pyrs[i + 1], FeatureState(x, y, v, aff),
-                FeatureState(tx, ty, tv, aff), cfg)
-        before = cuda_affine.launches
+                             affine_window_height=win, image_dtype=dtype)
+    (p1, p2, before, after), groups = _affine_stage_mix(dev, n, cfg)
+    for step in range(2):
+        args = (p1, p2, before, after, cfg)
+        launched = cuda_affine.launches
         got = affine_consistency_check(*args)
-        assert cuda_affine.launches == before + 1
+        assert cuda_affine.launches == launched + 1
         want = _plain(affine_consistency_check, *args)
         for a_, b_ in zip(got[:3], want[:3]):
             assert torch.equal(a_, b_)
         for name in got.aff._fields:
             assert torch.equal(getattr(got.aff, name),
                                getattr(want.aff, name)), name
-        x, y, v, aff = got.x, got.y, got.val, got.aff
-        if i == 1:                      # a replace drops the lost templates
-            lost = v < 0
-            x, y = torch.where(lost, 80.0, x), torch.where(lost, 60.0, y)
-            v = torch.where(lost, 500, v)
-            aff = reset_affine(aff, lost)
-    assert bool(aff.valid.any())
+        if step == 0 and n == 1000:
+            aff = after.aff
+            check = (after.val == 0) & aff.valid
+            batch = (aff.img, p2.img[0], p2.gradx[0], p2.grady[0], after.x,
+                     after.y, aff.A, check, cfg)
+            status = cuda_affine.affine_track_batch(*batch)
+            for a_, b_ in zip(status, _plain(cuda_affine.affine_track_batch,
+                                             *batch)):
+                assert torch.equal(a_, b_)
+            assert set(got.val[check].tolist()) == {0, -2, -4, -5}
+            assert bool((status[4] == cfg.affine_max_iterations).any())
+            cap = torch.tensor(groups == "capture", device=dev)
+            lost = torch.tensor(groups == "lost", device=dev)
+            assert bool(got.aff.valid[cap].all())
+            assert not bool(got.aff.valid[lost].any())
+        # the next step: the same pair from this step's AffineState, every
+        # lane tracked to its start near the optimum, the lanes this step
+        # dropped refilled (their templates captured)
+        drop = got.val < 0
+        before = FeatureState(before.x, before.y, torch.where(drop, 500,
+                                                             got.val),
+                              reset_affine(got.aff, drop))
+        after = FeatureState(before.x + 3.3, before.y + 1.8,
+                             torch.zeros_like(got.val), before.aff)
+    assert bool(got.aff.valid.any())
 
 
 @pytest.mark.parametrize("mode", [0, 2])
