@@ -3,7 +3,8 @@
 Reference parity: klt.py -> KLT_Feature / KLT_FeatureList (here one
 structure-of-arrays NamedTuple, FeatureState) and storeFeatures.py ->
 KLTCreateFeatureTable / KLTStoreFeatureList / KLTExtractFeatureList (here
-FeatureTable). Port of ``pyfeaturetrack_tpu/features.py``. As there, the
+FeatureTable). Port of ``pyfeaturetrack_tpu/features.py``; ``Lane`` is
+one lane's state between the device sequence loop's steps. As there, the
 table is updated functionally: ``store_feature_list`` returns a new table.
 
 ``val`` holds the min-eigenvalue after selection (>= 0) and the status code
@@ -13,10 +14,14 @@ after tracking, exactly like the reference. Status codes are bit-identical
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import TYPE_CHECKING, NamedTuple, Optional
 
 import numpy as np
 import torch
+
+if TYPE_CHECKING:
+    from .ops.cuda_lk import TrackCarry
+    from .ops.track import TrackPyramids
 
 KLT_TRACKED = 0
 KLT_NOT_FOUND = -1
@@ -69,6 +74,42 @@ class FeatureState(NamedTuple):
     @property
     def nFeatures(self) -> int:
         return self.x.shape[-1]
+
+
+class Lane(NamedTuple):
+    """One lane's (a stream's, a chunk's) state between frame steps of the
+    device sequence loop (``models/device_sequence``). ``carry`` is the
+    window carry of the JAX package's lanes: the port reuses no window, so
+    its steps never read it and hand out None (no window to reuse, as a
+    carry with every ``ok`` cleared)."""
+    pyr: TrackPyramids
+    x: torch.Tensor
+    y: torch.Tensor
+    val: torch.Tensor
+    aff: Optional[AffineState] = None
+    carry: Optional[TrackCarry] = None
+
+    def state(self) -> list:
+        """The lane's state after its pyramid, in a fixed order: x, y, val
+        and the AffineState's fields, a None ``nit`` as zeros (the affine
+        stage reads it so)."""
+        aff = () if self.aff is None else self.aff
+        if aff and aff.nit is None:
+            aff = aff._replace(nit=torch.zeros_like(self.val))
+        return [self.x, self.y, self.val, *aff]
+
+    def tensors(self) -> list:
+        """Every tensor the steps carry: the pyramid's levels (images, x
+        gradients, y gradients), then ``state()``."""
+        return [*self.pyr.img, *self.pyr.gradx, *self.pyr.grady,
+                *self.state()]
+
+    @classmethod
+    def from_state(cls, pyr, state) -> "Lane":
+        """The lane of pyramids ``pyr`` and ``state`` (``state()``'s
+        order)."""
+        x, y, val, *aff = state
+        return cls(pyr, x, y, val, AffineState(*aff) if aff else None)
 
 
 def identity_warps(n: int, device) -> torch.Tensor:

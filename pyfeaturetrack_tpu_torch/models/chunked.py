@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from ..config import TrackerConfig, create_config
+from ..features import Lane
 from ..ops.select import select_good_features_arrays
 from ..ops.select_device import DEFAULT_TOP_K
 from ..ops.track import as_frame, build_track_pyramids
@@ -71,8 +72,7 @@ def track_chunks_batched(chunk_frames, init_x, init_y, init_val,
                    for a, dt in ((init_x, torch.float32),
                                  (init_y, torch.float32),
                                  (init_val, torch.int32)))
-        lanes.append((build_track_pyramids(as_frame(f), lcfg), x, y, v,
-                      None, None))
+        lanes.append(Lane(build_track_pyramids(as_frame(f), lcfg), x, y, v))
     parts = [tuple(torch.stack([lane[j] for lane in lanes])[:, None]
                    for j in (1, 2, 3))]
     exhausted = torch.zeros((), dtype=torch.bool, device=dev)
@@ -91,7 +91,7 @@ def track_chunks_batched(chunk_frames, init_x, init_y, init_val,
             pyr, x, y, v, _, _ = lanes[c]
             pyr, x, y, v, _, ex, _ = sequence_step_device(
                 pyr, f, x, y, v, lcfg, replace_lost)
-            lanes[c] = (pyr, x, y, v, None, None)
+            lanes[c] = Lane(pyr, x, y, v)
             exhausted = exhausted | ex
         parts.append(tuple(torch.stack([lane[j] for lane in lanes])[:, None]
                            for j in (1, 2, 3)))

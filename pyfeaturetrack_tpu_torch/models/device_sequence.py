@@ -36,18 +36,23 @@ counterpart of the JAX package's jitted k-frame program. On CPU tensors
 it is the steps one by one. On the card the k steps are one captured CUDA
 graph (``_ChainGraph``), replayed once per k frames: each step's pyramid
 build, K2, the affine stage, the refill and the writes into the history
-rows, with no host work between them. The
-graph holds the carried state (the pyramids, in two buffers the steps
-alternate between; x, y, val; every AffineState field; the TrackCarry) in
-its own buffers; a call whose state is not the one the graph handed out
-last is copied in first, and every tensor a call returns is a copy, so a
-later replay never changes what a caller holds. The frames reach the
-graph's frame buffer before the replay, in the staged dtype
+rows, with no host work between them. A lane's carried state is one
+``features.Lane`` (pyramids, x, y, val, AffineState). The graph holds the
+lanes' pyramids in two buffers the steps alternate between, and the rest
+of their state as one list of ``[B, ...]`` buffers (``Lane.state``); a
+call whose state is not the one the graph handed out last is copied in
+first, and every tensor a call returns is a copy, so a later replay never
+changes what a caller holds. The window carry (``TrackCarry``) stays at
+the public edge: the port reuses no window, so ``sequence_step_device``
+and ``sequence_chain_device`` return the carry they were given with
+``ok`` cleared, the steps and the graph never see it, and a lane they
+hand out carries None. The frames
+reach the graph's frame buffer before the replay, in the staged dtype
 (``utils/staging``: uint8 stays uint8 and is cast on the card, inside the
 graph): a ``utils/staging.HostBlock`` of the chain's host frames in one
 copy (the streaming trackers write theirs at feed; other host frames are
-written into the graph's own block), frames already on the card one copy
-each.
+written into the graph's own, from a ``BlockRing`` of one), frames
+already on the card one copy each.
 ``chain_lanes`` runs B independent lanes (streams, chunks) in one graph,
 their steps in lane order within each frame.
 
@@ -75,20 +80,20 @@ import torch
 
 from ..config import TrackerConfig, create_config
 from ..errors import KLTWarning
-from ..features import KLT_NOT_FOUND, AffineState, FeatureState, reset_affine
+from ..features import KLT_NOT_FOUND, FeatureState, Lane, reset_affine
 from ..ops.affine import affine_consistency_check, make_affine_state
-from ..ops.cuda_lk import TrackCarry
 from ..ops.cuda_pyramid import (level_shapes, pyramid_numel, pyramid_views,
                                 storage_dtype)
 from ..ops.select import selection_eig_map
 from ..ops.select_device import (DEFAULT_TOP_K,
                                  select_features_from_eig_device)
 from ..ops.track import (TrackPyramids, as_frame, build_track_pyramids,
-                         track_features_pyramids_carry)
+                         track_features_pyramids)
 from ..utils import cuda
 from ..utils.profiling import (count, device_counters, host_sync,
                                launch_counters, named_scope)
-from ..utils.staging import HostBlock, host_frame, stage_raw
+from ..utils.staging import (BlockRing, HostBlock, host_frame, stage_raw,
+                             staged_dtype)
 
 
 def _build_with_map(img: torch.Tensor, cfg, with_map: bool, out=None):
@@ -127,16 +132,17 @@ def select_step_device(img, cfg, n_features: int,
     return pyr, x, y, val, aff, exhausted
 
 
-def _step(pyr_prev, img_new, x, y, val, cfg, replace_lost, aff, carry,
-          pyr_out=None):
-    """One frame step on a float32 frame on the features' device (the body
-    shared by ``sequence_step_device`` and the captured chain)."""
+def _step(lane: Lane, img_new, cfg, replace_lost, pyr_out=None):
+    """One frame step of ``lane`` on a float32 frame on its device (the
+    body shared by ``sequence_step_device`` and the captured chain):
+    (lane, exhausted)."""
+    pyr_prev, x, y, val, aff = lane.pyr, lane.x, lane.y, lane.val, lane.aff
     with named_scope("step.pyramid"):
         pyr_new, eig = _build_with_map(img_new, cfg, replace_lost,
                                        out=pyr_out)
     with named_scope("step.track"):
-        nx, ny, nval, carry = track_features_pyramids_carry(
-            pyr_prev, pyr_new, x, y, val, cfg, carry=carry)
+        nx, ny, nval = track_features_pyramids(pyr_prev, pyr_new, x, y, val,
+                                               cfg)
     if cfg.affineConsistencyCheck >= 0:
         with named_scope("step.affine"):
             after = affine_consistency_check(
@@ -154,7 +160,14 @@ def _step(pyr_prev, img_new, x, y, val, cfg, replace_lost, aff, carry,
                 # refilled slots are fresh features: their templates
                 # recapture
                 aff = reset_affine(aff, lost)
-    return pyr_new, nx, ny, nval, aff, exhausted, carry
+    return Lane(pyr_new, nx, ny, nval, aff), exhausted
+
+
+def _carry_out(carry):
+    """A window carry as the port hands it back: ``ok`` cleared (no window
+    reuse yet, identical results), None for None."""
+    return None if carry is None else carry._replace(
+        ok=torch.zeros_like(carry.ok))
 
 
 def sequence_step_device(pyr_prev: TrackPyramids, img_new, x: torch.Tensor,
@@ -170,8 +183,9 @@ def sequence_step_device(pyr_prev: TrackPyramids, img_new, x: torch.Tensor,
     returns ``carry`` with ``ok`` cleared: no window reuse yet, identical
     results)."""
     del top_k          # the extraction scans every candidate
-    return _step(pyr_prev, as_frame(img_new, x.device), x, y, val, cfg,
-                 replace_lost, aff, carry)
+    lane, exhausted = _step(Lane(pyr_prev, x, y, val, aff),
+                            as_frame(img_new, x.device), cfg, replace_lost)
+    return (*lane[:5], exhausted, _carry_out(carry))
 
 
 # ---------------------------------------------------------------------------
@@ -187,112 +201,78 @@ def _chain_plain(lanes, frames, cfg, replace_lost):
     ex = [None] * len(lanes)
     for tick in frames:
         for b, img in enumerate(tick):
-            pyr, x, y, val, aff, carry = lanes[b]
-            pyr, x, y, val, aff, e, carry = _step(
-                pyr, as_frame(img, x.device), x, y, val, cfg, replace_lost,
-                aff, carry)
-            lanes[b] = (pyr, x, y, val, aff, carry)
-            rows[b].append((x, y, val))
+            lanes[b], e = _step(lanes[b], as_frame(img, lanes[b].x.device),
+                                cfg, replace_lost)
+            rows[b].append(lanes[b][1:4])
             ex[b] = e if ex[b] is None else ex[b] | e
     hist = tuple(torch.stack([torch.stack([r[j] for r in lane_rows])
                               for lane_rows in rows]) for j in range(3))
     return lanes, hist, torch.stack(ex)
 
 
-def _flat(lanes) -> list:
-    """Every state tensor of the lanes, in a fixed order."""
-    out = []
-    for pyr, x, y, val, aff, carry in lanes:
-        out += [*pyr.img, *pyr.gradx, *pyr.grady, x, y, val]
-        if aff is not None:
-            out += [t for t in aff if t is not None]
-        if carry is not None:
-            out += list(carry)
-    return out
-
-
 class _ChainGraph:
     """k frame steps of B lanes, captured in one CUDA graph on one device.
 
     The graph's own buffers hold the frames ([k, B, H, W] in the staged
-    dtype) and the lanes' carried state, each lane's pyramid in two buffers
+    dtype) and the lanes' carried state: each lane's pyramid in two buffers
     that the steps alternate between (buffer 0 holds the state between
-    replays). Host frames that come without a block of their own are
-    written into the graph's block (made at their first chain)."""
+    replays), the rest as ``state``, one ``[B, ...]`` buffer for each
+    tensor of ``Lane.state``. Host frames that come without a block of
+    their own are written into the graph's block (a ``BlockRing`` of
+    one)."""
 
     def __init__(self, cfg, lanes, k: int, frame_dtype, replace_lost: bool):
-        pyr, x0, _, _, aff, carry = lanes[0]
-        dev = x0.device
-        b, n = len(lanes), x0.shape[0]
-        h, w = pyr.img[0].shape
+        dev = lanes[0].x.device
+        b = len(lanes)
+        h, w = lanes[0].pyr.img[0].shape
         self.cfg, self.k, self.b, self.replace_lost = cfg, k, b, replace_lost
         self.shapes = level_shapes(h, w, cfg.subsampling, cfg.nPyramidLevels)
-        on = dict(device=dev)
         # zeroed frames and dead lanes: the warm-up step runs on them
-        self.frames = torch.zeros((k, b, h, w), dtype=frame_dtype, **on)
-        self.block = None
+        self.frames = torch.zeros((k, b, h, w), dtype=frame_dtype,
+                                  device=dev)
+        self.ring = BlockRing(1, dev)
         self.pyr_buf = torch.zeros((2, b, pyramid_numel(self.shapes)),
-                                   dtype=storage_dtype(cfg), **on)
-        self.x = torch.full((b, n), -1.0, dtype=torch.float32, **on)
-        self.y = torch.full((b, n), -1.0, dtype=torch.float32, **on)
-        self.val = torch.full((b, n), KLT_NOT_FOUND, dtype=torch.int32,
-                              **on)
-        self.aff = None
-        if aff is not None:
-            shapes = [t.shape for t in aff[:7]] + [(n,)]
-            dtypes = [t.dtype for t in aff[:7]] + [torch.int32]
-            self.aff = AffineState(*(torch.zeros((b, *s), dtype=d, **on)
-                                     for s, d in zip(shapes, dtypes)))
-        self.carry = None
-        if carry is not None:
-            self.carry = TrackCarry(*(torch.zeros((b, *t.shape),
-                                                  dtype=t.dtype, **on)
-                                      for t in carry))
-        self.hist = (torch.zeros((b, k, n), dtype=torch.float32, **on),
-                     torch.zeros((b, k, n), dtype=torch.float32, **on),
-                     torch.zeros((b, k, n), dtype=torch.int32, **on))
-        self.exhausted = torch.zeros((b,), dtype=torch.bool, **on)
+                                   dtype=storage_dtype(cfg), device=dev)
+        self.state = [torch.zeros((b, *t.shape), dtype=t.dtype, device=dev)
+                      for t in lanes[0].state()]
+        dead = Lane.from_state(None, self.state)
+        dead.x.fill_(-1.0)
+        dead.y.fill_(-1.0)
+        dead.val.fill_(KLT_NOT_FOUND)
+        n = lanes[0].x.shape[0]
+        self.hist = (torch.zeros((b, k, n), dtype=torch.float32, device=dev),
+                     torch.zeros((b, k, n), dtype=torch.float32, device=dev),
+                     torch.zeros((b, k, n), dtype=torch.int32, device=dev))
+        self.exhausted = torch.zeros((b,), dtype=torch.bool, device=dev)
         self._held = None
         # the replays add into the device counters the capture saw
         device_counters(dev)
         self._capture(dev)
 
-    def _lane(self, b: int, buf: int = 0):
-        return (TrackPyramids(*pyramid_views(self.pyr_buf[buf, b],
-                                             self.shapes)),
-                self.x[b], self.y[b], self.val[b],
-                None if self.aff is None else
-                AffineState(*(t[b] for t in self.aff)),
-                None if self.carry is None else
-                TrackCarry(*(t[b] for t in self.carry)))
+    def _lane(self, b: int, pyr=None, state=None) -> Lane:
+        """Lane ``b`` as views of ``pyr`` (default pyramid buffer 0) and
+        ``state`` (default the graph's)."""
+        pyr = self.pyr_buf[0] if pyr is None else pyr
+        return Lane.from_state(
+            TrackPyramids(*pyramid_views(pyr[b], self.shapes)),
+            [t[b] for t in (self.state if state is None else state)])
 
     def _body(self) -> None:
         lanes = [self._lane(b) for b in range(self.b)]
         ex = []
         for j in range(self.k):
-            out_buf = (j + 1) % 2
             for b in range(self.b):
-                pyr, x, y, val, aff, carry = lanes[b]
-                pyr, x, y, val, aff, e, carry = _step(
-                    pyr, self.frames[j, b].to(torch.float32), x, y, val,
-                    self.cfg, self.replace_lost, aff, carry,
-                    pyr_out=self.pyr_buf[out_buf, b])
-                lanes[b] = (pyr, x, y, val, aff, carry)
-                for hist, t in zip(self.hist, (x, y, val)):
+                lanes[b], e = _step(
+                    lanes[b], self.frames[j, b].to(torch.float32), self.cfg,
+                    self.replace_lost, pyr_out=self.pyr_buf[(j + 1) % 2, b])
+                for hist, t in zip(self.hist, lanes[b][1:4]):
                     hist[b, j].copy_(t)
                 ex.append(e)
         # one reduction per chain: a lane is exhausted if any step was
         self.exhausted.copy_(torch.stack(ex).view(self.k, self.b).any(0))
-        for b, (_, x, y, val, aff, carry) in enumerate(lanes):
-            self.x[b].copy_(x)
-            self.y[b].copy_(y)
-            self.val[b].copy_(val)
-            if aff is not None:
-                for dst, src in zip(self.aff, aff):
-                    dst[b].copy_(src)
-            if carry is not None:
-                for dst, src in zip(self.carry, carry):
-                    dst[b].copy_(src)
+        for b, lane in enumerate(lanes):
+            for dst, src in zip(self.state, lane.state()):
+                dst[b].copy_(src)
         if self.k % 2:
             self.pyr_buf[0].copy_(self.pyr_buf[1])
 
@@ -304,9 +284,8 @@ class _ChainGraph:
             # first kernel call builds and loads the library, makes the
             # taps and sets each kernel's shared-memory limit, and K1's
             # coarse launch allocates the grid-barrier state of this stream
-            pyr, x, y, val, aff, carry = self._lane(0)
-            _step(pyr, self.frames[0, 0].to(torch.float32), x, y, val,
-                  self.cfg, self.replace_lost, aff, carry)
+            _step(self._lane(0), self.frames[0, 0].to(torch.float32),
+                  self.cfg, self.replace_lost)
         torch.cuda.current_stream(dev).wait_stream(stream)
         # the kernel modules' launch counters: a replay adds what its capture
         # recorded (the capture itself launches nothing)
@@ -327,42 +306,25 @@ class _ChainGraph:
         unchanged since: the graph's buffers already hold it."""
         if self._held is None:
             return False
-        flat = _flat(lanes)
+        flat = [t for lane in lanes for t in lane.tensors()]
         return len(flat) == len(self._held) and all(
             t is h and t._version == v for t, (h, v) in zip(flat, self._held))
 
     def _load(self, lanes) -> None:
-        for b, (pyr, x, y, val, aff, carry) in enumerate(lanes):
-            dst = self._lane(b)
-            for d_lv, s_lv in zip(dst[0], pyr):
-                for d, s in zip(d_lv, s_lv):
-                    d.copy_(s)
-            for d, s in zip(dst[1:4], (x, y, val)):
-                d.copy_(s)
-            if aff is not None:
-                for d, s in zip(dst[4], aff):
-                    if s is None:           # nit: None is zeros
-                        d.zero_()
-                    else:
-                        d.copy_(s)
-            if carry is not None:
-                for d, s in zip(dst[5], carry):
-                    d.copy_(s)
+        for b, lane in enumerate(lanes):
+            for dst, src in zip(self._lane(b).tensors(), lane.tensors()):
+                dst.copy_(src)
 
     def _stage(self, frames) -> None:
         if not isinstance(frames, HostBlock) and isinstance(frames[0][0],
                                                             np.ndarray):
-            # host frames without a block: into the graph's own, once its
-            # last copy has run
-            if self.block is None:
-                self.block = HostBlock(tuple(self.frames.shape),
-                                       self.frames.dtype, self.frames.device)
-            else:
-                self.block.wait()
+            # host frames without a block: into the graph's own
+            block = self.ring.next(tuple(self.frames.shape),
+                                   self.frames.dtype)
             for j, tick in enumerate(frames):
                 for b, f in enumerate(tick):
-                    self.block.array[j, b] = f
-            frames = self.block
+                    block.array[j, b] = f
+            frames = block
         if isinstance(frames, HostBlock):
             count("chain.block_stages")
             frames.copy_to(self.frames)
@@ -384,25 +346,17 @@ class _ChainGraph:
             self.graph.replay()
             for (mod, attr), d in zip(self.counters, self.deltas):
                 setattr(mod, attr, getattr(mod, attr) + d)
-            pyr_all = self.pyr_buf[0].clone()
-            x, y, val = self.x.clone(), self.y.clone(), self.val.clone()
-            aff = None if self.aff is None else [t.clone() for t in self.aff]
-            carry = (None if self.carry is None
-                     else [t.clone() for t in self.carry])
-            out = [(TrackPyramids(*pyramid_views(pyr_all[b], self.shapes)),
-                    x[b], y[b], val[b],
-                    None if aff is None else
-                    AffineState(*(t[b] for t in aff)),
-                    None if carry is None else
-                    TrackCarry(*(t[b] for t in carry)))
-                   for b in range(self.b)]
-            self._held = [(t, t._version) for t in _flat(out)]
+            pyr = self.pyr_buf[0].clone()
+            state = [t.clone() for t in self.state]
+            out = [self._lane(b, pyr, state) for b in range(self.b)]
+            self._held = [(t, t._version) for lane in out
+                          for t in lane.tensors()]
             return (out, tuple(h.clone() for h in self.hist),
                     self.exhausted.clone())
 
 
 # Captured chains by (cfg, lanes, H, W, N, k, replace_lost, affine state,
-# carry, frame dtype, device), least recently used first.
+# frame dtype, device), least recently used first.
 _GRAPHS: OrderedDict = OrderedDict()
 GRAPH_CACHE_SIZE = 8
 _graph_lock = threading.Lock()
@@ -417,43 +371,29 @@ def _capture_stream(dev: torch.device) -> torch.cuda.Stream:
 
 
 def _staged_frames(frames, dev):
-    """The chain's frames as the graph takes them: (frames, dtype). Host
-    frames become C-contiguous numpy arrays (uint8 kept when every frame is
-    uint8, else float32); if any frame is already on the card, every frame
-    is staged there."""
-    flat = [f for tick in frames for f in tick]
-    host = not any(isinstance(f, torch.Tensor) and f.is_cuda for f in flat)
-    if host:
-        arrs = [host_frame(f, True) for f in flat]
-        uint8 = all(a.dtype == np.uint8 for a in arrs)
+    """The chain's frames as the graph takes them, and their staged dtype:
+    uint8 when every frame is uint8, else float32. Host frames stay as
+    they are, to be converted as they are written into the graph's block;
+    if any frame is already on the card, every frame is staged there."""
+    if any(isinstance(f, torch.Tensor) and f.is_cuda
+           for tick in frames for f in tick):
+        frames = [[stage_raw(f, dev) for f in tick] for tick in frames]
     else:
-        arrs = [stage_raw(f, dev) for f in flat]
-        uint8 = all(a.dtype == torch.uint8 for a in arrs)
-    dtype = torch.uint8 if uint8 else torch.float32
-    if host and not uint8:
-        arrs = [a.astype(np.float32, copy=False) for a in arrs]
-    b = len(frames[0])
-    return [arrs[j * b:(j + 1) * b] for j in range(len(frames))], dtype
-
-
-def _lane_tensors(lane):
-    """Every tensor of a (pyr, x, y, val, aff, carry) lane state."""
-    pyr, x, y, val, aff, carry = lane
-    return (*pyr.img, *pyr.gradx, *pyr.grady, x, y, val,
-            *(aff if aff is not None else ()),
-            *(carry if carry is not None else ()))
+        frames = [[host_frame(f) for f in tick] for tick in frames]
+    uint8 = all(staged_dtype(f.dtype) == torch.uint8
+                for tick in frames for f in tick)
+    return frames, torch.uint8 if uint8 else torch.float32
 
 
 def chain_lanes(lanes, frames, cfg, replace_lost: bool = True):
     """k frame steps for each of B independent lanes: ``lanes`` is a list
-    of (pyr, x, y, val, aff, carry) states on one device, ``frames`` k
-    sequences of B frames (arrays or tensors) or a ``HostBlock`` of them.
-    Returns (lanes, (hx, hy, hv) [B, k, N], exhausted [B] bool). On CUDA
-    tensors, one replay of the captured chain for this shape (captured at
-    its first call), which takes a block's frames in one copy; a replay
-    records no gradients, so an input that requires grad raises
-    ValueError there."""
-    x0 = lanes[0][1]
+    of ``Lane``s on one device, ``frames`` k sequences of B frames (arrays
+    or tensors) or a ``HostBlock`` of them. Returns (lanes, (hx, hy, hv)
+    [B, k, N], exhausted [B] bool). On CUDA tensors, one replay of the
+    captured chain for this shape (captured at its first call), which takes
+    a block's frames in one copy; a replay records no gradients, so an
+    input that requires grad raises ValueError there."""
+    x0 = lanes[0].x
     block = frames if isinstance(frames, HostBlock) else None
     if block is not None:
         frames = block.tensor                   # [k, B, H, W], no grad
@@ -462,13 +402,13 @@ def chain_lanes(lanes, frames, cfg, replace_lost: bool = True):
     given = () if block is not None else (
         f for tick in frames for f in tick if isinstance(f, torch.Tensor))
     if cuda.records_grad(*given,
-                         *(t for lane in lanes for t in _lane_tensors(lane))):
+                         *(t for lane in lanes for t in lane.tensors())):
         raise ValueError(
             "the chained step (sequence_chain_device, the streaming "
             "trackers) replays a captured CUDA graph, which records no "
             "gradients: detach its inputs, or differentiate the eager step "
             "(sequence_step_device)")
-    h, w = lanes[0][0].img[0].shape
+    h, w = lanes[0].pyr.img[0].shape
     takes = (f"chain_lanes: every frame step takes {len(lanes)} frames of "
              f"{h}x{w}")
     if block is not None:
@@ -480,8 +420,7 @@ def chain_lanes(lanes, frames, cfg, replace_lost: bool = True):
             cuda.require(len(tick) == len(lanes) and all(
                 tuple(f.shape) == (h, w) for f in tick), takes)
     key = (cfg, len(lanes), h, w, x0.shape[0], len(frames),
-           bool(replace_lost), lanes[0][4] is not None,
-           lanes[0][5] is not None, dtype, x0.device)
+           bool(replace_lost), lanes[0].aff is not None, dtype, x0.device)
     with _graph_lock:
         graph = _GRAPHS.get(key)
         if graph is None:
@@ -507,15 +446,16 @@ def sequence_chain_device(pyr_prev: TrackPyramids, imgs, x: torch.Tensor,
     of a captured CUDA graph (the module notes).
 
     Returns (pyr, hist, final, aff, exhausted, carry): hist = per-frame
-    (x, y, val) stacked [k, N]; final = the last (x, y, val); exhausted =
-    any step's refill ran out of candidates (never, in the port). Every
-    returned tensor is the caller's own: a later call changes none of
-    them."""
+    (x, y, val) stacked [k, N]; final = the last (x, y, val); carry = the
+    given one with ``ok`` cleared; exhausted = any step's refill ran out of
+    candidates (never, in the port). Every returned tensor is the caller's
+    own: a later call changes none of them."""
     del top_k
-    lanes, hist, ex = chain_lanes([(pyr_prev, x, y, val, aff, carry)],
+    lanes, hist, ex = chain_lanes([Lane(pyr_prev, x, y, val, aff)],
                                   [[img] for img in imgs], cfg, replace_lost)
-    pyr, x, y, val, aff, carry = lanes[0]
-    return pyr, tuple(h[0] for h in hist), (x, y, val), aff, ex[0], carry
+    pyr, x, y, val, aff, _ = lanes[0]
+    return (pyr, tuple(h[0] for h in hist), (x, y, val), aff, ex[0],
+            _carry_out(carry))
 
 
 def warn_selection_exhausted(where: str, top_k: int) -> None:
@@ -564,19 +504,18 @@ def track_sequence_device(frames: Iterable, cfg: Optional[TrackerConfig]
         stage_raw(frames[0], device), cfg, n_features, top_k)
     dev = x.device
     chunks = [(x, y, val)]
-    carry = None
     i = 1
     while i < len(frames):
         if chain > 1 and len(frames) - i >= chain:
-            pyr, hist, (x, y, val), aff, ex, carry = sequence_chain_device(
+            pyr, hist, (x, y, val), aff, ex, _ = sequence_chain_device(
                 pyr, frames[i:i + chain], x, y, val, cfg, replace_lost,
-                top_k, aff, carry)
+                top_k, aff)
             chunks.append(hist)
             i += chain
         else:
-            pyr, x, y, val, aff, ex, carry = sequence_step_device(
+            pyr, x, y, val, aff, ex, _ = sequence_step_device(
                 pyr, stage_raw(frames[i], dev), x, y, val, cfg,
-                replace_lost, top_k, aff, carry)
+                replace_lost, top_k, aff)
             chunks.append((x, y, val))
             i += 1
         exhausted = exhausted | ex

@@ -23,11 +23,11 @@ cast on the card, any other dtype becomes float32):
 
 - a chained stream's host frames, after the stream's first, are written
   at ``feed`` into slot j of the chain's pinned block
-  (``utils/staging.HostBlock``, ``[chain, B, H, W]``; the tracker keeps
-  two and uses them in turn, and waits for a block's last copy before its
-  next chain's first write). A full chain's block crosses in one copy into
-  the captured graph's frame buffer; a partial chain's filled slots cross
-  in one copy too;
+  (``utils/staging.HostBlock``, ``[chain, B, H, W]``), which the tracker's
+  ``utils/staging.BlockRing`` of two hands out at a chain's first frame,
+  once that block's last copy has run. A full chain's block crosses in one
+  copy into the captured graph's frame buffer; a partial chain's filled
+  slots cross in one copy too;
 - every other frame is staged at once, one copy each
   (``utils/staging.stage_raw``: pinned host memory, a ``non_blocking``
   copy on the current stream): the first frame, ``chain`` 1, tensors
@@ -35,9 +35,9 @@ cast on the card, any other dtype becomes float32):
   differs from its chain's first.
 
 ``prefetch`` moves the staging to a worker thread, which copies each frame
-on a side stream from a ring of pinned slots; the consuming stream waits
-on the frame's copy event, and the frames, on the card, are staged one by
-one.
+on a side stream from a ``BlockRing`` of one-frame blocks; the consuming
+stream waits on the frame's copy event, and the frames, on the card, are
+staged one by one.
 
 Tracing (``utils/profiling``): each fed item runs inside a ``serving.feed``
 span, its staging (the block write or ``stage_raw``), eager steps, history
@@ -47,6 +47,7 @@ counter; each wait of the host on the card counts under ``host_syncs``.
 
 from __future__ import annotations
 
+import contextlib
 import queue
 import threading
 from typing import Iterable, Iterator, Optional
@@ -56,20 +57,16 @@ import torch
 
 from .config import TrackerConfig, create_config
 from .errors import KLTError
+from .features import Lane
 from .models.device_sequence import (chain_lanes, select_step_device,
                                      sequence_step_device,
                                      warn_selection_exhausted)
 from .ops.select_device import DEFAULT_TOP_K
 from .utils.profiling import count, host_sync, named_scope
-from .utils.staging import HostBlock, stage_raw, target_device, torch_dtype
+from .utils.staging import (BlockRing, host_frame, stage_raw, staged_dtype,
+                            target_device)
 
 _STOP = object()
-
-
-def _host_array(f, dtype) -> np.ndarray:
-    if isinstance(f, torch.Tensor):
-        f = f.detach().cpu().numpy()
-    return np.asarray(f, dtype)
 
 
 def prefetch_to_device(frames: Iterable, depth: int = 2, device="cuda",
@@ -79,55 +76,47 @@ def prefetch_to_device(frames: Iterable, depth: int = 2, device="cuda",
 
     A daemon thread pulls the source's frames and stages them in
     ``stage_dtype`` (``np.uint8`` ships a quarter of float32's bytes; the
-    tracker casts on the card). On the card it writes each frame into one
-    of ``depth`` pinned host slots, refilling a slot only once that slot's
-    last copy has run, and copies it on a side stream, recording an event;
-    the consumer's current stream waits on that event, and the frame is
-    marked as used there (``record_stream``) so the caching allocator does
-    not hand its memory out while the consumer still reads it. On the CPU
-    it is the plain thread and queue. Exceptions in the source are
-    re-raised at the consuming ``next()``."""
+    tracker casts on the card). On the card it writes each host frame into
+    the next of a ``utils/staging.BlockRing`` of ``depth`` one-frame
+    blocks, which waits for that block's last copy, and copies it out on a
+    side stream, recording an event right after it; the consumer's current
+    stream waits on that frame's event (not the block's, which a later copy
+    records again), and the frame is marked as used there
+    (``record_stream``) so the caching allocator does not hand its memory
+    out while the consumer still reads it. On the CPU each frame is one
+    copy of its own, with no block. Exceptions in the source are re-raised
+    at the consuming ``next()``."""
     if depth < 1:
         raise KLTError(f"(prefetch_to_device) depth must be >= 1, got {depth}")
     dev = target_device(device)
-    dtype = torch_dtype(stage_dtype)
+    dtype = staged_dtype(stage_dtype)
     q: queue.Queue = queue.Queue(maxsize=depth)
     cancelled = threading.Event()
 
     def stage_all():
-        if dev.type != "cuda":
+        ring = BlockRing(depth, dev)
+        side = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+        with (torch.cuda.stream(side) if side is not None
+              else contextlib.nullcontext()):
             for f in frames:
                 if cancelled.is_set():
                     return
-                # the queued frame owns its memory (utils/staging)
-                q.put((torch.from_numpy(np.array(_host_array(f, stage_dtype),
-                                                 copy=True)), None))
-            return
-        slots: list = [None] * depth       # [pinned frame, its copy event]
-        with torch.cuda.device(dev):
-            side = torch.cuda.Stream(dev)
-            with torch.cuda.stream(side):
-                for i, f in enumerate(frames):
-                    if cancelled.is_set():
-                        return
+                if isinstance(f, torch.Tensor) and f.device == dev:
+                    out = f.to(dtype)
+                elif side is None:
+                    # the CPU: the frame's own copy, nothing to wait for
+                    out = torch.tensor(host_frame(f), dtype=dtype)
+                else:
+                    arr = host_frame(f)
+                    block = ring.next(arr.shape, dtype)
+                    block.array[...] = arr
+                    out = block.copy_to(torch.empty(arr.shape, dtype=dtype,
+                                                    device=dev))
+                done = None
+                if side is not None:
                     done = torch.cuda.Event()
-                    if isinstance(f, torch.Tensor) and f.device == dev:
-                        out = f.to(dtype)
-                    else:
-                        arr = _host_array(f, stage_dtype)
-                        slot = slots[i % depth]
-                        if slot is None or slot[0].shape != arr.shape:
-                            slot = slots[i % depth] = [torch.empty(
-                                arr.shape, dtype=dtype, pin_memory=True),
-                                None]
-                        elif slot[1] is not None:
-                            slot[1].synchronize()
-                        slot[0].numpy()[...] = arr
-                        out = torch.empty(arr.shape, dtype=dtype, device=dev)
-                        out.copy_(slot[0], non_blocking=True)
-                        slot[1] = done
                     done.record(side)
-                    q.put((out, done))
+                q.put((out, done))
 
     def worker():
         try:
@@ -185,16 +174,24 @@ class _StreamingBase:
         self.top_k = int(top_k)
         self.chain = int(chain)
         self.device = torch.device(device)
-        self._lanes = None          # per stream (pyr, x, y, val, aff, carry)
+        self._ring = BlockRing(2, self.device)  # chain blocks, in turn
+        self.resume(None, 0, False)
+
+    def resume(self, lanes, n_frames: int, exhausted: bool) -> None:
+        """Start over from ``lanes`` (a ``Lane`` per stream; None before
+        the first frame) after ``n_frames`` frames, with the selection's
+        exhaustion flag: the buffered chain (its frames and its block) and
+        the history, on the card or already pulled, are dropped."""
+        self._lanes = lanes
+        self.n_frames = n_frames
         self._pending: list = []    # items awaiting a chain: B staged
                                     # frames, or a slot of self._block
-        self._blocks = [None, None]  # HostBlocks, one a chain in turn
-        self._turn = 0
         self._block = None          # the buffered chain's block
         self._chunks: list = []     # device history chunks, [B, k, N] each
         self._host_chunks: list = []  # history already pulled to host
-        self._exhausted = None
-        self.n_frames = 0
+        self._exhausted = (torch.ones((), dtype=torch.bool,
+                                      device=lanes[0].x.device)
+                           if exhausted else None)
 
     def _note_exhausted(self, ex) -> None:
         ex = ex.any()
@@ -227,26 +224,14 @@ class _StreamingBase:
             return self._coerce(item)
         batch = self._host_batch(item)
         shape = (self.chain, *batch.shape)
-        dtype = torch.uint8 if batch.dtype == np.uint8 else torch.float32
+        dtype = staged_dtype(batch.dtype)
         if self._block is None:
-            self._block = self._next_block(shape, dtype)
+            self._block = self._ring.next(shape, dtype)
         elif not self._block.holds(shape, dtype):
             return self._coerce(item)
         j = len(self._pending)
         self._block.array[j] = batch
         return j
-
-    def _next_block(self, shape, dtype) -> HostBlock:
-        """The block after the last chain's, its last copy waited for; made
-        anew where it is not of ``shape`` and ``dtype``."""
-        self._turn = 1 - self._turn
-        block = self._blocks[self._turn]
-        if block is None or not block.holds(shape, dtype):
-            block = self._blocks[self._turn] = HostBlock(
-                shape, dtype, target_device(self.device))
-        else:
-            block.wait()
-        return block
 
     def _unblock(self, ticks: list, block) -> list:
         """``ticks`` with every block slot replaced by its B frames on the
@@ -263,9 +248,9 @@ class _StreamingBase:
         self._lanes = []
         exhausted = []
         for f in frames:
-            pyr, x, y, val, aff, ex = select_step_device(
-                f, self.cfg, self.n_features, self.top_k)
-            self._lanes.append((pyr, x, y, val, aff, None))
+            *lane, ex = select_step_device(f, self.cfg, self.n_features,
+                                           self.top_k)
+            self._lanes.append(Lane(*lane))
             exhausted.append(ex)
         self._chunks.append(tuple(
             torch.stack([lane[j] for lane in self._lanes])[:, None]
@@ -280,8 +265,11 @@ class _StreamingBase:
         if len(ticks) == self.chain and self.chain > 1:
             frames = (block if all(isinstance(j, int) for j in ticks)
                       else self._unblock(ticks, block))
-            self._lanes, hist, ex = chain_lanes(self._lanes, frames, self.cfg,
-                                                self.replace_lost)
+            lanes, hist, ex = chain_lanes(self._lanes, frames, self.cfg,
+                                          self.replace_lost)
+            # Lanes again where a chain hands back plain (pyr, x, y, val,
+            # aff, carry) tuples, as the benchmark's planted faults do
+            self._lanes = [Lane(*lane) for lane in lanes]
             with named_scope("serving.history"):
                 self._chunks.append(hist)
                 self._note_exhausted(ex)
@@ -289,12 +277,12 @@ class _StreamingBase:
         for tick in self._unblock(ticks, block):
             exhausted = []
             for b, f in enumerate(tick):
-                pyr, x, y, val, aff, carry = self._lanes[b]
+                pyr, x, y, val, aff, _ = self._lanes[b]
                 with named_scope("serving.step"):
-                    pyr, x, y, val, aff, ex, carry = sequence_step_device(
+                    *lane, ex, _ = sequence_step_device(
                         pyr, f, x, y, val, self.cfg, self.replace_lost,
-                        self.top_k, aff, carry)
-                self._lanes[b] = (pyr, x, y, val, aff, carry)
+                        self.top_k, aff)
+                self._lanes[b] = Lane(*lane)
                 exhausted.append(ex)
             with named_scope("serving.history"):
                 self._chunks.append(tuple(
@@ -312,7 +300,7 @@ class _StreamingBase:
         make the next chain load the written state)."""
         if self._lanes is None:
             return None
-        return self._lanes[stream][4]
+        return self._lanes[stream].aff
 
     def flush(self) -> None:
         """Force out any buffered partial chain (ends a latency window);
@@ -326,7 +314,7 @@ class _StreamingBase:
         self.flush()
         if self._lanes is not None and self.device.type == "cuda":
             host_sync("sync.block")
-            torch.cuda.current_stream(self._lanes[0][1].device).synchronize()
+            torch.cuda.current_stream(self._lanes[0].x.device).synchronize()
 
     def _migrate_history(self) -> None:
         """Pull the device history chunks to the host (one copy per
@@ -403,7 +391,7 @@ class StreamingTracker(_StreamingBase):
         return [stage_raw(frame, self.device)]
 
     def _host_batch(self, frame) -> np.ndarray:
-        return _host_array(frame, None)[None]
+        return host_frame(frame)[None]
 
     def _host_rows(self, cols) -> tuple:
         return tuple(c[0] for c in cols)        # [1, k, N] -> [k, N]
@@ -460,7 +448,7 @@ class BatchedStreamingTracker(_StreamingBase):
         return list(stage_raw(self._checked(batch), self.device))
 
     def _host_batch(self, batch) -> np.ndarray:
-        return self._checked(_host_array(batch, None))
+        return self._checked(host_frame(batch))
 
     def _host_rows(self, cols) -> tuple:
         # [B, k, N] -> [k, B, N] host rows
@@ -495,7 +483,7 @@ def serve_stream(frames: Iterable, cfg: Optional[TrackerConfig] = None,
     it = (prefetch_to_device(frames, depth=prefetch, device=dev,
                              stage_dtype=stage_dtype) if prefetch > 0
           else (f if isinstance(f, torch.Tensor) and f.device == dev
-                else _host_array(f, stage_dtype) for f in frames))
+                else host_frame(f, stage_dtype) for f in frames))
     for frame in it:
         tr.feed(frame)
     return tr.table()

@@ -30,7 +30,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from ..features import AffineState, FeatureState
+from ..features import AffineState, FeatureState, Lane
 from ..ops.track import TrackPyramids
 from .convert import level_tensor
 from .staging import target_device
@@ -145,7 +145,7 @@ def _features_from(obj, dev) -> FeatureState:
 
 def _lane(pyr, x, y, val, aff, b, dev):
     """Stream ``b`` of a stacked (batched) state, or the whole state for
-    ``b`` None, as a (pyr, x, y, val, aff, carry) lane."""
+    ``b`` None, as a ``Lane``."""
     def pick(t):
         return t if b is None else t[b]
     pyr = _pyramids_from({k: [pick(t) for t in v]
@@ -153,10 +153,9 @@ def _lane(pyr, x, y, val, aff, b, dev):
     if aff is not None:
         aff = {k: (None if v is None else pick(v))
                for k, v in _fields(aff).items()}
-    return (pyr, _tensor(pick(x), dev, torch.float32),
-            _tensor(pick(y), dev, torch.float32),
-            _tensor(pick(val), dev, torch.int32), _affine_from(aff, dev),
-            None)
+    return Lane(pyr, _tensor(pick(x), dev, torch.float32),
+                _tensor(pick(y), dev, torch.float32),
+                _tensor(pick(val), dev, torch.int32), _affine_from(aff, dev))
 
 
 def _stacked(trees):
@@ -252,15 +251,11 @@ def resume_streaming(tracker, state: dict) -> None:
     aff = state.get("aff")
     n = getattr(tracker, "n_streams", None)
     streams = [None] if n is None else range(n)
-    tracker._lanes = [_lane(state["pyr"], state["x"], state["y"],
-                            state["val"], aff, b, dev) for b in streams]
-    tracker.n_frames = _host_int(state["n_frames"])
-    tracker._pending = []
-    tracker._chunks = []
-    tracker._host_chunks = []   # rows from the abandoned timeline
-    tracker._exhausted = (torch.ones((), dtype=torch.bool, device=dev)
-                          if _host_bool(state.get("exhausted", False))
-                          else None)
+    # the rows of the abandoned timeline go with the tracker's buffers
+    tracker.resume([_lane(state["pyr"], state["x"], state["y"], state["val"],
+                          aff, b, dev) for b in streams],
+                   _host_int(state["n_frames"]),
+                   _host_bool(state.get("exhausted", False)))
 
 
 # ---------------------------------------------------------------------------
@@ -372,9 +367,8 @@ def resume_vo(vo, state: dict) -> None:
     if vo.device_loop:
         d = state.get("dev")
         if d is not None:
-            lane = _lane(d["pyr"], d["x"], d["y"], d["val"], d.get("aff"),
-                         None, vo.device)
-            vo._dev_state = lane[:5]
+            vo._dev_state = _lane(d["pyr"], d["x"], d["y"], d["val"],
+                                  d.get("aff"), None, vo.device)[:5]
         vo._dev_buf = []
         vo._dev_carry = None
     elif "tracker" in state:

@@ -25,8 +25,10 @@ Counters, always on, plain integer adds:
 
 ``counters()`` returns all three (one device-to-host copy per device; no
 hot path calls it) and ``reset_counters()`` zeroes them. The counters are
-process totals; like the launch ints, the host counters take no lock, so
-two threads adding at once may lose an add.
+process totals. ``host_sync`` takes a lock, since ``prefetch_to_device``'s
+worker counts its waits while the feeding thread counts its own; ``count``
+and the launch ints, on the hot path, take none, so two threads adding to
+one of their names at once may lose an add.
 
 ``trace`` collects a ``torch.profiler`` trace of a region (host ops and,
 with a card, its kernels) into a Chrome trace file. ``time_jitted`` times
@@ -58,8 +60,9 @@ SPANS = {
         "parent of every span below; the traced breakdown"),
     "serving.stage": (
         "serving", "_StreamingBase._stage: a chained host frame written into "
-        "its chain's host block (after the block's wait, at a chain's first "
-        "frame), else the fed frames through utils/staging.stage_raw",
+        "its chain's host block (at a chain's first frame, the block "
+        "utils/staging.BlockRing hands out after its wait), else the fed "
+        "frames through utils/staging.stage_raw",
         "serving.stage_us_per_frame, serving.stage_ms_per_tick"),
     "serving.step": (
         "serving", "one stream's eager sequence_step_device in _advance",
@@ -84,8 +87,9 @@ SPANS = {
     "chain.stage": (
         "captured chain", "_ChainGraph._stage: the chain's frames copied "
         "into the graph's frame buffer: a host block in one copy (host "
-        "frames that come without one first written into the graph's own), "
-        "frames on the card one by one", "chain.stage_us_per_frame"),
+        "frames that come without one first written into the graph's own, "
+        "from its BlockRing of one), frames on the card one by one",
+        "chain.stage_us_per_frame"),
     "chain.replay": (
         "captured chain", "_ChainGraph.run: the state check or load, the "
         "replay, the output clones", "chain.replay_us_per_frame"),
@@ -107,6 +111,7 @@ def named_scope(name: str):
 
 # Host counters by name (module docstring).
 _host: collections.defaultdict = collections.defaultdict(int)
+_host_lock = threading.Lock()
 
 
 def count(name: str, n: int = 1) -> None:
@@ -117,8 +122,9 @@ def count(name: str, n: int = 1) -> None:
 def host_sync(site: str, n: int = 1) -> None:
     """Count ``n`` waits of the host on the card at ``site``
     (``sync.<where>``), under ``host_syncs`` and under the site."""
-    _host["host_syncs"] += n
-    _host[site] += n
+    with _host_lock:
+        _host["host_syncs"] += n
+        _host[site] += n
 
 
 # The kernel modules' launch counters, (module name, attribute), in the
@@ -183,7 +189,8 @@ def counters() -> dict:
     """Every counter by name: the host counters, the launch counters and the
     device counters summed over devices (one device-to-host copy per card:
     a wait on the card, not counted)."""
-    out = dict(_host)
+    with _host_lock:
+        out = dict(_host)
     for m, a in _launch:
         out[f"{m.rsplit('.', 1)[-1]}.{a}"] = getattr(sys.modules[m], a)
     totals = [0] * len(DEVICE_COUNTERS)
@@ -195,7 +202,8 @@ def counters() -> dict:
 
 def reset_counters() -> None:
     """Zero every counter (the device buffers in place)."""
-    _host.clear()
+    with _host_lock:
+        _host.clear()
     for mod, attr in launch_counters():
         setattr(mod, attr, 0)
     for buf in list(_device.values()):

@@ -24,12 +24,14 @@ from pyfeaturetrack_tpu.models.device_sequence import (
 
 import pyfeaturetrack_tpu_torch as tpft
 from pyfeaturetrack_tpu_torch.errors import KLTWarningCategory
+from pyfeaturetrack_tpu_torch.features import Lane
 from pyfeaturetrack_tpu_torch.models.device_sequence import (
     chain_lanes, sequence_chain_device, stack_history_chunks,
     warn_selection_exhausted)
 from pyfeaturetrack_tpu_torch.ops.cuda_lk import empty_track_carry
 from pyfeaturetrack_tpu_torch.utils.convert import config_from_jax
-from pyfeaturetrack_tpu_torch.utils.staging import stage_f32, stage_raw
+from pyfeaturetrack_tpu_torch.utils.staging import (BlockRing, stage_f32,
+                                                    stage_raw)
 
 torch.set_num_threads(2)
 
@@ -126,7 +128,7 @@ def test_chain_lanes_are_independent_streams():
     for s in streams:
         pyr, x, y, v, aff, _ = tpft.select_step_device(torch.tensor(s[0]),
                                                        cfg, 25)
-        lanes.append((pyr, x, y, v, aff, None))
+        lanes.append(Lane(pyr, x, y, v, aff))
     ticks = [[s[i] for s in streams] for i in range(1, 4)]
     out, hist, ex = chain_lanes(lanes, ticks, cfg)
     assert hist[0].shape == (3, 3, 25) and ex.shape == (3,)
@@ -177,6 +179,62 @@ def test_staging_contract():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             stage_raw(u8)                   # the card is the default
+
+
+@pytest.mark.parametrize("depth", [1, 2, 3])
+def test_block_ring_hands_out_blocks_in_turn(depth):
+    """A BlockRing of ``depth`` hands its blocks out in turn, remakes the
+    block in turn where a new shape or dtype is asked for, and on the CPU,
+    where a copy has run when it returns, never waits."""
+    from pyfeaturetrack_tpu_torch.utils.profiling import counters
+    ring = BlockRing(depth, "cpu")
+    shape = (3, 2, 4, 5)
+    waits = counters().get("sync.stage_block", 0)
+    first = [ring.next(shape, torch.uint8) for _ in range(depth)]
+    assert len({id(b) for b in first}) == depth
+    assert all(len(b) == shape[0] for b in first)
+    for b in first:
+        b.copy_to(torch.empty(shape, dtype=torch.uint8))
+    assert [ring.next(shape, torch.uint8) for _ in range(depth)] == first
+    wide = ring.next((3, 2, 4, 6), torch.uint8)
+    assert wide is not first[0] and wide.holds((3, 2, 4, 6), torch.uint8)
+    assert wide.array.shape == (3, 2, 4, 6) and ring.blocks[0] is wide
+    f32 = ring.next(shape, torch.float32)
+    assert f32.tensor.dtype == torch.float32 and f32 not in first
+    assert ring.blocks[1 % depth] is f32
+    assert counters().get("sync.stage_block", 0) == waits
+
+
+@pytest.mark.parametrize("affine", [False, True])
+def test_lane_state_lists_what_the_steps_carry(affine):
+    """``Lane.state`` lists x, y, val and the AffineState's fields (a None
+    ``nit`` as zeros), ``Lane.tensors`` the pyramid's levels before them,
+    and ``Lane.from_state`` rebuilds the lane from them; the window carry
+    is in none of them."""
+    from pyfeaturetrack_tpu_torch.features import empty_affine_state
+    from pyfeaturetrack_tpu_torch.ops.track import TrackPyramids
+    levels = [torch.rand(8 >> i, 10 >> i) for i in range(2)]
+    pyr = TrackPyramids(tuple(levels), tuple(2 * t for t in levels),
+                        tuple(3 * t for t in levels))
+    x, y = torch.rand(5), torch.rand(5)
+    val = torch.arange(5, dtype=torch.int32)
+    aff = (empty_affine_state(5, 3, 3, "cpu")._replace(nit=None)
+           if affine else None)
+    lane = Lane(pyr, x, y, val, aff, carry=object())
+    state = lane.state()
+    assert state[0] is x and state[1] is y and state[2] is val
+    assert len(state) == (3 + len(aff) if affine else 3)
+    if affine:
+        assert all(a is b for a, b in zip(state[3:-1], aff[:-1]))
+        assert torch.equal(state[-1], torch.zeros(5, dtype=torch.int32))
+    tensors = lane.tensors()
+    assert len(tensors) == 6 + len(state)
+    assert all(a is b for a, b in zip(tensors, (*pyr.img, *pyr.gradx,
+                                                *pyr.grady)))
+    back = Lane.from_state(pyr, state)
+    assert back.pyr is pyr and back.carry is None
+    assert all(a is b for a, b in zip(back.state(), state))
+    assert (back.aff is None) == (not affine)
 
 
 def test_track_sequence_device_signature():

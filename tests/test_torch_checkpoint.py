@@ -156,6 +156,31 @@ def test_streaming_resume_preserves_exhaustion_flag():
         t2.drain()
 
 
+def test_streaming_resume_drops_the_buffered_chain():
+    """A tracker holding a partial chain of host frames from an abandoned
+    timeline (two slots of its chain's block written) resumes as a fresh
+    one would: the buffered frames and their block are dropped, and the
+    rows after the resume equal an uninterrupted run's, bit for bit."""
+    cfg = tpft.create_config(mindist=8)
+    frames = frames_of(55, 8)
+    full = StreamingTracker(cfg, n_features=20, chain=3, device=CPU)
+    cut = StreamingTracker(cfg, n_features=20, chain=3, device=CPU)
+    for f in frames:
+        full.feed(f)
+    for f in frames[:4]:
+        cut.feed(f)
+    t = StreamingTracker(cfg, n_features=20, chain=3, device=CPU)
+    for f in frames_of(56, 3):
+        t.feed(f)
+    assert t._block is not None and len(t._pending) == 2
+    resume_streaming(t, streaming_state(cut))
+    assert t._block is None and t._pending == [] and t.n_frames == 4
+    for f in frames[4:]:
+        t.feed(f)
+    for got, want in zip(t.drain(), full.drain()):
+        np.testing.assert_array_equal(got, want[4:])
+
+
 @pytest.fixture(scope="module")
 def vo_scene():
     Rs, ts, cs, pts = test_vo._gt_scene()

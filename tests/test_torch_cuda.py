@@ -1290,16 +1290,41 @@ def test_graph_cache_reused_and_keyed_by_shape(dev):
 
 
 def test_prefetch_to_device_order_and_residency_on_card(dev):
+    """Frames in order on the card in the staged dtype; the ring of two
+    one-frame blocks waits for a block's last copy before each of the
+    seven rewrites, and counts each wait (``sync.stage_block``)."""
     from pyfeaturetrack_tpu_torch.serving import prefetch_to_device
+    from pyfeaturetrack_tpu_torch.utils.profiling import counters
     frames = [np.full((48, 64), i, np.float32) for i in range(9)]
     for dtype in (np.float32, np.uint8):
+        waits = counters().get("sync.stage_block", 0)
         out = list(prefetch_to_device(iter(frames), depth=2, device=dev,
                                       stage_dtype=dtype))
+        assert counters().get("sync.stage_block", 0) - waits == 7
         assert len(out) == 9
         for i, a in enumerate(out):
             assert a.is_cuda and a.dtype == (torch.uint8 if dtype is np.uint8
                                              else torch.float32)
             np.testing.assert_array_equal(a.cpu().numpy(), frames[i])
+
+
+def test_block_ring_waits_for_a_blocks_last_copy(dev):
+    """A block handed out again after a copy is handed out once that copy
+    has run, and the wait counts once under ``sync.stage_block``; a block
+    never copied is handed out without one."""
+    from pyfeaturetrack_tpu_torch.utils.profiling import counters
+    from pyfeaturetrack_tpu_torch.utils.staging import BlockRing
+    shape = (2, 1, 480, 640)
+    ring = BlockRing(2, dev)
+    a, b = ring.next(shape, torch.uint8), ring.next(shape, torch.uint8)
+    a.array[...] = 7
+    out = a.copy_to(torch.empty(shape, dtype=torch.uint8, device=dev))
+    waits = counters().get("sync.stage_block", 0)
+    assert ring.next(shape, torch.uint8) is a
+    assert a.copied.query()
+    assert ring.next(shape, torch.uint8) is b
+    assert counters().get("sync.stage_block", 0) - waits == 1
+    assert bool((out == 7).all())
 
 
 @pytest.mark.parametrize("chain", [1, 3])
@@ -1415,7 +1440,7 @@ def test_config3_chain8_at_vga_equals_eager_steps(dev):
     for a, b in zip(held, kept):
         assert torch.equal(a, b)
     graph = next(reversed(ds._GRAPHS.values()))      # the tracker's, last used
-    bufs = {t.untyped_storage().data_ptr() for t in graph.aff}
+    bufs = {t.untyped_storage().data_ptr() for t in graph.state}
     assert not bufs & {t.untyped_storage().data_ptr() for t in last}
 
     pyr, x, y, v, aff, _ = tpft.select_step_device(

@@ -174,7 +174,7 @@ def test_chained_host_frames_through_host_blocks(how, dtype):
     got = tuple(np.concatenate([p[j] for p in parts]) for j in range(3))
     _assert_tables(got, want, exact=True)
     assert all(b is not None and b.tensor.dtype == torch.from_numpy(
-        frames[0]).dtype for b in tr._blocks)
+        frames[0]).dtype for b in tr._ring.blocks)
 
 
 @pytest.mark.parametrize("batched", [False, True])
@@ -336,6 +336,26 @@ def test_prefetch_to_device_order_and_residency(stage_dtype):
         assert a.dtype == (torch.uint8 if stage_dtype is np.uint8
                            else torch.float32)
         np.testing.assert_array_equal(a.numpy(), frames[i])
+
+
+@pytest.mark.parametrize("depth", [1, 3])
+def test_prefetch_yields_frames_in_order_unaliased(depth):
+    """prefetch_to_device ``depth`` frames ahead, fed one source buffer
+    rewritten for every frame as a decoder does: every frame in order, each
+    in memory of its own (neither the source's nor another frame's)."""
+    buf = np.empty((6, 7), np.uint8)
+
+    def source():
+        for i in range(8):
+            buf[...] = i
+            yield buf
+
+    out = list(prefetch_to_device(source(), depth=depth, device="cpu",
+                                  stage_dtype=np.uint8))
+    assert [int(a.min()) for a in out] == list(range(8))
+    assert all(int(a.max()) == i for i, a in enumerate(out))
+    ptrs = {a.data_ptr() for a in out}
+    assert len(ptrs) == 8 and buf.ctypes.data not in ptrs
 
 
 def test_prefetch_to_device_relays_source_exception():
