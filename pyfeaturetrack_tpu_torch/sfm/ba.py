@@ -39,6 +39,7 @@ import torch
 
 from ..errors import KLTWarning
 from ..ops.linalg import inv3x3
+from ..utils.profiling import host_sync
 from ..utils.staging import target_device
 from .geometry import as_device, f32, require_fp32, skew, so3_exp, to_host
 
@@ -86,7 +87,10 @@ def segments(keys: torch.Tensor, n: int) -> Segments:
     starts = torch.searchsorted(ks, blocks)
     ends = torch.searchsorted(ks, blocks, right=True)
     rank = torch.arange(ks.shape[0], device=keys.device) - starts[ks]
-    width = int(to_host((ends - starts).max())) if ks.numel() else 0
+    if not ks.numel():
+        return Segments(order, ks, rank, n, 0)
+    host_sync("sync.ba_segments")
+    width = int(to_host((ends - starts).max()))
     return Segments(order, ks, rank, n, width)
 
 
@@ -291,8 +295,9 @@ def bundle_adjust(problem: BAProblem, R0, t0, X0, n_iters: int = 10,
     (``pad_problem_for_mesh`` arranges this). R, t, X and the costs come
     back whole on every rank.
 
-    One host read per call beyond the grouping: the solves' ``info``,
-    checked once at the end (a singular reduced system gives NaN updates,
+    One host read per call beyond the grouping (``sync.ba_segments``, one a
+    grouping): the solves' ``info`` (``sync.ba_info``), checked once at the
+    end (a singular reduced system gives NaN updates,
     as in the JAX package, and a warning here).
     """
     from ..parallel import sharding
@@ -311,6 +316,8 @@ def bundle_adjust(problem: BAProblem, R0, t0, X0, n_iters: int = 10,
     R, t, X, costs, infos = sharding.run_sharded(
         mesh, _ba_body, problem, R, t, X, n_iters, damping, fix_first, axis,
         sizes[axis], huber_delta)
+    if infos:
+        host_sync("sync.ba_info")
     if infos and bool(to_host(torch.stack(infos).ne(0).any())):
         KLTWarning("(bundle_adjust) a reduced camera system was singular; "
                    "its update is NaN")

@@ -9,16 +9,27 @@ Per keyframe (every ``kf_every`` frames):
    ``bootstrap_model="auto"``); landmarks seed at unit baseline.
 2. LOCALIZE: the new keyframe pose starts at the previous keyframe's and
    refines motion-only against the landmark map (pnp.refine_pose, Huber);
+   with ``outlier_px``, a track that lands farther than that from its
+   landmark ends there and the pose is refined again without it;
    PnP-RANSAC after a held pose.
 3. MAP: tracks alive across >= 2 of the last ``window`` keyframes without
    a landmark triangulate (batched DLT) once their keyframe parallax
-   clears ``min_tri_parallax_px``.
+   clears ``min_tri_parallax_px``; a point joins the map in front of
+   every observing camera (and, with ``outlier_px``, within that of each
+   of its pixels).
 4. REFINE: windowed BA over the last ``window`` keyframes with the oldest
    pose fixed; the monocular scale gauge is re-anchored after each BA.
 
+``outlier_px`` (None by default, as the JAX package, which has no such
+gate) is for fast motion: a track whose flow outruns KLT's pyramid slides
+short and stays "tracked" on other texture, and at 10 Hz and 1 m a frame
+such tracks shrink a monocular drive's scale to nothing within a few
+hundred frames.
+
 Track identity: a per-slot generation counter increments whenever the
-tracker reports the slot lost, so a refilled slot never aliases the
-landmark of the feature that died.
+tracker reports the slot lost or localization ends its track, so a
+refilled or slid slot never aliases the landmark of the feature that
+died.
 
 Tracking: the host route is the port's ``SequenceTracker`` with
 ``replace_lost=False`` plus ``replace_lost_features`` (K1's pyramid
@@ -29,6 +40,16 @@ chain) and pulls the [k, N] history once. The geometry runs on the same
 device as batched tensor programs; the control loop and the keyframe
 bookkeeping stay on the host (numpy, float64), as in the JAX package,
 and read the device through ``geometry.to_host``.
+
+Tracing (``utils/profiling``): each frame's tracking runs in a
+``vo.track`` span (staging, the chained call and its one pull on the
+device route), each keyframe's geometry in ``vo.keyframe`` with
+``vo.localize``, ``vo.triangulate`` and ``vo.ba`` inside it; the host
+counts ``vo.keyframes`` and ``vo.ba_observations`` (observations of
+non-zero weight handed to the window BA), and each read of the card
+under ``sync.vo_pull``, ``sync.vo_pose``, ``sync.vo_tri`` and
+``sync.vo_ba``. ``keyframe_record`` holds what the newest keyframe's
+steps took and gave, as references (no copy, no wait).
 
 The JAX package pads geometry inputs to buckets (``_bucket``) to reuse
 compiled XLA programs; eager PyTorch compiles nothing, so the port does
@@ -48,6 +69,7 @@ from ..features import feature_state_to_numpy
 from ..models.sequence import SequenceTracker
 from ..ops.select import replace_lost_features
 from ..ops.track import build_track_pyramids
+from ..utils.profiling import count, host_sync, named_scope
 from ..utils.staging import stage_f32, target_device
 from .ba import bundle_adjust, make_problem
 from .epipolar import two_view_bootstrap
@@ -69,6 +91,17 @@ def _place_signature(img: np.ndarray, gh: int = 12, gw: int = 16
     t -= t.mean()
     n = np.linalg.norm(t)
     return (t / n if n > 0 else t).astype(np.float32).ravel()
+
+
+def _miss(K: np.ndarray, Y: np.ndarray, uv: np.ndarray):
+    """(pixel distance of camera-frame points Y [..., 3] from uv [..., 2],
+    whether each point lies in front of its camera by 1e-3 or more)."""
+    z = Y[..., 2]
+    front = z >= 1e-3
+    zs = np.where(front, z, 1.0)
+    u = K[0, 0] * Y[..., 0] / zs + K[0, 2]
+    v = K[1, 1] * Y[..., 1] / zs + K[1, 2]
+    return np.hypot(u - uv[..., 0], v - uv[..., 1]), front
 
 
 class VisualOdometry:
@@ -94,7 +127,8 @@ class VisualOdometry:
                  bootstrap_model: str = "essential",
                  dist=None, dist_model: str = "radtan",
                  fb_max_displacement: float | None = None,
-                 robust: bool = False, *, device="cuda"):
+                 robust: bool = False, outlier_px: float | None = None, *,
+                 device="cuda"):
         # robust=True: the photometric-nuisance preset (gain/bias-
         # insensitive residuals + a 0.5 px forward-backward gate)
         if robust:
@@ -128,6 +162,11 @@ class VisualOdometry:
         self.min_tri_parallax_px = float(min_tri_parallax_px)
         self.min_bootstrap_good = int(min_bootstrap_good)
         self.huber_px = float(huber_px)
+        if outlier_px is not None and not outlier_px > 0:
+            raise ValueError("(VisualOdometry) outlier_px must be positive, "
+                             f"got {outlier_px!r}")
+        self.outlier_px = (float(outlier_px) if outlier_px is not None
+                           else None)
         self.seed = int(seed)
         if bootstrap_model not in ("essential", "auto"):
             raise ValueError("(VisualOdometry) bootstrap_model must be "
@@ -174,6 +213,7 @@ class VisualOdometry:
         self.initialized = False
         self.n_frames = 0
         self.events: list[str] = []   # bootstrap/localize notes
+        self._record: dict = {}       # keyframe_record()
 
     # ------------------------------------------------------------- feed
 
@@ -188,14 +228,17 @@ class VisualOdometry:
         if self.device_loop:
             self._feed_device(frame)
             return
-        fl = self._tr.step(frame)
-        arr = feature_state_to_numpy(fl)
-        dead = arr[:, 2] < 0
-        if dead.any():
-            self.gen[dead] += 1
-            fl = replace_lost_features(frame, fl, self._tr.cfg)
-            self._tr.fl = fl           # refilled slots keep tracking
+        with named_scope("vo.track"):
+            fl = self._tr.step(frame)
+            host_sync("sync.vo_pull")
             arr = feature_state_to_numpy(fl)
+            dead = arr[:, 2] < 0
+            if dead.any():
+                self.gen[dead] += 1
+                fl = replace_lost_features(frame, fl, self._tr.cfg)
+                self._tr.fl = fl           # refilled slots keep tracking
+                host_sync("sync.vo_pull")
+                arr = feature_state_to_numpy(fl)
         is_kf = (self.n_frames == 0
                  or self.n_frames - self.kf[-1]["frame"] >= self.kf_every)
         self.n_frames += 1
@@ -209,6 +252,14 @@ class VisualOdometry:
         them in one chained call, pull the [k, N] history once, and
         recover per-frame deaths from it (a refilled slot's history val
         is its fresh positive eigenvalue)."""
+        with named_scope("vo.track"):
+            out = self._track_device(frame)
+        if out is not None:
+            self._push_keyframe(*out)
+
+    def _track_device(self, frame):
+        """The device route's tracking of one frame: None inside a keyframe
+        interval, else the keyframe's (x, y, live, img, track)."""
         from ..models.device_sequence import (select_step_device,
                                               sequence_chain_device,
                                               sequence_step_device)
@@ -218,31 +269,33 @@ class VisualOdometry:
                 img, self.cfg, self.n_features)
             self._dev_state = (pyr, x, y, val, aff)
             self.n_frames += 1
+            host_sync("sync.vo_pull")
             xs, ys, vs = to_host(torch.stack([x, y, val.to(torch.float32)]))
-            self._push_keyframe(xs, ys, vs >= 0, img=frame)
-            return
+            return xs, ys, vs >= 0, frame, None
         self._dev_buf.append(img)
         self._dev_last = frame
         self.n_frames += 1
         if len(self._dev_buf) < self.kf_every:
-            return
+            return None
         pyr, x, y, val, aff = self._dev_state
+        start = (x, y, val)
         if len(self._dev_buf) == 1:
             pyr, x, y, val, aff, _, self._dev_carry = \
                 sequence_step_device(
                     pyr, self._dev_buf[0], x, y, val, self.cfg, True,
                     aff=aff, carry=self._dev_carry)
-            hist_v = val[None]
+            hist = (x[None], y[None], val[None])
         else:
             pyr, hist, (x, y, val), aff, _, self._dev_carry = \
                 sequence_chain_device(
                     pyr, tuple(self._dev_buf), x, y, val, self.cfg, True,
                     aff=aff, carry=self._dev_carry)
-            hist_v = hist[2]
         self._dev_state = (pyr, x, y, val, aff)
         self._dev_buf = []
         # one pull: the interval's vals, then the keyframe's x, y, val
+        hist_v = hist[2]
         k = hist_v.shape[0]
+        host_sync("sync.vo_pull")
         pulled = to_host(torch.cat([hist_v.to(torch.float32),
                                     torch.stack([x, y, val.to(
                                         torch.float32)])]))
@@ -250,9 +303,33 @@ class VisualOdometry:
         # deaths: any positive history val marks a refill at that frame
         for row in hist_v:
             self.gen[row > 0] += 1
-        self._push_keyframe(xs, ys, vs >= 0, img=self._dev_last)
+        return xs, ys, vs >= 0, self._dev_last, {"start": start,
+                                                  "history": hist}
 
-    def _push_keyframe(self, x, y, live, img=None) -> None:
+    def keyframe_record(self) -> dict:
+        """What the newest keyframe's steps took and gave, as references to
+        the arrays and tensors they made (no copy, no wait on the card):
+        ``frame``, and for each step that ran, ``track`` (the device
+        route's state before the interval, ``start`` = (x, y, val), and
+        its ``history`` (x, y, val) [k, N]), ``localize`` (the last
+        refine_pose's K, R0, t0, X, uv, w (0 for each track the gate
+        ended), n_iters, huber_delta and its R, t),
+        ``triangulate`` (triangulate_dlt's K, Rs, ts, uvs, mask and its X,
+        ``gate_px`` (``outlier_px``, inf without it), and ``kept``, the
+        points let into the map)
+        and ``ba`` (bundle_adjust's problem, R0, t0, X0, n_iters,
+        huber_delta and its R, t, X). A new dict at every keyframe."""
+        return self._record
+
+    def _push_keyframe(self, x, y, live, img=None, track=None) -> None:
+        count("vo.keyframes")
+        self._record = {"frame": self.n_frames - 1}
+        if track is not None:
+            self._record["track"] = track
+        with named_scope("vo.keyframe"):
+            self._keyframe_geometry(x, y, live, img)
+
+    def _keyframe_geometry(self, x, y, live, img) -> None:
         keep_img = self.loop_closure and img is not None
         host = to_host(img) if img is not None else None
         self.kf.append({"frame": self.n_frames - 1,
@@ -269,18 +346,23 @@ class VisualOdometry:
             if not self.initialized:
                 self._stereo_init()
             else:
-                self._localize_new_keyframe()
+                with named_scope("vo.localize"):
+                    self._localize_new_keyframe()
                 self._stereo_landmarks()
-                self._window_ba()
+                with named_scope("vo.ba"):
+                    self._window_ba()
                 if self.loop_closure:
                     self._try_close_loop()
             return
         if not self.initialized:
             self._try_bootstrap()
         else:
-            self._localize_new_keyframe()
-            self._triangulate_new()
-            self._window_ba()
+            with named_scope("vo.localize"):
+                self._localize_new_keyframe()
+            with named_scope("vo.triangulate"):
+                self._triangulate_new()
+            with named_scope("vo.ba"):
+                self._window_ba()
             if self.loop_closure:
                 self._try_close_loop()
 
@@ -435,11 +517,36 @@ class VisualOdometry:
             self.events.append(f"kf {len(self.kf) - 1}: relocalized by "
                                f"PnP-RANSAC over {len(slots)} landmarks")
             return
-        R, t, _ = refine_pose(self.K, R_prev, t_prev, X, uv,
-                              np.ones(len(slots), np.float32), n_iters=12,
-                              huber_delta=self.huber_px, device=self.device)
-        Rt = to_host(torch.cat([R, t[:, None]], 1), np.float64)
+        w = np.ones(len(slots), np.float32)
+        Rt = self._refine(R_prev, t_prev, X, uv, w)
+        if self.outlier_px is None:
+            self.poses.append((Rt[:, :3], Rt[:, 3].copy()))
+            return
+        # a track that slid off its landmark (KLT stuck short of a flow
+        # the pyramid cannot reach) lands tens of pixels off it: past the
+        # gate its track ends here, and the pose is refined again from the
+        # same start without it
+        miss, front = _miss(self.K, np.einsum("ij,nj->ni", Rt[:, :3], X)
+                            + Rt[:, 3], uv)
+        ended = ~front | (miss > self.outlier_px)
+        if ended.any():
+            w[ended] = 0.0
+            s = slots[ended]
+            self.gen[s] += 1
+            kf["gen"][s] = self.gen[s]
+            Rt = self._refine(R_prev, t_prev, X, uv, w)
         self.poses.append((Rt[:, :3], Rt[:, 3].copy()))
+
+    def _refine(self, R0, t0, X, uv, w) -> np.ndarray:
+        """refine_pose from (R0, t0), recorded; [3, 4] host [R | t]."""
+        R, t, _ = refine_pose(self.K, R0, t0, X, uv, w, n_iters=12,
+                              huber_delta=self.huber_px, device=self.device)
+        self._record["localize"] = {
+            "K": self.K, "R0": R0, "t0": t0, "X": X, "uv": uv,
+            "w": w.copy(), "n_iters": 12, "huber_delta": self.huber_px,
+            "R": R, "t": t}
+        host_sync("sync.vo_pose")
+        return to_host(torch.cat([R, t[:, None]], 1), np.float64)
 
     # -------------------------------------------------------------- map
 
@@ -477,19 +584,30 @@ class VisualOdometry:
                 L, C, 2).astype(np.float32)
         Rs = np.stack([p[0] for p in pose_w]).astype(np.float32)
         ts = np.stack([p[1] for p in pose_w]).astype(np.float32)
+        host_sync("sync.vo_tri")
         X = to_host(triangulate_dlt(self.K, Rs, ts, uvs, mask,
                                     device=self.device))
-        # keep only cheirality-consistent points (in front of every
-        # observing camera)
-        for li, (key, obs) in enumerate(cand):
-            ok = True
-            for (k, _, _) in obs:
-                d = Rs[k] @ X[li] + ts[k]
-                if d[2] < 1e-3:
-                    ok = False
-                    break
-            if ok:
-                self.landmarks[key] = X[li].astype(np.float64)
+        gate_px = (self.outlier_px if self.outlier_px is not None
+                   else float("inf"))
+        kept = self._consistent(X, Rs, ts, uvs, mask, gate_px)
+        self._record["triangulate"] = {"K": self.K, "Rs": Rs, "ts": ts,
+                                       "uvs": uvs, "mask": mask, "X": X,
+                                       "gate_px": gate_px, "kept": kept}
+        for li in np.nonzero(kept)[0]:
+            self.landmarks[cand[li][0]] = X[li].astype(np.float64)
+
+    def _consistent(self, X, Rs, ts, uvs, mask, gate_px: float
+                    ) -> np.ndarray:
+        """[L] the DLT points to map: in front of every observing camera
+        (depth 1e-3 or more) and reprojected within ``gate_px`` of every
+        pixel they were solved from. A track that slid off its point, as
+        KLT does when a flow outruns the pyramid, is no one point's track:
+        its DLT point misses its own rays by tens of pixels, where a sound
+        track's misses by a fraction of one."""
+        X, Rs, ts = (np.asarray(a, np.float64) for a in (X, Rs, ts))
+        miss, front = _miss(self.K, np.einsum("cij,lj->lci", Rs, X)
+                            + ts[None], uvs)
+        return (front & (miss <= gate_px) | ~mask).all(1)
 
     # ------------------------------------------------------------- BA
 
@@ -516,6 +634,7 @@ class VisualOdometry:
         if len(keys) < 8 or len(win) < 2:
             return
         w_obs = (counts[np.asarray(pt_idx)] >= 2).astype(np.float32)
+        count("vo.ba_observations", int(np.count_nonzero(w_obs)))
         n_pts = len(keys)
         uv_id = self._ideal(np.asarray(uv, np.float64)).astype(np.float32)
         problem = make_problem(self.K, np.asarray(cam_idx, np.int64),
@@ -527,7 +646,12 @@ class VisualOdometry:
         R, t, X, _ = bundle_adjust(problem, R0, t0, X0,
                                    n_iters=self.ba_iters, fix_first=True,
                                    huber_delta=self.huber_px)
+        self._record["ba"] = {"problem": problem, "R0": R0, "t0": t0,
+                              "X0": X0, "n_iters": self.ba_iters,
+                              "huber_delta": self.huber_px,
+                              "R": R, "t": t, "X": X}
         n_c = R.shape[0]
+        host_sync("sync.vo_ba")
         flat = to_host(torch.cat([R.reshape(-1), t.reshape(-1),
                                   X.reshape(-1)]), np.float64)
         R = flat[:9 * n_c].reshape(n_c, 3, 3)

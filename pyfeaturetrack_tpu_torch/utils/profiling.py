@@ -15,8 +15,10 @@ Counters, always on, plain integer adds:
   ``chain.captures``, ``chain.replays``, ``chain.block_stages`` (replays
   whose frames crossed as one host block), ``chain.state_loads`` (replays
   whose state was copied in first), ``chain.evictions`` (captured chains
-  dropped from the cache), and ``host_syncs``, every wait of the host on
-  the card, each also under its site's ``sync.<site>`` (``host_sync``);
+  dropped from the cache), ``vo.keyframes`` and ``vo.ba_observations``
+  (observations of non-zero weight handed to the visual odometry's window
+  BA), and ``host_syncs``, every wait of the host on the card, each also
+  under its site's ``sync.<site>`` (``host_sync``);
 * the kernel modules' launch counters, which each module registers when
   it is imported (``launch_counter``), as ``<module>.<name>``;
 * device counters (``DEVICE_COUNTERS``), added by K2, K4 and K6 on the
@@ -96,6 +98,25 @@ SPANS = {
     "chain.capture": (
         "captured chain", "_ChainGraph.__init__: buffers, warm-up, capture",
         "operators: a graph captured again"),
+    "vo.track": (
+        "visual odometry", "VisualOdometry.feed's tracking of one frame: "
+        "the device route's staging, chained call and one pull (the host "
+        "route's step, refill and pulls)", "vo.track_us_per_frame"),
+    "vo.keyframe": (
+        "visual odometry", "VisualOdometry._push_keyframe: one keyframe's "
+        "bookkeeping and geometry (bootstrap, or localize, triangulate, BA)",
+        "vo.keyframe_ms"),
+    "vo.localize": (
+        "visual odometry", "_localize_new_keyframe: the visible landmarks, "
+        "refine_pose (or PnP-RANSAC after a held pose) and its pull",
+        "the breakdown"),
+    "vo.triangulate": (
+        "visual odometry", "_triangulate_new: the candidates, the batched "
+        "DLT, its pull and the cheirality filter", "the breakdown"),
+    "vo.ba": (
+        "visual odometry", "_window_ba: the problem's assembly, "
+        "bundle_adjust, its pull and the scale re-anchor",
+        "vo.ba_ms_per_keyframe"),
 }
 
 _profiler_on = torch._C._autograd._profiler_enabled

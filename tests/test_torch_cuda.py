@@ -550,6 +550,51 @@ def test_track_pyramid_deep_pyramids(dev, levels, sub, shape):
         assert torch.equal(a_, b_)
 
 
+def test_kitti_frame_with_2000_lanes_bit_equal(dev):
+    """The visual odometry cell's shapes: K1 with K3's map, K2 and K4's
+    refill on 376x1241 frames (levels of 1241, 620, 310 and 155 columns)
+    with 2000 lanes, through the first selection, an eager step and a
+    2-frame chain of frames on the card (the captured graph): pyramids,
+    gradients and every row equal the plain versions' bit for bit."""
+    from pyfeaturetrack_tpu_torch.models.device_sequence import (
+        select_step_device, sequence_chain_device, sequence_step_device)
+    cfg = tpft.create_config(nPyramidLevels=4, subsampling=2).replace(
+        sequentialMode=True)
+    base = _texture(420, 1300, seed=26)
+    frames = [torch.as_tensor(np.ascontiguousarray(
+        base[4 * i:4 * i + 376, 9 * i:9 * i + 1241]), device=dev)
+        for i in range(6)]
+
+    def run():
+        pyr, x, y, val, _, _ = select_step_device(frames[0], cfg, 2000)
+        rows = [(x, y, val)]
+        pyr, x, y, val, _, _, _ = sequence_step_device(
+            pyr, frames[1], x, y, val, cfg, True)
+        rows.append((x, y, val))
+        for i in (2, 4):
+            pyr, hist, (x, y, val), _, _, _ = sequence_chain_device(
+                pyr, (frames[i], frames[i + 1]), x, y, val, cfg, True)
+            rows += [tuple(h[j] for h in hist) for j in range(2)]
+        return pyr, rows
+
+    counts = {m: m.launches for m in (cuda_pyramid, cuda_lk, cuda_select)}
+    got = run()
+    for m, before in counts.items():
+        assert m.launches > before
+    want = _plain(run)
+    for a, b in zip(got[0], want[0]):
+        assert len(a) == 4 and [t.shape[-1] for t in a] == [1241, 620, 310,
+                                                            155]
+        for la, lb in zip(a, b):
+            assert torch.equal(la, lb)
+    for ra, rb in zip(got[1], want[1]):
+        for a, b in zip(ra, rb):
+            assert a.shape == (2000,) and torch.equal(a, b)
+    first, last = got[1][0][2], got[1][-1][2]
+    assert int((first >= 0).sum()) > 1000
+    assert bool((last == 0).any()) and bool((last > 0).any())
+
+
 def test_sequence_on_card_equals_plain_on_cpu(dev):
     base = _texture(120, 160, seed=13)
     frames = [np.roll(base, 4 * i, axis=1) for i in range(8)]
